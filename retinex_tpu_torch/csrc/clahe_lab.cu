@@ -1,0 +1,286 @@
+// Lab-CLAHE kernels for Hopper (sm_90a), behind a plain C interface.
+//
+// Three kernels carry the exact OpenCV Lab-CLAHE pipeline on planar uint8
+// images [B, 3, H, W] (H, W multiples of 2 * tiles):
+//
+//   lab_fwd_u8_kernel    sRGB u8 -> OpenCV 8-bit Lab u8
+//   clahe_tables_kernel  L plane -> per-tile 256-entry CLAHE LUTs
+//   clahe_apply_u8_kernel  LUT blend on L, then Lab -> sRGB u8
+//
+// The Python wrappers (retinex_tpu_torch/ops/clahe_gather.py) check device,
+// dtype, shape and contiguity, allocate every output, and pass PyTorch's
+// current stream. Each launch function returns cudaGetLastError().
+//
+// Numerics follow the exact (non-fast-math) branch of the JAX package's
+// kernels: true divisions, cbrtf/powf, round half to even (rintf). Build with
+// -fmad=false so the compiler contracts no multiply-add into an FMA: a
+// contracted matrix row can move a value across a .5 rounding tie. The LUT
+// blend calls fmaf explicitly where the plain version fuses. Every float
+// constant is the f32 rounding of the double the JAX package writes.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kHist = 256;
+
+// Linear RGB -> XYZ (D65) and back, OpenCV's matrices.
+__constant__ float kRgb2Xyz[3][3] = {
+    {(float)0.412453, (float)0.357580, (float)0.180423},
+    {(float)0.212671, (float)0.715160, (float)0.072169},
+    {(float)0.019334, (float)0.119193, (float)0.950227},
+};
+__constant__ float kXyz2Rgb[3][3] = {
+    {(float)3.240479, (float)-1.537150, (float)-0.498535},
+    {(float)-0.969256, (float)1.875992, (float)0.041556},
+    {(float)0.055648, (float)-0.204043, (float)1.057311},
+};
+constexpr float kXn = (float)0.950456;
+constexpr float kZn = (float)1.088754;
+constexpr float k16_116 = (float)(16.0 / 116.0);
+constexpr float k6_29 = (float)(6.0 / 29.0);
+
+__device__ __forceinline__ float clamp_round_u8(float v) {
+  return fminf(fmaxf(rintf(v), 0.0f), 255.0f);
+}
+
+// CIE f(t): cube root above the linear-domain threshold, affine below.
+__device__ __forceinline__ float lab_f(float t) {
+  return t > (float)0.008856 ? cbrtf(fmaxf(t, (float)1e-12)) : (float)7.787 * t + k16_116;
+}
+
+__device__ __forceinline__ float lab_f_inv(float ft) {
+  return ft > k6_29 ? ft * ft * ft : (ft - k16_116) / (float)7.787;
+}
+
+__device__ __forceinline__ float linear_to_srgb(float x) {
+  x = fmaxf(x, (float)1e-12);
+  return x <= (float)0.0031308 ? x * (float)12.92
+                               : (float)1.055 * powf(x, (float)(1.0 / 2.4)) - (float)0.055;
+}
+
+// floor((c - 1) / 2) for c >= 0, clipped to [0, tiles - 1]: C's integer
+// division truncates, so c = 0 must not be written as (c - 1) / 2.
+__device__ __forceinline__ void neighbor_tiles(int c, int tiles, int* t0, int* t1) {
+  const int f = (c + 1) / 2 - 1;
+  *t0 = min(max(f, 0), tiles - 1);
+  *t1 = min(max(f + 1, 0), tiles - 1);
+}
+
+// Blend weight of offset u inside a cell of `cell` pixels, by cell parity.
+__device__ __forceinline__ float blend_weight(int c, int u, int cell) {
+  const float w = (float)u / (float)(2 * cell);
+  return (c & 1) ? w : w + 0.5f;
+}
+
+// ---------------------------------------------------------------------------
+// K1. Replaces retinex_tpu/ops/clahe_gather.py::_fwd_kernel5 (pallas_call in
+// _fwd_stage5). Bound on the card: bytes — 3 B/pixel in, 3 B/pixel out and
+// ~45 operations/pixel, far under the H100's ratio of operations to bytes. Design: one
+// thread per pixel, the three planes read and written at unit stride across
+// a warp (coalesced), the 256-entry de-gamma table in shared memory so the
+// sRGB power law costs one lookup per channel; the exact cbrtf stays.
+// ---------------------------------------------------------------------------
+__global__ void lab_fwd_u8_kernel(const uint8_t* __restrict__ rgb, uint8_t* __restrict__ lab,
+                                  const float* __restrict__ degamma, long long n_pix,
+                                  long long plane) {
+  __shared__ float tab[kHist];
+  for (int i = threadIdx.x; i < kHist; i += blockDim.x) tab[i] = degamma[i];
+  __syncthreads();
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n_pix; i += stride) {
+    const long long b = i / plane;
+    const long long p = b * 3 * plane + (i - b * plane);
+    const float r = tab[rgb[p]], g = tab[rgb[p + plane]], bl = tab[rgb[p + 2 * plane]];
+    const float X = (kRgb2Xyz[0][0] * r + kRgb2Xyz[0][1] * g + kRgb2Xyz[0][2] * bl) / kXn;
+    const float Y = kRgb2Xyz[1][0] * r + kRgb2Xyz[1][1] * g + kRgb2Xyz[1][2] * bl;
+    const float Z = (kRgb2Xyz[2][0] * r + kRgb2Xyz[2][1] * g + kRgb2Xyz[2][2] * bl) / kZn;
+    const float fx = lab_f(X), fy = lab_f(Y), fz = lab_f(Z);
+    const float L8 = ((float)116.0 * fy - (float)16.0) * (float)(255.0 / 100.0);
+    const float a8 = (float)500.0 * (fx - fy) + (float)128.0;
+    const float b8 = (float)200.0 * (fy - fz) + (float)128.0;
+    lab[p] = (uint8_t)clamp_round_u8(L8);
+    lab[p + plane] = (uint8_t)clamp_round_u8(a8);
+    lab[p + 2 * plane] = (uint8_t)clamp_round_u8(b8);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K2. Replaces retinex_tpu/ops/clahe_gather.py::_tables_kernel (pallas_call
+// in _tables_stage) together with the XLA histogram _hist_cells that fed it.
+// Bound on the card: bytes — one read of the L plane (1 B/pixel), 256 B out
+// per tile. Design: one block of 256 threads per (image, tile), thread k
+// owning bin k. The histogram is built in shared memory with per-warp
+// sub-histograms (eight copies) so that a flat region's pixels, which all
+// hit one bin, contend within a warp rather than across the block. Clip,
+// redistribute and residual are integer math on the thread's own bin; the
+// excess is a block reduction, the CDF a block scan (warp shuffles), and the
+// LUT is written straight out as [B, tiles_y, tiles_x, 256] u8. The TPU's
+// byte-packed neighbour words and selection matmul are not needed: K3 looks
+// up the four neighbour tables directly.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kHist)
+    clahe_tables_kernel(const uint8_t* __restrict__ lab, uint8_t* __restrict__ luts, int H, int W,
+                        int tiles_y, int tiles_x, int s, int clip, float lut_scale) {
+  constexpr int kWarps = kHist / 32;
+  __shared__ int whist[kWarps][kHist];
+  __shared__ int warp_excess[kWarps];
+  __shared__ int warp_total[kWarps];
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  for (int w = 0; w < kWarps; ++w) whist[w][t] = 0;
+  __syncthreads();
+
+  const int tile = blockIdx.x, b = blockIdx.y;
+  const int ty = tile / tiles_x, tx = tile - ty * tiles_x;
+  const int hh = H / (2 * tiles_y), hw = W / (2 * tiles_x);
+  const uint8_t* L = lab + (size_t)b * 3 * H * W + (size_t)ty * 2 * hh * W + (size_t)tx * 2 * hw;
+  // The block walks the tile's pixels in row-major order, 256 at a time.
+  // Decimation within each half-tile cell: rows and columns whose in-cell
+  // index is a multiple of s.
+  const int tile_w = 2 * hw, n_px = 2 * hh * tile_w;
+  for (int i = t; i < n_px; i += kHist) {
+    const int r = i / tile_w, c = i - r * tile_w;
+    if ((r % hh) % s || (c % hw) % s) continue;
+    atomicAdd(&whist[warp][L[(size_t)r * W + c]], 1);
+  }
+  __syncthreads();
+
+  int h = 0;
+  for (int w = 0; w < kWarps; ++w) h += whist[w][t];
+  const int clipped = min(h, clip);
+  int ex = h - clipped;
+  for (int o = 16; o > 0; o >>= 1) ex += __shfl_xor_sync(0xffffffffu, ex, o);
+  if (lane == 0) warp_excess[warp] = ex;
+  __syncthreads();
+  int excess = 0;
+  for (int w = 0; w < kWarps; ++w) excess += warp_excess[w];
+
+  const int redist = excess / kHist;
+  const int residual = excess - redist * kHist;
+  const int step = max(kHist / max(residual, 1), 1);
+  const int gets_one = (t % step == 0) && (t / step < residual);
+  int v = clipped + redist + gets_one;
+
+  // Inclusive scan over the 256 bins.
+  for (int o = 1; o < 32; o <<= 1) {
+    const int n = __shfl_up_sync(0xffffffffu, v, o);
+    if (lane >= o) v += n;
+  }
+  if (lane == 31) warp_total[warp] = v;
+  __syncthreads();
+  for (int w = 0; w < warp; ++w) v += warp_total[w];
+
+  const float lut = clamp_round_u8((float)v * lut_scale);
+  luts[((size_t)b * tiles_y * tiles_x + tile) * kHist + t] = (uint8_t)lut;
+}
+
+// ---------------------------------------------------------------------------
+// K3. Replaces retinex_tpu/ops/clahe_gather.py::_apply_kernel5 (pallas_call
+// in _apply_stage5). Bound on the card: bytes — 3 B/pixel in, 3 B/pixel out
+// (the tables are 16 KB per image); its ~75 operations/pixel with powf are
+// still under the card's ratio. Design: a block covers 256 columns by kApplyRows
+// rows inside one half-tile cell row, so its two neighbour tile rows (t0y,
+// t1y) are fixed; it stages those two rows of LUTs (2 * tiles_x * 256 B) in
+// shared memory and every pixel gathers its four entries from there. A
+// thread keeps its column's x-neighbours and x-weight across the rows. The
+// blend and the inverse Lab -> XYZ -> sRGB path are the exact branch.
+// ---------------------------------------------------------------------------
+constexpr int kApplyThreads = 256;
+constexpr int kApplyRows = 16;
+
+__global__ void __launch_bounds__(kApplyThreads)
+    clahe_apply_u8_kernel(const uint8_t* __restrict__ lab, const uint8_t* __restrict__ luts,
+                          uint8_t* __restrict__ rgb, int H, int W, int tiles_y, int tiles_x,
+                          int row_blocks) {
+  extern __shared__ uint8_t slut[];  // [2][tiles_x][256]
+  const int hh = H / (2 * tiles_y), hw = W / (2 * tiles_x);
+  const int cy = blockIdx.y / row_blocks;
+  const int iy0 = (blockIdx.y - cy * row_blocks) * kApplyRows;
+  const int b = blockIdx.z;
+  int t0y, t1y;
+  neighbor_tiles(cy, tiles_y, &t0y, &t1y);
+
+  const int n = tiles_x * kHist;
+  const uint8_t* tab = luts + (size_t)b * tiles_y * n;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    slut[i] = tab[(size_t)t0y * n + i];
+    slut[n + i] = tab[(size_t)t1y * n + i];
+  }
+  __syncthreads();
+
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  if (x >= W) return;
+  const int cx = x / hw;
+  int t0x, t1x;
+  neighbor_tiles(cx, tiles_x, &t0x, &t1x);
+  const float xa = blend_weight(cx, x - cx * hw, hw);
+  const uint8_t* s0 = slut + t0x * kHist;
+  const uint8_t* s1 = slut + t1x * kHist;
+  const uint8_t* s2 = slut + n + t0x * kHist;
+  const uint8_t* s3 = slut + n + t1x * kHist;
+
+  const size_t plane = (size_t)H * W;
+  const int iy1 = min(iy0 + kApplyRows, hh);
+  for (int iy = iy0; iy < iy1; ++iy) {
+    const float ya = blend_weight(cy, iy, hh);
+    const size_t p = (size_t)b * 3 * plane + (size_t)(cy * hh + iy) * W + x;
+    const int v = lab[p];
+    const float l00 = s0[v], l01 = s1[v], l10 = s2[v], l11 = s3[v];
+    // The three fused multiply-adds of the plain version's blend
+    // (ops/clahe_fast.py::blend), each absorbing the same product.
+    const float top = fmaf(l01, xa, __fmul_rn(l00, 1.0f - xa));
+    const float bot = fmaf(l10, 1.0f - xa, __fmul_rn(l11, xa));
+    const float L2 = clamp_round_u8(fmaf(top, 1.0f - ya, __fmul_rn(bot, ya)));
+
+    const float a8 = lab[p + plane], b8 = lab[p + 2 * plane];
+    const float fy = (L2 * (float)(100.0 / 255.0) + (float)16.0) / (float)116.0;
+    const float fx = fy + (a8 - (float)128.0) / (float)500.0;
+    const float fz = fy - (b8 - (float)128.0) / (float)200.0;
+    const float Y = lab_f_inv(fy);
+    const float X = lab_f_inv(fx) * kXn;
+    const float Z = lab_f_inv(fz) * kZn;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float lin = kXyz2Rgb[c][0] * X + kXyz2Rgb[c][1] * Y + kXyz2Rgb[c][2] * Z;
+      const float srgb = fminf(fmaxf(linear_to_srgb(lin), 0.0f), 1.0f);
+      rgb[p + c * plane] = (uint8_t)rintf(srgb * 255.0f);
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+int clahe_lab_fwd_u8(const void* rgb, void* lab, const void* degamma, long long batch,
+                     long long plane, void* stream) {
+  const long long n_pix = batch * plane;
+  const long long want = (n_pix + 255) / 256;
+  const int blocks = (int)(want < 4096 ? (want > 0 ? want : 1) : 4096);
+  lab_fwd_u8_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)rgb, (uint8_t*)lab, (const float*)degamma, n_pix, plane);
+  return (int)cudaGetLastError();
+}
+
+int clahe_tables(const void* lab, void* luts, int batch, int H, int W, int tiles_y, int tiles_x,
+                 int s, int clip, float lut_scale, void* stream) {
+  const dim3 grid(tiles_y * tiles_x, batch);
+  clahe_tables_kernel<<<grid, kHist, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)lab, (uint8_t*)luts, H, W, tiles_y, tiles_x, s, clip, lut_scale);
+  return (int)cudaGetLastError();
+}
+
+int clahe_apply_u8(const void* lab, const void* luts, void* rgb, int batch, int H, int W,
+                   int tiles_y, int tiles_x, void* stream) {
+  const int hh = H / (2 * tiles_y);
+  const int row_blocks = (hh + kApplyRows - 1) / kApplyRows;
+  const dim3 grid((W + kApplyThreads - 1) / kApplyThreads, 2 * tiles_y * row_blocks, batch);
+  const size_t smem = (size_t)2 * tiles_x * kHist;
+  clahe_apply_u8_kernel<<<grid, kApplyThreads, smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)lab, (const uint8_t*)luts, (uint8_t*)rgb, H, W, tiles_y, tiles_x,
+      row_blocks);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

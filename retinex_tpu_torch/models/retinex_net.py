@@ -1,0 +1,102 @@
+"""The net: illumination-estimation encoder-decoder + multi-scale Retinex
+enhancement head, in PyTorch (NCHW inside).
+
+Counterpart of ``retinex_tpu/models/retinex_net.py``. ``MultiScaleUPRetinex``
+takes and returns NHWC float images like the JAX module:
+``(enhanced [B,H,W,3], reflectance [B,H,W,3], illumination [B,H,W,1])``.
+H and W must be multiples of 8 (the encoder downsamples 8x).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from retinex_tpu_torch.models.layers import (
+    ASPPModule,
+    EnhancedFAM,
+    PreActResBlock,
+    ResBlock,
+    UpBlock,
+    conv,
+)
+from retinex_tpu_torch.ops.resize import resize_bilinear_nchw
+
+
+class ResidualIENet(nn.Module):
+    """Residual illumination estimator: 3->32 stem, 3 stride-2 residual stages
+    (64/128/256), bottleneck (2 res blocks, optional ASPP between), 3 UpBlocks
+    with additive skips, residual head; illumination =
+    sigmoid(mean_RGB(x) + residual)."""
+
+    def __init__(self, use_preact: bool = False, use_aspp: bool = False):
+        super().__init__()
+        block = PreActResBlock if use_preact else ResBlock
+        self.input_layer = conv(3, 32, 3)
+        self.enc1 = block(32, 64, stride=2)
+        self.enc2 = block(64, 128, stride=2)
+        self.enc3 = block(128, 256, stride=2)
+        middle = [block(256, 256)] + ([ASPPModule(256, 256)] if use_aspp else []) + [block(256, 256)]
+        self.bottleneck = nn.Sequential(*middle)
+        self.dec3 = UpBlock(256, 128)
+        self.dec2 = UpBlock(128, 64)
+        self.dec1 = UpBlock(64, 32)
+        self.residual_head = nn.Sequential(conv(32, 32, 3), nn.ReLU(), conv(32, 1, 1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x1 = F.relu(self.input_layer(x))
+        x2 = self.enc1(x1)
+        x3 = self.enc2(x2)
+        x4 = self.enc3(x3)
+        d3 = self.dec3(self.bottleneck(x4)) + x3
+        d2 = self.dec2(d3) + x2
+        d1 = self.dec1(d2) + x1
+        residual = self.residual_head(d1)
+        return torch.sigmoid(x.mean(dim=1, keepdim=True) + residual)
+
+
+def scale_tower(pool: int) -> nn.Sequential:
+    """Per-scale feature tower: optional max-pool downsample, 3x3 conv + ReLU,
+    EnhancedFAM (the reference's ``scale1`` / ``scale2`` / ``scale3``)."""
+    head = [nn.MaxPool2d(pool)] if pool > 1 else []  # max_pool_nonneg(x, pool, pool)
+    return nn.Sequential(*head, conv(3, 32, 3), nn.ReLU(), EnhancedFAM(32))
+
+
+class MultiScaleUPRetinex(nn.Module):
+    """Unsupervised physics-guided Retinex network with multi-scale enhancement.
+
+    The flag defaults mirror the JAX module's (both on); the CLI's Config
+    turns both off, as the JAX CLI does."""
+
+    def __init__(self, use_preact: bool = True, use_aspp: bool = True, epsilon: float = 1e-6):
+        super().__init__()
+        self.use_preact = use_preact
+        self.use_aspp = use_aspp
+        self.epsilon = epsilon
+        self.ie_net = ResidualIENet(use_preact, use_aspp)
+        self.scale1 = scale_tower(1)
+        self.scale2 = scale_tower(2)
+        self.scale3 = scale_tower(4)
+        self.fusion = conv(96, 32, 1)
+        self.output_layer = conv(32, 3, 1)
+
+    def forward_nchw(self, x: torch.Tensor):
+        """x: [B,3,H,W] -> (enhanced, reflectance, illumination), NCHW."""
+        illu = self.ie_net(x)
+        reflectance = x / (illu + self.epsilon)
+        h, w = x.shape[2], x.shape[3]
+        # Bilinear half / quarter inputs with floor sizes int(h * scale).
+        x2 = resize_bilinear_nchw(x, int(h * 0.5), int(w * 0.5))
+        x3 = resize_bilinear_nchw(x, int(h * 0.25), int(w * 0.25))
+        f1 = self.scale1(x)
+        f2 = resize_bilinear_nchw(self.scale2(x2), h, w)
+        f3 = resize_bilinear_nchw(self.scale3(x3), h, w)
+        e_map = torch.sigmoid(self.output_layer(self.fusion(torch.cat([f1, f2, f3], dim=1))))
+        enhanced = reflectance * e_map + (1.0 - reflectance) * (e_map * e_map)
+        return enhanced, reflectance, illu
+
+    def forward(self, x: torch.Tensor):
+        """x: [B,H,W,3] float -> (enhanced, reflectance, illumination), NHWC."""
+        outs = self.forward_nchw(x.permute(0, 3, 1, 2))
+        return tuple(o.permute(0, 2, 3, 1) for o in outs)

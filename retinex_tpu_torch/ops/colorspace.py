@@ -1,0 +1,107 @@
+"""Colorspace conversions in PyTorch (HWC/NHWC float in [0,1] unless noted).
+
+Counterpart of ``retinex_tpu/ops/colorspace.py``: OpenCV-style 8-bit Lab with
+the sRGB de-gamma, the D65 matrices, CIE f() and its inverse.
+
+The 3x3 transforms are explicit multiply-adds, never a matmul: matmul units
+(cuBLAS TF32, oneDNN) may run small f32 contractions at reduced precision,
+which the cbrt and x500 scaling would amplify into u8 flips.
+
+The per-channel helpers (``linear_rgb_to_lab8`` / ``lab8_to_linear_rgb``) take
+and return separate channel tensors so the channel-last public functions and
+the planar CLAHE plain versions (ops/clahe_gather.py) share one arithmetic.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# Rec.601 luma weights.
+_REC601 = (0.299, 0.587, 0.114)
+
+# Linear RGB -> XYZ (D65), the matrix OpenCV uses for Lab.
+RGB2XYZ = (
+    (0.412453, 0.357580, 0.180423),
+    (0.212671, 0.715160, 0.072169),
+    (0.019334, 0.119193, 0.950227),
+)
+XYZ2RGB = (
+    (3.240479, -1.537150, -0.498535),
+    (-0.969256, 1.875992, 0.041556),
+    (0.055648, -0.204043, 1.057311),
+)
+XN = 0.950456  # D65 white point (X), OpenCV constant
+ZN = 1.088754  # D65 white point (Z), OpenCV constant
+
+
+def rgb_to_luma(x: torch.Tensor) -> torch.Tensor:
+    """Rec.601 luma. x: [..., 3] in [0,1] -> [..., 1]."""
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    return (r * _REC601[0] + g * _REC601[1] + b * _REC601[2])[..., None]
+
+
+def srgb_to_linear(x: torch.Tensor) -> torch.Tensor:
+    """sRGB electro-optical transfer: de-gamma to linear light."""
+    return torch.where(x <= 0.04045, x / 12.92, ((x + 0.055) / 1.055) ** 2.4)
+
+
+def linear_to_srgb(x: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`srgb_to_linear` (gamma encode)."""
+    x = torch.clamp(x, min=0.0)
+    return torch.where(x <= 0.0031308, x * 12.92, 1.055 * x ** (1.0 / 2.4) - 0.055)
+
+
+def _cbrt(t: torch.Tensor) -> torch.Tensor:
+    # torch has no cbrt: take t**(1/3) in float64 and round once to float32,
+    # which is within an ulp of a correctly rounded f32 cube root (t > 0).
+    return torch.pow(t.double(), 1.0 / 3.0).to(t.dtype)
+
+
+def _lab_f(t: torch.Tensor) -> torch.Tensor:
+    # CIE f(t): cube root above the linear-domain threshold, affine below.
+    return torch.where(t > 0.008856, _cbrt(torch.clamp(t, min=1e-12)), 7.787 * t + 16.0 / 116.0)
+
+
+def _lab_f_inv(ft: torch.Tensor) -> torch.Tensor:
+    return torch.where(ft > 6.0 / 29.0, ft * ft * ft, (ft - 16.0 / 116.0) / 7.787)
+
+
+def linear_rgb_to_lab8(r: torch.Tensor, g: torch.Tensor, b: torch.Tensor):
+    """Linear-light RGB channels -> (L, a, b) float in OpenCV's 8-bit scale."""
+    m = RGB2XYZ
+    X = (m[0][0] * r + m[0][1] * g + m[0][2] * b) / XN
+    Y = m[1][0] * r + m[1][1] * g + m[1][2] * b
+    Z = (m[2][0] * r + m[2][1] * g + m[2][2] * b) / ZN
+    fx, fy, fz = _lab_f(X), _lab_f(Y), _lab_f(Z)
+    L = 116.0 * fy - 16.0
+    return L * (255.0 / 100.0), 500.0 * (fx - fy) + 128.0, 200.0 * (fy - fz) + 128.0
+
+
+def lab8_to_linear_rgb(L8: torch.Tensor, a8: torch.Tensor, b8: torch.Tensor):
+    """(L, a, b) in OpenCV's 8-bit scale -> linear-light RGB channels."""
+    L = L8 * (100.0 / 255.0)
+    fy = (L + 16.0) / 116.0
+    fx = fy + (a8 - 128.0) / 500.0
+    fz = fy - (b8 - 128.0) / 200.0
+    Y = _lab_f_inv(fy)
+    X = _lab_f_inv(fx) * XN
+    Z = _lab_f_inv(fz) * ZN
+    m = XYZ2RGB
+    return tuple(m[c][0] * X + m[c][1] * Y + m[c][2] * Z for c in range(3))
+
+
+def rgb_to_lab_u8(x: torch.Tensor) -> torch.Tensor:
+    """RGB [0,1] float -> OpenCV-style 8-bit-scaled Lab floats [..., 3].
+
+    Matches cv2.cvtColor(img_u8, COLOR_RGB2LAB) semantics; returns floats so
+    the caller controls rounding (round + clip recovers the u8 values).
+    """
+    x = srgb_to_linear(x.float())
+    return torch.stack(linear_rgb_to_lab8(x[..., 0], x[..., 1], x[..., 2]), dim=-1)
+
+
+def lab_u8_to_rgb(lab: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`rgb_to_lab_u8`. lab in 8-bit scale -> RGB [0,1]."""
+    lab = lab.float()
+    rgb = torch.stack(lab8_to_linear_rgb(lab[..., 0], lab[..., 1], lab[..., 2]), dim=-1)
+    return torch.clamp(linear_to_srgb(rgb), 0.0, 1.0)

@@ -1,0 +1,50 @@
+"""Result images: saved outputs and side-by-side comparisons.
+
+Counterpart of ``retinex_tpu/utils/viz.py`` (``save_image``,
+``create_comparison``) on NHWC/HWC arrays or tensors in [0,1]. PNGs are
+written with PIL at zlib level 1, the level the JAX package's native encoder
+writes: encoding the PNGs is most of the end-to-end time of one image
+(PERF.md), and level 1 is PIL's fastest. The pixels are those the JAX package
+writes, including the u8 floor truncation ``(arr * 255).astype(uint8)``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from PIL import Image
+
+
+def _write_png(arr_u8: np.ndarray, save_path: str) -> None:
+    Image.fromarray(arr_u8).save(save_path, compress_level=1)
+
+
+def _to_hwc(img) -> np.ndarray:
+    """[H,W,C] or [1,H,W,C] array/tensor in [0,1] -> clipped HWC numpy."""
+    arr = img.detach().cpu().numpy() if isinstance(img, torch.Tensor) else np.asarray(img)
+    if arr.ndim == 4:
+        arr = arr[0]
+    return np.clip(arr, 0.0, 1.0)
+
+
+def save_image(img, save_path: str) -> None:
+    """Save a [0,1] float image as PNG; one-channel images are replicated to RGB."""
+    arr = _to_hwc(img)
+    if arr.shape[-1] == 1:
+        arr = np.repeat(arr, 3, axis=-1)
+    _write_png((arr * 255).astype(np.uint8), save_path)
+
+
+def create_comparison(img_low, img_enhanced, illu_map=None, save_path: str | None = None) -> np.ndarray:
+    """Horizontal [input | enhanced | (illumination)] strip as uint8 RGB;
+    saves it if save_path is given, and returns it."""
+    panels = [_to_hwc(img_low), _to_hwc(img_enhanced)]
+    if illu_map is not None:
+        illu = _to_hwc(illu_map)
+        if illu.shape[-1] != 1:
+            illu = illu.mean(axis=-1, keepdims=True)
+        panels.append(np.repeat(illu, 3, axis=-1))
+    strip = (np.concatenate(panels, axis=1) * 255).astype(np.uint8)
+    if save_path:
+        _write_png(strip, save_path)
+    return strip

@@ -1,0 +1,114 @@
+"""The port's enhance route end to end, its CLI, and its isolation.
+
+- ``enhance_single_image`` against the JAX package's on a data/convergence
+  photo, same weights (max_size=128): illumination atol 2e-5; the enhanced
+  image within the CLAHE tolerance of tests/test_clahe_gather.py (max 2
+  levels, under 1e-3 of values off by more than 0.5 of a level).
+- The CLI with ``--device cpu`` writes the three PNGs.
+- No module of the port imports jax or retinex_tpu.
+- The entry points raise without a GPU unless the caller asks for the CPU.
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from retinex_tpu.infer.enhance import enhance_single_image as jax_enhance
+from retinex_tpu.models import MultiScaleUPRetinex as JaxNet
+from retinex_tpu_torch import cli
+from retinex_tpu_torch.config import Config
+from retinex_tpu_torch.infer.enhance import enhance_single_image
+from retinex_tpu_torch.models.convert import variables_to_state_dict
+from retinex_tpu_torch.models.retinex_net import MultiScaleUPRetinex
+
+REPO = Path(__file__).resolve().parent.parent
+PHOTO = REPO / "data" / "convergence" / "lowlight_003.png"
+
+
+def test_enhance_matches_jax_pipeline(tmp_path):
+    model = JaxNet(use_preact=False, use_aspp=False)
+    variables = model.init(jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)), train=False)
+    variables = jax.tree_util.tree_map(np.asarray, variables)
+
+    def jax_apply(batch):
+        return model.apply(variables, batch, train=False)
+
+    want_enh, want_illu, _ = jax_enhance(jax.jit(jax_apply), str(PHOTO), str(tmp_path), max_size=128, save_outputs=False)
+
+    port = MultiScaleUPRetinex(use_preact=False, use_aspp=False).eval()
+    port.load_state_dict(variables_to_state_dict(variables, False, False))
+
+    def port_apply(batch):
+        with torch.inference_mode():
+            return port(batch)
+
+    got_enh, got_illu, _ = enhance_single_image(
+        port_apply, str(PHOTO), str(tmp_path), max_size=128, save_outputs=False, device="cpu"
+    )
+    assert got_enh.shape == want_enh.shape == (128, 128, 3)
+    np.testing.assert_allclose(got_illu.numpy(), np.asarray(want_illu), atol=2e-5)
+    d = np.abs(got_enh.numpy() - np.asarray(want_enh)) * 255.0
+    assert d.max() <= 2.0, f"max diff {d.max()} levels"
+    assert (d > 0.5).mean() < 1e-3, f"mismatch fraction {(d > 0.5).mean()}"
+
+
+def test_cli_enhance_on_cpu_writes_three_pngs(tmp_path):
+    out = tmp_path / "out"
+    cli.main([
+        "--mode", "enhance", "--input_path", str(PHOTO), "--output_dir", str(out),
+        "--max_size", "96", "--no-packed_inference", "--device", "cpu",
+    ])
+    for kind in ("enhanced", "illumination", "comparison"):
+        assert (out / f"{PHOTO.stem}_{kind}.png").is_file()
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    modules = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts)
+        for p in (REPO / "retinex_tpu_torch").rglob("*.py")
+    )
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m.removesuffix('.__init__'))\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+        "or m == 'retinex_tpu' or m.startswith('retinex_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print(len(sys.modules))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "retinex_tpu_torch.cli" in modules and "retinex_tpu_torch.ops.clahe_gather" in modules
+
+
+def test_entry_points_need_a_gpu_unless_cpu_is_asked(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    apply_fn = cli.build_apply_fn(Config(mode="enhance", packed_inference=False), torch.device("cpu"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        enhance_single_image(apply_fn, str(PHOTO), str(tmp_path), max_size=64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--mode", "enhance", "--input_path", str(PHOTO), "--no-packed_inference"])
+    enh, _, _ = enhance_single_image(apply_fn, str(PHOTO), str(tmp_path), max_size=64, save_outputs=False, device="cpu")
+    assert enh.device.type == "cpu"
+
+
+@pytest.mark.parametrize(
+    "args",
+    [
+        [],  # packed inference is the default and lands with the FAM kernels
+        ["--no-packed_inference", "--classical_mode", "clahe"],
+        ["--no-packed_inference", "--multi_scale"],
+    ],
+)
+def test_unported_routes_raise(tmp_path, args):
+    base = ["--mode", "enhance", "--input_path", str(PHOTO), "--output_dir", str(tmp_path), "--device", "cpu"]
+    with pytest.raises(NotImplementedError):
+        cli.main(base + args)

@@ -3,15 +3,19 @@
 Counterpart of ``retinex_tpu/cli.py`` for the route this port runs so far::
 
     python -m retinex_tpu_torch.cli --mode enhance --input_path photo.jpg \\
-        --output_dir out --max_size 1920 --no-packed_inference
+        --output_dir out --max_size 1920
 
-It runs the standard forward of MultiScaleUPRetinex, then Lab-CLAHE on the
-three CUDA kernels, and writes ``<name>_enhanced.png``, ``_illumination.png``
-and ``_comparison.png``. ``--device cpu`` runs the same route on the CPU with
-the kernels' plain versions. Weights come from a reference ``.pth`` given as
-``--checkpoint``, or else are initialised untrained from ``--seed``. Every
-other mode, the packed forward and the options this route does not run yet
-raise ``NotImplementedError``.
+It runs MultiScaleUPRetinex through the space-to-depth packed forward
+(``models/packed_inference.py``, the Config default, with the FAM on CUDA
+kernels: K4, K5, and K6 or, where the frame's sides are not multiples of 16,
+K11), then Lab-CLAHE (on three more kernels where the sides are multiples
+of 16), and writes ``<name>_enhanced.png``, ``_illumination.png`` and
+``_comparison.png``.
+``--no-packed_inference`` runs the standard forward instead. ``--device cpu``
+runs the same route on the CPU with the kernels' plain versions. Weights come
+from a reference ``.pth`` given as ``--checkpoint``, or else are initialised
+untrained from ``--seed``. Every other mode and the options this route does
+not run yet raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch
 from retinex_tpu_torch.config import CLASSICAL_MODES, Config, add_config_args, config_from_args
 from retinex_tpu_torch.device import resolve_device
 from retinex_tpu_torch.models.convert import load_reference_checkpoint
+from retinex_tpu_torch.models.packed_inference import PackedRetinex
 from retinex_tpu_torch.models.retinex_net import MultiScaleUPRetinex
 
 
@@ -68,16 +73,18 @@ def build_model(config: Config, device: torch.device) -> MultiScaleUPRetinex:
 
 def build_apply_fn(config: Config, device: torch.device):
     """NHWC batch -> (enhanced, reflectance, illumination) through the
-    standard forward."""
-    if config.packed_inference:
-        raise NotImplementedError("packed inference lands with the FAM kernels")
+    packed forward (``config.packed_inference``) or the standard one."""
     if config.spatial_shard:
         raise NotImplementedError("spatial sharding lands in ROADMAP Queue 1 item 15")
     model = build_model(config, device)
+    forward = model
+    if config.packed_inference:
+        forward = PackedRetinex(model)
+        print("Using space-to-depth packed inference")
 
     def apply_fn(batch: torch.Tensor):
         with torch.inference_mode():
-            return model(batch)
+            return forward(batch)
 
     return apply_fn
 

@@ -1,0 +1,412 @@
+// FAM kernels for Hopper (sm_90a), behind a plain C interface.
+//
+// Four kernels carry the packed (space-to-depth) EnhancedFAM of the scale-1
+// and scale-2 towers on f32 NHWC activations [B, H, W, 128], the 128 channels
+// being four quadrants of 32 (packed channel (a*2 + b)*32 + c):
+//
+//   fam_conv_fused_kernel     the whole conv stage (four branches, max pool,
+//                             fusion 1x1 folded in) -> [B, H, W, 128]
+//   fam_tail_stats_kernel     x * ca -> per-quadrant channel mean/max [B,H,W,8]
+//   fam_tail_apply_g1_kernel  (x * ca * sa per quadrant) @ W -> [B,H,W,Cout]
+//   fam_tail_apply_kernel     x * ca * sa per quadrant -> [B,H,W,128] (the
+//                             tail where the tower's fusion does not fold)
+//
+// The Python wrappers (retinex_tpu_torch/ops/fused_blocks.py) check device,
+// dtype, shape and contiguity, allocate every output, and pass PyTorch's
+// current stream. Each launch function returns cudaGetLastError().
+//
+// Arithmetic is f32 on the CUDA cores (no TF32, no tensor cores). The dot
+// products call fmaf explicitly; the file builds with -fmad=false like the
+// other sources, which only keeps the compiler from contracting anything else.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kC = 128;  // packed FAM width: 4 quadrants x 32 channels
+constexpr int kC4 = kC / 4;
+constexpr int kQ = 32;   // channels per quadrant
+
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+// acc[0..3] += x . (w0, w1, w2, w3): four input channels into four outputs.
+__device__ __forceinline__ void fma4(float (&acc)[4], const float4 x, const float4 w0,
+                                     const float4 w1, const float4 w2, const float4 w3) {
+  acc[0] = fmaf(x.x, w0.x, acc[0]);
+  acc[1] = fmaf(x.x, w0.y, acc[1]);
+  acc[2] = fmaf(x.x, w0.z, acc[2]);
+  acc[3] = fmaf(x.x, w0.w, acc[3]);
+  acc[0] = fmaf(x.y, w1.x, acc[0]);
+  acc[1] = fmaf(x.y, w1.y, acc[1]);
+  acc[2] = fmaf(x.y, w1.z, acc[2]);
+  acc[3] = fmaf(x.y, w1.w, acc[3]);
+  acc[0] = fmaf(x.z, w2.x, acc[0]);
+  acc[1] = fmaf(x.z, w2.y, acc[1]);
+  acc[2] = fmaf(x.z, w2.z, acc[2]);
+  acc[3] = fmaf(x.z, w2.w, acc[3]);
+  acc[0] = fmaf(x.w, w3.x, acc[0]);
+  acc[1] = fmaf(x.w, w3.y, acc[1]);
+  acc[2] = fmaf(x.w, w3.z, acc[2]);
+  acc[3] = fmaf(x.w, w3.w, acc[3]);
+}
+
+// ---------------------------------------------------------------------------
+// K4. Replaces retinex_tpu/ops/fused_blocks.py::_fam_conv_kernel (pallas_call
+// in fam_conv_fused). For one output tile of kTH x kTW packed pixels:
+//
+//   relu(x @ ka + maxpool3x3(x) @ kb + conv3(y3, k32) + conv3(y4, k42) + bt),
+//   (y3 | y4) = relu(conv3(x, k1) + b1), y zero outside the image.
+//
+// Bound on the card: operations — 2 * (9*128*512 + 2*128*128) FLOP per packed
+// pixel against 1 KB of activations in and out, ~600 FLOP/B, far above the
+// H100's f32 ratio (67 TFLOP/s over 3.35 TB/s = 20). Design: one block of 256
+// threads per tile, everything in shared memory, nothing but the output in
+// device memory.
+//  - The x tile with a halo of 2 (the two stacked 3x3 convs) is loaded once,
+//    zero outside the image: 12 x 20 x 128 f32 (pixel stride padded by one
+//    float4 so two pixels read in one warp land in different banks).
+//  - The 256-channel y never leaves the block. It is made in four chunks of
+//    64 channels over the 10 x 18 halo-1 tile; each chunk is masked to zero
+//    outside the image (else relu(b1) would leak into the border pixels) and
+//    consumed at once by the matching 64 input rows of k32 (chunks 0, 1) or
+//    k42 (chunks 2, 3). The output accumulators stay in registers across
+//    the chunks, so shared memory holds the x tile and one buffer that takes
+//    the pooled tile, then each chunk in turn: 192,256 B, one block per SM.
+//  - The 3x3 max pool is per ORIGINAL pixel, across quadrants: original row
+//    2I + a + dr is packed row (2I + a + dr) >> 1, quadrant row (.. & 1). It
+//    relies on x >= 0 (the FAM input is post-ReLU), so the zero halo equals
+//    'SAME' -inf padding.
+//  - Register tiling: in the output stage warp w owns tile row w (16 pixels)
+//    and lane l owns output channels 4l..4l+3 (64 accumulators); the
+//    activation reads are shared-memory broadcasts and each weight row is one
+//    coalesced 512 B warp read from L1/L2 (the 2.5 MB of weights stay
+//    L2-resident). In the y stage a half-warp covers a chunk's 64 channels and
+//    each thread 12 of the 180 halo pixels.
+// ---------------------------------------------------------------------------
+constexpr int kTH = 8, kTW = 16;             // output tile, packed pixels
+constexpr int kXH = kTH + 4, kXW = kTW + 4;  // x tile, halo 2
+constexpr int kYH = kTH + 2, kYW = kTW + 2;  // y tile, halo 1
+constexpr int kXPix4 = kC4 + 1;              // x tile pixel stride in float4
+constexpr int kY = 256;                      // y3 | y4
+constexpr int kChunk = 64;                   // y channels per pass
+constexpr int kChunk4 = kChunk / 4;
+constexpr int kConvThreads = 256;
+constexpr int kYPix = kYH * kYW;                                   // 180
+constexpr int kOutPix = kTH * kTW;                                 // 128
+constexpr int kYGroups = kConvThreads / kChunk4;                   // 16
+constexpr int kYPerThread = (kYPix + kYGroups - 1) / kYGroups;     // 12
+constexpr int kXsFloat4 = kXH * kXW * kXPix4;
+constexpr int kBufFloat4 = (kYPix * kChunk4 > kOutPix * kC4) ? kYPix * kChunk4 : kOutPix * kC4;
+constexpr size_t kConvSmem = (size_t)(kXsFloat4 + kBufFloat4) * sizeof(float4);
+static_assert(kConvThreads / 32 == kTH, "one warp per output tile row");
+static_assert(kConvThreads / kC4 * kTW == kOutPix, "output mapping");
+
+__global__ void __launch_bounds__(kConvThreads, 1)
+    fam_conv_fused_kernel(const float* __restrict__ x, const float* __restrict__ ka,
+                          const float* __restrict__ kb, const float* __restrict__ k1,
+                          const float* __restrict__ b1, const float* __restrict__ k32,
+                          const float* __restrict__ k42, const float* __restrict__ bt,
+                          float* __restrict__ out, int H, int W) {
+  extern __shared__ float4 smem[];
+  float4* xs = smem;               // [kXH * kXW][kXPix4]
+  float4* buf = smem + kXsFloat4;  // pooled tile [kOutPix][kC4], then y chunks [kYPix][kChunk4]
+  const int t = threadIdx.x;
+  const int r0 = blockIdx.y * kTH, c0 = blockIdx.x * kTW;
+  const float* xb = x + (size_t)blockIdx.z * H * W * kC;
+
+  for (int i = t; i < kXH * kXW * kC4; i += kConvThreads) {
+    const int c4 = i % kC4, pix = i / kC4;
+    const int gy = r0 - 2 + pix / kXW, gx = c0 - 2 + pix % kXW;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (gy >= 0 && gy < H && gx >= 0 && gx < W) v = ldg4(xb + ((size_t)gy * W + gx) * kC + 4 * c4);
+    xs[pix * kXPix4 + c4] = v;
+  }
+  __syncthreads();
+
+  // Branch 2's pool: per original pixel, the max of its 3x3 neighbourhood.
+  for (int i = t; i < kOutPix * kC; i += kConvThreads) {
+    const int ch = i % kC, q = i / kC;
+    const int quad = ch / kQ, cc = ch % kQ;
+    const int rbase = 2 * (q / kTW + 2) + (quad >> 1), cbase = 2 * (q % kTW + 2) + (quad & 1);
+    const float* xf = reinterpret_cast<const float*>(xs);
+    float m = -INFINITY;
+#pragma unroll
+    for (int dr = -1; dr <= 1; ++dr) {
+      const int rr = rbase + dr;
+#pragma unroll
+      for (int dc = -1; dc <= 1; ++dc) {
+        const int cc2 = cbase + dc;
+        const int pix = (rr >> 1) * kXW + (cc2 >> 1);
+        m = fmaxf(m, xf[pix * kXPix4 * 4 + ((rr & 1) * 2 + (cc2 & 1)) * kQ + cc]);
+      }
+    }
+    reinterpret_cast<float*>(buf)[i] = m;
+  }
+  __syncthreads();
+
+  // Output stage mapping: warp pg = tile row, lane cg = 4 output channels.
+  const int cg = t & 31, pg = t >> 5;
+  float acc[kTW][4];
+  {
+    const float4 bias = ldg4(bt + 4 * cg);
+#pragma unroll
+    for (int i = 0; i < kTW; ++i) {
+      acc[i][0] = bias.x;
+      acc[i][1] = bias.y;
+      acc[i][2] = bias.z;
+      acc[i][3] = bias.w;
+    }
+  }
+  // Branch 1 (centre x @ ka) and branch 2 (pooled @ kb).
+#pragma unroll 2
+  for (int k = 0; k < kC; k += 4) {
+    const float* wa = ka + (size_t)k * kC + 4 * cg;
+    const float* wb = kb + (size_t)k * kC + 4 * cg;
+    const float4 a0 = ldg4(wa), a1 = ldg4(wa + kC), a2 = ldg4(wa + 2 * kC), a3 = ldg4(wa + 3 * kC);
+    const float4 p0 = ldg4(wb), p1 = ldg4(wb + kC), p2 = ldg4(wb + 2 * kC), p3 = ldg4(wb + 3 * kC);
+#pragma unroll
+    for (int i = 0; i < kTW; ++i) {
+      fma4(acc[i], xs[((pg + 2) * kXW + i + 2) * kXPix4 + k / 4], a0, a1, a2, a3);
+      fma4(acc[i], buf[(pg * kTW + i) * kC4 + k / 4], p0, p1, p2, p3);
+    }
+  }
+
+  // y stage mapping: 16 pixel groups x 16 channel groups of a chunk. Pixels
+  // past the tile (the last round) read pixel 0 and are never stored.
+  const int cl = t % kChunk4, sg = t / kChunk4;
+  int xoff[kYPerThread];
+#pragma unroll
+  for (int i = 0; i < kYPerThread; ++i) {
+    const int p = sg + kYGroups * i;
+    xoff[i] = p < kYPix ? ((p / kYW) * kXW + p % kYW) * kXPix4 : 0;
+  }
+
+  for (int chunk = 0; chunk < kY / kChunk; ++chunk) {
+    __syncthreads();  // the previous readers of buf are done
+    {
+      const int co = chunk * kChunk + 4 * cl;
+      const float4 bias = ldg4(b1 + co);
+      float ya[kYPerThread][4];
+#pragma unroll
+      for (int i = 0; i < kYPerThread; ++i) {
+        ya[i][0] = bias.x;
+        ya[i][1] = bias.y;
+        ya[i][2] = bias.z;
+        ya[i][3] = bias.w;
+      }
+      for (int u = 0; u < 3; ++u) {
+        for (int v = 0; v < 3; ++v) {
+          const float* wt = k1 + (size_t)(u * 3 + v) * kC * kY + co;
+          const int tap = (u * kXW + v) * kXPix4;
+#pragma unroll 2
+          for (int k = 0; k < kC; k += 4) {
+            const float4 w0 = ldg4(wt + (size_t)k * kY), w1 = ldg4(wt + (size_t)(k + 1) * kY);
+            const float4 w2 = ldg4(wt + (size_t)(k + 2) * kY), w3 = ldg4(wt + (size_t)(k + 3) * kY);
+#pragma unroll
+            for (int i = 0; i < kYPerThread; ++i) fma4(ya[i], xs[xoff[i] + tap + k / 4], w0, w1, w2, w3);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kYPerThread; ++i) {
+        const int p = sg + kYGroups * i;
+        if (p < kYPix) {
+          const int gy = r0 - 1 + p / kYW, gx = c0 - 1 + p % kYW;
+          const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+          buf[p * kChunk4 + cl] = in ? make_float4(fmaxf(ya[i][0], 0.f), fmaxf(ya[i][1], 0.f),
+                                                   fmaxf(ya[i][2], 0.f), fmaxf(ya[i][3], 0.f))
+                                     : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      }
+    }
+    __syncthreads();
+
+    // This chunk's 64 input rows of the second convs.
+    const float* kf = (chunk < 2 ? k32 : k42) + (size_t)(chunk & 1) * kChunk * kC + 4 * cg;
+    for (int u = 0; u < 3; ++u) {
+      for (int v = 0; v < 3; ++v) {
+        const float* wt = kf + (size_t)(u * 3 + v) * kC * kC;
+        const float4* yrow = buf + ((pg + u) * kYW + v) * kChunk4;
+#pragma unroll 2
+        for (int k = 0; k < kChunk; k += 4) {
+          const float4 w0 = ldg4(wt + (size_t)k * kC), w1 = ldg4(wt + (size_t)(k + 1) * kC);
+          const float4 w2 = ldg4(wt + (size_t)(k + 2) * kC), w3 = ldg4(wt + (size_t)(k + 3) * kC);
+#pragma unroll
+          for (int i = 0; i < kTW; ++i) fma4(acc[i], yrow[i * kChunk4 + k / 4], w0, w1, w2, w3);
+        }
+      }
+    }
+  }
+
+  const int gy = r0 + pg;
+  if (gy < H) {
+    float* ob = out + ((size_t)blockIdx.z * H + gy) * W * kC + 4 * cg;
+#pragma unroll
+    for (int i = 0; i < kTW; ++i) {
+      if (c0 + i < W) {
+        *reinterpret_cast<float4*>(ob + (size_t)(c0 + i) * kC) =
+            make_float4(fmaxf(acc[i][0], 0.f), fmaxf(acc[i][1], 0.f), fmaxf(acc[i][2], 0.f),
+                        fmaxf(acc[i][3], 0.f));
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K5. Replaces retinex_tpu/ops/fused_blocks.py::_tail_stats_kernel
+// (pallas_call in fam_tail_stats). Bound on the card: bytes — 512 B read and
+// 32 B written per pixel for ~260 operations. Design: one warp per pixel,
+// lane l reading channels 4l..4l+3 as one float4 (a coalesced 512 B row), so
+// each quadrant's 32 channels sit in 8 lanes and reduce in three xor
+// shuffles; lane 8q writes the quadrant's (mean, max) pair. The TPU's 8-row
+// replication of ca is not needed.
+// ---------------------------------------------------------------------------
+__global__ void fam_tail_stats_kernel(const float* __restrict__ x, const float* __restrict__ ca,
+                                      float* __restrict__ out, long long hw, long long n_pix) {
+  const long long pix = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (pix >= n_pix) return;
+  float4 v = ldg4(x + pix * kC + 4 * lane);
+  const float4 c = ldg4(ca + (pix / hw) * kC + 4 * lane);
+  v.x *= c.x;
+  v.y *= c.y;
+  v.z *= c.z;
+  v.w *= c.w;
+  float s = (v.x + v.y) + (v.z + v.w);
+  float m = fmaxf(fmaxf(v.x, v.y), fmaxf(v.z, v.w));
+#pragma unroll
+  for (int o = 1; o < 8; o <<= 1) {
+    s += __shfl_xor_sync(0xffffffffu, s, o);
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  }
+  if ((lane & 7) == 0) {
+    reinterpret_cast<float2*>(out + pix * 8)[lane >> 3] = make_float2(s * (1.0f / kQ), m);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K6. Replaces retinex_tpu/ops/fused_blocks.py::_tail_apply_g1_kernel
+// (pallas_call in fam_tail_apply_g1). Bound on the card: operations in f32 —
+// 2 * 128 * Cout FLOP per pixel against 512 + 4*Cout + 16 bytes. Design: a
+// block of 256 threads per 64 pixels scales them (x * ca * sa of the pixel's
+// quadrant, in that order) into 32 KB of shared memory, then computes the
+// [64, 128] @ [128, Cout] product by hand: warp w owns 8 pixels (broadcast
+// reads), lane l output channels 4l..4l+3, the weight rows read as coalesced
+// float4 from L1/L2.
+// ---------------------------------------------------------------------------
+constexpr int kApplyPix = 64;
+constexpr int kApplyThreads = 256;
+constexpr int kApplyPerWarp = kApplyPix / (kApplyThreads / 32);  // 8
+
+__global__ void __launch_bounds__(kApplyThreads)
+    fam_tail_apply_g1_kernel(const float* __restrict__ x, const float* __restrict__ ca,
+                             const float* __restrict__ sa, const float* __restrict__ w,
+                             float* __restrict__ out, long long hw, long long n_pix, int cout) {
+  __shared__ float4 xs[kApplyPix * kC4];
+  const int t = threadIdx.x;
+  const long long p0 = (long long)blockIdx.x * kApplyPix;
+  for (int i = t; i < kApplyPix * kC4; i += kApplyThreads) {
+    const long long p = p0 + i / kC4;
+    const int c4 = i % kC4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (p < n_pix) {
+      v = ldg4(x + p * kC + 4 * c4);
+      const float4 c = ldg4(ca + (p / hw) * kC + 4 * c4);
+      const float s = __ldg(sa + p * 4 + (4 * c4) / kQ);
+      v = make_float4(v.x * c.x * s, v.y * c.y * s, v.z * c.z * s, v.w * c.w * s);
+    }
+    xs[i] = v;
+  }
+  __syncthreads();
+  const int cg = t & 31, pg = t >> 5;
+  if (4 * cg >= cout) return;
+  float acc[kApplyPerWarp][4] = {};
+#pragma unroll 2
+  for (int k = 0; k < kC; k += 4) {
+    const float* wk = w + (size_t)k * cout + 4 * cg;
+    const float4 w0 = ldg4(wk), w1 = ldg4(wk + cout), w2 = ldg4(wk + 2 * cout), w3 = ldg4(wk + 3 * cout);
+#pragma unroll
+    for (int i = 0; i < kApplyPerWarp; ++i) fma4(acc[i], xs[(pg * kApplyPerWarp + i) * kC4 + k / 4], w0, w1, w2, w3);
+  }
+#pragma unroll
+  for (int i = 0; i < kApplyPerWarp; ++i) {
+    const long long p = p0 + pg * kApplyPerWarp + i;
+    if (p < n_pix) {
+      *reinterpret_cast<float4*>(out + p * cout + 4 * cg) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K11. Replaces retinex_tpu/ops/fused_blocks.py::_tail_apply_kernel
+// (pallas_call in fam_tail_apply): K6 without the product, for shapes whose
+// fusion does not fold into the tail (a frame whose height or width is not a
+// multiple of 16, such as 1080 rows). Bound on the card: bytes — 512 B read,
+// 16 B of sa and 512 B written per pixel for 256 multiplies. Design: one
+// thread per float4 of the output, consecutive threads on consecutive
+// channels, so each warp reads and writes one coalesced 512 B pixel row; the
+// products run x * ca * sa in that order, as the plain version does.
+// ---------------------------------------------------------------------------
+__global__ void fam_tail_apply_kernel(const float* __restrict__ x, const float* __restrict__ ca,
+                                      const float* __restrict__ sa, float* __restrict__ out,
+                                      long long hw, long long n4) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n4) return;
+  const long long p = i / kC4;
+  const int c4 = (int)(i % kC4);
+  const float4 v = ldg4(x + 4 * i);
+  const float4 c = ldg4(ca + (p / hw) * kC + 4 * c4);
+  const float s = __ldg(sa + p * 4 + (4 * c4) / kQ);
+  reinterpret_cast<float4*>(out)[i] = make_float4(v.x * c.x * s, v.y * c.y * s, v.z * c.z * s, v.w * c.w * s);
+}
+
+}  // namespace
+
+extern "C" {
+
+int fam_conv_fused(const void* x, const void* ka, const void* kb, const void* k1, const void* b1,
+                   const void* k32, const void* k42, const void* bt, void* out, int batch, int H,
+                   int W, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(fam_conv_fused_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kConvSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH, batch);
+  fam_conv_fused_kernel<<<grid, kConvThreads, kConvSmem, (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)ka, (const float*)kb, (const float*)k1, (const float*)b1,
+      (const float*)k32, (const float*)k42, (const float*)bt, (float*)out, H, W);
+  return (int)cudaGetLastError();
+}
+
+int fam_tail_stats(const void* x, const void* ca, void* out, long long batch, long long hw,
+                   void* stream) {
+  const long long n_pix = batch * hw;
+  const long long blocks = (n_pix * 32 + 255) / 256;
+  fam_tail_stats_kernel<<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)ca, (float*)out, hw, n_pix);
+  return (int)cudaGetLastError();
+}
+
+int fam_tail_apply_g1(const void* x, const void* ca, const void* sa, const void* w, void* out,
+                      long long batch, long long hw, int cout, void* stream) {
+  const long long n_pix = batch * hw;
+  const long long blocks = (n_pix + kApplyPix - 1) / kApplyPix;
+  fam_tail_apply_g1_kernel<<<(unsigned)blocks, kApplyThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)ca, (const float*)sa, (const float*)w, (float*)out, hw, n_pix,
+      cout);
+  return (int)cudaGetLastError();
+}
+
+int fam_tail_apply(const void* x, const void* ca, const void* sa, void* out, long long batch,
+                   long long hw, void* stream) {
+  const long long n4 = batch * hw * kC4;
+  const long long blocks = (n4 + 255) / 256;
+  fam_tail_apply_kernel<<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)ca, (const float*)sa, (float*)out, hw, n4);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -44,13 +44,20 @@ class ResidualIENet(nn.Module):
         self.dec1 = UpBlock(64, 32)
         self.residual_head = nn.Sequential(conv(32, 32, 3), nn.ReLU(), conv(32, 1, 1))
 
+    def middle(self, x2: torch.Tensor) -> torch.Tensor:
+        """enc2 -> inner -> dec2 with skip: the /2-and-below body."""
+        return self.dec2(self.inner(self.enc2(x2))) + x2
+
+    def inner(self, x3: torch.Tensor) -> torch.Tensor:
+        """enc3 -> bottleneck (+ASPP) -> dec3 with skip: the /4-and-below
+        body (models/packed_inference.py runs enc2/dec2 packed and calls
+        this for the rest)."""
+        return self.dec3(self.bottleneck(self.enc3(x3))) + x3
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x1 = F.relu(self.input_layer(x))
         x2 = self.enc1(x1)
-        x3 = self.enc2(x2)
-        x4 = self.enc3(x3)
-        d3 = self.dec3(self.bottleneck(x4)) + x3
-        d2 = self.dec2(d3) + x2
+        d2 = self.middle(x2)
         d1 = self.dec1(d2) + x1
         residual = self.residual_head(d1)
         return torch.sigmoid(x.mean(dim=1, keepdim=True) + residual)

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-The sources under ``retinex_tpu_torch/csrc/`` have a plain C interface, so
-``nvcc`` compiles them straight into a shared library (no PyTorch headers:
-seconds, not minutes) and ``ctypes`` loads it. The library is built on first
-use, once per process, into ``retinex_tpu_torch/_build/`` under a name that
-carries the hash of the source and the flags, so a changed source is rebuilt
-and an unchanged one is reused.
+Every source under ``retinex_tpu_torch/csrc/`` has a plain C interface, so
+``nvcc`` compiles each one straight into its own shared library (no PyTorch
+headers: seconds, not minutes) and ``ctypes`` loads it. The libraries are
+built on first use, once per process, into ``retinex_tpu_torch/_build/``;
+the sources that need building are compiled in parallel, one ``nvcc`` each.
+Each library's name carries the hash of its source and the flags, so an
+edited source is rebuilt and an unchanged one is reused.
 
 Nothing here runs at import: the CPU tests import every module of the port
 on machines without ``nvcc`` or a card.
@@ -14,6 +15,7 @@ on machines without ``nvcc`` or a card.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import os
@@ -23,11 +25,12 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "clahe_lab.cu"
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 # No --use_fast_math, and no FMA contraction: the colour math must round
-# exactly as the plain versions do (see the note at the top of the source).
+# exactly as the plain versions do (see the note at the top of clahe_lab.cu);
+# the FAM kernels call fmaf where they mean a fused multiply-add.
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -41,12 +44,27 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+# launch function: (source stem, argtypes: pointers, sizes, the stream last)
 _SIGNATURES = {
-    # name: argtypes (pointers, sizes, the stream last)
-    "clahe_lab_fwd_u8": (_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P),
-    "clahe_tables": (_P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P),
-    "clahe_apply_u8": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "clahe_lab_fwd_u8": ("clahe_lab", (_P, _P, _P, _L, _L, _P)),
+    "clahe_tables": ("clahe_lab", (_P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P)),
+    "clahe_apply_u8": ("clahe_lab", (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    "fam_conv_fused": ("fam_fused", (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P)),
+    "fam_tail_stats": ("fam_fused", (_P, _P, _P, _L, _L, _P)),
+    "fam_tail_apply_g1": ("fam_fused", (_P, _P, _P, _P, _P, _L, _L, _I, _P)),
+    "fam_tail_apply": ("fam_fused", (_P, _P, _P, _P, _L, _L, _P)),
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class Built:
+    """One source's library: its path, the seconds nvcc took (0.0 when the
+    library was reused) and the compiler's report (ptxas registers, spills)."""
+
+    path: Path
+    seconds: float
+    report: str
 
 
 def _nvcc() -> str:
@@ -59,47 +77,56 @@ def _nvcc() -> str:
     return found
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libclahe_lab_{digest}.so"
+def library_path(source: Path) -> Path:
+    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{source.stem}_{digest}.so"
 
 
-def build() -> tuple[Path, float, str]:
-    """Compile the kernels if this source has not been built yet.
+def build() -> dict[str, Built]:
+    """Compile every source whose library is missing, all at once.
 
-    Returns (library path, build seconds (0.0 when reused), ptxas report)."""
-    lib = library_path()
-    log_path = lib.with_suffix(".log")
-    if lib.exists():
-        return lib, 0.0, log_path.read_text() if log_path.exists() else ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    report = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{report}")
-    log_path.write_text(report)
-    os.replace(tmp, lib)  # atomic: a concurrent builder never loads a partial file
-    return lib, seconds, report
+    Returns {source stem: Built}."""
+    out: dict[str, Built] = {}
+    running = []
+    for src in sorted(CSRC.glob("*.cu")):
+        lib = library_path(src)
+        log_path = lib.with_suffix(".log")
+        if lib.exists():
+            out[src.stem] = Built(lib, 0.0, log_path.read_text() if log_path.exists() else "")
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running.append((src, lib, tmp, cmd, proc, time.perf_counter()))
+    failures = []
+    for src, lib, tmp, cmd, proc, t0 in running:
+        report, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{report}")
+            continue
+        lib.with_suffix(".log").write_text(report)
+        os.replace(tmp, lib)  # atomic: another process never loads a partial file
+        out[src.stem] = Built(lib, seconds, report)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return out
 
 
 @functools.lru_cache(maxsize=1)
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
-    path, _, _ = build()
-    lib = ctypes.CDLL(str(path))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
+def libraries() -> dict[str, ctypes.CDLL]:
+    """The loaded kernel libraries by source stem, built on first call."""
+    libs = {stem: ctypes.CDLL(str(b.path)) for stem, b in build().items()}
+    for name, (stem, argtypes) in _SIGNATURES.items():
+        fn = getattr(libs[stem], name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
-    return lib
+    return libs
 
 
 def launch(name: str, *args) -> None:
     """Call one launch function; raise on a nonzero cudaGetLastError()."""
-    err = getattr(library(), name)(*args)
+    err = getattr(libraries()[_SIGNATURES[name][0]], name)(*args)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")

@@ -1,0 +1,189 @@
+"""The packed FAM on four CUDA kernels, with their plain PyTorch versions.
+
+Counterpart of the four kernels of ``retinex_tpu/ops/fused_blocks.py`` that
+the packed forward runs (``models/packed_inference.py::_fam_packed``). The
+kernels live in ``retinex_tpu_torch/csrc/fam_fused.cu``:
+
+- ``fam_conv_fused`` (K4): the FAM's whole conv stage on the packed
+  [B,h,w,128] input, the fusion 1x1 folded into each branch;
+- ``fam_tail_stats`` (K5): x * ca -> per-quadrant channel mean and max,
+  [B,h,w,8] in the order (a0,m0,a1,m1,a2,m2,a3,m3), the SA conv's input;
+- ``fam_tail_apply_g1`` (K6): (x * ca * sa of each quadrant) @ w, the
+  attention tail with the following fusion slice folded in;
+- ``fam_tail_apply`` (K11): x * ca * sa of each quadrant, the attention
+  tail at shapes whose fusion does not fold (1080-row frames).
+
+Activations are f32 NHWC, kernels HWIO, ``ca_vec`` [B,128] (the 32-channel
+attention tiled per quadrant), ``sa`` [B,h,w,4]: the JAX layouts. The
+TPU's tile gates (``fam_conv_supported``, ``fam_tail_supported``) have no
+counterpart: the kernels take any h, w and batch.
+
+Each wrapper takes a CPU tensor to its plain version and a CUDA tensor to
+its kernel; there is no fallback from one to the other. ``LAUNCHES`` counts
+the kernel launches of each wrapper.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from retinex_tpu_torch.ops import _kernels
+from retinex_tpu_torch.ops.s2d import conv_nhwc, hwio_to_oihw, maxpool3x3_s1_s2d
+
+C = 128  # packed FAM width: 4 quadrants of 32 channels
+
+# Kernel launches per wrapper since the last reset_launches().
+LAUNCHES = {"fam_conv_fused": 0, "fam_tail_stats": 0, "fam_tail_apply_g1": 0, "fam_tail_apply": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _check(t: torch.Tensor, what: str, shape: tuple, device: torch.device) -> None:
+    """f32, contiguous, on `device`, of `shape` (None matches any size)."""
+    ok = t.ndim == len(shape) and all(s is None or s == d for s, d in zip(shape, t.shape))
+    if t.dtype != torch.float32 or not ok:
+        raise ValueError(f"{what}: expected float32 {shape}, got {t.dtype} {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: tensor must be contiguous")
+    if t.device != device:
+        raise ValueError(f"{what}: on {t.device}, expected {device}")
+
+
+def _stream(x: torch.Tensor) -> int:
+    if x.device.type != "cuda":
+        raise ValueError(f"tensor on {x.device}: the kernel path takes CUDA tensors, the plain path CPU tensors")
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+# ---------------------------------------------------------------- K4
+
+
+def fam_conv_fused_plain(x, ka, kb, k1, b1, k32, k42, bias_total):
+    """Plain version of K4: the folded composition
+    relu(x@ka + maxpool3x3(x)@kb + conv3(y3,k32) + conv3(y4,k42) + bias_total),
+    (y3|y4) = relu(conv3(x,k1) + b1)."""
+    mid = torch.relu(conv_nhwc(x, hwio_to_oihw(k1).to(x.device), b1, (1, 1)))
+    pooled = maxpool3x3_s1_s2d(x)
+    return torch.relu(
+        x @ ka
+        + pooled @ kb
+        + conv_nhwc(mid[..., :C], hwio_to_oihw(k32).to(x.device), None, (1, 1))
+        + conv_nhwc(mid[..., C:], hwio_to_oihw(k42).to(x.device), None, (1, 1))
+        + bias_total
+    )
+
+
+def fam_conv_fused(x, ka, kb, k1, b1, k32, k42, bias_total):
+    """K4: the FAM's whole conv stage, x [B,h,w,128] >= 0 (post-ReLU: the
+    kernel's zero halo stands in for the max pool's -inf padding).
+
+    ka, kb [128,128] (branch 1/2 1x1s with their fusion slices folded in);
+    k1 [3,3,128,256], b1 [256] (branch 3/4 first convs stacked); k32, k42
+    [3,3,128,128] (second convs, fusion-folded); bias_total [128]."""
+    dev = x.device
+    _check(x, "fam_conv_fused x", (None, None, None, C), dev)
+    for t, what, shape in (
+        (ka, "ka", (C, C)), (kb, "kb", (C, C)), (k1, "k1", (3, 3, C, 2 * C)), (b1, "b1", (2 * C,)),
+        (k32, "k32", (3, 3, C, C)), (k42, "k42", (3, 3, C, C)), (bias_total, "bias_total", (C,)),
+    ):
+        _check(t, f"fam_conv_fused {what}", shape, dev)
+    if dev.type == "cpu":
+        return fam_conv_fused_plain(x, ka, kb, k1, b1, k32, k42, bias_total)
+    stream = _stream(x)
+    b, h, w, _ = x.shape
+    out = torch.empty_like(x)
+    _kernels.launch(
+        "fam_conv_fused", x.data_ptr(), ka.data_ptr(), kb.data_ptr(), k1.data_ptr(), b1.data_ptr(),
+        k32.data_ptr(), k42.data_ptr(), bias_total.data_ptr(), out.data_ptr(), b, h, w, stream,
+    )
+    LAUNCHES["fam_conv_fused"] += 1
+    return out
+
+
+# ---------------------------------------------------------------- K5
+
+
+def fam_tail_stats_plain(x, ca_vec):
+    """Plain version of K5."""
+    b, h, w, _ = x.shape
+    blocks = (x * ca_vec[:, None, None, :]).reshape(b, h, w, 4, C // 4)
+    return torch.stack([blocks.mean(dim=-1), blocks.amax(dim=-1)], dim=-1).reshape(b, h, w, 8)
+
+
+def fam_tail_stats(x, ca_vec):
+    """K5: [B,h,w,128] x, [B,128] ca -> [B,h,w,8] SA conv input (mean|max
+    pairs per quadrant)."""
+    dev = x.device
+    _check(x, "fam_tail_stats x", (None, None, None, C), dev)
+    _check(ca_vec, "fam_tail_stats ca_vec", (x.shape[0], C), dev)
+    if dev.type == "cpu":
+        return fam_tail_stats_plain(x, ca_vec)
+    stream = _stream(x)
+    b, h, w, _ = x.shape
+    out = torch.empty((b, h, w, 8), dtype=torch.float32, device=dev)
+    _kernels.launch("fam_tail_stats", x.data_ptr(), ca_vec.data_ptr(), out.data_ptr(), b, h * w, stream)
+    LAUNCHES["fam_tail_stats"] += 1
+    return out
+
+
+# ---------------------------------------------------------------- K6
+
+
+def fam_tail_apply_g1_plain(x, ca_vec, sa, w):
+    """Plain version of K6."""
+    return fam_tail_apply_plain(x, ca_vec, sa) @ w
+
+
+def fam_tail_apply_g1(x, ca_vec, sa, w):
+    """K6: [B,h,w,128] x, [B,128] ca, [B,h,w,4] sa, [128,Cout] w ->
+    (x * ca * sa per quadrant) @ w, [B,h,w,Cout]. Cout: a multiple of 4 up
+    to 128."""
+    dev = x.device
+    _check(x, "fam_tail_apply_g1 x", (None, None, None, C), dev)
+    b, h, wd, _ = x.shape
+    _check(ca_vec, "fam_tail_apply_g1 ca_vec", (b, C), dev)
+    _check(sa, "fam_tail_apply_g1 sa", (b, h, wd, 4), dev)
+    _check(w, "fam_tail_apply_g1 w", (C, None), dev)
+    cout = w.shape[1]
+    if cout % 4 or not 0 < cout <= C:
+        raise ValueError(f"fam_tail_apply_g1: Cout must be a multiple of 4 in [4, {C}], got {cout}")
+    if dev.type == "cpu":
+        return fam_tail_apply_g1_plain(x, ca_vec, sa, w)
+    stream = _stream(x)
+    out = torch.empty((b, h, wd, cout), dtype=torch.float32, device=dev)
+    _kernels.launch(
+        "fam_tail_apply_g1", x.data_ptr(), ca_vec.data_ptr(), sa.data_ptr(), w.data_ptr(), out.data_ptr(),
+        b, h * wd, cout, stream,
+    )
+    LAUNCHES["fam_tail_apply_g1"] += 1
+    return out
+
+
+# ---------------------------------------------------------------- K11
+
+
+def fam_tail_apply_plain(x, ca_vec, sa):
+    """Plain version of K11."""
+    b, h, wd, _ = x.shape
+    blocks = (x * ca_vec[:, None, None, :]).reshape(b, h, wd, 4, C // 4)
+    return (blocks * sa[..., None]).reshape(b, h, wd, C)
+
+
+def fam_tail_apply(x, ca_vec, sa):
+    """K11: [B,h,w,128] x, [B,128] ca, [B,h,w,4] sa -> x * ca * sa per
+    quadrant, [B,h,w,128]."""
+    dev = x.device
+    _check(x, "fam_tail_apply x", (None, None, None, C), dev)
+    b, h, wd, _ = x.shape
+    _check(ca_vec, "fam_tail_apply ca_vec", (b, C), dev)
+    _check(sa, "fam_tail_apply sa", (b, h, wd, 4), dev)
+    if dev.type == "cpu":
+        return fam_tail_apply_plain(x, ca_vec, sa)
+    stream = _stream(x)
+    out = torch.empty_like(x)
+    _kernels.launch("fam_tail_apply", x.data_ptr(), ca_vec.data_ptr(), sa.data_ptr(), out.data_ptr(), b, h * wd, stream)
+    LAUNCHES["fam_tail_apply"] += 1
+    return out

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from retinex_tpu_torch.ops import clahe_gather as cg
+from retinex_tpu_torch.ops import fused_blocks as fb
 
 
 @dataclasses.dataclass
@@ -47,3 +48,58 @@ def test_cuda_kernels_match_plain_versions(cuda_frame):
         assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 1e-4
     assert torch.equal(luts[0], f.luts)
     assert torch.equal(luts[1], cg.clahe_tables_plain(f.lab, hist_subsample=2))
+
+
+@pytest.fixture
+def cuda_f32():
+    """The card, with TF32 off so the plain versions' convolutions and
+    products run in full f32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    yield torch.Generator(device="cuda").manual_seed(0)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 37, 53, 128), (1, 136, 240, 128)])
+def test_fam_kernels_match_plain_versions(cuda_f32, shape):
+    """K4-K6 and K11 against their plain versions, with the tolerances of
+    tests/test_fused_blocks.py (2e-4, 1e-5, 1e-4, 1e-5) and inputs scaled as there;
+    a ragged shape (h, w not multiples of the tiles, batch 2) and the
+    scale-2 FAM shape of a 1088x1920 frame."""
+    g = cuda_f32
+    b, h, w, c = shape
+
+    def n(*s, scale=1.0):
+        return torch.randn(s, generator=g, device="cuda") * scale
+
+    x = n(b, h, w, c, scale=0.3).abs()
+    wf = [n(c, c, scale=0.05) for _ in range(4)]
+    conv_args = [
+        x, (n(c, c, scale=0.05) @ wf[0]).contiguous(), (n(c, c, scale=0.05) @ wf[1]).contiguous(),
+        n(3, 3, c, 2 * c, scale=0.05), n(2 * c, scale=0.1),
+        torch.einsum("uvio,op->uvip", n(3, 3, c, c, scale=0.05), wf[2]).contiguous(),
+        torch.einsum("uvio,op->uvip", n(3, 3, c, c, scale=0.05), wf[3]).contiguous(), n(c, scale=0.1),
+    ]
+    ca_vec = torch.sigmoid(n(b, c // 4)).repeat(1, 4).contiguous()
+    sa = torch.sigmoid(n(b, h, w, 4))
+    wg = n(c, c, scale=0.05)
+
+    fb.reset_launches()
+    got = [
+        fb.fam_conv_fused(*conv_args), fb.fam_tail_stats(x, ca_vec), fb.fam_tail_apply_g1(x, ca_vec, sa, wg),
+        fb.fam_tail_apply(x, ca_vec, sa),
+    ]
+    torch.cuda.synchronize()
+    assert fb.LAUNCHES == {"fam_conv_fused": 1, "fam_tail_stats": 1, "fam_tail_apply_g1": 1, "fam_tail_apply": 1}
+    want = [
+        fb.fam_conv_fused_plain(*conv_args),
+        fb.fam_tail_stats_plain(x, ca_vec),
+        fb.fam_tail_apply_g1_plain(x, ca_vec, sa, wg),
+        fb.fam_tail_apply_plain(x, ca_vec, sa),
+    ]
+    for a, e, tol in zip(got, want, (2e-4, 1e-5, 1e-4, 1e-5)):
+        assert a.shape == e.shape
+        assert float((a - e).abs().max()) <= tol

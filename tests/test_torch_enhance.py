@@ -4,7 +4,9 @@
   photo, same weights (max_size=128): illumination atol 2e-5; the enhanced
   image within the CLAHE tolerance of tests/test_clahe_gather.py (max 2
   levels, under 1e-3 of values off by more than 0.5 of a level).
-- The CLI with ``--device cpu`` writes the three PNGs.
+- The CLI with ``--device cpu`` writes the three PNGs, on the standard route
+  and on the default (packed) one; the packed net agrees with the standard
+  one within tests/test_packed_inference.py's tolerances.
 - No module of the port imports jax or retinex_tpu.
 - The entry points raise without a GPU unless the caller asks for the CPU.
 """
@@ -24,7 +26,7 @@ from retinex_tpu.infer.enhance import enhance_single_image as jax_enhance
 from retinex_tpu.models import MultiScaleUPRetinex as JaxNet
 from retinex_tpu_torch import cli
 from retinex_tpu_torch.config import Config
-from retinex_tpu_torch.infer.enhance import enhance_single_image
+from retinex_tpu_torch.infer.enhance import enhance_single_image, load_image
 from retinex_tpu_torch.models.convert import variables_to_state_dict
 from retinex_tpu_torch.models.retinex_net import MultiScaleUPRetinex
 
@@ -100,10 +102,32 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(tmp_path, monkeypatch):
     assert enh.device.type == "cpu"
 
 
+def test_cli_default_packed_route_on_cpu(tmp_path):
+    """The default CLI (packed inference, no flag) writes the three PNGs; its
+    net agrees with the standard forward on the same seeded weights and the
+    CLI's letterboxed input, within tests/test_packed_inference.py's
+    tolerances."""
+    out = tmp_path / "out"
+    cli.main([
+        "--mode", "enhance", "--input_path", str(PHOTO), "--output_dir", str(out),
+        "--max_size", "96", "--device", "cpu",
+    ])
+    for kind in ("enhanced", "illumination", "comparison"):
+        assert (out / f"{PHOTO.stem}_{kind}.png").is_file()
+
+    img, _ = load_image(str(PHOTO), 96)
+    x = torch.from_numpy(img)[None]
+    cpu = torch.device("cpu")
+    packed = cli.build_apply_fn(Config(mode="enhance", device="cpu"), cpu)(x)
+    standard = cli.build_apply_fn(Config(mode="enhance", packed_inference=False, device="cpu"), cpu)(x)
+    for got, want, tol in zip(packed, standard, (2e-3, 2e-3, 2e-5)):
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=tol)
+
+
 @pytest.mark.parametrize(
     "args",
     [
-        [],  # packed inference is the default and lands with the FAM kernels
         ["--no-packed_inference", "--classical_mode", "clahe"],
         ["--no-packed_inference", "--multi_scale"],
     ],

@@ -11,32 +11,46 @@ Phases (any failure raises and exits nonzero; no phase is skipped):
    ``retinex_tpu_torch/csrc/*.cu`` (one nvcc per source, all at once,
    printing the seconds and the ptxas report).
 2. K1-K3: on a seeded u8 frame at 1088x1920 (the main path's shape) and at
-   2160x3840 (a cell width of 240 columns), each kernel is held to its plain
-   PyTorch version on the card: K1 (lab_fwd_u8) and K3 (clahe_apply_u8) within
-   1 level on under 1e-4 of the bytes, K2 (clahe_tables) identical. Median
-   kernel times over 25 launches (CUDA events) at both shapes.
-3. K4-K6 and K11: at the packed FAM shapes of the letterboxed frame,
+   2160x3840 (a cell width of 240 columns), and on the directory's batches
+   [8,3,1088,1920], [4,3,1088,1920] and [4,3,640,640], each kernel is held to
+   its plain PyTorch version on the card: K1 (lab_fwd_u8) and K3
+   (clahe_apply_u8) within 1 level on under 1e-4 of the bytes, K2
+   (clahe_tables) identical; on a batch, the first and last image equal the
+   kernels run on that image alone. Median kernel times over 25 launches
+   (CUDA events) at both single-frame shapes.
+3. K7-K9 and K2 on a luma plane: on seeded u8 batches [8,1088,1920] (a
+   directory chunk), [1,2160,3840] and a ragged [3,272,496], both K8 kernels
+   (lab_fwd_u8_nhwc, clahe_apply_u8_nhwc) and K7 (clahe_luma_apply_u8, on
+   planar and on NHWC RGB) are held to their plain versions with K1/K3's
+   tolerance, K7 on NHWC equals K7 on planar, K2 on the luma plane is
+   identical to its plain version (hist_subsample 1 and 2), and K9
+   (clahe_luma_apply_u8_fused) equals K7; on a batch, the first and last
+   image equal the kernels run on that image alone. Median times over 25
+   launches (K7 on NHWC, as both clahe_luma routes run it).
+4. K4-K6 and K11: at the packed FAM shapes of the letterboxed frame,
    [1,544,960,128] (scale 1) and [1,136,240,128] (scale 2), at those of the
-   unpadded 1080-row frame, [1,540,960,128] and [1,135,240,128], and at a
-   ragged [2,37,53,128], seeded inputs x >= 0 and weights scaled as
-   tests/test_fused_blocks.py scales them: fam_conv_fused within 2e-4,
-   fam_tail_stats within 1e-5, fam_tail_apply_g1 within 1e-4, fam_tail_apply
-   within 1e-5 of the plain version (TF32 off). Median times over 25
-   launches, beside the plain version's and the bound: K4-K6 at the
-   letterboxed shapes, K11 (which only the unpadded frame runs) at the
-   unpadded ones.
-4. The standard route through the CLI, ``--mode enhance --max_size 1920
+   unpadded 1080-row frame, [1,540,960,128] and [1,135,240,128], at a
+   ragged [2,37,53,128], and at the directory's: [8|4,544,960,128],
+   [8|4,136,240,128], [4,320,320,128] and [4,80,80,128]. Seeded inputs x >= 0
+   and weights scaled as tests/test_fused_blocks.py scales them:
+   fam_conv_fused within 2e-4, fam_tail_stats within 1e-5,
+   fam_tail_apply_g1 within 1e-4, fam_tail_apply within 1e-5 of the plain
+   version (TF32 off); on a batch, the first and last image equal the
+   kernel run on that image alone. Median times over 25 launches, beside
+   the plain version's and the bound: K4-K6 at the letterboxed shapes, K11
+   (which only the unpadded frame runs) at the unpadded ones.
+5. The standard route through the CLI, ``--mode enhance --max_size 1920
    --no-packed_inference``, on a 1920x1080 PNG upscaled from
    ``data/convergence/lowlight_000.png``, untrained weights from seed 0: the
    three PNGs, K1-K3 launched once each, the enhanced image held to the
    port's CPU run (max 3 levels, mean under 0.05 levels).
-5. The default route through the CLI (packed forward), same photo: the
+6. The default route through the CLI (packed forward), same photo: the
    three PNGs, K1-K3 launched once and K4-K6 twice each. The packed forward
    is held to the standard forward on the card (same weights and input:
    illumination 2e-5, reflectance and enhanced 2e-3, as
    tests/test_packed_inference.py), and the packed route on the card to the
-   port's CPU packed route at ``--max_size 512`` (as in phase 4).
-6. The headline command with no flags, ``--mode enhance --input_path
+   port's CPU packed route at ``--max_size 512`` (as in phase 5).
+7. The headline command with no flags, ``--mode enhance --input_path
    photo``, on the same photo: no letterbox, so the frame stays 1080x1920,
    whose fusion does not fold (1080 is not a multiple of 16). The three
    PNGs; K4, K5 and K11 launched twice each, K6 never, K1-K3 never (1080 is
@@ -44,17 +58,48 @@ Phases (any failure raises and exits nonzero; no phase is skipped):
    JAX package's does at such shapes). The packed forward is held to the
    standard one on the card at 1080x1920, and the card's flagless run to the
    port's CPU run on a 264x480 frame (also unfolded).
-7. Warm times, batch 1: the standard and the packed net, Lab-CLAHE, end to
+8. Directory enhance through the CLI, ``--max_size 1920 --batch_size 8``,
+   on 12 photos at 1920x1080 (upscaled from ``lowlight_000..011``) and 4
+   640x640 originals (``lowlight_012..015``): three chunks, 8 and 4 at
+   1088x1920 and 4 at 640x640. Three modes, each with the counts at 0 just
+   before: the net (K4-K6 6 launches each, K1-K3 3 each), ``--classical_mode
+   clahe`` (K8's two kernels and K2 3 each, K1/K3 none) and
+   ``--classical_mode clahe_luma`` (K2 and K7 3 each); then the public fused
+   luma entry (``clahe_luma_rgb_u8_planar(fuse_luma=True)``) on the same
+   chunks (K2 and K9 3 each), whose bytes equal the ``clahe_luma`` PNGs.
+   Each mode's 48 PNGs; the CLAHE modes' enhanced PNGs byte-identical to
+   single-image runs on the card. The net's are read against single-image
+   runs and held stage by stage on each chunk: the packed forward on the
+   batch within PACKED_TOL of it on each image alone and of the standard
+   forward on the same batch, and Lab-CLAHE + quantisation of the batch's
+   net output identical to that stage on each image alone (see
+   ``net_batch_holds``). Warm images/s over the directory with PNG writes
+   and without (``save_outputs=False``), the net's ms per image at batch 8,
+   and the peak device memory of the net's directory run.
+9. Single images through the CLI on the card, each with the counts at 0
+   just before and checked just after: ``--classical_mode ssr``, ``msr``,
+   ``msrcr`` (no kernel), ``--content_aware`` and ``--multi_scale`` (K4-K6
+   twice each, K1-K3 never) at ``--max_size 512``, and ``--classical_mode
+   clahe`` (K1-K3 once each) and ``clahe_luma`` (K2 and K7 once each) at
+   ``--max_size 1920``. Each is held to the port's CPU run: ssr/msr/msrcr
+   within 1e-4, ten times the CPU tests' 1e-5 (the card's cumulative sums,
+   logs and exps round in other orders); clahe_luma byte-identical (K2 and
+   K7 are exact); the enhancers and clahe as in phase 5. Each mode's warm
+   device ms at 1088x1920.
+10. Warm times, batch 1: the standard and the packed net, Lab-CLAHE, end to
    end per route at 1088x1920, the same for the flagless route at
    1080x1920, and the FAM kernels' device ms per image.
-8. Device time by kernel (torch.profiler) over warm forwards of each route
+11. Device time by kernel (torch.profiler) over warm forwards of each route
    at 1088x1920, and the device's busy share of the forwards' wall time.
 
-The last lines are a ``{"kernels": [...]}`` JSON line (``launches`` summed
-over the default route's two 1080p CLI runs, phases 5 and 6, each counted
-from zero; ``ms``, ``plain_ms`` and ``bound_ms`` per image, i.e. summed over
-the kernel's two launches), the nvidia-smi line, and
-``{"ok": true, "device": {...}}``.
+The last lines are a ``{"kernels": [...]}`` JSON line, the nvidia-smi line,
+and ``{"ok": true, "device": {...}}``. ``launches`` sums each kernel's
+launches over the runs of phases 6, 7 and 8, each counted from zero: the
+default route's two 1080p CLI runs and the three directory runs, plus the
+fused-luma run (the only path that reaches K9). ``ms``, ``plain_ms`` and
+``bound_ms`` are per image for K1-K6 and K11 (summed over the kernel's
+launches on one 1088x1920 or 1080x1920 image) and per launch on a
+[8,1088,1920] directory chunk for K7-K9.
 """
 
 from __future__ import annotations
@@ -84,6 +129,15 @@ K2_OPS_PER_ENTRY = 20
 # K5 per packed pixel: 128 multiplies by ca, 4 x 31 adds, 4 x 31 maxima,
 # 4 mean scalings.
 K5_OPS_PER_PX = 128 + 4 * 31 + 4 * 31 + 4
+# K7 per pixel, counted from csrc/clahe_luma.cu: 10 (blend) + 3 (round/clip)
+# + 3 (gain: two adds, one division) + 12 (three scale/clip/round); K9 adds
+# the luma (2 fma + 1 mul + round/clip).
+K7_OPS_PER_PX = 28
+K9_OPS_PER_PX = K7_OPS_PER_PX + 6
+LUMA_SHAPES = ((8, 1088, 1920), (1, 2160, 3840), (3, 272, 496))
+# K1-K3's batches in the directory's net mode: the 1088x1920 chunks of 8 and
+# 4, and the 640x640 chunk of 4.
+CLAHE_DIR_SHAPES = ((8, 1088, 1920), (4, 1088, 1920), (4, 640, 640))
 REPLACES = {
     "lab_fwd_u8": "retinex_tpu/ops/clahe_gather.py:874",
     "clahe_tables": "retinex_tpu/ops/clahe_gather.py:648",
@@ -92,6 +146,10 @@ REPLACES = {
     "fam_tail_stats": "retinex_tpu/ops/fused_blocks.py:321",
     "fam_tail_apply_g1": "retinex_tpu/ops/fused_blocks.py:517",
     "fam_tail_apply": "retinex_tpu/ops/fused_blocks.py:338",
+    "lab_fwd_u8_nhwc": "retinex_tpu/ops/clahe_gather.py:326",
+    "clahe_apply_u8_nhwc": "retinex_tpu/ops/clahe_gather.py:225",
+    "clahe_luma_apply_u8": "retinex_tpu/ops/clahe_luma.py:92",
+    "clahe_luma_apply_u8_fused": "retinex_tpu/ops/clahe_luma.py:158",
 }
 SOURCES = {
     "lab_fwd_u8": "retinex_tpu_torch/csrc/clahe_lab.cu",
@@ -101,12 +159,22 @@ SOURCES = {
     "fam_tail_stats": "retinex_tpu_torch/csrc/fam_fused.cu",
     "fam_tail_apply_g1": "retinex_tpu_torch/csrc/fam_fused.cu",
     "fam_tail_apply": "retinex_tpu_torch/csrc/fam_fused.cu",
+    "lab_fwd_u8_nhwc": "retinex_tpu_torch/csrc/clahe_lab.cu",
+    "clahe_apply_u8_nhwc": "retinex_tpu_torch/csrc/clahe_lab.cu",
+    "clahe_luma_apply_u8": "retinex_tpu_torch/csrc/clahe_luma.cu",
+    "clahe_luma_apply_u8_fused": "retinex_tpu_torch/csrc/clahe_luma.cu",
 }
 # The packed FAM shapes (scale 1, scale 2) of the letterboxed 1088x1920 frame
 # and of the unpadded 1080x1920 one.
 FAM_SHAPES = ((1, 544, 960, 128), (1, 136, 240, 128))
 FAM_SHAPES_1080 = ((1, 540, 960, 128), (1, 135, 240, 128))
 FAM_RAGGED = (2, 37, 53, 128)
+# The directory's net mode: the chunks of 8 and 4 at 1088x1920 (scale 1,
+# scale 2) and the chunk of 4 at 640x640.
+FAM_DIR_SHAPES = (
+    (8, 544, 960, 128), (8, 136, 240, 128), (4, 544, 960, 128), (4, 136, 240, 128),
+    (4, 320, 320, 128), (4, 80, 80, 128),
+)
 FAM_TOL = {"fam_conv_fused": 2e-4, "fam_tail_stats": 1e-5, "fam_tail_apply_g1": 1e-4, "fam_tail_apply": 1e-5}
 FAM_KERNELS = tuple(FAM_TOL)
 # tests/test_packed_inference.py:40-42.
@@ -149,38 +217,51 @@ def u8_diff(torch, a, b) -> tuple[int, float]:
     return int(d.max()), float((d > 0).float().mean())
 
 
-def clahe_kernel_phase(torch, cg, h: int, w: int, seed: int) -> dict:
-    """Hold K1-K3 to their plain versions at h x w; return per-kernel records."""
+def clahe_kernel_phase(torch, cg, b: int, h: int, w: int, seed: int, timed: bool = True) -> dict:
+    """Hold K1-K3 to their plain versions on a seeded [b, 3, h, w] batch;
+    return per-kernel records: the error, and with `timed` the times too."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    rgb = torch.randint(0, 256, (1, 3, h, w), dtype=torch.uint8, device="cuda", generator=g)
+    rgb = torch.randint(0, 256, (b, 3, h, w), dtype=torch.uint8, device="cuda", generator=g)
     tiles = 8
-    b, n_px = 1, h * w
+    n_px = h * w
     n_tiles = tiles * tiles
+    tag = f"{b}x{h}x{w}" if b > 1 else f"{h}x{w}"
 
     lab = cg.lab_fwd_u8(rgb)
     lab_p = cg.lab_fwd_u8_plain(rgb)
     torch.cuda.synchronize()
     k1_max, k1_frac = u8_diff(torch, lab, lab_p)
-    print(f"  {h}x{w} K1 lab_fwd_u8: max {k1_max} level(s), {k1_frac:.2e} of bytes differ")
+    print(f"  {tag} K1 lab_fwd_u8: max {k1_max} level(s), {k1_frac:.2e} of bytes differ")
     if k1_max > 1 or k1_frac >= 1e-4:
-        raise AssertionError(f"K1 disagrees with its plain version at {h}x{w}")
+        raise AssertionError(f"K1 disagrees with its plain version at {tag}")
 
     for s in (1, 2):
         luts = cg.clahe_tables(lab, hist_subsample=s)
         luts_p = cg.clahe_tables_plain(lab, hist_subsample=s)
         torch.cuda.synchronize()
         if not torch.equal(luts, luts_p):
-            raise AssertionError(f"K2 tables differ from the plain version at {h}x{w}, hist_subsample={s}")
-        print(f"  {h}x{w} K2 clahe_tables (hist_subsample={s}): identical")
+            raise AssertionError(f"K2 tables differ from the plain version at {tag}, hist_subsample={s}")
+        print(f"  {tag} K2 clahe_tables (hist_subsample={s}): identical")
     luts = cg.clahe_tables(lab)
 
     out = cg.clahe_apply_u8(lab, luts)
     out_p = cg.clahe_apply_u8_plain(lab, luts)
     torch.cuda.synchronize()
     k3_max, k3_frac = u8_diff(torch, out, out_p)
-    print(f"  {h}x{w} K3 clahe_apply_u8: max {k3_max} level(s), {k3_frac:.2e} of bytes differ")
+    print(f"  {tag} K3 clahe_apply_u8: max {k3_max} level(s), {k3_frac:.2e} of bytes differ")
     if k3_max > 1 or k3_frac >= 1e-4:
-        raise AssertionError(f"K3 disagrees with its plain version at {h}x{w}")
+        raise AssertionError(f"K3 disagrees with its plain version at {tag}")
+    for j in sorted({0, b - 1} if b > 1 else ()):
+        lab1 = cg.lab_fwd_u8(rgb[j : j + 1])
+        luts1 = cg.clahe_tables(lab1)
+        alone = (lab1, luts1, cg.clahe_apply_u8(lab1, luts1))
+        if not all(torch.equal(a, t[j : j + 1]) for a, t in zip(alone, (lab, luts, out))):
+            raise AssertionError(f"K1-K3 at {tag}: image {j} of the batch differs from the kernels on it alone")
+    if b > 1:
+        print(f"  {tag} K1-K3: first and last image identical to the kernels on each alone")
+    if not timed:
+        return {"lab_fwd_u8": dict(max_abs_err=k1_max), "clahe_tables": dict(max_abs_err=0),
+                "clahe_apply_u8": dict(max_abs_err=k3_max)}
 
     table_bytes = b * n_tiles * 256
     recs = {
@@ -205,9 +286,98 @@ def clahe_kernel_phase(torch, cg, h: int, w: int, seed: int) -> dict:
     }
     for name, r in recs.items():
         print(
-            f"  {h}x{w} {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, "
+            f"  {tag} {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, "
             f"bound {r['bound'][0]:.4f} ms by {r['bound'][1]})"
         )
+    return recs
+
+
+def luma_kernel_phase(torch, cg, cl, shape: tuple, seed: int) -> dict:
+    """Hold both K8 kernels, K7 and K9 (and K2 on a luma plane) to their
+    plain versions on a seeded u8 batch [b, h, w]; return per-kernel records
+    (median ms per launch over 25 launches, plain ms, bound)."""
+    b, h, w = shape
+    n_px = b * h * w
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randint(0, 256, (b, h, w, 3), dtype=torch.uint8, device="cuda", generator=g)
+    xp = x.permute(0, 3, 1, 2).contiguous()
+    tag = "x".join(map(str, shape))
+
+    def hold(name, got, want):
+        torch.cuda.synchronize()
+        err, frac = u8_diff(torch, got, want)
+        print(f"  [{tag}] {name}: max {err} level(s), {frac:.2e} of bytes differ")
+        if err > 1 or frac >= 1e-4:
+            raise AssertionError(f"{name} disagrees with its plain version at {shape}")
+        return err
+
+    lab = cg.lab_fwd_u8_nhwc(x)
+    e_fwd = hold("K8 lab_fwd_u8_nhwc", lab, cg.lab_fwd_u8_nhwc_plain(x))
+    luts_lab = cg.clahe_tables(lab)
+    e_apply = hold("K8 clahe_apply_u8_nhwc", cg.clahe_apply_u8_nhwc(lab, luts_lab), cg.clahe_apply_u8_nhwc_plain(lab, luts_lab))
+    y = cl._luma_u8(xp)
+    e_k7 = 0
+    for s in (1, 2):
+        luts = cg.clahe_tables(y, hist_subsample=s)
+        luts_p = cg.clahe_tables_plain(y, hist_subsample=s)
+        torch.cuda.synchronize()
+        if not torch.equal(luts, luts_p):
+            raise AssertionError(f"K2 on the luma plane differs from its plain version at {shape}, s={s}")
+        k7 = cl.clahe_luma_apply_u8(xp, y, luts)
+        e_k7 = max(e_k7, hold(f"K7 clahe_luma_apply_u8 (hist_subsample={s}, K2 tables identical)", k7, cl.clahe_luma_apply_u8_plain(xp, y, luts)))
+        k7_nhwc = cl.clahe_luma_apply_u8(x, y, luts)
+        e_k7 = max(e_k7, hold(f"K7 clahe_luma_apply_u8 on NHWC (hist_subsample={s})", k7_nhwc, cl.clahe_luma_apply_u8_plain(x, y, luts)))
+        if not torch.equal(k7_nhwc, k7.permute(0, 2, 3, 1)):
+            raise AssertionError(f"K7 on NHWC differs from K7 on planar at {shape}, s={s}")
+        k9 = cl.clahe_luma_apply_u8_fused(xp, luts)
+        torch.cuda.synchronize()
+        if not torch.equal(k9, k7):
+            raise AssertionError(f"K9 differs from K7 at {shape}, s={s}")
+        print(f"  [{tag}] K9 clahe_luma_apply_u8_fused (hist_subsample={s}): identical to K7")
+    luts = cg.clahe_tables(y)
+    k8 = cg.clahe_apply_u8_nhwc(lab, luts_lab)
+    k7 = cl.clahe_luma_apply_u8(x, y, luts)
+    for j in sorted({0, b - 1} if b > 1 else ()):
+        lab1 = cg.lab_fwd_u8_nhwc(x[j : j + 1])
+        y1 = cl._luma_u8(x[j : j + 1], dim=3)
+        alone = (lab1, cg.clahe_apply_u8_nhwc(lab1, cg.clahe_tables(lab1)), cl.clahe_luma_apply_u8(x[j : j + 1], y1, cg.clahe_tables(y1)))
+        if not all(torch.equal(a, t[j : j + 1]) for a, t in zip(alone, (lab, k8, k7))):
+            raise AssertionError(f"K8/K7 at {shape}: image {j} of the batch differs from the kernels on it alone")
+    if b > 1:
+        print(f"  [{tag}] K8, K2, K7: first and last image identical to the kernels on each alone")
+    table_bytes = b * 64 * 256
+    recs = {
+        "lab_fwd_u8_nhwc": dict(
+            max_abs_err=e_fwd,
+            ms=time_ms(torch, lambda: cg.lab_fwd_u8_nhwc(x)),
+            plain_ms=time_ms(torch, lambda: cg.lab_fwd_u8_nhwc_plain(x), n=5),
+            bound=bound(6 * n_px + 256 * 4, K1_OPS_PER_PX * n_px),
+        ),
+        "clahe_apply_u8_nhwc": dict(
+            max_abs_err=e_apply,
+            ms=time_ms(torch, lambda: cg.clahe_apply_u8_nhwc(lab, luts_lab)),
+            plain_ms=time_ms(torch, lambda: cg.clahe_apply_u8_nhwc_plain(lab, luts_lab), n=5),
+            bound=bound(6 * n_px + table_bytes, K3_OPS_PER_PX * n_px),
+        ),
+        "clahe_luma_apply_u8": dict(  # on NHWC, as both clahe_luma routes run it
+            max_abs_err=e_k7,
+            ms=time_ms(torch, lambda: cl.clahe_luma_apply_u8(x, y, luts)),
+            plain_ms=time_ms(torch, lambda: cl.clahe_luma_apply_u8_plain(x, y, luts), n=5),
+            bound=bound(7 * n_px + table_bytes, K7_OPS_PER_PX * n_px),
+        ),
+        "clahe_luma_apply_u8_fused": dict(
+            max_abs_err=e_k7,
+            ms=time_ms(torch, lambda: cl.clahe_luma_apply_u8_fused(xp, luts)),
+            plain_ms=time_ms(torch, lambda: cl.clahe_luma_apply_u8_fused_plain(xp, luts), n=5),
+            bound=bound(6 * n_px + table_bytes, K9_OPS_PER_PX * n_px),
+        ),
+    }
+    for name, r in recs.items():
+        print(
+            f"  [{tag}] {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, "
+            f"bound {r['bound'][0]:.4f} ms by {r['bound'][1]})"
+        )
+    print(f"  [{tag}] K7 on planar RGB: {time_ms(torch, lambda: cl.clahe_luma_apply_u8(xp, y, luts)):.4f} ms")
     return recs
 
 
@@ -239,12 +409,10 @@ def fam_inputs(torch, shape, seed: int) -> dict:
     )
 
 
-def fam_kernel_phase(torch, fb, shape, seed: int, timed: tuple = ()) -> dict:
-    """Hold K4-K6 and K11 to their plain versions at `shape`; return records
-    (median ms over 25 launches, plain ms, bound) of the kernels in `timed`."""
-    d = fam_inputs(torch, shape, seed)
+def fam_calls(fb, d: dict) -> dict:
+    """{kernel name: (kernel, plain version, arguments)} on the inputs `d`."""
     conv_args = [d[k] for k in ("x", "ka", "kb", "k1", "b1", "k32", "k42", "bias_total")]
-    calls = {
+    return {
         "fam_conv_fused": (fb.fam_conv_fused, fb.fam_conv_fused_plain, conv_args),
         "fam_tail_stats": (fb.fam_tail_stats, fb.fam_tail_stats_plain, [d["x"], d["ca_vec"]]),
         "fam_tail_apply_g1": (
@@ -252,6 +420,16 @@ def fam_kernel_phase(torch, fb, shape, seed: int, timed: tuple = ()) -> dict:
         ),
         "fam_tail_apply": (fb.fam_tail_apply, fb.fam_tail_apply_plain, [d["x"], d["ca_vec"], d["sa"]]),
     }
+
+
+def fam_kernel_phase(torch, fb, shape, seed: int, timed: tuple = ()) -> dict:
+    """Hold K4-K6 and K11 to their plain versions at `shape`, and on a batch
+    each kernel's first and last image to the kernel run on that image alone
+    (identical: nothing couples the images of a batch). Return records: the
+    error, and for the kernels in `timed` the median ms over 25 launches,
+    the plain version's ms and the bound."""
+    d = fam_inputs(torch, shape, seed)
+    calls = fam_calls(fb, d)
     b, h, w, c = shape
     n_px = b * h * w
     weight_bytes = 4 * (2 * c * c + 9 * c * 2 * c + 2 * c + 2 * 9 * c * c + c)
@@ -271,6 +449,13 @@ def fam_kernel_phase(torch, fb, shape, seed: int, timed: tuple = ()) -> dict:
         if not np.isfinite(err) or err > FAM_TOL[name]:
             raise AssertionError(f"{name} disagrees with its plain version at {shape}: max |diff| {err:.3e}")
         line = f"  {list(shape)} {name}: max |diff| {err:.3e} (tolerance {FAM_TOL[name]:g})"
+        for j in sorted({0, b - 1} if b > 1 else ()):
+            alone = fam_calls(fb, {k: v[j : j + 1] if k in ("x", "ca_vec", "sa") else v for k, v in d.items()})
+            if not torch.equal(alone[name][0](*alone[name][2]), got[j : j + 1]):
+                raise AssertionError(f"{name} at {shape}: image {j} of the batch differs from the kernel on it alone")
+        if b > 1:
+            line += "; first and last image identical to the kernel on each alone"
+        recs[name] = dict(max_abs_err=err)
         if name in timed:
             ms = time_ms(torch, lambda: kernel(*args))
             plain_ms = time_ms(torch, lambda: plain(*args), n=5)
@@ -295,6 +480,13 @@ def run_cli(torch, modules, args) -> tuple[dict[str, int], float]:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     return {k: v for m in modules for k, v in m.LAUNCHES.items()}, seconds
+
+
+def check_launches(launches: dict[str, int], want: dict[str, int], what: str) -> None:
+    """Every counted kernel launched exactly as `want` says (0 where unnamed)."""
+    expected = {k: want.get(k, 0) for k in launches}
+    if launches != expected:
+        raise AssertionError(f"{what} launched {launches}, expected {expected}")
 
 
 def check_pngs(out_dir: Path, stem: str, shape: tuple) -> np.ndarray:
@@ -346,12 +538,7 @@ def standard_phase(torch, modules, photo: Path, workdir: Path) -> dict[str, int]
     ]
     launches, cold_s = run_cli(torch, modules, args)
     print(f"  CLI run (cold, includes model build): {cold_s:.3f} s; kernel launches {launches}")
-    for name in ("lab_fwd_u8", "clahe_tables", "clahe_apply_u8"):
-        if launches[name] != 1:
-            raise AssertionError(f"the standard route launched {name} {launches[name]} times, expected 1")
-    for name in FAM_KERNELS:
-        if launches[name] != 0:
-            raise AssertionError(f"the standard route launched {name}")
+    check_launches(launches, {"lab_fwd_u8": 1, "clahe_tables": 1, "clahe_apply_u8": 1}, "the standard route")
     got = check_pngs(out_dir, photo.stem, (1088, 1920, 3))
     hold_to_cpu(torch, got, photo, 1920, packed=False)
     return launches
@@ -368,8 +555,7 @@ def packed_phase(torch, modules, photo: Path, small: Path, workdir: Path) -> dic
     print(f"  CLI run (cold, includes model build): {cold_s:.3f} s; kernel launches {launches}")
     want = {"lab_fwd_u8": 1, "clahe_tables": 1, "clahe_apply_u8": 1,
             "fam_conv_fused": 2, "fam_tail_stats": 2, "fam_tail_apply_g1": 2, "fam_tail_apply": 0}
-    if launches != want:
-        raise AssertionError(f"the default route launched {launches}, expected {want}")
+    check_launches(launches, want, "the default route")
     check_pngs(out_dir, photo.stem, (1088, 1920, 3))
 
     hold_packed_to_standard(torch, photo, 1920)
@@ -380,8 +566,7 @@ def packed_phase(torch, modules, photo: Path, small: Path, workdir: Path) -> dic
         "--mode", "enhance", "--input_path", str(small), "--output_dir", str(out_small),
         "--max_size", "512", "--device", "cuda",
     ])
-    if any(launches_small[k] != 2 for k in ("fam_conv_fused", "fam_tail_stats", "fam_tail_apply_g1")):
-        raise AssertionError(f"the default route at --max_size 512 launched {launches_small}")
+    check_launches(launches_small, {**want, "fam_tail_apply": 0}, "the default route at --max_size 512")
     got = check_pngs(out_small, small.stem, (288, 512, 3))
     hold_to_cpu(torch, got, small, 512, packed=True)
     return launches
@@ -416,8 +601,7 @@ def flagless_phase(torch, modules, photo: Path, small: Path, workdir: Path) -> d
     args = ["--mode", "enhance", "--input_path", str(photo), "--output_dir", str(out_dir), "--device", "cuda"]
     launches, cold_s = run_cli(torch, modules, args)
     print(f"  CLI run (cold, includes model build): {cold_s:.3f} s; kernel launches {launches}")
-    if launches != want:
-        raise AssertionError(f"the flagless route launched {launches}, expected {want}")
+    check_launches(launches, want, "the flagless route")
     check_pngs(out_dir, photo.stem, (1080, 1920, 3))
     hold_packed_to_standard(torch, photo, None)
 
@@ -426,11 +610,252 @@ def flagless_phase(torch, modules, photo: Path, small: Path, workdir: Path) -> d
     launches_small, _ = run_cli(torch, modules, [
         "--mode", "enhance", "--input_path", str(small), "--output_dir", str(out_small), "--device", "cuda",
     ])
-    if launches_small != want:
-        raise AssertionError(f"the flagless route at 264x480 launched {launches_small}, expected {want}")
+    check_launches(launches_small, want, "the flagless route at 264x480")
     got = check_pngs(out_small, small.stem, (264, 480, 3))
     hold_to_cpu(torch, got, small, None, packed=True)
     return launches
+
+
+DIR_MODES = {  # mode: (CLI flags, the kernels it launches and how often)
+    "net": ([], {"lab_fwd_u8": 3, "clahe_tables": 3, "clahe_apply_u8": 3,
+                 "fam_conv_fused": 6, "fam_tail_stats": 6, "fam_tail_apply_g1": 6}),
+    "clahe": (["--classical_mode", "clahe"], {"lab_fwd_u8_nhwc": 3, "clahe_tables": 3, "clahe_apply_u8_nhwc": 3}),
+    "clahe_luma": (["--classical_mode", "clahe_luma"], {"clahe_tables": 3, "clahe_luma_apply_u8": 3}),
+}
+
+
+def make_directory(src_dir: Path, workdir: Path) -> Path:
+    """12 photos upscaled to 1920x1080 and 4 of the 640x640 originals."""
+    from PIL import Image
+
+    d = workdir / "photos"
+    d.mkdir()
+    for i in range(16):
+        name = f"lowlight_{i:03d}.png"
+        with Image.open(src_dir / name) as im:
+            im = im.convert("RGB")
+            (im.resize((1920, 1080), Image.BILINEAR) if i < 12 else im).save(d / name)
+    return d
+
+
+def directory_phase(torch, modules, photos: Path, workdir: Path) -> dict[str, int]:
+    """Phase 8: directory enhance through the CLI in three modes, the fused
+    luma entry on the same chunks, single-image holds and batch-8 times."""
+    from PIL import Image
+
+    from retinex_tpu_torch import cli
+    from retinex_tpu_torch.config import Config
+    from retinex_tpu_torch.infer.batch_driver import bucket_by_canvas, decode_bucket
+    from retinex_tpu_torch.infer.enhance import enhance_batch_images, enhance_single_image
+    from retinex_tpu_torch.ops.clahe_luma import clahe_luma_rgb_u8_planar
+
+    files = sorted(str(p) for p in photos.iterdir())
+    total: dict[str, int] = {}
+    apply = cli.build_apply_fn(Config(mode="enhance"), torch.device("cuda"))
+    for mode, (flags, want) in DIR_MODES.items():
+        out_dir = workdir / f"dir_{mode}"
+        torch.cuda.reset_peak_memory_stats()
+        launches, cold_s = run_cli(torch, modules, [
+            "--mode", "enhance", "--input_path", str(photos), "--output_dir", str(out_dir),
+            "--max_size", "1920", "--batch_size", "8", "--num_workers", "8", "--device", "cuda", *flags,
+        ])
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        print(f"  {mode}: CLI run (cold) {cold_s:.3f} s, peak device memory {peak_gb:.3f} GiB; launches {launches}")
+        check_launches(launches, want, f"the directory run in {mode} mode")
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+        if len(list(out_dir.iterdir())) != 3 * len(files):
+            raise AssertionError(f"{mode}: {len(list(out_dir.iterdir()))} PNGs, expected {3 * len(files)}")
+
+        # The batch's enhanced PNGs against single-image runs on the card:
+        # the CLAHE modes byte for byte; the net's are read here and held
+        # stage by stage in net_batch_holds.
+        worst, frac = 0, 0.0
+        knobs = dict(classical_mode=None if mode == "net" else mode, save_outputs=False, device="cuda", max_size=1920)
+        for f in files:
+            enh, _, _ = enhance_single_image(apply if mode == "net" else None, f, "", **knobs)
+            single = np.clip(enh.cpu().numpy(), 0.0, 1.0) * 255
+            got = np.asarray(Image.open(out_dir / f"{Path(f).stem}_enhanced.png").convert("RGB")).astype(np.int16)
+            d = np.abs(got - single.astype(np.uint8).astype(np.int16))
+            worst, frac = max(worst, int(d.max())), max(frac, float((d > 0).mean()))
+        print(f"  {mode}: batch vs single-image runs on the card: max {worst} level(s), at most {frac:.2e} of an image's bytes differ")
+        if mode != "net" and worst != 0:
+            raise AssertionError(f"{mode}: the batch's PNGs differ from the single-image runs")
+        if mode == "net":
+            net_batch_holds(torch, apply, files, out_dir)
+
+        # Warm images/s over the directory, with and without the PNG writes.
+        for save in (True, False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            enhance_batch_images(
+                apply if mode == "net" else None, str(photos), str(workdir / f"dir_{mode}_warm"), max_size=1920,
+                classical_mode=knobs["classical_mode"], batch_size=8, num_workers=8, save_outputs=save, device="cuda",
+            )
+            sec = time.perf_counter() - t0
+            what = "with PNG writes" if save else "without PNG writes"
+            print(f"  {mode}: warm directory, {what}: {sec:.3f} s for {len(files)} images, {len(files) / sec:.3f} images/s")
+
+    # The fused luma entry (K9) on the same chunks: bytes equal clahe_luma's.
+    for m in modules:
+        m.reset_launches()
+    for (target, out_h, out_w), paths in bucket_by_canvas(files, 1920).items():
+        for i in range(0, len(paths), 8):
+            chunk = paths[i : i + 8]
+            x = torch.from_numpy(decode_bucket(chunk, target)).to("cuda")
+            out = clahe_luma_rgb_u8_planar(x.permute(0, 3, 1, 2).contiguous(), fuse_luma=True)
+            out = out.permute(0, 2, 3, 1).cpu().numpy()
+            for j, f in enumerate(chunk):
+                want = np.asarray(Image.open(workdir / "dir_clahe_luma" / f"{Path(f).stem}_enhanced.png").convert("RGB"))
+                if not np.array_equal(out[j], want):
+                    raise AssertionError(f"the fused luma entry differs from the clahe_luma directory run on {f}")
+    fused = {k: v for m in modules for k, v in m.LAUNCHES.items()}
+    check_launches(fused, {"clahe_tables": 3, "clahe_luma_apply_u8_fused": 3}, "the fused luma entry")
+    print(f"  fused luma entry on the 3 chunks: launches {fused}; bytes equal the clahe_luma PNGs")
+    total = {k: total[k] + v for k, v in fused.items()}
+
+    # The net at batch 8 on the first chunk, warm.
+    (target, out_h, out_w), paths = next(iter(bucket_by_canvas(files, 1920).items()))
+    x8 = torch.from_numpy(decode_bucket(paths[:8], target)).to("cuda").float() / 255.0
+    times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        apply(x8)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f"  packed net at batch 8, {out_h}x{out_w}: {statistics.median(times[1:]) / 8:.3f} ms per image (warm median)")
+    return total
+
+
+def net_batch_holds(torch, apply, files: list[str], png_dir: Path) -> None:
+    """The net's directory route against single images, stage by stage, on
+    each chunk of the directory (``--max_size 1920 --batch_size 8``):
+
+    1. the packed forward on the batch against the packed forward on each
+       image alone, and against the standard forward (plain cuDNN, no FAM
+       kernel) on the same batch, within PACKED_TOL;
+    2. what follows the net (Lab-CLAHE on K1-K3, quantisation) on the
+       batch's own net output against the same stage on each image alone:
+       byte-identical.
+
+    So the PNGs of a batch and of single images differ only where the net's
+    floats do. K1-K6 on a batch equal the kernels on each image alone (phases
+    2 and 4); the standard forward's batch-vs-single readings printed here
+    show what cuDNN's choice of algorithm by batch size does without them."""
+    from PIL import Image
+
+    from retinex_tpu_torch import cli
+    from retinex_tpu_torch.config import Config
+    from retinex_tpu_torch.infer.adaptive_params import AdaptiveParameterAdjuster
+    from retinex_tpu_torch.infer.batch_driver import bucket_by_canvas, decode_bucket
+    from retinex_tpu_torch.infer.enhance import make_batch_pipeline
+
+    standard = cli.build_apply_fn(Config(mode="enhance", packed_inference=False), torch.device("cuda"))
+    names = tuple(PACKED_TOL)
+    worst = {k: {n: 0.0 for n in names} for k in ("packed", "standard", "packed vs standard")}
+    png_worst = 0
+    seen = []
+
+    def packed_seen(t):  # the packed forward, keeping what it returned
+        seen.append(apply(t))
+        return seen[-1]
+
+    for (target, out_h, out_w), paths in bucket_by_canvas(files, 1920).items():
+        for i in range(0, len(paths), 8):
+            chunk = paths[i : i + 8]
+            x_u8 = torch.from_numpy(decode_bucket(chunk, target)).to("cuda")
+            x = x_u8.float() / 255.0
+            seen.clear()
+            batch_u8, _ = make_batch_pipeline(packed_seen)(x_u8)
+            packed_b = seen[-1]
+            std_b = standard(x)
+            for n, a, s in zip(names, packed_b, std_b):
+                worst["packed vs standard"][n] = max(worst["packed vs standard"][n], float((a - s).abs().max()))
+            for j, f in enumerate(chunk):
+                xj = x[j : j + 1]
+                for key, fn, batch_out in (("packed", apply, packed_b), ("standard", standard, std_b)):
+                    for n, a, b in zip(names, fn(xj), batch_out):
+                        worst[key][n] = max(worst[key][n], float((a[0] - b[j]).abs().max()))
+                own = tuple(o[j : j + 1] for o in packed_b)
+                enh_j, _ = AdaptiveParameterAdjuster().apply_adaptive_enhancement(lambda _t: own, xj)
+                alone = (np.clip(enh_j[0].cpu().numpy(), 0.0, 1.0) * 255).astype(np.uint8)
+                if not np.array_equal(alone, batch_u8[j].cpu().numpy()):
+                    raise AssertionError(f"net: Lab-CLAHE on the batch's net output differs from it on image {j} alone")
+                png = np.asarray(Image.open(png_dir / f"{Path(f).stem}_enhanced.png").convert("RGB"))
+                png_worst = max(png_worst, int(np.abs(png.astype(np.int16) - alone.astype(np.int16)).max()))
+    what = {
+        "packed": "packed forward, batch vs each image alone",
+        "standard": "standard forward (cuDNN only), batch vs each image alone",
+        "packed vs standard": "packed vs standard forward on the same batch",
+    }
+    for key, errs in worst.items():
+        print(f"  net, {what[key]}: max |diff| " + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()))
+    print(
+        "  net: Lab-CLAHE + quantisation on the batch's net output identical to it on each image alone; "
+        f"the CLI's PNGs vs this rerun: max {png_worst} level(s)"
+    )
+    for key in ("packed", "packed vs standard"):
+        for n, tol in PACKED_TOL.items():
+            if worst[key][n] > tol:
+                raise AssertionError(f"net, {what[key]}, {n}: max |diff| {worst[key][n]:.3e} > {tol:g}")
+
+
+FAM_TWICE = {"fam_conv_fused": 2, "fam_tail_stats": 2, "fam_tail_apply_g1": 2}
+SINGLE_ROUTES = {  # route: (CLI flags, --max_size, the kernels it launches and how often)
+    "ssr": (["--classical_mode", "ssr"], 512, {}),
+    "msr": (["--classical_mode", "msr"], 512, {}),
+    "msrcr": (["--classical_mode", "msrcr"], 512, {}),
+    "content_aware": (["--content_aware"], 512, FAM_TWICE),
+    "multi_scale": (["--multi_scale"], 512, FAM_TWICE),
+    "clahe": (["--classical_mode", "clahe"], 1920, {"lab_fwd_u8": 1, "clahe_tables": 1, "clahe_apply_u8": 1}),
+    "clahe_luma": (["--classical_mode", "clahe_luma"], 1920, {"clahe_tables": 1, "clahe_luma_apply_u8": 1}),
+}
+
+
+def single_routes_phase(torch, modules, photo: Path, small: Path, workdir: Path) -> None:
+    """Phase 9: the other single-image routes through the CLI on the card,
+    each with its launch counts, held to the port's CPU run."""
+    from retinex_tpu_torch import cli
+    from retinex_tpu_torch.config import Config
+    from retinex_tpu_torch.infer.enhance import enhance_single_image
+
+    cpu_apply = cli.build_apply_fn(Config(mode="enhance", device="cpu"), torch.device("cpu"))
+    card_apply = cli.build_apply_fn(Config(mode="enhance"), torch.device("cuda"))
+    for route, (flags, max_size, want) in SINGLE_ROUTES.items():
+        image = small if max_size == 512 else photo
+        out_dir = workdir / f"single_{route}"
+        launches, cold_s = run_cli(torch, modules, [
+            "--mode", "enhance", "--input_path", str(image), "--output_dir", str(out_dir),
+            "--max_size", str(max_size), "--device", "cuda", *flags,
+        ])
+        check_launches(launches, want, f"the single-image {route} route")
+        got = check_pngs(out_dir, image.stem, (288, 512, 3) if max_size == 512 else (1088, 1920, 3))
+        classical = flags[0] == "--classical_mode"
+        knobs = dict(classical_mode=flags[1]) if classical else {f"enable_{route}": True}
+        enh_cpu, _, _ = enhance_single_image(
+            None if classical else cpu_apply, str(image), "", max_size=max_size, save_outputs=False, device="cpu", **knobs
+        )
+        enh_card, _, _ = enhance_single_image(
+            None if classical else card_apply, str(image), "", max_size=max_size, save_outputs=False, device="cuda", **knobs
+        )
+        if not np.isfinite(enh_cpu.numpy()).all() or not torch.isfinite(enh_card).all():
+            raise AssertionError(f"{route}: non-finite output")
+        err = float((enh_card.cpu() - enh_cpu).abs().max())
+        d = np.abs(got.astype(np.int16) - (np.clip(enh_cpu.numpy(), 0.0, 1.0) * 255).astype(np.uint8).astype(np.int16))
+        device_ms = [enhance_single_image(
+            None if classical else card_apply, str(photo), "", max_size=1920, save_outputs=False, device="cuda", **knobs
+        )[2] * 1e3 for _ in range(3)]
+        print(
+            f"  {route}: CLI {cold_s:.3f} s (cold), launches {launches}; card vs CPU at {got.shape[0]}x{got.shape[1]}: "
+            f"max |diff| {err:.3e}, PNG max {int(d.max())} levels, mean {float(d.mean()):.5f}; "
+            f"warm device ms at 1088x1920 {statistics.median(device_ms[1:]):.3f}"
+        )
+        if route == "clahe_luma" and d.max() != 0:  # K2 and K7 are exact against their plain versions
+            raise AssertionError("clahe_luma: the card's PNG differs from the CPU run")
+        if route in ("ssr", "msr", "msrcr") and err > 1e-4:
+            raise AssertionError(f"{route}: the card disagrees with the CPU run")
+        if route not in ("ssr", "msr", "msrcr") and (d.max() > 3 or d.mean() >= 0.05):
+            raise AssertionError(f"{route}: the card's enhanced output disagrees with the CPU run")
 
 
 def warm_phase(torch, photo: Path, workdir: Path) -> dict[str, dict[str, float]]:
@@ -526,6 +951,7 @@ def main() -> int:
 
     from retinex_tpu_torch.ops import _kernels
     from retinex_tpu_torch.ops import clahe_gather as cg
+    from retinex_tpu_torch.ops import clahe_luma as cl
     from retinex_tpu_torch.ops import fused_blocks as fb
 
     line = gpu_line()
@@ -541,20 +967,29 @@ def main() -> int:
                 print(f"  ptxas ({stem}): {ln.strip()}")
 
     print("phase 2: K1-K3 against their plain versions")
-    recs = clahe_kernel_phase(torch, cg, 1088, 1920, seed=0)
-    clahe_kernel_phase(torch, cg, 2160, 3840, seed=1)
+    recs = clahe_kernel_phase(torch, cg, 1, 1088, 1920, seed=0)
+    clahe_kernel_phase(torch, cg, 1, 2160, 3840, seed=1)
+    for i, (b, h, w) in enumerate(CLAHE_DIR_SHAPES):
+        for name, r in clahe_kernel_phase(torch, cg, b, h, w, seed=20 + i, timed=False).items():
+            recs[name]["max_abs_err"] = max(recs[name]["max_abs_err"], r["max_abs_err"])
 
-    print("phase 3: K4-K6 and K11 against their plain versions")
+    print("phase 3: K7-K9 (and K2 on a luma plane) against their plain versions")
+    luma = [luma_kernel_phase(torch, cg, cl, shape, seed=10 + i) for i, shape in enumerate(LUMA_SHAPES)]
+    for name, r in luma[0].items():  # the directory chunk [8,1088,1920]
+        recs[name] = dict(r, max_abs_err=max(rr[name]["max_abs_err"] for rr in luma))
+
+    print("phase 4: K4-K6 and K11 against their plain versions")
     k4_k6 = FAM_KERNELS[:3]
     fam = [fam_kernel_phase(torch, fb, s, seed=2 + i, timed=k4_k6) for i, s in enumerate(FAM_SHAPES)]
     fam_1080 = [
         fam_kernel_phase(torch, fb, s, seed=5 + i, timed=("fam_tail_apply",)) for i, s in enumerate(FAM_SHAPES_1080)
     ]
-    fam_kernel_phase(torch, fb, FAM_RAGGED, seed=4)
+    held = [fam_kernel_phase(torch, fb, FAM_RAGGED, seed=4)]
+    held += [fam_kernel_phase(torch, fb, s, seed=30 + i) for i, s in enumerate(FAM_DIR_SHAPES)]
     for name in FAM_KERNELS:
         per = [r[name] for r in (fam if name in k4_k6 else fam_1080)]
         recs[name] = dict(
-            max_abs_err=max(r["max_abs_err"] for r in per),
+            max_abs_err=max(r[name]["max_abs_err"] for r in fam + fam_1080 + held),
             ms=sum(r["ms"] for r in per),
             plain_ms=sum(r["plain_ms"] for r in per),
             bound=(sum(r["bound"][0] for r in per), per[0]["bound"][1]),
@@ -563,7 +998,7 @@ def main() -> int:
     print(f"  K4-K6 device ms per image at 1088x1920 (scale-1 + scale-2 launches): {fam_ms:.4f}")
     print(f"  K11 device ms per image at 1080x1920: {recs['fam_tail_apply']['ms']:.4f}")
 
-    modules = (cg, fb)
+    modules = (cg, cl, fb)
     with tempfile.TemporaryDirectory() as tmp:
         workdir = Path(tmp)
         src = REPO / "data" / "convergence" / "lowlight_000.png"
@@ -575,18 +1010,25 @@ def main() -> int:
             im.convert("RGB").resize((512, 288), Image.BILINEAR).save(small)
             im.convert("RGB").resize((480, 264), Image.BILINEAR).save(small_flagless)
 
-        print("phase 4: the standard route through the CLI (--no-packed_inference)")
+        print("phase 5: the standard route through the CLI (--no-packed_inference)")
         standard_phase(torch, modules, photo, workdir)
-        print("phase 5: the default (packed) route through the CLI")
+        print("phase 6: the default (packed) route through the CLI")
         launches = packed_phase(torch, modules, photo, small, workdir)
-        print("phase 6: the headline command with no flags (1080x1920, not letterboxed)")
+        print("phase 7: the headline command with no flags (1080x1920, not letterboxed)")
         flagless = flagless_phase(torch, modules, photo, small_flagless, workdir)
-        launches = {k: v + flagless[k] for k, v in launches.items()}
-        print("phase 7: warm times")
+        print("phase 8: directory enhance through the CLI, --max_size 1920 --batch_size 8")
+        directory = directory_phase(torch, modules, make_directory(REPO / "data" / "convergence", workdir), workdir)
+        launches = {k: v + flagless[k] + directory[k] for k, v in launches.items()}
+        print("phase 9: ssr, msr, msrcr, --content_aware, --multi_scale, clahe and clahe_luma on one image")
+        single_routes_phase(torch, modules, photo, small, workdir)
+        print("phase 10: warm times")
         warm_phase(torch, photo, workdir)
-        print("phase 8: device time by kernel")
+        print("phase 11: device time by kernel")
         profile_phase(torch, photo)
 
+    for name in recs:
+        if launches[name] == 0:
+            raise AssertionError(f"{name} was never launched on the paths this script drives")
     kernels = []
     for name, r in recs.items():
         kernels.append({

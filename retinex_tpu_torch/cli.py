@@ -1,21 +1,33 @@
-"""CLI of the port: ``--mode enhance`` on one image file.
+"""CLI of the port: ``--mode enhance`` on an image file or a directory.
 
-Counterpart of ``retinex_tpu/cli.py`` for the route this port runs so far::
+Counterpart of ``retinex_tpu/cli.py``'s enhance mode::
 
     python -m retinex_tpu_torch.cli --mode enhance --input_path photo.jpg \\
         --output_dir out --max_size 1920
+    python -m retinex_tpu_torch.cli --mode enhance --input_path photos/ \\
+        --output_dir out --max_size 1920 --batch_size 8
 
-It runs MultiScaleUPRetinex through the space-to-depth packed forward
-(``models/packed_inference.py``, the Config default, with the FAM on CUDA
-kernels: K4, K5, and K6 or, where the frame's sides are not multiples of 16,
-K11), then Lab-CLAHE (on three more kernels where the sides are multiples
-of 16), and writes ``<name>_enhanced.png``, ``_illumination.png`` and
-``_comparison.png``.
-``--no-packed_inference`` runs the standard forward instead. ``--device cpu``
-runs the same route on the CPU with the kernels' plain versions. Weights come
-from a reference ``.pth`` given as ``--checkpoint``, or else are initialised
-untrained from ``--seed``. Every other mode and the options this route does
-not run yet raise ``NotImplementedError``.
+Every enhance route of the JAX package runs, and writes ``<name>_enhanced.png``,
+``_illumination.png`` and ``_comparison.png`` per image:
+
+- the net (MultiScaleUPRetinex) with adaptive Lab-CLAHE, the default. It
+  runs through the space-to-depth packed forward (``models/packed_inference.py``,
+  the FAM on the CUDA kernels K4, K5, and K6 or, where the frame's sides are
+  not multiples of 16, K11), then Lab-CLAHE on K1-K3 where the sides are
+  multiples of 2*tiles. ``--no-packed_inference`` runs the standard forward;
+- ``--content_aware`` and ``--multi_scale``: the two other net enhancers;
+- ``--classical_mode ssr|msr|msrcr`` (no net, plain PyTorch),
+  ``--classical_mode clahe`` (Lab-CLAHE: K1-K3 on one image, K8 and K2 on a
+  directory) and ``--classical_mode clahe_luma`` (K2 and K7), with
+  ``--clahe_clip_limit``, ``--clahe_tiles`` and ``--clahe_hist_subsample``.
+
+A directory is enhanced in chunks of ``--batch_size`` images of one
+letterboxed canvas (without ``--max_size`` each image is letterboxed to its
+longer side), with ``--num_workers`` threads writing the PNGs. ``--device
+cpu`` runs every route on the CPU with the kernels' plain versions. Weights
+come from a reference ``.pth`` given as ``--checkpoint``, or else are
+initialised untrained from ``--seed``. The other modes, ``--spatial_shard``
+and ``--n_devices`` above 1 raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -74,8 +86,6 @@ def build_model(config: Config, device: torch.device) -> MultiScaleUPRetinex:
 def build_apply_fn(config: Config, device: torch.device):
     """NHWC batch -> (enhanced, reflectance, illumination) through the
     packed forward (``config.packed_inference``) or the standard one."""
-    if config.spatial_shard:
-        raise NotImplementedError("spatial sharding lands in ROADMAP Queue 1 item 15")
     model = build_model(config, device)
     forward = model
     if config.packed_inference:
@@ -93,30 +103,42 @@ def run(config: Config):
     device = resolve_device(config.device)
     if config.mode != "enhance":
         raise NotImplementedError(f"--mode {config.mode}: the port runs --mode enhance (ROADMAP Queue 1)")
-    if config.classical_mode in CLASSICAL_MODES:
-        raise NotImplementedError("the classical modes land in ROADMAP Queue 1 item 8")
+    if config.spatial_shard:
+        raise NotImplementedError("spatial sharding lands in ROADMAP Queue 1 item 15")
+    from retinex_tpu_torch.infer.batch_driver import maybe_mesh
+
+    maybe_mesh(config.n_devices)
     input_path = Path(config.input_path)
-    if input_path.is_dir():
-        raise NotImplementedError("directory enhance lands in ROADMAP Queue 1 item 7")
-    if not input_path.is_file():
+    if not (input_path.is_file() or input_path.is_dir()):
         raise FileNotFoundError(f"Input path does not exist: {config.input_path}")
     if device.type == "cuda":
         # f32 compute is f32: no TF32 in cuDNN convolutions or matmuls.
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
 
-    from retinex_tpu_torch.infer.enhance import enhance_single_image
+    from retinex_tpu_torch.infer.enhance import enhance_batch_images, enhance_single_image
 
-    apply_fn = build_apply_fn(config, device)
+    apply_fn = None if config.classical_mode in CLASSICAL_MODES else build_apply_fn(config, device)
     os.makedirs(config.output_dir, exist_ok=True)
-    return enhance_single_image(
+    knobs = dict(
+        classical_mode=config.classical_mode,
+        clip_limit=config.clahe_clip_limit,
+        tiles=config.clahe_tiles,
+        hist_subsample=config.clahe_hist_subsample,
+        enable_multi_scale=config.multi_scale,
+        enable_content_aware=config.content_aware,
+        device=device,
+    )
+    if input_path.is_file():
+        return enhance_single_image(apply_fn, str(input_path), config.output_dir, max_size=config.max_size, **knobs)
+    return enhance_batch_images(
         apply_fn,
         str(input_path),
         config.output_dir,
         max_size=config.max_size,
-        enable_multi_scale=config.multi_scale,
-        enable_content_aware=config.content_aware,
-        device=device,
+        batch_size=config.batch_size,
+        num_workers=config.num_workers,
+        **knobs,
     )
 
 

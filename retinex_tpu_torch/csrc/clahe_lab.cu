@@ -1,11 +1,17 @@
 // Lab-CLAHE kernels for Hopper (sm_90a), behind a plain C interface.
 //
-// Three kernels carry the exact OpenCV Lab-CLAHE pipeline on planar uint8
-// images [B, 3, H, W] (H, W multiples of 2 * tiles):
+// Three kernels carry the exact OpenCV Lab-CLAHE pipeline on uint8 images
+// (H, W multiples of 2 * tiles):
 //
-//   lab_fwd_u8_kernel    sRGB u8 -> OpenCV 8-bit Lab u8
-//   clahe_tables_kernel  L plane -> per-tile 256-entry CLAHE LUTs
+//   lab_fwd_u8_kernel    sRGB u8 -> OpenCV 8-bit Lab u8, planar [B, 3, H, W]
+//   clahe_tables_kernel  a u8 plane (L of Lab, or luma) -> per-tile
+//                        256-entry CLAHE LUTs
 //   clahe_apply_u8_kernel  LUT blend on L, then Lab -> sRGB u8
+//
+// K1 and K3 are templated on the layout of the sRGB side: planar
+// [B, 3, H, W] (K1, K3) or interleaved NHWC [B, H, W, 3] (the two K8
+// kernels, for the directory batches). The Lab intermediate is planar in
+// both, so K2 reads a contiguous L plane; the arithmetic is the same.
 //
 // The Python wrappers (retinex_tpu_torch/ops/clahe_gather.py) check device,
 // dtype, shape and contiguity, allocate every output, and pass PyTorch's
@@ -81,7 +87,16 @@ __device__ __forceinline__ float blend_weight(int c, int u, int cell) {
 // thread per pixel, the three planes read and written at unit stride across
 // a warp (coalesced), the 256-entry de-gamma table in shared memory so the
 // sRGB power law costs one lookup per channel; the exact cbrtf stays.
+//
+// K8 (forward half). kNhwcIn = true replaces
+// retinex_tpu/ops/clahe_gather.py::_fwd_kernel (pallas_call in _fwd_stage),
+// which the JAX package reaches through clahe_rgb_u8_gather after an XLA
+// transpose of the NHWC batch. Here the transpose is the kernel's own read:
+// a warp reads 96 contiguous bytes of interleaved RGB with byte loads (a
+// pixel is 3 bytes, so 16-byte vectors do not line up with pixels) and
+// writes the three Lab planes at unit stride. Same bound, same arithmetic.
 // ---------------------------------------------------------------------------
+template <bool kNhwcIn>
 __global__ void lab_fwd_u8_kernel(const uint8_t* __restrict__ rgb, uint8_t* __restrict__ lab,
                                   const float* __restrict__ degamma, long long n_pix,
                                   long long plane) {
@@ -92,7 +107,9 @@ __global__ void lab_fwd_u8_kernel(const uint8_t* __restrict__ rgb, uint8_t* __re
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n_pix; i += stride) {
     const long long b = i / plane;
     const long long p = b * 3 * plane + (i - b * plane);
-    const float r = tab[rgb[p]], g = tab[rgb[p + plane]], bl = tab[rgb[p + 2 * plane]];
+    const uint8_t* px = rgb + (kNhwcIn ? 3 * i : p);
+    const long long cs = kNhwcIn ? 1 : plane;  // channel stride of the input
+    const float r = tab[px[0]], g = tab[px[cs]], bl = tab[px[2 * cs]];
     const float X = (kRgb2Xyz[0][0] * r + kRgb2Xyz[0][1] * g + kRgb2Xyz[0][2] * bl) / kXn;
     const float Y = kRgb2Xyz[1][0] * r + kRgb2Xyz[1][1] * g + kRgb2Xyz[1][2] * bl;
     const float Z = (kRgb2Xyz[2][0] * r + kRgb2Xyz[2][1] * g + kRgb2Xyz[2][2] * bl) / kZn;
@@ -109,8 +126,10 @@ __global__ void lab_fwd_u8_kernel(const uint8_t* __restrict__ rgb, uint8_t* __re
 // ---------------------------------------------------------------------------
 // K2. Replaces retinex_tpu/ops/clahe_gather.py::_tables_kernel (pallas_call
 // in _tables_stage) together with the XLA histogram _hist_cells that fed it.
-// Bound on the card: bytes — one read of the L plane (1 B/pixel), 256 B out
-// per tile. Design: one block of 256 threads per (image, tile), thread k
+// The plane is the L channel of planar Lab (img_stride 3*H*W) or a [B, H, W]
+// luma plane (img_stride H*W: the clahe_luma route, as the JAX luma path
+// reuses _tables_stage). Bound on the card: bytes — one read of the plane
+// (1 B/pixel), 256 B out per tile. Design: one block of 256 threads per (image, tile), thread k
 // owning bin k. The histogram is built in shared memory with per-warp
 // sub-histograms (eight copies) so that a flat region's pixels, which all
 // hit one bin, contend within a warp rather than across the block. Clip,
@@ -121,8 +140,9 @@ __global__ void lab_fwd_u8_kernel(const uint8_t* __restrict__ rgb, uint8_t* __re
 // up the four neighbour tables directly.
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(kHist)
-    clahe_tables_kernel(const uint8_t* __restrict__ lab, uint8_t* __restrict__ luts, int H, int W,
-                        int tiles_y, int tiles_x, int s, int clip, float lut_scale) {
+    clahe_tables_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ luts,
+                        long long img_stride, int H, int W, int tiles_y, int tiles_x, int s,
+                        int clip, float lut_scale) {
   constexpr int kWarps = kHist / 32;
   __shared__ int whist[kWarps][kHist];
   __shared__ int warp_excess[kWarps];
@@ -134,7 +154,7 @@ __global__ void __launch_bounds__(kHist)
   const int tile = blockIdx.x, b = blockIdx.y;
   const int ty = tile / tiles_x, tx = tile - ty * tiles_x;
   const int hh = H / (2 * tiles_y), hw = W / (2 * tiles_x);
-  const uint8_t* L = lab + (size_t)b * 3 * H * W + (size_t)ty * 2 * hh * W + (size_t)tx * 2 * hw;
+  const uint8_t* L = src + (size_t)b * img_stride + (size_t)ty * 2 * hh * W + (size_t)tx * 2 * hw;
   // The block walks the tile's pixels in row-major order, 256 at a time.
   // Decimation within each half-tile cell: rows and columns whose in-cell
   // index is a multiple of s.
@@ -185,10 +205,17 @@ __global__ void __launch_bounds__(kHist)
 // shared memory and every pixel gathers its four entries from there. A
 // thread keeps its column's x-neighbours and x-weight across the rows. The
 // blend and the inverse Lab -> XYZ -> sRGB path are the exact branch.
+//
+// K8 (apply half). kNhwcOut = true replaces
+// retinex_tpu/ops/clahe_gather.py::_apply_kernel (pallas_call in
+// _apply_stage), whose planar output the JAX package transposes back to
+// NHWC in XLA: here each thread writes its pixel's three bytes interleaved,
+// so a warp stores 96 contiguous bytes. Same bound, same arithmetic.
 // ---------------------------------------------------------------------------
 constexpr int kApplyThreads = 256;
 constexpr int kApplyRows = 16;
 
+template <bool kNhwcOut>
 __global__ void __launch_bounds__(kApplyThreads)
     clahe_apply_u8_kernel(const uint8_t* __restrict__ lab, const uint8_t* __restrict__ luts,
                           uint8_t* __restrict__ rgb, int H, int W, int tiles_y, int tiles_x,
@@ -240,47 +267,71 @@ __global__ void __launch_bounds__(kApplyThreads)
     const float Y = lab_f_inv(fy);
     const float X = lab_f_inv(fx) * kXn;
     const float Z = lab_f_inv(fz) * kZn;
+    uint8_t* out = kNhwcOut ? rgb + 3 * ((size_t)b * plane + (size_t)(cy * hh + iy) * W + x) : rgb + p;
+    const size_t cs = kNhwcOut ? 1 : plane;  // channel stride of the output
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       const float lin = kXyz2Rgb[c][0] * X + kXyz2Rgb[c][1] * Y + kXyz2Rgb[c][2] * Z;
       const float srgb = fminf(fmaxf(linear_to_srgb(lin), 0.0f), 1.0f);
-      rgb[p + c * plane] = (uint8_t)rintf(srgb * 255.0f);
+      out[c * cs] = (uint8_t)rintf(srgb * 255.0f);
     }
   }
 }
 
+template <bool kNhwcIn>
+int launch_lab_fwd(const void* rgb, void* lab, const void* degamma, long long batch,
+                   long long plane, void* stream) {
+  const long long n_pix = batch * plane;
+  const long long want = (n_pix + 255) / 256;
+  const int blocks = (int)(want < 4096 ? (want > 0 ? want : 1) : 4096);
+  lab_fwd_u8_kernel<kNhwcIn><<<blocks, 256, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)rgb, (uint8_t*)lab, (const float*)degamma, n_pix, plane);
+  return (int)cudaGetLastError();
+}
+
+template <bool kNhwcOut>
+int launch_apply(const void* lab, const void* luts, void* rgb, int batch, int H, int W,
+                 int tiles_y, int tiles_x, void* stream) {
+  const int hh = H / (2 * tiles_y);
+  const int row_blocks = (hh + kApplyRows - 1) / kApplyRows;
+  const dim3 grid((W + kApplyThreads - 1) / kApplyThreads, 2 * tiles_y * row_blocks, batch);
+  const size_t smem = (size_t)2 * tiles_x * kHist;
+  clahe_apply_u8_kernel<kNhwcOut><<<grid, kApplyThreads, smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)lab, (const uint8_t*)luts, (uint8_t*)rgb, H, W, tiles_y, tiles_x,
+      row_blocks);
+  return (int)cudaGetLastError();
+}
 }  // namespace
 
 extern "C" {
 
 int clahe_lab_fwd_u8(const void* rgb, void* lab, const void* degamma, long long batch,
                      long long plane, void* stream) {
-  const long long n_pix = batch * plane;
-  const long long want = (n_pix + 255) / 256;
-  const int blocks = (int)(want < 4096 ? (want > 0 ? want : 1) : 4096);
-  lab_fwd_u8_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)rgb, (uint8_t*)lab, (const float*)degamma, n_pix, plane);
-  return (int)cudaGetLastError();
+  return launch_lab_fwd<false>(rgb, lab, degamma, batch, plane, stream);
 }
 
-int clahe_tables(const void* lab, void* luts, int batch, int H, int W, int tiles_y, int tiles_x,
-                 int s, int clip, float lut_scale, void* stream) {
+int clahe_lab_fwd_u8_nhwc(const void* rgb, void* lab, const void* degamma, long long batch,
+                          long long plane, void* stream) {
+  return launch_lab_fwd<true>(rgb, lab, degamma, batch, plane, stream);
+}
+
+int clahe_tables(const void* src, void* luts, long long img_stride, int batch, int H, int W,
+                 int tiles_y, int tiles_x, int s, int clip, float lut_scale, void* stream) {
   const dim3 grid(tiles_y * tiles_x, batch);
   clahe_tables_kernel<<<grid, kHist, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)lab, (uint8_t*)luts, H, W, tiles_y, tiles_x, s, clip, lut_scale);
+      (const uint8_t*)src, (uint8_t*)luts, img_stride, H, W, tiles_y, tiles_x, s, clip,
+      lut_scale);
   return (int)cudaGetLastError();
 }
 
 int clahe_apply_u8(const void* lab, const void* luts, void* rgb, int batch, int H, int W,
                    int tiles_y, int tiles_x, void* stream) {
-  const int hh = H / (2 * tiles_y);
-  const int row_blocks = (hh + kApplyRows - 1) / kApplyRows;
-  const dim3 grid((W + kApplyThreads - 1) / kApplyThreads, 2 * tiles_y * row_blocks, batch);
-  const size_t smem = (size_t)2 * tiles_x * kHist;
-  clahe_apply_u8_kernel<<<grid, kApplyThreads, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)lab, (const uint8_t*)luts, (uint8_t*)rgb, H, W, tiles_y, tiles_x,
-      row_blocks);
-  return (int)cudaGetLastError();
+  return launch_apply<false>(lab, luts, rgb, batch, H, W, tiles_y, tiles_x, stream);
+}
+
+int clahe_apply_u8_nhwc(const void* lab, const void* luts, void* rgb, int batch, int H, int W,
+                        int tiles_y, int tiles_x, void* stream) {
+  return launch_apply<true>(lab, luts, rgb, batch, H, W, tiles_y, tiles_x, stream);
 }
 
 }  // extern "C"

@@ -1,18 +1,26 @@
-"""Lab-CLAHE on three CUDA kernels, with their plain PyTorch versions.
+"""Lab-CLAHE on five CUDA kernels, with their plain PyTorch versions.
 
-Counterpart of ``retinex_tpu/ops/clahe_gather.py``'s planar pipeline
-(``clahe_rgb_u8_planar_gather5`` and ``clahe_lab_rgb_gather``). The kernels
-live in ``retinex_tpu_torch/csrc/clahe_lab.cu``:
+Counterpart of ``retinex_tpu/ops/clahe_gather.py``: its planar pipeline
+(``clahe_rgb_u8_planar_gather5``, ``clahe_lab_rgb_gather``), which the net
+route and single-image ``--classical_mode clahe`` run, and its NHWC u8 entry
+(``clahe_rgb_u8_gather``), which directory batches in ``clahe`` mode run.
+The kernels live in ``retinex_tpu_torch/csrc/clahe_lab.cu``:
 
 - ``lab_fwd_u8`` (K1): planar u8 sRGB [B,3,H,W] -> planar u8 OpenCV Lab;
-- ``clahe_tables`` (K2): per-tile histograms of L (with the within-cell
-  ``hist_subsample`` decimation), OpenCV clip/redistribute, CDF and LUT,
-  as u8 [B, tiles_y, tiles_x, 256];
-- ``clahe_apply_u8`` (K3): 4-neighbour LUT blend on L, then Lab -> sRGB u8.
+- ``lab_fwd_u8_nhwc`` (K8, forward half): u8 NHWC sRGB [B,H,W,3] -> the
+  same planar Lab, the transpose folded into the kernel's reads;
+- ``clahe_tables`` (K2): per-tile histograms of a u8 plane (the L plane of
+  planar Lab, or a [B,H,W] luma plane for ``ops/clahe_luma.py``) with the
+  within-cell ``hist_subsample`` decimation, OpenCV clip/redistribute, CDF
+  and LUT, as u8 [B, tiles_y, tiles_x, 256];
+- ``clahe_apply_u8`` (K3): 4-neighbour LUT blend on L, then Lab -> planar
+  sRGB u8;
+- ``clahe_apply_u8_nhwc`` (K8, apply half): the same, written as NHWC.
 
 Each wrapper takes a CPU tensor to its plain version and a CUDA tensor to
 its kernel; there is no fallback from one to the other. ``LAUNCHES`` counts
-the kernel launches of each wrapper.
+the kernel launches of each wrapper. The JAX package's 6D cell layout and
+band pickers are TPU artifacts and are not carried over.
 """
 
 from __future__ import annotations
@@ -33,7 +41,13 @@ from retinex_tpu_torch.ops.colorspace import (
 )
 
 # Kernel launches per wrapper since the last reset_launches().
-LAUNCHES = {"lab_fwd_u8": 0, "clahe_tables": 0, "clahe_apply_u8": 0}
+LAUNCHES = {
+    "lab_fwd_u8": 0,
+    "lab_fwd_u8_nhwc": 0,
+    "clahe_tables": 0,
+    "clahe_apply_u8": 0,
+    "clahe_apply_u8_nhwc": 0,
+}
 
 
 def reset_launches() -> None:
@@ -44,6 +58,13 @@ def reset_launches() -> None:
 def _check_planar_u8(x: torch.Tensor, what: str) -> None:
     if x.dtype != torch.uint8 or x.ndim != 4 or x.shape[1] != 3:
         raise ValueError(f"{what}: expected uint8 [B, 3, H, W], got {x.dtype} {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{what}: tensor must be contiguous")
+
+
+def _check_nhwc_u8(x: torch.Tensor, what: str) -> None:
+    if x.dtype != torch.uint8 or x.ndim != 4 or x.shape[3] != 3:
+        raise ValueError(f"{what}: expected uint8 [B, H, W, 3], got {x.dtype} {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{what}: tensor must be contiguous")
 
@@ -91,6 +112,25 @@ def lab_fwd_u8(rgb: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def lab_fwd_u8_nhwc_plain(rgb: torch.Tensor) -> torch.Tensor:
+    """Plain version of K8's forward half: K1's on the permuted batch."""
+    return lab_fwd_u8_plain(rgb.permute(0, 3, 1, 2).contiguous())
+
+
+def lab_fwd_u8_nhwc(rgb: torch.Tensor) -> torch.Tensor:
+    """K8, forward half: u8 NHWC sRGB [B,H,W,3] -> planar u8 Lab [B,3,H,W]."""
+    _check_nhwc_u8(rgb, "lab_fwd_u8_nhwc")
+    if rgb.device.type == "cpu":
+        return lab_fwd_u8_nhwc_plain(rgb)
+    stream = _stream(rgb)
+    b, h, w, _ = rgb.shape
+    out = torch.empty((b, 3, h, w), dtype=torch.uint8, device=rgb.device)
+    tab = _degamma_table(str(rgb.device))
+    _kernels.launch("clahe_lab_fwd_u8_nhwc", rgb.data_ptr(), out.data_ptr(), tab.data_ptr(), b, h * w, stream)
+    LAUNCHES["lab_fwd_u8_nhwc"] += 1
+    return out
+
+
 # ---------------------------------------------------------------- K2
 
 
@@ -105,28 +145,43 @@ def _table_params(h: int, w: int, tiles_y: int, tiles_x: int, clip_limit: float,
     return clip, np.float32(float(HIST_SIZE - 1) / float(area))
 
 
+def _plane(src: torch.Tensor, what: str) -> tuple[torch.Tensor, int]:
+    """The u8 plane K2 reads, and the stride between its images: the L
+    plane of planar Lab [B,3,H,W] (stride 3*H*W) or a plane [B,H,W]
+    (stride H*W)."""
+    if src.ndim == 4:
+        _check_planar_u8(src, what)
+        return src[:, 0], 3 * src.shape[2] * src.shape[3]
+    if src.dtype != torch.uint8 or src.ndim != 3 or not src.is_contiguous():
+        raise ValueError(f"{what}: expected contiguous uint8 [B, 3, H, W] or [B, H, W], got {src.dtype} {tuple(src.shape)}")
+    return src, src.shape[1] * src.shape[2]
+
+
 def clahe_tables_plain(
-    lab: torch.Tensor, clip_limit: float = 2.0, tiles_y: int = 8, tiles_x: int = 8, hist_subsample: int = 1
+    src: torch.Tensor, clip_limit: float = 2.0, tiles_y: int = 8, tiles_x: int = 8, hist_subsample: int = 1
 ) -> torch.Tensor:
-    """Plain version of K2: planar u8 Lab -> u8 LUTs [B, tiles_y, tiles_x, 256]."""
-    hist, area = _hist_from_cells(lab[:, 0], tiles_y, tiles_x, hist_subsample)
+    """Plain version of K2: planar u8 Lab (its L plane) or a u8 plane
+    [B,H,W] -> u8 LUTs [B, tiles_y, tiles_x, 256]."""
+    plane, _ = _plane(src, "clahe_tables_plain")
+    hist, area = _hist_from_cells(plane, tiles_y, tiles_x, hist_subsample)
     return _luts_from_hist(hist, clip_limit, area).to(torch.uint8)
 
 
 def clahe_tables(
-    lab: torch.Tensor, clip_limit: float = 2.0, tiles_y: int = 8, tiles_x: int = 8, hist_subsample: int = 1
+    src: torch.Tensor, clip_limit: float = 2.0, tiles_y: int = 8, tiles_x: int = 8, hist_subsample: int = 1
 ) -> torch.Tensor:
-    """K2: the CLAHE LUT of every tile, from the L plane of planar u8 Lab."""
-    _check_planar_u8(lab, "clahe_tables")
-    b, _, h, w = lab.shape
+    """K2: the CLAHE LUT of every tile, from the L plane of planar u8 Lab
+    [B,3,H,W] or from a u8 plane [B,H,W]."""
+    plane, img_stride = _plane(src, "clahe_tables")
+    b, h, w = plane.shape
     _check_cells(h, w, tiles_y, tiles_x)
     clip, lut_scale = _table_params(h, w, tiles_y, tiles_x, clip_limit, hist_subsample)
-    if lab.device.type == "cpu":
-        return clahe_tables_plain(lab, clip_limit, tiles_y, tiles_x, hist_subsample)
-    stream = _stream(lab)
-    out = torch.empty((b, tiles_y, tiles_x, HIST_SIZE), dtype=torch.uint8, device=lab.device)
+    if src.device.type == "cpu":
+        return clahe_tables_plain(src, clip_limit, tiles_y, tiles_x, hist_subsample)
+    stream = _stream(src)
+    out = torch.empty((b, tiles_y, tiles_x, HIST_SIZE), dtype=torch.uint8, device=src.device)
     _kernels.launch(
-        "clahe_tables", lab.data_ptr(), out.data_ptr(), b, h, w, tiles_y, tiles_x,
+        "clahe_tables", src.data_ptr(), out.data_ptr(), img_stride, b, h, w, tiles_y, tiles_x,
         hist_subsample, clip, float(lut_scale), stream,
     )
     LAUNCHES["clahe_tables"] += 1
@@ -145,26 +200,53 @@ def clahe_apply_u8_plain(lab: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
     ).to(torch.uint8)
 
 
+def _check_luts(luts: torch.Tensor, b: int, h: int, w: int, device: torch.device, what: str) -> tuple[int, int]:
+    """Validate u8 LUTs [b, ty, tx, 256] for an h x w frame; return (ty, tx)."""
+    if luts.dtype != torch.uint8 or luts.ndim != 4 or luts.shape[0] != b or luts.shape[3] != HIST_SIZE:
+        raise ValueError(f"{what}: expected uint8 LUTs [{b}, ty, tx, 256], got {luts.dtype} {tuple(luts.shape)}")
+    if not luts.is_contiguous() or luts.device != device:
+        raise ValueError(f"{what}: LUTs must be contiguous and on the image's device")
+    tiles_y, tiles_x = luts.shape[1], luts.shape[2]
+    _check_cells(h, w, tiles_y, tiles_x)
+    if device.type != "cpu" and 2 * tiles_x * HIST_SIZE > 48 * 1024:
+        raise ValueError(f"{what}: tiles_x={tiles_x} needs more than 48 KB of shared memory")
+    return tiles_y, tiles_x
+
+
 def clahe_apply_u8(lab: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
     """K3: planar u8 Lab + u8 LUTs [B, tiles_y, tiles_x, 256] -> planar u8 sRGB."""
     _check_planar_u8(lab, "clahe_apply_u8")
     b, _, h, w = lab.shape
-    if luts.dtype != torch.uint8 or luts.ndim != 4 or luts.shape[0] != b or luts.shape[3] != HIST_SIZE:
-        raise ValueError(f"clahe_apply_u8: expected uint8 LUTs [{b}, ty, tx, 256], got {luts.dtype} {tuple(luts.shape)}")
-    if not luts.is_contiguous() or luts.device != lab.device:
-        raise ValueError("clahe_apply_u8: LUTs must be contiguous and on the Lab tensor's device")
-    tiles_y, tiles_x = luts.shape[1], luts.shape[2]
-    _check_cells(h, w, tiles_y, tiles_x)
+    tiles_y, tiles_x = _check_luts(luts, b, h, w, lab.device, "clahe_apply_u8")
     if lab.device.type == "cpu":
         return clahe_apply_u8_plain(lab, luts)
-    if 2 * tiles_x * HIST_SIZE > 48 * 1024:
-        raise ValueError(f"clahe_apply_u8: tiles_x={tiles_x} needs more than 48 KB of shared memory")
     stream = _stream(lab)
     out = torch.empty_like(lab)
     _kernels.launch(
         "clahe_apply_u8", lab.data_ptr(), luts.data_ptr(), out.data_ptr(), b, h, w, tiles_y, tiles_x, stream
     )
     LAUNCHES["clahe_apply_u8"] += 1
+    return out
+
+
+def clahe_apply_u8_nhwc_plain(lab: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
+    """Plain version of K8's apply half: K3's, permuted to NHWC."""
+    return clahe_apply_u8_plain(lab, luts).permute(0, 2, 3, 1).contiguous()
+
+
+def clahe_apply_u8_nhwc(lab: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
+    """K8, apply half: planar u8 Lab + u8 LUTs -> u8 NHWC sRGB [B,H,W,3]."""
+    _check_planar_u8(lab, "clahe_apply_u8_nhwc")
+    b, _, h, w = lab.shape
+    tiles_y, tiles_x = _check_luts(luts, b, h, w, lab.device, "clahe_apply_u8_nhwc")
+    if lab.device.type == "cpu":
+        return clahe_apply_u8_nhwc_plain(lab, luts)
+    stream = _stream(lab)
+    out = torch.empty((b, h, w, 3), dtype=torch.uint8, device=lab.device)
+    _kernels.launch(
+        "clahe_apply_u8_nhwc", lab.data_ptr(), luts.data_ptr(), out.data_ptr(), b, h, w, tiles_y, tiles_x, stream
+    )
+    LAUNCHES["clahe_apply_u8_nhwc"] += 1
     return out
 
 
@@ -186,6 +268,29 @@ def clahe_rgb_u8_planar_gather(
     lab = lab_fwd_u8(xp_u8)
     luts = clahe_tables(lab, clip_limit, tiles_y, tiles_x, hist_subsample)
     return clahe_apply_u8(lab, luts)
+
+
+def clahe_rgb_u8_gather(
+    x_u8: torch.Tensor,
+    clip_limit: float = 2.0,
+    tiles_x: int = 8,
+    tiles_y: int = 8,
+    hist_subsample: int = 1,
+) -> torch.Tensor:
+    """uint8 NHWC (or HWC) Lab-CLAHE -> the same shape: K8 (forward) -> K2
+    -> K8 (apply), the directory batches' ``clahe`` route.
+
+    H and W must be multiples of 2*tiles. Unlike the JAX package's batched
+    accelerator route, ``hist_subsample`` is honoured here as on every other
+    route."""
+    squeeze = x_u8.ndim == 3
+    if squeeze:
+        x_u8 = x_u8[None]
+    _check_cells(x_u8.shape[1], x_u8.shape[2], tiles_y, tiles_x)
+    lab = lab_fwd_u8_nhwc(x_u8.contiguous())
+    luts = clahe_tables(lab, clip_limit, tiles_y, tiles_x, hist_subsample)
+    out = clahe_apply_u8_nhwc(lab, luts)
+    return out[0] if squeeze else out
 
 
 def clahe_lab_rgb_gather(

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from retinex_tpu_torch.ops import clahe_gather as cg
+from retinex_tpu_torch.ops import clahe_luma as cl
 from retinex_tpu_torch.ops import fused_blocks as fb
 
 
@@ -42,12 +43,42 @@ def test_cuda_kernels_match_plain_versions(cuda_frame):
     luts = [cg.clahe_tables(f.lab, hist_subsample=s) for s in (1, 2)]
     out = cg.clahe_apply_u8(f.lab, f.luts)
     torch.cuda.synchronize()
-    assert cg.LAUNCHES == {"lab_fwd_u8": 1, "clahe_tables": 2, "clahe_apply_u8": 1}
+    assert cg.LAUNCHES == {
+        "lab_fwd_u8": 1, "lab_fwd_u8_nhwc": 0, "clahe_tables": 2, "clahe_apply_u8": 1, "clahe_apply_u8_nhwc": 0,
+    }
     for got, want in ((lab, f.lab), (out, cg.clahe_apply_u8_plain(f.lab, f.luts))):
         d = (got.int() - want.int()).abs()
         assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 1e-4
     assert torch.equal(luts[0], f.luts)
     assert torch.equal(luts[1], cg.clahe_tables_plain(f.lab, hist_subsample=2))
+
+
+@pytest.mark.cuda
+def test_nhwc_and_luma_kernels_match_plain_versions(cuda_frame):
+    """K8 (both halves) within 1 level of K1/K3's plain versions on under
+    1e-4 of the bytes; K2 on a luma plane identical to its plain version;
+    K7 within the same bound of its plain version, K7 on NHWC identical to
+    K7 on planar, and K9 identical to K7."""
+    x = cuda_frame.rgb.permute(0, 2, 3, 1).contiguous()
+    cg.reset_launches()
+    cl.reset_launches()
+    lab = cg.lab_fwd_u8_nhwc(x)
+    out = cg.clahe_apply_u8_nhwc(cuda_frame.lab, cuda_frame.luts)
+    y = cl._luma_u8(cuda_frame.rgb)
+    luts = cg.clahe_tables(y, hist_subsample=2)
+    k7 = cl.clahe_luma_apply_u8(cuda_frame.rgb, y, luts)
+    k7_nhwc = cl.clahe_luma_apply_u8(x, y, luts)
+    k9 = cl.clahe_luma_apply_u8_fused(cuda_frame.rgb, luts)
+    torch.cuda.synchronize()
+    assert cg.LAUNCHES["lab_fwd_u8_nhwc"] == cg.LAUNCHES["clahe_apply_u8_nhwc"] == cg.LAUNCHES["clahe_tables"] == 1
+    assert cl.LAUNCHES == {"clahe_luma_apply_u8": 2, "clahe_luma_apply_u8_fused": 1}
+    assert torch.equal(k7_nhwc, k7.permute(0, 2, 3, 1))
+    want_out = cg.clahe_apply_u8_nhwc_plain(cuda_frame.lab, cuda_frame.luts)
+    for got, want in ((lab, cuda_frame.lab), (out, want_out), (k7, cl.clahe_luma_apply_u8_plain(cuda_frame.rgb, y, luts))):
+        d = (got.int() - want.int()).abs()
+        assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 1e-4
+    assert torch.equal(luts, cg.clahe_tables_plain(y, hist_subsample=2))
+    assert torch.equal(k9, k7)
 
 
 @pytest.fixture

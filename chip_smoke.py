@@ -91,15 +91,49 @@ Phases (any failure raises and exits nonzero; no phase is skipped):
    1080x1920, and the FAM kernels' device ms per image.
 11. Device time by kernel (torch.profiler) over warm forwards of each route
    at 1088x1920, and the device's busy share of the forwards' wall time.
+12. K10 (dec1_chain) against its plain version (the cuDNN chain), TF32 off,
+   on seeded inputs scaled as tests/test_fused_blocks.py:51-57 scales them,
+   within its 1e-4: at [1,544,960] (the 1088x1920 frame's dec1), at
+   [8,544,960] and [4,320,320] (the directory's chunks) and at a ragged
+   [2,37,53]; on a batch, the first and last image equal K10 on each alone.
+   Median of 25 launches at [1,544,960] beside the plain version's and the
+   bound.
+13. The dec1-chain forward, ``PackedRetinex(model, NetCfg(dec1_chain=True))``,
+   at 1088x1920 and at the unpadded 1080x1920, seed-0 weights: within 2e-4
+   of the default packed forward and within PACKED_TOL of the standard one;
+   K10 launched once per forward (and never on any default route: every
+   other phase's launch check expects 0). Warm net ms with and without it
+   at 1088x1920, in turns.
+14. ``--mode predict`` through the CLI with a ``.pth`` saved from the seed-0
+   untrained net (``{"epoch": 0, "model_state_dict": ...}``): one photo at
+   ``--max_size 1920`` (three PNGs, K4-K6 twice, K1-K3 never); the card's
+   PNG held to the port's CPU run at ``--max_size 512`` (max 1 level, under
+   1e-4 of the bytes off); the 16-image directory of phase 8 at
+   ``--batch_size 8`` (48 PNGs, K4-K6 6 each), its PNGs against each image's
+   own forward on the card (the bytes single-image predict writes; max 1
+   level, as cuDNN picks algorithms by batch size); warm images/s with
+   writes and the warm per-image latency; ``predict_single_image`` with the
+   dec1-chain forward (K10 once, PNGs within 1 level of the default's).
+15. ``--mode evaluate`` through the CLI over predict's directory, without
+   references and with ``--test_dir`` naming phase 8's net outputs (the
+   enhanced and illumination PNGs have same-named, same-sized references,
+   the three-panel comparisons do not): one CSV row per image with the JAX
+   package's columns, no kernel launched, images/s; ``evaluate_directory``
+   on the card held to the same call with ``device="cpu"`` within rtol 1e-4
+   on two photos' PNGs.
+16. ``simple_enhance_main`` (pre-activation + ASPP net, untrained) on the
+   photo at ``--max_size 1920``: three PNGs, K4-K6 twice and K1-K3 once;
+   at ``--max_size 512`` held to the port's CPU run as in phase 5.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the nvidia-smi line,
 and ``{"ok": true, "device": {...}}``. ``launches`` sums each kernel's
 launches over the runs of phases 6, 7 and 8, each counted from zero: the
 default route's two 1080p CLI runs and the three directory runs, plus the
-fused-luma run (the only path that reaches K9). ``ms``, ``plain_ms`` and
-``bound_ms`` are per image for K1-K6 and K11 (summed over the kernel's
-launches on one 1088x1920 or 1080x1920 image) and per launch on a
-[8,1088,1920] directory chunk for K7-K9.
+fused-luma run (the only path that reaches K9); for K10, over its path's
+runs in phases 13 and 14 (the dec1-chain forwards and predict with it).
+``ms``, ``plain_ms`` and ``bound_ms`` are per image for K1-K6, K10 and K11
+(summed over the kernel's launches on one 1088x1920 or 1080x1920 image)
+and per launch on a [8,1088,1920] directory chunk for K7-K9.
 """
 
 from __future__ import annotations
@@ -150,6 +184,7 @@ REPLACES = {
     "clahe_apply_u8_nhwc": "retinex_tpu/ops/clahe_gather.py:225",
     "clahe_luma_apply_u8": "retinex_tpu/ops/clahe_luma.py:92",
     "clahe_luma_apply_u8_fused": "retinex_tpu/ops/clahe_luma.py:158",
+    "dec1_chain": "retinex_tpu/ops/fused_blocks.py:186",
 }
 SOURCES = {
     "lab_fwd_u8": "retinex_tpu_torch/csrc/clahe_lab.cu",
@@ -163,6 +198,7 @@ SOURCES = {
     "clahe_apply_u8_nhwc": "retinex_tpu_torch/csrc/clahe_lab.cu",
     "clahe_luma_apply_u8": "retinex_tpu_torch/csrc/clahe_luma.cu",
     "clahe_luma_apply_u8_fused": "retinex_tpu_torch/csrc/clahe_luma.cu",
+    "dec1_chain": "retinex_tpu_torch/csrc/dec1_chain.cu",
 }
 # The packed FAM shapes (scale 1, scale 2) of the letterboxed 1088x1920 frame
 # and of the unpadded 1080x1920 one.
@@ -179,6 +215,12 @@ FAM_TOL = {"fam_conv_fused": 2e-4, "fam_tail_stats": 1e-5, "fam_tail_apply_g1": 
 FAM_KERNELS = tuple(FAM_TOL)
 # tests/test_packed_inference.py:40-42.
 PACKED_TOL = {"enhanced": 2e-3, "reflectance": 2e-3, "illumination": 2e-5}
+# K10's shapes: the 1088x1920 frame's dec1, the directory's chunks (8 and 4
+# at 1088x1920, 4 at 640x640) and a ragged one; its tolerance
+# (tests/test_fused_blocks.py:66) and the NetCfg variants' (:75).
+DEC1_SHAPES = ((1, 544, 960), (8, 544, 960), (4, 320, 320), (2, 37, 53))
+DEC1_TOL = 1e-4
+NETCFG_TOL = 2e-4
 
 
 def gpu_line() -> str:
@@ -468,18 +510,22 @@ def fam_kernel_phase(torch, fb, shape, seed: int, timed: tuple = ()) -> dict:
     return recs
 
 
-def run_cli(torch, modules, args) -> tuple[dict[str, int], float]:
-    """Drive the CLI once with every launch count at 0 just before; return
-    the counts just after and the seconds."""
+def run_cli(torch, modules, args, entry=None) -> tuple[dict[str, int], float]:
+    """Drive the CLI (``cli.main``, or `entry`) once with every launch count
+    at 0 just before; return the counts just after and the seconds."""
     from retinex_tpu_torch import cli
 
     for m in modules:
         m.reset_launches()
     t0 = time.perf_counter()
-    cli.main(args)
+    (entry or cli.main)(args)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    return {k: v for m in modules for k, v in m.LAUNCHES.items()}, seconds
+    return launch_counts(modules), seconds
+
+
+def launch_counts(modules) -> dict[str, int]:
+    return {k: v for m in modules for k, v in m.LAUNCHES.items()}
 
 
 def check_launches(launches: dict[str, int], want: dict[str, int], what: str) -> None:
@@ -502,14 +548,17 @@ def check_pngs(out_dir: Path, stem: str, shape: tuple) -> np.ndarray:
     return got
 
 
-def hold_to_cpu(torch, got: np.ndarray, photo: Path, max_size: int | None, packed: bool) -> None:
+def hold_to_cpu(
+    torch, got: np.ndarray, photo: Path, max_size: int | None, packed: bool, preact_aspp: bool = False
+) -> None:
     """The card's enhanced PNG against the port's CPU run on the same
     (seeded) weights, plain versions throughout."""
     from retinex_tpu_torch import cli
     from retinex_tpu_torch.config import Config
     from retinex_tpu_torch.infer.enhance import enhance_single_image
 
-    cpu_apply = cli.build_apply_fn(Config(mode="enhance", packed_inference=packed, device="cpu"), torch.device("cpu"))
+    config = Config(mode="enhance", packed_inference=packed, device="cpu", use_preact=preact_aspp, use_aspp=preact_aspp)
+    cpu_apply = cli.build_apply_fn(config, torch.device("cpu"))
     t0 = time.perf_counter()
     enh_cpu, _, _ = enhance_single_image(
         cpu_apply, str(photo), "", max_size=max_size, save_outputs=False, device="cpu"
@@ -708,7 +757,7 @@ def directory_phase(torch, modules, photos: Path, workdir: Path) -> dict[str, in
                 want = np.asarray(Image.open(workdir / "dir_clahe_luma" / f"{Path(f).stem}_enhanced.png").convert("RGB"))
                 if not np.array_equal(out[j], want):
                     raise AssertionError(f"the fused luma entry differs from the clahe_luma directory run on {f}")
-    fused = {k: v for m in modules for k, v in m.LAUNCHES.items()}
+    fused = launch_counts(modules)
     check_launches(fused, {"clahe_tables": 3, "clahe_luma_apply_u8_fused": 3}, "the fused luma entry")
     print(f"  fused luma entry on the 3 chunks: launches {fused}; bytes equal the clahe_luma PNGs")
     total = {k: total[k] + v for k, v in fused.items()}
@@ -940,6 +989,293 @@ def profile_phase(torch, photo: Path) -> None:
             print(f"    {e.self_device_time_total / n / 1e3:9.3f}  x{e.count // n:<4d} {e.key[:90]}")
 
 
+def dec1_inputs(torch, shape, seed: int) -> list:
+    """Seeded K10 arguments on the card, scaled as
+    tests/test_fused_blocks.py:51-57 scales them."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    b, h, w = shape
+
+    def n(*s, scale=1.0):
+        return torch.randn(s, generator=g, device="cuda") * scale
+
+    args = [n(b, h, w, 64, scale=0.3), n(b, h, w, 128, scale=0.3).abs(), n(1, 1, 64, 128, scale=0.1), n(128, scale=0.1)]
+    for _ in range(3):
+        args += [n(3, 3, 128, 128, scale=0.05), n(128, scale=0.1)]
+    return args
+
+
+def dec1_kernel_phase(torch, fb, shape, seed: int, timed: bool = False) -> dict:
+    """Phase 12: hold K10 to its plain version at `shape` ([b, h, w] of d2),
+    and on a batch its first and last image to K10 on each alone; with
+    `timed`, the median ms over 25 launches, the plain version's and the
+    bound."""
+    args = dec1_inputs(torch, shape, seed)
+    b, h, w = shape
+    got, want = fb.dec1_chain(*args), fb.dec1_chain_plain(*args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not np.isfinite(err) or err > DEC1_TOL:
+        raise AssertionError(f"dec1_chain disagrees with its plain version at {shape}: max |diff| {err:.3e}")
+    line = f"  {list(shape)} dec1_chain: max |diff| {err:.3e} (tolerance {DEC1_TOL:g})"
+    for j in sorted({0, b - 1} if b > 1 else ()):
+        alone = fb.dec1_chain(args[0][j : j + 1].contiguous(), args[1][j : j + 1].contiguous(), *args[2:])
+        if not torch.equal(alone, got[j : j + 1]):
+            raise AssertionError(f"dec1_chain at {shape}: image {j} of the batch differs from K10 on it alone")
+    if b > 1:
+        line += "; first and last image identical to K10 on each alone"
+    rec = dict(max_abs_err=err)
+    if timed:
+        n_px = b * h * w
+        weight_bytes = 4 * (64 * 128 + 3 * 9 * 128 * 128 + 4 * 128)
+        rec.update(
+            ms=time_ms(torch, lambda: fb.dec1_chain(*args)),
+            plain_ms=time_ms(torch, lambda: fb.dec1_chain_plain(*args), n=5),
+            bound=bound(4 * n_px * (64 + 128 + 128) + weight_bytes, 2 * n_px * (64 * 128 + 27 * 128 * 128)),
+        )
+        line += (
+            f"; {rec['ms']:.4f} ms (plain {rec['plain_ms']:.3f} ms, bound {rec['bound'][0]:.4f} ms by "
+            f"{rec['bound'][1]}), launches per image 1 with NetCfg(dec1_chain=True)"
+        )
+    print(line)
+    return rec
+
+
+def dec1_forward_phase(torch, modules, photo: Path) -> int:
+    """Phase 13: the dec1-chain forward against the default packed forward
+    and the standard one, K10's launches, and warm net ms with and without
+    it. Returns K10's launches on its path."""
+    from retinex_tpu_torch import cli
+    from retinex_tpu_torch.config import Config
+    from retinex_tpu_torch.infer.enhance import load_image
+    from retinex_tpu_torch.models.packed_inference import NetCfg, PackedRetinex
+
+    model = cli.build_model(Config(mode="enhance"), torch.device("cuda"))
+    default, fused = PackedRetinex(model), PackedRetinex(model, NetCfg(dec1_chain=True))
+    k10 = 0
+    xs = {}
+    for max_size in (1920, None):
+        img, _ = load_image(str(photo), max_size)
+        x = xs[max_size] = torch.from_numpy(img).to("cuda")[None]
+        with torch.inference_mode():
+            std, base = model(x), default(x)
+            for m in modules:
+                m.reset_launches()
+            got = fused(x)
+            torch.cuda.synchronize()
+        launches = launch_counts(modules)
+        fam = FAM_TWICE if max_size == 1920 else {"fam_conv_fused": 2, "fam_tail_stats": 2, "fam_tail_apply": 2}
+        check_launches(launches, {**fam, "dec1_chain": 1}, f"the dec1-chain forward at {tuple(x.shape[1:3])}")
+        k10 += launches["dec1_chain"]
+        for (name, tol), a, b, s in zip(PACKED_TOL.items(), got, base, std):
+            if a.shape != b.shape or not torch.isfinite(a).all():
+                raise AssertionError(f"dec1-chain {name}: shape {tuple(a.shape)} vs {tuple(b.shape)}, or non-finite")
+            e_def, e_std = float((a - b).abs().max()), float((a - s).abs().max())
+            print(
+                f"  dec1-chain forward {tuple(x.shape[1:3])}, {name}: max |diff| {e_def:.3e} against the default "
+                f"packed forward (tolerance {NETCFG_TOL:g}), {e_std:.3e} against the standard one ({tol:g})"
+            )
+            if e_def > NETCFG_TOL or e_std > tol:
+                raise AssertionError(f"the dec1-chain forward's {name} disagrees with the default or standard forward")
+        print(f"  K10 launches in the dec1-chain forward at {tuple(x.shape[1:3])}: {launches['dec1_chain']}")
+
+    times = {"default": [], "dec1_chain": []}
+    x = xs[1920]
+    with torch.inference_mode():
+        for i in range(8):
+            for name in (("default", "dec1_chain") if i % 2 else ("dec1_chain", "default")):
+                fn = default if name == "default" else fused
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(x)
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0) * 1e3)
+    med = {k: statistics.median(v[2:]) for k, v in times.items()}
+    print(
+        f"  warm packed net at 1088x1920, batch 1: default (dec1 on cuDNN) {med['default']:.3f} ms, "
+        f"NetCfg(dec1_chain=True) (K10) {med['dec1_chain']:.3f} ms, ratio {med['dec1_chain'] / med['default']:.4f}"
+    )
+    return k10
+
+
+def png_u8(path: Path) -> np.ndarray:
+    from PIL import Image
+
+    return np.asarray(Image.open(path).convert("RGB")).astype(np.int16)
+
+
+def predict_phase(torch, modules, photo: Path, small: Path, photos: Path, workdir: Path) -> tuple[int, Path]:
+    """Phase 14: --mode predict through the CLI on a file and a directory,
+    card against CPU, batch against single images, warm throughput, and
+    predict_single_image on the dec1-chain forward. Returns K10's launches
+    there and the directory's output."""
+    from retinex_tpu_torch import cli
+    from retinex_tpu_torch.config import Config
+    from retinex_tpu_torch.infer.batch_driver import bucket_by_canvas, decode_bucket
+    from retinex_tpu_torch.infer.enhance import _quant
+    from retinex_tpu_torch.infer.predict import predict_batch, predict_single_image
+    from retinex_tpu_torch.models.packed_inference import NetCfg, PackedRetinex
+    from retinex_tpu_torch.models.retinex_net import MultiScaleUPRetinex
+
+    ckpt = workdir / "seed0.pth"
+    torch.save({"epoch": 0, "model_state_dict": cli.init_untrained(MultiScaleUPRetinex(False, False), 0).state_dict()}, ckpt)
+    base = ["--mode", "predict", "--checkpoint", str(ckpt), "--device", "cuda"]
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+
+    out1 = workdir / "pred_single"
+    launches, cold_s = run_cli(torch, modules, [*base, "--input_path", str(photo), "--output_dir", str(out1), "--max_size", "1920"])
+    print(f"  one photo, --max_size 1920: CLI run (cold) {cold_s:.3f} s; kernel launches {launches}")
+    check_launches(launches, FAM_TWICE, "predict on one photo")
+    check_pngs(out1, photo.stem, (1088, 1920, 3))
+
+    # The card against the port's CPU run, at --max_size 512.
+    out_s = workdir / "pred_512"
+    launches, _ = run_cli(torch, modules, [*base, "--input_path", str(small), "--output_dir", str(out_s), "--max_size", "512"])
+    check_launches(launches, FAM_TWICE, "predict at --max_size 512")
+    check_pngs(out_s, small.stem, (288, 512, 3))
+    cpu_apply = cli.build_apply_fn(Config(mode="predict", checkpoint=str(ckpt), device="cpu"), cpu, require_checkpoint=True)
+    predict_single_image(cpu_apply, str(small), str(workdir / "pred_512_cpu"), max_size=512, device="cpu")
+    for kind in ("enhanced", "illumination"):
+        d = np.abs(png_u8(out_s / f"{small.stem}_{kind}.png") - png_u8(workdir / "pred_512_cpu" / f"{small.stem}_{kind}.png"))
+        print(f"  predict at --max_size 512, {kind}, card vs CPU: max {int(d.max())} level(s), {float((d > 0).mean()):.2e} of bytes differ")
+        if d.max() > 1 or (d > 0).mean() >= 1e-4:
+            raise AssertionError(f"predict's {kind} PNG on the card disagrees with the CPU run")
+
+    # The directory at --batch_size 8.
+    out_d = workdir / "pred_dir"
+    files = sorted(str(p) for p in photos.iterdir())
+    launches, cold_s = run_cli(torch, modules, [
+        *base, "--input_path", str(photos), "--output_dir", str(out_d), "--max_size", "1920", "--batch_size", "8",
+        "--num_workers", "8",
+    ])
+    print(f"  directory, --batch_size 8: CLI run (cold) {cold_s:.3f} s; kernel launches {launches}")
+    check_launches(launches, {k: 6 for k in FAM_TWICE}, "predict on the directory")
+    if len(list(out_d.iterdir())) != 3 * len(files):
+        raise AssertionError(f"predict: {len(list(out_d.iterdir()))} PNGs, expected {3 * len(files)}")
+
+    # Batch against single images: each image's own forward on the card,
+    # quantised as predict_single_image's PNG writer truncates.
+    card_apply = cli.build_apply_fn(Config(mode="predict", checkpoint=str(ckpt)), cuda, require_checkpoint=True)
+    worst, frac = 0, 0.0
+    for (target, _h, _w), paths in bucket_by_canvas(files, 1920).items():
+        x = torch.from_numpy(decode_bucket(paths, target)).to("cuda").float() / 255.0
+        for j, f in enumerate(paths):
+            enh, _, illu = card_apply(x[j : j + 1])
+            for kind, t in (("enhanced", enh), ("illumination", illu.expand(-1, -1, -1, 3))):
+                d = np.abs(png_u8(out_d / f"{Path(f).stem}_{kind}.png") - _quant(t[0]).cpu().numpy().astype(np.int16))
+                worst, frac = max(worst, int(d.max())), max(frac, float((d > 0).mean()))
+    print(f"  predict, batch vs each image's own forward on the card: max {worst} level(s), at most {frac:.2e} of an image's bytes differ")
+    if worst > 1:
+        raise AssertionError("predict: the batch's PNGs differ from single images by more than one level")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    predict_batch(card_apply, str(photos), str(workdir / "pred_dir_warm"), max_size=1920, batch_size=8, num_workers=8, device="cuda")
+    sec = time.perf_counter() - t0
+    lat = []
+    for i in range(3):
+        t1 = time.perf_counter()
+        predict_single_image(card_apply, str(photo), str(workdir / f"pred_warm_{i}"), max_size=1920, device="cuda")
+        lat.append((time.perf_counter() - t1) * 1e3)
+    print(
+        f"  predict, warm: directory with PNG writes {sec:.3f} s for {len(files)} images, {len(files) / sec:.3f} images/s; "
+        f"one photo (decode to 3 PNGs written) {statistics.median(lat):.3f} ms"
+    )
+
+    # predict_single_image on the dec1-chain forward.
+    model = cli.build_model(Config(mode="predict", checkpoint=str(ckpt)), cuda, require_checkpoint=True)
+    fused = PackedRetinex(model, NetCfg(dec1_chain=True))
+
+    def dec1_apply(batch):
+        with torch.inference_mode():
+            return fused(batch)
+
+    for m in modules:
+        m.reset_launches()
+    predict_single_image(dec1_apply, str(photo), str(workdir / "pred_dec1"), max_size=1920, device="cuda")
+    launches = launch_counts(modules)
+    check_launches(launches, {**FAM_TWICE, "dec1_chain": 1}, "predict on the dec1-chain forward")
+    for kind in ("enhanced", "illumination"):
+        d = np.abs(png_u8(workdir / "pred_dec1" / f"{photo.stem}_{kind}.png") - png_u8(out1 / f"{photo.stem}_{kind}.png"))
+        print(f"  predict on the dec1-chain forward vs the default, {kind}: max {int(d.max())} level(s), {float((d > 0).mean()):.2e} of bytes differ")
+        if d.max() > 1:
+            raise AssertionError(f"predict on the dec1-chain forward: {kind} PNG more than one level from the default's")
+    return launches["dec1_chain"], out_d
+
+
+def evaluate_phase(torch, modules, pred_dir: Path, ref_dir: Path, workdir: Path) -> None:
+    """Phase 15: --mode evaluate through the CLI without and with
+    references (the second run, over the files the first has read, gives
+    the warm images/s), and card against CPU on two photos' PNGs."""
+    import csv
+    import shutil
+
+    from retinex_tpu_torch.infer.evaluate import NO_REF_KEYS, REF_KEYS, evaluate_directory
+
+    pngs = sorted(p.name for p in pred_dir.iterdir())
+    with_refs = sorted(n for n in pngs if (ref_dir / n).is_file() and not n.endswith("_comparison.png"))
+    for test_dir, keys in ((workdir / "no_references", NO_REF_KEYS), (ref_dir, NO_REF_KEYS + REF_KEYS)):
+        out = workdir / f"eval_{test_dir.name}"
+        launches, cold_s = run_cli(torch, modules, [
+            "--mode", "evaluate", "--input_path", str(pred_dir), "--test_dir", str(test_dir), "--output_dir", str(out),
+            "--batch_size", "16", "--device", "cuda",
+        ])
+        check_launches(launches, {}, "evaluate")
+        with open(out / "metrics.csv", newline="") as f:
+            rows = list(csv.DictReader(f))
+        if [r["image"] for r in rows] != pngs or list(rows[0]) != ["image", *keys]:
+            raise AssertionError(f"evaluate: metrics.csv rows or columns wrong ({len(rows)} rows, {list(rows[0])})")
+        scored = sorted(r["image"] for r in rows if r.get("psnr"))
+        if scored != (with_refs if test_dir == ref_dir else []):
+            raise AssertionError(f"evaluate: PSNR for {len(scored)} images, expected {len(with_refs)}")
+        if not all(np.isfinite(float(r[k])) for r in rows for k in NO_REF_KEYS):
+            raise AssertionError("evaluate: non-finite metric")
+        print(
+            f"  evaluate --test_dir {test_dir.name}: CLI run {cold_s:.3f} s for {len(rows)} images, "
+            f"{len(rows) / cold_s:.3f} images/s, {len(scored)} with references; launches none"
+        )
+
+    sub = workdir / "eval_subset"
+    sub.mkdir()
+    for n in pngs:
+        if n.startswith(("lowlight_011_", "lowlight_012_")):
+            shutil.copy(pred_dir / n, sub / n)
+    card = evaluate_directory(str(sub), reference_dir=str(ref_dir), device="cuda")
+    cpu = evaluate_directory(str(sub), reference_dir=str(ref_dir), device="cpu")
+    worst = 0.0
+    for a, b in zip(card, cpu):
+        if list(a) != list(b) or a["image"] != b["image"]:
+            raise AssertionError("evaluate: the card's rows differ from the CPU's in keys or order")
+        for k in a:
+            if k != "image":
+                worst = max(worst, abs(a[k] - b[k]) / max(abs(b[k]), 1e-12))
+    print(f"  evaluate on {len(card)} PNGs, card vs CPU: max relative difference {worst:.3e} (tolerance 1e-4)")
+    if worst > 1e-4:
+        raise AssertionError("evaluate: the card's metrics disagree with the CPU's")
+
+
+def simple_enhance_phase(torch, modules, photo: Path, small: Path, workdir: Path) -> None:
+    """Phase 16: simple_enhance_main (pre-activation + ASPP) on the card."""
+    from retinex_tpu_torch import cli
+
+    want = {**FAM_TWICE, "lab_fwd_u8": 1, "clahe_tables": 1, "clahe_apply_u8": 1}
+    out = workdir / "simple"
+    launches, cold_s = run_cli(
+        torch, modules, ["--input", str(photo), "--output", str(out), "--max_size", "1920", "--device", "cuda"],
+        entry=cli.simple_enhance_main,
+    )
+    print(f"  simple_enhance_main at --max_size 1920: CLI run (cold) {cold_s:.3f} s; kernel launches {launches}")
+    check_launches(launches, want, "simple_enhance_main")
+    check_pngs(out, photo.stem, (1088, 1920, 3))
+    out_s = workdir / "simple_512"
+    launches, _ = run_cli(
+        torch, modules, ["--input", str(small), "--output", str(out_s), "--max_size", "512", "--device", "cuda"],
+        entry=cli.simple_enhance_main,
+    )
+    check_launches(launches, want, "simple_enhance_main at --max_size 512")
+    got = check_pngs(out_s, small.stem, (288, 512, 3))
+    hold_to_cpu(torch, got, small, 512, packed=True, preact_aspp=True)
+
+
 def main() -> int:
     import torch
 
@@ -1025,6 +1361,19 @@ def main() -> int:
         warm_phase(torch, photo, workdir)
         print("phase 11: device time by kernel")
         profile_phase(torch, photo)
+
+        print("phase 12: K10 (dec1_chain) against its plain version")
+        dec1 = [dec1_kernel_phase(torch, fb, s, seed=40 + i, timed=i == 0) for i, s in enumerate(DEC1_SHAPES)]
+        recs["dec1_chain"] = dict(dec1[0], max_abs_err=max(r["max_abs_err"] for r in dec1))
+        print("phase 13: the dec1-chain forward, PackedRetinex(model, NetCfg(dec1_chain=True))")
+        launches["dec1_chain"] = dec1_forward_phase(torch, modules, photo)
+        print("phase 14: --mode predict through the CLI")
+        k10, pred_dir = predict_phase(torch, modules, photo, small, workdir / "photos", workdir)
+        launches["dec1_chain"] += k10
+        print("phase 15: --mode evaluate through the CLI")
+        evaluate_phase(torch, modules, pred_dir, workdir / "dir_net", workdir)
+        print("phase 16: simple_enhance_main (pre-activation + ASPP)")
+        simple_enhance_phase(torch, modules, photo, small, workdir)
 
     for name in recs:
         if launches[name] == 0:

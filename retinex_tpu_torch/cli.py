@@ -1,11 +1,17 @@
-"""CLI of the port: ``--mode enhance`` on an image file or a directory.
+"""CLI of the port: ``--mode enhance``, ``predict`` and ``evaluate``, and
+the simple-enhance entry point.
 
-Counterpart of ``retinex_tpu/cli.py``'s enhance mode::
+Counterpart of ``retinex_tpu/cli.py``::
 
     python -m retinex_tpu_torch.cli --mode enhance --input_path photo.jpg \\
         --output_dir out --max_size 1920
     python -m retinex_tpu_torch.cli --mode enhance --input_path photos/ \\
         --output_dir out --max_size 1920 --batch_size 8
+    python -m retinex_tpu_torch.cli --mode predict --checkpoint model.pth \\
+        --input_path photos/ --output_dir out --max_size 1920
+    python -m retinex_tpu_torch.cli --mode evaluate --input_path out/ \\
+        --test_dir references/ --output_dir out
+    retinex-tpu-torch-simple-enhance --input photo.jpg --output out
 
 Every enhance route of the JAX package runs, and writes ``<name>_enhanced.png``,
 ``_illumination.png`` and ``_comparison.png`` per image:
@@ -21,12 +27,20 @@ Every enhance route of the JAX package runs, and writes ``<name>_enhanced.png``,
   directory) and ``--classical_mode clahe_luma`` (K2 and K7), with
   ``--clahe_clip_limit``, ``--clahe_tiles`` and ``--clahe_hist_subsample``.
 
-A directory is enhanced in chunks of ``--batch_size`` images of one
-letterboxed canvas (without ``--max_size`` each image is letterboxed to its
-longer side), with ``--num_workers`` threads writing the PNGs. ``--device
-cpu`` runs every route on the CPU with the kernels' plain versions. Weights
-come from a reference ``.pth`` given as ``--checkpoint``, or else are
-initialised untrained from ``--seed``. The other modes, ``--spatial_shard``
+``--mode predict`` runs the net alone (no CLAHE) on a file or a directory and
+writes the same three PNGs (``infer/predict.py``); it needs ``--checkpoint``.
+``--mode evaluate`` scores the images of ``--input_path`` (with PSNR, SSIM and
+MSE against same-named images of ``--test_dir`` where that directory exists)
+and writes ``<output_dir>/metrics.csv`` (``infer/evaluate.py``).
+``simple_enhance_main`` mirrors the JAX package's ``retinex-simple-enhance``:
+``--mode enhance`` with the pre-activation + ASPP net, untrained.
+
+A directory is run in chunks of ``--batch_size`` images of one letterboxed
+canvas (without ``--max_size`` each image is letterboxed to its longer
+side), with ``--num_workers`` threads writing the PNGs. ``--device cpu`` runs
+every route on the CPU with the kernels' plain versions. Weights come from a
+reference ``.pth`` given as ``--checkpoint``, or else (enhance only) are
+initialised untrained from ``--seed``. ``--mode train``, ``--spatial_shard``
 and ``--n_devices`` above 1 raise ``NotImplementedError``.
 """
 
@@ -61,9 +75,10 @@ def init_untrained(model: torch.nn.Module, seed: int) -> torch.nn.Module:
     return model
 
 
-def build_model(config: Config, device: torch.device) -> MultiScaleUPRetinex:
+def build_model(config: Config, device: torch.device, require_checkpoint: bool = False) -> MultiScaleUPRetinex:
     """The net in eval mode on `device`, with a reference checkpoint's weights
-    when `config.checkpoint` names a ``.pth`` file, else untrained."""
+    when `config.checkpoint` names a ``.pth`` file, else untrained (or, with
+    `require_checkpoint`, FileNotFoundError)."""
     if config.use_amp:
         raise NotImplementedError("bf16 compute (use_amp) lands with training, ROADMAP Queue 1 item 12")
     model = MultiScaleUPRetinex(use_preact=config.use_preact, use_aspp=config.use_aspp)
@@ -77,16 +92,18 @@ def build_model(config: Config, device: torch.device) -> MultiScaleUPRetinex:
         state_dict, epoch = load_reference_checkpoint(ckpt)
         model.load_state_dict(state_dict)
         print(f"Loaded reference checkpoint {ckpt} (epoch {epoch})")
+    elif require_checkpoint:
+        raise FileNotFoundError(f"Checkpoint not found: {ckpt}. Train a model first or pass --checkpoint.")
     else:
         print(f"Using untrained model weights from seed {config.seed}")
         init_untrained(model, config.seed)
     return model.eval().to(device)
 
 
-def build_apply_fn(config: Config, device: torch.device):
+def build_apply_fn(config: Config, device: torch.device, require_checkpoint: bool = False):
     """NHWC batch -> (enhanced, reflectance, illumination) through the
     packed forward (``config.packed_inference``) or the standard one."""
-    model = build_model(config, device)
+    model = build_model(config, device, require_checkpoint)
     forward = model
     if config.packed_inference:
         forward = PackedRetinex(model)
@@ -101,21 +118,51 @@ def build_apply_fn(config: Config, device: torch.device):
 
 def run(config: Config):
     device = resolve_device(config.device)
-    if config.mode != "enhance":
-        raise NotImplementedError(f"--mode {config.mode}: the port runs --mode enhance (ROADMAP Queue 1)")
+    if config.mode == "train":
+        raise NotImplementedError("--mode train lands with training, ROADMAP Queue 1 items 10-13")
+    if config.mode not in ("enhance", "predict", "evaluate"):
+        raise ValueError(f"Unknown mode: {config.mode}")
     if config.spatial_shard:
         raise NotImplementedError("spatial sharding lands in ROADMAP Queue 1 item 15")
     from retinex_tpu_torch.infer.batch_driver import maybe_mesh
 
     maybe_mesh(config.n_devices)
-    input_path = Path(config.input_path)
-    if not (input_path.is_file() or input_path.is_dir()):
-        raise FileNotFoundError(f"Input path does not exist: {config.input_path}")
     if device.type == "cuda":
         # f32 compute is f32: no TF32 in cuDNN convolutions or matmuls.
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
 
+    if config.mode == "evaluate":
+        from retinex_tpu_torch.infer.evaluate import evaluate_directory
+
+        ref_dir = config.test_dir if os.path.isdir(config.test_dir) else None
+        os.makedirs(config.output_dir, exist_ok=True)
+        return evaluate_directory(
+            config.input_path,
+            reference_dir=ref_dir,
+            output_csv=os.path.join(config.output_dir, "metrics.csv"),
+            batch_size=config.batch_size,
+            device=device,
+        )
+
+    input_path = Path(config.input_path)
+    if config.mode == "predict":
+        from retinex_tpu_torch.infer.predict import predict_batch, predict_single_image
+
+        apply_fn = build_apply_fn(config, device, require_checkpoint=True)
+        os.makedirs(config.output_dir, exist_ok=True)
+        knobs = dict(max_size=config.max_size, save_comparison=not config.no_comparison, device=device)
+        if input_path.is_file():
+            return predict_single_image(apply_fn, str(input_path), config.output_dir, **knobs)
+        if input_path.is_dir():
+            return predict_batch(
+                apply_fn, str(input_path), config.output_dir, batch_size=config.batch_size,
+                num_workers=config.num_workers, **knobs,
+            )
+        raise FileNotFoundError(f"Input path does not exist: {config.input_path}")
+
+    if not (input_path.is_file() or input_path.is_dir()):
+        raise FileNotFoundError(f"Input path does not exist: {config.input_path}")
     from retinex_tpu_torch.infer.enhance import enhance_batch_images, enhance_single_image
 
     apply_fn = None if config.classical_mode in CLASSICAL_MODES else build_apply_fn(config, device)
@@ -147,6 +194,36 @@ def main(argv=None):
     add_config_args(parser)
     config = config_from_args(parser.parse_args(argv))
     print(f"Mode: {config.mode} on {config.device}")
+    return run(config)
+
+
+def simple_enhance_main(argv=None):
+    """The JAX package's ``retinex-simple-enhance``: --mode enhance with the
+    pre-activation + ASPP net, untrained weights. ``--device`` takes the
+    port's ``cuda`` or ``cpu``."""
+    parser = argparse.ArgumentParser(description="Simple enhance (no training required)")
+    parser.add_argument("--input", type=str, required=True)
+    parser.add_argument("--output", type=str, default="./results")
+    parser.add_argument("--max_size", type=int, default=None)
+    parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    parser.add_argument("--multi_scale", action="store_true")
+    parser.add_argument("--content_aware", action="store_true")
+    parser.add_argument("--classical", type=str, default=None, choices=list(CLASSICAL_MODES))
+    args = parser.parse_args(argv)
+    config = Config(
+        mode="enhance",
+        input_path=args.input,
+        output_dir=args.output,
+        max_size=args.max_size,
+        multi_scale=args.multi_scale,
+        content_aware=args.content_aware,
+        classical_mode=args.classical,
+        checkpoint="",  # untrained net
+        use_preact=True,
+        use_aspp=True,
+        device=args.device,
+    )
+    print(f"Simple enhance on {config.device}")
     return run(config)
 
 

@@ -15,14 +15,27 @@ and sigmoid, and K6, which folds the tower's fusion slice in. Where the
 fusion does not fold (H or W not a multiple of 16, as a 1080-row frame
 without ``--max_size``), K11 applies the attention instead of K6. On a CUDA
 tensor the route always launches the kernels; on a CPU tensor the wrappers
-take their plain versions. The TPU's
-tuning gates (batch limit, planar SA, upsample formulation, the dec1 and
-ASPP variants, the environment switch) have no counterpart here.
+take their plain versions.
+
+``NetCfg(dec1_chain=True)`` runs the dec1 UpBlock, the +x1p residual and
+the residual head's 3x3 conv as one kernel, K10, with the BatchNorm
+affines folded into the conv weights; off by default, as in the JAX
+package. The JAX ``NetCfg``'s other fields have no counterpart, because
+each chose between TPU formulations of one function that the port computes
+one way: ``fam_conv_fused`` and ``fam_tail_fold`` (the port always runs
+K4-K6), ``fam_fused_max_batch`` (the kernels take any batch),
+``fam_xla_folded`` (the XLA FAM when that batch gate is off),
+``packed_scale2`` (the scale-2 tower is always packed where it halves
+evenly), ``planar_sa`` and ``ups_mode`` (TPU layouts of the SA conv and
+the upsample einsums), ``aspp_dots`` (a TPU formulation of the ASPP
+convs), and the ``RETINEX_NO_FUSED`` switch that turned the Pallas calls
+off. No CLI flag selects a ``NetCfg``; the JAX package has none either.
 
 Usage::
 
     packed = PackedRetinex(model)          # model: MultiScaleUPRetinex, eval mode
     enhanced, reflectance, illu = packed(x)  # NHWC float [0,1], H and W even
+    fused = PackedRetinex(model, NetCfg(dec1_chain=True))
 """
 
 from __future__ import annotations
@@ -35,6 +48,7 @@ from torch import nn
 
 from retinex_tpu_torch.models.retinex_net import MultiScaleUPRetinex
 from retinex_tpu_torch.ops.fused_blocks import (
+    dec1_chain,
     fam_conv_fused,
     fam_tail_apply,
     fam_tail_apply_g1,
@@ -53,6 +67,14 @@ from retinex_tpu_torch.ops.s2d import (
     s2d_upsample_mxu,
     tile_bias,
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class NetCfg:
+    """Kernel choices of PackedRetinex (the JAX ``NetCfg``'s one field that
+    has a counterpart here; see the module docstring)."""
+
+    dec1_chain: bool = False  # dec1 UpBlock + residual + residual_conv as K10
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -229,8 +251,9 @@ class PackedRetinex:
     """Packed-inference wrapper around a MultiScaleUPRetinex in eval mode,
     its packed and folded weights held on the model's device."""
 
-    def __init__(self, model: MultiScaleUPRetinex):
+    def __init__(self, model: MultiScaleUPRetinex, cfg: NetCfg | None = None):
         self.model = model
+        self.cfg = cfg or NetCfg()
         self.use_preact = model.use_preact
         device = next(model.parameters()).device
         ie = model.ie_net
@@ -243,6 +266,8 @@ class PackedRetinex:
         res_conv, res_out = ie.residual_head[0], ie.residual_head[2]
         self.rescv = _Conv.packed(pack_kernel_s1(_hwio(res_conv)), _np(res_conv.bias), device)
         self.resout = _Conv.packed(pack_pointwise(_hwio(res_out)), _np(res_out.bias), device)
+        if self.cfg.dec1_chain:
+            self.dec1_fused = self._fold_dec1(ie.dec1, res_conv, device)
 
         s1conv, s2conv = model.scale1[0], model.scale2[1]
         self.s1conv = _Conv.packed(pack_kernel_s1(_hwio(s1conv)), _np(s1conv.bias), device)
@@ -294,6 +319,19 @@ class PackedRetinex:
                 for c, bn in ((c1, bn1), (c2, bn2))
             ],
         }
+
+    def _fold_dec1(self, blk: nn.Module, res_conv: nn.Conv2d, device) -> tuple[torch.Tensor, ...]:
+        """K10's arguments after d2 and x1p: the packed dec1 weights with
+        each BatchNorm folded in, k' = k * tile4(scale) and b' = tile4(b *
+        scale + shift) (the _Affine's tiled scale and bias), then the packed
+        residual_conv."""
+        c1, c2 = blk.conv[0], blk.conv[3]
+        args = [_pack_convtranspose2(blk.up.weight), _tile4(_np(blk.up.bias))]
+        for conv, (_, aff) in zip((c1, c2), self.dec1["convs"]):
+            scale, shift = aff.scale.cpu().numpy(), aff.bias.cpu().numpy()
+            args += [pack_kernel_s1(_hwio(conv)) * scale, _tile4(_np(conv.bias)) * scale + shift]
+        args += [pack_kernel_s1(_hwio(res_conv)), _tile4(_np(res_conv.bias))]
+        return tuple(torch.as_tensor(np.ascontiguousarray(a, np.float32)).to(device) for a in args)
 
     # ---------- packed building blocks ----------
 
@@ -363,8 +401,11 @@ class PackedRetinex:
             d2 = self._middle_packed(x2)
         else:
             d2 = _nchw(model.ie_net.middle, x2)
-        d1p = self._up(self.dec1, d2) + x1p
-        r = torch.relu(self.rescv(d1p))
+        if self.cfg.dec1_chain:
+            r = dec1_chain(d2.contiguous(), x1p.contiguous(), *self.dec1_fused)
+        else:
+            d1p = self._up(self.dec1, d2) + x1p
+            r = torch.relu(self.rescv(d1p))
         res_p = self.resout(r)  # [*, 4]
         mean_p = xp.reshape(*xp.shape[:-1], 4, 3).mean(dim=-1)  # [*, 4]
         illu = d2s(torch.sigmoid(mean_p + res_p))  # packed 1-channel -> [B,H,W,1]

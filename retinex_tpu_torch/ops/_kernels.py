@@ -30,7 +30,7 @@ BUILD_DIR = _PKG / "_build"
 
 # No --use_fast_math, and no FMA contraction: the colour math must round
 # exactly as the plain versions do (see the note at the top of clahe_lab.cu);
-# the FAM kernels call fmaf where they mean a fused multiply-add.
+# the FAM and dec1 kernels call fmaf where they mean a fused multiply-add.
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -59,6 +59,7 @@ _SIGNATURES = {
     "fam_tail_stats": ("fam_fused", (_P, _P, _P, _L, _L, _P)),
     "fam_tail_apply_g1": ("fam_fused", (_P, _P, _P, _P, _P, _L, _L, _I, _P)),
     "fam_tail_apply": ("fam_fused", (_P, _P, _P, _P, _L, _L, _P)),
+    "dec1_chain": ("dec1_chain", (_P,) * 11 + (_I, _I, _I, _P)),
 }
 
 

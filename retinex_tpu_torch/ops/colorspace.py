@@ -40,6 +40,14 @@ def rgb_to_luma(x: torch.Tensor) -> torch.Tensor:
     return (r * _REC601[0] + g * _REC601[1] + b * _REC601[2])[..., None]
 
 
+def saturation_map(x: torch.Tensor) -> torch.Tensor:
+    """HSV-style saturation (max-min)/max per pixel, 0 where max ~ 0.
+    x: [..., 3] -> [...]."""
+    mx = torch.amax(x, dim=-1)
+    mn = torch.amin(x, dim=-1)
+    return torch.where(mx > 1e-8, (mx - mn) / torch.clamp(mx, min=1e-8), 0.0)
+
+
 def srgb_to_linear(x: torch.Tensor) -> torch.Tensor:
     """sRGB electro-optical transfer: de-gamma to linear light."""
     return torch.where(x <= 0.04045, x / 12.92, ((x + 0.055) / 1.055) ** 2.4)

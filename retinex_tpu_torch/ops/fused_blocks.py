@@ -1,8 +1,9 @@
-"""The packed FAM on four CUDA kernels, with their plain PyTorch versions.
+"""The packed FAM and dec1 chain on five CUDA kernels, with their plain
+PyTorch versions.
 
-Counterpart of the four kernels of ``retinex_tpu/ops/fused_blocks.py`` that
-the packed forward runs (``models/packed_inference.py::_fam_packed``). The
-kernels live in ``retinex_tpu_torch/csrc/fam_fused.cu``:
+Counterpart of the five kernels of ``retinex_tpu/ops/fused_blocks.py`` that
+the packed forward runs (``models/packed_inference.py``). The FAM kernels
+live in ``retinex_tpu_torch/csrc/fam_fused.cu``:
 
 - ``fam_conv_fused`` (K4): the FAM's whole conv stage on the packed
   [B,h,w,128] input, the fusion 1x1 folded into each branch;
@@ -13,10 +14,16 @@ kernels live in ``retinex_tpu_torch/csrc/fam_fused.cu``:
 - ``fam_tail_apply`` (K11): x * ca * sa of each quadrant, the attention
   tail at shapes whose fusion does not fold (1080-row frames).
 
+and ``dec1_chain`` (K10) in ``retinex_tpu_torch/csrc/dec1_chain.cu``: the
+packed dec1 UpBlock (1x1 up-conv, two 3x3 conv-BN-ReLU stages, BN folded),
+the +x1p residual and the residual_conv, in one pass. Only
+``NetCfg(dec1_chain=True)`` runs it.
+
 Activations are f32 NHWC, kernels HWIO, ``ca_vec`` [B,128] (the 32-channel
 attention tiled per quadrant), ``sa`` [B,h,w,4]: the JAX layouts. The
-TPU's tile gates (``fam_conv_supported``, ``fam_tail_supported``) have no
-counterpart: the kernels take any h, w and batch.
+TPU's tile gates (``fam_conv_supported``, ``fam_tail_supported``,
+``dec1_chain_supported``) have no counterpart: the kernels take any h, w
+and batch.
 
 Each wrapper takes a CPU tensor to its plain version and a CUDA tensor to
 its kernel; there is no fallback from one to the other. ``LAUNCHES`` counts
@@ -33,7 +40,7 @@ from retinex_tpu_torch.ops.s2d import conv_nhwc, hwio_to_oihw, maxpool3x3_s1_s2d
 C = 128  # packed FAM width: 4 quadrants of 32 channels
 
 # Kernel launches per wrapper since the last reset_launches().
-LAUNCHES = {"fam_conv_fused": 0, "fam_tail_stats": 0, "fam_tail_apply_g1": 0, "fam_tail_apply": 0}
+LAUNCHES = {"fam_conv_fused": 0, "fam_tail_stats": 0, "fam_tail_apply_g1": 0, "fam_tail_apply": 0, "dec1_chain": 0}
 
 
 def reset_launches() -> None:
@@ -186,4 +193,49 @@ def fam_tail_apply(x, ca_vec, sa):
     out = torch.empty_like(x)
     _kernels.launch("fam_tail_apply", x.data_ptr(), ca_vec.data_ptr(), sa.data_ptr(), out.data_ptr(), b, h * wd, stream)
     LAUNCHES["fam_tail_apply"] += 1
+    return out
+
+
+# ---------------------------------------------------------------- K10
+
+D2_C = 64  # dec1's input width (d2, unpacked)
+
+
+def dec1_chain_plain(d2, x1p, k_up, b_up, k_c1, b_c1, k_c2, b_c2, k_rc, b_rc):
+    """Plain version of K10: 1x1 + b_up; ReLU(3x3); ReLU(3x3) + x1p;
+    ReLU(3x3), each 3x3 with 'SAME' zero padding."""
+    dev = d2.device
+    y = conv_nhwc(d2, hwio_to_oihw(k_up).to(dev), b_up)
+    y = torch.relu(conv_nhwc(y, hwio_to_oihw(k_c1).to(dev), b_c1, (1, 1)))
+    y = torch.relu(conv_nhwc(y, hwio_to_oihw(k_c2).to(dev), b_c2, (1, 1))) + x1p
+    return torch.relu(conv_nhwc(y, hwio_to_oihw(k_rc).to(dev), b_rc, (1, 1)))
+
+
+def dec1_chain(d2, x1p, k_up, b_up, k_c1, b_c1, k_c2, b_c2, k_rc, b_rc):
+    """K10: r = relu(conv3x3(relu(conv3x3(relu(conv3x3(d2 @ k_up + b_up) + b_c1))
+    + b_c2) + x1p) + b_rc), the BN affines folded into k_c1/b_c1, k_c2/b_c2.
+
+    d2 [B,H,W,64]; x1p [B,H,W,128]; k_up [1,1,64,128]; k_c1, k_c2, k_rc
+    [3,3,128,128] HWIO; biases [128]. Returns r [B,H,W,128]."""
+    dev = d2.device
+    _check(d2, "dec1_chain d2", (None, None, None, D2_C), dev)
+    b, h, w, _ = d2.shape
+    _check(x1p, "dec1_chain x1p", (b, h, w, C), dev)
+    for t, what, shape in (
+        (k_up, "k_up", (1, 1, D2_C, C)), (b_up, "b_up", (C,)),
+        (k_c1, "k_c1", (3, 3, C, C)), (b_c1, "b_c1", (C,)),
+        (k_c2, "k_c2", (3, 3, C, C)), (b_c2, "b_c2", (C,)),
+        (k_rc, "k_rc", (3, 3, C, C)), (b_rc, "b_rc", (C,)),
+    ):
+        _check(t, f"dec1_chain {what}", shape, dev)
+    if dev.type == "cpu":
+        return dec1_chain_plain(d2, x1p, k_up, b_up, k_c1, b_c1, k_c2, b_c2, k_rc, b_rc)
+    stream = _stream(d2)
+    out = torch.empty_like(x1p)
+    _kernels.launch(
+        "dec1_chain", d2.data_ptr(), x1p.data_ptr(), k_up.data_ptr(), b_up.data_ptr(), k_c1.data_ptr(),
+        b_c1.data_ptr(), k_c2.data_ptr(), b_c2.data_ptr(), k_rc.data_ptr(), b_rc.data_ptr(), out.data_ptr(),
+        b, h, w, stream,
+    )
+    LAUNCHES["dec1_chain"] += 1
     return out

@@ -124,7 +124,7 @@ def test_fam_kernels_match_plain_versions(cuda_f32, shape):
         fb.fam_tail_apply(x, ca_vec, sa),
     ]
     torch.cuda.synchronize()
-    assert fb.LAUNCHES == {"fam_conv_fused": 1, "fam_tail_stats": 1, "fam_tail_apply_g1": 1, "fam_tail_apply": 1}
+    assert fb.LAUNCHES == {"fam_conv_fused": 1, "fam_tail_stats": 1, "fam_tail_apply_g1": 1, "fam_tail_apply": 1, "dec1_chain": 0}
     want = [
         fb.fam_conv_fused_plain(*conv_args),
         fb.fam_tail_stats_plain(x, ca_vec),
@@ -134,3 +134,29 @@ def test_fam_kernels_match_plain_versions(cuda_f32, shape):
     for a, e, tol in zip(got, want, (2e-4, 1e-5, 1e-4, 1e-5)):
         assert a.shape == e.shape
         assert float((a - e).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 37, 53), (1, 136, 240)])
+def test_dec1_chain_matches_plain_version(cuda_f32, shape):
+    """K10 against its plain version within tests/test_fused_blocks.py:66's
+    1e-4, inputs scaled as there: a ragged shape (the 'SAME' padding of
+    every stage at the border, batch 2) and a wider one; each image of the
+    batch equals the kernel on it alone."""
+    g = cuda_f32
+    b, h, w = shape
+
+    def n(*s, scale=1.0):
+        return torch.randn(s, generator=g, device="cuda") * scale
+
+    d2, x1p = n(b, h, w, 64, scale=0.3), n(b, h, w, 128, scale=0.3).abs()
+    weights = [n(1, 1, 64, 128, scale=0.1), n(128, scale=0.1)]
+    for _ in range(3):
+        weights += [n(3, 3, 128, 128, scale=0.05), n(128, scale=0.1)]
+    fb.reset_launches()
+    got = fb.dec1_chain(d2, x1p, *weights)
+    torch.cuda.synchronize()
+    assert fb.LAUNCHES["dec1_chain"] == 1
+    assert float((got - fb.dec1_chain_plain(d2, x1p, *weights)).abs().max()) <= 1e-4
+    for j in range(b):
+        assert torch.equal(fb.dec1_chain(d2[j : j + 1].contiguous(), x1p[j : j + 1].contiguous(), *weights), got[j : j + 1])

@@ -129,7 +129,7 @@ def test_wrappers_take_the_plain_versions_on_the_cpu():
         assert got.shape == (2, 5, 9, cout)
         torch.testing.assert_close(got, tfb.fam_tail_apply_g1_plain(x, ca_vec, sa, w), rtol=0, atol=0)
     torch.testing.assert_close(tfb.fam_tail_apply(x, ca_vec, sa), tfb.fam_tail_apply_plain(x, ca_vec, sa), rtol=0, atol=0)
-    assert tfb.LAUNCHES == {"fam_conv_fused": 0, "fam_tail_stats": 0, "fam_tail_apply_g1": 0, "fam_tail_apply": 0}
+    assert tfb.LAUNCHES == {"fam_conv_fused": 0, "fam_tail_stats": 0, "fam_tail_apply_g1": 0, "fam_tail_apply": 0, "dec1_chain": 0}
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take():

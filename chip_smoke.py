@@ -125,15 +125,47 @@ Phases (any failure raises and exits nonzero; no phase is skipped):
    photo at ``--max_size 1920``: three PNGs, K4-K6 twice and K1-K3 once;
    at ``--max_size 512`` held to the port's CPU run as in phase 5.
 
+Phases 17-19 drive the standalone ops K12-K16, which no route of either
+package reaches, through their public functions at the shapes where the JAX
+package runs them (``scripts/perf_lab.py``), each phase with every count at
+0 just before those calls and read just after; then each kernel against its
+plain version there and at ragged shapes (TF32 off), and on a batch the
+first and last image against the kernel on each alone (identical):
+
+17. K13 ``conv2d_pallas`` and K15 ``conv2d_pallas_im2col`` (one kernel,
+   two wrappers) at [2,544,960,128] 3x3 and 2x2, [2,272,480,256] 3x3 and a
+   ragged [2,37,53,128] (3x2); K14 ``conv2d_narrow`` at [2,1088,1920,32]
+   for 32->32, 32->64 and dilation 2, and at a ragged [2,37,53,24] (5x5 to
+   40, and 3x3 dilation 2 to 30); each in f32 and bf16, inputs N(0,1) and
+   kernels x 0.05 as the JAX tests scale them: f32 within 1e-4, bf16 in f32
+   at rtol and atol 1e-2 (one output ulp). Median ms over 25 launches at the
+   first shape of each kernel and dtype, beside the plain version's, the
+   bound and ``F.conv2d`` on the channels-last view with the bias (then the
+   ReLU where the case has one), which the port never calls.
+18. K12 ``fam_dual_conv3`` at [2,544,960,128] (f32 and bf16),
+   [1,544,960,128] and a ragged [2,37,53,128]: f32 within 1e-4, bf16 as in
+   phase 17; timed at [2,544,960,128].
+19. K16 ``clahe_lab_rgb_pallas`` at [1,1088,1920,3], [8,1088,1920,3]
+   (perf_lab's, x ~ U(0, 0.6)), [1,2160,3840,3] and [2,96,128,3]: Lab
+   within 1 level of the plain version on under 1e-4 of the bytes, the
+   histograms those of the kernel's own L, the apply kernel and the whole
+   op within 1 level of the plain version on under 1e-4 of the values (K1
+   and K3's card tolerance); the ValueError on [1,57,41,3]; both kernels
+   timed at [1,1088,1920,3] and [8,1088,1920,3].
+
 The last lines are a ``{"kernels": [...]}`` JSON line, the nvidia-smi line,
 and ``{"ok": true, "device": {...}}``. ``launches`` sums each kernel's
 launches over the runs of phases 6, 7 and 8, each counted from zero: the
 default route's two 1080p CLI runs and the three directory runs, plus the
 fused-luma run (the only path that reaches K9); for K10, over its path's
-runs in phases 13 and 14 (the dec1-chain forwards and predict with it).
+runs in phases 13 and 14 (the dec1-chain forwards and predict with it);
+for K12-K16, over the calls at perf_lab's shapes in phases 17-19.
 ``ms``, ``plain_ms`` and ``bound_ms`` are per image for K1-K6, K10 and K11
-(summed over the kernel's launches on one 1088x1920 or 1080x1920 image)
-and per launch on a [8,1088,1920] directory chunk for K7-K9.
+(summed over the kernel's launches on one 1088x1920 or 1080x1920 image),
+per launch on a [8,1088,1920] directory chunk for K7-K9, per launch in f32
+at the first shape for K12-K15 (the entry's ``dtype``; the bf16 runs are
+printed), and per launch at [1,1088,1920,3] for K16's two kernels.
+``library_ms`` is ``F.conv2d``'s time for K13-K15 and null elsewhere.
 """
 
 from __future__ import annotations
@@ -152,6 +184,8 @@ REPO = Path(__file__).resolve().parent
 # H100 SXM: HBM bandwidth and the f32 rate outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+# bf16 on the tensor cores, dense.
+PEAK_BF16_OPS_PER_S = 989e12
 # Operations per pixel, counted from csrc/clahe_lab.cu: K1 9 mul + 6 add +
 # 2 div (matrix), 3 f()s at 3 each, 9 for L/a/b, 9 for 3 round/clips; K3
 # 10 (blend) + 3 (round/clip) + 9 (fy, fx, fz) + 11 (f^-1, X, Z) + 15
@@ -185,6 +219,12 @@ REPLACES = {
     "clahe_luma_apply_u8": "retinex_tpu/ops/clahe_luma.py:92",
     "clahe_luma_apply_u8_fused": "retinex_tpu/ops/clahe_luma.py:158",
     "dec1_chain": "retinex_tpu/ops/fused_blocks.py:186",
+    "fam_dual_conv3": "retinex_tpu/ops/fused_blocks.py:96",
+    "conv2d_pallas": "retinex_tpu/ops/conv_pallas.py:56",
+    "conv2d_narrow": "retinex_tpu/ops/conv_pallas.py:183",
+    "conv2d_pallas_im2col": "retinex_tpu/ops/conv_pallas.py:275",
+    "clahe_pallas_hist": "retinex_tpu/ops/clahe_pallas.py:111",
+    "clahe_pallas_apply": "retinex_tpu/ops/clahe_pallas.py:137",
 }
 SOURCES = {
     "lab_fwd_u8": "retinex_tpu_torch/csrc/clahe_lab.cu",
@@ -199,6 +239,12 @@ SOURCES = {
     "clahe_luma_apply_u8": "retinex_tpu_torch/csrc/clahe_luma.cu",
     "clahe_luma_apply_u8_fused": "retinex_tpu_torch/csrc/clahe_luma.cu",
     "dec1_chain": "retinex_tpu_torch/csrc/dec1_chain.cu",
+    "fam_dual_conv3": "retinex_tpu_torch/csrc/fam_fused.cu",
+    "conv2d_pallas": "retinex_tpu_torch/csrc/conv_direct.cu",
+    "conv2d_narrow": "retinex_tpu_torch/csrc/conv_direct.cu",
+    "conv2d_pallas_im2col": "retinex_tpu_torch/csrc/conv_direct.cu",
+    "clahe_pallas_hist": "retinex_tpu_torch/csrc/clahe_fused.cu",
+    "clahe_pallas_apply": "retinex_tpu_torch/csrc/clahe_fused.cu",
 }
 # The packed FAM shapes (scale 1, scale 2) of the letterboxed 1088x1920 frame
 # and of the unpadded 1080x1920 one.
@@ -221,6 +267,37 @@ PACKED_TOL = {"enhanced": 2e-3, "reflectance": 2e-3, "illumination": 2e-5}
 DEC1_SHAPES = ((1, 544, 960), (8, 544, 960), (4, 320, 320), (2, 37, 53))
 DEC1_TOL = 1e-4
 NETCFG_TOL = 2e-4
+# Phases 17-19. Tolerances: f32 as tests/test_conv_pallas.py:28 and
+# tests/test_fused_blocks.py:47; bf16 one output ulp (2**-8 relative).
+F32_TOL = 1e-4
+BF16_TOL = 1e-2
+# {kernel: [(x shape, (kh, kw, Cout), dilation, relu)]}: perf_lab's shapes
+# (`conv`, `narrowpallas`), then ragged ones; the first case is timed.
+CONV_CASES = {
+    "conv2d_pallas": [
+        ((2, 544, 960, 128), (3, 3, 128), 1, True), ((2, 544, 960, 128), (2, 2, 128), 1, True),
+        ((2, 272, 480, 256), (3, 3, 256), 1, True), ((2, 37, 53, 128), (3, 2, 128), 1, True),
+    ],
+    "conv2d_pallas_im2col": [
+        ((2, 544, 960, 128), (3, 3, 128), 1, False), ((2, 544, 960, 128), (2, 2, 128), 1, False),
+        ((2, 272, 480, 256), (3, 3, 256), 1, False), ((2, 37, 53, 128), (3, 2, 128), 1, True),
+    ],
+    "conv2d_narrow": [
+        ((2, 1088, 1920, 32), (3, 3, 32), 1, True), ((2, 1088, 1920, 32), (3, 3, 64), 1, True),
+        ((2, 1088, 1920, 32), (3, 3, 32), 2, False), ((2, 37, 53, 24), (5, 5, 40), 1, True),
+        ((2, 37, 53, 24), (3, 3, 30), 2, False),
+    ],
+}
+DUAL_SHAPES = ((2, 544, 960, 128), (1, 544, 960, 128), (2, 37, 53, 128))
+# K16: the 1088x1920 frame, perf_lab's batch of 8, a 4K frame, the JAX test's.
+K16_SHAPES = ((1, 1088, 1920, 3), (8, 1088, 1920, 3), (1, 2160, 3840, 3), (2, 96, 128, 3))
+# Operations per pixel, counted from csrc/clahe_fused.cu: the first kernel
+# 12 (quantise) + 18 (3 de-gammas) + 17 (matrix) + 15 (3 f()s) + 8 (L, a,
+# b) + 9 (round/clip) + 1 (histogram); the second 10 (blend) + 3 + 9 (fy,
+# fx, fz) + 11 (f^-1, X, Z) + 18 (matrix, clamp) + 15 (3 gammas) + 15 (3
+# clip/scale/round).
+K16_HIST_OPS_PER_PX = 80
+K16_APPLY_OPS_PER_PX = 81
 
 
 def gpu_line() -> str:
@@ -248,9 +325,9 @@ def time_ms(torch, fn, n: int = 25) -> float:
     return statistics.median(events[i].elapsed_time(events[i + 1]) for i in range(n))
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound(n_bytes: float, n_ops: float, peak_ops: float = PEAK_F32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_F32_OPS_PER_S * 1e3
+    t_ops = n_ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1276,6 +1353,228 @@ def simple_enhance_phase(torch, modules, photo: Path, small: Path, workdir: Path
     hold_to_cpu(torch, got, small, 512, packed=True, preact_aspp=True)
 
 
+def _close(torch, got, want, what: str) -> float:
+    """max |got - want| in f32; raise past F32_TOL (f32) or BF16_TOL as
+    rtol and atol (bf16)."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)} against {want.dtype} {tuple(want.shape)}")
+    g, w = got.float(), want.float()
+    err = float((g - w).abs().max())
+    if got.dtype == torch.bfloat16:
+        ok = bool(((g - w).abs() <= BF16_TOL + BF16_TOL * w.abs()).all())
+    else:
+        ok = err <= F32_TOL
+    if not (np.isfinite(err) and ok):
+        raise AssertionError(f"{what} disagrees with its plain version: max |diff| {err:.3e}")
+    return err
+
+
+def _batch_holds(torch, fn, x, got, what: str) -> str:
+    """The first and last image of a batch equal `fn` on each alone."""
+    b = x.shape[0]
+    for j in sorted({0, b - 1} if b > 1 else ()):
+        if not torch.equal(fn(x[j : j + 1].contiguous()), got[j : j + 1]):
+            raise AssertionError(f"{what}: image {j} of the batch differs from the kernel on it alone")
+    return "; first and last image identical to the kernel on each alone" if b > 1 else ""
+
+
+def conv_inputs(torch, shape, kernel: tuple, dtype, seed: int):
+    """Seeded x ~ N(0,1) in `dtype`, an HWIO kernel x 0.05 and a bias ~ N(0,1)
+    (f32), as tests/test_conv_pallas.py scales them."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    kh, kw, cout = kernel
+    x = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    k = torch.randn((kh, kw, shape[3], cout), generator=g, device="cuda") * 0.05
+    return x, k, torch.randn(cout, generator=g, device="cuda")
+
+
+def conv_phase(torch, cp) -> tuple[dict, dict]:
+    """Phase 17: K13, K15 and K14 through their public functions at
+    perf_lab's shapes (counts from 0), then each case against its plain
+    version and batch against single images; timings at each kernel's first
+    shape. Returns (launches, records by (kernel, dtype))."""
+    import torch.nn.functional as F
+
+    fns = {"conv2d_pallas": (cp.conv2d_pallas, cp.conv2d_pallas_plain),
+           "conv2d_pallas_im2col": (cp.conv2d_pallas_im2col, cp.conv2d_pallas_plain),
+           "conv2d_narrow": (cp.conv2d_narrow, cp.conv2d_narrow_plain)}
+    dtypes = (torch.float32, torch.bfloat16)
+    cases = [(name, i, c, dt) for name, cs in CONV_CASES.items() for i, c in enumerate(cs) for dt in dtypes]
+
+    def call(name, case, dt, seed, plain=False):
+        shape, kern, dil, relu = case
+        x, k, b = conv_inputs(torch, shape, kern, dt, seed)
+        kw = {"dilation": dil} if name == "conv2d_narrow" else {}
+        fn = fns[name][1 if plain else 0]
+        return x, k, b, kw, (lambda v: fn(v, k, b, relu, **kw))
+
+    cp.reset_launches()
+    for seed, (name, i, case, dt) in enumerate(cases):
+        if case[0][1] > 100:  # perf_lab's shapes, not the ragged ones
+            x, *_, kernel = call(name, case, dt, seed)
+            kernel(x)
+    torch.cuda.synchronize()
+    launches = dict(cp.LAUNCHES)
+    print(f"  public functions at perf_lab's shapes, f32 and bf16: launches {launches}")
+
+    recs: dict = {}
+    for seed, (name, i, case, dt) in enumerate(cases):
+        shape, (kh, kw_, cout), dil, relu = case
+        x, k, b, kw, kernel = call(name, case, dt, seed)
+        plain = call(name, case, dt, seed, plain=True)[-1]
+        got = kernel(x)
+        err = _close(torch, got, plain(x), f"{name} {list(shape)} {kh}x{kw_}->{cout} {dt}")
+        tag = f"  {name} {list(shape)} {kh}x{kw_} -> {cout}" + (f" dil {dil}" if dil > 1 else "") + f" {str(dt)[6:]}"
+        line = tag + f": max |diff| {err:.3e}" + _batch_holds(torch, kernel, x, got, name)
+        rec = recs.setdefault((name, dt), {"max_abs_err": 0.0})
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        if i == 0:
+            n_px = shape[0] * shape[1] * shape[2]
+            el = x.element_size()
+            n_bytes = n_px * (shape[3] + cout) * el + k.numel() * el + 4 * cout
+            n_ops = 2 * n_px * kh * kw_ * shape[3] * cout
+            bd = bound(n_bytes, n_ops, PEAK_BF16_OPS_PER_S if dt == torch.bfloat16 else PEAK_F32_OPS_PER_S)
+            xc = x.permute(0, 3, 1, 2)  # channels-last NCHW view, no copy
+            wl = k.to(dt).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            bl = b.to(dt)
+            pad = (kh // 2) * dil
+
+            def library():
+                out = F.conv2d(xc, wl, bl, padding=pad, dilation=dil)
+                return torch.relu(out) if relu else out
+
+            lib_err = float((library().permute(0, 2, 3, 1).float() - got.float()).abs().max())
+            rec.update(
+                ms=time_ms(torch, lambda: kernel(x)), plain_ms=time_ms(torch, lambda: plain(x), n=5),
+                library_ms=time_ms(torch, library), bound=bd,
+            )
+            line += (
+                f"; {rec['ms']:.4f} ms (plain {rec['plain_ms']:.3f} ms, F.conv2d {rec['library_ms']:.4f} ms, "
+                f"|kernel - F.conv2d| {lib_err:.2e}, bound {bd[0]:.4f} ms by {bd[1]})"
+            )
+        print(line)
+        del x, got
+    return launches, recs
+
+
+def dual_phase(torch, fb) -> tuple[int, dict]:
+    """Phase 18: K12 at perf_lab's shape (counts from 0), then against its
+    plain version at DUAL_SHAPES in f32 and bf16; timings at the first."""
+
+    def inputs(shape, dt, seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+
+        def n(*s, scale=1.0):
+            return torch.randn(s, generator=g, device="cuda") * scale
+
+        x = n(*shape, scale=0.2).to(dt)  # perf_lab's scaling
+        return x, [n(3, 3, 128, 256, scale=0.05), n(256), n(3, 3, 128, 128, scale=0.05), n(128),
+                   n(3, 3, 128, 128, scale=0.05), n(128)]
+
+    fb.reset_launches()
+    for seed, dt in enumerate((torch.float32, torch.bfloat16)):
+        x, w = inputs(DUAL_SHAPES[0], dt, seed)
+        fb.fam_dual_conv3(x, *w)
+    torch.cuda.synchronize()
+    launches = fb.LAUNCHES["fam_dual_conv3"]
+    print(f"  fam_dual_conv3 at perf_lab's [2,544,960,128], f32 and bf16: launches {launches}")
+    recs: dict = {}
+    for i, shape in enumerate(DUAL_SHAPES):
+        for seed, dt in enumerate((torch.float32, torch.bfloat16)):
+            x, w = inputs(shape, dt, 10 * i + seed)
+            got = fb.fam_dual_conv3(x, *w)
+            err = _close(torch, got, fb.fam_dual_conv3_plain(x, *w), f"fam_dual_conv3 {list(shape)} {dt}")
+            line = f"  fam_dual_conv3 {list(shape)} {str(dt)[6:]}: max |diff| {err:.3e}"
+            line += _batch_holds(torch, lambda v: fb.fam_dual_conv3(v, *w), x, got, "fam_dual_conv3")
+            rec = recs.setdefault(dt, {"max_abs_err": 0.0})
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            if i == 0:
+                n_px = shape[0] * shape[1] * shape[2]
+                el = x.element_size()
+                n_bytes = n_px * 384 * el + (9 * 128 * 256 + 2 * 9 * 128 * 128) * el + 4 * 512
+                peak = PEAK_BF16_OPS_PER_S if dt == torch.bfloat16 else PEAK_F32_OPS_PER_S
+                rec.update(
+                    ms=time_ms(torch, lambda: fb.fam_dual_conv3(x, *w)),
+                    plain_ms=time_ms(torch, lambda: fb.fam_dual_conv3_plain(x, *w), n=5),
+                    bound=bound(n_bytes, 2 * n_px * 9 * 128 * 512, peak),
+                )
+                line += (
+                    f"; {rec['ms']:.4f} ms (plain {rec['plain_ms']:.3f} ms, bound {rec['bound'][0]:.4f} ms by "
+                    f"{rec['bound'][1]})"
+                )
+            print(line)
+    return launches, recs
+
+
+def k16_phase(torch, kp) -> tuple[dict, dict]:
+    """Phase 19: K16 at perf_lab's [8,1088,1920,3] and the 1088x1920 frame
+    (counts from 0), then each kernel and the op against the plain versions
+    at K16_SHAPES; the ValueError; timings at the first two shapes."""
+
+    def image(shape, seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return torch.rand(shape, generator=g, device="cuda") * 0.6
+
+    kp.reset_launches()
+    for seed, shape in enumerate(K16_SHAPES[:2]):
+        kp.clahe_lab_rgb_pallas(image(shape, seed))
+    torch.cuda.synchronize()
+    launches = dict(kp.LAUNCHES)
+    print(f"  clahe_lab_rgb_pallas at [1|8,1088,1920,3]: launches {launches}")
+    try:
+        kp.clahe_lab_rgb_pallas(torch.zeros((1, 57, 41, 3), device="cuda"))
+    except ValueError as e:
+        print(f"  [1,57,41,3]: ValueError ({e})")
+    else:
+        raise AssertionError("clahe_lab_rgb_pallas took a [1,57,41,3] image")
+
+    recs = {"clahe_pallas_hist": {"max_abs_err": 0}, "clahe_pallas_apply": {"max_abs_err": 0}}
+    for seed, shape in enumerate(K16_SHAPES):
+        b, h, w, _ = shape
+        tag = "x".join(map(str, shape))
+        x = image(shape, seed)
+        lab, hist = kp.clahe_pallas_hist(x)
+        lab_p, _ = kp.clahe_pallas_hist_plain(x)
+        torch.cuda.synchronize()
+        e_lab, frac = u8_diff(torch, lab, lab_p)
+        if e_lab > 1 or frac >= 1e-4 or not torch.equal(hist, kp.l_histograms(lab, 8, 8)):
+            raise AssertionError(f"clahe_pallas_hist disagrees with its plain version at {shape}")
+        luts = kp._luts(hist, 2.0, h, w, 8, 8)
+        out = kp.clahe_pallas_apply(lab, luts)
+        e_apply, f_apply = u8_diff(torch, torch.round(out * 255).to(torch.uint8), torch.round(kp.clahe_pallas_apply_plain(lab, luts) * 255).to(torch.uint8))
+        full = kp.clahe_lab_rgb_pallas(x)
+        e_op, f_op = u8_diff(torch, torch.round(full * 255).to(torch.uint8), torch.round(kp.clahe_lab_rgb_pallas_plain(x) * 255).to(torch.uint8))
+        if e_apply > 1 or f_apply >= 1e-4 or e_op > 1 or f_op >= 1e-4 or not torch.equal(full, out):
+            raise AssertionError(f"K16 disagrees with its plain version at {shape}")
+        line = (
+            f"  [{tag}] K16: Lab max {e_lab} level(s) on {frac:.2e} of bytes, histograms those of the kernel's L; "
+            f"apply max {e_apply} on {f_apply:.2e}; the op max {e_op} on {f_op:.2e} of values"
+        )
+        line += _batch_holds(torch, kp.clahe_lab_rgb_pallas, x, full, "clahe_lab_rgb_pallas")
+        recs["clahe_pallas_hist"]["max_abs_err"] = max(recs["clahe_pallas_hist"]["max_abs_err"], e_lab)
+        recs["clahe_pallas_apply"]["max_abs_err"] = max(recs["clahe_pallas_apply"]["max_abs_err"], e_apply, e_op)
+        if seed < 2:
+            n_px, tables = b * h * w, b * 64 * 256
+            timed = {
+                "clahe_pallas_hist": dict(
+                    ms=time_ms(torch, lambda: kp.clahe_pallas_hist(x)),
+                    plain_ms=time_ms(torch, lambda: kp.clahe_pallas_hist_plain(x), n=5),
+                    bound=bound(15 * n_px + 4 * tables, K16_HIST_OPS_PER_PX * n_px),
+                ),
+                "clahe_pallas_apply": dict(
+                    ms=time_ms(torch, lambda: kp.clahe_pallas_apply(lab, luts)),
+                    plain_ms=time_ms(torch, lambda: kp.clahe_pallas_apply_plain(lab, luts), n=5),
+                    bound=bound(15 * n_px + tables, K16_APPLY_OPS_PER_PX * n_px),
+                ),
+            }
+            for name, r in timed.items():
+                line += f"; {name} {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, bound {r['bound'][0]:.4f} ms by {r['bound'][1]})"
+                if seed == 0:
+                    recs[name].update(r)
+        print(line)
+    return launches, recs
+
+
 def main() -> int:
     import torch
 
@@ -1288,6 +1587,8 @@ def main() -> int:
     from retinex_tpu_torch.ops import _kernels
     from retinex_tpu_torch.ops import clahe_gather as cg
     from retinex_tpu_torch.ops import clahe_luma as cl
+    from retinex_tpu_torch.ops import clahe_pallas as kp
+    from retinex_tpu_torch.ops import conv_pallas as cp
     from retinex_tpu_torch.ops import fused_blocks as fb
 
     line = gpu_line()
@@ -1334,7 +1635,7 @@ def main() -> int:
     print(f"  K4-K6 device ms per image at 1088x1920 (scale-1 + scale-2 launches): {fam_ms:.4f}")
     print(f"  K11 device ms per image at 1080x1920: {recs['fam_tail_apply']['ms']:.4f}")
 
-    modules = (cg, cl, fb)
+    modules = (cg, cl, fb, cp, kp)
     with tempfile.TemporaryDirectory() as tmp:
         workdir = Path(tmp)
         src = REPO / "data" / "convergence" / "lowlight_000.png"
@@ -1375,12 +1676,25 @@ def main() -> int:
         print("phase 16: simple_enhance_main (pre-activation + ASPP)")
         simple_enhance_phase(torch, modules, photo, small, workdir)
 
+    print("phase 17: K13, K15 and K14 (conv2d_pallas, conv2d_pallas_im2col, conv2d_narrow)")
+    conv_launches, conv = conv_phase(torch, cp)
+    print("phase 18: K12 (fam_dual_conv3)")
+    dual_launches, dual = dual_phase(torch, fb)
+    print("phase 19: K16 (clahe_lab_rgb_pallas)")
+    k16_launches, k16 = k16_phase(torch, kp)
+    launches.update(conv_launches, fam_dual_conv3=dual_launches, **k16_launches)
+    # The kernels line carries the f32 runs, as for K1-K11 (bf16's are printed).
+    for name in CONV_CASES:
+        recs[name] = dict(conv[(name, torch.float32)], dtype="float32")
+    recs["fam_dual_conv3"] = dict(dual[torch.float32], dtype="float32")
+    recs.update(k16)
+
     for name in recs:
         if launches[name] == 0:
             raise AssertionError(f"{name} was never launched on the paths this script drives")
     kernels = []
     for name, r in recs.items():
-        kernels.append({
+        entry = {
             "name": name,
             "route": "cuda",
             "source": SOURCES[name],
@@ -1391,8 +1705,11 @@ def main() -> int:
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1],
-            "library_ms": None,
-        })
+            "library_ms": r.get("library_ms"),
+        }
+        if "dtype" in r:
+            entry["dtype"] = r["dtype"]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(line)
     print(json.dumps({"ok": True, "device": {

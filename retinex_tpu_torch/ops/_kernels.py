@@ -30,7 +30,8 @@ BUILD_DIR = _PKG / "_build"
 
 # No --use_fast_math, and no FMA contraction: the colour math must round
 # exactly as the plain versions do (see the note at the top of clahe_lab.cu);
-# the FAM and dec1 kernels call fmaf where they mean a fused multiply-add.
+# the convolution kernels and the CLAHE blends call fmaf where they mean a
+# fused multiply-add.
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -60,6 +61,10 @@ _SIGNATURES = {
     "fam_tail_apply_g1": ("fam_fused", (_P, _P, _P, _P, _P, _L, _L, _I, _P)),
     "fam_tail_apply": ("fam_fused", (_P, _P, _P, _P, _L, _L, _P)),
     "dec1_chain": ("dec1_chain", (_P,) * 11 + (_I, _I, _I, _P)),
+    "fam_dual_conv3": ("fam_fused", (_P,) * 8 + (_I, _I, _I, _I, _P)),
+    "conv_direct": ("conv_direct", (_P,) * 4 + (_I,) * 15 + (_P,)),
+    "clahe_pallas_hist": ("clahe_fused", (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    "clahe_pallas_apply": ("clahe_fused", (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
 }
 
 

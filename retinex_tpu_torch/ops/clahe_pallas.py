@@ -1,0 +1,271 @@
+"""The older fused Lab-CLAHE on two CUDA kernels, with its plain version.
+
+Counterpart of ``retinex_tpu/ops/clahe_pallas.py`` (``clahe_lab_rgb_pallas``);
+the name is kept so a reader finds it, but nothing here is Pallas. The
+JAX package's routes no longer reach it (its Lab-CLAHE runs the gather
+kernels, ``ops/clahe_gather.py``); its tests and ``scripts/perf_lab.py``
+call it as a standalone op, and so may a user of the port. The kernels
+live in ``retinex_tpu_torch/csrc/clahe_fused.cu``:
+
+- ``clahe_pallas_hist`` (K16, the ``_hist_kernel`` half): f32 NHWC RGB ->
+  u8-quantised RGB -> 8-bit-scale Lab, rounded to u8 and written as planar
+  u8 [B,3,H,W], and the 256-bin histogram of every tile's L, int32
+  [B, tiles_y, tiles_x, 256];
+- ``clahe_pallas_apply`` (K16, the ``_apply_kernel`` half): the 4
+  neighbour LUTs of every pixel blended with K16's weights, rounded to the
+  new L, then Lab -> f32 NHWC RGB at ``round(v * 255) / 255``.
+
+The LUT build between them (clip, redistribute, CDF) stays plain PyTorch,
+as the JAX package leaves it to XLA (``ops/clahe._luts_from_hist``). The
+TPU's cell layout (a transpose in and out) has no counterpart: both
+kernels index NHWC f32 directly.
+
+K16's colour arithmetic is its own, not ``ops/colorspace.py``'s (which K1
+and K3 follow): the sRGB de-gamma as ``((x + 0.055) / 1.055) ** 2.4`` on
+every pixel (no table) and the cube root as ``max(t, 1e-12) ** (1/3)``. The
+plain version reproduces the compiled CPU program of the JAX function: a
+division by a constant runs as a multiply by its f32 reciprocal, and the
+blend weights' multiply-adds are fused (see ``_blend``).
+
+Each wrapper takes a CPU tensor to its plain version and a CUDA tensor to
+its kernel; there is no fallback from one to the other. ``LAUNCHES``
+counts the kernel launches of each wrapper.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from retinex_tpu_torch.ops import _kernels
+from retinex_tpu_torch.ops.clahe import HIST_SIZE, _fma, _luts_from_hist, _tile_hist, cell_divisible
+from retinex_tpu_torch.ops.clahe_fast import _neighbor_index_tables
+from retinex_tpu_torch.ops.clahe_gather import _check_luts, _check_planar_u8, _stream
+
+# D65 constants of retinex_tpu/ops/clahe_pallas.py (OpenCV 8-bit Lab).
+_RGB2XYZ = (
+    (0.412453, 0.357580, 0.180423),
+    (0.212671, 0.715160, 0.072169),
+    (0.019334, 0.119193, 0.950227),
+)
+_XYZ2RGB = (
+    (3.240479, -1.537150, -0.498535),
+    (-0.969256, 1.875992, 0.041556),
+    (0.055648, -0.204043, 1.057311),
+)
+_XN = 0.950456
+_ZN = 1.088754
+
+# Kernel launches per wrapper since the last reset_launches().
+LAUNCHES = {"clahe_pallas_hist": 0, "clahe_pallas_apply": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _rc(c: float) -> float:
+    """The f32 reciprocal of the f32 constant c: what a division by c runs
+    as in the JAX function's compiled program."""
+    return float(np.float32(1.0) / np.float32(c))
+
+
+def _lab_f(t: torch.Tensor) -> torch.Tensor:
+    cuberoot = torch.pow(torch.clamp(t, min=1e-12), 1.0 / 3.0)
+    return torch.where(t > 0.008856, cuberoot, _fma(torch.full_like(t, 7.787), t, torch.full_like(t, 16.0 / 116.0)))
+
+
+def _lab_f_inv(ft: torch.Tensor) -> torch.Tensor:
+    return torch.where(ft > 6.0 / 29.0, ft * ft * ft, (ft - 16.0 / 116.0) * _rc(7.787))
+
+
+def _rgb_to_lab_u8scale(r, g, b):
+    """u8-quantised sRGB channels -> (L, a, b) in OpenCV's 8-bit scale."""
+
+    def srgb_to_linear(x):
+        return torch.where(x <= 0.04045, x * _rc(12.92), ((x + 0.055) * _rc(1.055)) ** 2.4)
+
+    rl, gl, bl = srgb_to_linear(r), srgb_to_linear(g), srgb_to_linear(b)
+    m = _RGB2XYZ
+    X = (m[0][0] * rl + m[0][1] * gl + m[0][2] * bl) * _rc(_XN)
+    Y = m[1][0] * rl + m[1][1] * gl + m[1][2] * bl
+    Z = (m[2][0] * rl + m[2][1] * gl + m[2][2] * bl) * _rc(_ZN)
+    fx, fy, fz = _lab_f(X), _lab_f(Y), _lab_f(Z)
+    full = lambda v: torch.full_like(fy, v)  # noqa: E731
+    L8 = _fma(full(116.0), fy, full(-16.0)) * 2.55
+    a8 = _fma(full(500.0), fx - fy, full(128.0))
+    b8 = _fma(full(200.0), fy - fz, full(128.0))
+    return L8, a8, b8
+
+
+def _lab_u8scale_to_rgb(L8, a8, b8):
+    """(L, a, b) in OpenCV's 8-bit scale -> sRGB channels in [0, 1]."""
+    fy = (L8 * (100.0 / 255.0) + 16.0) * _rc(116.0)
+    fx = _fma(a8 - 128.0, torch.full_like(fy, _rc(500.0)), fy)
+    fz = _fma(128.0 - b8, torch.full_like(fy, _rc(200.0)), fy)
+    Y = _lab_f_inv(fy)
+    X = _lab_f_inv(fx) * _XN
+    Z = _lab_f_inv(fz) * _ZN
+    m = _XYZ2RGB
+    out = []
+    for c in range(3):
+        lin = torch.clamp(m[c][0] * X + m[c][1] * Y + m[c][2] * Z, min=0.0)
+        srgb = torch.where(lin <= 0.0031308, lin * 12.92, 1.055 * lin ** (1.0 / 2.4) - 0.055)
+        out.append(torch.clamp(srgb, 0.0, 1.0))
+    return out
+
+
+# ---------------------------------------------------------------- checks
+
+
+def _check_rgb(x: torch.Tensor, tiles_y: int, tiles_x: int, what: str) -> None:
+    if x.dtype != torch.float32 or x.ndim != 4 or x.shape[3] != 3:
+        raise ValueError(f"{what}: expected float32 [B, H, W, 3] or [H, W, 3], got {x.dtype} {tuple(x.shape)}")
+    if not cell_divisible(x.shape[1], x.shape[2], tiles_y, tiles_x):
+        raise ValueError(f"shape {tuple(x.shape[1:3])} not divisible by 2x tile grid")
+
+
+# ---------------------------------------------------------------- K16, histogram half
+
+
+def clahe_pallas_hist_plain(x: torch.Tensor, tiles_y: int = 8, tiles_x: int = 8):
+    """Plain version of K16's first kernel: f32 NHWC [B,H,W,3] -> (planar
+    u8 Lab [B,3,H,W], int32 tile histograms of L [B, tiles_y, tiles_x, 256])."""
+    xq = torch.round(torch.clamp(x, 0.0, 1.0) * 255.0) * _rc(255.0)
+    lab = _rgb_to_lab_u8scale(xq[..., 0], xq[..., 1], xq[..., 2])
+    lab = torch.stack([torch.clamp(torch.round(ch), 0.0, 255.0) for ch in lab], dim=1).to(torch.uint8)
+    return lab, l_histograms(lab, tiles_y, tiles_x)
+
+
+def l_histograms(lab: torch.Tensor, tiles_y: int, tiles_x: int) -> torch.Tensor:
+    """int32 [B, tiles_y, tiles_x, 256]: the histogram of each tile's L in
+    planar u8 Lab [B,3,H,W]."""
+    b, _, h, w = lab.shape
+    th, tw = h // tiles_y, w // tiles_x
+    tiles = lab[:, 0].reshape(b, tiles_y, th, tiles_x, tw).permute(0, 1, 3, 2, 4).reshape(b, tiles_y, tiles_x, th * tw)
+    return _tile_hist(tiles).to(torch.int32)
+
+
+def clahe_pallas_hist(x: torch.Tensor, tiles_y: int = 8, tiles_x: int = 8):
+    """K16, first kernel: f32 NHWC RGB [B,H,W,3] (H, W multiples of 2*tiles)
+    -> (planar u8 Lab [B,3,H,W], int32 histograms [B, tiles_y, tiles_x, 256])."""
+    _check_rgb(x, tiles_y, tiles_x, "clahe_pallas_hist")
+    if not x.is_contiguous():
+        raise ValueError("clahe_pallas_hist: tensor must be contiguous")
+    if x.device.type == "cpu":
+        return clahe_pallas_hist_plain(x, tiles_y, tiles_x)
+    stream = _stream(x)
+    b, h, w, _ = x.shape
+    lab = torch.empty((b, 3, h, w), dtype=torch.uint8, device=x.device)
+    hist = torch.zeros((b, tiles_y, tiles_x, HIST_SIZE), dtype=torch.int32, device=x.device)
+    _kernels.launch("clahe_pallas_hist", x.data_ptr(), lab.data_ptr(), hist.data_ptr(), b, h, w, tiles_y, tiles_x, stream)
+    LAUNCHES["clahe_pallas_hist"] += 1
+    return lab, hist
+
+
+# ---------------------------------------------------------------- K16, apply half
+
+
+def _blend_weights(cell: int, device) -> torch.Tensor:
+    """[2, cell] f32 weights by (cell parity, offset u): u / (2*cell) + 0.5
+    for even cells, u / (2*cell) for odd ones, the division by the constant
+    run as a multiply by its reciprocal."""
+    u = torch.arange(cell, dtype=torch.float32, device=device)
+    w = u * _rc(2.0 * cell)
+    return torch.stack([w + 0.5, w])
+
+
+def _blend(l00, l01, l10, l11, xa, ya) -> torch.Tensor:
+    """K16's bilinear blend of the four neighbour LUT values, rounded to the
+    new L: top = l00 (1 - xa) + l01 xa, bot = l10 (1 - xa) + l11 xa, then
+    top (1 - ya) + bot ya, each sum one fused multiply-add over the other
+    (separately rounded) product, in the order the JAX function's compiled
+    program fuses them; the CUDA kernel makes the same three fmaf calls."""
+    top = _fma(l01, xa, l00 * (1.0 - xa))
+    bot = _fma(l11, xa, l10 * (1.0 - xa))
+    return torch.clamp(torch.round(_fma(top, 1.0 - ya, bot * ya)), 0.0, 255.0)
+
+
+def clahe_pallas_apply_plain(lab: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
+    """Plain version of K16's second kernel: planar u8 Lab [B,3,H,W] + u8
+    LUTs [B, tiles_y, tiles_x, 256] -> f32 NHWC RGB [B,H,W,3]."""
+    b, _, h, w = lab.shape
+    _, tiles_y, tiles_x, _ = luts.shape
+    dev = lab.device
+    hh, hw = h // (2 * tiles_y), w // (2 * tiles_x)
+
+    def maps(n, tiles, cell):
+        c = np.arange(n) // cell
+        t0, t1 = _neighbor_index_tables(tiles)
+        wt = _blend_weights(cell, dev)[torch.as_tensor(c % 2, device=dev), torch.as_tensor(np.arange(n) % cell, device=dev)]
+        return torch.as_tensor(t0[c], device=dev), torch.as_tensor(t1[c], device=dev), wt
+
+    t0y, t1y, ya = maps(h, tiles_y, hh)
+    t0x, t1x, xa = maps(w, tiles_x, hw)
+    luts_flat = luts.reshape(b, -1).long()
+    v = lab[:, 0].long()
+
+    def lut_at(ty, tx):
+        idx = ((ty[:, None] * tiles_x + tx[None, :]) * HIST_SIZE)[None] + v
+        return torch.gather(luts_flat, 1, idx.reshape(b, -1)).reshape(b, h, w).float()
+
+    L2 = _blend(lut_at(t0y, t0x), lut_at(t0y, t1x), lut_at(t1y, t0x), lut_at(t1y, t1x), xa[None, None, :], ya[None, :, None])
+    rgb = _lab_u8scale_to_rgb(L2, lab[:, 1].float(), lab[:, 2].float())
+    return torch.stack([torch.round(ch * 255.0) * _rc(255.0) for ch in rgb], dim=-1)
+
+
+def clahe_pallas_apply(lab: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
+    """K16, second kernel: planar u8 Lab [B,3,H,W] + u8 LUTs [B, tiles_y,
+    tiles_x, 256] -> f32 NHWC RGB [B,H,W,3] at k/255."""
+    _check_planar_u8(lab, "clahe_pallas_apply")
+    b, _, h, w = lab.shape
+    tiles_y, tiles_x = _check_luts(luts, b, h, w, lab.device, "clahe_pallas_apply")
+    if lab.device.type == "cpu":
+        return clahe_pallas_apply_plain(lab, luts)
+    stream = _stream(lab)
+    out = torch.empty((b, h, w, 3), dtype=torch.float32, device=lab.device)
+    _kernels.launch("clahe_pallas_apply", lab.data_ptr(), luts.data_ptr(), out.data_ptr(), b, h, w, tiles_y, tiles_x, stream)
+    LAUNCHES["clahe_pallas_apply"] += 1
+    return out
+
+
+# ---------------------------------------------------------------- the op
+
+
+def _luts(hist: torch.Tensor, clip_limit: float, h: int, w: int, tiles_y: int, tiles_x: int) -> torch.Tensor:
+    """u8 LUTs [B, tiles_y, tiles_x, 256] from the tile histograms."""
+    area = (h // tiles_y) * (w // tiles_x)
+    return _luts_from_hist(hist, clip_limit, area).to(torch.uint8)
+
+
+def clahe_lab_rgb_pallas_plain(
+    x: torch.Tensor, clip_limit: float = 2.0, tiles_x: int = 8, tiles_y: int = 8
+) -> torch.Tensor:
+    """Plain version of ``clahe_lab_rgb_pallas``, on any device."""
+    squeeze = x.ndim == 3
+    if squeeze:
+        x = x[None]
+    _check_rgb(x, tiles_y, tiles_x, "clahe_lab_rgb_pallas_plain")
+    lab, hist = clahe_pallas_hist_plain(x, tiles_y, tiles_x)
+    out = clahe_pallas_apply_plain(lab, _luts(hist, clip_limit, x.shape[1], x.shape[2], tiles_y, tiles_x))
+    return out[0] if squeeze else out
+
+
+def clahe_lab_rgb_pallas(
+    x: torch.Tensor, clip_limit: float = 2.0, tiles_x: int = 8, tiles_y: int = 8
+) -> torch.Tensor:
+    """Fused Lab-CLAHE. x: f32 NHWC (or HWC) RGB in [0,1], H a multiple of
+    2*tiles_y and W of 2*tiles_x (else ValueError). Returns the same shape,
+    values k/255. A CPU tensor runs the plain version; a CUDA tensor runs
+    K16's two kernels with the LUT build between them."""
+    squeeze = x.ndim == 3
+    if squeeze:
+        x = x[None]
+    _check_rgb(x, tiles_y, tiles_x, "clahe_lab_rgb_pallas")
+    if x.device.type == "cpu":
+        out = clahe_lab_rgb_pallas_plain(x, clip_limit, tiles_x, tiles_y)
+    else:
+        lab, hist = clahe_pallas_hist(x.contiguous(), tiles_y, tiles_x)
+        out = clahe_pallas_apply(lab, _luts(hist, clip_limit, x.shape[1], x.shape[2], tiles_y, tiles_x))
+    return out[0] if squeeze else out

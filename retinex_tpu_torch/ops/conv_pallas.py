@@ -1,0 +1,173 @@
+"""Stride-1 convolutions on one CUDA kernel, with their plain PyTorch versions.
+
+Counterpart of ``retinex_tpu/ops/conv_pallas.py``; the name is kept so a
+reader finds it, but nothing here is Pallas. The JAX package took these
+convolutions off its production graph (``models/packed_inference.py``); its
+tests and ``scripts/perf_lab.py`` call them as standalone ops, and so may a
+user of the port. Three public functions, with the JAX signatures, NHWC
+activations and HWIO kernels:
+
+- ``conv2d_pallas`` (K13): torch-parity padding, (k//2, k-1-k//2) on each
+  spatial axis, so an even kernel pads one more row (column) above (left)
+  than below (right); kernels up to 3x3;
+- ``conv2d_pallas_im2col`` (K15): the same function (on the TPU a
+  single-GEMM schedule of K13);
+- ``conv2d_narrow`` (K14): a square 3x3 or 5x5 kernel, dilation 1 or 2,
+  symmetric padding (k//2) * dilation.
+
+All three launch one kernel, ``conv_direct`` in
+``retinex_tpu_torch/csrc/conv_direct.cu``, which takes the kernel size,
+the dilation and the low padding of each axis; each wrapper keeps its own
+count in ``LAUNCHES``. Numbers follow the JAX functions: x is f32 or bf16,
+the kernel is cast to x.dtype, the bias stays f32 (``None`` means zeros),
+the products accumulate in f32, then the bias, the optional ReLU, and one
+rounding to x.dtype. The TPU's gates (``conv_pallas_supported``,
+``conv_narrow_supported``: channel multiples of 128, 8-aligned tiles, "1x1
+is faster in XLA") have no counterpart: any B, H, W, Cin and Cout run.
+
+The weights are plain arrays in the JAX layouts (HWIO kernel, f32 bias),
+so the same numpy arrays go to both packages and ``models/convert.py``
+needs nothing for them.
+
+Each wrapper takes a CPU tensor to its plain version and a CUDA tensor to
+its kernel; there is no fallback from one to the other.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from retinex_tpu_torch.ops import _kernels
+from retinex_tpu_torch.ops.fused_blocks import _stream
+
+# Kernel launches per wrapper since the last reset_launches().
+LAUNCHES = {"conv2d_pallas": 0, "conv2d_pallas_im2col": 0, "conv2d_narrow": 0}
+
+# The kernel's tiling: input channels staged per pass, and the output
+# channels of one block (32, 64 or 128, the smallest that holds Cout).
+CIN_CHUNK = 32
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _check(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None, what: str) -> None:
+    if x.dtype not in _DTYPES or x.ndim != 4:
+        raise ValueError(f"{what}: expected float32 or bfloat16 [B, H, W, Cin], got {x.dtype} {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{what}: tensor must be contiguous")
+    if kernel.ndim != 4 or kernel.shape[2] != x.shape[3] or not kernel.is_floating_point():
+        raise ValueError(f"{what}: expected a float kernel [kh, kw, {x.shape[3]}, Cout], got {kernel.dtype} {tuple(kernel.shape)}")
+    if bias is not None and (tuple(bias.shape) != (kernel.shape[3],) or not bias.is_floating_point()):
+        raise ValueError(f"{what}: expected a float bias [{kernel.shape[3]}], got {bias.dtype} {tuple(bias.shape)}")
+    for t in (kernel, bias):
+        if t is not None and t.device != x.device:
+            raise ValueError(f"{what}: weights on {t.device}, expected {x.device}")
+
+
+def _torch_pad(k: int) -> tuple[int, int]:
+    """(low, high) zero padding of a k-tap axis: k//2 before, k-1-k//2 after."""
+    return k // 2, k - 1 - k // 2
+
+
+def _conv_plain(x, kernel, bias, relu, pad_h, pad_w, dilation) -> torch.Tensor:
+    """f32 convolution of x with the kernel rounded to x.dtype, + bias,
+    optional ReLU, one rounding to x.dtype."""
+    k = kernel.to(x.dtype).float().permute(3, 2, 0, 1)
+    xc = F.pad(x.float().permute(0, 3, 1, 2), (*pad_w, *pad_h))
+    b = None if bias is None else bias.float()
+    out = F.conv2d(xc, k, b, dilation=dilation)
+    if relu:
+        out = torch.relu(out)
+    return out.permute(0, 2, 3, 1).to(x.dtype).contiguous()
+
+
+def _launch(name: str, x, kernel, bias, relu: bool, pad_top: int, pad_left: int, dilation: int) -> torch.Tensor:
+    """conv_direct on a CUDA x: the kernel cast to x.dtype and zero-padded
+    to whole channel tiles (the weights are small; x is never copied)."""
+    stream = _stream(x)
+    b, h, w, cin = x.shape
+    kh, kw, _, cout = kernel.shape
+    co_tile = 32 if cout <= 32 else 64 if cout <= 64 else 128
+    cin_pad = -(-cin // CIN_CHUNK) * CIN_CHUNK
+    cout_pad = -(-cout // co_tile) * co_tile
+    wk = F.pad(kernel.to(x.dtype), (0, cout_pad - cout, 0, cin_pad - cin)).contiguous()
+    bk = torch.zeros(cout_pad, dtype=torch.float32, device=x.device)
+    if bias is not None:
+        bk[:cout] = bias
+    out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
+    _kernels.launch(
+        "conv_direct", x.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(), b, h, w, cin, cout,
+        cin_pad, cout_pad, kh, kw, dilation, pad_top, pad_left, int(relu), int(x.dtype == torch.bfloat16),
+        co_tile, stream,
+    )
+    LAUNCHES[name] += 1
+    return out
+
+
+def _check_small(kernel: torch.Tensor, what: str) -> None:
+    kh, kw = kernel.shape[:2]
+    if not (1 <= kh <= 3 and 1 <= kw <= 3):
+        raise ValueError(f"{what}: kernel sizes must be 1..3, got {kh}x{kw}")
+
+
+# ---------------------------------------------------------------- K13, K15
+
+
+def conv2d_pallas_plain(x, kernel, bias=None, relu: bool = False) -> torch.Tensor:
+    """Plain version of K13 (and K15)."""
+    kh, kw = kernel.shape[:2]
+    return _conv_plain(x, kernel, bias, relu, _torch_pad(kh), _torch_pad(kw), 1)
+
+
+def _conv_same(name: str, x, kernel, bias, relu: bool) -> torch.Tensor:
+    _check(x, kernel, bias, name)
+    _check_small(kernel, name)
+    if x.device.type == "cpu":
+        return conv2d_pallas_plain(x, kernel, bias, relu)
+    kh, kw = kernel.shape[:2]
+    return _launch(name, x, kernel, bias, relu, kh // 2, kw // 2, 1)
+
+
+def conv2d_pallas(x, kernel, bias=None, relu: bool = False) -> torch.Tensor:
+    """K13: stride-1 convolution with torch-parity 'SAME' padding.
+
+    x [B,H,W,Cin] f32 or bf16; kernel [kh,kw,Cin,Cout] (kh, kw <= 3);
+    bias [Cout] or None. Returns [B,H,W,Cout] in x.dtype."""
+    return _conv_same("conv2d_pallas", x, kernel, bias, relu)
+
+
+def conv2d_pallas_im2col(x, kernel, bias=None, relu: bool = False) -> torch.Tensor:
+    """K15: ``conv2d_pallas`` (same function, scope and kernel)."""
+    return _conv_same("conv2d_pallas_im2col", x, kernel, bias, relu)
+
+
+# ---------------------------------------------------------------- K14
+
+
+def conv2d_narrow_plain(x, kernel, bias=None, relu: bool = False, dilation: int = 1) -> torch.Tensor:
+    """Plain version of K14."""
+    r = (kernel.shape[0] // 2) * dilation
+    return _conv_plain(x, kernel, bias, relu, (r, r), (r, r), dilation)
+
+
+def conv2d_narrow(x, kernel, bias=None, relu: bool = False, dilation: int = 1) -> torch.Tensor:
+    """K14: stride-1 convolution with a square 3x3 or 5x5 kernel, dilation
+    1 or 2, 'SAME' padding (k//2)*dilation on every side.
+
+    x [B,H,W,Cin] f32 or bf16; kernel [k,k,Cin,Cout]; bias [Cout] or None.
+    Returns [B,H,W,Cout] in x.dtype."""
+    _check(x, kernel, bias, "conv2d_narrow")
+    kh, kw = kernel.shape[:2]
+    if kh != kw or kh not in (3, 5):
+        raise ValueError(f"conv2d_narrow: the kernel must be 3x3 or 5x5, got {kh}x{kw}")
+    if dilation not in (1, 2):
+        raise ValueError(f"conv2d_narrow: dilation must be 1 or 2, got {dilation}")
+    if x.device.type == "cpu":
+        return conv2d_narrow_plain(x, kernel, bias, relu, dilation)
+    r = (kh // 2) * dilation
+    return _launch("conv2d_narrow", x, kernel, bias, relu, r, r, dilation)

@@ -1,9 +1,10 @@
-"""The packed FAM and dec1 chain on five CUDA kernels, with their plain
-PyTorch versions.
+"""The packed FAM, the dec1 chain and fam_dual_conv3 on six CUDA kernels,
+with their plain PyTorch versions.
 
-Counterpart of the five kernels of ``retinex_tpu/ops/fused_blocks.py`` that
-the packed forward runs (``models/packed_inference.py``). The FAM kernels
-live in ``retinex_tpu_torch/csrc/fam_fused.cu``:
+Counterpart of the six kernels of ``retinex_tpu/ops/fused_blocks.py``:
+five that the packed forward runs (``models/packed_inference.py``) and one
+standalone op. The FAM kernels live in
+``retinex_tpu_torch/csrc/fam_fused.cu``:
 
 - ``fam_conv_fused`` (K4): the FAM's whole conv stage on the packed
   [B,h,w,128] input, the fusion 1x1 folded into each branch;
@@ -12,18 +13,25 @@ live in ``retinex_tpu_torch/csrc/fam_fused.cu``:
 - ``fam_tail_apply_g1`` (K6): (x * ca * sa of each quadrant) @ w, the
   attention tail with the following fusion slice folded in;
 - ``fam_tail_apply`` (K11): x * ca * sa of each quadrant, the attention
-  tail at shapes whose fusion does not fold (1080-row frames).
+  tail at shapes whose fusion does not fold (1080-row frames);
+- ``fam_dual_conv3`` (K12): y = relu(conv3x3(x, k1) + b1), then a 3x3
+  conv on each 128-channel half of y, side by side. The FAM's branch 3/4
+  chains before K4 folded them; the JAX package took it off its production
+  graph and calls it as a standalone op (its tests, ``scripts/perf_lab.py``),
+  in f32 or bf16: the kernels are cast to x.dtype, the biases stay f32, y is
+  rounded to x.dtype before the second convs, and the output once more.
 
 and ``dec1_chain`` (K10) in ``retinex_tpu_torch/csrc/dec1_chain.cu``: the
 packed dec1 UpBlock (1x1 up-conv, two 3x3 conv-BN-ReLU stages, BN folded),
 the +x1p residual and the residual_conv, in one pass. Only
 ``NetCfg(dec1_chain=True)`` runs it.
 
-Activations are f32 NHWC, kernels HWIO, ``ca_vec`` [B,128] (the 32-channel
-attention tiled per quadrant), ``sa`` [B,h,w,4]: the JAX layouts. The
-TPU's tile gates (``fam_conv_supported``, ``fam_tail_supported``,
-``dec1_chain_supported``) have no counterpart: the kernels take any h, w
-and batch.
+Activations are f32 NHWC (K12: f32 or bf16), kernels HWIO, ``ca_vec``
+[B,128] (the 32-channel attention tiled per quadrant), ``sa`` [B,h,w,4]:
+the JAX layouts, so the same numpy weights go to both packages. The TPU's
+tile gates (``fam_conv_supported``, ``fam_tail_supported``,
+``dec1_chain_supported``, ``fam_dual_supported``) have no counterpart: the
+kernels take any h, w and batch.
 
 Each wrapper takes a CPU tensor to its plain version and a CUDA tensor to
 its kernel; there is no fallback from one to the other. ``LAUNCHES`` counts
@@ -40,7 +48,10 @@ from retinex_tpu_torch.ops.s2d import conv_nhwc, hwio_to_oihw, maxpool3x3_s1_s2d
 C = 128  # packed FAM width: 4 quadrants of 32 channels
 
 # Kernel launches per wrapper since the last reset_launches().
-LAUNCHES = {"fam_conv_fused": 0, "fam_tail_stats": 0, "fam_tail_apply_g1": 0, "fam_tail_apply": 0, "dec1_chain": 0}
+LAUNCHES = {
+    "fam_conv_fused": 0, "fam_tail_stats": 0, "fam_tail_apply_g1": 0, "fam_tail_apply": 0, "dec1_chain": 0,
+    "fam_dual_conv3": 0,
+}
 
 
 def reset_launches() -> None:
@@ -238,4 +249,52 @@ def dec1_chain(d2, x1p, k_up, b_up, k_c1, b_c1, k_c2, b_c2, k_rc, b_rc):
         b, h, w, stream,
     )
     LAUNCHES["dec1_chain"] += 1
+    return out
+
+
+# ---------------------------------------------------------------- K12
+
+
+def fam_dual_conv3_plain(x, k1, b1, k2a, b2a, k2b, b2b):
+    """Plain version of K12, in f32 with K12's two roundings to x.dtype."""
+    dt = x.dtype
+    oihw = lambda k: hwio_to_oihw(k.to(dt))  # noqa: E731
+    y = torch.relu(conv_nhwc(x.float(), oihw(k1), b1.float(), (1, 1))).to(dt).float()
+    out = torch.cat(
+        [conv_nhwc(y[..., :C], oihw(k2a), b2a.float(), (1, 1)), conv_nhwc(y[..., C:], oihw(k2b), b2b.float(), (1, 1))],
+        dim=-1,
+    )
+    return out.to(dt).contiguous()
+
+
+def fam_dual_conv3(x, k1, b1, k2a, b2a, k2b, b2b):
+    """K12: out = conv3x3(y[..., :128], k2a) + b2a | conv3x3(y[..., 128:], k2b)
+    + b2b, y = relu(conv3x3(x, k1) + b1), each 3x3 with 'SAME' zero padding.
+
+    x [B,H,W,128] f32 or bf16; k1 [3,3,128,256], k2a, k2b [3,3,128,128]
+    (cast to x.dtype); b1 [256], b2a, b2b [128] (f32). Returns [B,H,W,256]
+    in x.dtype."""
+    dev = x.device
+    if x.dtype not in (torch.float32, torch.bfloat16) or x.ndim != 4 or x.shape[3] != C:
+        raise ValueError(f"fam_dual_conv3 x: expected float32 or bfloat16 [B, H, W, {C}], got {x.dtype} {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError("fam_dual_conv3 x: tensor must be contiguous")
+    for t, what, shape in (
+        (k1, "k1", (3, 3, C, 2 * C)), (b1, "b1", (2 * C,)), (k2a, "k2a", (3, 3, C, C)), (b2a, "b2a", (C,)),
+        (k2b, "k2b", (3, 3, C, C)), (b2b, "b2b", (C,)),
+    ):
+        if tuple(t.shape) != shape or not t.is_floating_point() or t.device != dev:
+            raise ValueError(f"fam_dual_conv3 {what}: expected a float {shape} on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if dev.type == "cpu":
+        return fam_dual_conv3_plain(x, k1, b1, k2a, b2a, k2b, b2b)
+    stream = _stream(x)
+    b, h, w, _ = x.shape
+    ks = [k.to(x.dtype).contiguous() for k in (k1, k2a, k2b)]
+    bs = [t.float().contiguous() for t in (b1, b2a, b2b)]
+    out = torch.empty((b, h, w, 2 * C), dtype=x.dtype, device=dev)
+    _kernels.launch(
+        "fam_dual_conv3", x.data_ptr(), ks[0].data_ptr(), bs[0].data_ptr(), ks[1].data_ptr(), bs[1].data_ptr(),
+        ks[2].data_ptr(), bs[2].data_ptr(), out.data_ptr(), b, h, w, int(x.dtype == torch.bfloat16), stream,
+    )
+    LAUNCHES["fam_dual_conv3"] += 1
     return out

@@ -1,0 +1,133 @@
+"""The port's convolutions (K13-K15) against the JAX package's Pallas ones.
+
+``retinex_tpu_torch/ops/conv_pallas.py``'s wrappers get CPU tensors, so
+their plain versions run; the JAX side is ``retinex_tpu/ops/conv_pallas.py``
+in interpret mode, as its own tests run it, on the same numpy inputs
+(x ~ N(0,1), kernels x 0.05, as tests/test_conv_pallas.py scales them).
+
+Tolerances: f32 within atol 1e-4, as tests/test_conv_pallas.py holds the
+Pallas kernels to XLA's convolution (the two sum in other orders). bf16 is
+compared in f32 at rtol 1e-2 and atol 1e-2: both sides round the same f32
+sum once to bf16, so a summation order that moves that sum across a
+rounding boundary flips one output ulp (2**-8 relative, under 1e-2).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from retinex_tpu.ops import conv_pallas as jcp
+from retinex_tpu_torch.ops import conv_pallas as tcp
+
+F32_ATOL = 1e-4
+BF16_TOL = 1e-2
+
+
+def _inputs(seed, shape, kh, kw, cout, bias=True):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape, np.float32)
+    k = (rng.standard_normal((kh, kw, shape[3], cout)) * 0.05).astype(np.float32)
+    b = rng.standard_normal((cout,)).astype(np.float32) if bias else None
+    return x, k, b
+
+
+def _run(jax_fn, torch_fn, x, k, b, dtype, **kw):
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    want = jax_fn(jnp.asarray(x, jdt), jnp.asarray(k), None if b is None else jnp.asarray(b), interpret=True, **kw)
+    got = torch_fn(torch.from_numpy(x).to(dtype), torch.from_numpy(k), None if b is None else torch.from_numpy(b), **kw)
+    assert got.dtype == dtype and tuple(got.shape) == want.shape
+    return got.float().numpy(), np.asarray(want.astype(jnp.float32))
+
+
+def _assert_close(got, want, dtype):
+    if dtype == torch.bfloat16:
+        np.testing.assert_allclose(got, want, rtol=BF16_TOL, atol=BF16_TOL)
+    else:
+        np.testing.assert_allclose(got, want, atol=F32_ATOL)
+
+
+@pytest.mark.parametrize(
+    "kh,kw,relu,bias,dtype",
+    [
+        (3, 3, True, True, torch.float32),
+        (2, 2, False, True, torch.float32),
+        (3, 2, True, True, torch.float32),
+        (3, 3, False, False, torch.float32),
+        (3, 2, True, True, torch.bfloat16),
+    ],
+)
+def test_conv2d_pallas_plain_matches_pallas(kh, kw, relu, bias, dtype):
+    """K13, including the (3, 2) kernel whose axes pad differently: H by
+    (1, 1), W by (1, 0)."""
+    x, k, b = _inputs(0, (1, 8, 128, 128), kh, kw, 128, bias)
+    tcp.reset_launches()
+    got, want = _run(jcp.conv2d_pallas, tcp.conv2d_pallas, x, k, b, dtype, relu=relu)
+    _assert_close(got, want, dtype)
+    assert tcp.LAUNCHES["conv2d_pallas"] == 0  # the CPU runs the plain version
+
+
+@pytest.mark.parametrize("kh,relu", [(3, True), (2, False)])
+def test_conv2d_pallas_im2col_plain_matches_pallas(kh, relu):
+    x, k, b = _inputs(3, (1, 8, 128, 128), kh, kh, 128)
+    got, want = _run(jcp.conv2d_pallas_im2col, tcp.conv2d_pallas_im2col, x, k, b, torch.float32, relu=relu)
+    _assert_close(got, want, torch.float32)
+
+
+@pytest.mark.parametrize(
+    "cin,cout,dil,relu,dtype",
+    [
+        (32, 32, 1, True, torch.float32),
+        (32, 64, 2, False, torch.float32),
+        (24, 32, 1, True, torch.float32),
+        (32, 64, 2, True, torch.bfloat16),
+    ],
+)
+def test_conv2d_narrow_plain_matches_pallas(cin, cout, dil, relu, dtype):
+    x, k, b = _inputs(2, (1, 16, 128, cin), 3, 3, cout)
+    got, want = _run(jcp.conv2d_narrow, tcp.conv2d_narrow, x, k, b, dtype, relu=relu, dilation=dil)
+    _assert_close(got, want, dtype)
+
+
+def test_plain_versions_on_a_ragged_shape():
+    """Shapes the TPU gates refuse (odd H and W, Cin 20, Cout 12, batch 2)
+    against PyTorch's own convolution with the same padding."""
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((2, 7, 11, 20), np.float32))
+    b = torch.from_numpy(rng.standard_normal((12,)).astype(np.float32))
+    for kh, kw in ((3, 2), (1, 3), (2, 1)):
+        k = torch.from_numpy((rng.standard_normal((kh, kw, 20, 12)) * 0.05).astype(np.float32))
+        pad = (kw // 2, kw - 1 - kw // 2, kh // 2, kh - 1 - kh // 2)
+        want = torch.nn.functional.conv2d(torch.nn.functional.pad(x.permute(0, 3, 1, 2), pad), k.permute(3, 2, 0, 1), b)
+        torch.testing.assert_close(tcp.conv2d_pallas(x, k, b), want.permute(0, 2, 3, 1), rtol=0, atol=F32_ATOL)
+    k5 = torch.from_numpy((rng.standard_normal((5, 5, 20, 12)) * 0.05).astype(np.float32))
+    want = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), k5.permute(3, 2, 0, 1), None, padding=4, dilation=2)
+    torch.testing.assert_close(tcp.conv2d_narrow(x, k5, dilation=2), want.permute(0, 2, 3, 1), rtol=0, atol=F32_ATOL)
+
+
+def test_wrappers_raise_outside_their_scope():
+    x = torch.zeros(1, 4, 4, 8)
+    with pytest.raises(ValueError, match="1..3"):
+        tcp.conv2d_pallas(x, torch.zeros(4, 4, 8, 8))
+    with pytest.raises(ValueError, match="1..3"):
+        tcp.conv2d_pallas_im2col(x, torch.zeros(3, 5, 8, 8))
+    with pytest.raises(ValueError, match="3x3 or 5x5"):
+        tcp.conv2d_narrow(x, torch.zeros(3, 5, 8, 8))
+    with pytest.raises(ValueError, match="3x3 or 5x5"):
+        tcp.conv2d_narrow(x, torch.zeros(2, 2, 8, 8))
+    with pytest.raises(ValueError, match="dilation"):
+        tcp.conv2d_narrow(x, torch.zeros(3, 3, 8, 8), dilation=3)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tcp.conv2d_pallas(x.double(), torch.zeros(3, 3, 8, 8))
+    with pytest.raises(ValueError, match="kernel"):
+        tcp.conv2d_pallas(x, torch.zeros(3, 3, 4, 8))
+    with pytest.raises(ValueError, match="bias"):
+        tcp.conv2d_pallas(x, torch.zeros(3, 3, 8, 8), torch.zeros(4))
+    with pytest.raises(ValueError, match="contiguous"):
+        tcp.conv2d_pallas(torch.zeros(1, 4, 8, 4).permute(0, 1, 3, 2), torch.zeros(3, 3, 8, 8))
+    # Off the CPU a wrapper goes to its kernel, which takes CUDA tensors
+    # only: it never falls back to the plain version.
+    tcp.reset_launches()
+    with pytest.raises(ValueError, match="CUDA"):
+        tcp.conv2d_narrow(x.to("meta"), torch.zeros(3, 3, 8, 8, device="meta"))
+    assert tcp.LAUNCHES == {"conv2d_pallas": 0, "conv2d_pallas_im2col": 0, "conv2d_narrow": 0}

@@ -124,7 +124,10 @@ def test_fam_kernels_match_plain_versions(cuda_f32, shape):
         fb.fam_tail_apply(x, ca_vec, sa),
     ]
     torch.cuda.synchronize()
-    assert fb.LAUNCHES == {"fam_conv_fused": 1, "fam_tail_stats": 1, "fam_tail_apply_g1": 1, "fam_tail_apply": 1, "dec1_chain": 0}
+    assert fb.LAUNCHES == {
+        "fam_conv_fused": 1, "fam_tail_stats": 1, "fam_tail_apply_g1": 1, "fam_tail_apply": 1, "dec1_chain": 0,
+        "fam_dual_conv3": 0,
+    }
     want = [
         fb.fam_conv_fused_plain(*conv_args),
         fb.fam_tail_stats_plain(x, ca_vec),
@@ -160,3 +163,99 @@ def test_dec1_chain_matches_plain_version(cuda_f32, shape):
     assert float((got - fb.dec1_chain_plain(d2, x1p, *weights)).abs().max()) <= 1e-4
     for j in range(b):
         assert torch.equal(fb.dec1_chain(d2[j : j + 1].contiguous(), x1p[j : j + 1].contiguous(), *weights), got[j : j + 1])
+
+
+def _close(got, want, dtype):
+    """f32 within 1e-4; bf16 compared in f32 at rtol and atol 1e-2 (one
+    output ulp: both round one f32 sum, summed in other orders)."""
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+    else:
+        assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 16, 48, 64), (2, 37, 53, 24)])
+def test_conv_kernels_match_plain_versions(cuda_f32, shape, dtype):
+    """K13 (both paddings of an even kernel axis), K15 and K14 (dilation 2,
+    and a 5x5 with a Cout that is no multiple of 4) against their plain
+    versions, inputs N(0,1) and kernels x 0.05 as tests/test_conv_pallas.py
+    scales them; each image of the batch equals the kernel on it alone."""
+    from retinex_tpu_torch.ops import conv_pallas as cp
+
+    g = cuda_f32
+    cin = shape[3]
+    x = torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    def k(kh, kw, cout):
+        return torch.randn((kh, kw, cin, cout), generator=g, device="cuda") * 0.05
+
+    bias = torch.randn(128, generator=g, device="cuda")
+    cases = [
+        (cp.conv2d_pallas, cp.conv2d_pallas_plain, (k(3, 2, 128), bias, True), {}),
+        (cp.conv2d_pallas, cp.conv2d_pallas_plain, (k(2, 2, 64), None, False), {}),
+        (cp.conv2d_pallas_im2col, cp.conv2d_pallas_plain, (k(3, 3, 128), bias, False), {}),
+        (cp.conv2d_narrow, cp.conv2d_narrow_plain, (k(3, 3, 64), bias[:64], True), {"dilation": 2}),
+        (cp.conv2d_narrow, cp.conv2d_narrow_plain, (k(5, 5, 30), bias[:30], False), {}),
+    ]
+    cp.reset_launches()
+    got = [fn(x, *args, **kw) for fn, _, args, kw in cases]
+    torch.cuda.synchronize()
+    assert cp.LAUNCHES == {"conv2d_pallas": 2, "conv2d_pallas_im2col": 1, "conv2d_narrow": 2}
+    for out, (_, plain, args, kw) in zip(got, cases):
+        _close(out, plain(x, *args, **kw), dtype)
+    for j in range(shape[0]):
+        for out, (fn, _, args, kw) in zip(got, cases):
+            assert torch.equal(fn(x[j : j + 1].contiguous(), *args, **kw), out[j : j + 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 16, 48, 128), (2, 37, 53, 128)])
+def test_fam_dual_conv3_matches_plain_version(cuda_f32, shape, dtype):
+    """K12 against its plain version (1e-4 in f32 as tests/test_fused_blocks.py:47,
+    one ulp in bf16), inputs scaled as there; each image equals K12 on it alone."""
+    g = cuda_f32
+
+    def n(*s, scale=1.0):
+        return torch.randn(s, generator=g, device="cuda") * scale
+
+    x = n(*shape, scale=0.3).to(dtype)
+    w = [n(3, 3, 128, 256, scale=0.05), n(256), n(3, 3, 128, 128, scale=0.05), n(128), n(3, 3, 128, 128, scale=0.05), n(128)]
+    fb.reset_launches()
+    got = fb.fam_dual_conv3(x, *w)
+    torch.cuda.synchronize()
+    assert fb.LAUNCHES["fam_dual_conv3"] == 1
+    _close(got, fb.fam_dual_conv3_plain(x, *w), dtype)
+    for j in range(shape[0]):
+        assert torch.equal(fb.fam_dual_conv3(x[j : j + 1].contiguous(), *w), got[j : j + 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,tiles", [((2, 96, 128, 3), (8, 8)), ((1, 48, 84, 3), (4, 6))])
+def test_clahe_pallas_matches_plain_version(cuda_f32, shape, tiles):
+    """K16's two kernels against their plain versions: Lab within 1 level on
+    under 1e-4 of the bytes, the histograms those of the kernel's own L, the
+    output within 1 level of the plain pipeline's on under 1e-4 of the values."""
+    from retinex_tpu_torch.ops import clahe_pallas as kp
+
+    ty, tx = tiles
+    x = torch.rand(shape, generator=cuda_f32, device="cuda")
+    kp.reset_launches()
+    lab, hist = kp.clahe_pallas_hist(x, ty, tx)
+    out = kp.clahe_lab_rgb_pallas(x, tiles_x=tx, tiles_y=ty)
+    torch.cuda.synchronize()
+    assert kp.LAUNCHES == {"clahe_pallas_hist": 2, "clahe_pallas_apply": 1}
+    lab_p, _ = kp.clahe_pallas_hist_plain(x, ty, tx)
+    d = (lab.int() - lab_p.int()).abs()
+    assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 1e-4
+    assert torch.equal(hist, kp.l_histograms(lab, ty, tx))
+    _, h, w, _ = shape
+    luts = kp._luts(hist, 2.0, h, w, ty, tx)
+    got = kp.clahe_pallas_apply(lab, luts)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, kp.clahe_pallas_apply_plain(lab, luts), rtol=0, atol=1.01 / 255)
+    e = ((out - kp.clahe_lab_rgb_pallas_plain(x, tiles_x=tx, tiles_y=ty)) * 255).abs()
+    assert float(e.max()) <= 1.01 and float((e > 0.5).float().mean()) < 1e-4

@@ -2,9 +2,12 @@
 
 ``retinex_tpu_torch/ops/fused_blocks.py``'s ``*_plain`` functions against
 ``retinex_tpu/ops/fused_blocks.py``'s ``fam_conv_fused``, ``fam_tail_stats``,
-``fam_tail_apply_g1`` and ``fam_tail_apply`` in interpret mode, on the
-shapes, scalings and tolerances of tests/test_fused_blocks.py (K4 2e-4, K5
-1e-5, K6 1e-4, K11 1e-5). On
+``fam_tail_apply_g1``, ``fam_tail_apply`` and ``fam_dual_conv3`` in
+interpret mode, on the shapes, scalings and tolerances of
+tests/test_fused_blocks.py (K4 2e-4, K5 1e-5, K6 1e-4, K11 1e-5, K12 1e-4
+in f32; K12 in bf16 at rtol and atol 1e-2, one output ulp: both sides round
+y and the output to bf16 once, and a summation order that moves a sum
+across a rounding boundary flips one ulp, 2**-8 relative). On
 the CPU the wrappers take the plain versions and launch nothing; on any
 other device they go to the kernel or raise.
 """
@@ -47,6 +50,48 @@ def _tail_inputs(rng, b, h, w):
     sa = (1.0 / (1.0 + np.exp(-rng.standard_normal((b, h, w, 4))))).astype(np.float32)
     wg = (rng.standard_normal((128, 128)) * 0.05).astype(np.float32)
     return x, ca_vec, sa, wg
+
+
+def _dual_inputs(rng, shape):
+    """K12 inputs scaled as tests/test_fused_blocks.py::test_fam_dual_conv3_matches_xla."""
+    args = [
+        rng.standard_normal(shape) * 0.3,
+        rng.standard_normal((3, 3, 128, 256)) * 0.05, rng.standard_normal((256,)),
+        rng.standard_normal((3, 3, 128, 128)) * 0.05, rng.standard_normal((128,)),
+        rng.standard_normal((3, 3, 128, 128)) * 0.05, rng.standard_normal((128,)),
+    ]
+    return [np.asarray(a, np.float32) for a in args]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fam_dual_conv3_plain_matches_pallas(dtype):
+    args = _dual_inputs(np.random.default_rng(0), (1, 16, 128, 128))
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    want = jfb.fam_dual_conv3(jnp.asarray(args[0], jdt), *(jnp.asarray(a) for a in args[1:]), interpret=True)
+    got = tfb.fam_dual_conv3(_t(args[0]).to(dtype), *(_t(a) for a in args[1:]))
+    assert got.dtype == dtype and got.shape == (1, 16, 128, 256)
+    want = np.asarray(want.astype(jnp.float32))
+    if dtype == torch.bfloat16:
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=1e-2, atol=1e-2)
+    else:
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-4)
+
+
+def test_fam_dual_conv3_plain_on_a_ragged_shape():
+    """A shape the TPU kernel's tiles do not take (7 x 11, batch 2) against
+    the XLA composition of tests/test_fused_blocks.py."""
+    from jax import lax
+
+    args = _dual_inputs(np.random.default_rng(3), (2, 7, 11, 128))
+    x, k1, b1, k2a, b2a, k2b, b2b = (jnp.asarray(a) for a in args)
+
+    def conv(v, k, b):
+        return lax.conv_general_dilated(v, k, (1, 1), ((1, 1), (1, 1)), dimension_numbers=("NHWC", "HWIO", "NHWC")) + b
+
+    y = jnp.maximum(conv(x, k1, b1), 0.0)
+    want = jnp.concatenate([conv(y[..., :128], k2a, b2a), conv(y[..., 128:], k2b, b2b)], axis=-1)
+    got = tfb.fam_dual_conv3_plain(*(_t(a) for a in args))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
 
 
 def test_fam_conv_fused_plain_matches_pallas():
@@ -129,7 +174,12 @@ def test_wrappers_take_the_plain_versions_on_the_cpu():
         assert got.shape == (2, 5, 9, cout)
         torch.testing.assert_close(got, tfb.fam_tail_apply_g1_plain(x, ca_vec, sa, w), rtol=0, atol=0)
     torch.testing.assert_close(tfb.fam_tail_apply(x, ca_vec, sa), tfb.fam_tail_apply_plain(x, ca_vec, sa), rtol=0, atol=0)
-    assert tfb.LAUNCHES == {"fam_conv_fused": 0, "fam_tail_stats": 0, "fam_tail_apply_g1": 0, "fam_tail_apply": 0, "dec1_chain": 0}
+    dual = [_t(a) for a in _dual_inputs(rng, (2, 5, 9, 128))]
+    torch.testing.assert_close(tfb.fam_dual_conv3(*dual), tfb.fam_dual_conv3_plain(*dual), rtol=0, atol=0)
+    assert tfb.LAUNCHES == {
+        "fam_conv_fused": 0, "fam_tail_stats": 0, "fam_tail_apply_g1": 0, "fam_tail_apply": 0, "dec1_chain": 0,
+        "fam_dual_conv3": 0,
+    }
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take():
@@ -157,3 +207,12 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="CUDA"):
         tfb.fam_tail_apply(x.to("meta"), ca.to("meta"), sa.to("meta"))
     assert tfb.LAUNCHES["fam_tail_stats"] == tfb.LAUNCHES["fam_tail_apply"] == 0
+    dual = [torch.zeros(3, 3, 128, 256), torch.zeros(256), torch.zeros(3, 3, 128, 128), torch.zeros(128),
+            torch.zeros(3, 3, 128, 128), torch.zeros(128)]
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tfb.fam_dual_conv3(x.half(), *dual)
+    with pytest.raises(ValueError, match="k2b"):
+        tfb.fam_dual_conv3(x, *dual[:4], torch.zeros(3, 3, 128, 64), dual[5])
+    with pytest.raises(ValueError, match="CUDA"):
+        tfb.fam_dual_conv3(x.to("meta"), *(t.to("meta") for t in dual))
+    assert tfb.LAUNCHES["fam_dual_conv3"] == 0

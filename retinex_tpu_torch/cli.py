@@ -40,8 +40,10 @@ canvas (without ``--max_size`` each image is letterboxed to its longer
 side), with ``--num_workers`` threads writing the PNGs. ``--device cpu`` runs
 every route on the CPU with the kernels' plain versions. Weights come from a
 reference ``.pth`` given as ``--checkpoint``, or else (enhance only) are
-initialised untrained from ``--seed``. ``--mode train``, ``--spatial_shard``
-and ``--n_devices`` above 1 raise ``NotImplementedError``.
+initialised untrained as the JAX CLI does (Flax's lecun-normal kernels, zero
+biases, always seed 0 like its ``PRNGKey(0)``; ``--seed`` does not reach
+them). ``--mode train``, ``--spatial_shard`` and ``--n_devices`` above 1
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -60,18 +62,48 @@ from retinex_tpu_torch.models.packed_inference import PackedRetinex
 from retinex_tpu_torch.models.retinex_net import MultiScaleUPRetinex
 
 
+# Flax's lecun_normal: a normal truncated at +-2 standard deviations, scaled
+# so the samples' std is sqrt(1/fan_in); 0.879... is the std of a standard
+# normal truncated at +-2 (jax.nn.initializers.variance_scaling).
+TRUNC_STD = 0.87962566103423978
+# The JAX CLI initialises the untrained net from PRNGKey(0).
+UNTRAINED_SEED = 0
+
+
+def fan_in(m: torch.nn.Module) -> int:
+    """Flax's fan-in of a convolution's kernel: kh * kw * input channels.
+    Conv2d keeps them as [out, in/groups, kh, kw], ConvTranspose2d as
+    [in, out/groups, kh, kw]; Flax counts the input axis of the HWIO kernel
+    for both (``in_axis=-2``)."""
+    w = m.weight
+    cin = w.shape[0] if isinstance(m, torch.nn.ConvTranspose2d) else w.shape[1]
+    return cin * w.shape[2] * w.shape[3]
+
+
+def _truncated_normal_(t: torch.Tensor, std: float, g: torch.Generator) -> None:
+    """t <- std * N(0, 1) truncated to [-2, 2], by redrawing what falls outside."""
+    z = torch.randn(t.shape, generator=g)
+    bad = z.abs() > 2
+    while bool(bad.any()):
+        z[bad] = torch.randn(int(bad.sum()), generator=g)
+        bad = z.abs() > 2
+    t.copy_(z * std)
+
+
 def init_untrained(model: torch.nn.Module, seed: int) -> torch.nn.Module:
-    """Untrained weights from a seeded generator on the CPU, so every device
-    gets the same numbers: PyTorch's default conv init (uniform in
-    +-1/sqrt(fan_in) for weights and biases), BatchNorm at identity."""
+    """Untrained weights as the JAX package's ``model.init`` draws them:
+    every convolution kernel from Flax's lecun_normal (std sqrt(1/fan_in),
+    truncated at +-2 sigma, sigma = sqrt(1/fan_in) / TRUNC_STD), every bias
+    0, BatchNorm at identity. The draws come from a seeded generator on the
+    CPU, so every device gets the same numbers; they are not JAX's (threefry
+    and Flax's per-module keys), only their distribution is."""
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
-                bound = 1.0 / math.sqrt(m.weight.shape[1] * m.weight[0, 0].numel())
-                m.weight.uniform_(-bound, bound, generator=g)
+                _truncated_normal_(m.weight, math.sqrt(1.0 / fan_in(m)) / TRUNC_STD, g)
                 if m.bias is not None:
-                    m.bias.uniform_(-bound, bound, generator=g)
+                    m.bias.zero_()
     return model
 
 
@@ -95,8 +127,8 @@ def build_model(config: Config, device: torch.device, require_checkpoint: bool =
     elif require_checkpoint:
         raise FileNotFoundError(f"Checkpoint not found: {ckpt}. Train a model first or pass --checkpoint.")
     else:
-        print(f"Using untrained model weights from seed {config.seed}")
-        init_untrained(model, config.seed)
+        print(f"Using untrained model weights (lecun-normal from seed {UNTRAINED_SEED}, as the JAX CLI's PRNGKey(0))")
+        init_untrained(model, UNTRAINED_SEED)
     return model.eval().to(device)
 
 

@@ -63,6 +63,10 @@ _SIGNATURES = {
     "dec1_chain": ("dec1_chain", (_P,) * 11 + (_I, _I, _I, _P)),
     "fam_dual_conv3": ("fam_fused", (_P,) * 8 + (_I, _I, _I, _I, _P)),
     "conv_direct": ("conv_direct", (_P,) * 4 + (_I,) * 15 + (_P,)),
+    "conv_wgmma_bf16": ("conv_wgmma", (_P,) * 4 + (_I,) * 10 + (_P,)),
+    "conv_pipelined_f32": ("conv_pipelined", (_P,) * 4 + (_I,) * 9 + (_P,)),
+    "conv_wgmma_smem": ("conv_wgmma", (_I,)),
+    "conv_pipelined_smem": ("conv_pipelined", (_I, _I)),
     "clahe_pallas_hist": ("clahe_fused", (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "clahe_pallas_apply": ("clahe_fused", (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
 }
@@ -134,6 +138,11 @@ def libraries() -> dict[str, ctypes.CDLL]:
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return libs
+
+
+def query(name: str, *args) -> int:
+    """Call a library function that returns a number (not a cudaError)."""
+    return getattr(libraries()[_SIGNATURES[name][0]], name)(*args)
 
 
 def launch(name: str, *args) -> None:

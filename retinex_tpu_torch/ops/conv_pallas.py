@@ -1,4 +1,4 @@
-"""Stride-1 convolutions on one CUDA kernel, with their plain PyTorch versions.
+"""Stride-1 convolutions on three CUDA kernels, with their plain PyTorch versions.
 
 Counterpart of ``retinex_tpu/ops/conv_pallas.py``; the name is kept so a
 reader finds it, but nothing here is Pallas. The JAX package took these
@@ -15,19 +15,33 @@ activations and HWIO kernels:
 - ``conv2d_narrow`` (K14): a square 3x3 or 5x5 kernel, dilation 1 or 2,
   symmetric padding (k//2) * dilation.
 
-All three launch one kernel, ``conv_direct`` in
-``retinex_tpu_torch/csrc/conv_direct.cu``, which takes the kernel size,
-the dilation and the low padding of each axis; each wrapper keeps its own
-count in ``LAUNCHES``. Numbers follow the JAX functions: x is f32 or bf16,
-the kernel is cast to x.dtype, the bias stays f32 (``None`` means zeros),
-the products accumulate in f32, then the bias, the optional ReLU, and one
-rounding to x.dtype. The TPU's gates (``conv_pallas_supported``,
-``conv_narrow_supported``: channel multiples of 128, 8-aligned tiles, "1x1
-is faster in XLA") have no counterpart: any B, H, W, Cin and Cout run.
+Which kernel serves a CUDA call (``route``):
+
+- K13 and K15 in bf16 with Cin % 8 == 0 and x's base 16-byte aligned:
+  ``conv_wgmma`` (``csrc/conv_wgmma.cu``), an implicit GEMM on the tensor
+  cores (TMA halo tiles, ``wgmma``). TMA needs 16-byte strides and base;
+- K13 and K15 in f32 with Cin % 4 == 0 and x's base 16-byte aligned:
+  ``conv_pipelined`` (``csrc/conv_pipelined.cu``), CUDA-core FMAs fed by a
+  double-buffered ``cp.async`` pipeline (16-byte copies). TF32 stays off,
+  by the parity rule;
+- every other K13/K15 call (other Cin, a misaligned view) and K14 in both
+  dtypes: ``conv_direct`` (``csrc/conv_direct.cu``), which takes any Cin
+  and alignment.
+
+Each wrapper keeps its own count in ``LAUNCHES``, and each kernel its count
+in ``KERNEL_LAUNCHES``, so a run shows which kernel served which call.
+Numbers follow the JAX functions: x is f32 or bf16, the kernel is cast to
+x.dtype, the bias stays f32 (``None`` means zeros), the products accumulate
+in f32, then the bias, the optional ReLU, and one rounding to x.dtype. The
+TPU's gates (``conv_pallas_supported``, ``conv_narrow_supported``: channel
+multiples of 128, 8-aligned tiles, "1x1 is faster in XLA") have no
+counterpart: any B, H, W, Cin and Cout run.
 
 The weights are plain arrays in the JAX layouts (HWIO kernel, f32 bias),
 so the same numpy arrays go to both packages and ``models/convert.py``
-needs nothing for them.
+needs nothing for them. Each wrapper packs the kernel for its kernel's
+layout on every call (``pack_wgmma``, ``pack_pipelined``; x is never
+copied).
 
 Each wrapper takes a CPU tensor to its plain version and a CUDA tensor to
 its kernel; there is no fallback from one to the other.
@@ -41,18 +55,68 @@ import torch.nn.functional as F
 from retinex_tpu_torch.ops import _kernels
 from retinex_tpu_torch.ops.fused_blocks import _stream
 
-# Kernel launches per wrapper since the last reset_launches().
+# Kernel launches per wrapper, and per kernel, since the last reset_launches().
 LAUNCHES = {"conv2d_pallas": 0, "conv2d_pallas_im2col": 0, "conv2d_narrow": 0}
+KERNEL_LAUNCHES = {"conv_direct": 0, "conv_wgmma": 0, "conv_pipelined": 0}
 
-# The kernel's tiling: input channels staged per pass, and the output
+# conv_direct's tiling: input channels staged per pass, and the output
 # channels of one block (32, 64 or 128, the smallest that holds Cout).
 CIN_CHUNK = 32
+# conv_wgmma: input channels per K chunk (one 128-byte row per pixel) and
+# the widest Cout tile (N of the GEMM; 32 or 64 when Cout is narrower).
+WGMMA_CHUNK = 64
+WGMMA_N = 128
+# conv_pipelined: input channels per stage, output channels per block.
+PIPE_CHUNK = 8
+PIPE_COT = 128
 _DTYPES = (torch.float32, torch.bfloat16)
+_SAME = ("conv2d_pallas", "conv2d_pallas_im2col")
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, KERNEL_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def route(name: str, dtype: torch.dtype, cin: int, data_ptr: int) -> str:
+    """The kernel that serves wrapper `name` on a CUDA x of `dtype` with
+    `cin` channels at address `data_ptr` (see the module docstring)."""
+    if name in _SAME and data_ptr % 16 == 0:
+        if dtype == torch.bfloat16 and cin % 8 == 0:
+            return "conv_wgmma"
+        if dtype == torch.float32 and cin % 4 == 0:
+            return "conv_pipelined"
+    return "conv_direct"
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def wgmma_n_tile(cout: int) -> int:
+    """conv_wgmma's Cout tile: the smallest of 32, 64, 128 that holds Cout."""
+    return 32 if cout <= 32 else 64 if cout <= 64 else WGMMA_N
+
+
+def pack_wgmma(kernel: torch.Tensor) -> torch.Tensor:
+    """HWIO [kh, kw, Cin, Cout] -> bf16 [kh * kw, Cin chunks, Cout_pad, 64]:
+    K-major B tiles of 64 input channels, zeros past Cin and Cout."""
+    kh, kw, cin, cout = kernel.shape
+    cin_pad = _round_up(cin, WGMMA_CHUNK)
+    cout_pad = _round_up(cout, wgmma_n_tile(cout))
+    wk = F.pad(kernel.to(torch.bfloat16), (0, cout_pad - cout, 0, cin_pad - cin))
+    return wk.reshape(kh * kw, cin_pad // WGMMA_CHUNK, WGMMA_CHUNK, cout_pad).transpose(2, 3).contiguous()
+
+
+def pack_pipelined(kernel: torch.Tensor) -> torch.Tensor:
+    """HWIO [kh, kw, Cin, Cout] -> f32 [Cin chunks, kh * kw, 8, Cout_pad]:
+    one chunk's weights for every tap contiguous, zeros past Cin and Cout."""
+    kh, kw, cin, cout = kernel.shape
+    cin_pad = _round_up(cin, PIPE_CHUNK)
+    cout_pad = _round_up(cout, PIPE_COT)
+    wk = F.pad(kernel.float(), (0, cout_pad - cout, 0, cin_pad - cin))
+    return wk.reshape(kh * kw, cin_pad // PIPE_CHUNK, PIPE_CHUNK, cout_pad).transpose(0, 1).contiguous()
 
 
 def _check(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None, what: str) -> None:
@@ -86,26 +150,49 @@ def _conv_plain(x, kernel, bias, relu, pad_h, pad_w, dilation) -> torch.Tensor:
     return out.permute(0, 2, 3, 1).to(x.dtype).contiguous()
 
 
+def _padded_bias(bias, cout_pad: int, device) -> torch.Tensor:
+    bk = torch.zeros(cout_pad, dtype=torch.float32, device=device)
+    if bias is not None:
+        bk[: bias.shape[0]] = bias
+    return bk
+
+
 def _launch(name: str, x, kernel, bias, relu: bool, pad_top: int, pad_left: int, dilation: int) -> torch.Tensor:
-    """conv_direct on a CUDA x: the kernel cast to x.dtype and zero-padded
-    to whole channel tiles (the weights are small; x is never copied)."""
+    """The kernel that ``route`` picks, on a CUDA x: the weights packed for
+    it (they are small; x is never copied), the bias f32 and zero-padded."""
     stream = _stream(x)
     b, h, w, cin = x.shape
     kh, kw, _, cout = kernel.shape
-    co_tile = 32 if cout <= 32 else 64 if cout <= 64 else 128
-    cin_pad = -(-cin // CIN_CHUNK) * CIN_CHUNK
-    cout_pad = -(-cout // co_tile) * co_tile
-    wk = F.pad(kernel.to(x.dtype), (0, cout_pad - cout, 0, cin_pad - cin)).contiguous()
-    bk = torch.zeros(cout_pad, dtype=torch.float32, device=x.device)
-    if bias is not None:
-        bk[:cout] = bias
     out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
-    _kernels.launch(
-        "conv_direct", x.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(), b, h, w, cin, cout,
-        cin_pad, cout_pad, kh, kw, dilation, pad_top, pad_left, int(relu), int(x.dtype == torch.bfloat16),
-        co_tile, stream,
-    )
+    which = route(name, x.dtype, cin, x.data_ptr())
+    # wk and bk stay referenced until the launch has been queued.
+    if which == "conv_wgmma":
+        wk = pack_wgmma(kernel)
+        bk = _padded_bias(bias, wk.shape[2], x.device)
+        _kernels.launch(
+            "conv_wgmma_bf16", x.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(), b, h, w, cin, cout,
+            wk.shape[2], kh, kw, int(relu), wgmma_n_tile(cout), stream,
+        )
+    elif which == "conv_pipelined":
+        wk = pack_pipelined(kernel)
+        bk = _padded_bias(bias, wk.shape[3], x.device)
+        _kernels.launch(
+            "conv_pipelined_f32", x.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(), b, h, w, cin, cout,
+            wk.shape[3], kh, kw, int(relu), stream,
+        )
+    else:
+        co_tile = 32 if cout <= 32 else 64 if cout <= 64 else 128
+        cin_pad = _round_up(cin, CIN_CHUNK)
+        cout_pad = _round_up(cout, co_tile)
+        wk = F.pad(kernel.to(x.dtype), (0, cout_pad - cout, 0, cin_pad - cin)).contiguous()
+        bk = _padded_bias(bias, cout_pad, x.device)
+        _kernels.launch(
+            "conv_direct", x.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(), b, h, w, cin, cout,
+            cin_pad, cout_pad, kh, kw, dilation, pad_top, pad_left, int(relu), int(x.dtype == torch.bfloat16),
+            co_tile, stream,
+        )
     LAUNCHES[name] += 1
+    KERNEL_LAUNCHES[which] += 1
     return out
 
 

@@ -177,12 +177,15 @@ def _close(got, want, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(1, 16, 48, 64), (2, 37, 53, 24)])
+@pytest.mark.parametrize("shape", [(1, 16, 48, 64), (2, 37, 53, 24), (2, 37, 53, 256)])
 def test_conv_kernels_match_plain_versions(cuda_f32, shape, dtype):
-    """K13 (both paddings of an even kernel axis), K15 and K14 (dilation 2,
-    and a 5x5 with a Cout that is no multiple of 4) against their plain
-    versions, inputs N(0,1) and kernels x 0.05 as tests/test_conv_pallas.py
-    scales them; each image of the batch equals the kernel on it alone."""
+    """K13 (both paddings of an even kernel axis; Cout 128, 64 and 96), K15
+    (3x3 to 128, 2x2 to 256) and K14 (dilation 2, and a 5x5 with a Cout
+    that is no multiple of 4) against their plain versions, on ragged H and
+    W and Cin 24, 64 and 256, inputs N(0,1) and kernels x 0.05 as
+    tests/test_conv_pallas.py scales them. K13/K15 run on conv_wgmma (bf16)
+    or conv_pipelined (f32), K14 on conv_direct; each image of the batch
+    equals the kernel on it alone."""
     from retinex_tpu_torch.ops import conv_pallas as cp
 
     g = cuda_f32
@@ -192,23 +195,50 @@ def test_conv_kernels_match_plain_versions(cuda_f32, shape, dtype):
     def k(kh, kw, cout):
         return torch.randn((kh, kw, cin, cout), generator=g, device="cuda") * 0.05
 
-    bias = torch.randn(128, generator=g, device="cuda")
+    bias = torch.randn(256, generator=g, device="cuda")
     cases = [
-        (cp.conv2d_pallas, cp.conv2d_pallas_plain, (k(3, 2, 128), bias, True), {}),
+        (cp.conv2d_pallas, cp.conv2d_pallas_plain, (k(3, 2, 128), bias[:128], True), {}),
         (cp.conv2d_pallas, cp.conv2d_pallas_plain, (k(2, 2, 64), None, False), {}),
-        (cp.conv2d_pallas_im2col, cp.conv2d_pallas_plain, (k(3, 3, 128), bias, False), {}),
+        (cp.conv2d_pallas, cp.conv2d_pallas_plain, (k(3, 3, 96), bias[:96], True), {}),
+        (cp.conv2d_pallas_im2col, cp.conv2d_pallas_plain, (k(3, 3, 128), bias[:128], False), {}),
+        (cp.conv2d_pallas_im2col, cp.conv2d_pallas_plain, (k(2, 2, 256), bias, False), {}),
         (cp.conv2d_narrow, cp.conv2d_narrow_plain, (k(3, 3, 64), bias[:64], True), {"dilation": 2}),
         (cp.conv2d_narrow, cp.conv2d_narrow_plain, (k(5, 5, 30), bias[:30], False), {}),
     ]
+    fast = "conv_wgmma" if dtype == torch.bfloat16 else "conv_pipelined"
     cp.reset_launches()
     got = [fn(x, *args, **kw) for fn, _, args, kw in cases]
     torch.cuda.synchronize()
-    assert cp.LAUNCHES == {"conv2d_pallas": 2, "conv2d_pallas_im2col": 1, "conv2d_narrow": 2}
+    assert cp.LAUNCHES == {"conv2d_pallas": 3, "conv2d_pallas_im2col": 2, "conv2d_narrow": 2}
+    assert cp.KERNEL_LAUNCHES == {"conv_direct": 2, "conv_wgmma": 0, "conv_pipelined": 0} | {fast: 5}
     for out, (_, plain, args, kw) in zip(got, cases):
         _close(out, plain(x, *args, **kw), dtype)
-    for j in range(shape[0]):
+    for j in sorted({0, shape[0] - 1}):
         for out, (fn, _, args, kw) in zip(got, cases):
             assert torch.equal(fn(x[j : j + 1].contiguous(), *args, **kw), out[j : j + 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_misaligned_view_goes_to_conv_direct(cuda_f32, dtype):
+    """A contiguous view one element past an aligned base fails TMA's (and
+    cp.async's) 16-byte rule, so K13 and K15 take conv_direct, and still
+    hold to their plain versions."""
+    from retinex_tpu_torch.ops import conv_pallas as cp
+
+    g = cuda_f32
+    shape = (2, 21, 35, 128)
+    flat = torch.randn(1 + torch.Size(shape).numel(), generator=g, device="cuda").to(dtype)
+    x = flat[1:].view(shape)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    kern = torch.randn((3, 3, 128, 96), generator=g, device="cuda") * 0.05
+    bias = torch.randn(96, generator=g, device="cuda")
+    cp.reset_launches()
+    got = [cp.conv2d_pallas(x, kern, bias, True), cp.conv2d_pallas_im2col(x, kern, bias)]
+    torch.cuda.synchronize()
+    assert cp.KERNEL_LAUNCHES == {"conv_direct": 2, "conv_wgmma": 0, "conv_pipelined": 0}
+    _close(got[0], cp.conv2d_pallas_plain(x, kern, bias, True), dtype)
+    _close(got[1], cp.conv2d_pallas_plain(x, kern, bias), dtype)
 
 
 @pytest.mark.cuda

@@ -10,7 +10,8 @@ Phases (any failure raises and exits nonzero; no phase is skipped):
 1. The card's name and power limit; build the CUDA kernels from every
    ``retinex_tpu_torch/csrc/*.cu`` (one nvcc per source, all at once,
    printing the seconds and the ptxas report: registers, stack and spills,
-   and for ``conv_wgmma`` and ``conv_pipelined`` each entry function).
+   and for ``conv_wgmma``, ``conv_pipelined`` and ``fam_fused`` each entry
+   function).
 2. K1-K3: on a seeded u8 frame at 1088x1920 (the main path's shape) and at
    2160x3840 (a cell width of 240 columns), and on the directory's batches
    [8,3,1088,1920], [4,3,1088,1920] and [4,3,640,640], each kernel is held to
@@ -34,12 +35,16 @@ Phases (any failure raises and exits nonzero; no phase is skipped):
    ragged [2,37,53,128], and at the directory's: [8|4,544,960,128],
    [8|4,136,240,128], [4,320,320,128] and [4,80,80,128]. Seeded inputs x >= 0
    and weights scaled as tests/test_fused_blocks.py scales them:
-   fam_conv_fused within 2e-4, fam_tail_stats within 1e-5,
+   fam_conv_fused (K4) and each of its three kernels (fam_conv_y and
+   fam_conv_z on conv_pipelined, then fam_conv_out; each stage on the plain
+   previous stage's output) within 2e-4, fam_tail_stats within 1e-5,
    fam_tail_apply_g1 within 1e-4, fam_tail_apply within 1e-5 of the plain
    version (TF32 off); on a batch, the first and last image equal the
    kernel run on that image alone. Median times over 25 launches, beside
-   the plain version's and the bound: K4-K6 at the letterboxed shapes, K11
-   (which only the unpadded frame runs) at the unpadded ones.
+   the plain version's and the bound: K4 (whole and by stage), K5 and K6 at
+   the letterboxed shapes, per launch and summed per image (K4 against its
+   10.312 ms bound), K11 (which only the unpadded frame runs) at the
+   unpadded ones; one K4 call's launches by kernel.
 5. The standard route through the CLI, ``--mode enhance --max_size 1920
    --no-packed_inference``, on a 1920x1080 PNG upscaled from
    ``data/convergence/lowlight_000.png``, untrained weights from seed 0: the
@@ -78,8 +83,9 @@ Phases (any failure raises and exits nonzero; no phase is skipped):
    forward on the same batch, and Lab-CLAHE + quantisation of the batch's
    net output identical to that stage on each image alone (see
    ``net_batch_holds``). Warm images/s over the directory with PNG writes
-   and without (``save_outputs=False``), the net's ms per image at batch 8,
-   and the peak device memory of the net's directory run.
+   and without (``save_outputs=False``), the packed and the standard net's
+   ms per image at batch 8 (in turns), and the peak device memory of the
+   net's directory run.
 9. Single images through the CLI on the card, each with the counts at 0
    just before and checked just after: ``--classical_mode ssr``, ``msr``,
    ``msrcr`` (no kernel), ``--content_aware`` and ``--multi_scale`` (K4-K6
@@ -142,16 +148,20 @@ first and last image against the kernel on each alone (identical):
    a ragged [2,37,53,128] (3x2), and in bf16 at a ragged [2,37,53,20] whose
    Cin is no multiple of 8 (conv_direct's route); K14 ``conv2d_narrow`` at
    [2,1088,1920,32] for 32->32, 32->64 and dilation 2, and at a ragged
-   [2,37,53,24] (5x5 to 40, and 3x3 dilation 2 to 30); each in f32 and
+   [2,37,53,24] (5x5 to 40, and 3x3 dilation 2 to 30) and [2,37,53,64]
+   (5x5 dilation 2 to 128: in bf16 conv_wgmma's widest halo box, its
+   weights in a ring of three B stages); each in f32 and
    bf16, inputs N(0,1) and kernels x 0.05 as the JAX tests scale them: f32
    within 1e-4, bf16 in f32 at rtol and atol 1e-2 (one output ulp). At
-   perf_lab's shapes every bf16 K13/K15 call must launch ``conv_wgmma``,
-   every f32 one ``conv_pipelined`` and every K14 call ``conv_direct``
-   (``conv_pallas.KERNEL_LAUNCHES``). Median ms over 25 launches of K13 and
-   K15 at both 3x3 shapes and of K14 at its first, in f32 and bf16, beside
-   the plain version's, the bound and ``F.conv2d`` on the channels-last
-   view with the bias (then the ReLU where the case has one), which the
-   port never calls; the dynamic shared memory of the two new kernels.
+   perf_lab's shapes every bf16 call (K13, K15 and K14) must launch
+   ``conv_wgmma``, every f32 K13/K15 call ``conv_pipelined`` and every f32
+   K14 call ``conv_direct`` (``conv_pallas.KERNEL_LAUNCHES``). Median ms
+   over 25 launches of K13 and K15 at both 3x3 shapes and of K14 at its
+   first and its dilation-2 case, in f32 and bf16, beside the plain
+   version's, the bound and ``F.conv2d`` on the channels-last view with the
+   bias (then the ReLU where the case has one), which the port never calls;
+   ``conv_wgmma``'s plan at each timed bf16 case (N, K chunk, dynamic
+   shared memory, halo stages, resident or ringed weights).
 18. K12 ``fam_dual_conv3`` at [2,544,960,128] (f32 and bf16),
    [1,544,960,128] and a ragged [2,37,53,128]: f32 within 1e-4, bf16 as in
    phase 17; timed at [2,544,960,128].
@@ -170,14 +180,16 @@ default route's two 1080p CLI runs and the three directory runs, plus the
 fused-luma run (the only path that reaches K9); for K10, over its path's
 runs in phases 13 and 14 (the dec1-chain forwards and predict with it);
 for K12-K16, over the calls at perf_lab's shapes in phases 17-19.
+K4 has an entry as a whole (``fam_conv_fused``) and one for each of its
+three kernels (``fam_conv_y``, ``fam_conv_z``, ``fam_conv_out``).
 ``ms``, ``plain_ms`` and ``bound_ms`` are per image for K1-K6, K10 and K11
 (summed over the kernel's launches on one 1088x1920 or 1080x1920 image),
 per launch on a [8,1088,1920] directory chunk for K7-K9, per launch at the
-first shape for K12-K15: in f32 for K12 and K14 (the entry's ``dtype``; the
-bf16 runs are printed), and in both dtypes for K13 and K15, whose bf16
-entries (``conv2d_pallas_bf16``, ``conv2d_pallas_im2col_bf16``) name the
-tensor-core kernel and count its launches; per launch at [1,1088,1920,3]
-for K16's two kernels.
+first shape for K12-K15: in f32 for K12 (the entry's ``dtype``; the bf16
+runs are printed), and in both dtypes for K13, K14 and K15, whose bf16
+entries (``conv2d_pallas_bf16``, ``conv2d_pallas_im2col_bf16``,
+``conv2d_narrow_bf16``) name the tensor-core kernel and count its
+launches; per launch at [1,1088,1920,3] for K16's two kernels.
 ``library_ms`` is ``F.conv2d``'s time for K13-K15 and null elsewhere.
 """
 
@@ -224,6 +236,9 @@ REPLACES = {
     "clahe_tables": "retinex_tpu/ops/clahe_gather.py:648",
     "clahe_apply_u8": "retinex_tpu/ops/clahe_gather.py:931",
     "fam_conv_fused": "retinex_tpu/ops/fused_blocks.py:395",
+    "fam_conv_y": "retinex_tpu/ops/fused_blocks.py:395",
+    "fam_conv_z": "retinex_tpu/ops/fused_blocks.py:395",
+    "fam_conv_out": "retinex_tpu/ops/fused_blocks.py:395",
     "fam_tail_stats": "retinex_tpu/ops/fused_blocks.py:321",
     "fam_tail_apply_g1": "retinex_tpu/ops/fused_blocks.py:517",
     "fam_tail_apply": "retinex_tpu/ops/fused_blocks.py:338",
@@ -236,6 +251,7 @@ REPLACES = {
     "conv2d_pallas": "retinex_tpu/ops/conv_pallas.py:56",
     "conv2d_pallas_bf16": "retinex_tpu/ops/conv_pallas.py:56",
     "conv2d_narrow": "retinex_tpu/ops/conv_pallas.py:183",
+    "conv2d_narrow_bf16": "retinex_tpu/ops/conv_pallas.py:183",
     "conv2d_pallas_im2col": "retinex_tpu/ops/conv_pallas.py:275",
     "conv2d_pallas_im2col_bf16": "retinex_tpu/ops/conv_pallas.py:275",
     "clahe_pallas_hist": "retinex_tpu/ops/clahe_pallas.py:111",
@@ -246,6 +262,9 @@ SOURCES = {
     "clahe_tables": "retinex_tpu_torch/csrc/clahe_lab.cu",
     "clahe_apply_u8": "retinex_tpu_torch/csrc/clahe_lab.cu",
     "fam_conv_fused": "retinex_tpu_torch/csrc/fam_fused.cu",
+    "fam_conv_y": "retinex_tpu_torch/csrc/conv_pipelined.cu",
+    "fam_conv_z": "retinex_tpu_torch/csrc/conv_pipelined.cu",
+    "fam_conv_out": "retinex_tpu_torch/csrc/fam_fused.cu",
     "fam_tail_stats": "retinex_tpu_torch/csrc/fam_fused.cu",
     "fam_tail_apply_g1": "retinex_tpu_torch/csrc/fam_fused.cu",
     "fam_tail_apply": "retinex_tpu_torch/csrc/fam_fused.cu",
@@ -258,6 +277,7 @@ SOURCES = {
     "conv2d_pallas": "retinex_tpu_torch/csrc/conv_pipelined.cu",
     "conv2d_pallas_bf16": "retinex_tpu_torch/csrc/conv_wgmma.cu",
     "conv2d_narrow": "retinex_tpu_torch/csrc/conv_direct.cu",
+    "conv2d_narrow_bf16": "retinex_tpu_torch/csrc/conv_wgmma.cu",
     "conv2d_pallas_im2col": "retinex_tpu_torch/csrc/conv_pipelined.cu",
     "conv2d_pallas_im2col_bf16": "retinex_tpu_torch/csrc/conv_wgmma.cu",
     "clahe_pallas_hist": "retinex_tpu_torch/csrc/clahe_fused.cu",
@@ -274,8 +294,13 @@ FAM_DIR_SHAPES = (
     (8, 544, 960, 128), (8, 136, 240, 128), (4, 544, 960, 128), (4, 136, 240, 128),
     (4, 320, 320, 128), (4, 80, 80, 128),
 )
-FAM_TOL = {"fam_conv_fused": 2e-4, "fam_tail_stats": 1e-5, "fam_tail_apply_g1": 1e-4, "fam_tail_apply": 1e-5}
+# K4 and each of its stages within K4's 2e-4 (tests/test_fused_blocks.py).
+K4_STAGES = ("fam_conv_y", "fam_conv_z", "fam_conv_out")
+FAM_TOL = {"fam_conv_fused": 2e-4, **{k: 2e-4 for k in K4_STAGES}, "fam_tail_stats": 1e-5, "fam_tail_apply_g1": 1e-4,
+           "fam_tail_apply": 1e-5}
 FAM_KERNELS = tuple(FAM_TOL)
+# Timed at the letterboxed frame's shapes; fam_tail_apply at the unpadded one's.
+FAM_TIMED = FAM_KERNELS[:6]
 # tests/test_packed_inference.py:40-42.
 PACKED_TOL = {"enhanced": 2e-3, "reflectance": 2e-3, "illumination": 2e-5}
 # The net's outputs on the card against the CPU's (same weights and input).
@@ -306,13 +331,13 @@ CONV_CASES = {
     "conv2d_narrow": [
         ((2, 1088, 1920, 32), (3, 3, 32), 1, True), ((2, 1088, 1920, 32), (3, 3, 64), 1, True),
         ((2, 1088, 1920, 32), (3, 3, 32), 2, False), ((2, 37, 53, 24), (5, 5, 40), 1, True),
-        ((2, 37, 53, 24), (3, 3, 30), 2, False),
+        ((2, 37, 53, 24), (3, 3, 30), 2, False), ((2, 37, 53, 64), (5, 5, 128), 2, True),
     ],
 }
-# (kernel, case index): both 3x3 shapes of K13/K15, K14's first; the first
-# of each kernel goes into the kernels line.
+# (kernel, case index): both 3x3 shapes of K13/K15, K14's first and its
+# dilation-2 case; the first of each kernel goes into the kernels line.
 CONV_TIMED = {("conv2d_pallas", 0), ("conv2d_pallas", 2), ("conv2d_pallas_im2col", 0),
-              ("conv2d_pallas_im2col", 2), ("conv2d_narrow", 0)}
+              ("conv2d_pallas_im2col", 2), ("conv2d_narrow", 0), ("conv2d_narrow", 2)}
 DUAL_SHAPES = ((2, 544, 960, 128), (1, 544, 960, 128), (2, 37, 53, 128))
 # K16: the 1088x1920 frame, perf_lab's batch of 8, a 4K frame, the JAX test's.
 K16_SHAPES = ((1, 1088, 1920, 3), (8, 1088, 1920, 3), (1, 2160, 3840, 3), (2, 96, 128, 3))
@@ -525,9 +550,11 @@ def luma_kernel_phase(torch, cg, cl, shape: tuple, seed: int) -> dict:
     return recs
 
 
-def fam_inputs(torch, shape, seed: int) -> dict:
+def fam_inputs(torch, fb, shape, seed: int) -> dict:
     """Seeded K4-K6 inputs on the card, scaled as tests/test_fused_blocks.py
-    scales them (x >= 0, the FAM input being post-ReLU)."""
+    scales them (x >= 0, the FAM input being post-ReLU); K4's weights packed
+    once, as the packed forward packs them, and the inputs of K4's second
+    and last stages (y, z) from the plain stages before them."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     b, h, w, c = shape
 
@@ -538,7 +565,7 @@ def fam_inputs(torch, shape, seed: int) -> dict:
     w1, w2 = n(c, c, scale=0.05), n(c, c, scale=0.05)
     wf = [n(c, c, scale=0.05) for _ in range(4)]
     k32, k42 = n(3, 3, c, c, scale=0.05), n(3, 3, c, c, scale=0.05)
-    return dict(
+    d = dict(
         x=x,
         ka=(w1 @ wf[0]).contiguous(),
         kb=(w2 @ wf[1]).contiguous(),
@@ -551,13 +578,30 @@ def fam_inputs(torch, shape, seed: int) -> dict:
         sa=torch.sigmoid(n(b, h, w, 4)),
         wg=n(c, c, scale=0.05),
     )
+    d["k2"] = fb.stack_second_convs(d["k32"], d["k42"])
+    d["packed"] = fb.pack_fam_conv(*(d[k] for k in ("ka", "kb", "k1", "b1", "k32", "k42", "bias_total")))
+    d["y"] = fb.fam_conv_y_plain(x, d["k1"], d["b1"])
+    d["z"] = fb.fam_conv_z_plain(d["y"], d["k2"], d["bias_total"])
+    return d
+
+
+# The inputs that carry the batch (sliced image by image in the batch holds).
+FAM_PER_IMAGE = ("x", "ca_vec", "sa", "y", "z")
 
 
 def fam_calls(fb, d: dict) -> dict:
-    """{kernel name: (kernel, plain version, arguments)} on the inputs `d`."""
+    """{kernel name: (kernel, plain version, arguments)} on the inputs `d`;
+    K4 and its stages read the weights packed once (``d["packed"]``, made
+    from the weights that the plain versions take)."""
     conv_args = [d[k] for k in ("x", "ka", "kb", "k1", "b1", "k32", "k42", "bias_total")]
+    p = d["packed"]
     return {
-        "fam_conv_fused": (fb.fam_conv_fused, fb.fam_conv_fused_plain, conv_args),
+        "fam_conv_fused": (lambda *a: fb.fam_conv_fused(*a, packed=p), fb.fam_conv_fused_plain, conv_args),
+        "fam_conv_y": (lambda x, *_: fb.fam_conv_y(x, p), fb.fam_conv_y_plain, [d["x"], d["k1"], d["b1"]]),
+        "fam_conv_z": (lambda y, *_: fb.fam_conv_z(y, p), fb.fam_conv_z_plain, [d["y"], d["k2"], d["bias_total"]]),
+        "fam_conv_out": (
+            lambda z, x, *_: fb.fam_conv_out(z, x, p), fb.fam_conv_out_plain, [d["z"], d["x"], d["ka"], d["kb"]],
+        ),
         "fam_tail_stats": (fb.fam_tail_stats, fb.fam_tail_stats_plain, [d["x"], d["ca_vec"]]),
         "fam_tail_apply_g1": (
             fb.fam_tail_apply_g1, fb.fam_tail_apply_g1_plain, [d["x"], d["ca_vec"], d["sa"], d["wg"]],
@@ -566,25 +610,38 @@ def fam_calls(fb, d: dict) -> dict:
     }
 
 
-def fam_kernel_phase(torch, fb, shape, seed: int, timed: tuple = ()) -> dict:
-    """Hold K4-K6 and K11 to their plain versions at `shape`, and on a batch
-    each kernel's first and last image to the kernel run on that image alone
-    (identical: nothing couples the images of a batch). Return records: the
-    error, and for the kernels in `timed` the median ms over 25 launches,
-    the plain version's ms and the bound."""
-    d = fam_inputs(torch, shape, seed)
-    calls = fam_calls(fb, d)
+def fam_bounds(shape) -> dict:
+    """The bound of each FAM kernel at `shape`: K4 and its stages count
+    their own inputs and outputs (K4 as a whole: x in, out written, the
+    weights once; y is no input of the function) and their FLOP."""
     b, h, w, c = shape
     n_px = b * h * w
-    weight_bytes = 4 * (2 * c * c + 9 * c * 2 * c + 2 * c + 2 * 9 * c * c + c)
-    bounds = {
-        "fam_conv_fused": bound(2 * 4 * n_px * c + weight_bytes, 2 * n_px * (9 * c * 512 + 2 * c * c)),
+    conv_ops = 2 * n_px * 9 * c * 2 * c  # one 3x3 convolution, 128 <-> 256
+    w3 = 4 * 9 * c * 2 * c  # one 3x3 kernel, f32
+    weight_bytes = 4 * (2 * c * c + 2 * c + c) + 2 * w3
+    return {
+        "fam_conv_fused": bound(2 * 4 * n_px * c + weight_bytes, 2 * conv_ops + 2 * n_px * 2 * c * c),
+        "fam_conv_y": bound(4 * n_px * 3 * c + w3 + 4 * 2 * c, conv_ops),
+        "fam_conv_z": bound(4 * n_px * 3 * c + w3 + 4 * c, conv_ops),
+        "fam_conv_out": bound(3 * 4 * n_px * c + 4 * 2 * c * c, 2 * n_px * 2 * c * c),
         "fam_tail_stats": bound(4 * n_px * c + 4 * b * c + 4 * n_px * 8, K5_OPS_PER_PX * n_px),
         "fam_tail_apply_g1": bound(
             4 * n_px * (c + 4 + c) + 4 * (b * c + c * c), n_px * (2 * c + 2 * c * c)
         ),
         "fam_tail_apply": bound(4 * n_px * (c + 4 + c) + 4 * b * c, n_px * 2 * c),
     }
+
+
+def fam_kernel_phase(torch, fb, shape, seed: int, timed: tuple = ()) -> dict:
+    """Hold K4 (whole and by stage), K5, K6 and K11 to their plain versions
+    at `shape`, and on a batch each kernel's first and last image to the
+    kernel run on that image alone (identical: nothing couples the images
+    of a batch). Return records: the error, and for the kernels in `timed`
+    the median ms over 25 launches, the plain version's ms and the bound."""
+    d = fam_inputs(torch, fb, shape, seed)
+    calls = fam_calls(fb, d)
+    b = shape[0]
+    bounds = fam_bounds(shape)
     recs = {}
     for name, (kernel, plain, args) in calls.items():
         got, want = kernel(*args), plain(*args)
@@ -594,7 +651,7 @@ def fam_kernel_phase(torch, fb, shape, seed: int, timed: tuple = ()) -> dict:
             raise AssertionError(f"{name} disagrees with its plain version at {shape}: max |diff| {err:.3e}")
         line = f"  {list(shape)} {name}: max |diff| {err:.3e} (tolerance {FAM_TOL[name]:g})"
         for j in sorted({0, b - 1} if b > 1 else ()):
-            alone = fam_calls(fb, {k: v[j : j + 1] if k in ("x", "ca_vec", "sa") else v for k, v in d.items()})
+            alone = fam_calls(fb, {k: v[j : j + 1].contiguous() if k in FAM_PER_IMAGE else v for k, v in d.items()})
             if not torch.equal(alone[name][0](*alone[name][2]), got[j : j + 1]):
                 raise AssertionError(f"{name} at {shape}: image {j} of the batch differs from the kernel on it alone")
         if b > 1:
@@ -605,10 +662,11 @@ def fam_kernel_phase(torch, fb, shape, seed: int, timed: tuple = ()) -> dict:
             plain_ms = time_ms(torch, lambda: plain(*args), n=5)
             recs[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=bounds[name])
             line += (
-                f"; {ms:.4f} ms (plain {plain_ms:.3f} ms, bound {bounds[name][0]:.4f} ms by "
-                f"{bounds[name][1]}), launches per image 2"
+                f"; {ms:.4f} ms per launch (plain {plain_ms:.3f} ms, bound {bounds[name][0]:.4f} ms by "
+                f"{bounds[name][1]}, {bounds[name][0] / ms:.1%} of it), launches per image 2"
             )
         print(line)
+        del got, want
     return recs
 
 
@@ -627,11 +685,15 @@ def run_cli(torch, modules, args, entry=None) -> tuple[dict[str, int], float]:
 
 
 def launch_counts(modules) -> dict[str, int]:
-    return {k: v for m in modules for k, v in m.LAUNCHES.items()}
+    """Launches per wrapper, and per kernel where a module counts those too
+    (K4's three stages; conv_pallas's three kernels)."""
+    return {k: v for m in modules for counts in (m.LAUNCHES, getattr(m, "KERNEL_LAUNCHES", {})) for k, v in counts.items()}
 
 
 def check_launches(launches: dict[str, int], want: dict[str, int], what: str) -> None:
-    """Every counted kernel launched exactly as `want` says (0 where unnamed)."""
+    """Every counted kernel launched exactly as `want` says (0 where unnamed);
+    each K4 call launches each of its three stages once."""
+    want = {**want, **{k: want.get("fam_conv_fused", 0) for k in K4_STAGES}}
     expected = {k: want.get(k, 0) for k in launches}
     if launches != expected:
         raise AssertionError(f"{what} launched {launches}, expected {expected}")
@@ -905,17 +967,22 @@ def directory_phase(torch, modules, photos: Path, workdir: Path) -> dict[str, in
     print(f"  fused luma entry on the 3 chunks: launches {fused}; bytes equal the clahe_luma PNGs")
     total = {k: total[k] + v for k, v in fused.items()}
 
-    # The net at batch 8 on the first chunk, warm.
+    # The packed and the standard net at batch 8 on the first chunk, warm,
+    # in turns: whether packing pays at batch 8.
     (target, out_h, out_w), paths = next(iter(bucket_by_canvas(files, 1920).items()))
     x8 = torch.from_numpy(decode_bucket(paths[:8], target)).to("cuda").float() / 255.0
-    times = []
-    for _ in range(4):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        apply(x8)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    print(f"  packed net at batch 8, {out_h}x{out_w}: {statistics.median(times[1:]) / 8:.3f} ms per image (warm median)")
+    nets = {"packed": apply, "standard": cli.build_apply_fn(Config(mode="enhance", packed_inference=False), torch.device("cuda"))}
+    times = {name: [] for name in nets}
+    for i in range(8):
+        for name in list(nets)[i % 2 :] + list(nets)[: i % 2]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nets[name](x8)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    med = {name: statistics.median(t[2:]) / 8 for name, t in times.items()}  # the first two runs warm up
+    print(f"  packed net at batch 8, {out_h}x{out_w}: {med['packed']:.3f} ms per image (warm median); standard net "
+          f"{med['standard']:.3f} ms per image; packed / standard {med['packed'] / med['standard']:.4f}")
     return total
 
 
@@ -1456,9 +1523,9 @@ def conv_inputs(torch, shape, kernel: tuple, dtype, seed: int):
 
 def conv_route(name: str, dtype, torch) -> str:
     """The kernel that must serve `name` at perf_lab's shapes."""
-    if name == "conv2d_narrow":
-        return "conv_direct"
-    return "conv_wgmma" if dtype == torch.bfloat16 else "conv_pipelined"
+    if dtype == torch.bfloat16:
+        return "conv_wgmma"
+    return "conv_direct" if name == "conv2d_narrow" else "conv_pipelined"
 
 
 def conv_phase(torch, cp, kernels) -> tuple[dict, dict]:
@@ -1467,6 +1534,8 @@ def conv_phase(torch, cp, kernels) -> tuple[dict, dict]:
     KERNEL_LAUNCHES), then each case against its plain version and batch
     against single images; timings at the CONV_TIMED cases. Returns
     (launches by (kernel, dtype), records by (kernel, dtype))."""
+    import ctypes
+
     import torch.nn.functional as F
 
     fns = {"conv2d_pallas": (cp.conv2d_pallas, cp.conv2d_pallas_plain),
@@ -1501,8 +1570,8 @@ def conv_phase(torch, cp, kernels) -> tuple[dict, dict]:
         raise AssertionError(f"per-wrapper counts {cp.LAUNCHES} disagree with the calls made {launches}")
     print(f"  public functions at perf_lab's shapes, f32 and bf16: launches {dict(cp.LAUNCHES)}, "
           f"by kernel {dict(cp.KERNEL_LAUNCHES)}")
-    print(f"  dynamic shared memory per block: conv_wgmma {kernels.query('conv_wgmma_smem', cp.WGMMA_N)} B "
-          f"(N {cp.WGMMA_N}), conv_pipelined {kernels.query('conv_pipelined_smem', 3, 3)} B (3x3)")
+    print(f"  dynamic shared memory per block: conv_pipelined {kernels.query('conv_pipelined_smem', 3, 3)} B (3x3); "
+          "conv_wgmma by timed case below")
 
     recs: dict = {}
     for seed, (name, i, case, dt) in enumerate(cases):
@@ -1533,6 +1602,14 @@ def conv_phase(torch, cp, kernels) -> tuple[dict, dict]:
                 return torch.relu(out) if relu else out
 
             lib_err = float((library().permute(0, 2, 3, 1).float() - got.float()).abs().max())
+            if served == "conv_wgmma":
+                plan = (ctypes.c_int * 3)()
+                n_t, ck = cp.wgmma_n_tile(cout), cp.wgmma_chunk(shape[3])
+                cout_pad = -(-cout // n_t) * n_t
+                if kernels.query("conv_wgmma_plan", shape[3], cout_pad, kh, kw_, dil, n_t, ck, ctypes.addressof(plan)):
+                    raise AssertionError(f"conv_wgmma has no plan for {tag}")
+                line += (f"; conv_wgmma N {n_t}, K chunk {ck}, {plan[0]} B of dynamic shared memory, "
+                         f"{plan[1]} halo stages, weights {f'in a ring of {plan[2]}' if plan[2] else 'resident'}")
             t = dict(ms=time_ms(torch, lambda: kernel(x)), plain_ms=time_ms(torch, lambda: plain(x), n=5),
                      library_ms=time_ms(torch, library), bound=bd)
             if "ms" not in rec:
@@ -1683,23 +1760,35 @@ def main_path_phases(torch, cg, cl, fb, cp, kp) -> tuple[dict, dict]:
     for name, r in luma[0].items():  # the directory chunk [8,1088,1920]
         recs[name] = dict(r, max_abs_err=max(rr[name]["max_abs_err"] for rr in luma))
 
-    print("phase 4: K4-K6 and K11 against their plain versions")
-    k4_k6 = FAM_KERNELS[:3]
-    fam = [fam_kernel_phase(torch, fb, s, seed=2 + i, timed=k4_k6) for i, s in enumerate(FAM_SHAPES)]
+    print("phase 4: K4 (whole and its three stages), K5, K6 and K11 against their plain versions")
+    fam = [fam_kernel_phase(torch, fb, s, seed=2 + i, timed=FAM_TIMED) for i, s in enumerate(FAM_SHAPES)]
     fam_1080 = [
         fam_kernel_phase(torch, fb, s, seed=5 + i, timed=("fam_tail_apply",)) for i, s in enumerate(FAM_SHAPES_1080)
     ]
     held = [fam_kernel_phase(torch, fb, FAM_RAGGED, seed=4)]
     held += [fam_kernel_phase(torch, fb, s, seed=30 + i) for i, s in enumerate(FAM_DIR_SHAPES)]
     for name in FAM_KERNELS:
-        per = [r[name] for r in (fam if name in k4_k6 else fam_1080)]
+        per = [r[name] for r in (fam if name in FAM_TIMED else fam_1080)]
         recs[name] = dict(
             max_abs_err=max(r[name]["max_abs_err"] for r in fam + fam_1080 + held),
             ms=sum(r["ms"] for r in per),
             plain_ms=sum(r["plain_ms"] for r in per),
             bound=(sum(r["bound"][0] for r in per), per[0]["bound"][1]),
         )
-    fam_ms = sum(recs[n]["ms"] for n in k4_k6)
+    k4 = recs["fam_conv_fused"]
+    stages = ", ".join(f"{n} {recs[n]['ms']:.4f} (bound {recs[n]['bound'][0]:.4f})" for n in K4_STAGES)
+    print(
+        f"  K4 device ms per image at 1088x1920 (scale-1 + scale-2 launches): {k4['ms']:.4f} against its bound "
+        f"{k4['bound'][0]:.4f} ({k4['bound'][0] / k4['ms']:.1%} of it) and its plain (cuDNN) version's "
+        f"{k4['plain_ms']:.4f}; by stage: {stages}, sum {sum(recs[n]['ms'] for n in K4_STAGES):.4f}"
+    )
+    fb.reset_launches()
+    fb.fam_conv_fused(*fam_calls(fb, fam_inputs(torch, fb, FAM_SHAPES[1], seed=3))["fam_conv_fused"][2])
+    torch.cuda.synchronize()
+    print(f"  one fam_conv_fused call: launches {fb.LAUNCHES['fam_conv_fused']}, by kernel {dict(fb.KERNEL_LAUNCHES)}")
+    if dict(fb.KERNEL_LAUNCHES) != {k: 1 for k in K4_STAGES}:
+        raise AssertionError(f"a K4 call launched {dict(fb.KERNEL_LAUNCHES)}, expected each of its stages once")
+    fam_ms = sum(recs[n]["ms"] for n in ("fam_conv_fused", "fam_tail_stats", "fam_tail_apply_g1"))
     print(f"  K4-K6 device ms per image at 1088x1920 (scale-1 + scale-2 launches): {fam_ms:.4f}")
     print(f"  K11 device ms per image at 1080x1920: {recs['fam_tail_apply']['ms']:.4f}")
 
@@ -1771,7 +1860,7 @@ def main() -> int:
         print(f"  {built.path.name}: built in {built.seconds:.2f} s")
         for ln in built.report.splitlines():
             # The new kernels' whole report: each entry, its registers, stack and spills.
-            entry = "Compiling entry" in ln and stem in ("conv_wgmma", "conv_pipelined")
+            entry = "Compiling entry" in ln and stem in ("conv_wgmma", "conv_pipelined", "fam_fused")
             if entry or "registers" in ln or "spill" in ln or "error" in ln.lower() or "warning" in ln.lower():
                 print(f"  ptxas ({stem}): {ln.strip()}")
 

@@ -12,6 +12,10 @@
 // wrapper (retinex_tpu_torch/ops/conv_pallas.py) sends a call here when
 // Cin % 4 == 0 and x's base is 16-byte aligned (whole 16-byte copies); other
 // f32 calls, and K14 (conv2d_narrow), go to conv_direct.cu.
+// It also carries K4's two 3x3 convolutions (retinex_tpu/ops/fused_blocks.py::
+// _fam_conv_kernel; retinex_tpu_torch/ops/fused_blocks.py: fam_conv_y,
+// 128 -> 256 with ReLU, and fam_conv_z, 256 -> 128 on the stacked second
+// convs), with its weights packed once per model.
 //
 // Bound on the card: operations. At [2,544,960,128] 3x3 -> 128 the
 // convolution is 3.08e11 FLOP, 4.60 ms at the H100's 67 TFLOP/s of f32

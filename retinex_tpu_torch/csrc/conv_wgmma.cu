@@ -5,47 +5,65 @@
 //   K13 retinex_tpu/ops/conv_pallas.py::_conv_kernel (pallas_call in
 //       conv2d_pallas) and
 //   K15 retinex_tpu/ops/conv_pallas.py::_conv_im2col_kernel (pallas_call in
-//       conv2d_pallas_im2col),
-// which compute one function: a stride-1 convolution with torch-parity
-// padding (k//2 before, k-1-k//2 after, per axis; kernels up to 3x3), NHWC
-// bf16 in and out, an HWIO kernel in bf16, exact bf16 x bf16 products summed
-// in f32, then the f32 bias, the optional ReLU and one rounding to bf16
-// (__float2bfloat16_rn, round to nearest even). The wrapper
-// (retinex_tpu_torch/ops/conv_pallas.py) sends a call here when Cin % 8 == 0
-// and x's base is 16-byte aligned (TMA's stride and address rules); every
-// other bf16 call goes to conv_direct.cu.
+//       conv2d_pallas_im2col): torch-parity padding (k//2 before, k-1-k//2
+//       after, per axis; kernels up to 3x3);
+//   K14 retinex_tpu/ops/conv_pallas.py::_conv_narrow_kernel (pallas_call in
+//       conv2d_narrow): a 3x3 or 5x5 kernel, dilation 1 or 2, symmetric
+//       padding (k//2) * dilation.
+// One function: NHWC bf16 in and out, an HWIO kernel in bf16, exact bf16 x
+// bf16 products summed in f32, then the f32 bias, the optional ReLU and one
+// rounding to bf16 (__float2bfloat16_rn, round to nearest even). The kernel
+// takes kh, kw, the dilation and the low padding of each axis, so one body
+// computes both conventions. The wrapper
+// (retinex_tpu_torch/ops/conv_pallas.py) sends a bf16 call here when
+// Cin % 8 == 0 and x's base is 16-byte aligned (TMA's stride and address
+// rules); every other bf16 call goes to conv_direct.cu.
 //
-// Bound on the card: at [2,544,960,128] 3x3 -> 128 the convolution is
-// 3.08e11 FLOP, 0.311 ms of the H100's 989 TFLOP/s of dense bf16, against
-// 0.160 ms for its bytes (x read once, out written once) at 3.35 TB/s: the
-// tensor cores bound it, so the design keeps them fed.
+// Bound on the card. K13/K15 at [2,544,960,128] 3x3 -> 128: 3.08e11 FLOP,
+// 0.311 ms of the H100's 989 TFLOP/s of dense bf16, against 0.160 ms for
+// its bytes: the tensor cores bound it. K14 at [2,1088,1920,32] 3x3 32 -> 32:
+// 7.7e10 FLOP (0.078 ms) against 534 MB (0.160 ms at 3.35 TB/s): its bytes
+// bound it, so there the design keeps HBM streaming.
 //
 // Design: one GEMM per output tile. M = the 16 x 16 = 256 output pixels of a
 // spatial tile, N = a Cout tile of 128 (64 or 32 when Cout is narrower), K =
-// taps x Cin in chunks of 64 channels (one 128-byte row per pixel, four k16
-// steps).
+// taps x Cin in chunks of CK channels: 64 (one 128-byte row per pixel, four
+// k16 steps) or, when Cin <= 32, 32 (one 64-byte row, two k16 steps), so a
+// narrow Cin sends no zero half through ldmatrix and wgmma.
 // - The halo tile. For each chunk, one TMA copy of a 4-D tiled tensor map
-//   over [B, H, W, Cin] brings a box {64, 18, 18, 1} into shared memory with
-//   the 128-byte swizzle; its start is (x0 - pad_l, y0 - pad_t), and TMA's
-//   zero fill of what lies outside the tensor is the padding (and the
-//   channels past Cin in the last chunk). The box is 18 x 18 for every
-//   kernel size, so its shape is a constant.
-// - A from registers. For tap (u, v), A is the halo window shifted by
-//   (u, v); its rows are not one uniform wgmma shared-memory matrix (the halo
-//   row is 18 pixels), so each consumer warp loads its 16-row fragments with
-//   ldmatrix from per-lane pixel addresses that apply TMA's swizzle (the
-//   16-byte chunk index XOR the pixel index mod 8), and issues wgmma
-//   m64nNk16 in its register-A form. The fragments are double-buffered:
-//   k-block kb + 1's ldmatrix runs while kb's wgmmas do (wait_group 1).
-// - B through TMA. The wrapper packs the HWIO kernel once per call into
-//   [tap][chunk][Cout_pad][64] bf16 (K-major B, zeros past Cin and Cout); a
-//   producer thread streams the (tap, chunk) B tiles (16 KB at N = 128)
-//   through a ring of four mbarrier-guarded stages with the 128-byte
-//   swizzle, and wgmma reads them through shared-memory descriptors.
+//   over [B, H, W, Cin] brings a box {CK, 16 + (kw-1)*dil, 16 + (kh-1)*dil,
+//   1} (18, 20 or 24 pixels a side for the 3x3 and 5x5 kernels at dilation
+//   1 and 2) into shared memory with the 128-byte (CK 64) or 64-byte (CK 32)
+//   swizzle; its start is (x0 - pad_l, y0 - pad_t), and TMA's zero fill of
+//   what lies outside the tensor is the padding (and the channels past Cin
+//   in the last chunk).
+// - A from registers. For tap (u, v), A is the halo window at offset
+//   (u*dil, v*dil); its rows are not one uniform wgmma shared-memory matrix
+//   (a halo row is wider than 16 pixels), so each consumer warp loads its
+//   16-row fragments with ldmatrix from per-lane pixel addresses that apply
+//   TMA's swizzle (the 16-byte chunk index XOR the pixel's row-address bits
+//   7-9 (CK 64) or 7-8 (CK 32)), and issues wgmma m64nNk16 in its
+//   register-A form. The fragments are double-buffered: k-block kb + 1's
+//   ldmatrix runs while kb's wgmmas do (wait_group 1). (Triple buffering,
+//   wait_group 2, measured slower for K14 in development.)
+// - B through TMA. The wrapper packs the HWIO kernel into
+//   [tap][chunk][Cout_pad][CK] bf16 (K-major B, zeros past Cin and Cout),
+//   with the tiles' swizzle. Two ways to hold it, chosen at launch by what
+//   fits in shared memory:
+//   - resident (one Cout tile, and the whole kernel fits, as for K14's
+//     narrow convolutions): the producer loads every (tap, chunk) tile once
+//     per block, and from then on issues halo copies only, up to four tiles
+//     ahead, so HBM keeps streaming; the weights are never re-read;
+//   - a ring of mbarrier-guarded stages (K13/K15's wide kernels: 295 KB at
+//     128 -> 128, 3x3) that the producer streams (tap, chunk) tiles
+//     through, from L2, with two halo stages: four stages, or as many down
+//     to two as fit beside the largest halo boxes (5x5 at dilation 2 with
+//     64-channel chunks and N = 128 takes three).
+//   wgmma reads B through shared-memory descriptors.
 // - Warp specialisation. Block = one producer warpgroup (one thread issues
 //   every TMA copy; setmaxnreg gives its registers away) + two consumer
 //   warpgroups, each owning 128 rows of M (two m64 accumulators of N f32 per
-//   thread). Full and empty mbarriers both ways; halo tiles double-buffered.
+//   thread). Full and empty mbarriers both ways.
 // - A persistent grid, one block per SM, walks the tiles (Cout tile
 //   fastest, then tile column, tile row, image), so the producer loads the
 //   next tile while the consumers run the last one's epilogue.
@@ -55,8 +73,6 @@
 //   Storing the accumulator fragments straight to global memory (4 bytes a
 //   lane, eight pixels a warp instruction) cost more than a quarter of the
 //   kernel's time.
-// The weights (295 KB at 128 -> 128, 3x3) are re-read from L2 by every
-// tile, 1.2 GB a call at [2,544,960,128]; no cluster multicasts them.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_bf16.h>
@@ -65,15 +81,12 @@
 
 namespace {
 
-constexpr int kTH = 16, kTW = 16;             // output tile: M = 256 pixels
-constexpr int kHH = kTH + 2, kHW = kTW + 2;   // halo box, kernels up to 3x3
-constexpr int kCK = 64;                       // channels per chunk: 128 B per pixel
-constexpr int kHaloBytes = kHH * kHW * kCK * 2;
-constexpr int kHaloStride = (kHaloBytes + 1023) / 1024 * 1024;  // 1024-aligned (swizzle atom)
-constexpr int kHaloStages = 2;
-constexpr int kBStages = 4;
-constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
+constexpr int kTH = 16, kTW = 16;  // output tile: M = 256 pixels
+constexpr int kMaxHaloStages = 4;
+constexpr int kMaxRingStages = 4;  // B ring stages when the weights are not resident
+constexpr int kThreads = 384;      // producer warpgroup + two consumer warpgroups
 constexpr int kConsumerThreads = 256;
+constexpr int kMaxSmem = 232448;   // dynamic shared memory a block can use
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -129,11 +142,15 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
                : "r"(addr));
 }
 
-// Shared-memory matrix descriptor of a K-major tile with the 128-byte
-// swizzle: rows of 128 B, 8-row groups 1024 B apart (SBO), LBO unused (1).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         ((uint64_t)1 << 62);
+// Shared-memory matrix descriptor of a K-major tile of CK-element (2*CK-byte)
+// rows with the matching swizzle: CK 64 the 128-byte swizzle (layout 1),
+// 8-row groups 1024 B apart; CK 32 the 64-byte swizzle (layout 2), 8-row
+// groups 512 B apart (SBO). LBO is unused (1).
+template <int CK>
+__device__ __forceinline__ uint64_t sw_desc(uint32_t addr) {
+  constexpr uint64_t kLayout = CK == 64 ? 1 : 2;
+  constexpr uint64_t kSbo = 8 * CK * 2;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((kSbo >> 4) << 32) | (kLayout << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
@@ -208,65 +225,117 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-using Frags = uint32_t[2][4][4];  // A of one k-block: [m64][k16 step][registers]
+// A of one k-block: [m64][k16 step][registers].
+template <int KK>
+using Frags = uint32_t[2][KK][4];
 
-__device__ __forceinline__ void fence_frags(Frags& f) {
+template <int KK>
+__device__ __forceinline__ void fence_frags(Frags<KK>& f) {
 #pragma unroll
   for (int j = 0; j < 2; ++j)
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
+    for (int kk = 0; kk < KK; ++kk)
 #pragma unroll
       for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(f[j][kk][r])::"memory");
 }
 
 // The lane's rows of both m64 halves for one tap: pixel `pix` of the halo
-// (m64 1 is 4 tile rows further), k16 step kk in 16-byte chunks 2kk and
-// 2kk + 1, each at its swizzled place (chunk XOR pixel mod 8).
-__device__ __forceinline__ void load_frags(Frags& f, uint32_t halo, int pix, int khalf) {
+// (m64 1 is 4 tile rows, 4 * box_w halo pixels, further), k16 step kk in
+// 16-byte chunks 2kk and 2kk + 1, each at its swizzled place: the chunk
+// index XOR address bits 7-9 of the pixel's row (CK 64: pix mod 8) or bits
+// 7-8 (CK 32: (pix / 2) mod 4).
+template <int CK>
+__device__ __forceinline__ void load_frags(Frags<CK / 16>& f, uint32_t halo, int pix, int box_w, int khalf) {
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
-    const int p = pix + 4 * j * kHW;
-    const uint32_t row = halo + p * (kCK * 2);
-    const int sw = p & 7;
+    const int p = pix + 4 * j * box_w;
+    const uint32_t row = halo + p * (CK * 2);
+    const int sw = CK == 64 ? (p & 7) : ((p >> 1) & 3);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) ldmatrix_x4(f[j][kk], row + (((2 * kk + khalf) ^ sw) << 4));
+    for (int kk = 0; kk < CK / 16; ++kk) ldmatrix_x4(f[j][kk], row + (((2 * kk + khalf) ^ sw) << 4));
   }
 }
 
 struct WgArgs {
-  int H, W, cin, cout, cout_pad, kh, kw, relu, n_chunks, tiles_x, tiles_y, co_tiles, n_tiles;
+  int H, W, cin, cout, cout_pad, kh, kw, dil, pad_t, pad_l, relu, n_chunks, tiles_x, tiles_y, co_tiles, n_tiles;
+  int box_w, box_h;    // halo box: 16 + (kw-1)*dil by 16 + (kh-1)*dil pixels
+  int halo_bytes;      // one box, CK * box_w * box_h * 2
+  int halo_stride;     // its shared-memory stage, rounded up to 1024 B
+  int halo_stages;     // 2..4
+  int resident;        // 1: every B tile loaded once; 0: a ring of b_stages
+  int b_stages;        // 2..4 (ring only)
 };
 
-template <int N>
-struct Smem {
-  static constexpr int kBBytes = N * kCK * 2;  // one (tap, chunk) B tile
+// A tile's coordinates: Cout tile (fastest), tile column, tile row, image.
+// A block walks tiles blockIdx.x, + gridDim.x, ...: the first is split by
+// division once, and each step adds gridDim.x's own digits with carries, so
+// no division sits between one tile and the next.
+struct TileCoord {
+  int ct, tx, ty, b;
+  __device__ TileCoord(int tile, const WgArgs& a) {
+    ct = tile % a.co_tiles;
+    tile /= a.co_tiles;
+    tx = tile % a.tiles_x;
+    tile /= a.tiles_x;
+    ty = tile % a.tiles_y;
+    b = tile / a.tiles_y;
+  }
+  __device__ void advance(const TileCoord& step, const WgArgs& a) {
+    int carry;
+    ct += step.ct;
+    carry = ct >= a.co_tiles;
+    if (carry) ct -= a.co_tiles;
+    tx += step.tx + carry;
+    carry = tx >= a.tiles_x;
+    if (carry) tx -= a.tiles_x;
+    ty += step.ty + carry;
+    carry = ty >= a.tiles_y;
+    if (carry) ty -= a.tiles_y;
+    b += step.b + carry;
+  }
+};
+
+template <int N, int CK>
+struct Tile {
+  static constexpr int kBBytes = N * CK * 2;     // one (tap, chunk) B tile
   static constexpr int kEpiBytes = kTW * N * 2;  // one warp's 16 output pixels in bf16
-  static constexpr int kBars = 2 * kHaloStages + 2 * kBStages;
-  static constexpr int kBytes =
-      1024 + kHaloStages * kHaloStride + kBStages * kBBytes + (kConsumerThreads / 32) * kEpiBytes + 8 * kBars;
 };
 
-template <int N>
+// Dynamic shared memory of a launch: alignment slack, the halo stages, the B
+// tiles (all of them, or the ring), the 8 consumer warps' epilogue staging
+// and 4 x 4 barriers.
+template <int N, int CK>
+int smem_bytes(const WgArgs& a) {
+  using T = Tile<N, CK>;
+  const int b_tiles = a.resident ? a.kh * a.kw * a.n_chunks : a.b_stages;
+  return 1024 + a.halo_stages * a.halo_stride + b_tiles * T::kBBytes + (kConsumerThreads / 32) * T::kEpiBytes +
+         8 * 4 * kMaxHaloStages;
+}
+
+template <int N, int CK>
 __global__ void __launch_bounds__(kThreads, 1)
     conv_wgmma_bf16_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
                            const float* __restrict__ bias, __nv_bfloat16* __restrict__ out, const WgArgs a) {
-  using S = Smem<N>;
+  using T = Tile<N, CK>;
+  constexpr int KK = CK / 16;  // k16 steps per k-block
   extern __shared__ uint8_t smem_raw[];
+  const int taps = a.kh * a.kw;
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t halo0 = base;
-  const uint32_t b0 = halo0 + kHaloStages * kHaloStride;
-  const uint32_t epi0 = b0 + kBStages * S::kBBytes;  // per-warp epilogue staging
-  const uint32_t bars = epi0 + (kConsumerThreads / 32) * S::kEpiBytes;
-  // Barriers: halo full [kHaloStages], halo empty, B full [kBStages], B empty.
-  const uint32_t h_full = bars, h_empty = bars + 8 * kHaloStages;
-  const uint32_t b_full = bars + 16 * kHaloStages, b_empty = b_full + 8 * kBStages;
+  const uint32_t b0 = halo0 + a.halo_stages * a.halo_stride;
+  const uint32_t epi0 = b0 + (a.resident ? taps * a.n_chunks : a.b_stages) * T::kBBytes;
+  const uint32_t bars = epi0 + (kConsumerThreads / 32) * T::kEpiBytes;
+  // Barriers: halo full [4], halo empty [4], B full [4], B empty [4]. With
+  // resident weights only B full [0] is used, once.
+  const uint32_t h_full = bars, h_empty = bars + 8 * kMaxHaloStages;
+  const uint32_t b_full = bars + 16 * kMaxHaloStages, b_empty = b_full + 8 * kMaxRingStages;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kHaloStages; ++s) {
+    for (int s = 0; s < a.halo_stages; ++s) {
       mbar_init(h_full + 8 * s, 1);
       mbar_init(h_empty + 8 * s, kConsumerThreads);
     }
-    for (int s = 0; s < kBStages; ++s) {
+    for (int s = 0; s < kMaxRingStages; ++s) {
       mbar_init(b_full + 8 * s, 1);
       mbar_init(b_empty + 8 * s, kConsumerThreads);
     }
@@ -275,32 +344,32 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
 
   const int wg = threadIdx.x / 128;
-  const int taps = a.kh * a.kw;
-  const int pad_t = a.kh / 2, pad_l = a.kw / 2;
 
   if (wg == 0) {
     // Producer warpgroup: one thread issues every copy.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
     if (threadIdx.x != 0) return;
+    if (a.resident) {  // every (tap, chunk) tile, once: rows (tap * n_chunks + chunk) * cout_pad
+      const int n_b = taps * a.n_chunks;
+      mbar_expect_tx(b_full, n_b * T::kBBytes);
+      for (int s = 0; s < n_b; ++s) tma_load_2d(b0 + s * T::kBBytes, &wmap, b_full, 0, s * a.cout_pad);
+    }
     int hs = 0, hph = 0, bs = 0, bph = 0;
-    for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
-      int r = tile;
-      const int ct = r % a.co_tiles;
-      r /= a.co_tiles;
-      const int tx = r % a.tiles_x;
-      r /= a.tiles_x;
-      const int ty = r % a.tiles_y, b = r / a.tiles_y;
-      const int x0 = tx * kTW - pad_l, y0 = ty * kTH - pad_t, co0 = ct * N;
+    const TileCoord step(gridDim.x, a);
+    TileCoord tc(blockIdx.x, a);
+    for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x, tc.advance(step, a)) {
+      const int x0 = tc.tx * kTW - a.pad_l, y0 = tc.ty * kTH - a.pad_t, co0 = tc.ct * N, b = tc.b;
       for (int c = 0; c < a.n_chunks; ++c) {
         mbar_wait(h_empty + 8 * hs, hph ^ 1);
-        mbar_expect_tx(h_full + 8 * hs, kHaloBytes);
-        tma_load_4d(halo0 + hs * kHaloStride, &xmap, h_full + 8 * hs, c * kCK, x0, y0, b);
-        if (++hs == kHaloStages) hs = 0, hph ^= 1;
+        mbar_expect_tx(h_full + 8 * hs, a.halo_bytes);
+        tma_load_4d(halo0 + hs * a.halo_stride, &xmap, h_full + 8 * hs, c * CK, x0, y0, b);
+        if (++hs == a.halo_stages) hs = 0, hph ^= 1;
+        if (a.resident) continue;
         for (int t = 0; t < taps; ++t) {
           mbar_wait(b_empty + 8 * bs, bph ^ 1);
-          mbar_expect_tx(b_full + 8 * bs, S::kBBytes);
-          tma_load_2d(b0 + bs * S::kBBytes, &wmap, b_full + 8 * bs, 0, (t * a.n_chunks + c) * a.cout_pad + co0);
-          if (++bs == kBStages) bs = 0, bph ^= 1;
+          mbar_expect_tx(b_full + 8 * bs, T::kBBytes);
+          tma_load_2d(b0 + bs * T::kBBytes, &wmap, b_full + 8 * bs, 0, (t * a.n_chunks + c) * a.cout_pad + co0);
+          if (++bs == a.b_stages) bs = 0, bph ^= 1;
         }
       }
     }
@@ -317,17 +386,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   // picks pixels 8-15 of the warp's row, q >> 1 the upper 8 channels of a
   // k16 step. Halo pixel of this lane's row at tap (0, 0), m64 0:
   const int q = lane >> 3;
-  const int pix0 = (8 * g + warp) * kHW + (q & 1) * 8 + (lane & 7);
+  const int pix0 = (8 * g + warp) * a.box_w + (q & 1) * 8 + (lane & 7);
   const int khalf = q >> 1;
   int hs = 0, hph = 0, bs = 0, bph = 0;
+  if (a.resident) mbar_wait(b_full, 0);
 
-  for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
-    int r = tile;
-    const int ct = r % a.co_tiles;
-    r /= a.co_tiles;
-    const int tx = r % a.tiles_x;
-    r /= a.tiles_x;
-    const int ty = r % a.tiles_y, b = r / a.tiles_y;
+  const TileCoord step(gridDim.x, a);
+  TileCoord tc(blockIdx.x, a);
+  for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x, tc.advance(step, a)) {
+    const int ct = tc.ct, tx = tc.tx, ty = tc.ty, b = tc.b;
 
     float acc[2][N / 2];
 #pragma unroll
@@ -337,35 +404,47 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     // K-blocks (chunk, tap) in order. Each step issues k-block kb's wgmmas
     // from `cur`, retires kb - 1 (its B stage and its fragment registers)
-    // and loads kb + 1's fragments into them while kb's wgmmas run.
+    // and loads kb + 1's fragments into them while kb's wgmmas run. The tap
+    // (u, v) advances by counters, keeping a division by kw off the path
+    // from one k-block's wgmmas to the next.
     const int nkb = a.n_chunks * taps;
-    Frags fa, fb;
-    int t = 0;  // tap of the k-block whose fragments were loaded last
+    Frags<KK> fa, fb;
+    int c = 0, t = 0, u = 0, v = 0;  // chunk, tap (u, v) of the k-block whose fragments were loaded last
     mbar_wait(h_full + 8 * hs, hph);
-    load_frags(fa, halo0 + hs * kHaloStride, pix0, khalf);
-    auto step = [&](Frags& cur, Frags& nxt, int kb) {
-      mbar_wait(b_full + 8 * bs, bph);
-      const uint64_t desc = sw128_desc(b0 + bs * S::kBBytes);
+    load_frags<CK>(fa, halo0 + hs * a.halo_stride, pix0, a.box_w, khalf);
+    auto step = [&](Frags<KK>& cur, Frags<KK>& nxt, int kb) {
+      uint32_t btile;
+      if (a.resident) {
+        btile = b0 + (t * a.n_chunks + c) * T::kBBytes;
+      } else {
+        mbar_wait(b_full + 8 * bs, bph);
+        btile = b0 + bs * T::kBBytes;
+      }
+      const uint64_t desc = sw_desc<CK>(btile);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
+      for (int kk = 0; kk < KK; ++kk) {
 #pragma unroll
         for (int j = 0; j < 2; ++j) wgmma_rs<N>(acc[j], cur[j][kk], desc + 2 * kk);  // +32 B per k16
       }
       wgmma_commit();
       wgmma_wait<1>();
-      fence_frags(nxt);
-      if (kb > 0) mbar_arrive(b_empty + 8 * (bs == 0 ? kBStages - 1 : bs - 1));
-      if (++bs == kBStages) bs = 0, bph ^= 1;
+      fence_frags<KK>(nxt);
+      if (!a.resident) {
+        if (kb > 0) mbar_arrive(b_empty + 8 * (bs == 0 ? a.b_stages - 1 : bs - 1));
+        if (++bs == a.b_stages) bs = 0, bph ^= 1;
+      }
+      if (++v == a.kw) v = 0, ++u;
       if (++t == taps) {  // kb + 1 starts a chunk: kb's halo has been read
         t = 0;
+        u = 0;
+        ++c;
         mbar_arrive(h_empty + 8 * hs);
-        if (++hs == kHaloStages) hs = 0, hph ^= 1;
+        if (++hs == a.halo_stages) hs = 0, hph ^= 1;
         if (kb + 1 < nkb) mbar_wait(h_full + 8 * hs, hph);
       }
       if (kb + 1 < nkb) {
-        const int u = t / a.kw, v = t - u * a.kw;
-        load_frags(nxt, halo0 + hs * kHaloStride, pix0 + u * kHW + v, khalf);
+        load_frags<CK>(nxt, halo0 + hs * a.halo_stride, pix0 + (u * a.box_w + v) * a.dil, a.box_w, khalf);
       }
     };
     for (int kb = 0; kb < nkb; kb += 2) {
@@ -375,10 +454,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     wgmma_wait<0>();
     fence_regs(acc[0]);
     fence_regs(acc[1]);
-    fence_frags(fa);
-    fence_frags(fb);
-    mbar_arrive(b_empty + 8 * (bs == 0 ? kBStages - 1 : bs - 1));
-
+    fence_frags<KK>(fa);
+    fence_frags<KK>(fb);
+    if (!a.resident) mbar_arrive(b_empty + 8 * (bs == 0 ? a.b_stages - 1 : bs - 1));
     // Epilogue, per m64 half: the warp rounds its 16 pixels x N channels
     // (f32 + bias, ReLU, then bf16) into its staging tile, 16-byte chunks
     // XOR-swizzled by pixel so neither side conflicts on banks, and stores
@@ -388,7 +466,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     constexpr int kChunks = N / 8;  // 16-byte chunks per pixel
     constexpr int kSwz = kChunks < 8 ? kChunks - 1 : 7;
     constexpr int kPixPerStore = 32 / kChunks;
-    uint8_t* stage = smem_raw + (epi0 - smem_u32(smem_raw)) + (4 * g + warp) * S::kEpiBytes;
+    uint8_t* stage = smem_raw + (epi0 - smem_u32(smem_raw)) + (4 * g + warp) * T::kEpiBytes;
     const int co_l = ct * N + 2 * (lane & 3);
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
@@ -457,25 +535,50 @@ EncodeTiled encoder() {
 constexpr int kNoEncoder = 10000;
 constexpr int kEncodeFailed = 20000;
 
-template <int N>
-int launch(const void* x, const void* w, const void* bias, void* out, int batch, const WgArgs& a, void* stream) {
+// Chooses how the B tiles are held and how many stages fit: resident
+// weights with as many halo stages as fit (4 down to 2) where there is one
+// Cout tile, else two halo stages and a ring of as many B stages as fit (4
+// down to 2). Every call make_args takes fits (the largest, a 24x24 box of
+// 64 channels at N = 128, with three B stages); -1 would mean none does.
+template <int N, int CK>
+int plan(WgArgs& a) {
+  a.b_stages = 0;
+  if (a.co_tiles == 1) {
+    a.resident = 1;
+    for (a.halo_stages = kMaxHaloStages; a.halo_stages >= 2; --a.halo_stages) {
+      if (smem_bytes<N, CK>(a) <= kMaxSmem) return smem_bytes<N, CK>(a);
+    }
+  }
+  a.resident = 0;
+  a.halo_stages = 2;
+  for (a.b_stages = kMaxRingStages; a.b_stages >= 2; --a.b_stages) {
+    if (smem_bytes<N, CK>(a) <= kMaxSmem) return smem_bytes<N, CK>(a);
+  }
+  return -1;
+}
+
+template <int N, int CK>
+int launch(const void* x, const void* w, const void* bias, void* out, int batch, WgArgs a, void* stream) {
+  const int smem = plan<N, CK>(a);
+  if (smem < 0) return (int)cudaErrorInvalidValue;
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return kNoEncoder;
+  constexpr CUtensorMapSwizzle kSwizzle = CK == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
   CUtensorMap xmap, wmap;
   const cuuint64_t xdim[4] = {(cuuint64_t)a.cin, (cuuint64_t)a.W, (cuuint64_t)a.H, (cuuint64_t)batch};
   const cuuint64_t xstride[3] = {(cuuint64_t)a.cin * 2, (cuuint64_t)a.W * a.cin * 2, (cuuint64_t)a.H * a.W * a.cin * 2};
-  const cuuint32_t xbox[4] = {kCK, kHW, kHH, 1};
+  const cuuint32_t xbox[4] = {CK, (cuuint32_t)a.box_w, (cuuint32_t)a.box_h, 1};
   const cuuint32_t ones[4] = {1, 1, 1, 1};
   CUresult res = encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), xdim, xstride, xbox, ones,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, kSwizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (res != CUDA_SUCCESS) return kEncodeFailed + (int)res;
   const cuuint64_t wrows = (cuuint64_t)a.kh * a.kw * a.n_chunks * a.cout_pad;
-  const cuuint64_t wdim[2] = {kCK, wrows};
-  const cuuint64_t wstride[1] = {kCK * 2};
-  const cuuint32_t wbox[2] = {kCK, N};
+  const cuuint64_t wdim[2] = {CK, wrows};
+  const cuuint64_t wstride[1] = {CK * 2};
+  const cuuint32_t wbox[2] = {CK, N};
   res = encode(&wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(w), wdim, wstride, wbox, ones,
-               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, kSwizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (res != CUDA_SUCCESS) return kEncodeFailed + (int)res;
 
@@ -483,12 +586,27 @@ int launch(const void* x, const void* w, const void* bias, void* out, int batch,
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(conv_wgmma_bf16_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<N>::kBytes);
+    err = cudaFuncSetAttribute(conv_wgmma_bf16_kernel<N, CK>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = a.n_tiles < sms ? a.n_tiles : sms;
-  conv_wgmma_bf16_kernel<N><<<grid, kThreads, Smem<N>::kBytes, (cudaStream_t)stream>>>(
+  conv_wgmma_bf16_kernel<N, CK><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       xmap, wmap, (const float*)bias, (__nv_bfloat16*)out, a);
   return (int)cudaGetLastError();
+}
+
+// The arguments of a call, without its plan; false where the kernel does
+// not take it.
+bool make_args(WgArgs& a, int H, int W, int cin, int cout, int cout_pad, int kh, int kw, int dil, int pad_t,
+               int pad_l, int relu, int n_tile, int ck, int batch) {
+  if (cin % 8 != 0 || kh < 1 || kh > 5 || kw < 1 || kw > 5 || dil < 1 || dil > 2 || (ck != 32 && ck != 64) ||
+      (n_tile != 32 && n_tile != 64 && n_tile != 128) || cout_pad % n_tile != 0)
+    return false;
+  a = WgArgs{H, W, cin, cout, cout_pad, kh, kw, dil, pad_t, pad_l, relu, (cin + ck - 1) / ck, (W + kTW - 1) / kTW,
+             (H + kTH - 1) / kTH, cout_pad / n_tile, 0, kTW + (kw - 1) * dil, kTH + (kh - 1) * dil, 0, 0, 0, 0, 0};
+  a.n_tiles = batch * a.tiles_y * a.tiles_x * a.co_tiles;
+  a.halo_bytes = ck * a.box_w * a.box_h * 2;
+  a.halo_stride = (a.halo_bytes + 1023) / 1024 * 1024;  // the swizzle atoms stay aligned
+  return true;
 }
 
 }  // namespace
@@ -496,33 +614,47 @@ int launch(const void* x, const void* w, const void* bias, void* out, int batch,
 extern "C" {
 
 // x [batch, H, W, cin] bf16, cin % 8 == 0, 16-byte aligned; w the packed
-// kernel [kh * kw, n_chunks, cout_pad, 64] bf16 (n_chunks = ceil(cin / 64),
-// zeros past cin and cout); bias f32 [cout_pad]; out [batch, H, W, cout]
-// bf16. n_tile (32, 64 or 128) divides cout_pad.
+// kernel [kh * kw, n_chunks, cout_pad, ck] bf16 (ck 32 or 64, n_chunks =
+// ceil(cin / ck), zeros past cin and cout); bias f32 [cout_pad]; out
+// [batch, H, W, cout] bf16. Kernels up to 5x5, dilation 1 or 2, low
+// padding pad_t, pad_l (the box covers the rest). n_tile (32, 64 or 128)
+// divides cout_pad.
 int conv_wgmma_bf16(const void* x, const void* w, const void* bias, void* out, int batch, int H, int W, int cin,
-                    int cout, int cout_pad, int kh, int kw, int relu, int n_tile, void* stream) {
-  if (cin % 8 != 0 || kh < 1 || kh > 3 || kw < 1 || kw > 3 || cout_pad % n_tile != 0 ||
-      reinterpret_cast<uintptr_t>(x) % 16 != 0)
+                    int cout, int cout_pad, int kh, int kw, int dil, int pad_t, int pad_l, int relu, int n_tile,
+                    int ck, void* stream) {
+  WgArgs a;
+  if (reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      !make_args(a, H, W, cin, cout, cout_pad, kh, kw, dil, pad_t, pad_l, relu, n_tile, ck, batch))
     return (int)cudaErrorInvalidValue;
-  WgArgs a{H, W, cin, cout, cout_pad, kh, kw, relu, (cin + kCK - 1) / kCK, (W + kTW - 1) / kTW,
-           (H + kTH - 1) / kTH, cout_pad / n_tile, 0};
-  a.n_tiles = batch * a.tiles_y * a.tiles_x * a.co_tiles;
-  switch (n_tile) {
-    case 32: return launch<32>(x, w, bias, out, batch, a, stream);
-    case 64: return launch<64>(x, w, bias, out, batch, a, stream);
-    case 128: return launch<128>(x, w, bias, out, batch, a, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+#define CONV_WGMMA_CASE(NT, CK_) \
+  if (n_tile == NT && ck == CK_) return launch<NT, CK_>(x, w, bias, out, batch, a, stream);
+  CONV_WGMMA_CASE(32, 32)
+  CONV_WGMMA_CASE(64, 32)
+  CONV_WGMMA_CASE(128, 32)
+  CONV_WGMMA_CASE(32, 64)
+  CONV_WGMMA_CASE(64, 64)
+  CONV_WGMMA_CASE(128, 64)
+#undef CONV_WGMMA_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
-// Dynamic shared memory per block for Cout tile n_tile, or -1.
-int conv_wgmma_smem(int n_tile) {
-  switch (n_tile) {
-    case 32: return Smem<32>::kBytes;
-    case 64: return Smem<64>::kBytes;
-    case 128: return Smem<128>::kBytes;
-    default: return -1;
+// The plan of a call: plan_out = {dynamic shared memory in bytes, halo
+// stages, B ring stages (0: the weights are resident)}. Returns 0, or -1
+// where the kernel does not take the call.
+int conv_wgmma_plan(int cin, int cout_pad, int kh, int kw, int dil, int n_tile, int ck, int* plan_out) {
+  WgArgs a;
+  if (!make_args(a, 16, 16, cin, cout_pad, cout_pad, kh, kw, dil, 0, 0, 0, n_tile, ck, 1)) return -1;
+  int smem = -1;
+  if (ck == 32) {
+    smem = n_tile == 32 ? plan<32, 32>(a) : n_tile == 64 ? plan<64, 32>(a) : plan<128, 32>(a);
+  } else {
+    smem = n_tile == 32 ? plan<32, 64>(a) : n_tile == 64 ? plan<64, 64>(a) : plan<128, 64>(a);
   }
+  if (smem < 0) return -1;
+  plan_out[0] = smem;
+  plan_out[1] = a.halo_stages;
+  plan_out[2] = a.resident ? 0 : a.b_stages;
+  return 0;
 }
 
 }  // extern "C"

@@ -4,8 +4,9 @@
 // and scale-2 towers on f32 NHWC activations [B, H, W, 128], the 128 channels
 // being four quadrants of 32 (packed channel (a*2 + b)*32 + c):
 //
-//   fam_conv_fused_kernel     the whole conv stage (four branches, max pool,
-//                             fusion 1x1 folded in) -> [B, H, W, 128]
+//   fam_conv_out_kernel       K4's last stage: relu(z + x @ ka + maxpool(x) @
+//                             kb) -> [B, H, W, 128], after K4's two 3x3
+//                             convolutions (y, z) on conv_pipelined.cu
 //   fam_tail_stats_kernel     x * ca -> per-quadrant channel mean/max [B,H,W,8]
 //   fam_tail_apply_g1_kernel  (x * ca * sa per quadrant) @ W -> [B,H,W,Cout]
 //   fam_tail_apply_kernel     x * ca * sa per quadrant -> [B,H,W,128] (the
@@ -59,84 +60,115 @@ __device__ __forceinline__ void fma4(float (&acc)[4], const float4 x, const floa
 }
 
 // ---------------------------------------------------------------------------
-// K4. Replaces retinex_tpu/ops/fused_blocks.py::_fam_conv_kernel (pallas_call
-// in fam_conv_fused). For one output tile of kTH x kTW packed pixels:
+// K4, last stage. K4 replaces retinex_tpu/ops/fused_blocks.py::_fam_conv_kernel
+// (pallas_call in fam_conv_fused), which computes on the packed post-ReLU FAM
+// input x [B, H, W, 128]:
 //
 //   relu(x @ ka + maxpool3x3(x) @ kb + conv3(y3, k32) + conv3(y4, k42) + bt),
 //   (y3 | y4) = relu(conv3(x, k1) + b1), y zero outside the image.
 //
-// Bound on the card: operations — 2 * (9*128*512 + 2*128*128) FLOP per packed
-// pixel against 1 KB of activations in and out, ~600 FLOP/B, far above the
-// H100's f32 ratio (67 TFLOP/s over 3.35 TB/s = 20). Design: one block of 256
-// threads per tile, everything in shared memory, nothing but the output in
-// device memory.
-//  - The x tile with a halo of 2 (the two stacked 3x3 convs) is loaded once,
-//    zero outside the image: 12 x 20 x 128 f32 (pixel stride padded by one
-//    float4 so two pixels read in one warp land in different banks).
-//  - The 256-channel y never leaves the block. It is made in four chunks of
-//    64 channels over the 10 x 18 halo-1 tile; each chunk is masked to zero
-//    outside the image (else relu(b1) would leak into the border pixels) and
-//    consumed at once by the matching 64 input rows of k32 (chunks 0, 1) or
-//    k42 (chunks 2, 3). The output accumulators stay in registers across
-//    the chunks, so shared memory holds the x tile and one buffer that takes
-//    the pooled tile, then each chunk in turn: 192,256 B, one block per SM.
-//  - The 3x3 max pool is per ORIGINAL pixel, across quadrants: original row
-//    2I + a + dr is packed row (2I + a + dr) >> 1, quadrant row (.. & 1). It
-//    relies on x >= 0 (the FAM input is post-ReLU), so the zero halo equals
-//    'SAME' -inf padding.
-//  - Register tiling: in the output stage warp w owns tile row w (16 pixels)
-//    and lane l owns output channels 4l..4l+3 (64 accumulators); the
-//    activation reads are shared-memory broadcasts and each weight row is one
-//    coalesced 512 B warp read from L1/L2 (the 2.5 MB of weights stay
-//    L2-resident). In the y stage a half-warp covers a chunk's 64 channels and
-//    each thread 12 of the 180 halo pixels.
+// On the card K4 is three launches (retinex_tpu_torch/ops/fused_blocks.py):
+// y = relu(conv3(x, k1) + b1) and z = conv3(y, [k32; k42]) + bt on
+// conv_pipelined.cu (its two 3x3 convolutions, 128 -> 256 and 256 -> 128,
+// each at two thirds of the f32 rate; y goes through device memory once
+// instead of being recomputed over every tile's halo), then this kernel:
+//
+//   out = relu(z + [x | maxpool3x3(x)] @ [ka; kb]).
+//
+// Bound on the card: operations - 2 * 256 * 128 FLOP per packed pixel
+// against 1.5 KB moved (z and x in, out), 0.54 ms at 67 TFLOP/s for the
+// 554,880 packed pixels of a 1088x1920 image.
+// Design, conv_pipelined's: a block of 128 threads owns 4 x 16 packed pixels
+// x 128 output channels; thread (pg, cg) owns 8 pixels of one tile row and
+// channels 4cg..4cg+3 and 64+4cg..64+4cg+3, an 8 x 8 register outer product.
+// The x tile with a halo of 1 comes into shared memory by cp.async (zeros
+// outside the image), the block computes the pooled tile from it, then the K
+// loop walks the 256 rows of [ka; kb] (x's centre channels, then the pooled
+// ones) in chunks of 16, each staged by cp.async into one of two buffers
+// while the other is read. 107,200 B of shared memory put two blocks on an
+// SM, so one block's tile load, pooling and barriers run under the other's
+// FMAs (8 x 16 tiles, one 179,008-B block per SM, measured slower).
+// The 3x3 max pool is per ORIGINAL pixel, across quadrants: original row
+// 2I + a + dr is packed row (2I + a + dr) >> 1, quadrant row (.. & 1). It
+// relies on x >= 0 (the FAM input is post-ReLU), so the zero halo equals
+// 'SAME' -inf padding.
 // ---------------------------------------------------------------------------
-constexpr int kTH = 8, kTW = 16;             // output tile, packed pixels
-constexpr int kXH = kTH + 4, kXW = kTW + 4;  // x tile, halo 2
-constexpr int kYH = kTH + 2, kYW = kTW + 2;  // y tile, halo 1
-constexpr int kXPix4 = kC4 + 1;              // x tile pixel stride in float4
-constexpr int kY = 256;                      // y3 | y4
-constexpr int kChunk = 64;                   // y channels per pass
-constexpr int kChunk4 = kChunk / 4;
-constexpr int kConvThreads = 256;
-constexpr int kYPix = kYH * kYW;                                   // 180
-constexpr int kOutPix = kTH * kTW;                                 // 128
-constexpr int kYGroups = kConvThreads / kChunk4;                   // 16
-constexpr int kYPerThread = (kYPix + kYGroups - 1) / kYGroups;     // 12
-constexpr int kXsFloat4 = kXH * kXW * kXPix4;
-constexpr int kBufFloat4 = (kYPix * kChunk4 > kOutPix * kC4) ? kYPix * kChunk4 : kOutPix * kC4;
-constexpr size_t kConvSmem = (size_t)(kXsFloat4 + kBufFloat4) * sizeof(float4);
-static_assert(kConvThreads / 32 == kTH, "one warp per output tile row");
-static_assert(kConvThreads / kC4 * kTW == kOutPix, "output mapping");
+constexpr int kOutTH = 4, kOutTW = 16;                          // output tile, packed pixels
+constexpr int kOutHW = kOutTW + 2;                              // halo row
+constexpr int kOutHaloPx = (kOutTH + 2) * kOutHW;               // 108
+constexpr int kOutPix = kOutTH * kOutTW;                        // 64
+constexpr int kPxStride = kC + 4;                               // floats per pixel in shared memory
+constexpr int kWRows = 16;                                      // rows of [ka; kb] per stage
+constexpr int kOutThreads = kOutTH * 32;                        // 16 threads per 8-pixel row half
+constexpr int kOutBlocks = 2;                                   // blocks per SM the smem allows
+constexpr size_t kOutSmem = sizeof(float) * ((size_t)(kOutHaloPx + kOutPix) * kPxStride + 2 * kWRows * kC);
+static_assert(kOutThreads == kOutPix / 8 * 16, "16 threads own 8 pixels' 128 channels");
 
-__global__ void __launch_bounds__(kConvThreads, 1)
-    fam_conv_fused_kernel(const float* __restrict__ x, const float* __restrict__ ka,
-                          const float* __restrict__ kb, const float* __restrict__ k1,
-                          const float* __restrict__ b1, const float* __restrict__ k32,
-                          const float* __restrict__ k42, const float* __restrict__ bt,
-                          float* __restrict__ out, int H, int W) {
-  extern __shared__ float4 smem[];
-  float4* xs = smem;               // [kXH * kXW][kXPix4]
-  float4* buf = smem + kXsFloat4;  // pooled tile [kOutPix][kC4], then y chunks [kYPix][kChunk4]
-  const int t = threadIdx.x;
-  const int r0 = blockIdx.y * kTH, c0 = blockIdx.x * kTW;
-  const float* xb = x + (size_t)blockIdx.z * H * W * kC;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
+}
 
-  for (int i = t; i < kXH * kXW * kC4; i += kConvThreads) {
-    const int c4 = i % kC4, pix = i / kC4;
-    const int gy = r0 - 2 + pix / kXW, gx = c0 - 2 + pix % kXW;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W) v = ldg4(xb + ((size_t)gy * W + gx) * kC + 4 * c4);
-    xs[pix * kXPix4 + c4] = v;
+// acc[0..7] += x[k] * (w[k][0] | w[k][1]) for four input channels k.
+__device__ __forceinline__ void fma_px(float (&acc)[8], const float4 x, const float4 (&w)[4][2]) {
+  const float xv[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    acc[0] = fmaf(xv[k], w[k][0].x, acc[0]);
+    acc[1] = fmaf(xv[k], w[k][0].y, acc[1]);
+    acc[2] = fmaf(xv[k], w[k][0].z, acc[2]);
+    acc[3] = fmaf(xv[k], w[k][0].w, acc[3]);
+    acc[4] = fmaf(xv[k], w[k][1].x, acc[4]);
+    acc[5] = fmaf(xv[k], w[k][1].y, acc[5]);
+    acc[6] = fmaf(xv[k], w[k][1].z, acc[6]);
+    acc[7] = fmaf(xv[k], w[k][1].w, acc[7]);
   }
+}
+
+__global__ void __launch_bounds__(kOutThreads, kOutBlocks)
+    fam_conv_out_kernel(const float* __restrict__ z, const float* __restrict__ x, const float* __restrict__ w,
+                        float* __restrict__ out, int H, int W) {
+  extern __shared__ float4 smem[];
+  float* xs = reinterpret_cast<float*>(smem);  // x tile [kOutHaloPx][kPxStride]
+  float* ps = xs + kOutHaloPx * kPxStride;     // pooled tile [kOutPix][kPxStride]
+  float* ws = ps + kOutPix * kPxStride;        // [2][kWRows][kC]
+  const int t = threadIdx.x, cg = t % 16, pg = t / 16;
+  const int row = pg / 2, col0 = (pg % 2) * 8;
+  const int r0 = blockIdx.y * kOutTH, c0 = blockIdx.x * kOutTW, b = blockIdx.z;
+  const float* xb = x + (size_t)b * H * W * kC;
+  const uint32_t xs_s = smem_u32(xs), ws_s = smem_u32(ws);
+
+  auto load_w = [&](int chunk) {  // rows chunk * kWRows.. of [ka; kb], one commit group
+    const float* src = w + (size_t)chunk * kWRows * kC;
+    const uint32_t dst = ws_s + (chunk & 1) * (kWRows * kC * 4);
+#pragma unroll 1
+    for (int i = t; i < kWRows * kC4; i += kOutThreads) cp_async16(dst + 16 * i, src + 4 * i, 16);
+    cp_async_commit();
+  };
+#pragma unroll 1
+  for (int i = t; i < kOutHaloPx * kC4; i += kOutThreads) {
+    const int px = i / kC4, c4 = i % kC4;
+    const int gy = r0 - 1 + px / kOutHW, gx = c0 - 1 + px % kOutHW;
+    const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+    cp_async16(xs_s + 4 * (px * kPxStride + 4 * c4), in ? xb + ((size_t)gy * W + gx) * kC + 4 * c4 : xb,
+               in ? 16 : 0);
+  }
+  load_w(0);  // one group: the x tile and the first weight rows
+  cp_async_wait<0>();
   __syncthreads();
 
-  // Branch 2's pool: per original pixel, the max of its 3x3 neighbourhood.
-  for (int i = t; i < kOutPix * kC; i += kConvThreads) {
+  // The pooled tile: per original pixel, the max of its 3x3 neighbourhood.
+  for (int i = t; i < kOutPix * kC; i += kOutThreads) {
     const int ch = i % kC, q = i / kC;
     const int quad = ch / kQ, cc = ch % kQ;
-    const int rbase = 2 * (q / kTW + 2) + (quad >> 1), cbase = 2 * (q % kTW + 2) + (quad & 1);
-    const float* xf = reinterpret_cast<const float*>(xs);
+    const int rbase = 2 * (q / kOutTW + 1) + (quad >> 1), cbase = 2 * (q % kOutTW + 1) + (quad & 1);
     float m = -INFINITY;
 #pragma unroll
     for (int dr = -1; dr <= 1; ++dr) {
@@ -144,118 +176,61 @@ __global__ void __launch_bounds__(kConvThreads, 1)
 #pragma unroll
       for (int dc = -1; dc <= 1; ++dc) {
         const int cc2 = cbase + dc;
-        const int pix = (rr >> 1) * kXW + (cc2 >> 1);
-        m = fmaxf(m, xf[pix * kXPix4 * 4 + ((rr & 1) * 2 + (cc2 & 1)) * kQ + cc]);
+        m = fmaxf(m, xs[((rr >> 1) * kOutHW + (cc2 >> 1)) * kPxStride + ((rr & 1) * 2 + (cc2 & 1)) * kQ + cc]);
       }
     }
-    reinterpret_cast<float*>(buf)[i] = m;
+    ps[q * kPxStride + ch] = m;
   }
-  __syncthreads();
 
-  // Output stage mapping: warp pg = tile row, lane cg = 4 output channels.
-  const int cg = t & 31, pg = t >> 5;
-  float acc[kTW][4];
-  {
-    const float4 bias = ldg4(bt + 4 * cg);
+  float acc[8][8];
 #pragma unroll
-    for (int i = 0; i < kTW; ++i) {
-      acc[i][0] = bias.x;
-      acc[i][1] = bias.y;
-      acc[i][2] = bias.z;
-      acc[i][3] = bias.w;
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  constexpr int kChunks = 2 * kC / kWRows;
+  for (int chunk = 0; chunk < kChunks; ++chunk) {
+    if (chunk + 1 < kChunks) {
+      load_w(chunk + 1);
+    } else {
+      cp_async_commit();  // an empty group keeps wait_group 1 exact
     }
-  }
-  // Branch 1 (centre x @ ka) and branch 2 (pooled @ kb).
-#pragma unroll 2
-  for (int k = 0; k < kC; k += 4) {
-    const float* wa = ka + (size_t)k * kC + 4 * cg;
-    const float* wb = kb + (size_t)k * kC + 4 * cg;
-    const float4 a0 = ldg4(wa), a1 = ldg4(wa + kC), a2 = ldg4(wa + 2 * kC), a3 = ldg4(wa + 3 * kC);
-    const float4 p0 = ldg4(wb), p1 = ldg4(wb + kC), p2 = ldg4(wb + 2 * kC), p3 = ldg4(wb + 3 * kC);
+    cp_async_wait<1>();
+    __syncthreads();  // this chunk's rows (and, the first time, the pooled tile) are in
+    const float4* wt = reinterpret_cast<const float4*>(ws + (chunk & 1) * kWRows * kC);
+    const int k0 = (chunk * kWRows) % kC;
+    const float* arow = chunk * kWRows < kC ? xs + ((row + 1) * kOutHW + col0 + 1) * kPxStride + k0
+                                            : ps + (row * kOutTW + col0) * kPxStride + k0;
 #pragma unroll
-    for (int i = 0; i < kTW; ++i) {
-      fma4(acc[i], xs[((pg + 2) * kXW + i + 2) * kXPix4 + k / 4], a0, a1, a2, a3);
-      fma4(acc[i], buf[(pg * kTW + i) * kC4 + k / 4], p0, p1, p2, p3);
+    for (int k4 = 0; k4 < kWRows / 4; ++k4) {
+      float4 wv[4][2];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        wv[k][0] = wt[(4 * k4 + k) * kC4 + cg];
+        wv[k][1] = wt[(4 * k4 + k) * kC4 + 16 + cg];
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        fma_px(acc[i], *reinterpret_cast<const float4*>(arow + i * kPxStride + 4 * k4), wv);
     }
+    __syncthreads();  // this stage is free for the load two chunks on
   }
 
-  // y stage mapping: 16 pixel groups x 16 channel groups of a chunk. Pixels
-  // past the tile (the last round) read pixel 0 and are never stored.
-  const int cl = t % kChunk4, sg = t / kChunk4;
-  int xoff[kYPerThread];
+  const int gy = r0 + row;
+  if (gy >= H) return;
+  const size_t row_off = ((size_t)b * H + gy) * W;
 #pragma unroll
-  for (int i = 0; i < kYPerThread; ++i) {
-    const int p = sg + kYGroups * i;
-    xoff[i] = p < kYPix ? ((p / kYW) * kXW + p % kYW) * kXPix4 : 0;
-  }
-
-  for (int chunk = 0; chunk < kY / kChunk; ++chunk) {
-    __syncthreads();  // the previous readers of buf are done
-    {
-      const int co = chunk * kChunk + 4 * cl;
-      const float4 bias = ldg4(b1 + co);
-      float ya[kYPerThread][4];
+  for (int h = 0; h < 2; ++h) {
+    const int co = 64 * h + 4 * cg;
 #pragma unroll
-      for (int i = 0; i < kYPerThread; ++i) {
-        ya[i][0] = bias.x;
-        ya[i][1] = bias.y;
-        ya[i][2] = bias.z;
-        ya[i][3] = bias.w;
-      }
-      for (int u = 0; u < 3; ++u) {
-        for (int v = 0; v < 3; ++v) {
-          const float* wt = k1 + (size_t)(u * 3 + v) * kC * kY + co;
-          const int tap = (u * kXW + v) * kXPix4;
-#pragma unroll 2
-          for (int k = 0; k < kC; k += 4) {
-            const float4 w0 = ldg4(wt + (size_t)k * kY), w1 = ldg4(wt + (size_t)(k + 1) * kY);
-            const float4 w2 = ldg4(wt + (size_t)(k + 2) * kY), w3 = ldg4(wt + (size_t)(k + 3) * kY);
-#pragma unroll
-            for (int i = 0; i < kYPerThread; ++i) fma4(ya[i], xs[xoff[i] + tap + k / 4], w0, w1, w2, w3);
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kYPerThread; ++i) {
-        const int p = sg + kYGroups * i;
-        if (p < kYPix) {
-          const int gy = r0 - 1 + p / kYW, gx = c0 - 1 + p % kYW;
-          const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
-          buf[p * kChunk4 + cl] = in ? make_float4(fmaxf(ya[i][0], 0.f), fmaxf(ya[i][1], 0.f),
-                                                   fmaxf(ya[i][2], 0.f), fmaxf(ya[i][3], 0.f))
-                                     : make_float4(0.f, 0.f, 0.f, 0.f);
-        }
-      }
-    }
-    __syncthreads();
-
-    // This chunk's 64 input rows of the second convs.
-    const float* kf = (chunk < 2 ? k32 : k42) + (size_t)(chunk & 1) * kChunk * kC + 4 * cg;
-    for (int u = 0; u < 3; ++u) {
-      for (int v = 0; v < 3; ++v) {
-        const float* wt = kf + (size_t)(u * 3 + v) * kC * kC;
-        const float4* yrow = buf + ((pg + u) * kYW + v) * kChunk4;
-#pragma unroll 2
-        for (int k = 0; k < kChunk; k += 4) {
-          const float4 w0 = ldg4(wt + (size_t)k * kC), w1 = ldg4(wt + (size_t)(k + 1) * kC);
-          const float4 w2 = ldg4(wt + (size_t)(k + 2) * kC), w3 = ldg4(wt + (size_t)(k + 3) * kC);
-#pragma unroll
-          for (int i = 0; i < kTW; ++i) fma4(acc[i], yrow[i * kChunk4 + k / 4], w0, w1, w2, w3);
-        }
-      }
-    }
-  }
-
-  const int gy = r0 + pg;
-  if (gy < H) {
-    float* ob = out + ((size_t)blockIdx.z * H + gy) * W * kC + 4 * cg;
-#pragma unroll
-    for (int i = 0; i < kTW; ++i) {
-      if (c0 + i < W) {
-        *reinterpret_cast<float4*>(ob + (size_t)(c0 + i) * kC) =
-            make_float4(fmaxf(acc[i][0], 0.f), fmaxf(acc[i][1], 0.f), fmaxf(acc[i][2], 0.f),
-                        fmaxf(acc[i][3], 0.f));
-      }
+    for (int i = 0; i < 8; ++i) {
+      const int gx = c0 + col0 + i;
+      if (gx >= W) break;
+      const size_t o = (row_off + gx) * kC + co;
+      const float4 zv = ldg4(z + o);
+      *reinterpret_cast<float4*>(out + o) =
+          make_float4(fmaxf(acc[i][4 * h] + zv.x, 0.f), fmaxf(acc[i][4 * h + 1] + zv.y, 0.f),
+                      fmaxf(acc[i][4 * h + 2] + zv.z, 0.f), fmaxf(acc[i][4 * h + 3] + zv.w, 0.f));
     }
   }
 }
@@ -386,14 +361,32 @@ __global__ void fam_tail_apply_kernel(const float* __restrict__ x, const float* 
 // 128 elements in and 256 out; in f32 the CUDA cores' 67 TFLOP/s, in bf16
 // the tensor cores' 989 (which this kernel does not use).
 //
-// Design: K4's conv stage without its 1x1 branches, max pool and final ReLU.
-// One block of 256 threads per (tile, half): out[.., half] depends only on
-// y[.., half], so the block makes just those 128 channels of y, in two
-// chunks of 64 over the 10 x 18 halo-1 tile, each consumed at once by the
-// matching 64 input rows of k2a (half 0) or k2b (half 1). The x tile (halo
-// 2, f32) and one y chunk sit in 172,800 B of shared memory; the 64 output
-// accumulators per thread stay in registers, as in K4.
+// Design: one block of 256 threads per (tile, half): out[.., half] depends
+// only on y[.., half], so the block makes just those 128 channels of y, in
+// two chunks of 64 over the 10 x 18 halo-1 tile (each masked to zero outside
+// the image, else relu(b1) would leak into the border pixels), each consumed
+// at once by the matching 64 input rows of k2a (half 0) or k2b (half 1). The
+// x tile (halo 2, f32; pixel stride padded by one float4 so two pixels read
+// in one warp land in different banks) and one y chunk sit in 172,800 B of
+// shared memory. In the output stage warp w owns tile row w (16 pixels) and
+// lane l output channels 4l..4l+3 (64 accumulators in registers), the
+// weight rows read as coalesced warp reads from L1/L2; in the y stage a
+// half-warp covers a chunk's 64 channels and each thread 12 of the 180 halo
+// pixels.
 // ---------------------------------------------------------------------------
+constexpr int kTH = 8, kTW = 16;             // output tile, packed pixels
+constexpr int kXH = kTH + 4, kXW = kTW + 4;  // x tile, halo 2
+constexpr int kYH = kTH + 2, kYW = kTW + 2;  // y tile, halo 1
+constexpr int kXPix4 = kC4 + 1;              // x tile pixel stride in float4
+constexpr int kY = 256;                      // the two halves of y
+constexpr int kChunk = 64;                   // y channels per pass
+constexpr int kChunk4 = kChunk / 4;
+constexpr int kConvThreads = 256;
+constexpr int kYPix = kYH * kYW;                                // 180
+constexpr int kYGroups = kConvThreads / kChunk4;                // 16
+constexpr int kYPerThread = (kYPix + kYGroups - 1) / kYGroups;  // 12
+constexpr int kXsFloat4 = kXH * kXW * kXPix4;
+static_assert(kConvThreads / 32 == kTH, "one warp per output tile row");
 constexpr size_t kDualSmem = (size_t)(kXsFloat4 + kYPix * kChunk4) * sizeof(float4);
 
 __device__ __forceinline__ float4 load4(const float* p) { return ldg4(p); }
@@ -447,7 +440,8 @@ __global__ void __launch_bounds__(kConvThreads, 1)
 #pragma unroll
   for (int i = 0; i < kTW; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
 
-  // y mapping: 16 pixel groups x 16 channel groups of a chunk, as in K4.
+  // y mapping: 16 pixel groups x 16 channel groups of a chunk. Pixels past
+  // the tile (the last round) read pixel 0 and are never stored.
   const int cl = t % kChunk4, sg = t / kChunk4;
   int xoff[kYPerThread];
 #pragma unroll
@@ -542,16 +536,16 @@ int launch_dual(const void* x, const void* k1, const void* b1, const void* k2a, 
 
 extern "C" {
 
-int fam_conv_fused(const void* x, const void* ka, const void* kb, const void* k1, const void* b1,
-                   const void* k32, const void* k42, const void* bt, void* out, int batch, int H,
-                   int W, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(fam_conv_fused_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kConvSmem);
+// z and x [batch, H, W, 128] f32, w = [ka; kb] [256, 128] f32, out [batch,
+// H, W, 128] f32: out = relu(z + x @ ka + maxpool3x3_s2d(x) @ kb).
+int fam_conv_out(const void* z, const void* x, const void* w, void* out, int batch, int H, int W,
+                 void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(fam_conv_out_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kOutSmem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH, batch);
-  fam_conv_fused_kernel<<<grid, kConvThreads, kConvSmem, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)ka, (const float*)kb, (const float*)k1, (const float*)b1,
-      (const float*)k32, (const float*)k42, (const float*)bt, (float*)out, H, W);
+  const dim3 grid((W + kOutTW - 1) / kOutTW, (H + kOutTH - 1) / kOutTH, batch);
+  fam_conv_out_kernel<<<grid, kOutThreads, kOutSmem, (cudaStream_t)stream>>>(
+      (const float*)z, (const float*)x, (const float*)w, (float*)out, H, W);
   return (int)cudaGetLastError();
 }
 

@@ -10,7 +10,8 @@ the JAX package by ``tests/test_torch_packed.py``. The /4-and-below body
 modules.
 
 The scale-1 and scale-2 FAMs run on the FAM kernels (``ops/fused_blocks.py``):
-K4 for the whole conv stage, then channel attention, K5, the packed SA conv
+K4 for the whole conv stage (three launches on the card, its weights packed
+once here), then channel attention, K5, the packed SA conv
 and sigmoid, and K6, which folds the tower's fusion slice in. Where the
 fusion does not fold (H or W not a multiple of 16, as a 1080-row frame
 without ``--max_size``), K11 applies the attention instead of K6. On a CUDA
@@ -48,8 +49,10 @@ from torch import nn
 
 from retinex_tpu_torch.models.retinex_net import MultiScaleUPRetinex
 from retinex_tpu_torch.ops.fused_blocks import (
+    FamConvPacked,
     dec1_chain,
     fam_conv_fused,
+    pack_fam_conv,
     fam_tail_apply,
     fam_tail_apply_g1,
     fam_tail_stats,
@@ -158,7 +161,8 @@ class _PackedFam:
     second convs times their fusion row blocks; branch 4's dilation-2 conv
     packs to dense taps) and bias_total (every constant term); the channel
     attention runs unpacked on the GAP vector; `sa` is the packed 7x7 SA
-    conv (5x5 packed taps, 8 -> 4 channels)."""
+    conv (5x5 packed taps, 8 -> 4 channels); `conv` is ``pack_fam_conv`` of
+    K4's seven tensors here, made once: they and their kernel layouts."""
 
     ka: torch.Tensor
     kb: torch.Tensor
@@ -172,6 +176,7 @@ class _PackedFam:
     ca_w2: torch.Tensor
     ca_b2: torch.Tensor
     sa: _Conv
+    conv: FamConvPacked
 
 
 def _pack_fam(fam: nn.Module, device) -> _PackedFam:
@@ -212,12 +217,16 @@ def _pack_fam(fam: nn.Module, device) -> _PackedFam:
     def dev(a) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(a, np.float32)).to(device)
 
+    k4 = {
+        "ka": dev(ka), "kb": dev(kb), "k1": dev(dual_k1), "b1": dev(dual_b1), "k32": dev(k32f), "k42": dev(k42f),
+        "bias_total": dev(bias_total),
+    }
     return _PackedFam(
-        ka=dev(ka), kb=dev(kb), k1=dev(dual_k1), b1=dev(dual_b1), k32=dev(k32f), k42=dev(k42f),
-        bias_total=dev(bias_total),
+        **k4,
         ca_w1=dev(_hwio(ca_reduce)[0, 0]), ca_b1=dev(_np(ca_reduce.bias)),
         ca_w2=dev(_hwio(ca_expand)[0, 0]), ca_b2=dev(_np(ca_expand.bias)),
         sa=_Conv.packed(pack_kernel_s1(_hwio(sa_conv)), _np(sa_conv.bias), device),
+        conv=pack_fam_conv(**k4),
     )
 
 
@@ -368,7 +377,7 @@ class PackedRetinex:
         packed fusion slice [128, Co], applied to the FAM output inside K6;
         None at shapes whose fusion does not refold (1080-row frames), where
         K11 applies the attention without it."""
-        out = fam_conv_fused(xp.contiguous(), fw.ka, fw.kb, fw.k1, fw.b1, fw.k32, fw.k42, fw.bias_total)
+        out = fam_conv_fused(xp.contiguous(), fw.ka, fw.kb, fw.k1, fw.b1, fw.k32, fw.k42, fw.bias_total, fw.conv)
 
         # Channel attention: the true per-channel GAP is the mean over packed
         # space AND quadrants.

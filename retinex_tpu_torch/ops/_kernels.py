@@ -24,6 +24,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -56,16 +58,16 @@ _SIGNATURES = {
     "clahe_luma_apply_u8": ("clahe_luma", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "clahe_luma_apply_u8_nhwc": ("clahe_luma", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "clahe_luma_apply_u8_fused": ("clahe_luma", (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
-    "fam_conv_fused": ("fam_fused", (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P)),
+    "fam_conv_out": ("fam_fused", (_P, _P, _P, _P, _I, _I, _I, _P)),
     "fam_tail_stats": ("fam_fused", (_P, _P, _P, _L, _L, _P)),
     "fam_tail_apply_g1": ("fam_fused", (_P, _P, _P, _P, _P, _L, _L, _I, _P)),
     "fam_tail_apply": ("fam_fused", (_P, _P, _P, _P, _L, _L, _P)),
     "dec1_chain": ("dec1_chain", (_P,) * 11 + (_I, _I, _I, _P)),
     "fam_dual_conv3": ("fam_fused", (_P,) * 8 + (_I, _I, _I, _I, _P)),
     "conv_direct": ("conv_direct", (_P,) * 4 + (_I,) * 15 + (_P,)),
-    "conv_wgmma_bf16": ("conv_wgmma", (_P,) * 4 + (_I,) * 10 + (_P,)),
+    "conv_wgmma_bf16": ("conv_wgmma", (_P,) * 4 + (_I,) * 14 + (_P,)),
     "conv_pipelined_f32": ("conv_pipelined", (_P,) * 4 + (_I,) * 9 + (_P,)),
-    "conv_wgmma_smem": ("conv_wgmma", (_I,)),
+    "conv_wgmma_plan": ("conv_wgmma", (_I,) * 7 + (_P,)),
     "conv_pipelined_smem": ("conv_pipelined", (_I, _I)),
     "clahe_pallas_hist": ("clahe_fused", (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "clahe_pallas_apply": ("clahe_fused", (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
@@ -138,6 +140,15 @@ def libraries() -> dict[str, ctypes.CDLL]:
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return libs
+
+
+def stream(x) -> int:
+    """PyTorch's current stream on x's card, where the kernels launch; a
+    tensor off the card raises (the wrappers take CPU tensors to their plain
+    versions before they get here)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"tensor on {x.device}: the kernel path takes CUDA tensors, the plain path CPU tensors")
+    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def query(name: str, *args) -> int:

@@ -74,12 +74,6 @@ def _check_cells(h: int, w: int, tiles_y: int, tiles_x: int) -> None:
         raise ValueError(f"shape {(h, w)} is not a multiple of (2*tiles_y, 2*tiles_x) = {(2 * tiles_y, 2 * tiles_x)}")
 
 
-def _stream(x: torch.Tensor) -> int:
-    if x.device.type != "cuda":
-        raise ValueError(f"tensor on {x.device}: the kernel path takes CUDA tensors, the plain path CPU tensors")
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
 @functools.lru_cache(maxsize=None)
 def _degamma_table(device: str) -> torch.Tensor:
     """f32 [256]: srgb_to_linear(v / 255) for every u8 value v."""
@@ -103,7 +97,7 @@ def lab_fwd_u8(rgb: torch.Tensor) -> torch.Tensor:
     _check_planar_u8(rgb, "lab_fwd_u8")
     if rgb.device.type == "cpu":
         return lab_fwd_u8_plain(rgb)
-    stream = _stream(rgb)
+    stream = _kernels.stream(rgb)
     out = torch.empty_like(rgb)
     tab = _degamma_table(str(rgb.device))
     b, _, h, w = rgb.shape
@@ -122,7 +116,7 @@ def lab_fwd_u8_nhwc(rgb: torch.Tensor) -> torch.Tensor:
     _check_nhwc_u8(rgb, "lab_fwd_u8_nhwc")
     if rgb.device.type == "cpu":
         return lab_fwd_u8_nhwc_plain(rgb)
-    stream = _stream(rgb)
+    stream = _kernels.stream(rgb)
     b, h, w, _ = rgb.shape
     out = torch.empty((b, 3, h, w), dtype=torch.uint8, device=rgb.device)
     tab = _degamma_table(str(rgb.device))
@@ -178,7 +172,7 @@ def clahe_tables(
     clip, lut_scale = _table_params(h, w, tiles_y, tiles_x, clip_limit, hist_subsample)
     if src.device.type == "cpu":
         return clahe_tables_plain(src, clip_limit, tiles_y, tiles_x, hist_subsample)
-    stream = _stream(src)
+    stream = _kernels.stream(src)
     out = torch.empty((b, tiles_y, tiles_x, HIST_SIZE), dtype=torch.uint8, device=src.device)
     _kernels.launch(
         "clahe_tables", src.data_ptr(), out.data_ptr(), img_stride, b, h, w, tiles_y, tiles_x,
@@ -220,7 +214,7 @@ def clahe_apply_u8(lab: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
     tiles_y, tiles_x = _check_luts(luts, b, h, w, lab.device, "clahe_apply_u8")
     if lab.device.type == "cpu":
         return clahe_apply_u8_plain(lab, luts)
-    stream = _stream(lab)
+    stream = _kernels.stream(lab)
     out = torch.empty_like(lab)
     _kernels.launch(
         "clahe_apply_u8", lab.data_ptr(), luts.data_ptr(), out.data_ptr(), b, h, w, tiles_y, tiles_x, stream
@@ -241,7 +235,7 @@ def clahe_apply_u8_nhwc(lab: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
     tiles_y, tiles_x = _check_luts(luts, b, h, w, lab.device, "clahe_apply_u8_nhwc")
     if lab.device.type == "cpu":
         return clahe_apply_u8_nhwc_plain(lab, luts)
-    stream = _stream(lab)
+    stream = _kernels.stream(lab)
     out = torch.empty((b, h, w, 3), dtype=torch.uint8, device=lab.device)
     _kernels.launch(
         "clahe_apply_u8_nhwc", lab.data_ptr(), luts.data_ptr(), out.data_ptr(), b, h, w, tiles_y, tiles_x, stream

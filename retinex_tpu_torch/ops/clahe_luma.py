@@ -40,7 +40,6 @@ from retinex_tpu_torch.ops.clahe_gather import (
     _check_luts,
     _check_nhwc_u8,
     _check_planar_u8,
-    _stream,
     clahe_tables,
 )
 
@@ -126,7 +125,7 @@ def clahe_luma_apply_u8(x_u8: torch.Tensor, y: torch.Tensor, luts: torch.Tensor)
         raise ValueError(f"{what}: expected contiguous uint8 luma {(b, h, w)}, got {y.dtype} {tuple(y.shape)}")
     if x_u8.device.type == "cpu":
         return clahe_luma_apply_u8_plain(x_u8, y, luts)
-    stream = _stream(x_u8)
+    stream = _kernels.stream(x_u8)
     out = torch.empty_like(x_u8)
     _kernels.launch(
         "clahe_luma_apply_u8_nhwc" if nhwc else "clahe_luma_apply_u8", x_u8.data_ptr(), y.data_ptr(),
@@ -142,7 +141,7 @@ def clahe_luma_apply_u8_fused(xp_u8: torch.Tensor, luts: torch.Tensor) -> torch.
     b, _, h, w = xp_u8.shape
     if xp_u8.device.type == "cpu":
         return clahe_luma_apply_u8_fused_plain(xp_u8, luts)
-    stream = _stream(xp_u8)
+    stream = _kernels.stream(xp_u8)
     out = torch.empty_like(xp_u8)
     _kernels.launch(
         "clahe_luma_apply_u8_fused", xp_u8.data_ptr(), luts.data_ptr(), out.data_ptr(),

@@ -40,7 +40,7 @@ import torch
 from retinex_tpu_torch.ops import _kernels
 from retinex_tpu_torch.ops.clahe import HIST_SIZE, _fma, _luts_from_hist, _tile_hist, cell_divisible
 from retinex_tpu_torch.ops.clahe_fast import _neighbor_index_tables
-from retinex_tpu_torch.ops.clahe_gather import _check_luts, _check_planar_u8, _stream
+from retinex_tpu_torch.ops.clahe_gather import _check_luts, _check_planar_u8
 
 # D65 constants of retinex_tpu/ops/clahe_pallas.py (OpenCV 8-bit Lab).
 _RGB2XYZ = (
@@ -155,7 +155,7 @@ def clahe_pallas_hist(x: torch.Tensor, tiles_y: int = 8, tiles_x: int = 8):
         raise ValueError("clahe_pallas_hist: tensor must be contiguous")
     if x.device.type == "cpu":
         return clahe_pallas_hist_plain(x, tiles_y, tiles_x)
-    stream = _stream(x)
+    stream = _kernels.stream(x)
     b, h, w, _ = x.shape
     lab = torch.empty((b, 3, h, w), dtype=torch.uint8, device=x.device)
     hist = torch.zeros((b, tiles_y, tiles_x, HIST_SIZE), dtype=torch.int32, device=x.device)
@@ -223,7 +223,7 @@ def clahe_pallas_apply(lab: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
     tiles_y, tiles_x = _check_luts(luts, b, h, w, lab.device, "clahe_pallas_apply")
     if lab.device.type == "cpu":
         return clahe_pallas_apply_plain(lab, luts)
-    stream = _stream(lab)
+    stream = _kernels.stream(lab)
     out = torch.empty((b, h, w, 3), dtype=torch.float32, device=lab.device)
     _kernels.launch("clahe_pallas_apply", lab.data_ptr(), luts.data_ptr(), out.data_ptr(), b, h, w, tiles_y, tiles_x, stream)
     LAUNCHES["clahe_pallas_apply"] += 1

@@ -17,16 +17,20 @@ activations and HWIO kernels:
 
 Which kernel serves a CUDA call (``route``):
 
-- K13 and K15 in bf16 with Cin % 8 == 0 and x's base 16-byte aligned:
-  ``conv_wgmma`` (``csrc/conv_wgmma.cu``), an implicit GEMM on the tensor
-  cores (TMA halo tiles, ``wgmma``). TMA needs 16-byte strides and base;
+- every bf16 call (K13, K15 and K14) with Cin % 8 == 0 and x's base
+  16-byte aligned: ``conv_wgmma`` (``csrc/conv_wgmma.cu``), an implicit
+  GEMM on the tensor cores (TMA halo tiles, ``wgmma``). TMA needs 16-byte
+  strides and base. Its K chunk is 32 channels where Cin <= 32 (K14's
+  narrow convolutions), else 64. Every kernel size and dilation of the
+  three wrappers has a shared-memory plan there (``conv_wgmma_plan``), so
+  Cin, Cout and the kernel's shape never send a call elsewhere;
 - K13 and K15 in f32 with Cin % 4 == 0 and x's base 16-byte aligned:
   ``conv_pipelined`` (``csrc/conv_pipelined.cu``), CUDA-core FMAs fed by a
   double-buffered ``cp.async`` pipeline (16-byte copies). TF32 stays off,
   by the parity rule;
-- every other K13/K15 call (other Cin, a misaligned view) and K14 in both
-  dtypes: ``conv_direct`` (``csrc/conv_direct.cu``), which takes any Cin
-  and alignment.
+- every other call (other Cin, a misaligned view) and K14 in f32:
+  ``conv_direct`` (``csrc/conv_direct.cu``), which takes any Cin and
+  alignment. In f32 K14 beats ``F.conv2d`` there.
 
 Each wrapper keeps its own count in ``LAUNCHES``, and each kernel its count
 in ``KERNEL_LAUNCHES``, so a run shows which kernel served which call.
@@ -53,7 +57,6 @@ import torch
 import torch.nn.functional as F
 
 from retinex_tpu_torch.ops import _kernels
-from retinex_tpu_torch.ops.fused_blocks import _stream
 
 # Kernel launches per wrapper, and per kernel, since the last reset_launches().
 LAUNCHES = {"conv2d_pallas": 0, "conv2d_pallas_im2col": 0, "conv2d_narrow": 0}
@@ -62,9 +65,8 @@ KERNEL_LAUNCHES = {"conv_direct": 0, "conv_wgmma": 0, "conv_pipelined": 0}
 # conv_direct's tiling: input channels staged per pass, and the output
 # channels of one block (32, 64 or 128, the smallest that holds Cout).
 CIN_CHUNK = 32
-# conv_wgmma: input channels per K chunk (one 128-byte row per pixel) and
-# the widest Cout tile (N of the GEMM; 32 or 64 when Cout is narrower).
-WGMMA_CHUNK = 64
+# conv_wgmma: the widest Cout tile (N of the GEMM; 32 or 64 when Cout is
+# narrower). Its K chunk is ``wgmma_chunk(Cin)``.
 WGMMA_N = 128
 # conv_pipelined: input channels per stage, output channels per block.
 PIPE_CHUNK = 8
@@ -82,10 +84,10 @@ def reset_launches() -> None:
 def route(name: str, dtype: torch.dtype, cin: int, data_ptr: int) -> str:
     """The kernel that serves wrapper `name` on a CUDA x of `dtype` with
     `cin` channels at address `data_ptr` (see the module docstring)."""
-    if name in _SAME and data_ptr % 16 == 0:
+    if data_ptr % 16 == 0:
         if dtype == torch.bfloat16 and cin % 8 == 0:
             return "conv_wgmma"
-        if dtype == torch.float32 and cin % 4 == 0:
+        if name in _SAME and dtype == torch.float32 and cin % 4 == 0:
             return "conv_pipelined"
     return "conv_direct"
 
@@ -99,14 +101,22 @@ def wgmma_n_tile(cout: int) -> int:
     return 32 if cout <= 32 else 64 if cout <= 64 else WGMMA_N
 
 
+def wgmma_chunk(cin: int) -> int:
+    """conv_wgmma's K chunk: 32 input channels (64-byte rows) where Cin <= 32,
+    else 64 (128-byte rows)."""
+    return 32 if cin <= 32 else 64
+
+
 def pack_wgmma(kernel: torch.Tensor) -> torch.Tensor:
-    """HWIO [kh, kw, Cin, Cout] -> bf16 [kh * kw, Cin chunks, Cout_pad, 64]:
-    K-major B tiles of 64 input channels, zeros past Cin and Cout."""
+    """HWIO [kh, kw, Cin, Cout] -> bf16 [kh * kw, Cin chunks, Cout_pad, CK]:
+    K-major B tiles of CK = wgmma_chunk(Cin) input channels, zeros past Cin
+    and Cout."""
     kh, kw, cin, cout = kernel.shape
-    cin_pad = _round_up(cin, WGMMA_CHUNK)
+    ck = wgmma_chunk(cin)
+    cin_pad = _round_up(cin, ck)
     cout_pad = _round_up(cout, wgmma_n_tile(cout))
     wk = F.pad(kernel.to(torch.bfloat16), (0, cout_pad - cout, 0, cin_pad - cin))
-    return wk.reshape(kh * kw, cin_pad // WGMMA_CHUNK, WGMMA_CHUNK, cout_pad).transpose(2, 3).contiguous()
+    return wk.reshape(kh * kw, cin_pad // ck, ck, cout_pad).transpose(2, 3).contiguous()
 
 
 def pack_pipelined(kernel: torch.Tensor) -> torch.Tensor:
@@ -157,28 +167,47 @@ def _padded_bias(bias, cout_pad: int, device) -> torch.Tensor:
     return bk
 
 
+def launch_pipelined(x, wk, bk, cout: int, kh: int, kw: int, relu: bool) -> torch.Tensor:
+    """conv_pipelined on a CUDA f32 x [B,H,W,Cin] (Cin % 4 == 0, 16-byte
+    aligned): wk the kernel as ``pack_pipelined`` packs it, bk an f32 bias
+    [Cout_pad], padding (k//2, k-1-k//2), optional ReLU. Returns [B,H,W,Cout]
+    f32. The one launch site of the kernel; each caller counts its launch."""
+    stream = _kernels.stream(x)
+    b, h, w, cin = x.shape
+    if x.dtype != torch.float32 or cin % 4 or x.data_ptr() % 16:
+        raise ValueError(f"conv_pipelined: expected a 16-byte aligned float32 x, Cin % 4 == 0; got {x.dtype}, Cin {cin}")
+    cout_pad = _round_up(cout, PIPE_COT)
+    shapes = {"kernel": (_round_up(cin, PIPE_CHUNK) // PIPE_CHUNK, kh * kw, PIPE_CHUNK, cout_pad), "bias": (cout_pad,)}
+    for t, what in ((wk, "kernel"), (bk, "bias")):
+        if tuple(t.shape) != shapes[what] or t.dtype != torch.float32 or t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"conv_pipelined: expected a contiguous float32 {what} {shapes[what]} on {x.device}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    out = torch.empty((b, h, w, cout), dtype=torch.float32, device=x.device)
+    _kernels.launch(
+        "conv_pipelined_f32", x.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(), b, h, w, cin, cout,
+        cout_pad, kh, kw, int(relu), stream,
+    )
+    return out
+
+
 def _launch(name: str, x, kernel, bias, relu: bool, pad_top: int, pad_left: int, dilation: int) -> torch.Tensor:
     """The kernel that ``route`` picks, on a CUDA x: the weights packed for
     it (they are small; x is never copied), the bias f32 and zero-padded."""
-    stream = _stream(x)
+    stream = _kernels.stream(x)
     b, h, w, cin = x.shape
     kh, kw, _, cout = kernel.shape
-    out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
     which = route(name, x.dtype, cin, x.data_ptr())
     # wk and bk stay referenced until the launch has been queued.
-    if which == "conv_wgmma":
+    if which == "conv_pipelined":
+        wk = pack_pipelined(kernel)
+        out = launch_pipelined(x, wk, _padded_bias(bias, wk.shape[3], x.device), cout, kh, kw, relu)
+    elif which == "conv_wgmma":
         wk = pack_wgmma(kernel)
         bk = _padded_bias(bias, wk.shape[2], x.device)
+        out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
         _kernels.launch(
             "conv_wgmma_bf16", x.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(), b, h, w, cin, cout,
-            wk.shape[2], kh, kw, int(relu), wgmma_n_tile(cout), stream,
-        )
-    elif which == "conv_pipelined":
-        wk = pack_pipelined(kernel)
-        bk = _padded_bias(bias, wk.shape[3], x.device)
-        _kernels.launch(
-            "conv_pipelined_f32", x.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(), b, h, w, cin, cout,
-            wk.shape[3], kh, kw, int(relu), stream,
+            wk.shape[2], kh, kw, dilation, pad_top, pad_left, int(relu), wgmma_n_tile(cout), wk.shape[3], stream,
         )
     else:
         co_tile = 32 if cout <= 32 else 64 if cout <= 64 else 128
@@ -186,6 +215,7 @@ def _launch(name: str, x, kernel, bias, relu: bool, pad_top: int, pad_left: int,
         cout_pad = _round_up(cout, co_tile)
         wk = F.pad(kernel.to(x.dtype), (0, cout_pad - cout, 0, cin_pad - cin)).contiguous()
         bk = _padded_bias(bias, cout_pad, x.device)
+        out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
         _kernels.launch(
             "conv_direct", x.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(), b, h, w, cin, cout,
             cin_pad, cout_pad, kh, kw, dilation, pad_top, pad_left, int(relu), int(x.dtype == torch.bfloat16),

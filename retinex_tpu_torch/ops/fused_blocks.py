@@ -7,7 +7,14 @@ standalone op. The FAM kernels live in
 ``retinex_tpu_torch/csrc/fam_fused.cu``:
 
 - ``fam_conv_fused`` (K4): the FAM's whole conv stage on the packed
-  [B,h,w,128] input, the fusion 1x1 folded into each branch;
+  [B,h,w,128] input, the fusion 1x1 folded into each branch. On the card
+  it is three launches, each with its own wrapper and plain version:
+  ``fam_conv_y`` (y = relu(conv3(x, k1) + b1), 128 -> 256) and
+  ``fam_conv_z`` (z = conv3(y, [k32; k42]) + bias_total, 256 -> 128) on
+  ``csrc/conv_pipelined.cu``, then ``fam_conv_out`` (relu(z + x @ ka +
+  maxpool3x3(x) @ kb), in ``csrc/fam_fused.cu``). The stages read the
+  weights from ``pack_fam_conv``, which keeps them as given and in those
+  kernels' layouts, made once per model (``models/packed_inference.py``);
 - ``fam_tail_stats`` (K5): x * ca -> per-quadrant channel mean and max,
   [B,h,w,8] in the order (a0,m0,a1,m1,a2,m2,a3,m3), the SA conv's input;
 - ``fam_tail_apply_g1`` (K6): (x * ca * sa of each quadrant) @ w, the
@@ -35,14 +42,19 @@ kernels take any h, w and batch.
 
 Each wrapper takes a CPU tensor to its plain version and a CUDA tensor to
 its kernel; there is no fallback from one to the other. ``LAUNCHES`` counts
-the kernel launches of each wrapper.
+the kernel launches of each public K-wrapper (``fam_conv_fused`` once per
+call), ``KERNEL_LAUNCHES`` those of K4's three stages, so a run shows
+which kernels served K4.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from retinex_tpu_torch.ops import _kernels
+from retinex_tpu_torch.ops.conv_pallas import launch_pipelined, pack_pipelined
 from retinex_tpu_torch.ops.s2d import conv_nhwc, hwio_to_oihw, maxpool3x3_s1_s2d
 
 C = 128  # packed FAM width: 4 quadrants of 32 channels
@@ -52,11 +64,14 @@ LAUNCHES = {
     "fam_conv_fused": 0, "fam_tail_stats": 0, "fam_tail_apply_g1": 0, "fam_tail_apply": 0, "dec1_chain": 0,
     "fam_dual_conv3": 0,
 }
+# Launches of K4's three stages since the last reset_launches().
+KERNEL_LAUNCHES = {"fam_conv_y": 0, "fam_conv_z": 0, "fam_conv_out": 0}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, KERNEL_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _check(t: torch.Tensor, what: str, shape: tuple, device: torch.device) -> None:
@@ -70,13 +85,59 @@ def _check(t: torch.Tensor, what: str, shape: tuple, device: torch.device) -> No
         raise ValueError(f"{what}: on {t.device}, expected {device}")
 
 
-def _stream(x: torch.Tensor) -> int:
-    if x.device.type != "cuda":
-        raise ValueError(f"tensor on {x.device}: the kernel path takes CUDA tensors, the plain path CPU tensors")
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
 # ---------------------------------------------------------------- K4
+
+
+@dataclasses.dataclass(frozen=True)
+class FamConvPacked:
+    """K4's weights, made once by ``pack_fam_conv``: as given (ka, kb [128,
+    128]; k1 [3,3,128,256], b1 [256]; k32, k42 [3,3,128,128]; bias_total
+    [128]), which the plain versions read, and in the kernels' layouts: k1
+    and the stacked [k32; k42] as ``conv_pallas.pack_pipelined`` packs them,
+    and [ka; kb] [256,128]."""
+
+    ka: torch.Tensor
+    kb: torch.Tensor
+    k1: torch.Tensor
+    b1: torch.Tensor
+    k32: torch.Tensor
+    k42: torch.Tensor
+    bias_total: torch.Tensor
+    k1_packed: torch.Tensor
+    k2_packed: torch.Tensor
+    kab_packed: torch.Tensor
+
+    def weights(self) -> tuple:
+        """The weights as given, in ``fam_conv_fused``'s order."""
+        return self.ka, self.kb, self.k1, self.b1, self.k32, self.k42, self.bias_total
+
+
+_K4_SHAPES = {
+    "ka": (C, C), "kb": (C, C), "k1": (3, 3, C, 2 * C), "b1": (2 * C,), "k32": (3, 3, C, C), "k42": (3, 3, C, C),
+    "bias_total": (C,),
+}
+
+
+def _check_k4_weights(weights, device, what: str) -> None:
+    for t, (name, shape) in zip(weights, _K4_SHAPES.items()):
+        _check(t, f"{what} {name}", shape, device)
+
+
+def stack_second_convs(k32, k42) -> torch.Tensor:
+    """[k32; k42]: conv3(y3, k32) + conv3(y4, k42) is one 3x3 convolution of
+    y = (y3 | y4) with the kernels stacked along the input channels."""
+    return torch.cat([k32, k42], dim=2)
+
+
+def pack_fam_conv(ka, kb, k1, b1, k32, k42, bias_total) -> FamConvPacked:
+    """K4's weights in both forms, from one set (once per model in
+    ``models/packed_inference.py``)."""
+    weights = (ka, kb, k1, b1, k32, k42, bias_total)
+    _check_k4_weights(weights, ka.device, "pack_fam_conv")
+    return FamConvPacked(
+        *weights, k1_packed=pack_pipelined(k1), k2_packed=pack_pipelined(stack_second_convs(k32, k42)),
+        kab_packed=torch.cat([ka, kb], dim=0).contiguous(),
+    )
 
 
 def fam_conv_fused_plain(x, ka, kb, k1, b1, k32, k42, bias_total):
@@ -94,29 +155,91 @@ def fam_conv_fused_plain(x, ka, kb, k1, b1, k32, k42, bias_total):
     )
 
 
-def fam_conv_fused(x, ka, kb, k1, b1, k32, k42, bias_total):
+def fam_conv_y_plain(x, k1, b1):
+    """Plain version of K4's first stage: relu(conv3(x, k1) + b1)."""
+    return torch.relu(conv_nhwc(x, hwio_to_oihw(k1).to(x.device), b1, (1, 1)))
+
+
+def fam_conv_z_plain(y, k2, bias_total):
+    """Plain version of K4's second stage: conv3(y, k2) + bias_total, k2 the
+    stacked [k32; k42]."""
+    return conv_nhwc(y, hwio_to_oihw(k2).to(y.device), bias_total, (1, 1))
+
+
+def fam_conv_out_plain(z, x, ka, kb):
+    """Plain version of K4's last stage: relu(z + x@ka + maxpool3x3(x)@kb)."""
+    return torch.relu(z + x @ ka + maxpool3x3_s1_s2d(x) @ kb)
+
+
+def fam_conv_staged_plain(x, ka, kb, k1, b1, k32, k42, bias_total):
+    """K4 as its kernels compute it, each stage by its plain version."""
+    y = fam_conv_y_plain(x, k1, b1)
+    return fam_conv_out_plain(fam_conv_z_plain(y, stack_second_convs(k32, k42), bias_total), x, ka, kb)
+
+
+def fam_conv_y(x, p: FamConvPacked):
+    """K4's first stage, relu(conv3(x, k1) + b1): x [B,h,w,128] ->
+    [B,h,w,256], the weights from ``pack_fam_conv``."""
+    _check(x, "fam_conv_y x", (None, None, None, C), p.ka.device)
+    if x.device.type == "cpu":
+        return fam_conv_y_plain(x, p.k1, p.b1)
+    y = launch_pipelined(x, p.k1_packed, p.b1, 2 * C, 3, 3, True)
+    KERNEL_LAUNCHES["fam_conv_y"] += 1
+    return y
+
+
+def fam_conv_z(y, p: FamConvPacked):
+    """K4's second stage, conv3(y, [k32; k42]) + bias_total: y [B,h,w,256]
+    -> [B,h,w,128], the weights from ``pack_fam_conv``."""
+    _check(y, "fam_conv_z y", (None, None, None, 2 * C), p.ka.device)
+    if y.device.type == "cpu":
+        return fam_conv_z_plain(y, stack_second_convs(p.k32, p.k42), p.bias_total)
+    z = launch_pipelined(y, p.k2_packed, p.bias_total, C, 3, 3, False)
+    KERNEL_LAUNCHES["fam_conv_z"] += 1
+    return z
+
+
+def fam_conv_out(z, x, p: FamConvPacked):
+    """K4's last stage, relu(z + x@ka + maxpool3x3(x)@kb): z, x [B,h,w,128],
+    x >= 0 (the kernel's zero halo stands in for the max pool's -inf
+    padding), the weights from ``pack_fam_conv``."""
+    _check(x, "fam_conv_out x", (None, None, None, C), p.ka.device)
+    _check(z, "fam_conv_out z", tuple(x.shape), x.device)
+    if x.device.type == "cpu":
+        return fam_conv_out_plain(z, x, p.ka, p.kb)
+    stream = _kernels.stream(x)
+    for t, what in ((x, "x"), (z, "z")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"fam_conv_out {what}: the kernel reads 16-byte aligned rows; got a view at {t.data_ptr():#x}")
+    b, h, w, _ = x.shape
+    out = torch.empty_like(x)
+    _kernels.launch(
+        "fam_conv_out", z.data_ptr(), x.data_ptr(), p.kab_packed.data_ptr(), out.data_ptr(), b, h, w, stream,
+    )
+    KERNEL_LAUNCHES["fam_conv_out"] += 1
+    return out
+
+
+def fam_conv_fused(x, ka, kb, k1, b1, k32, k42, bias_total, packed: FamConvPacked | None = None):
     """K4: the FAM's whole conv stage, x [B,h,w,128] >= 0 (post-ReLU: the
     kernel's zero halo stands in for the max pool's -inf padding).
 
     ka, kb [128,128] (branch 1/2 1x1s with their fusion slices folded in);
     k1 [3,3,128,256], b1 [256] (branch 3/4 first convs stacked); k32, k42
-    [3,3,128,128] (second convs, fusion-folded); bias_total [128]."""
-    dev = x.device
-    _check(x, "fam_conv_fused x", (None, None, None, C), dev)
-    for t, what, shape in (
-        (ka, "ka", (C, C)), (kb, "kb", (C, C)), (k1, "k1", (3, 3, C, 2 * C)), (b1, "b1", (2 * C,)),
-        (k32, "k32", (3, 3, C, C)), (k42, "k42", (3, 3, C, C)), (bias_total, "bias_total", (C,)),
-    ):
-        _check(t, f"fam_conv_fused {what}", shape, dev)
-    if dev.type == "cpu":
-        return fam_conv_fused_plain(x, ka, kb, k1, b1, k32, k42, bias_total)
-    stream = _stream(x)
-    b, h, w, _ = x.shape
-    out = torch.empty_like(x)
-    _kernels.launch(
-        "fam_conv_fused", x.data_ptr(), ka.data_ptr(), kb.data_ptr(), k1.data_ptr(), b1.data_ptr(),
-        k32.data_ptr(), k42.data_ptr(), bias_total.data_ptr(), out.data_ptr(), b, h, w, stream,
-    )
+    [3,3,128,128] (second convs, fusion-folded); bias_total [128].
+    `packed`: ``pack_fam_conv`` of these very tensors, made once (the packed
+    model's FAMs); packed on the call when None. On the card:
+    ``fam_conv_y``, ``fam_conv_z``, ``fam_conv_out``."""
+    weights = (ka, kb, k1, b1, k32, k42, bias_total)
+    _check(x, "fam_conv_fused x", (None, None, None, C), x.device)
+    _check_k4_weights(weights, x.device, "fam_conv_fused")
+    if packed is not None and any(a is not b for a, b in zip(packed.weights(), weights)):
+        raise ValueError("fam_conv_fused: `packed` was not made by pack_fam_conv from these weights")
+    if x.device.type == "cpu":
+        return fam_conv_fused_plain(x, *weights)
+    _kernels.stream(x)  # a tensor off the card raises before any packing
+    p = pack_fam_conv(*weights) if packed is None else packed
+    out = fam_conv_out(fam_conv_z(fam_conv_y(x, p), p), x, p)
     LAUNCHES["fam_conv_fused"] += 1
     return out
 
@@ -139,7 +262,7 @@ def fam_tail_stats(x, ca_vec):
     _check(ca_vec, "fam_tail_stats ca_vec", (x.shape[0], C), dev)
     if dev.type == "cpu":
         return fam_tail_stats_plain(x, ca_vec)
-    stream = _stream(x)
+    stream = _kernels.stream(x)
     b, h, w, _ = x.shape
     out = torch.empty((b, h, w, 8), dtype=torch.float32, device=dev)
     _kernels.launch("fam_tail_stats", x.data_ptr(), ca_vec.data_ptr(), out.data_ptr(), b, h * w, stream)
@@ -170,7 +293,7 @@ def fam_tail_apply_g1(x, ca_vec, sa, w):
         raise ValueError(f"fam_tail_apply_g1: Cout must be a multiple of 4 in [4, {C}], got {cout}")
     if dev.type == "cpu":
         return fam_tail_apply_g1_plain(x, ca_vec, sa, w)
-    stream = _stream(x)
+    stream = _kernels.stream(x)
     out = torch.empty((b, h, wd, cout), dtype=torch.float32, device=dev)
     _kernels.launch(
         "fam_tail_apply_g1", x.data_ptr(), ca_vec.data_ptr(), sa.data_ptr(), w.data_ptr(), out.data_ptr(),
@@ -200,7 +323,7 @@ def fam_tail_apply(x, ca_vec, sa):
     _check(sa, "fam_tail_apply sa", (b, h, wd, 4), dev)
     if dev.type == "cpu":
         return fam_tail_apply_plain(x, ca_vec, sa)
-    stream = _stream(x)
+    stream = _kernels.stream(x)
     out = torch.empty_like(x)
     _kernels.launch("fam_tail_apply", x.data_ptr(), ca_vec.data_ptr(), sa.data_ptr(), out.data_ptr(), b, h * wd, stream)
     LAUNCHES["fam_tail_apply"] += 1
@@ -241,7 +364,7 @@ def dec1_chain(d2, x1p, k_up, b_up, k_c1, b_c1, k_c2, b_c2, k_rc, b_rc):
         _check(t, f"dec1_chain {what}", shape, dev)
     if dev.type == "cpu":
         return dec1_chain_plain(d2, x1p, k_up, b_up, k_c1, b_c1, k_c2, b_c2, k_rc, b_rc)
-    stream = _stream(d2)
+    stream = _kernels.stream(d2)
     out = torch.empty_like(x1p)
     _kernels.launch(
         "dec1_chain", d2.data_ptr(), x1p.data_ptr(), k_up.data_ptr(), b_up.data_ptr(), k_c1.data_ptr(),
@@ -287,7 +410,7 @@ def fam_dual_conv3(x, k1, b1, k2a, b2a, k2b, b2b):
             raise ValueError(f"fam_dual_conv3 {what}: expected a float {shape} on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
     if dev.type == "cpu":
         return fam_dual_conv3_plain(x, k1, b1, k2a, b2a, k2b, b2b)
-    stream = _stream(x)
+    stream = _kernels.stream(x)
     b, h, w, _ = x.shape
     ks = [k.to(x.dtype).contiguous() for k in (k1, k2a, k2b)]
     bs = [t.float().contiguous() for t in (b1, b2a, b2b)]

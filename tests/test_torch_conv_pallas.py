@@ -143,26 +143,29 @@ def test_wrappers_raise_outside_their_scope():
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-@pytest.mark.parametrize("cin,cout", [(128, 128), (256, 256), (96, 96), (24, 24)])
-@pytest.mark.parametrize("kh,kw", [(3, 3), (2, 2), (3, 2)])
+@pytest.mark.parametrize("cin,cout", [(128, 128), (256, 256), (96, 96), (24, 24), (32, 64), (40, 30)])
+@pytest.mark.parametrize("kh,kw", [(3, 3), (2, 2), (3, 2), (5, 5)])
 def test_weight_packers_round_trip_to_hwio(kh, kw, cin, cout):
-    """conv_wgmma's [tap, chunk, Cout_pad, 64] bf16 and conv_pipelined's
-    [chunk, tap, 8, Cout_pad] f32 layouts hold the HWIO kernel (rounded to
-    the kernel's type) at its place and zeros in the padding."""
+    """conv_wgmma's [tap, chunk, Cout_pad, CK] bf16 (CK 32 where Cin <= 32,
+    else 64) and conv_pipelined's [chunk, tap, 8, Cout_pad] f32 layouts hold
+    the HWIO kernel (rounded to the kernel's type) at its place and zeros in
+    the padding."""
     rng = np.random.default_rng(kh * 10 + kw)
     k = torch.from_numpy(rng.standard_normal((kh, kw, cin, cout)).astype(np.float32))
 
     wg = tcp.pack_wgmma(k)
     n = tcp.wgmma_n_tile(cout)
+    ck = tcp.wgmma_chunk(cin)
+    assert ck == (32 if cin <= 32 else 64)
     assert wg.dtype == torch.bfloat16 and wg.is_contiguous()
-    assert tuple(wg.shape) == (kh * kw, -(-cin // 64), -(-cout // n) * n, 64)
+    assert tuple(wg.shape) == (kh * kw, -(-cin // ck), -(-cout // n) * n, ck)
     assert n == (32 if cout <= 32 else 64 if cout <= 64 else 128)
-    hwio = wg.transpose(2, 3).reshape(kh, kw, wg.shape[1] * 64, wg.shape[2])
+    hwio = wg.transpose(2, 3).reshape(kh, kw, wg.shape[1] * ck, wg.shape[2])
     assert torch.equal(hwio[:, :, :cin, :cout], k.to(torch.bfloat16))
     assert not hwio[:, :, cin:].any() and not hwio[:, :, :, cout:].any()
-    # One (tap, chunk) B tile is N rows of 64 input channels (K-major).
+    # One (tap, chunk) B tile is N rows of CK input channels (K-major).
     t, c = kh * kw - 1, wg.shape[1] - 1
-    assert torch.equal(wg[t, c, :cout, : min(64, cin - 64 * c)], k[kh - 1, kw - 1, 64 * c : cin].T.to(torch.bfloat16))
+    assert torch.equal(wg[t, c, :cout, : min(ck, cin - ck * c)], k[kh - 1, kw - 1, ck * c : cin].T.to(torch.bfloat16))
 
     pp = tcp.pack_pipelined(k)
     assert pp.dtype == torch.float32 and pp.is_contiguous()
@@ -183,8 +186,10 @@ def test_weight_packers_round_trip_to_hwio(kh, kw, cin, cout):
         ("conv2d_pallas_im2col", torch.float32, 20, 0, "conv_pipelined"),
         ("conv2d_pallas", torch.float32, 6, 0, "conv_direct"),  # Cin % 4 != 0: no 16-byte copies
         ("conv2d_pallas", torch.float32, 128, 4, "conv_direct"),
-        ("conv2d_narrow", torch.bfloat16, 32, 0, "conv_direct"),  # K14 stays on conv_direct
-        ("conv2d_narrow", torch.float32, 32, 0, "conv_direct"),
+        ("conv2d_narrow", torch.bfloat16, 32, 0, "conv_wgmma"),  # K14 in bf16 on the tensor cores
+        ("conv2d_narrow", torch.bfloat16, 32, 8, "conv_direct"),  # a misaligned view
+        ("conv2d_narrow", torch.bfloat16, 20, 0, "conv_direct"),  # Cin % 8 != 0
+        ("conv2d_narrow", torch.float32, 32, 0, "conv_direct"),  # f32 K14 beats F.conv2d on conv_direct
     ],
 )
 def test_route_sends_each_call_to_its_documented_kernel(name, dtype, cin, offset, want):

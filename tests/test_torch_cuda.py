@@ -140,6 +140,44 @@ def test_fam_kernels_match_plain_versions(cuda_f32, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 37, 53, 128), (1, 136, 240, 128)])
+def test_fam_conv_stages_match_plain_versions(cuda_f32, shape):
+    """K4's three kernels, each against its plain version on the same input
+    (y and z from the plain stages), and their chain against K4's plain
+    version, within K4's 2e-4; weights packed once (pack_fam_conv) or on the
+    call; each image of the batch equals the kernels on it alone."""
+    g = cuda_f32
+    b, h, w, c = shape
+
+    def n(*s, scale=1.0):
+        return torch.randn(s, generator=g, device="cuda") * scale
+
+    x = n(b, h, w, c, scale=0.3).abs()
+    wf = [n(c, c, scale=0.05) for _ in range(4)]
+    ka, kb = (n(c, c, scale=0.05) @ wf[0]).contiguous(), (n(c, c, scale=0.05) @ wf[1]).contiguous()
+    k1, b1 = n(3, 3, c, 2 * c, scale=0.05), n(2 * c, scale=0.1)
+    k32 = torch.einsum("uvio,op->uvip", n(3, 3, c, c, scale=0.05), wf[2]).contiguous()
+    k42 = torch.einsum("uvio,op->uvip", n(3, 3, c, c, scale=0.05), wf[3]).contiguous()
+    bt = n(c, scale=0.1)
+    k2 = fb.stack_second_convs(k32, k42)
+    p = fb.pack_fam_conv(ka, kb, k1, b1, k32, k42, bt)
+    y, z = fb.fam_conv_y_plain(x, k1, b1), fb.fam_conv_z_plain(fb.fam_conv_y_plain(x, k1, b1), k2, bt)
+    fb.reset_launches()
+    stages = [fb.fam_conv_y(x, p), fb.fam_conv_z(y, p), fb.fam_conv_out(z, x, p)]
+    whole = fb.fam_conv_fused(x, ka, kb, k1, b1, k32, k42, bt, packed=p)
+    torch.cuda.synchronize()
+    assert fb.KERNEL_LAUNCHES == {"fam_conv_y": 2, "fam_conv_z": 2, "fam_conv_out": 2}
+    assert fb.LAUNCHES["fam_conv_fused"] == 1
+    for got, want in zip(stages, (y, z, fb.fam_conv_out_plain(z, x, ka, kb))):
+        assert got.shape == want.shape and float((got - want).abs().max()) <= 2e-4
+    assert float((whole - fb.fam_conv_fused_plain(x, ka, kb, k1, b1, k32, k42, bt)).abs().max()) <= 2e-4
+    assert torch.equal(fb.fam_conv_fused(x, ka, kb, k1, b1, k32, k42, bt), whole)
+    for j in range(b):
+        alone = fb.fam_conv_fused(x[j : j + 1].contiguous(), ka, kb, k1, b1, k32, k42, bt, packed=p)
+        assert torch.equal(alone, whole[j : j + 1])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 37, 53), (1, 136, 240)])
 def test_dec1_chain_matches_plain_version(cuda_f32, shape):
     """K10 against its plain version within tests/test_fused_blocks.py:66's
@@ -183,9 +221,9 @@ def test_conv_kernels_match_plain_versions(cuda_f32, shape, dtype):
     (3x3 to 128, 2x2 to 256) and K14 (dilation 2, and a 5x5 with a Cout
     that is no multiple of 4) against their plain versions, on ragged H and
     W and Cin 24, 64 and 256, inputs N(0,1) and kernels x 0.05 as
-    tests/test_conv_pallas.py scales them. K13/K15 run on conv_wgmma (bf16)
-    or conv_pipelined (f32), K14 on conv_direct; each image of the batch
-    equals the kernel on it alone."""
+    tests/test_conv_pallas.py scales them. bf16 runs on conv_wgmma; in f32
+    K13/K15 run on conv_pipelined, K14 on conv_direct; each image of the
+    batch equals the kernel on it alone."""
     from retinex_tpu_torch.ops import conv_pallas as cp
 
     g = cuda_f32
@@ -205,12 +243,15 @@ def test_conv_kernels_match_plain_versions(cuda_f32, shape, dtype):
         (cp.conv2d_narrow, cp.conv2d_narrow_plain, (k(3, 3, 64), bias[:64], True), {"dilation": 2}),
         (cp.conv2d_narrow, cp.conv2d_narrow_plain, (k(5, 5, 30), bias[:30], False), {}),
     ]
-    fast = "conv_wgmma" if dtype == torch.bfloat16 else "conv_pipelined"
+    if dtype == torch.bfloat16:
+        kernels = {"conv_direct": 0, "conv_wgmma": 7, "conv_pipelined": 0}
+    else:
+        kernels = {"conv_direct": 2, "conv_wgmma": 0, "conv_pipelined": 5}
     cp.reset_launches()
     got = [fn(x, *args, **kw) for fn, _, args, kw in cases]
     torch.cuda.synchronize()
     assert cp.LAUNCHES == {"conv2d_pallas": 3, "conv2d_pallas_im2col": 2, "conv2d_narrow": 2}
-    assert cp.KERNEL_LAUNCHES == {"conv_direct": 2, "conv_wgmma": 0, "conv_pipelined": 0} | {fast: 5}
+    assert cp.KERNEL_LAUNCHES == kernels
     for out, (_, plain, args, kw) in zip(got, cases):
         _close(out, plain(x, *args, **kw), dtype)
     for j in sorted({0, shape[0] - 1}):
@@ -219,11 +260,61 @@ def test_conv_kernels_match_plain_versions(cuda_f32, shape, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cin", [32, 24, 64])
+def test_conv_narrow_bf16_runs_on_the_tensor_cores(cuda_f32, cin):
+    """K14 in bf16 on conv_wgmma: 3x3 and 5x5 at dilation 1 and 2, Cout 32,
+    64, 40 (a padded Cout tile) and 128 (N = 128: the weights go through the
+    ring, three B stages beside Cin 64's 24x24 halo at 5x5, dilation 2),
+    with and without ReLU, on a ragged [2,37,53] against its plain version
+    at rtol and atol 1e-2; Cin 32 and 24 take the 32-channel K chunk, 64 the
+    64-channel one; each image of the batch equals the kernel on it alone."""
+    from retinex_tpu_torch.ops import conv_pallas as cp
+
+    g = cuda_f32
+    x = torch.randn((2, 37, 53, cin), generator=g, device="cuda").to(torch.bfloat16)
+    couts = ((32, True), (64, False), (40, True), (128, False))
+    cases = [(k, dil, cout, relu) for k in (3, 5) for dil in (1, 2) for cout, relu in couts]
+    for k, dil, cout, relu in cases:
+        kern = torch.randn((k, k, cin, cout), generator=g, device="cuda") * 0.05
+        bias = torch.randn(cout, generator=g, device="cuda")
+        cp.reset_launches()
+        got = cp.conv2d_narrow(x, kern, bias, relu, dilation=dil)
+        torch.cuda.synchronize()
+        assert cp.KERNEL_LAUNCHES == {"conv_direct": 0, "conv_wgmma": 1, "conv_pipelined": 0}
+        _close(got, cp.conv2d_narrow_plain(x, kern, bias, relu, dilation=dil), torch.bfloat16)
+        for j in range(2):
+            alone = cp.conv2d_narrow(x[j : j + 1].contiguous(), kern, bias, relu, dilation=dil)
+            assert torch.equal(alone, got[j : j + 1])
+
+
+@pytest.mark.cuda
+def test_conv_wgmma_has_a_plan_for_every_routed_call(cuda_f32):
+    """route sends every bf16 call with Cin % 8 == 0 and an aligned x to
+    conv_wgmma, whatever its kernel, dilation, Cin and Cout: each of those
+    has a shared-memory plan there (K13/K15's 1..3 x 1..3, K14's 3x3 and
+    5x5 at dilation 1 and 2)."""
+    import ctypes
+
+    from retinex_tpu_torch.ops import _kernels
+    from retinex_tpu_torch.ops import conv_pallas as cp
+
+    shapes = [(kh, kw, 1) for kh in (1, 2, 3) for kw in (1, 2, 3)] + [(k, k, d) for k in (3, 5) for d in (1, 2)]
+    plan = (ctypes.c_int * 3)()
+    for kh, kw, dil in shapes:
+        for cin in (8, 24, 32, 40, 64, 136, 512):
+            for cout in (8, 32, 40, 64, 96, 128, 200, 384):
+                n_t = cp.wgmma_n_tile(cout)
+                args = (cin, -(-cout // n_t) * n_t, kh, kw, dil, n_t, cp.wgmma_chunk(cin), ctypes.addressof(plan))
+                assert _kernels.query("conv_wgmma_plan", *args) == 0, (kh, kw, dil, cin, cout)
+                assert plan[0] <= 232448 and plan[1] >= 2 and plan[2] in (0, 2, 3, 4)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_conv_misaligned_view_goes_to_conv_direct(cuda_f32, dtype):
     """A contiguous view one element past an aligned base fails TMA's (and
-    cp.async's) 16-byte rule, so K13 and K15 take conv_direct, and still
-    hold to their plain versions."""
+    cp.async's) 16-byte rule, so K13, K15 and K14 take conv_direct, and
+    still hold to their plain versions."""
     from retinex_tpu_torch.ops import conv_pallas as cp
 
     g = cuda_f32
@@ -234,11 +325,15 @@ def test_conv_misaligned_view_goes_to_conv_direct(cuda_f32, dtype):
     kern = torch.randn((3, 3, 128, 96), generator=g, device="cuda") * 0.05
     bias = torch.randn(96, generator=g, device="cuda")
     cp.reset_launches()
-    got = [cp.conv2d_pallas(x, kern, bias, True), cp.conv2d_pallas_im2col(x, kern, bias)]
+    got = [
+        cp.conv2d_pallas(x, kern, bias, True), cp.conv2d_pallas_im2col(x, kern, bias),
+        cp.conv2d_narrow(x, kern, bias, dilation=2),
+    ]
     torch.cuda.synchronize()
-    assert cp.KERNEL_LAUNCHES == {"conv_direct": 2, "conv_wgmma": 0, "conv_pipelined": 0}
+    assert cp.KERNEL_LAUNCHES == {"conv_direct": 3, "conv_wgmma": 0, "conv_pipelined": 0}
     _close(got[0], cp.conv2d_pallas_plain(x, kern, bias, True), dtype)
     _close(got[1], cp.conv2d_pallas_plain(x, kern, bias), dtype)
+    _close(got[2], cp.conv2d_narrow_plain(x, kern, bias, dilation=2), dtype)
 
 
 @pytest.mark.cuda

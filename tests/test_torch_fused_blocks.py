@@ -216,3 +216,128 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="CUDA"):
         tfb.fam_dual_conv3(x.to("meta"), *(t.to("meta") for t in dual))
     assert tfb.LAUNCHES["fam_dual_conv3"] == 0
+
+
+# ---------------------------------------------------------------- K4's stages
+
+
+def _unpack_pipelined(packed, kh, kw, cin, cout):
+    """conv_pipelined's [chunk, tap, 8, Cout_pad] back to HWIO [kh, kw, Cin, Cout]."""
+    return packed.transpose(0, 1).reshape(kh, kw, packed.shape[0] * 8, packed.shape[3])[:, :, :cin, :cout]
+
+
+@pytest.mark.parametrize("shape", [(1, 16, 128, 128), (2, 7, 11, 128)])
+def test_fam_conv_staged_plain_matches_pallas(shape):
+    """K4 as its three kernels compute it (stage 1's conv, stage 2 on the
+    stacked [k32; k42], the pool-and-1x1 stage), each by its plain version,
+    against the JAX fam_conv_fused in interpret mode, at K4's tolerance
+    (2e-4, tests/test_fused_blocks.py): the existing K4 test's shape, and a
+    ragged one (batch 2, h and w no multiples of the TPU's tiles) against
+    the JAX package's composition, as the TPU kernel does not take it."""
+    from jax import lax
+
+    from retinex_tpu.ops.s2d import maxpool3x3_s1_s2d
+
+    args = _conv_inputs(np.random.default_rng(5), shape)
+    x, ka, kb, k1, b1, k32, k42, bt = (jnp.asarray(a) for a in args)
+    if jfb.fam_conv_supported(shape):
+        want = jfb.fam_conv_fused(x, ka, kb, k1, b1, k32, k42, bt, interpret=True)
+    else:
+        def conv(v, k):
+            return lax.conv_general_dilated(v, k, (1, 1), ((1, 1), (1, 1)), dimension_numbers=("NHWC", "HWIO", "NHWC"))
+
+        y = jnp.maximum(conv(x, k1) + b1, 0.0)
+        want = jnp.maximum(
+            x @ ka + maxpool3x3_s1_s2d(x) @ kb + conv(y[..., :128], k32) + conv(y[..., 128:], k42) + bt, 0.0
+        )
+    got = tfb.fam_conv_staged_plain(*(_t(a) for a in args))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4)
+
+
+def test_fam_conv_stages_compose_to_the_plain_version():
+    """Each stage's wrapper takes its plain version on the CPU (no launch),
+    the stages chained reproduce the staged composition bit for bit, and
+    that composition holds to K4's plain version within 2e-4."""
+    args = [_t(a) for a in _conv_inputs(np.random.default_rng(11), (2, 6, 10, 128))]
+    x = args[0]
+    p = tfb.pack_fam_conv(*args[1:])
+    tfb.reset_launches()
+    y = tfb.fam_conv_y(x, p)
+    z = tfb.fam_conv_z(y, p)
+    out = tfb.fam_conv_out(z, x, p)
+    assert y.shape == (2, 6, 10, 256) and z.shape == out.shape == x.shape
+    torch.testing.assert_close(out, tfb.fam_conv_staged_plain(*args), rtol=0, atol=0)
+    torch.testing.assert_close(out, tfb.fam_conv_fused_plain(*args), rtol=0, atol=2e-4)
+    torch.testing.assert_close(tfb.fam_conv_fused(*args, packed=p), tfb.fam_conv_fused_plain(*args), rtol=0, atol=0)
+    assert tfb.KERNEL_LAUNCHES == {"fam_conv_y": 0, "fam_conv_z": 0, "fam_conv_out": 0}
+    assert tfb.LAUNCHES["fam_conv_fused"] == 0
+
+
+def test_fam_conv_packing_round_trips_to_hwio():
+    """pack_fam_conv: [k32; k42] stacks the second convs along the input
+    channels; the packed k1, k2 and [ka; kb] hold the HWIO weights, which it
+    keeps as given."""
+    x, ka, kb, k1, b1, k32, k42, bt = (_t(a) for a in _conv_inputs(np.random.default_rng(12), (1, 4, 4, 128)))
+    k2 = tfb.stack_second_convs(k32, k42)
+    assert k2.shape == (3, 3, 256, 128)
+    assert torch.equal(k2[:, :, :128], k32) and torch.equal(k2[:, :, 128:], k42)
+    p = tfb.pack_fam_conv(ka, kb, k1, b1, k32, k42, bt)
+    assert all(a is b for a, b in zip(p.weights(), (ka, kb, k1, b1, k32, k42, bt)))
+    packed = (p.k1_packed, p.k2_packed, p.kab_packed)
+    assert [t.shape for t in packed] == [(16, 9, 8, 256), (32, 9, 8, 128), (256, 128)]
+    assert all(t.is_contiguous() and t.dtype == torch.float32 for t in packed)
+    assert torch.equal(_unpack_pipelined(p.k1_packed, 3, 3, 128, 256), k1)
+    assert torch.equal(_unpack_pipelined(p.k2_packed, 3, 3, 256, 128), k2)
+    assert torch.equal(p.kab_packed, torch.cat([ka, kb]))
+
+
+def test_packed_forward_packs_k4_once_per_model():
+    """PackedRetinex packs each FAM's K4 weights once, from the very tensors
+    the plain versions read, and the two forms agree."""
+    from retinex_tpu_torch.cli import init_untrained
+    from retinex_tpu_torch.models.packed_inference import PackedRetinex
+    from retinex_tpu_torch.models.retinex_net import MultiScaleUPRetinex
+
+    packed = PackedRetinex(init_untrained(MultiScaleUPRetinex(False, False), seed=0).eval())
+    for fw in (packed.fam1, packed.fam2):
+        assert all(a is b for a, b in zip(fw.conv.weights(), (fw.ka, fw.kb, fw.k1, fw.b1, fw.k32, fw.k42, fw.bias_total)))
+        assert torch.equal(_unpack_pipelined(fw.conv.k1_packed, 3, 3, 128, 256), fw.k1)
+        assert torch.equal(_unpack_pipelined(fw.conv.k2_packed, 3, 3, 256, 128), tfb.stack_second_convs(fw.k32, fw.k42))
+        assert torch.equal(fw.conv.kab_packed, torch.cat([fw.ka, fw.kb]))
+
+
+def test_fam_conv_stage_wrappers_raise_on_what_the_kernels_do_not_take():
+    x = torch.zeros(1, 4, 4, 128)
+    conv = [torch.zeros(s) for s in _K4_WEIGHT_SHAPES]
+    with pytest.raises(ValueError, match="k1"):
+        tfb.pack_fam_conv(conv[0], conv[1], torch.zeros(3, 3, 128, 128), *conv[3:])
+    p = tfb.pack_fam_conv(*conv)
+    with pytest.raises(ValueError, match="y"):
+        tfb.fam_conv_z(x, p)
+    with pytest.raises(ValueError, match="z"):
+        tfb.fam_conv_out(torch.zeros(1, 4, 5, 128), x, p)
+    with pytest.raises(ValueError, match="x"):
+        tfb.fam_conv_y(x.to("meta"), p)  # the weights lie on the CPU
+    # A FamConvPacked made from other tensors than K4's arguments is refused,
+    # even where it holds equal values.
+    with pytest.raises(ValueError, match="packed"):
+        tfb.fam_conv_fused(x, *conv[:6], torch.zeros(128), packed=p)
+    # Off the CPU each goes to its kernel, which takes CUDA tensors only.
+    tfb.reset_launches()
+    m = x.to("meta")
+    pm = tfb.pack_fam_conv(*(t.to("meta") for t in conv))
+    with pytest.raises(ValueError, match="CUDA"):
+        tfb.fam_conv_y(m, pm)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfb.fam_conv_z(torch.zeros(1, 4, 4, 256, device="meta"), pm)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfb.fam_conv_out(m, m, pm)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfb.fam_conv_fused(m, *pm.weights())
+    with pytest.raises(ValueError, match="CUDA"):
+        tfb.fam_conv_fused(m, *pm.weights(), packed=pm)
+    assert tfb.KERNEL_LAUNCHES == {"fam_conv_y": 0, "fam_conv_z": 0, "fam_conv_out": 0}
+    assert tfb.LAUNCHES["fam_conv_fused"] == 0
+
+
+_K4_WEIGHT_SHAPES = ((128, 128), (128, 128), (3, 3, 128, 256), (256,), (3, 3, 128, 128), (3, 3, 128, 128), (128,))

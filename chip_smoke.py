@@ -18,8 +18,10 @@ Phases (any failure raises and exits nonzero; no phase is skipped):
    its plain PyTorch version on the card: K1 (lab_fwd_u8) and K3
    (clahe_apply_u8) within 1 level on under 1e-4 of the bytes, K2
    (clahe_tables) identical; on a batch, the first and last image equal the
-   kernels run on that image alone. Median kernel times over 25 launches
-   (CUDA events) at both single-frame shapes.
+   kernels run on that image alone; at 1088x1920 K2 also at 4x4 and 16x16
+   tiles (``--clahe_tiles``), identical. Median kernel times over 25
+   launches (CUDA events) at both single-frame shapes, K2's at each tile
+   count.
 3. K7-K9 and K2 on a luma plane: on seeded u8 batches [8,1088,1920] (a
    directory chunk), [1,2160,3840] and a ragged [3,272,496], both K8 kernels
    (lab_fwd_u8_nhwc, clahe_apply_u8_nhwc) and K7 (clahe_luma_apply_u8, on
@@ -28,7 +30,8 @@ Phases (any failure raises and exits nonzero; no phase is skipped):
    identical to its plain version (hist_subsample 1 and 2), and K9
    (clahe_luma_apply_u8_fused) equals K7; on a batch, the first and last
    image equal the kernels run on that image alone. Median times over 25
-   launches (K7 on NHWC, as both clahe_luma routes run it).
+   launches (K7 on NHWC, as both clahe_luma routes run it), and K2's on the
+   luma plane.
 4. K4-K6 and K11: at the packed FAM shapes of the letterboxed frame,
    [1,544,960,128] (scale 1) and [1,136,240,128] (scale 2), at those of the
    unpadded 1080-row frame, [1,540,960,128] and [1,135,240,128], at a
@@ -38,12 +41,19 @@ Phases (any failure raises and exits nonzero; no phase is skipped):
    fam_conv_fused (K4) and each of its three kernels (fam_conv_y and
    fam_conv_z on conv_pipelined, then fam_conv_out; each stage on the plain
    previous stage's output) within 2e-4, fam_tail_stats within 1e-5,
-   fam_tail_apply_g1 within 1e-4, fam_tail_apply within 1e-5 of the plain
+   fam_tail_apply_g1 within 1e-4 in both its instances (a quadrant-diagonal
+   w, pack_pointwise of a seeded [1,1,32,32] as the model's folds are, and
+   a dense random w), the quadrant-diagonal instance bit-identical to the
+   dense one on the same w, fam_tail_apply within 1e-5 of the plain
    version (TF32 off); on a batch, the first and last image equal the
    kernel run on that image alone. Median times over 25 launches, beside
-   the plain version's and the bound: K4 (whole and by stage), K5 and K6 at
-   the letterboxed shapes, per launch and summed per image (K4 against its
-   10.312 ms bound), K11 (which only the unpadded frame runs) at the
+   the plain version's and the bound: K4 (whole and by stage), K5 and both
+   K6 instances at the letterboxed shapes, per launch and summed per image
+   (K4 against its 10.312 ms bound, K6 on the quadrant-diagonal w against
+   its 0.1723 ms byte bound, on the dense w against its 0.2735 ms
+   operations bound; each beside torch.einsum of K6's whole function on
+   its w, the library time, and torch.matmul of the pre-scaled x by the
+   dense w, cuBLAS on the product alone, as a yardstick), K11 (which only the unpadded frame runs) at the
    unpadded ones; one K4 call's launches by kernel.
 5. The standard route through the CLI, ``--mode enhance --max_size 1920
    --no-packed_inference``, on a 1920x1080 PNG upscaled from
@@ -54,7 +64,8 @@ Phases (any failure raises and exits nonzero; no phase is skipped):
    output on the card identical to the CPU's on it, and the PNG within a
    mean of 0.05 levels of the CPU run end to end.
 6. The default route through the CLI (packed forward), same photo: the
-   three PNGs, K1-K3 launched once and K4-K6 twice each. The packed forward
+   three PNGs, K1-K3 launched once and K4-K6 twice each, K6 in its
+   quadrant-diagonal instance. The packed forward
    is held to the standard forward on the card (same weights and input:
    illumination 2e-5, reflectance and enhanced 2e-3, as
    tests/test_packed_inference.py), and the packed route on the card to the
@@ -101,7 +112,8 @@ Phases (any failure raises and exits nonzero; no phase is skipped):
    end per route at 1088x1920, the same for the flagless route at
    1080x1920, and the FAM kernels' device ms per image.
 11. Device time by kernel (torch.profiler) over warm forwards of each route
-   at 1088x1920, and the device's busy share of the forwards' wall time.
+   at 1088x1920, the port's own kernels among them (K6 must show in the
+   packed forward), and the device's busy share of the forwards' wall time.
 12. K10 (dec1_chain) against its plain version (the cuDNN chain), TF32 off,
    on seeded inputs scaled as tests/test_fused_blocks.py:51-57 scales them,
    within its 1e-4: at [1,544,960] (the 1088x1920 frame's dec1), at
@@ -181,7 +193,9 @@ fused-luma run (the only path that reaches K9); for K10, over its path's
 runs in phases 13 and 14 (the dec1-chain forwards and predict with it);
 for K12-K16, over the calls at perf_lab's shapes in phases 17-19.
 K4 has an entry as a whole (``fam_conv_fused``) and one for each of its
-three kernels (``fam_conv_y``, ``fam_conv_z``, ``fam_conv_out``).
+three kernels (``fam_conv_y``, ``fam_conv_z``, ``fam_conv_out``). K6's
+entry is its main-path instance (the quadrant-diagonal w, bytes-bound);
+the dense instance is printed in phase 4.
 ``ms``, ``plain_ms`` and ``bound_ms`` are per image for K1-K6, K10 and K11
 (summed over the kernel's launches on one 1088x1920 or 1080x1920 image),
 per launch on a [8,1088,1920] directory chunk for K7-K9, per launch at the
@@ -190,7 +204,9 @@ runs are printed), and in both dtypes for K13, K14 and K15, whose bf16
 entries (``conv2d_pallas_bf16``, ``conv2d_pallas_im2col_bf16``,
 ``conv2d_narrow_bf16``) name the tensor-core kernel and count its
 launches; per launch at [1,1088,1920,3] for K16's two kernels.
-``library_ms`` is ``F.conv2d``'s time for K13-K15 and null elsewhere.
+``library_ms`` is ``F.conv2d``'s time for K13-K15, ``torch.einsum``'s of
+K6's whole function (``tail_g1_einsum``, on the main path's w) for K6, and
+null elsewhere.
 """
 
 from __future__ import annotations
@@ -296,11 +312,15 @@ FAM_DIR_SHAPES = (
 )
 # K4 and each of its stages within K4's 2e-4 (tests/test_fused_blocks.py).
 K4_STAGES = ("fam_conv_y", "fam_conv_z", "fam_conv_out")
+# K6 twice: fam_tail_apply_g1 is the main path's instance (a quadrant-
+# diagonal w, as pack_pointwise makes the model's fusion folds), which the
+# kernels line carries; fam_tail_apply_g1_dense the dense instance (a dense
+# random w), printed on phase 4's lines.
 FAM_TOL = {"fam_conv_fused": 2e-4, **{k: 2e-4 for k in K4_STAGES}, "fam_tail_stats": 1e-5, "fam_tail_apply_g1": 1e-4,
-           "fam_tail_apply": 1e-5}
+           "fam_tail_apply_g1_dense": 1e-4, "fam_tail_apply": 1e-5}
 FAM_KERNELS = tuple(FAM_TOL)
 # Timed at the letterboxed frame's shapes; fam_tail_apply at the unpadded one's.
-FAM_TIMED = FAM_KERNELS[:6]
+FAM_TIMED = FAM_KERNELS[:7]
 # tests/test_packed_inference.py:40-42.
 PACKED_TOL = {"enhanced": 2e-3, "reflectance": 2e-3, "illumination": 2e-5}
 # The net's outputs on the card against the CPU's (same weights and input).
@@ -386,9 +406,13 @@ def u8_diff(torch, a, b) -> tuple[int, float]:
     return int(d.max()), float((d > 0).float().mean())
 
 
-def clahe_kernel_phase(torch, cg, b: int, h: int, w: int, seed: int, timed: bool = True) -> dict:
-    """Hold K1-K3 to their plain versions on a seeded [b, 3, h, w] batch;
-    return per-kernel records: the error, and with `timed` the times too."""
+def clahe_kernel_phase(
+    torch, cg, b: int, h: int, w: int, seed: int, timed: bool = True, tile_counts: tuple = (8,)
+) -> dict:
+    """Hold K1-K3 to their plain versions on a seeded [b, 3, h, w] batch,
+    K2 at each of `tile_counts` tiles a side; return per-kernel records at
+    8x8 tiles: the error, and with `timed` the times too (K2's printed at
+    every tile count)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     rgb = torch.randint(0, 256, (b, 3, h, w), dtype=torch.uint8, device="cuda", generator=g)
     tiles = 8
@@ -404,13 +428,16 @@ def clahe_kernel_phase(torch, cg, b: int, h: int, w: int, seed: int, timed: bool
     if k1_max > 1 or k1_frac >= 1e-4:
         raise AssertionError(f"K1 disagrees with its plain version at {tag}")
 
-    for s in (1, 2):
-        luts = cg.clahe_tables(lab, hist_subsample=s)
-        luts_p = cg.clahe_tables_plain(lab, hist_subsample=s)
-        torch.cuda.synchronize()
-        if not torch.equal(luts, luts_p):
-            raise AssertionError(f"K2 tables differ from the plain version at {tag}, hist_subsample={s}")
-        print(f"  {tag} K2 clahe_tables (hist_subsample={s}): identical")
+    for t in tile_counts:
+        for s in (1, 2):
+            luts = cg.clahe_tables(lab, tiles_y=t, tiles_x=t, hist_subsample=s)
+            luts_p = cg.clahe_tables_plain(lab, tiles_y=t, tiles_x=t, hist_subsample=s)
+            torch.cuda.synchronize()
+            if not torch.equal(luts, luts_p):
+                raise AssertionError(f"K2 tables differ from the plain version at {tag}, {t}x{t} tiles, hist_subsample={s}")
+            print(f"  {tag} K2 clahe_tables ({t}x{t} tiles, hist_subsample={s}): identical")
+        if timed and t != tiles:
+            print(f"  {tag} K2 clahe_tables at {t}x{t} tiles: {time_ms(torch, lambda: cg.clahe_tables(lab, tiles_y=t, tiles_x=t)):.4f} ms")
     luts = cg.clahe_tables(lab)
 
     out = cg.clahe_apply_u8(lab, luts)
@@ -547,6 +574,9 @@ def luma_kernel_phase(torch, cg, cl, shape: tuple, seed: int) -> dict:
             f"bound {r['bound'][0]:.4f} ms by {r['bound'][1]})"
         )
     print(f"  [{tag}] K7 on planar RGB: {time_ms(torch, lambda: cl.clahe_luma_apply_u8(xp, y, luts)):.4f} ms")
+    k2_bound = bound(n_px + table_bytes, n_px + K2_OPS_PER_ENTRY * table_bytes)
+    print(f"  [{tag}] K2 clahe_tables on the luma plane: {time_ms(torch, lambda: cg.clahe_tables(y)):.4f} ms "
+          f"(bound {k2_bound[0]:.4f} ms by {k2_bound[1]})")
     return recs
 
 
@@ -555,6 +585,8 @@ def fam_inputs(torch, fb, shape, seed: int) -> dict:
     scales them (x >= 0, the FAM input being post-ReLU); K4's weights packed
     once, as the packed forward packs them, and the inputs of K4's second
     and last stages (y, z) from the plain stages before them."""
+    from retinex_tpu_torch.ops.s2d import pack_pointwise
+
     g = torch.Generator(device="cuda").manual_seed(seed)
     b, h, w, c = shape
 
@@ -578,6 +610,11 @@ def fam_inputs(torch, fb, shape, seed: int) -> dict:
         sa=torch.sigmoid(n(b, h, w, 4)),
         wg=n(c, c, scale=0.05),
     )
+    block = np.random.default_rng(seed).standard_normal((1, 1, c // 4, c // 4)) * 0.1
+    d["wd"] = torch.as_tensor(pack_pointwise(block)[0, 0]).cuda()
+    d["wd_packed"], d["wg_packed"] = fb.pack_tail_g1(d["wd"]), fb.pack_tail_g1(d["wg"])
+    if not d["wd_packed"].diag or d["wg_packed"].diag:
+        raise AssertionError("pack_tail_g1 took the quadrant-diagonal w for dense or the dense w for diagonal")
     d["k2"] = fb.stack_second_convs(d["k32"], d["k42"])
     d["packed"] = fb.pack_fam_conv(*(d[k] for k in ("ka", "kb", "k1", "b1", "k32", "k42", "bias_total")))
     d["y"] = fb.fam_conv_y_plain(x, d["k1"], d["b1"])
@@ -604,7 +641,12 @@ def fam_calls(fb, d: dict) -> dict:
         ),
         "fam_tail_stats": (fb.fam_tail_stats, fb.fam_tail_stats_plain, [d["x"], d["ca_vec"]]),
         "fam_tail_apply_g1": (
-            fb.fam_tail_apply_g1, fb.fam_tail_apply_g1_plain, [d["x"], d["ca_vec"], d["sa"], d["wg"]],
+            lambda *a: fb.fam_tail_apply_g1(*a, packed=d["wd_packed"]), fb.fam_tail_apply_g1_plain,
+            [d["x"], d["ca_vec"], d["sa"], d["wd"]],
+        ),
+        "fam_tail_apply_g1_dense": (
+            lambda *a: fb.fam_tail_apply_g1(*a, packed=d["wg_packed"]), fb.fam_tail_apply_g1_plain,
+            [d["x"], d["ca_vec"], d["sa"], d["wg"]],
         ),
         "fam_tail_apply": (fb.fam_tail_apply, fb.fam_tail_apply_plain, [d["x"], d["ca_vec"], d["sa"]]),
     }
@@ -625,7 +667,12 @@ def fam_bounds(shape) -> dict:
         "fam_conv_z": bound(4 * n_px * 3 * c + w3 + 4 * c, conv_ops),
         "fam_conv_out": bound(3 * 4 * n_px * c + 4 * 2 * c * c, 2 * n_px * 2 * c * c),
         "fam_tail_stats": bound(4 * n_px * c + 4 * b * c + 4 * n_px * 8, K5_OPS_PER_PX * n_px),
+        # The main path's K6 does the four [32 x 32] quadrant products only:
+        # bytes-bound. A dense w needs all 128 x 128: operations-bound.
         "fam_tail_apply_g1": bound(
+            4 * n_px * (c + 4 + c) + 4 * (b * c + c * c // 4), n_px * (2 * c + 2 * c * c // 4)
+        ),
+        "fam_tail_apply_g1_dense": bound(
             4 * n_px * (c + 4 + c) + 4 * (b * c + c * c), n_px * (2 * c + 2 * c * c)
         ),
         "fam_tail_apply": bound(4 * n_px * (c + 4 + c) + 4 * b * c, n_px * 2 * c),
@@ -656,6 +703,11 @@ def fam_kernel_phase(torch, fb, shape, seed: int, timed: tuple = ()) -> dict:
                 raise AssertionError(f"{name} at {shape}: image {j} of the batch differs from the kernel on it alone")
         if b > 1:
             line += "; first and last image identical to the kernel on each alone"
+        if name == "fam_tail_apply_g1":
+            as_dense = fb.fam_tail_apply_g1(*args)  # unpacked: the dense instance
+            if not torch.equal(as_dense, got):
+                raise AssertionError(f"K6's dense instance differs from its quadrant-diagonal one on the same w at {shape}")
+            line += "; the dense instance on the same w gives the same bits"
         recs[name] = dict(max_abs_err=err)
         if name in timed:
             ms = time_ms(torch, lambda: kernel(*args))
@@ -668,6 +720,38 @@ def fam_kernel_phase(torch, fb, shape, seed: int, timed: tuple = ()) -> dict:
         print(line)
         del got, want
     return recs
+
+
+def tail_g1_einsum(torch, x, ca_vec, sa, w):
+    """K6's function, (x * ca * sa of the quadrant) @ w, as one torch.einsum
+    call: K6's library time. The port never calls it."""
+    b, h, wd, c = x.shape
+    q = c // 4
+    return torch.einsum(
+        "bpqc,bqc,bpq,qcd->bpd", x.view(b, h * wd, 4, q), ca_vec.view(b, 4, q), sa.view(b, h * wd, 4),
+        w.view(4, q, -1),
+    ).view(b, h, wd, -1)
+
+
+def k6_library_phase(torch, fb) -> dict:
+    """K6's library time per 1088x1920 image (the letterboxed shapes'
+    launches summed): ``tail_g1_einsum`` on the quadrant-diagonal w and on
+    the dense w of ``fam_inputs``, each first held to the plain version
+    within K6's tolerance; and, as a yardstick, torch.matmul of the
+    pre-scaled x by the dense w (cuBLAS on the product alone). TF32 off."""
+    ms = {"diag": 0.0, "dense": 0.0, "matmul": 0.0}
+    for i, shape in enumerate(FAM_SHAPES):
+        d = fam_inputs(torch, fb, shape, seed=2 + i)
+        args = [d["x"], d["ca_vec"], d["sa"]]
+        for key, w in (("diag", d["wd"]), ("dense", d["wg"])):
+            err = float((tail_g1_einsum(torch, *args, w) - fb.fam_tail_apply_g1_plain(*args, w)).abs().max())
+            if not np.isfinite(err) or err > FAM_TOL["fam_tail_apply_g1"]:
+                raise AssertionError(f"K6's einsum ({key} w) disagrees with the plain version at {shape}: {err:.3e}")
+            ms[key] += time_ms(torch, lambda w=w: tail_g1_einsum(torch, *args, w))
+        xs = fb.fam_tail_apply_plain(*args).reshape(-1, d["x"].shape[-1])
+        ms["matmul"] += time_ms(torch, lambda: torch.matmul(xs, d["wg"]))
+        del d, xs
+    return ms
 
 
 def run_cli(torch, modules, args, entry=None) -> tuple[dict[str, int], float]:
@@ -692,8 +776,12 @@ def launch_counts(modules) -> dict[str, int]:
 
 def check_launches(launches: dict[str, int], want: dict[str, int], what: str) -> None:
     """Every counted kernel launched exactly as `want` says (0 where unnamed);
-    each K4 call launches each of its three stages once."""
-    want = {**want, **{k: want.get("fam_conv_fused", 0) for k in K4_STAGES}}
+    each K4 call launches each of its three stages once, and each K6 call
+    the quadrant-diagonal instance (the model's fusion folds)."""
+    want = {
+        **want, **{k: want.get("fam_conv_fused", 0) for k in K4_STAGES},
+        "fam_tail_apply_g1_diag": want.get("fam_tail_apply_g1", 0),
+    }
     expected = {k: want.get(k, 0) for k in launches}
     if launches != expected:
         raise AssertionError(f"{what} launched {launches}, expected {expected}")
@@ -1197,6 +1285,12 @@ def profile_phase(torch, photo: Path) -> None:
         )
         for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
             print(f"    {e.self_device_time_total / n / 1e3:9.3f}  x{e.count // n:<4d} {e.key[:90]}")
+        own = [e for e in kernels if any(k in e.key for k in ("fam_", "conv_pipelined"))]
+        if packed and not any("fam_tail_apply_g1" in e.key for e in own):
+            raise AssertionError("the packed forward's profile shows no K6 launch")
+        print(f"  the port's kernels in the {route} forward, device ms per forward:{'' if own else ' none'}")
+        for e in sorted(own, key=lambda e: -e.self_device_time_total):
+            print(f"    {e.self_device_time_total / n / 1e3:9.4f}  x{e.count // n:<4d} {e.key[:90]}")
 
 
 def dec1_inputs(torch, shape, seed: int) -> list:
@@ -1749,7 +1843,7 @@ def main_path_phases(torch, cg, cl, fb, cp, kp) -> tuple[dict, dict]:
     from PIL import Image
 
     print("phase 2: K1-K3 against their plain versions")
-    recs = clahe_kernel_phase(torch, cg, 1, 1088, 1920, seed=0)
+    recs = clahe_kernel_phase(torch, cg, 1, 1088, 1920, seed=0, tile_counts=(4, 8, 16))
     clahe_kernel_phase(torch, cg, 1, 2160, 3840, seed=1)
     for i, (b, h, w) in enumerate(CLAHE_DIR_SHAPES):
         for name, r in clahe_kernel_phase(torch, cg, b, h, w, seed=20 + i, timed=False).items():
@@ -1786,8 +1880,19 @@ def main_path_phases(torch, cg, cl, fb, cp, kp) -> tuple[dict, dict]:
     fb.fam_conv_fused(*fam_calls(fb, fam_inputs(torch, fb, FAM_SHAPES[1], seed=3))["fam_conv_fused"][2])
     torch.cuda.synchronize()
     print(f"  one fam_conv_fused call: launches {fb.LAUNCHES['fam_conv_fused']}, by kernel {dict(fb.KERNEL_LAUNCHES)}")
-    if dict(fb.KERNEL_LAUNCHES) != {k: 1 for k in K4_STAGES}:
+    if dict(fb.KERNEL_LAUNCHES) != {k: int(k in K4_STAGES) for k in fb.KERNEL_LAUNCHES}:
         raise AssertionError(f"a K4 call launched {dict(fb.KERNEL_LAUNCHES)}, expected each of its stages once")
+    k6, k6d = recs["fam_tail_apply_g1"], recs.pop("fam_tail_apply_g1_dense")
+    lib = k6_library_phase(torch, fb)
+    k6["library_ms"], k6d["library_ms"] = lib["diag"], lib["dense"]
+    print(
+        f"  K6 device ms per image at 1088x1920 (scale-1 + scale-2 launches): quadrant-diagonal w (the main path's) "
+        f"{k6['ms']:.4f} against its bound {k6['bound'][0]:.4f} by {k6['bound'][1]} "
+        f"({k6['bound'][0] / k6['ms']:.1%} of it), plain {k6['plain_ms']:.4f}, torch.einsum {lib['diag']:.4f}; "
+        f"dense w {k6d['ms']:.4f} against {k6d['bound'][0]:.4f} by {k6d['bound'][1]} "
+        f"({k6d['bound'][0] / k6d['ms']:.1%}), plain {k6d['plain_ms']:.4f}, torch.einsum {lib['dense']:.4f}; "
+        f"yardstick: torch.matmul of the pre-scaled x by the dense w (cuBLAS on the product alone) {lib['matmul']:.4f}"
+    )
     fam_ms = sum(recs[n]["ms"] for n in ("fam_conv_fused", "fam_tail_stats", "fam_tail_apply_g1"))
     print(f"  K4-K6 device ms per image at 1088x1920 (scale-1 + scale-2 launches): {fam_ms:.4f}")
     print(f"  K11 device ms per image at 1080x1920: {recs['fam_tail_apply']['ms']:.4f}")

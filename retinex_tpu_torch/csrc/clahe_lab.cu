@@ -5,7 +5,8 @@
 //
 //   lab_fwd_u8_kernel    sRGB u8 -> OpenCV 8-bit Lab u8, planar [B, 3, H, W]
 //   clahe_tables_kernel  a u8 plane (L of Lab, or luma) -> per-tile
-//                        256-entry CLAHE LUTs
+//                        256-entry CLAHE LUTs (row strips of each tile
+//                        over the whole card)
 //   clahe_apply_u8_kernel  LUT blend on L, then Lab -> sRGB u8
 //
 // K1 and K3 are templated on the layout of the sRGB side: planar
@@ -129,45 +130,110 @@ __global__ void lab_fwd_u8_kernel(const uint8_t* __restrict__ rgb, uint8_t* __re
 // The plane is the L channel of planar Lab (img_stride 3*H*W) or a [B, H, W]
 // luma plane (img_stride H*W: the clahe_luma route, as the JAX luma path
 // reuses _tables_stage). Bound on the card: bytes — one read of the plane
-// (1 B/pixel), 256 B out per tile. Design: one block of 256 threads per (image, tile), thread k
-// owning bin k. The histogram is built in shared memory with per-warp
-// sub-histograms (eight copies) so that a flat region's pixels, which all
-// hit one bin, contend within a warp rather than across the block. Clip,
-// redistribute and residual are integer math on the thread's own bin; the
-// excess is a block reduction, the CDF a block scan (warp shuffles), and the
-// LUT is written straight out as [B, tiles_y, tiles_x, 256] u8. The TPU's
-// byte-packed neighbour words and selection matmul are not needed: K3 looks
-// up the four neighbour tables directly.
+// (1 B/pixel), 256 B out per tile; at 1088x1920 that is 0.6 us, so a launch
+// and the few microseconds of one block's latency set the floor.
+// Design: the histogram is spread over the whole card. Each tile's sampled
+// rows are cut into `strips` row strips (clahe_gather.tables_plan: about
+// four blocks per SM), one 256-thread block each, grid (tiles * strips,
+// batch). A block walks its strip 16 (or 4, or 1) bytes a thread, as the
+// tile's width and the row stride allow; rows advance by counters (sampled
+// row j is tile row j*s in the first half-tile cell, hh + (j - per_cell)*s
+// in the second), and the in-cell column decimation is a byte mask built
+// once per block in shared memory, so no pixel costs a division. Pixels go
+// into per-warp sub-histograms (eight copies) so that a flat region's
+// pixels, which all hit one bin, contend within a warp rather than across
+// the block; the block then adds its histogram into a global int32 scratch
+// [B, tiles, 256] (atomicAdd, which no order changes) and counts its
+// arrival at the tile (the wrapper zeroes the scratch on each call). The
+// last block to arrive reads the tile's histogram from L2 and runs the tail: clip, redistribute and residual as integer math
+// on the thread's own bin, the excess a block reduction, the CDF a block
+// scan (warp shuffles), the LUT written straight out as [B, tiles_y,
+// tiles_x, 256] u8. The TPU's byte-packed neighbour words and selection
+// matmul are not needed: K3 looks up the four neighbour tables directly.
 // ---------------------------------------------------------------------------
+template <int kVec>
+__device__ __forceinline__ void load_words(const uint8_t* p, uint32_t (&w)[(kVec + 3) / 4]) {
+  if constexpr (kVec == 16) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    w[0] = v.x;
+    w[1] = v.y;
+    w[2] = v.z;
+    w[3] = v.w;
+  } else if constexpr (kVec == 4) {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  } else {
+    w[0] = *p;
+  }
+}
+
+template <int kVec>
 __global__ void __launch_bounds__(kHist)
-    clahe_tables_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ luts,
-                        long long img_stride, int H, int W, int tiles_y, int tiles_x, int s,
-                        int clip, float lut_scale) {
+    clahe_tables_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ luts, int* __restrict__ hist,
+                        int* __restrict__ arrived, long long img_stride, int H, int W, int tiles_y,
+                        int tiles_x, int s, int clip, float lut_scale, int strips, int rows_per_strip) {
   constexpr int kWarps = kHist / 32;
+  constexpr int kWords = (kVec + 3) / 4;
   __shared__ int whist[kWarps][kHist];
   __shared__ int warp_excess[kWarps];
   __shared__ int warp_total[kWarps];
+  __shared__ int is_last;
+  extern __shared__ uint4 colmask_s[];  // s > 1: 1 for each tile column whose in-cell index is a multiple of s
+  uint8_t* colmask = reinterpret_cast<uint8_t*>(colmask_s);
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
   for (int w = 0; w < kWarps; ++w) whist[w][t] = 0;
+
+  const int tile = blockIdx.x / strips, strip = blockIdx.x - tile * strips, b = blockIdx.y;
+  const int ty = tile / tiles_x, tx = tile - ty * tiles_x;
+  const int hh = H / (2 * tiles_y), hw = W / (2 * tiles_x), tile_w = 2 * hw;
+  if (s > 1) {
+    for (int c = t; c < tile_w; c += kHist) colmask[c] = (c < hw ? c : c - hw) % s == 0;
+  }
   __syncthreads();
 
-  const int tile = blockIdx.x, b = blockIdx.y;
-  const int ty = tile / tiles_x, tx = tile - ty * tiles_x;
-  const int hh = H / (2 * tiles_y), hw = W / (2 * tiles_x);
-  const uint8_t* L = src + (size_t)b * img_stride + (size_t)ty * 2 * hh * W + (size_t)tx * 2 * hw;
-  // The block walks the tile's pixels in row-major order, 256 at a time.
-  // Decimation within each half-tile cell: rows and columns whose in-cell
-  // index is a multiple of s.
-  const int tile_w = 2 * hw, n_px = 2 * hh * tile_w;
-  for (int i = t; i < n_px; i += kHist) {
-    const int r = i / tile_w, c = i - r * tile_w;
-    if ((r % hh) % s || (c % hw) % s) continue;
-    atomicAdd(&whist[warp][L[(size_t)r * W + c]], 1);
+  const uint8_t* L = src + (size_t)b * img_stride + (size_t)ty * 2 * hh * W + (size_t)tx * tile_w;
+  const int per_cell = (hh + s - 1) / s;  // sampled rows per half-tile cell
+  const int j0 = strip * rows_per_strip;
+  const int n_rows = min(rows_per_strip, 2 * per_cell - j0);
+  // Thread t reads chunk ch_first (+ 256 k where a row has more chunks than
+  // threads) of rows r_first, r_first + rows_per_pass, ... of the strip.
+  const int n_ch = tile_w / kVec;
+  const bool narrow = n_ch <= kHist;
+  const int rows_per_pass = narrow ? kHist / n_ch : 1;
+  const int r_first = narrow ? t / n_ch : 0;
+  const int ch_first = narrow ? t - r_first * n_ch : t;
+  if (r_first < rows_per_pass) {
+    for (int r = r_first; r < n_rows; r += rows_per_pass) {
+      const int j = j0 + r;
+      const uint8_t* row = L + (size_t)(j < per_cell ? j * s : hh + (j - per_cell) * s) * W;
+      for (int ch = ch_first; ch < n_ch; ch += kHist) {
+        uint32_t v[kWords], m[kWords] = {};
+        load_words<kVec>(row + ch * kVec, v);
+        if (s > 1) {
+          load_words<kVec>(colmask + ch * kVec, m);
+        }
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) {
+          const int sh = 8 * (e & 3);
+          if (s == 1 || ((m[e >> 2] >> sh) & 0xffu)) atomicAdd(&whist[warp][(v[e >> 2] >> sh) & 0xffu], 1);
+        }
+      }
+    }
   }
   __syncthreads();
 
   int h = 0;
   for (int w = 0; w < kWarps; ++w) h += whist[w][t];
+  const size_t tile_id = (size_t)b * tiles_y * tiles_x + tile;
+  int* tile_hist = hist + tile_id * kHist;
+  if (h) atomicAdd(tile_hist + t, h);
+  __threadfence();
+  __syncthreads();
+  if (t == 0) is_last = atomicAdd(arrived + tile_id, 1) == strips - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  h = __ldcg(tile_hist + t);  // the other blocks' adds are in L2, not in this SM's L1
+
   const int clipped = min(h, clip);
   int ex = h - clipped;
   for (int o = 16; o > 0; o >>= 1) ex += __shfl_xor_sync(0xffffffffu, ex, o);
@@ -192,7 +258,27 @@ __global__ void __launch_bounds__(kHist)
   for (int w = 0; w < warp; ++w) v += warp_total[w];
 
   const float lut = clamp_round_u8((float)v * lut_scale);
-  luts[((size_t)b * tiles_y * tiles_x + tile) * kHist + t] = (uint8_t)lut;
+  luts[tile_id * kHist + t] = (uint8_t)lut;
+}
+
+template <int kVec>
+int launch_tables(const void* src, void* luts, void* scratch, long long img_stride, int batch, int H, int W,
+                  int tiles_y, int tiles_x, int s, int clip, float lut_scale, int strips, int rows_per_strip,
+                  void* stream) {
+  const int tile_w = W / tiles_x;
+  const size_t smem = s > 1 ? (size_t)(tile_w + 15) / 16 * 16 : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(clahe_tables_kernel<kVec>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const long long n_tiles = (long long)batch * tiles_y * tiles_x;
+  int* hist = (int*)scratch;
+  const dim3 grid(tiles_y * tiles_x * strips, batch);
+  clahe_tables_kernel<kVec><<<grid, kHist, smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)src, (uint8_t*)luts, hist, hist + n_tiles * kHist, img_stride, H, W, tiles_y, tiles_x, s,
+      clip, lut_scale, strips, rows_per_strip);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -315,13 +401,23 @@ int clahe_lab_fwd_u8_nhwc(const void* rgb, void* lab, const void* degamma, long 
   return launch_lab_fwd<true>(rgb, lab, degamma, batch, plane, stream);
 }
 
-int clahe_tables(const void* src, void* luts, long long img_stride, int batch, int H, int W,
-                 int tiles_y, int tiles_x, int s, int clip, float lut_scale, void* stream) {
-  const dim3 grid(tiles_y * tiles_x, batch);
-  clahe_tables_kernel<<<grid, kHist, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)src, (uint8_t*)luts, img_stride, H, W, tiles_y, tiles_x, s, clip,
-      lut_scale);
-  return (int)cudaGetLastError();
+// scratch: int32 [batch * tiles * 257], zero: the tiles' histograms, then
+// their arrival counters. vec: 16, 4 or 1 bytes a
+// load (the plane, img_stride, W and the tile width all multiples of it).
+int clahe_tables(const void* src, void* luts, void* scratch, long long img_stride, int batch, int H, int W,
+                 int tiles_y, int tiles_x, int s, int clip, float lut_scale, int strips, int rows_per_strip,
+                 int vec, void* stream) {
+  switch (vec) {
+    case 16:
+      return launch_tables<16>(src, luts, scratch, img_stride, batch, H, W, tiles_y, tiles_x, s, clip, lut_scale,
+                               strips, rows_per_strip, stream);
+    case 4:
+      return launch_tables<4>(src, luts, scratch, img_stride, batch, H, W, tiles_y, tiles_x, s, clip, lut_scale,
+                              strips, rows_per_strip, stream);
+    default:
+      return launch_tables<1>(src, luts, scratch, img_stride, batch, H, W, tiles_y, tiles_x, s, clip, lut_scale,
+                              strips, rows_per_strip, stream);
+  }
 }
 
 int clahe_apply_u8(const void* lab, const void* luts, void* rgb, int batch, int H, int W,

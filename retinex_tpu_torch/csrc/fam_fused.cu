@@ -9,6 +9,7 @@
 //                             convolutions (y, z) on conv_pipelined.cu
 //   fam_tail_stats_kernel     x * ca -> per-quadrant channel mean/max [B,H,W,8]
 //   fam_tail_apply_g1_kernel  (x * ca * sa per quadrant) @ W -> [B,H,W,Cout]
+//                             (templated: W dense or quadrant-block-diagonal)
 //   fam_tail_apply_kernel     x * ca * sa per quadrant -> [B,H,W,128] (the
 //                             tail where the tower's fusion does not fold)
 //   fam_dual_conv3_kernel     relu(conv3(x, k1) + b1), then a 3x3 conv on
@@ -269,55 +270,204 @@ __global__ void fam_tail_stats_kernel(const float* __restrict__ x, const float* 
 
 // ---------------------------------------------------------------------------
 // K6. Replaces retinex_tpu/ops/fused_blocks.py::_tail_apply_g1_kernel
-// (pallas_call in fam_tail_apply_g1). Bound on the card: operations in f32 —
-// 2 * 128 * Cout FLOP per pixel against 512 + 4*Cout + 16 bytes. Design: a
-// block of 256 threads per 64 pixels scales them (x * ca * sa of the pixel's
-// quadrant, in that order) into 32 KB of shared memory, then computes the
-// [64, 128] @ [128, Cout] product by hand: warp w owns 8 pixels (broadcast
-// reads), lane l output channels 4l..4l+3, the weight rows read as coalesced
-// float4 from L1/L2.
+// (pallas_call in fam_tail_apply_g1): out = (x * ca * sa of the pixel's
+// quadrant) @ w, x [n_pix, 128], w [128, Cout].
+//
+// Bound on the card. Each pixel moves 512 B of x and 16 B of sa in and
+// 4 * Cout B out. For a dense w that is 2 * 128 * Cout FLOP against them:
+// at Cout = 128, 32,768 FLOP for 1,040 B, operations-bound (0.2735 ms per
+// 1088x1920 image, 554,880 packed pixels, at 67 TFLOP/s). The main path's w
+// is the packed fusion slice (pack_pointwise of a [32, 32] 1x1), block-
+// diagonal over the four quadrants: three quarters of those products
+// multiply exact zeros. Only the four [32 x 32] products are needed, 8,448
+// FLOP a pixel (8.1 FLOP per byte, under the card's f32 ratio of 20), so
+// the main path is bytes-bound: 577 MB per image, 0.1723 ms at 3.35 TB/s.
+//
+// Design: one kernel body, templated on w's layout. kDiag: the four
+// diagonal blocks, [128 x 32] (row k holds quadrant k/32's block row, 16 KB);
+// dense: [128 x 128], zero columns past Cout (64 KB). pack_tail_g1
+// in retinex_tpu_torch/ops/fused_blocks.py makes either once per model.
+// - The weights are loaded into shared memory once and stay for the block's
+//   lifetime; the grid is persistent (one 256-thread block per SM) and walks
+//   tiles of 128 pixels.
+// - x tiles and their sa stream in by cp.async into a ring of two stages,
+//   so the next tile's load is in flight under this tile's scaling and FMAs.
+// - When a tile lands, each warp scales in place the x values its own
+//   products read, (x * ca) * sa, the plain version's order.
+// - Warp w owns output quadrant w % 4 (32 channels) of pixel half w / 4;
+//   lane (pg, c) owns pixels pg + 16 i (i < 8; consecutive lanes on
+//   consecutive pixels, so the x reads meet no bank conflict) and channels
+//   32q + 4c.. and 32q + 16 + 4c..: an 8 x 8 register outer product, f32
+//   fmaf in increasing k. kDiag walks k over the quadrant's 32 input
+//   channels, dense over all 128; the zero terms a dense walk adds to a
+//   block-diagonal w leave every sum as it is, so the two instances give
+//   the same bits there.
+// - Outputs are stored as float4, each warp instruction 64 contiguous bytes
+//   of every pixel it writes. No TF32, no tensor cores.
 // ---------------------------------------------------------------------------
-constexpr int kApplyPix = 64;
-constexpr int kApplyThreads = 256;
-constexpr int kApplyPerWarp = kApplyPix / (kApplyThreads / 32);  // 8
+constexpr int kG1Pix = 128;                                      // pixels per tile
+constexpr int kG1Threads = 256;
+constexpr int kG1XStride = kC + 4;                               // floats per pixel row in shared memory
+constexpr int kG1StageFloats = kG1Pix * kG1XStride + kG1Pix * 4;  // x tile, then its sa
+// x stages in the ring: two fit beside either instance's weights. A third
+// fits beside the diagonal weights only (225,280 B) and leaves L1 3 KB.
+constexpr int kG1Stages = 2;
+static_assert(kG1Threads == 2 * 4 * 32 && kG1Pix == 2 * 8 * 8, "8 warps: 4 quadrants x 2 pixel halves");
 
-__global__ void __launch_bounds__(kApplyThreads)
+template <bool kDiag>
+__host__ __device__ constexpr int g1_wcols() {
+  return kDiag ? kQ : kC;
+}
+template <bool kDiag>
+constexpr size_t g1_smem() {
+  return sizeof(float) * ((size_t)kC * g1_wcols<kDiag>() + kG1Stages * (size_t)kG1StageFloats);
+}
+
+template <bool kDiag>
+__global__ void __launch_bounds__(kG1Threads, 1)
     fam_tail_apply_g1_kernel(const float* __restrict__ x, const float* __restrict__ ca,
                              const float* __restrict__ sa, const float* __restrict__ w,
                              float* __restrict__ out, long long hw, long long n_pix, int cout) {
-  __shared__ float4 xs[kApplyPix * kC4];
-  const int t = threadIdx.x;
-  const long long p0 = (long long)blockIdx.x * kApplyPix;
-  for (int i = t; i < kApplyPix * kC4; i += kApplyThreads) {
-    const long long p = p0 + i / kC4;
-    const int c4 = i % kC4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (p < n_pix) {
-      v = ldg4(x + p * kC + 4 * c4);
-      const float4 c = ldg4(ca + (p / hw) * kC + 4 * c4);
-      const float s = __ldg(sa + p * 4 + (4 * c4) / kQ);
-      v = make_float4(v.x * c.x * s, v.y * c.y * s, v.z * c.z * s, v.w * c.w * s);
+  constexpr int kWCols = g1_wcols<kDiag>();
+  extern __shared__ float4 smem[];
+  float* ws = reinterpret_cast<float*>(smem);  // [128][kWCols]
+  float* stages = ws + kC * kWCols;            // kG1Stages x ([kG1Pix][kG1XStride] x, [kG1Pix][4] sa)
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int q = warp & 3, c = lane & 3, pg = (lane >> 2) + 8 * (warp >> 2);
+  const long long n_tiles = (n_pix + kG1Pix - 1) / kG1Pix;
+
+#pragma unroll 1
+  for (int i = t; i < kC * kWCols / 4; i += kG1Threads) cp_async16(smem_u32(ws + 4 * i), w + 4 * i, 16);
+  cp_async_commit();
+
+  auto load_tile = [&](long long tile, int stage) {  // one commit group; zeros past n_pix
+    float* xs = stages + stage * kG1StageFloats;
+    const long long p0 = tile * kG1Pix;
+#pragma unroll 4
+    for (int i = t; i < kG1Pix * kC4; i += kG1Threads) {
+      const int px = i / kC4, c4 = i % kC4;
+      const bool in = p0 + px < n_pix;
+      cp_async16(smem_u32(xs + px * kG1XStride + 4 * c4), in ? x + (p0 + px) * kC + 4 * c4 : x, in ? 16 : 0);
     }
-    xs[i] = v;
-  }
-  __syncthreads();
-  const int cg = t & 31, pg = t >> 5;
-  if (4 * cg >= cout) return;
-  float acc[kApplyPerWarp][4] = {};
-#pragma unroll 2
-  for (int k = 0; k < kC; k += 4) {
-    const float* wk = w + (size_t)k * cout + 4 * cg;
-    const float4 w0 = ldg4(wk), w1 = ldg4(wk + cout), w2 = ldg4(wk + 2 * cout), w3 = ldg4(wk + 3 * cout);
+    if (t < kG1Pix) {
+      const bool in = p0 + t < n_pix;
+      cp_async16(smem_u32(xs + kG1Pix * kG1XStride + 4 * t), in ? sa + (p0 + t) * 4 : sa, in ? 16 : 0);
+    }
+    cp_async_commit();
+  };
+
+  // The ring: tile i of this block lands in stage i % kG1Stages, loaded
+  // kG1Stages - 1 tiles ahead (an empty group where there is none, so that
+  // wait_group kG1Stages - 1 is exact).
 #pragma unroll
-    for (int i = 0; i < kApplyPerWarp; ++i) fma4(acc[i], xs[(pg * kApplyPerWarp + i) * kC4 + k / 4], w0, w1, w2, w3);
-  }
-#pragma unroll
-  for (int i = 0; i < kApplyPerWarp; ++i) {
-    const long long p = p0 + pg * kApplyPerWarp + i;
-    if (p < n_pix) {
-      *reinterpret_cast<float4*>(out + p * cout + 4 * cg) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  for (int st = 0; st < kG1Stages - 1; ++st) {
+    const long long tile = blockIdx.x + (long long)st * gridDim.x;
+    if (tile < n_tiles) {
+      load_tile(tile, st);
+    } else {
+      cp_async_commit();
     }
   }
+  int stage = 0;
+#pragma unroll 1
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, stage = stage + 1 == kG1Stages ? 0 : stage + 1) {
+    const long long ahead = tile + (long long)(kG1Stages - 1) * gridDim.x;
+    if (ahead < n_tiles) {
+      load_tile(ahead, stage == 0 ? kG1Stages - 1 : stage - 1);  // the stage computed last iteration
+    } else {
+      cp_async_commit();
+    }
+    cp_async_wait<kG1Stages - 1>();
+    __syncthreads();  // this tile (and, the first time, the weights) landed
+
+    float* xs = stages + stage * kG1StageFloats;
+    const float* ss = xs + kG1Pix * kG1XStride;
+    const long long p0 = tile * kG1Pix;
+    // Each warp scales what its own products read: the quadrant-q channels
+    // of its half's 64 pixels (8 * half + r + 16 i, r, i < 8), lane l pixel
+    // r = 4 (j % 2) + l / 8, i = j / 2 of step j < 16, at channels 32q +
+    // 4 (l % 8)... Its ca stays in registers while the pixels lie in one
+    // image (a division only where the tile crosses into the next), so the
+    // loads of the unrolled loop do not wait on one another. The diagonal
+    // instance reads no other warp's values (a warp barrier); the dense one
+    // reads its half's four quadrants (a barrier of those four warps).
+    const int half = warp >> 2, cq = kQ * q + 4 * (lane & 7);
+    const int px0 = 8 * half + (lane >> 3);
+    long long img = min(p0 + px0, n_pix - 1) / hw, next = (img + 1) * hw;  // in range on a ragged tile
+    float4 cv = ldg4(ca + img * kC + cq);
+#pragma unroll
+    for (int j = 0; j < kG1Pix / 8; ++j) {
+      const int px = px0 + 16 * (j >> 1) + 4 * (j & 1);
+      if (p0 + px < n_pix) {
+        if (p0 + px >= next) {
+          img = (p0 + px) / hw;
+          next = (img + 1) * hw;
+          cv = ldg4(ca + img * kC + cq);
+        }
+        float4* xp = reinterpret_cast<float4*>(xs + px * kG1XStride + cq);
+        const float4 v = *xp;
+        const float s = ss[4 * px + q];
+        *xp = make_float4(v.x * cv.x * s, v.y * cv.y * s, v.z * cv.z * s, v.w * cv.w * s);
+      }
+    }
+    if (kDiag) {
+      __syncwarp();
+    } else {
+      asm volatile("bar.sync %0, %1;" ::"r"(1 + half), "r"(kG1Threads / 2) : "memory");
+    }
+
+    if (kQ * q < cout) {
+      float acc[8][8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+      const int k0 = kDiag ? kQ * q : 0;
+      const float* wc = ws + (kDiag ? 0 : kQ * q) + 4 * c;
+      const float* xrow = xs + pg * kG1XStride;
+#pragma unroll 4
+      for (int k = k0; k < k0 + (kDiag ? kQ : kC); k += 4) {
+        float4 wv[4][2];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          wv[kk][0] = *reinterpret_cast<const float4*>(wc + (k + kk) * kWCols);
+          wv[kk][1] = *reinterpret_cast<const float4*>(wc + (k + kk) * kWCols + 16);
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          fma_px(acc[i], *reinterpret_cast<const float4*>(xrow + 16 * i * kG1XStride + k), wv);
+      }
+      const int co = kQ * q + 4 * c;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const long long p = p0 + pg + 16 * i;
+        if (p >= n_pix) break;
+        float* o = out + p * cout + co;
+        if (co < cout) *reinterpret_cast<float4*>(o) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+        if (co + 16 < cout)
+          *reinterpret_cast<float4*>(o + 16) = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+      }
+    }
+    __syncthreads();  // this stage is free for the next load
+  }
+  cp_async_wait<0>();
+}
+
+template <bool kDiag>
+int launch_tail_apply_g1(const float* x, const float* ca, const float* sa, const float* w, float* out,
+                         long long n_pix, long long hw, int cout, void* stream) {
+  if (n_pix == 0) return 0;
+  cudaError_t err = cudaFuncSetAttribute(fam_tail_apply_g1_kernel<kDiag>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)g1_smem<kDiag>());
+  if (err != cudaSuccess) return (int)err;
+  int device = 0, sms = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) return (int)err;
+  const long long n_tiles = (n_pix + kG1Pix - 1) / kG1Pix;
+  const unsigned blocks = (unsigned)(n_tiles < sms ? n_tiles : sms);
+  fam_tail_apply_g1_kernel<kDiag><<<blocks, kG1Threads, g1_smem<kDiag>(), (cudaStream_t)stream>>>(
+      x, ca, sa, w, out, hw, n_pix, cout);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -558,14 +708,15 @@ int fam_tail_stats(const void* x, const void* ca, void* out, long long batch, lo
   return (int)cudaGetLastError();
 }
 
+// x [batch, hw, 128], ca [batch, 128], sa [batch, hw, 4], out [batch, hw,
+// cout] f32; w in the kernel's layout (pack_tail_g1): the four
+// diagonal [32, 32] blocks stacked to [128, 32] when diag (cout 128), else
+// [128, 128] with zero columns past cout (a multiple of 4, at most 128).
 int fam_tail_apply_g1(const void* x, const void* ca, const void* sa, const void* w, void* out,
-                      long long batch, long long hw, int cout, void* stream) {
-  const long long n_pix = batch * hw;
-  const long long blocks = (n_pix + kApplyPix - 1) / kApplyPix;
-  fam_tail_apply_g1_kernel<<<(unsigned)blocks, kApplyThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)ca, (const float*)sa, (const float*)w, (float*)out, hw, n_pix,
-      cout);
-  return (int)cudaGetLastError();
+                      long long batch, long long hw, int cout, int diag, void* stream) {
+  const float *xf = (const float*)x, *caf = (const float*)ca, *saf = (const float*)sa, *wf = (const float*)w;
+  return diag ? launch_tail_apply_g1<true>(xf, caf, saf, wf, (float*)out, batch * hw, hw, cout, stream)
+              : launch_tail_apply_g1<false>(xf, caf, saf, wf, (float*)out, batch * hw, hw, cout, stream);
 }
 
 int fam_tail_apply(const void* x, const void* ca, const void* sa, void* out, long long batch,

@@ -50,9 +50,11 @@ from torch import nn
 from retinex_tpu_torch.models.retinex_net import MultiScaleUPRetinex
 from retinex_tpu_torch.ops.fused_blocks import (
     FamConvPacked,
+    TailG1Packed,
     dec1_chain,
     fam_conv_fused,
     pack_fam_conv,
+    pack_tail_g1,
     fam_tail_apply,
     fam_tail_apply_g1,
     fam_tail_stats,
@@ -293,8 +295,10 @@ class PackedRetinex:
         kf = _hwio(model.fusion)  # [1,1,96,32]
         self.fusion = _Conv.packed(pack_pointwise(kf), _np(model.fusion.bias), device)
         self.b_fusion = torch.as_tensor(_tile4(_np(model.fusion.bias))).to(device)
-        self.fold_f1 = torch.as_tensor(pack_pointwise(kf[:, :, 0:32, :])[0, 0]).to(device)
-        self.fold_f2 = torch.as_tensor(pack_pointwise(kf[:, :, 32:64, :])[0, 0]).to(device)
+        # K6's weights, packed once: quadrant-block-diagonal, so the kernel's
+        # diagonal instance serves them.
+        self.fold_f1 = pack_tail_g1(torch.as_tensor(pack_pointwise(kf[:, :, 0:32, :])[0, 0]).to(device))
+        self.fold_f2 = pack_tail_g1(torch.as_tensor(pack_pointwise(kf[:, :, 32:64, :])[0, 0]).to(device))
         self.w_fusion_f3 = torch.as_tensor(np.ascontiguousarray(kf[0, 0, 64:96, :])).to(device)
         out = model.output_layer
         self.output = _Conv.packed(pack_pointwise(_hwio(out)), _np(out.bias), device)
@@ -372,9 +376,10 @@ class PackedRetinex:
         d3 = _nchw(self.model.ie_net.inner, self._down(self.enc2, x2p))
         return d2s(self._up(self.dec2, d3) + x2p)
 
-    def _fam_packed(self, xp, fw: _PackedFam, fold: torch.Tensor | None = None):
+    def _fam_packed(self, xp, fw: _PackedFam, fold: TailG1Packed | None = None):
         """EnhancedFAM on a packed [*, 128] input >= 0. `fold`: the tower's
-        packed fusion slice [128, Co], applied to the FAM output inside K6;
+        packed fusion slice [128, Co] (``pack_tail_g1``), applied to the FAM
+        output inside K6;
         None at shapes whose fusion does not refold (1080-row frames), where
         K11 applies the attention without it."""
         out = fam_conv_fused(xp.contiguous(), fw.ka, fw.kb, fw.k1, fw.b1, fw.k32, fw.k42, fw.bias_total, fw.conv)
@@ -391,7 +396,7 @@ class PackedRetinex:
         sa = torch.sigmoid(fw.sa(fam_tail_stats(out, ca_vec))).contiguous()
         if fold is None:
             return fam_tail_apply(out, ca_vec, sa)
-        return fam_tail_apply_g1(out, ca_vec, sa, fold)
+        return fam_tail_apply_g1(out, ca_vec, sa, fold.w, fold)
 
     # ---------- full forward ----------
 

@@ -52,7 +52,7 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "clahe_lab_fwd_u8": ("clahe_lab", (_P, _P, _P, _L, _L, _P)),
     "clahe_lab_fwd_u8_nhwc": ("clahe_lab", (_P, _P, _P, _L, _L, _P)),
-    "clahe_tables": ("clahe_lab", (_P, _P, _L, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P)),
+    "clahe_tables": ("clahe_lab", (_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _P)),
     "clahe_apply_u8": ("clahe_lab", (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "clahe_apply_u8_nhwc": ("clahe_lab", (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "clahe_luma_apply_u8": ("clahe_luma", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
@@ -60,7 +60,7 @@ _SIGNATURES = {
     "clahe_luma_apply_u8_fused": ("clahe_luma", (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "fam_conv_out": ("fam_fused", (_P, _P, _P, _P, _I, _I, _I, _P)),
     "fam_tail_stats": ("fam_fused", (_P, _P, _P, _L, _L, _P)),
-    "fam_tail_apply_g1": ("fam_fused", (_P, _P, _P, _P, _P, _L, _L, _I, _P)),
+    "fam_tail_apply_g1": ("fam_fused", (_P, _P, _P, _P, _P, _L, _L, _I, _I, _P)),
     "fam_tail_apply": ("fam_fused", (_P, _P, _P, _P, _L, _L, _P)),
     "dec1_chain": ("dec1_chain", (_P,) * 11 + (_I, _I, _I, _P)),
     "fam_dual_conv3": ("fam_fused", (_P,) * 8 + (_I, _I, _I, _I, _P)),

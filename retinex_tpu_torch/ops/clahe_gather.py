@@ -12,7 +12,8 @@ The kernels live in ``retinex_tpu_torch/csrc/clahe_lab.cu``:
 - ``clahe_tables`` (K2): per-tile histograms of a u8 plane (the L plane of
   planar Lab, or a [B,H,W] luma plane for ``ops/clahe_luma.py``) with the
   within-cell ``hist_subsample`` decimation, OpenCV clip/redistribute, CDF
-  and LUT, as u8 [B, tiles_y, tiles_x, 256];
+  and LUT, as u8 [B, tiles_y, tiles_x, 256]; each tile's rows are spread
+  over several blocks (``tables_plan``);
 - ``clahe_apply_u8`` (K3): 4-neighbour LUT blend on L, then Lab -> planar
   sRGB u8;
 - ``clahe_apply_u8_nhwc`` (K8, apply half): the same, written as NHWC.
@@ -161,11 +162,49 @@ def clahe_tables_plain(
     return _luts_from_hist(hist, clip_limit, area).to(torch.uint8)
 
 
+# K2 spreads each tile's rows over this many blocks per SM in all.
+K2_BLOCKS_PER_SM = 4
+
+
+def tables_plan(
+    h: int, tiles_y: int, tiles_x: int, hist_subsample: int, batch: int, n_sm: int = 132
+) -> tuple[int, int]:
+    """(strips per tile, sampled rows per strip) of K2's launch: a tile's
+    sampled rows (``strip_rows``) cut into strips so that the grid holds
+    about K2_BLOCKS_PER_SM blocks per SM, every strip at least one row."""
+    hh = h // (2 * tiles_y)
+    n_rows = 2 * (-(-hh // hist_subsample))
+    want = -(-K2_BLOCKS_PER_SM * n_sm // (batch * tiles_y * tiles_x))
+    rows = -(-n_rows // max(1, min(want, n_rows)))
+    return -(-n_rows // rows), rows
+
+
+def strip_rows(h: int, tiles_y: int, hist_subsample: int, strip: int, rows_per_strip: int) -> list[int]:
+    """The tile rows that K2's block for `strip` reads, as the kernel walks
+    them: sampled row j is tile row j*s in the first half-tile cell and
+    hh + (j - per_cell)*s in the second (per_cell = ceil(hh / s))."""
+    hh, s = h // (2 * tiles_y), hist_subsample
+    per_cell = -(-hh // s)
+    js = range(strip * rows_per_strip, min((strip + 1) * rows_per_strip, 2 * per_cell))
+    return [j * s if j < per_cell else hh + (j - per_cell) * s for j in js]
+
+
+def _load_width(plane: torch.Tensor, img_stride: int, w: int, tiles_x: int) -> int:
+    """Bytes a K2 thread loads at once: 16, else 4, else 1, as the plane's
+    address, the image stride, the row stride and the tile width allow."""
+    for v in (16, 4):
+        if plane.data_ptr() % v == 0 and img_stride % v == 0 and w % v == 0 and (w // tiles_x) % v == 0:
+            return v
+    return 1
+
+
 def clahe_tables(
     src: torch.Tensor, clip_limit: float = 2.0, tiles_y: int = 8, tiles_x: int = 8, hist_subsample: int = 1
 ) -> torch.Tensor:
     """K2: the CLAHE LUT of every tile, from the L plane of planar u8 Lab
-    [B,3,H,W] or from a u8 plane [B,H,W]."""
+    [B,3,H,W] or from a u8 plane [B,H,W]. On the card one launch: row
+    strips of each tile (``tables_plan``), the last block of a tile
+    building its table."""
     plane, img_stride = _plane(src, "clahe_tables")
     b, h, w = plane.shape
     _check_cells(h, w, tiles_y, tiles_x)
@@ -174,9 +213,15 @@ def clahe_tables(
         return clahe_tables_plain(src, clip_limit, tiles_y, tiles_x, hist_subsample)
     stream = _kernels.stream(src)
     out = torch.empty((b, tiles_y, tiles_x, HIST_SIZE), dtype=torch.uint8, device=src.device)
+    if b == 0:
+        return out
+    n_sm = torch.cuda.get_device_properties(src.device).multi_processor_count
+    strips, rows = tables_plan(h, tiles_y, tiles_x, hist_subsample, b, n_sm)
+    # The tiles' int32 histograms, then their arrival counters.
+    scratch = torch.zeros(b * tiles_y * tiles_x * (HIST_SIZE + 1), dtype=torch.int32, device=src.device)
     _kernels.launch(
-        "clahe_tables", src.data_ptr(), out.data_ptr(), img_stride, b, h, w, tiles_y, tiles_x,
-        hist_subsample, clip, float(lut_scale), stream,
+        "clahe_tables", src.data_ptr(), out.data_ptr(), scratch.data_ptr(), img_stride, b, h, w, tiles_y, tiles_x,
+        hist_subsample, clip, float(lut_scale), strips, rows, _load_width(plane, img_stride, w, tiles_x), stream,
     )
     LAUNCHES["clahe_tables"] += 1
     return out

@@ -18,7 +18,9 @@ standalone op. The FAM kernels live in
 - ``fam_tail_stats`` (K5): x * ca -> per-quadrant channel mean and max,
   [B,h,w,8] in the order (a0,m0,a1,m1,a2,m2,a3,m3), the SA conv's input;
 - ``fam_tail_apply_g1`` (K6): (x * ca * sa of each quadrant) @ w, the
-  attention tail with the following fusion slice folded in;
+  attention tail with the following fusion slice folded in. One kernel in
+  two instances: quadrant-block-diagonal w (the packed model's folds,
+  packed once per model by ``pack_tail_g1``) and dense w;
 - ``fam_tail_apply`` (K11): x * ca * sa of each quadrant, the attention
   tail at shapes whose fusion does not fold (1080-row frames);
 - ``fam_dual_conv3`` (K12): y = relu(conv3x3(x, k1) + b1), then a 3x3
@@ -43,8 +45,8 @@ kernels take any h, w and batch.
 Each wrapper takes a CPU tensor to its plain version and a CUDA tensor to
 its kernel; there is no fallback from one to the other. ``LAUNCHES`` counts
 the kernel launches of each public K-wrapper (``fam_conv_fused`` once per
-call), ``KERNEL_LAUNCHES`` those of K4's three stages, so a run shows
-which kernels served K4.
+call), ``KERNEL_LAUNCHES`` those of K4's three stages and of K6's two
+instances, so a run shows which kernels served K4 and K6.
 """
 
 from __future__ import annotations
@@ -64,8 +66,11 @@ LAUNCHES = {
     "fam_conv_fused": 0, "fam_tail_stats": 0, "fam_tail_apply_g1": 0, "fam_tail_apply": 0, "dec1_chain": 0,
     "fam_dual_conv3": 0,
 }
-# Launches of K4's three stages since the last reset_launches().
-KERNEL_LAUNCHES = {"fam_conv_y": 0, "fam_conv_z": 0, "fam_conv_out": 0}
+# Launches of K4's three stages and of K6's two instances since the last
+# reset_launches().
+KERNEL_LAUNCHES = {
+    "fam_conv_y": 0, "fam_conv_z": 0, "fam_conv_out": 0, "fam_tail_apply_g1_diag": 0, "fam_tail_apply_g1_dense": 0,
+}
 
 
 def reset_launches() -> None:
@@ -278,28 +283,97 @@ def fam_tail_apply_g1_plain(x, ca_vec, sa, w):
     return fam_tail_apply_plain(x, ca_vec, sa) @ w
 
 
-def fam_tail_apply_g1(x, ca_vec, sa, w):
+@dataclasses.dataclass(frozen=True)
+class TailG1Packed:
+    """K6's weights, made once by ``pack_tail_g1``: ``w`` [128, Cout] as
+    given (the plain version reads it) and ``kernel_w`` in the kernel's
+    layout: where ``diag`` (``w`` quadrant-block-diagonal), the four
+    diagonal [32, 32] blocks stacked to [128, 32]; else ``w`` with zero
+    columns up to 128."""
+
+    w: torch.Tensor
+    kernel_w: torch.Tensor
+    diag: bool
+
+
+def _is_quadrant_diagonal(w: torch.Tensor) -> bool:
+    """[128, 128] with every entry outside the four [32, 32] diagonal
+    blocks exactly zero."""
+    if tuple(w.shape) != (C, C):
+        return False
+    q = C // 4
+    off = w.reshape(4, q, 4, q).clone()
+    off[torch.arange(4), :, torch.arange(4), :] = 0
+    return not bool(off.any())
+
+
+def _check_tail_g1_w(w: torch.Tensor, what: str, device: torch.device) -> int:
+    """[128, Cout] f32 on `device`, Cout a multiple of 4 up to 128; returns Cout."""
+    _check(w, what, (C, None), device)
+    cout = w.shape[1]
+    if cout % 4 or not 0 < cout <= C:
+        raise ValueError(f"fam_tail_apply_g1: Cout must be a multiple of 4 in [4, {C}], got {cout}")
+    return cout
+
+
+def _dense_tail_g1(w: torch.Tensor) -> TailG1Packed:
+    """`w` in the dense instance's layout: zero columns up to 128."""
+    return TailG1Packed(w, torch.nn.functional.pad(w, (0, C - w.shape[1])).contiguous(), False)
+
+
+def pack_tail_g1(w: torch.Tensor) -> TailG1Packed:
+    """K6's weights in both forms (once per model in
+    ``models/packed_inference.py``): inspects ``w`` here, never on a call."""
+    _check_tail_g1_w(w, "pack_tail_g1 w", w.device)
+    if not _is_quadrant_diagonal(w):
+        return _dense_tail_g1(w)
+    q = C // 4
+    blocks = w.reshape(4, q, 4, q)[torch.arange(4), :, torch.arange(4), :]  # [4 (quadrant), 32, 32]
+    return TailG1Packed(w, blocks.reshape(C, q).contiguous(), True)
+
+
+def _check_tail_g1_packed(packed: TailG1Packed, w: torch.Tensor, device: torch.device) -> None:
+    """`packed` was made from this very `w`, and its ``kernel_w`` has the
+    layout its instance reads: [128, 32] where ``diag`` (Cout 128), else
+    [128, 128]; f32, contiguous, on `device`."""
+    if packed.w is not w:
+        raise ValueError("fam_tail_apply_g1: `packed` was not made by pack_tail_g1 from this w")
+    if packed.diag and w.shape[1] != C:
+        raise ValueError(f"fam_tail_apply_g1: a quadrant-diagonal `packed` needs Cout {C}, got {w.shape[1]}")
+    _check(packed.kernel_w, "fam_tail_apply_g1 packed.kernel_w", (C, C // 4 if packed.diag else C), device)
+
+
+def fam_tail_apply_g1(x, ca_vec, sa, w, packed: TailG1Packed | None = None):
     """K6: [B,h,w,128] x, [B,128] ca, [B,h,w,4] sa, [128,Cout] w ->
     (x * ca * sa per quadrant) @ w, [B,h,w,Cout]. Cout: a multiple of 4 up
-    to 128."""
+    to 128. `packed`: ``pack_tail_g1`` of this very `w`, made once (the
+    packed model's fusion folds); when None, `w` is laid out for the dense
+    instance on the call, without inspecting it. On the card the kernel's
+    quadrant-diagonal instance serves a `packed` marked ``diag``, the dense
+    instance any other call (``KERNEL_LAUNCHES``)."""
     dev = x.device
     _check(x, "fam_tail_apply_g1 x", (None, None, None, C), dev)
     b, h, wd, _ = x.shape
     _check(ca_vec, "fam_tail_apply_g1 ca_vec", (b, C), dev)
     _check(sa, "fam_tail_apply_g1 sa", (b, h, wd, 4), dev)
-    _check(w, "fam_tail_apply_g1 w", (C, None), dev)
-    cout = w.shape[1]
-    if cout % 4 or not 0 < cout <= C:
-        raise ValueError(f"fam_tail_apply_g1: Cout must be a multiple of 4 in [4, {C}], got {cout}")
+    cout = _check_tail_g1_w(w, "fam_tail_apply_g1 w", dev)
+    if packed is not None:
+        _check_tail_g1_packed(packed, w, dev)
     if dev.type == "cpu":
         return fam_tail_apply_g1_plain(x, ca_vec, sa, w)
     stream = _kernels.stream(x)
+    for t, what in ((x, "x"), (sa, "sa")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"fam_tail_apply_g1 {what}: the kernel reads 16-byte aligned rows; got a view at {t.data_ptr():#x}")
+    p = _dense_tail_g1(w) if packed is None else packed
     out = torch.empty((b, h, wd, cout), dtype=torch.float32, device=dev)
-    _kernels.launch(
-        "fam_tail_apply_g1", x.data_ptr(), ca_vec.data_ptr(), sa.data_ptr(), w.data_ptr(), out.data_ptr(),
-        b, h * wd, cout, stream,
-    )
-    LAUNCHES["fam_tail_apply_g1"] += 1
+    if out.numel():
+        _kernels.launch(
+            "fam_tail_apply_g1", x.data_ptr(), ca_vec.data_ptr(), sa.data_ptr(), p.kernel_w.data_ptr(),
+            out.data_ptr(), b, h * wd, cout, int(p.diag), stream,
+        )
+        KERNEL_LAUNCHES["fam_tail_apply_g1_diag" if p.diag else "fam_tail_apply_g1_dense"] += 1
+        LAUNCHES["fam_tail_apply_g1"] += 1
     return out
 
 

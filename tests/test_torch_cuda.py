@@ -166,7 +166,9 @@ def test_fam_conv_stages_match_plain_versions(cuda_f32, shape):
     stages = [fb.fam_conv_y(x, p), fb.fam_conv_z(y, p), fb.fam_conv_out(z, x, p)]
     whole = fb.fam_conv_fused(x, ka, kb, k1, b1, k32, k42, bt, packed=p)
     torch.cuda.synchronize()
-    assert fb.KERNEL_LAUNCHES == {"fam_conv_y": 2, "fam_conv_z": 2, "fam_conv_out": 2}
+    assert fb.KERNEL_LAUNCHES == {
+        "fam_conv_y": 2, "fam_conv_z": 2, "fam_conv_out": 2, "fam_tail_apply_g1_diag": 0, "fam_tail_apply_g1_dense": 0,
+    }
     assert fb.LAUNCHES["fam_conv_fused"] == 1
     for got, want in zip(stages, (y, z, fb.fam_conv_out_plain(z, x, ka, kb))):
         assert got.shape == want.shape and float((got - want).abs().max()) <= 2e-4
@@ -384,3 +386,69 @@ def test_clahe_pallas_matches_plain_version(cuda_f32, shape, tiles):
     torch.testing.assert_close(got, kp.clahe_pallas_apply_plain(lab, luts), rtol=0, atol=1.01 / 255)
     e = ((out - kp.clahe_lab_rgb_pallas_plain(x, tiles_x=tx, tiles_y=ty)) * 255).abs()
     assert float(e.max()) <= 1.01 and float((e > 0.5).float().mean()) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 37, 53), (1, 136, 240)])
+def test_fam_tail_apply_g1_instances_match_plain_version(cuda_f32, shape):
+    """K6's two instances, at a ragged pixel count on a batch of 2 and at
+    the scale-2 FAM shape of a 1088x1920 frame: the quadrant-diagonal one
+    (a pack_pointwise w, the main path's) and the dense one at Cout 128 and
+    12, each within K6's 1e-4 of the plain version; on the same block-
+    diagonal w the two instances give the same bits; each image of a batch
+    equals the kernel on it alone."""
+    g = cuda_f32
+    b, h, w = shape
+    x = (torch.randn(b, h, w, 128, generator=g, device="cuda") * 0.4).abs()
+    ca = torch.sigmoid(torch.randn(b, 32, generator=g, device="cuda")).repeat(1, 4).contiguous()
+    sa = torch.sigmoid(torch.randn(b, h, w, 4, generator=g, device="cuda"))
+    block = torch.randn(32, 32, generator=g, device="cuda") * 0.1
+    wd = torch.block_diag(block, block, block, block).contiguous()
+    dense = torch.randn(128, 128, generator=g, device="cuda") * 0.05
+    pd = fb.pack_tail_g1(wd)
+    assert pd.diag and not fb.pack_tail_g1(dense).diag
+    fb.reset_launches()
+    got_diag = fb.fam_tail_apply_g1(x, ca, sa, wd, packed=pd)
+    got_as_dense = fb.fam_tail_apply_g1(x, ca, sa, wd)  # unpacked: the dense instance
+    got_dense = {c: fb.fam_tail_apply_g1(x, ca, sa, dense[:, :c].contiguous()) for c in (128, 12)}
+    torch.cuda.synchronize()
+    assert fb.KERNEL_LAUNCHES["fam_tail_apply_g1_diag"] == 1
+    assert fb.KERNEL_LAUNCHES["fam_tail_apply_g1_dense"] == 3
+    assert float((got_diag - fb.fam_tail_apply_g1_plain(x, ca, sa, wd)).abs().max()) <= 1e-4
+    assert torch.equal(got_diag, got_as_dense)
+    for c, got in got_dense.items():
+        want = fb.fam_tail_apply_g1_plain(x, ca, sa, dense[:, :c].contiguous())
+        assert got.shape == want.shape == (b, h, w, c)
+        assert float((got - want).abs().max()) <= 1e-4
+    for j in range(b):
+        one = [t[j : j + 1].contiguous() for t in (x, ca, sa)]
+        assert torch.equal(fb.fam_tail_apply_g1(*one, wd, packed=pd), got_diag[j : j + 1])
+        assert torch.equal(fb.fam_tail_apply_g1(*one, dense[:, :12].contiguous()), got_dense[12][j : j + 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("tiles", [4, 8, 16])
+def test_clahe_tables_match_plain_version(cuda_f32, tiles, batch):
+    """K2 at 4, 8 and 16 tiles a side, hist_subsample 1 and 2, on the L
+    plane of planar Lab and on a luma plane, of noise and of a smooth
+    random walk (flat tiles, clipped histograms): identical to the plain
+    version; each image of a batch identical to K2 on it alone."""
+    g = cuda_f32
+    noise = torch.randint(0, 256, (batch, 3, 256, 480), dtype=torch.uint8, device="cuda", generator=g)
+    steps = torch.randint(-3, 4, (batch, 3, 256, 480), device="cuda", generator=g)
+    walk = torch.clamp(steps.cumsum(dim=-1) + 128, 0, 255).to(torch.uint8)
+    cg.reset_launches()
+    n = 0
+    for rgb in (noise, walk):
+        for plane in (cg.lab_fwd_u8_plain(rgb), cl._luma_u8(rgb)):
+            for s in (1, 2):
+                got = cg.clahe_tables(plane, tiles_y=tiles, tiles_x=tiles, hist_subsample=s)
+                n += 1
+                assert torch.equal(got, cg.clahe_tables_plain(plane, tiles_y=tiles, tiles_x=tiles, hist_subsample=s))
+                for j in sorted({0, batch - 1}):
+                    alone = cg.clahe_tables(plane[j : j + 1].contiguous(), tiles_y=tiles, tiles_x=tiles, hist_subsample=s)
+                    n += 1
+                    assert torch.equal(alone, got[j : j + 1])
+    torch.cuda.synchronize()
+    assert cg.LAUNCHES["clahe_tables"] == n

@@ -11,17 +11,28 @@ Phases (any failure raises and exits nonzero; no phase is skipped):
    ``retinex_tpu_torch/csrc/*.cu`` (one nvcc per source, all at once,
    printing the seconds and the ptxas report: registers, stack and spills,
    and for ``conv_wgmma``, ``conv_pipelined`` and ``fam_fused`` each entry
-   function).
+   function); the instructions a pixel issues in each instance of K1 and K3,
+   read from the library's SASS (``sass_instructions_per_px``), which their
+   bounds use.
 2. K1-K3: on a seeded u8 frame at 1088x1920 (the main path's shape) and at
    2160x3840 (a cell width of 240 columns), and on the directory's batches
    [8,3,1088,1920], [4,3,1088,1920] and [4,3,640,640], each kernel is held to
-   its plain PyTorch version on the card: K1 (lab_fwd_u8) and K3
-   (clahe_apply_u8) within 1 level on under 1e-4 of the bytes, K2
-   (clahe_tables) identical; on a batch, the first and last image equal the
-   kernels run on that image alone; at 1088x1920 K2 also at 4x4 and 16x16
-   tiles (``--clahe_tiles``), identical. Median kernel times over 25
-   launches (CUDA events) at both single-frame shapes, K2's at each tile
-   count.
+   its plain PyTorch version on the card: K1 and K3 in their u8 planar
+   instances (lab_fwd_u8, clahe_apply_u8) and their float instances
+   (lab_fwd_f32_nhwc on a seeded float frame past [0, 1] with exact .5
+   ties, stored channels first as the nets' outputs are, and NHWC;
+   clahe_apply_f32_nhwc, whose values must be clahe_apply_u8's / 255)
+   within 1 level on under 1e-4 of the bytes, K2 (clahe_tables) identical;
+   on a batch, the first and last image equal the kernels run on that image
+   alone; at 1088x1920 K2 also at 4x4 and 16x16 tiles (``--clahe_tiles``),
+   identical. Then both instances of K1 over every sRGB triple and of K3
+   over every (L, a, b) triple (``cube_phase``: a [1,3,4096,4096] cube,
+   identity LUTs for K3), held the same way, the count of differing bytes
+   printed. Median kernel times over 25 launches (CUDA events) at both
+   single-frame shapes, K2's at each tile count; K3's launch plan against
+   its neighbours at 1088x1920 (``k3_plan_sweep``, same bytes in all). The main path's Lab-CLAHE
+   stage at 1088x1920 by operation (``clahe_stage_profile``, torch.profiler):
+   it must run K2's scratch fill, K1, K2 and K3 once each and nothing else.
 3. K7-K9 and K2 on a luma plane: on seeded u8 batches [8,1088,1920] (a
    directory chunk), [1,2160,3840] and a ragged [3,272,496], both K8 kernels
    (lab_fwd_u8_nhwc, clahe_apply_u8_nhwc) and K7 (clahe_luma_apply_u8, on
@@ -58,13 +69,13 @@ Phases (any failure raises and exits nonzero; no phase is skipped):
 5. The standard route through the CLI, ``--mode enhance --max_size 1920
    --no-packed_inference``, on a 1920x1080 PNG upscaled from
    ``data/convergence/lowlight_000.png``, untrained weights from seed 0: the
-   three PNGs, K1-K3 launched once each, the enhanced image held to the
+   three PNGs, K1 and K3 (float instances) and K2 launched once each, the enhanced image held to the
    port's CPU run stage by stage (``hold_to_cpu``): the net's outputs on the
    card within 1e-5 of the CPU's, Lab-CLAHE + quantisation of the card's net
    output on the card identical to the CPU's on it, and the PNG within a
    mean of 0.05 levels of the CPU run end to end.
 6. The default route through the CLI (packed forward), same photo: the
-   three PNGs, K1-K3 launched once and K4-K6 twice each, K6 in its
+   three PNGs, K1-K3 launched once (K1 and K3 in their float instances) and K4-K6 twice each, K6 in its
    quadrant-diagonal instance. The packed forward
    is held to the standard forward on the card (same weights and input:
    illumination 2e-5, reflectance and enhanced 2e-3, as
@@ -82,11 +93,15 @@ Phases (any failure raises and exits nonzero; no phase is skipped):
    on 12 photos at 1920x1080 (upscaled from ``lowlight_000..011``) and 4
    640x640 originals (``lowlight_012..015``): three chunks, 8 and 4 at
    1088x1920 and 4 at 640x640. Three modes, each with the counts at 0 just
-   before: the net (K4-K6 6 launches each, K1-K3 3 each), ``--classical_mode
-   clahe`` (K8's two kernels and K2 3 each, K1/K3 none) and
-   ``--classical_mode clahe_luma`` (K2 and K7 3 each); then the public fused
-   luma entry (``clahe_luma_rgb_u8_planar(fuse_luma=True)``) on the same
-   chunks (K2 and K9 3 each), whose bytes equal the ``clahe_luma`` PNGs.
+   before: the net (K4-K6 6 launches each, K1-K3 3 each, K1 and K3 in their
+   float instances), ``--classical_mode clahe`` (K8's two kernels and K2 3
+   each, K1/K3 none) and ``--classical_mode clahe_luma`` (K2 and K7 3
+   each); then the public fused luma entry
+   (``clahe_luma_rgb_u8_planar(fuse_luma=True)``) on the same chunks (K2
+   and K9 3 each), whose bytes equal the ``clahe_luma`` PNGs, and the public
+   planar u8 Lab-CLAHE entry (``clahe_rgb_u8_planar_gather``) on them (K1,
+   K2 and K3 in their u8 instances 3 each), whose bytes equal the ``clahe``
+   PNGs.
    Each mode's 48 PNGs; the CLAHE modes' enhanced PNGs byte-identical to
    single-image runs on the card. The net's are read against single-image
    runs and held stage by stage on each chunk: the packed forward on the
@@ -101,7 +116,7 @@ Phases (any failure raises and exits nonzero; no phase is skipped):
    just before and checked just after: ``--classical_mode ssr``, ``msr``,
    ``msrcr`` (no kernel), ``--content_aware`` and ``--multi_scale`` (K4-K6
    twice each, K1-K3 never) at ``--max_size 512``, and ``--classical_mode
-   clahe`` (K1-K3 once each) and ``clahe_luma`` (K2 and K7 once each) at
+   clahe`` (K1-K3 once each, float instances) and ``clahe_luma`` (K2 and K7 once each) at
    ``--max_size 1920``. Each is held to the port's CPU run: ssr/msr/msrcr
    within 1e-4, ten times the CPU tests' 1e-5 (the card's cumulative sums,
    logs and exps round in other orders); clahe_luma byte-identical (K2 and
@@ -110,7 +125,8 @@ Phases (any failure raises and exits nonzero; no phase is skipped):
    device ms at 1088x1920.
 10. Warm times, batch 1: the standard and the packed net, Lab-CLAHE, end to
    end per route at 1088x1920, the same for the flagless route at
-   1080x1920, and the FAM kernels' device ms per image.
+   1080x1920, and the FAM kernels' device ms per image; the Lab-CLAHE
+   launches over the phase (float instances only).
 11. Device time by kernel (torch.profiler) over warm forwards of each route
    at 1088x1920, the port's own kernels among them (K6 must show in the
    packed forward), and the device's busy share of the forwards' wall time.
@@ -145,7 +161,7 @@ Phases (any failure raises and exits nonzero; no phase is skipped):
    on the card held to the same call with ``device="cpu"`` within rtol 1e-4
    on two photos' PNGs.
 16. ``simple_enhance_main`` (pre-activation + ASPP net, untrained) on the
-   photo at ``--max_size 1920``: three PNGs, K4-K6 twice and K1-K3 once;
+   photo at ``--max_size 1920``: three PNGs, K4-K6 twice and K1-K3 once (float instances);
    at ``--max_size 512`` held to the port's CPU run as in phase 5.
 
 Phases 17-19 drive the standalone ops K12-K16, which no route of either
@@ -189,7 +205,10 @@ The last lines are a ``{"kernels": [...]}`` JSON line, the nvidia-smi line,
 and ``{"ok": true, "device": {...}}``. ``launches`` sums each kernel's
 launches over the runs of phases 6, 7 and 8, each counted from zero: the
 default route's two 1080p CLI runs and the three directory runs, plus the
-fused-luma run (the only path that reaches K9); for K10, over its path's
+fused-luma run (the only path that reaches K9) and the planar u8 Lab-CLAHE
+entry's run (the only one that reaches K1's and K3's u8 planar instances,
+lab_fwd_u8 and clahe_apply_u8; the main path runs their float instances,
+lab_fwd_f32_nhwc and clahe_apply_f32_nhwc); for K10, over its path's
 runs in phases 13 and 14 (the dec1-chain forwards and predict with it);
 for K12-K16, over the calls at perf_lab's shapes in phases 17-19.
 K4 has an entry as a whole (``fam_conv_fused``) and one for each of its
@@ -197,6 +216,8 @@ three kernels (``fam_conv_y``, ``fam_conv_z``, ``fam_conv_out``). K6's
 entry is its main-path instance (the quadrant-diagonal w, bytes-bound);
 the dense instance is printed in phase 4.
 ``ms``, ``plain_ms`` and ``bound_ms`` are per image for K1-K6, K10 and K11
+(K1's and K3's bounds by bytes or by instructions over the issue rate,
+PEAK_ISSUE_PER_S, whichever is larger)
 (summed over the kernel's launches on one 1088x1920 or 1080x1920 image),
 per launch on a [8,1088,1920] directory chunk for K7-K9, per launch at the
 first shape for K12-K15: in f32 for K12 (the entry's ``dtype``; the bf16
@@ -222,18 +243,25 @@ from pathlib import Path
 import numpy as np
 
 REPO = Path(__file__).resolve().parent
-# H100 SXM: HBM bandwidth and the f32 rate outside the tensor cores.
+# H100 SXM: HBM bandwidth and the f32 rate outside the tensor cores (an
+# FMA counted as two operations), and the issue rate of one instruction per
+# lane and clock that goes with it.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+PEAK_ISSUE_PER_S = PEAK_F32_OPS_PER_S / 2
 # bf16 on the tensor cores, dense.
 PEAK_BF16_OPS_PER_S = 989e12
-# Operations per pixel, counted from csrc/clahe_lab.cu: K1 9 mul + 6 add +
-# 2 div (matrix), 3 f()s at 3 each, 9 for L/a/b, 9 for 3 round/clips; K3
-# 10 (blend) + 3 (round/clip) + 9 (fy, fx, fz) + 11 (f^-1, X, Z) + 15
-# (matrix) + 15 (3 gammas) + 12 (3 clip/scale/round). K2: one atomic per
-# sampled pixel and ~20 per table entry.
-K1_OPS_PER_PX = 44
-K3_OPS_PER_PX = 75
+# Instructions a pixel issues in each instance of K1 and K3, by the name of
+# its wrapper: read in phase 1 from the SASS of the built library
+# (sass_instructions_per_px); their bounds are these over PEAK_ISSUE_PER_S.
+INSTR_PER_PX: dict[str, float] = {}
+# K1's and K3's instances: (kernel, Layout number in csrc/clahe_lab.cu) by wrapper.
+K1_K3_INSTANCES = {
+    "lab_fwd_u8": ("lab_fwd", 0), "lab_fwd_u8_nhwc": ("lab_fwd", 1), "lab_fwd_f32_nhwc": ("lab_fwd", 2),
+    "clahe_apply_u8": ("clahe_apply", 0), "clahe_apply_u8_nhwc": ("clahe_apply", 1),
+    "clahe_apply_f32_nhwc": ("clahe_apply", 3),
+}
+# K2: one atomic per sampled pixel and ~20 operations per table entry.
 K2_OPS_PER_ENTRY = 20
 # K5 per packed pixel: 128 multiplies by ca, 4 x 31 adds, 4 x 31 maxima,
 # 4 mean scalings.
@@ -247,10 +275,15 @@ LUMA_SHAPES = ((8, 1088, 1920), (1, 2160, 3840), (3, 272, 496))
 # K1-K3's batches in the directory's net mode: the 1088x1920 chunks of 8 and
 # 4, and the 640x640 chunk of 4.
 CLAHE_DIR_SHAPES = ((8, 1088, 1920), (4, 1088, 1920), (4, 640, 640))
+# One Lab-CLAHE call of a net or single-image clahe route: K1 and K3 in
+# their float instances, K2.
+LAB_CLAHE_ONCE = {"lab_fwd_f32_nhwc": 1, "clahe_tables": 1, "clahe_apply_f32_nhwc": 1}
 REPLACES = {
     "lab_fwd_u8": "retinex_tpu/ops/clahe_gather.py:874",
+    "lab_fwd_f32_nhwc": "retinex_tpu/ops/clahe_gather.py:874",
     "clahe_tables": "retinex_tpu/ops/clahe_gather.py:648",
     "clahe_apply_u8": "retinex_tpu/ops/clahe_gather.py:931",
+    "clahe_apply_f32_nhwc": "retinex_tpu/ops/clahe_gather.py:931",
     "fam_conv_fused": "retinex_tpu/ops/fused_blocks.py:395",
     "fam_conv_y": "retinex_tpu/ops/fused_blocks.py:395",
     "fam_conv_z": "retinex_tpu/ops/fused_blocks.py:395",
@@ -275,8 +308,10 @@ REPLACES = {
 }
 SOURCES = {
     "lab_fwd_u8": "retinex_tpu_torch/csrc/clahe_lab.cu",
+    "lab_fwd_f32_nhwc": "retinex_tpu_torch/csrc/clahe_lab.cu",
     "clahe_tables": "retinex_tpu_torch/csrc/clahe_lab.cu",
     "clahe_apply_u8": "retinex_tpu_torch/csrc/clahe_lab.cu",
+    "clahe_apply_f32_nhwc": "retinex_tpu_torch/csrc/clahe_lab.cu",
     "fam_conv_fused": "retinex_tpu_torch/csrc/fam_fused.cu",
     "fam_conv_y": "retinex_tpu_torch/csrc/conv_pipelined.cu",
     "fam_conv_z": "retinex_tpu_torch/csrc/conv_pipelined.cu",
@@ -378,6 +413,78 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def sass_functions(text: str) -> dict[str, list[tuple[int, str, str]]]:
+    """{mangled function name: its SASS instructions (address, opcode,
+    operands) in order} of cuobjdump -sass output."""
+    import re
+
+    out: dict[str, list[tuple[int, str, str]]] = {}
+    ins = None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            ins = out.setdefault(m.group(1), [])
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)(.*?);", line)
+        if m and ins is not None:
+            ins.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    return out
+
+
+def issued(ins) -> int:
+    """Instructions that do the arithmetic: all but loads and stores,
+    control flow and barriers, and address math (LEA, IMAD.WIDE)."""
+    skip = ("LD", "ST", "ULDC", "ATOM", "RED", "BRA", "BSSY", "BSYNC", "EXIT", "CALL", "RET", "BAR", "NOP",
+            "WARPSYNC", "YIELD", "BMOV", "LEA", "IMAD.WIDE", "SHFL")
+    return sum(not op.startswith(skip) for _, op, _ in ins)
+
+
+def row_loop(ins) -> list:
+    """K3's row loop: the largest backward branch's body after the block's
+    last barrier (the compiler may keep two versions of the loop, of which
+    one runs)."""
+    import re
+
+    bar = max(a for a, op, _ in ins if op.startswith("BAR"))
+    best = []
+    for addr, op, rest in ins:
+        m = re.search(r"0x([0-9a-f]+)", rest) if op.startswith("BRA") else None
+        if m and bar < int(m.group(1), 16) < addr:
+            body = [x for x in ins if int(m.group(1), 16) <= x[0] <= addr]
+            best = max(best, body, key=len)
+    return best
+
+
+def sass_instructions_per_px(lib: Path) -> dict[str, float]:
+    """Instructions a pixel issues in each instance of K1 and K3, from the
+    built library's SASS (cuobjdump -sass), only ``issued`` opcodes (cbrtf
+    and the IEEE divisions at every instruction they compile to, both sides
+    of a branch counted): K1 has no loop, so its count at 4 pixels a thread
+    less its count at 1, over 3, which cancels the per-thread work; K3 its
+    row loop's at 8 pixels a thread, over 8 (the per-row work, a blend
+    weight, is in it). Keyed by wrapper, as K1_K3_INSTANCES."""
+    import re
+    import shutil
+
+    tool = Path("/usr/local/cuda/bin/cuobjdump")
+    tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
+    if tool is None:
+        raise RuntimeError("cuobjdump not found: it reads K1's and K3's instruction counts for their bounds")
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
+    fn = {}
+    for name, ins in sass_functions(text).items():
+        m = re.search(r"(lab_fwd|clahe_apply)_kernelILi(\d+)ELi(\d)E", name)
+        if m:
+            fn[(m.group(1), int(m.group(2)), int(m.group(3)))] = ins
+    per_px = {}
+    for wrapper, (kernel, layout) in K1_K3_INSTANCES.items():
+        if kernel == "lab_fwd":
+            per_px[wrapper] = (issued(fn[(kernel, 4, layout)]) - issued(fn[(kernel, 1, layout)])) / 3
+        else:
+            per_px[wrapper] = issued(row_loop(fn[(kernel, 8, layout)])) / 8
+    return per_px
+
+
 def time_ms(torch, fn, n: int = 25) -> float:
     """Median device ms of one call of fn over n calls. A sleep kernel
     queued first keeps the device busy while the host enqueues all n calls,
@@ -410,23 +517,36 @@ def clahe_kernel_phase(
     torch, cg, b: int, h: int, w: int, seed: int, timed: bool = True, tile_counts: tuple = (8,)
 ) -> dict:
     """Hold K1-K3 to their plain versions on a seeded [b, 3, h, w] batch,
-    K2 at each of `tile_counts` tiles a side; return per-kernel records at
-    8x8 tiles: the error, and with `timed` the times too (K2's printed at
-    every tile count)."""
+    K1 and K3 in their u8 planar and their float instances (K1's float
+    input a seeded frame past [0, 1] with exact .5 ties, laid out as the
+    nets' outputs are, and NHWC), K2 at each of `tile_counts` tiles a side;
+    return per-kernel records at 8x8 tiles: the error, and with `timed` the
+    times too (K2's printed at every tile count)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     rgb = torch.randint(0, 256, (b, 3, h, w), dtype=torch.uint8, device="cuda", generator=g)
+    base = torch.rand((b, 3, h, w), device="cuda", generator=g) * 1.2 - 0.1
+    ties = torch.randint(0, 255, (base.view(-1)[::97].numel(),), device="cuda", generator=g)
+    base.view(-1)[::97] = (ties.float() + 0.5) / 255.0
+    x = base.permute(0, 2, 3, 1)  # float [b, h, w, 3] stored channels first
     tiles = 8
     n_px = h * w
     n_tiles = tiles * tiles
     tag = f"{b}x{h}x{w}" if b > 1 else f"{h}x{w}"
 
+    def hold(name, got, want):
+        torch.cuda.synchronize()
+        err, frac = u8_diff(torch, got, want)
+        print(f"  {tag} {name}: max {err} level(s), {frac:.2e} of bytes differ")
+        if err > 1 or frac >= 1e-4:
+            raise AssertionError(f"{name} disagrees with its plain version at {tag}")
+        return err
+
     lab = cg.lab_fwd_u8(rgb)
-    lab_p = cg.lab_fwd_u8_plain(rgb)
-    torch.cuda.synchronize()
-    k1_max, k1_frac = u8_diff(torch, lab, lab_p)
-    print(f"  {tag} K1 lab_fwd_u8: max {k1_max} level(s), {k1_frac:.2e} of bytes differ")
-    if k1_max > 1 or k1_frac >= 1e-4:
-        raise AssertionError(f"K1 disagrees with its plain version at {tag}")
+    k1_max = hold("K1 lab_fwd_u8", lab, cg.lab_fwd_u8_plain(rgb))
+    lab_f = cg.lab_fwd_f32_nhwc(x)
+    k1f_max = hold("K1 lab_fwd_f32_nhwc (stored channels first)", lab_f, cg.lab_fwd_f32_nhwc_plain(x))
+    if not torch.equal(cg.lab_fwd_f32_nhwc(x.contiguous()), lab_f):
+        raise AssertionError(f"K1's float instance on NHWC memory differs from it on channels-first memory at {tag}")
 
     for t in tile_counts:
         for s in (1, 2):
@@ -441,51 +561,171 @@ def clahe_kernel_phase(
     luts = cg.clahe_tables(lab)
 
     out = cg.clahe_apply_u8(lab, luts)
-    out_p = cg.clahe_apply_u8_plain(lab, luts)
-    torch.cuda.synchronize()
-    k3_max, k3_frac = u8_diff(torch, out, out_p)
-    print(f"  {tag} K3 clahe_apply_u8: max {k3_max} level(s), {k3_frac:.2e} of bytes differ")
-    if k3_max > 1 or k3_frac >= 1e-4:
-        raise AssertionError(f"K3 disagrees with its plain version at {tag}")
+    k3_max = hold("K3 clahe_apply_u8", out, cg.clahe_apply_u8_plain(lab, luts))
+    out_f = cg.clahe_apply_f32_nhwc(lab, luts)
+    k3f_max = hold(
+        "K3 clahe_apply_f32_nhwc (x 255)", torch.round(out_f * 255.0).to(torch.uint8),
+        torch.round(cg.clahe_apply_f32_nhwc_plain(lab, luts) * 255.0).to(torch.uint8),
+    )
+    if not torch.equal(out_f, cg.dequantise_nhwc(out)):
+        raise AssertionError(f"K3's float instance is not its u8 instance / 255 at {tag}")
     for j in sorted({0, b - 1} if b > 1 else ()):
         lab1 = cg.lab_fwd_u8(rgb[j : j + 1])
         luts1 = cg.clahe_tables(lab1)
-        alone = (lab1, luts1, cg.clahe_apply_u8(lab1, luts1))
-        if not all(torch.equal(a, t[j : j + 1]) for a, t in zip(alone, (lab, luts, out))):
+        alone = (lab1, luts1, cg.clahe_apply_u8(lab1, luts1), cg.lab_fwd_f32_nhwc(x[j : j + 1]),
+                 cg.clahe_apply_f32_nhwc(lab1, luts1))
+        if not all(torch.equal(a, t[j : j + 1]) for a, t in zip(alone, (lab, luts, out, lab_f, out_f))):
             raise AssertionError(f"K1-K3 at {tag}: image {j} of the batch differs from the kernels on it alone")
     if b > 1:
-        print(f"  {tag} K1-K3: first and last image identical to the kernels on each alone")
+        print(f"  {tag} K1-K3 (both instances of K1 and K3): first and last image identical to the kernels on each "
+              "alone")
+    errs = {"lab_fwd_u8": k1_max, "lab_fwd_f32_nhwc": k1f_max, "clahe_tables": 0, "clahe_apply_u8": k3_max,
+            "clahe_apply_f32_nhwc": k3f_max}
     if not timed:
-        return {"lab_fwd_u8": dict(max_abs_err=k1_max), "clahe_tables": dict(max_abs_err=0),
-                "clahe_apply_u8": dict(max_abs_err=k3_max)}
+        return {name: dict(max_abs_err=e) for name, e in errs.items()}
 
-    table_bytes = b * n_tiles * 256
-    recs = {
-        "lab_fwd_u8": dict(
-            max_abs_err=k1_max,
-            ms=time_ms(torch, lambda: cg.lab_fwd_u8(rgb)),
-            plain_ms=time_ms(torch, lambda: cg.lab_fwd_u8_plain(rgb), n=5),
-            bound=bound(6 * b * n_px + 256 * 4, K1_OPS_PER_PX * b * n_px),
-        ),
-        "clahe_tables": dict(
-            max_abs_err=0,
-            ms=time_ms(torch, lambda: cg.clahe_tables(lab)),
-            plain_ms=time_ms(torch, lambda: cg.clahe_tables_plain(lab), n=5),
-            bound=bound(b * n_px + table_bytes, b * n_px + K2_OPS_PER_ENTRY * table_bytes),
-        ),
-        "clahe_apply_u8": dict(
-            max_abs_err=k3_max,
-            ms=time_ms(torch, lambda: cg.clahe_apply_u8(lab, luts)),
-            plain_ms=time_ms(torch, lambda: cg.clahe_apply_u8_plain(lab, luts), n=5),
-            bound=bound(6 * b * n_px + table_bytes, K3_OPS_PER_PX * b * n_px),
-        ),
+    px = b * n_px
+    lut_bytes = b * n_tiles * 256
+    apply_tables = 4 * cg.APPLY_TABLE_WORDS
+    calls = {  # name: (kernel call, plain call, bytes moved)
+        "lab_fwd_u8": (lambda: cg.lab_fwd_u8(rgb), lambda: cg.lab_fwd_u8_plain(rgb), 6 * px + 1024),
+        "lab_fwd_f32_nhwc": (lambda: cg.lab_fwd_f32_nhwc(x), lambda: cg.lab_fwd_f32_nhwc_plain(x), 15 * px + 1024),
+        "clahe_apply_u8": (lambda: cg.clahe_apply_u8(lab, luts), lambda: cg.clahe_apply_u8_plain(lab, luts),
+                           6 * px + lut_bytes + apply_tables),
+        "clahe_apply_f32_nhwc": (lambda: cg.clahe_apply_f32_nhwc(lab, luts),
+                                 lambda: cg.clahe_apply_f32_nhwc_plain(lab, luts), 15 * px + lut_bytes + apply_tables),
     }
+    recs = {
+        name: dict(max_abs_err=errs[name], ms=time_ms(torch, fn), plain_ms=time_ms(torch, plain, n=5),
+                   bound=bound(n_bytes, INSTR_PER_PX[name] * px, PEAK_ISSUE_PER_S))
+        for name, (fn, plain, n_bytes) in calls.items()
+    }
+    recs["clahe_tables"] = dict(
+        max_abs_err=0,
+        ms=time_ms(torch, lambda: cg.clahe_tables(lab)),
+        plain_ms=time_ms(torch, lambda: cg.clahe_tables_plain(lab), n=5),
+        bound=bound(px + lut_bytes, px + K2_OPS_PER_ENTRY * lut_bytes),
+    )
     for name, r in recs.items():
         print(
             f"  {tag} {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, "
-            f"bound {r['bound'][0]:.4f} ms by {r['bound'][1]})"
+            f"bound {r['bound'][0]:.4f} ms by {r['bound'][1]}, {r['bound'][0] / r['ms']:.1%} of it)"
         )
     return recs
+
+
+def k3_plan_sweep(torch, cg, kernels, h: int = 1088, w: int = 1920) -> None:
+    """K3's launch plan (``clahe_gather.apply_plan``: pixels a thread, rows
+    a block takes at once, rows of a band) against its neighbours on a
+    seeded noise frame, in the u8 planar and the float instance: prints
+    the plan's time and the five fastest plans. Every plan gives the same
+    bytes (checked)."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    lab = cg.lab_fwd_u8(torch.randint(0, 256, (1, 3, h, w), dtype=torch.uint8, device="cuda", generator=g))
+    luts = cg.clahe_tables(lab)
+    tables, stream = cg._apply_table_block(str(lab.device)), kernels.stream(lab)
+    n_sm = torch.cuda.get_device_properties(lab.device).multi_processor_count
+    instances = (("clahe_apply_u8", 0, cg.clahe_apply_u8), ("clahe_apply_f32_nhwc", 3, cg.clahe_apply_f32_nhwc))
+    for name, layout, fn in instances:
+        want = fn(lab, luts)
+        out = torch.empty_like(want)
+        vec = cg._apply_width(lab, w, 8, 4 if layout == 3 else 8)
+        default = (vec,) + cg.apply_plan(h, w, 8, 1, vec, n_sm)[::-1]
+        times = {}
+        for vec, rows_par, rows in [default] + [(v, p, r) for v in (8, 4) for p in (1, 2, 4) for r in (2, 3, 4, 6, 9, 17)]:
+            key = (vec, min(rows_par, rows), rows)
+            if key in times:
+                continue
+            args = (lab.data_ptr(), luts.data_ptr(), tables.data_ptr(), out.data_ptr(), 1, h, w, 8, 8, layout, vec,
+                    rows, key[1], stream)
+            times[key] = time_ms(torch, lambda: kernels.launch("clahe_apply", *args))
+            if not torch.equal(out, want):
+                raise AssertionError(f"{name} with the plan {key} differs from its default plan")
+        best = sorted(times.items(), key=lambda kv: kv[1])[:5]
+        print(f"  {h}x{w} {name}, plans (pixels a thread, rows at once, band rows): the default {default} "
+              f"{times[default]:.4f} ms; fastest " + ", ".join(f"{k} {t:.4f}" for k, t in best))
+
+
+def cube_outputs(torch, cg) -> tuple:
+    """K1 on every sRGB triple and K3 on every (L, a, b) triple: a planar
+    [1, 3, 4096, 4096] u8 image that enumerates the 256^3 cube, taken as
+    sRGB by K1 and as Lab by K3 with identity LUTs at 8x8 tiles (so the
+    blend keeps L). Returns (cube, identity LUTs, K1's Lab, K3's sRGB); it
+    calls only lab_fwd_u8 and clahe_apply_u8, so it runs on any version of
+    the package."""
+    v = torch.arange(256**3, device="cuda", dtype=torch.int32)
+    cube = torch.stack([v >> 16, (v >> 8) & 255, v & 255]).to(torch.uint8).reshape(1, 3, 4096, 4096)
+    luts = torch.arange(256, device="cuda", dtype=torch.uint8).expand(1, 8, 8, 256).contiguous()
+    return cube, luts, cg.lab_fwd_u8(cube), cg.clahe_apply_u8(cube, luts)
+
+
+def cube_phase(torch, cg) -> dict[str, int]:
+    """Hold both instances of K1 and of K3 to their plain versions over the
+    whole cube (``cube_outputs``; K1's float instance reads the cube / 255
+    stored channels first), and each float instance to its u8 one; return
+    the largest error of each."""
+    cube, luts, lab, rgb = cube_outputs(torch, cg)
+    x = (cube.float() / 255.0).permute(0, 2, 3, 1)
+    holds = {
+        "lab_fwd_u8": (lab, cg.lab_fwd_u8_plain(cube)),
+        "lab_fwd_f32_nhwc": (cg.lab_fwd_f32_nhwc(x), cg.lab_fwd_f32_nhwc_plain(x)),
+        "clahe_apply_u8": (rgb, cg.clahe_apply_u8_plain(cube, luts)),
+        "clahe_apply_f32_nhwc": tuple(
+            torch.round(o * 255.0).to(torch.uint8).permute(0, 3, 1, 2)
+            for o in (cg.clahe_apply_f32_nhwc(cube, luts), cg.clahe_apply_f32_nhwc_plain(cube, luts))
+        ),
+    }
+    errs = {}
+    for name, (got, want) in holds.items():
+        torch.cuda.synchronize()
+        d = (got.to(torch.int16) - want.to(torch.int16)).abs()
+        errs[name], n_diff = int(d.max()), int((d > 0).sum())
+        print(f"  the whole cube, {name}: {n_diff} of {d.numel()} bytes differ from the plain version, max {errs[name]} level(s)")
+        if errs[name] > 1 or n_diff >= 1e-4 * d.numel():
+            raise AssertionError(f"{name} disagrees with its plain version over the cube")
+    for name, (got, _), other in (("lab_fwd_f32_nhwc", holds["lab_fwd_f32_nhwc"], lab),
+                                  ("clahe_apply_f32_nhwc", holds["clahe_apply_f32_nhwc"], rgb)):
+        if not torch.equal(got, other):
+            raise AssertionError(f"{name} over the cube differs from its u8 instance")
+    print("  the whole cube: each float instance's bytes equal its u8 instance's")
+    return errs
+
+
+def clahe_stage_profile(torch, h: int = 1088, w: int = 1920, n: int = 5) -> dict[str, tuple[int, float]]:
+    """Device time of the main path's Lab-CLAHE stage by operation: n calls
+    of ``clahe_lab_rgb`` (the public entry every net route calls) on a
+    seeded float frame laid out as the nets' outputs are (a permuted NCHW
+    tensor), under torch.profiler. Prints each device operation's launches
+    and ms per call, the total, and the synchronized wall time per call;
+    returns {operation: (launches per call, ms per call)}. It uses only the
+    public entry, so it reads any version of the package on sys.path."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from retinex_tpu_torch.ops.clahe import clahe_lab_rgb
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.rand((1, 3, h, w), device="cuda", generator=g).permute(0, 2, 3, 1)
+    for _ in range(3):
+        clahe_lab_rgb(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            clahe_lab_rgb(x)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    ops = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not ops:
+        raise AssertionError("the profiler recorded no device time in the Lab-CLAHE stage")
+    # Launches per call rounded, so that an event the profiler drops does not
+    # read as a missing launch; ms per call = ms per recorded launch x launches.
+    rows = {e.key: (round(e.count / n), e.self_device_time_total / e.count / 1e3 * round(e.count / n)) for e in ops}
+    total = sum(ms for _, ms in rows.values())
+    print(f"  Lab-CLAHE stage at {h}x{w} (clahe_lab_rgb, {n} calls): {total:.4f} device ms of {wall_ms:.4f} wall ms "
+          f"per call, by operation (launches, device ms per call):")
+    for key, (count, ms) in sorted(rows.items(), key=lambda kv: -kv[1][1]):
+        print(f"    {ms:9.4f}  x{count:<3d} {key[:110]}")
+    return rows
 
 
 def luma_kernel_phase(torch, cg, cl, shape: tuple, seed: int) -> dict:
@@ -547,13 +787,13 @@ def luma_kernel_phase(torch, cg, cl, shape: tuple, seed: int) -> dict:
             max_abs_err=e_fwd,
             ms=time_ms(torch, lambda: cg.lab_fwd_u8_nhwc(x)),
             plain_ms=time_ms(torch, lambda: cg.lab_fwd_u8_nhwc_plain(x), n=5),
-            bound=bound(6 * n_px + 256 * 4, K1_OPS_PER_PX * n_px),
+            bound=bound(6 * n_px + 1024, INSTR_PER_PX['lab_fwd_u8_nhwc'] * n_px, PEAK_ISSUE_PER_S),
         ),
         "clahe_apply_u8_nhwc": dict(
             max_abs_err=e_apply,
             ms=time_ms(torch, lambda: cg.clahe_apply_u8_nhwc(lab, luts_lab)),
             plain_ms=time_ms(torch, lambda: cg.clahe_apply_u8_nhwc_plain(lab, luts_lab), n=5),
-            bound=bound(6 * n_px + table_bytes, K3_OPS_PER_PX * n_px),
+            bound=bound(6 * n_px + table_bytes + 4 * cg.APPLY_TABLE_WORDS, INSTR_PER_PX['clahe_apply_u8_nhwc'] * n_px, PEAK_ISSUE_PER_S),
         ),
         "clahe_luma_apply_u8": dict(  # on NHWC, as both clahe_luma routes run it
             max_abs_err=e_k7,
@@ -880,7 +1120,7 @@ def standard_phase(torch, modules, photo: Path, workdir: Path) -> dict[str, int]
     ]
     launches, cold_s = run_cli(torch, modules, args)
     print(f"  CLI run (cold, includes model build): {cold_s:.3f} s; kernel launches {launches}")
-    check_launches(launches, {"lab_fwd_u8": 1, "clahe_tables": 1, "clahe_apply_u8": 1}, "the standard route")
+    check_launches(launches, LAB_CLAHE_ONCE, "the standard route")
     got = check_pngs(out_dir, photo.stem, (1088, 1920, 3))
     hold_to_cpu(torch, got, photo, 1920, packed=False)
     return launches
@@ -895,8 +1135,7 @@ def packed_phase(torch, modules, photo: Path, small: Path, workdir: Path) -> dic
     ]
     launches, cold_s = run_cli(torch, modules, args)
     print(f"  CLI run (cold, includes model build): {cold_s:.3f} s; kernel launches {launches}")
-    want = {"lab_fwd_u8": 1, "clahe_tables": 1, "clahe_apply_u8": 1,
-            "fam_conv_fused": 2, "fam_tail_stats": 2, "fam_tail_apply_g1": 2, "fam_tail_apply": 0}
+    want = {**LAB_CLAHE_ONCE, "fam_conv_fused": 2, "fam_tail_stats": 2, "fam_tail_apply_g1": 2, "fam_tail_apply": 0}
     check_launches(launches, want, "the default route")
     check_pngs(out_dir, photo.stem, (1088, 1920, 3))
 
@@ -937,8 +1176,7 @@ def hold_packed_to_standard(torch, photo: Path, max_size: int | None) -> None:
 
 def flagless_phase(torch, modules, photo: Path, small: Path, workdir: Path) -> dict[str, int]:
     """Phase 6: the headline command with no flags (no letterbox)."""
-    want = {"lab_fwd_u8": 0, "clahe_tables": 0, "clahe_apply_u8": 0,
-            "fam_conv_fused": 2, "fam_tail_stats": 2, "fam_tail_apply_g1": 0, "fam_tail_apply": 2}
+    want = {"fam_conv_fused": 2, "fam_tail_stats": 2, "fam_tail_apply_g1": 0, "fam_tail_apply": 2}
     out_dir = workdir / "out_flagless"
     args = ["--mode", "enhance", "--input_path", str(photo), "--output_dir", str(out_dir), "--device", "cuda"]
     launches, cold_s = run_cli(torch, modules, args)
@@ -959,7 +1197,7 @@ def flagless_phase(torch, modules, photo: Path, small: Path, workdir: Path) -> d
 
 
 DIR_MODES = {  # mode: (CLI flags, the kernels it launches and how often)
-    "net": ([], {"lab_fwd_u8": 3, "clahe_tables": 3, "clahe_apply_u8": 3,
+    "net": ([], {"lab_fwd_f32_nhwc": 3, "clahe_tables": 3, "clahe_apply_f32_nhwc": 3,
                  "fam_conv_fused": 6, "fam_tail_stats": 6, "fam_tail_apply_g1": 6}),
     "clahe": (["--classical_mode", "clahe"], {"lab_fwd_u8_nhwc": 3, "clahe_tables": 3, "clahe_apply_u8_nhwc": 3}),
     "clahe_luma": (["--classical_mode", "clahe_luma"], {"clahe_tables": 3, "clahe_luma_apply_u8": 3}),
@@ -989,6 +1227,7 @@ def directory_phase(torch, modules, photos: Path, workdir: Path) -> dict[str, in
     from retinex_tpu_torch.config import Config
     from retinex_tpu_torch.infer.batch_driver import bucket_by_canvas, decode_bucket
     from retinex_tpu_torch.infer.enhance import enhance_batch_images, enhance_single_image
+    from retinex_tpu_torch.ops.clahe_gather import clahe_rgb_u8_planar_gather
     from retinex_tpu_torch.ops.clahe_luma import clahe_luma_rgb_u8_planar
 
     files = sorted(str(p) for p in photos.iterdir())
@@ -1054,6 +1293,24 @@ def directory_phase(torch, modules, photos: Path, workdir: Path) -> dict[str, in
     check_launches(fused, {"clahe_tables": 3, "clahe_luma_apply_u8_fused": 3}, "the fused luma entry")
     print(f"  fused luma entry on the 3 chunks: launches {fused}; bytes equal the clahe_luma PNGs")
     total = {k: total[k] + v for k, v in fused.items()}
+
+    # The planar u8 entry (K1, K2, K3 in their u8 instances) on the same
+    # chunks: bytes equal the clahe mode's PNGs (K8 runs K1's and K3's bodies).
+    for m in modules:
+        m.reset_launches()
+    for (target, out_h, out_w), paths in bucket_by_canvas(files, 1920).items():
+        for i in range(0, len(paths), 8):
+            chunk = paths[i : i + 8]
+            x = torch.from_numpy(decode_bucket(chunk, target)).to("cuda")
+            out = clahe_rgb_u8_planar_gather(x.permute(0, 3, 1, 2).contiguous()).permute(0, 2, 3, 1).cpu().numpy()
+            for j, f in enumerate(chunk):
+                want = np.asarray(Image.open(workdir / "dir_clahe" / f"{Path(f).stem}_enhanced.png").convert("RGB"))
+                if not np.array_equal(out[j], want):
+                    raise AssertionError(f"the planar u8 entry differs from the clahe directory run on {f}")
+    planar = launch_counts(modules)
+    check_launches(planar, {"lab_fwd_u8": 3, "clahe_tables": 3, "clahe_apply_u8": 3}, "the planar u8 entry")
+    print(f"  planar u8 Lab-CLAHE entry on the 3 chunks: launches {planar}; bytes equal the clahe PNGs")
+    total = {k: total[k] + v for k, v in planar.items()}
 
     # The packed and the standard net at batch 8 on the first chunk, warm,
     # in turns: whether packing pays at batch 8.
@@ -1154,7 +1411,7 @@ SINGLE_ROUTES = {  # route: (CLI flags, --max_size, the kernels it launches and 
     "msrcr": (["--classical_mode", "msrcr"], 512, {}),
     "content_aware": (["--content_aware"], 512, FAM_TWICE),
     "multi_scale": (["--multi_scale"], 512, FAM_TWICE),
-    "clahe": (["--classical_mode", "clahe"], 1920, {"lab_fwd_u8": 1, "clahe_tables": 1, "clahe_apply_u8": 1}),
+    "clahe": (["--classical_mode", "clahe"], 1920, LAB_CLAHE_ONCE),
     "clahe_luma": (["--classical_mode", "clahe_luma"], 1920, {"clahe_tables": 1, "clahe_luma_apply_u8": 1}),
 }
 
@@ -1205,9 +1462,12 @@ def single_routes_phase(torch, modules, photo: Path, small: Path, workdir: Path)
             raise AssertionError(f"{route}: the card's enhanced output disagrees with the CPU run")
 
 
-def warm_phase(torch, photo: Path, workdir: Path) -> dict[str, dict[str, float]]:
-    """Phase 7: warm per-image times of the standard and the packed route at
-    --max_size 1920 and of the flagless route, in turns."""
+def warm_phase(torch, modules, photo: Path, workdir: Path) -> dict[str, dict[str, float]]:
+    """Phase 10: warm per-image times of the standard and the packed route at
+    --max_size 1920 and of the flagless route, in turns; Lab-CLAHE's
+    launches over the phase (the float instances of K1 and K3 twice a turn
+    on the 1088x1920 routes, none on the flagless one; the u8 planar
+    instances never)."""
     from retinex_tpu_torch import cli
     from retinex_tpu_torch.config import Config
     from retinex_tpu_torch.infer.enhance import enhance_single_image, load_image
@@ -1223,6 +1483,8 @@ def warm_phase(torch, photo: Path, workdir: Path) -> dict[str, dict[str, float]]
     imgs = {m: load_image(str(photo), m)[0] for m in (1920, None)}
     names = list(routes)
     times = {r: {"net": [], "clahe": [], "e2e": []} for r in routes}
+    for m in modules:
+        m.reset_launches()
     for i in range(6):
         for route in names[i % 3:] + names[: i % 3]:
             fn, max_size = routes[route]
@@ -1240,6 +1502,13 @@ def warm_phase(torch, photo: Path, workdir: Path) -> dict[str, dict[str, float]]
             times[route]["net"].append((t1 - t0) * 1e3)
             times[route]["clahe"].append((t2 - t1) * 1e3)
             times[route]["e2e"].append((t3 - t2) * 1e3)
+    counts = launch_counts(modules)
+    lab_clahe = {k: counts[k] for k in ("lab_fwd_u8", "lab_fwd_f32_nhwc", "clahe_tables", "clahe_apply_u8", "clahe_apply_f32_nhwc")}
+    turns = 6 * 2 * 2  # six turns, two 1088x1920 routes, two Lab-CLAHE calls each
+    if lab_clahe != {"lab_fwd_u8": 0, "lab_fwd_f32_nhwc": turns, "clahe_tables": turns, "clahe_apply_u8": 0,
+                     "clahe_apply_f32_nhwc": turns}:
+        raise AssertionError(f"the warm runs launched {lab_clahe}, expected the float instances {turns} times each")
+    print(f"  Lab-CLAHE launches over the warm runs: {lab_clahe}")
     med = {r: {k: statistics.median(v[1:]) for k, v in t.items()} for r, t in times.items()}  # first run warms up
     for route, m in med.items():
         print(
@@ -1561,7 +1830,7 @@ def simple_enhance_phase(torch, modules, photo: Path, small: Path, workdir: Path
     """Phase 16: simple_enhance_main (pre-activation + ASPP) on the card."""
     from retinex_tpu_torch import cli
 
-    want = {**FAM_TWICE, "lab_fwd_u8": 1, "clahe_tables": 1, "clahe_apply_u8": 1}
+    want = {**FAM_TWICE, **LAB_CLAHE_ONCE}
     out = workdir / "simple"
     launches, cold_s = run_cli(
         torch, modules, ["--input", str(photo), "--output", str(out), "--max_size", "1920", "--device", "cuda"],
@@ -1836,7 +2105,7 @@ def k16_phase(torch, kp) -> tuple[dict, dict]:
     return launches, recs
 
 
-def main_path_phases(torch, cg, cl, fb, cp, kp) -> tuple[dict, dict]:
+def main_path_phases(torch, cg, cl, fb, cp, kp, kernels) -> tuple[dict, dict]:
     """Phases 2-16: the main path's kernels against their plain versions and
     every route through its entry points. Returns (records, launches) by
     kernel."""
@@ -1845,9 +2114,20 @@ def main_path_phases(torch, cg, cl, fb, cp, kp) -> tuple[dict, dict]:
     print("phase 2: K1-K3 against their plain versions")
     recs = clahe_kernel_phase(torch, cg, 1, 1088, 1920, seed=0, tile_counts=(4, 8, 16))
     clahe_kernel_phase(torch, cg, 1, 2160, 3840, seed=1)
-    for i, (b, h, w) in enumerate(CLAHE_DIR_SHAPES):
-        for name, r in clahe_kernel_phase(torch, cg, b, h, w, seed=20 + i, timed=False).items():
-            recs[name]["max_abs_err"] = max(recs[name]["max_abs_err"], r["max_abs_err"])
+    held = [clahe_kernel_phase(torch, cg, b, h, w, seed=20 + i, timed=False) for i, (b, h, w) in enumerate(CLAHE_DIR_SHAPES)]
+    held.append({name: dict(max_abs_err=e) for name, e in cube_phase(torch, cg).items()})
+    for r in held:
+        for name, rr in r.items():
+            recs[name]["max_abs_err"] = max(recs[name]["max_abs_err"], rr["max_abs_err"])
+    k3_plan_sweep(torch, cg, kernels)
+    cg.reset_launches()
+    stage = clahe_stage_profile(torch)
+    ours = ("lab_fwd_kernel<", "clahe_tables_kernel<", "clahe_apply_kernel<", "FillFunctor<int>")
+    calls = {k: v for k, v in cg.LAUNCHES.items() if v}
+    if (len(stage) != 4 or not all(any(o in k for k in stage) for o in ours)
+            or calls != {"lab_fwd_f32_nhwc": 8, "clahe_tables": 8, "clahe_apply_f32_nhwc": 8}):
+        raise AssertionError(f"the Lab-CLAHE stage ran {sorted(stage)} with launches {calls}, expected the scratch fill, "
+                             "K1, K2 and K3 once a call (8 calls) and nothing else")
 
     print("phase 3: K7-K9 (and K2 on a luma plane) against their plain versions")
     luma = [luma_kernel_phase(torch, cg, cl, shape, seed=10 + i) for i, shape in enumerate(LUMA_SHAPES)]
@@ -1921,7 +2201,7 @@ def main_path_phases(torch, cg, cl, fb, cp, kp) -> tuple[dict, dict]:
         print("phase 9: ssr, msr, msrcr, --content_aware, --multi_scale, clahe and clahe_luma on one image")
         single_routes_phase(torch, modules, photo, small, workdir)
         print("phase 10: warm times")
-        warm_phase(torch, photo, workdir)
+        warm_phase(torch, modules, photo, workdir)
         print("phase 11: device time by kernel")
         profile_phase(torch, photo)
 
@@ -1961,7 +2241,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     print("phase 1: build")
-    for stem, built in _kernels.build().items():
+    libs = _kernels.build()
+    for stem, built in libs.items():
         print(f"  {built.path.name}: built in {built.seconds:.2f} s")
         for ln in built.report.splitlines():
             # The new kernels' whole report: each entry, its registers, stack and spills.
@@ -1969,7 +2250,11 @@ def main() -> int:
             if entry or "registers" in ln or "spill" in ln or "error" in ln.lower() or "warning" in ln.lower():
                 print(f"  ptxas ({stem}): {ln.strip()}")
 
-    recs, launches = main_path_phases(torch, cg, cl, fb, cp, kp)
+    INSTR_PER_PX.update(sass_instructions_per_px(libs["clahe_lab"].path))
+    print("  K1 and K3: instructions issued per pixel (SASS, without loads, stores, control flow and address math): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in INSTR_PER_PX.items()))
+
+    recs, launches = main_path_phases(torch, cg, cl, fb, cp, kp, _kernels)
 
     print("phase 17: K13, K15 and K14 (conv2d_pallas, conv2d_pallas_im2col, conv2d_narrow)")
     conv_launches, conv = conv_phase(torch, cp, _kernels)

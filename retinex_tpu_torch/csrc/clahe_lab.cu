@@ -1,29 +1,36 @@
 // Lab-CLAHE kernels for Hopper (sm_90a), behind a plain C interface.
 //
-// Three kernels carry the exact OpenCV Lab-CLAHE pipeline on uint8 images
-// (H, W multiples of 2 * tiles):
+// Three kernels carry the exact OpenCV Lab-CLAHE pipeline (H, W multiples
+// of 2 * tiles):
 //
-//   lab_fwd_u8_kernel    sRGB u8 -> OpenCV 8-bit Lab u8, planar [B, 3, H, W]
+//   lab_fwd_kernel       sRGB -> OpenCV 8-bit Lab u8, planar [B, 3, H, W]
 //   clahe_tables_kernel  a u8 plane (L of Lab, or luma) -> per-tile
 //                        256-entry CLAHE LUTs (row strips of each tile
 //                        over the whole card)
-//   clahe_apply_u8_kernel  LUT blend on L, then Lab -> sRGB u8
+//   clahe_apply_kernel   LUT blend on L, then Lab -> sRGB
 //
-// K1 and K3 are templated on the layout of the sRGB side: planar
-// [B, 3, H, W] (K1, K3) or interleaved NHWC [B, H, W, 3] (the two K8
-// kernels, for the directory batches). The Lab intermediate is planar in
-// both, so K2 reads a contiguous L plane; the arithmetic is the same.
+// K1 and K3 are templated on the layout of the sRGB side (Layout below):
+// planar u8 [B, 3, H, W] (K1, K3), interleaved u8 NHWC [B, H, W, 3] (the two
+// K8 kernels, for the directory batches), and float [B, H, W, 3] in [0, 1]
+// (the main path's instances: K1 quantises the net's output as it reads it,
+// K3 writes the float image, so no elementwise pass runs around them). The
+// Lab intermediate is planar in all of them, so K2 reads a contiguous L
+// plane; the arithmetic is the same in every instance.
 //
 // The Python wrappers (retinex_tpu_torch/ops/clahe_gather.py) check device,
-// dtype, shape and contiguity, allocate every output, and pass PyTorch's
-// current stream. Each launch function returns cudaGetLastError().
+// dtype, shape, contiguity and alignment, pick the access width and K3's
+// row bands, allocate every output, and pass PyTorch's current stream. Each
+// launch function returns cudaGetLastError().
 //
 // Numerics follow the exact (non-fast-math) branch of the JAX package's
-// kernels: true divisions, cbrtf/powf, round half to even (rintf). Build with
+// kernels: true divisions, cbrtf, round half to even (rintf). Build with
 // -fmad=false so the compiler contracts no multiply-add into an FMA: a
 // contracted matrix row can move a value across a .5 rounding tie. The LUT
 // blend calls fmaf explicitly where the plain version fuses. Every float
-// constant is the f32 rounding of the double the JAX package writes.
+// constant is the f32 rounding of the double the JAX package writes. K3's
+// tables are built on the host by the plain version's own f32 operations
+// (clahe_gather.apply_tables), so a lookup returns the bits the expression
+// would.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -48,23 +55,28 @@ constexpr float kZn = (float)1.088754;
 constexpr float k16_116 = (float)(16.0 / 116.0);
 constexpr float k6_29 = (float)(6.0 / 29.0);
 
+// Layouts of the sRGB side of K1 and K3 (clahe_gather.py numbers them alike).
+enum Layout : int {
+  kU8Planar = 0,   // u8 [B, 3, H, W]
+  kU8Nhwc = 1,     // u8 [B, H, W, 3]
+  kF32Planar = 2,  // f32 [B, H, W, 3] stored channels first (the net's output is a permuted NCHW tensor); K1 only
+  kF32Nhwc = 3,    // f32 [B, H, W, 3] contiguous
+};
+
 __device__ __forceinline__ float clamp_round_u8(float v) {
   return fminf(fmaxf(rintf(v), 0.0f), 255.0f);
 }
 
-// CIE f(t): cube root above the linear-domain threshold, affine below.
+// The same byte as clamp_round_u8, as an integer (rounding half to even).
+__device__ __forceinline__ int to_u8(float v) {
+  return min(max(__float2int_rn(v), 0), 255);
+}
+
+// CIE f(t): cube root above the linear-domain threshold, affine below;
+// both sides computed, so a thread's pixels share no branch.
 __device__ __forceinline__ float lab_f(float t) {
-  return t > (float)0.008856 ? cbrtf(fmaxf(t, (float)1e-12)) : (float)7.787 * t + k16_116;
-}
-
-__device__ __forceinline__ float lab_f_inv(float ft) {
-  return ft > k6_29 ? ft * ft * ft : (ft - k16_116) / (float)7.787;
-}
-
-__device__ __forceinline__ float linear_to_srgb(float x) {
-  x = fmaxf(x, (float)1e-12);
-  return x <= (float)0.0031308 ? x * (float)12.92
-                               : (float)1.055 * powf(x, (float)(1.0 / 2.4)) - (float)0.055;
+  const float root = cbrtf(fmaxf(t, (float)1e-12)), line = (float)7.787 * t + k16_116;
+  return t > (float)0.008856 ? root : line;
 }
 
 // floor((c - 1) / 2) for c >= 0, clipped to [0, tiles - 1]: C's integer
@@ -81,47 +93,174 @@ __device__ __forceinline__ float blend_weight(int c, int u, int cell) {
   return (c & 1) ? w : w + 0.5f;
 }
 
+// Wide access: N bytes (or N floats) at p, as 16-byte vectors where N bytes
+// make whole vectors, else 8-, 4- or 1-byte accesses (stores: 8, 4 or 1).
+// The caller aligns p.
+template <int N>
+__device__ __forceinline__ void load_u8(const uint8_t* p, uint32_t (&w)[(N + 3) / 4]) {
+  if constexpr (N % 16 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 16; ++i) {
+      const uint4 v = reinterpret_cast<const uint4*>(p)[i];
+      w[4 * i] = v.x;
+      w[4 * i + 1] = v.y;
+      w[4 * i + 2] = v.z;
+      w[4 * i + 3] = v.w;
+    }
+  } else if constexpr (N % 8 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 8; ++i) {
+      const uint2 v = reinterpret_cast<const uint2*>(p)[i];
+      w[2 * i] = v.x;
+      w[2 * i + 1] = v.y;
+    }
+  } else if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i) w[i] = reinterpret_cast<const uint32_t*>(p)[i];
+  } else {
+#pragma unroll
+    for (int i = 0; i < (N + 3) / 4; ++i) w[i] = 0;
+#pragma unroll
+    for (int e = 0; e < N; ++e) w[e >> 2] |= (uint32_t)p[e] << (8 * (e & 3));
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_u8(uint8_t* p, const uint32_t (&w)[(N + 3) / 4]) {
+  if constexpr (N % 8 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 8; ++i) reinterpret_cast<uint2*>(p)[i] = make_uint2(w[2 * i], w[2 * i + 1]);
+  } else if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i) reinterpret_cast<uint32_t*>(p)[i] = w[i];
+  } else {
+#pragma unroll
+    for (int e = 0; e < N; ++e) p[e] = (uint8_t)(w[e >> 2] >> (8 * (e & 3)));
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void load_f32(const float* p, float (&v)[N]) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i) {
+      const float4 q = reinterpret_cast<const float4*>(p)[i];
+      v[4 * i] = q.x;
+      v[4 * i + 1] = q.y;
+      v[4 * i + 2] = q.z;
+      v[4 * i + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < N; ++e) v[e] = p[e];
+  }
+}
+
+template <int M>
+__device__ __forceinline__ int byte_at(const uint32_t (&w)[M], int e) {
+  return (int)((w[e >> 2] >> (8 * (e & 3))) & 0xffu);
+}
+
+template <int M>
+__device__ __forceinline__ void put_byte(uint32_t (&w)[M], int e, int v) {
+  w[e >> 2] |= (uint32_t)v << (8 * (e & 3));
+}
+
 // ---------------------------------------------------------------------------
 // K1. Replaces retinex_tpu/ops/clahe_gather.py::_fwd_kernel5 (pallas_call in
-// _fwd_stage5). Bound on the card: bytes — 3 B/pixel in, 3 B/pixel out and
-// ~45 operations/pixel, far under the H100's ratio of operations to bytes. Design: one
-// thread per pixel, the three planes read and written at unit stride across
-// a warp (coalesced), the 256-entry de-gamma table in shared memory so the
-// sRGB power law costs one lookup per channel; the exact cbrtf stays.
+// _fwd_stage5). Bound on the card: instruction issue for u8 input (a pixel
+// moves 6 bytes but issues about 122 instructions, read from the SASS:
+// three exact cbrtf, two IEEE divisions by Xn and Zn, which a reciprocal
+// multiply would round differently, and the 3x3 matrix without FMA), bytes
+// for the float input (15 bytes a pixel). So the design cuts every
+// instruction that is not that arithmetic. A
+// grid of (pixel groups, image) gives each thread kVec consecutive pixels
+// of one image with no index division (the parent port divided a 64-bit
+// flat index by the plane per pixel, a software routine of tens of
+// instructions); a thread moves its 4 pixels in one 4-byte access per u8
+// plane, one 16-byte access per float plane, or three of either for
+// interleaved pixels (16 pixels a thread, tried, issued more and ran
+// slower); the sRGB de-gamma is a 256-entry table in shared memory, one
+// lookup per channel; the quantisation of the float input,
+// rint(clamp(x, 0, 1) * 255), is done on the loaded registers.
 //
-// K8 (forward half). kNhwcIn = true replaces
+// K8 (forward half). kIn = kU8Nhwc replaces
 // retinex_tpu/ops/clahe_gather.py::_fwd_kernel (pallas_call in _fwd_stage),
 // which the JAX package reaches through clahe_rgb_u8_gather after an XLA
-// transpose of the NHWC batch. Here the transpose is the kernel's own read:
-// a warp reads 96 contiguous bytes of interleaved RGB with byte loads (a
-// pixel is 3 bytes, so 16-byte vectors do not line up with pixels) and
-// writes the three Lab planes at unit stride. Same bound, same arithmetic.
+// transpose of the NHWC batch. Here the transpose is the kernel's own read
+// of 3 * kVec interleaved bytes. Same arithmetic.
 // ---------------------------------------------------------------------------
-template <bool kNhwcIn>
-__global__ void lab_fwd_u8_kernel(const uint8_t* __restrict__ rgb, uint8_t* __restrict__ lab,
-                                  const float* __restrict__ degamma, long long n_pix,
-                                  long long plane) {
+constexpr int kFwdThreads = kHist;
+
+__device__ __forceinline__ int quantise_u8(float x) {
+  return __float2int_rn(fminf(fmaxf(x, 0.0f), 1.0f) * 255.0f);
+}
+
+// The sRGB bytes q[channel][e] of pixels p .. p + kVec - 1 of image img.
+template <int kVec, int kIn>
+__device__ __forceinline__ void load_rgb(const void* src, size_t img, size_t plane, size_t p, int (&q)[3][kVec]) {
+  if constexpr (kIn == kU8Planar) {
+    const uint8_t* s = static_cast<const uint8_t*>(src) + img * 3 * plane + p;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      uint32_t w[(kVec + 3) / 4];
+      load_u8<kVec>(s + c * plane, w);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) q[c][e] = byte_at(w, e);
+    }
+  } else if constexpr (kIn == kU8Nhwc) {
+    uint32_t w[(3 * kVec + 3) / 4];
+    load_u8<3 * kVec>(static_cast<const uint8_t*>(src) + (img * plane + p) * 3, w);
+#pragma unroll
+    for (int e = 0; e < kVec; ++e)
+#pragma unroll
+      for (int c = 0; c < 3; ++c) q[c][e] = byte_at(w, 3 * e + c);
+  } else if constexpr (kIn == kF32Planar) {
+    const float* s = static_cast<const float*>(src) + img * 3 * plane + p;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      float v[kVec];
+      load_f32<kVec>(s + c * plane, v);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) q[c][e] = quantise_u8(v[e]);
+    }
+  } else {
+    float v[3 * kVec];
+    load_f32<3 * kVec>(static_cast<const float*>(src) + (img * plane + p) * 3, v);
+#pragma unroll
+    for (int e = 0; e < kVec; ++e)
+#pragma unroll
+      for (int c = 0; c < 3; ++c) q[c][e] = quantise_u8(v[3 * e + c]);
+  }
+}
+
+template <int kVec, int kIn>
+__global__ void __launch_bounds__(kFwdThreads)
+    lab_fwd_kernel(const void* __restrict__ src, uint8_t* __restrict__ lab, const float* __restrict__ degamma,
+                   int plane) {
   __shared__ float tab[kHist];
-  for (int i = threadIdx.x; i < kHist; i += blockDim.x) tab[i] = degamma[i];
+  tab[threadIdx.x] = degamma[threadIdx.x];
   __syncthreads();
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n_pix; i += stride) {
-    const long long b = i / plane;
-    const long long p = b * 3 * plane + (i - b * plane);
-    const uint8_t* px = rgb + (kNhwcIn ? 3 * i : p);
-    const long long cs = kNhwcIn ? 1 : plane;  // channel stride of the input
-    const float r = tab[px[0]], g = tab[px[cs]], bl = tab[px[2 * cs]];
+  const int grp = blockIdx.x * kFwdThreads + threadIdx.x;
+  if (grp >= plane / kVec) return;
+  const size_t img = blockIdx.y, p = (size_t)grp * kVec;
+  int q[3][kVec];
+  load_rgb<kVec, kIn>(src, img, plane, p, q);
+  uint32_t out[3][(kVec + 3) / 4] = {};
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) {
+    const float r = tab[q[0][e]], g = tab[q[1][e]], bl = tab[q[2][e]];
     const float X = (kRgb2Xyz[0][0] * r + kRgb2Xyz[0][1] * g + kRgb2Xyz[0][2] * bl) / kXn;
     const float Y = kRgb2Xyz[1][0] * r + kRgb2Xyz[1][1] * g + kRgb2Xyz[1][2] * bl;
     const float Z = (kRgb2Xyz[2][0] * r + kRgb2Xyz[2][1] * g + kRgb2Xyz[2][2] * bl) / kZn;
     const float fx = lab_f(X), fy = lab_f(Y), fz = lab_f(Z);
-    const float L8 = ((float)116.0 * fy - (float)16.0) * (float)(255.0 / 100.0);
-    const float a8 = (float)500.0 * (fx - fy) + (float)128.0;
-    const float b8 = (float)200.0 * (fy - fz) + (float)128.0;
-    lab[p] = (uint8_t)clamp_round_u8(L8);
-    lab[p + plane] = (uint8_t)clamp_round_u8(a8);
-    lab[p + 2 * plane] = (uint8_t)clamp_round_u8(b8);
+    put_byte(out[0], e, to_u8(((float)116.0 * fy - (float)16.0) * (float)(255.0 / 100.0)));
+    put_byte(out[1], e, to_u8((float)500.0 * (fx - fy) + (float)128.0));
+    put_byte(out[2], e, to_u8((float)200.0 * (fy - fz) + (float)128.0));
   }
+  uint8_t* dst = lab + img * 3 * plane + p;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) store_u8<kVec>(dst + c * plane, out[c]);
 }
 
 // ---------------------------------------------------------------------------
@@ -151,21 +290,6 @@ __global__ void lab_fwd_u8_kernel(const uint8_t* __restrict__ rgb, uint8_t* __re
 // tiles_x, 256] u8. The TPU's byte-packed neighbour words and selection
 // matmul are not needed: K3 looks up the four neighbour tables directly.
 // ---------------------------------------------------------------------------
-template <int kVec>
-__device__ __forceinline__ void load_words(const uint8_t* p, uint32_t (&w)[(kVec + 3) / 4]) {
-  if constexpr (kVec == 16) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    w[0] = v.x;
-    w[1] = v.y;
-    w[2] = v.z;
-    w[3] = v.w;
-  } else if constexpr (kVec == 4) {
-    w[0] = *reinterpret_cast<const uint32_t*>(p);
-  } else {
-    w[0] = *p;
-  }
-}
-
 template <int kVec>
 __global__ void __launch_bounds__(kHist)
     clahe_tables_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ luts, int* __restrict__ hist,
@@ -207,9 +331,9 @@ __global__ void __launch_bounds__(kHist)
       const uint8_t* row = L + (size_t)(j < per_cell ? j * s : hh + (j - per_cell) * s) * W;
       for (int ch = ch_first; ch < n_ch; ch += kHist) {
         uint32_t v[kWords], m[kWords] = {};
-        load_words<kVec>(row + ch * kVec, v);
+        load_u8<kVec>(row + ch * kVec, v);
         if (s > 1) {
-          load_words<kVec>(colmask + ch * kVec, m);
+          load_u8<kVec>(colmask + ch * kVec, m);
         }
 #pragma unroll
         for (int e = 0; e < kVec; ++e) {
@@ -283,122 +407,317 @@ int launch_tables(const void* src, void* luts, void* scratch, long long img_stri
 
 // ---------------------------------------------------------------------------
 // K3. Replaces retinex_tpu/ops/clahe_gather.py::_apply_kernel5 (pallas_call
-// in _apply_stage5). Bound on the card: bytes — 3 B/pixel in, 3 B/pixel out
-// (the tables are 16 KB per image); its ~75 operations/pixel with powf are
-// still under the card's ratio. Design: a block covers 256 columns by kApplyRows
-// rows inside one half-tile cell row, so its two neighbour tile rows (t0y,
-// t1y) are fixed; it stages those two rows of LUTs (2 * tiles_x * 256 B) in
-// shared memory and every pixel gathers its four entries from there. A
-// thread keeps its column's x-neighbours and x-weight across the rows. The
-// blend and the inverse Lab -> XYZ -> sRGB path are the exact branch.
+// in _apply_stage5). Bound on the card: instruction issue for the u8
+// output (about 83 issued instructions a pixel in the SASS against 6
+// bytes), bytes for the float output (15 bytes a pixel). The parent port spent
+// several hundred instructions a pixel on three accurate powf, up to six
+// IEEE divisions and byte-wide memory traffic. The design computes the
+// same bytes with tables built once on the host by the plain version's own
+// f32 operations:
+//   - fy and Y = f^-1(fy) depend on the blended L alone, (a - 128) / 500
+//     and (b - 128) / 200 on one byte each: 256-entry tables, so a pixel
+//     keeps two adds, two f^-1 (lab_f_inv_k3, without a branch), the
+//     matrix and the quantiser;
+//   - the quantiser rint(clamp(linear_to_srgb(lin), 0, 1) * 255) is a
+//     non-decreasing step function of lin, fixed by the least f32 of each
+//     byte (found on the host by bisection over the plain version's bytes).
+//     A bucket of the f32 bit patterns (sign, exponent and 7 mantissa bits,
+//     from 2^-13 up to the bucket of 1.0) holds at most one step, so its
+//     32-bit entry (byte at the bucket's start << 17 | low 16 bits of the
+//     step, or 0x10000 for none) gives the byte in one lookup and one
+//     integer compare, for the linear branch and the power law alike;
+//   - the float output v / 255 is v * (1/255) corrected by two FMAs, which
+//     gives the IEEE quotient for every byte (tests check all 256).
+// A pixel makes six table lookups at data-dependent addresses: the four
+// neighbour LUT entries of each value are packed into one 32-bit word per
+// pair of x-tiles when a block stages its band's two tile rows, so the
+// blend takes one lookup, not four. A thread takes kVec consecutive pixels of a
+// row (8 or 4, as the cell width and alignment allow, so the group stays
+// in one cell): one wide load per Lab plane, one wide store per output
+// plane (or 3 * kVec interleaved values), its columns' neighbour word row
+// and x-weights kept across rows; the interleaved layouts' stores go
+// through shared memory so that a warp writes its span side by side
+// (store_span). A block of blockDim.y rows of threads walks a band of
+// `band_rows` rows inside one half-tile cell row, blockDim.y rows at once:
+// few large blocks, since each block pays for its staging
+// (clahe_gather.apply_plan sizes the grid to about one block per SM).
 //
-// K8 (apply half). kNhwcOut = true replaces
+// K8 (apply half). kOut = kU8Nhwc replaces
 // retinex_tpu/ops/clahe_gather.py::_apply_kernel (pallas_call in
 // _apply_stage), whose planar output the JAX package transposes back to
-// NHWC in XLA: here each thread writes its pixel's three bytes interleaved,
-// so a warp stores 96 contiguous bytes. Same bound, same arithmetic.
+// NHWC in XLA: here each thread writes its 3 * kVec interleaved bytes.
 // ---------------------------------------------------------------------------
-constexpr int kApplyThreads = 256;
-constexpr int kApplyRows = 16;
+constexpr int kApplyThreads = 256;  // threads of a block along a row; blockDim.y rows at once
+constexpr int kApplyRowsMax = 4;
 
-template <bool kNhwcOut>
-__global__ void __launch_bounds__(kApplyThreads)
-    clahe_apply_u8_kernel(const uint8_t* __restrict__ lab, const uint8_t* __restrict__ luts,
-                          uint8_t* __restrict__ rgb, int H, int W, int tiles_y, int tiles_x,
-                          int row_blocks) {
-  extern __shared__ uint8_t slut[];  // [2][tiles_x][256]
+// The table block (clahe_gather.apply_tables, as 32-bit words).
+constexpr int kTabFy = 0;        // float2 [256] by L: fy, and Y = lab_f_inv(fy)
+constexpr int kTabDa = 512;      // float [256] by a: (a - 128) / 500
+constexpr int kTabDb = 768;      // float [256] by b: (b - 128) / 200
+constexpr int kTabQuant = 1024;  // u32 [kQuantLast + 1]: the quantiser's buckets
+constexpr int kQuantBase = (127 - 13) << 7;          // the bucket of 2^-13: bits >> 16
+constexpr int kQuantLast = (127 << 7) - kQuantBase;  // the bucket of 1.0; everything above is 255
+constexpr int kTabWords = (kTabQuant + kQuantLast + 1 + 3) / 4 * 4;
+
+__device__ __forceinline__ int srgb_byte(float lin, const uint32_t* quant) {
+  const int bits = __float_as_int(lin);
+  const uint32_t e = quant[min(max((bits >> 16) - kQuantBase, 0), kQuantLast)];
+  return (int)(e >> 17) + ((uint32_t)(bits & 0xffff) >= (e & 0x1ffffu));
+}
+
+// lab_f_inv without a branch, so the compiler can interleave a thread's
+// pixels: the division (ft - 16/116) / 7.787 is the product by the rounded
+// reciprocal corrected by two FMAs, which gives the IEEE quotient for
+// every ft that K3 can form below the threshold (fy + (a - 128) / 500 and
+// fy - (b - 128) / 200 over all bytes; tests check all 21205 of them).
+__device__ __forceinline__ float lab_f_inv_k3(float ft) {
+  constexpr float c = (float)7.787;
+  constexpr float r = 1.0f / c;
+  const float x = ft - k16_116;
+  const float q = __fmul_rn(x, r);
+  const float below = fmaf(fmaf(-q, c, x), r, q);
+  const float above = ft * ft * ft;
+  return ft > k6_29 ? above : below;
+}
+
+// v / 255 rounded as IEEE division rounds it, for v = 0 .. 255.
+__device__ __forceinline__ float div255(int v) {
+  constexpr float r = 1.0f / 255.0f;
+  const float x = (float)v;
+  const float q = __fmul_rn(x, r);
+  return fmaf(fmaf(-q, 255.0f, x), r, q);
+}
+
+// 32-bit words a lane stages for the warp's interleaved store (0: the
+// layout is stored directly): 3 * kVec floats, or 3 * kVec bytes as words.
+template <int kVec, int kOut>
+__host__ __device__ constexpr int stage_words() {
+  return kOut == kF32Nhwc ? 3 * kVec : kOut == kU8Nhwc && kVec % 4 == 0 ? 3 * kVec / 4 : 0;
+}
+
+// The interleaved layouts: each lane holds the N words of its kVec pixels,
+// and the warp's lanes hold consecutive runs, so the warp's output is one
+// span. The words go through shared memory so that the warp writes the
+// span in 16-byte vectors (floats) or 32-bit words (bytes) side by side,
+// not each lane its own run at a stride of N words.
+template <int N, bool kWide>
+__device__ __forceinline__ void store_span(uint32_t* span, const uint32_t (&w)[N], uint32_t* stage, int lane,
+                                           int lanes) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) stage[lane * N + i] = w[i];
+  __syncwarp();
+  const int total = lanes * N;
+  if constexpr (kWide) {
+    for (int j = 4 * lane; j < total; j += 128)
+      *reinterpret_cast<uint4*>(span + j) = *reinterpret_cast<const uint4*>(stage + j);
+  } else {
+    for (int j = lane; j < total; j += 32) span[j] = stage[j];
+  }
+  __syncwarp();
+}
+
+template <int kVec, int kOut>
+__device__ __forceinline__ void store_rgb(void* out, size_t img, size_t plane, size_t p, size_t p_warp,
+                                          const int (&q)[3][kVec], bool active, uint32_t* stage, int lane, int lanes) {
+  if constexpr (kOut == kU8Planar) {
+    uint8_t* d = static_cast<uint8_t*>(out) + img * 3 * plane + p;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      uint32_t w[(kVec + 3) / 4] = {};
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) put_byte(w, e, q[c][e]);
+      if (active) store_u8<kVec>(d + c * plane, w);
+    }
+  } else if constexpr (kOut == kU8Nhwc) {
+    uint32_t w[(3 * kVec + 3) / 4] = {};
+#pragma unroll
+    for (int e = 0; e < kVec; ++e)
+#pragma unroll
+      for (int c = 0; c < 3; ++c) put_byte(w, 3 * e + c, q[c][e]);
+    if constexpr (stage_words<kVec, kOut>() > 0) {
+      uint8_t* span = static_cast<uint8_t*>(out) + (img * plane + p_warp) * 3;
+      store_span<3 * kVec / 4, false>(reinterpret_cast<uint32_t*>(span), w, stage, lane, lanes);
+    } else if (active) {
+      store_u8<3 * kVec>(static_cast<uint8_t*>(out) + (img * plane + p) * 3, w);
+    }
+  } else {
+    uint32_t v[3 * kVec];
+#pragma unroll
+    for (int e = 0; e < kVec; ++e)
+#pragma unroll
+      for (int c = 0; c < 3; ++c) v[3 * e + c] = __float_as_uint(div255(q[c][e]));
+    float* span = static_cast<float*>(out) + (img * plane + p_warp) * 3;
+    store_span<3 * kVec, kVec % 4 == 0>(reinterpret_cast<uint32_t*>(span), v, stage, lane, lanes);
+  }
+}
+
+template <int kVec, int kOut>
+__global__ void __launch_bounds__(kApplyThreads * kApplyRowsMax)
+    clahe_apply_kernel(const uint8_t* __restrict__ lab, const uint8_t* __restrict__ luts,
+                       const uint4* __restrict__ tables, void* __restrict__ out, int H, int W, int tiles_y,
+                       int tiles_x, int bands, int band_rows) {
+  // The tables, then the neighbour words [tiles_x + 1][256]: for the x-tile
+  // pair p (tiles p - 1 and p, clipped) and value v, the LUT entries of the
+  // tiles (t0y, p - 1), (t0y, p), (t1y, p - 1), (t1y, p) as bytes 0..3;
+  // then each warp's store staging (stage_words a lane).
+  extern __shared__ uint4 smem[];
   const int hh = H / (2 * tiles_y), hw = W / (2 * tiles_x);
-  const int cy = blockIdx.y / row_blocks;
-  const int iy0 = (blockIdx.y - cy * row_blocks) * kApplyRows;
+  const int cy = blockIdx.y / bands;
+  const int iy0 = (blockIdx.y - cy * bands) * band_rows;
+  const int iy1 = min(iy0 + band_rows, hh);
   const int b = blockIdx.z;
   int t0y, t1y;
   neighbor_tiles(cy, tiles_y, &t0y, &t1y);
 
-  const int n = tiles_x * kHist;
-  const uint8_t* tab = luts + (size_t)b * tiles_y * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    slut[i] = tab[(size_t)t0y * n + i];
-    slut[n + i] = tab[(size_t)t1y * n + i];
+  const int tid = threadIdx.y * kApplyThreads + threadIdx.x, n_threads = kApplyThreads * blockDim.y;
+#pragma unroll 4
+  for (int i = tid; i < kTabWords / 4; i += n_threads) smem[i] = tables[i];
+  uint32_t* nbr = reinterpret_cast<uint32_t*>(smem + kTabWords / 4);
+  const int lut_row = tiles_x * kHist;
+  const uint8_t* lut0 = luts + ((size_t)b * tiles_y + t0y) * lut_row;
+  const uint8_t* lut1 = luts + ((size_t)b * tiles_y + t1y) * lut_row;
+#pragma unroll 4
+  for (int i = tid; i < (tiles_x + 1) * kHist; i += n_threads) {
+    const int pair = i >> 8, v = i & (kHist - 1);
+    const int t0 = max(pair - 1, 0) * kHist + v, t1 = min(pair, tiles_x - 1) * kHist + v;
+    nbr[i] = (uint32_t)lut0[t0] | (uint32_t)lut0[t1] << 8 | (uint32_t)lut1[t0] << 16 | (uint32_t)lut1[t1] << 24;
   }
   __syncthreads();
+  const uint32_t* tab = reinterpret_cast<const uint32_t*>(smem);
+  const float2* fyy = reinterpret_cast<const float2*>(tab + kTabFy);
+  const float* da = reinterpret_cast<const float*>(tab + kTabDa);
+  const float* db = reinterpret_cast<const float*>(tab + kTabDb);
+  const uint32_t* quant = tab + kTabQuant;
 
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  if (x >= W) return;
-  const int cx = x / hw;
-  int t0x, t1x;
-  neighbor_tiles(cx, tiles_x, &t0x, &t1x);
-  const float xa = blend_weight(cx, x - cx * hw, hw);
-  const uint8_t* s0 = slut + t0x * kHist;
-  const uint8_t* s1 = slut + t1x * kHist;
-  const uint8_t* s2 = slut + n + t0x * kHist;
-  const uint8_t* s3 = slut + n + t1x * kHist;
+  // A lane past the row's last group repeats that group's columns (in
+  // bounds) and stores nothing; a warp with no group leaves.
+  const int groups = W / kVec, lane = threadIdx.x & 31;
+  const int g = blockIdx.x * kApplyThreads + threadIdx.x;
+  const int lanes = min(32, groups - (g - lane));
+  if (lanes <= 0) return;
+  const bool active = lane < lanes;
+  const int x0 = min(g, groups - 1) * kVec;
+  uint32_t* stage = reinterpret_cast<uint32_t*>(smem + kTabWords / 4) + (tiles_x + 1) * kHist +
+                    (tid & ~31) * stage_words<kVec, kOut>();
+  const int cx = x0 / hw;  // hw % kVec == 0: the group lies in one cell
+  const uint32_t* words = nbr + ((cx + 1) >> 1) * kHist;
+  float xa[kVec], xb[kVec];
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) {
+    xa[e] = blend_weight(cx, x0 - cx * hw + e, hw);
+    xb[e] = 1.0f - xa[e];
+  }
 
   const size_t plane = (size_t)H * W;
-  const int iy1 = min(iy0 + kApplyRows, hh);
-  for (int iy = iy0; iy < iy1; ++iy) {
-    const float ya = blend_weight(cy, iy, hh);
-    const size_t p = (size_t)b * 3 * plane + (size_t)(cy * hh + iy) * W + x;
-    const int v = lab[p];
-    const float l00 = s0[v], l01 = s1[v], l10 = s2[v], l11 = s3[v];
-    // The three fused multiply-adds of the plain version's blend
-    // (ops/clahe_fast.py::blend), each absorbing the same product.
-    const float top = fmaf(l01, xa, __fmul_rn(l00, 1.0f - xa));
-    const float bot = fmaf(l10, 1.0f - xa, __fmul_rn(l11, xa));
-    const float L2 = clamp_round_u8(fmaf(top, 1.0f - ya, __fmul_rn(bot, ya)));
-
-    const float a8 = lab[p + plane], b8 = lab[p + 2 * plane];
-    const float fy = (L2 * (float)(100.0 / 255.0) + (float)16.0) / (float)116.0;
-    const float fx = fy + (a8 - (float)128.0) / (float)500.0;
-    const float fz = fy - (b8 - (float)128.0) / (float)200.0;
-    const float Y = lab_f_inv(fy);
-    const float X = lab_f_inv(fx) * kXn;
-    const float Z = lab_f_inv(fz) * kZn;
-    uint8_t* out = kNhwcOut ? rgb + 3 * ((size_t)b * plane + (size_t)(cy * hh + iy) * W + x) : rgb + p;
-    const size_t cs = kNhwcOut ? 1 : plane;  // channel stride of the output
+  const uint8_t* src = lab + (size_t)b * 3 * plane;
+#pragma unroll 1
+  for (int iy = iy0 + threadIdx.y; iy < iy1; iy += blockDim.y) {
+    const float ya = blend_weight(cy, iy, hh), yb = 1.0f - ya;
+    const size_t row = (size_t)(cy * hh + iy) * W, p = row + x0;
+    uint32_t lw[(kVec + 3) / 4], aw[(kVec + 3) / 4], bw[(kVec + 3) / 4];
+    load_u8<kVec>(src + p, lw);
+    load_u8<kVec>(src + plane + p, aw);
+    load_u8<kVec>(src + 2 * plane + p, bw);
+    int q[3][kVec];
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const float lin = kXyz2Rgb[c][0] * X + kXyz2Rgb[c][1] * Y + kXyz2Rgb[c][2] * Z;
-      const float srgb = fminf(fmaxf(linear_to_srgb(lin), 0.0f), 1.0f);
-      out[c * cs] = (uint8_t)rintf(srgb * 255.0f);
+    for (int e = 0; e < kVec; ++e) {
+      const uint32_t n = words[byte_at(lw, e)];
+      const float l00 = (float)(n & 0xffu), l01 = (float)((n >> 8) & 0xffu);
+      const float l10 = (float)((n >> 16) & 0xffu), l11 = (float)(n >> 24);
+      // The three fused multiply-adds of the plain version's blend
+      // (ops/clahe_fast.py::blend), each absorbing the same product.
+      const float top = fmaf(l01, xa[e], __fmul_rn(l00, xb[e]));
+      const float bot = fmaf(l10, xb[e], __fmul_rn(l11, xa[e]));
+      const float2 f = fyy[to_u8(fmaf(top, yb, __fmul_rn(bot, ya)))];
+      const float X = lab_f_inv_k3(f.x + da[byte_at(aw, e)]) * kXn;
+      const float Z = lab_f_inv_k3(f.x - db[byte_at(bw, e)]) * kZn;
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        q[c][e] = srgb_byte(kXyz2Rgb[c][0] * X + kXyz2Rgb[c][1] * f.y + kXyz2Rgb[c][2] * Z, quant);
     }
+    store_rgb<kVec, kOut>(out, b, plane, p, row + (g - lane) * kVec, q, active, stage, lane, lanes);
   }
 }
 
-template <bool kNhwcIn>
-int launch_lab_fwd(const void* rgb, void* lab, const void* degamma, long long batch,
-                   long long plane, void* stream) {
-  const long long n_pix = batch * plane;
-  const long long want = (n_pix + 255) / 256;
-  const int blocks = (int)(want < 4096 ? (want > 0 ? want : 1) : 4096);
-  lab_fwd_u8_kernel<kNhwcIn><<<blocks, 256, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)rgb, (uint8_t*)lab, (const float*)degamma, n_pix, plane);
+template <int kVec>
+int launch_lab_fwd_vec(const void* src, void* lab, const void* degamma, int batch, int plane, int layout,
+                       cudaStream_t stream) {
+  const dim3 grid((plane / kVec + kFwdThreads - 1) / kFwdThreads, batch);
+  const auto* tab = static_cast<const float*>(degamma);
+  auto* dst = static_cast<uint8_t*>(lab);
+  switch (layout) {
+    case kU8Planar:
+      lab_fwd_kernel<kVec, kU8Planar><<<grid, kFwdThreads, 0, stream>>>(src, dst, tab, plane);
+      break;
+    case kU8Nhwc:
+      lab_fwd_kernel<kVec, kU8Nhwc><<<grid, kFwdThreads, 0, stream>>>(src, dst, tab, plane);
+      break;
+    case kF32Planar:
+      lab_fwd_kernel<kVec, kF32Planar><<<grid, kFwdThreads, 0, stream>>>(src, dst, tab, plane);
+      break;
+    case kF32Nhwc:
+      lab_fwd_kernel<kVec, kF32Nhwc><<<grid, kFwdThreads, 0, stream>>>(src, dst, tab, plane);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
-template <bool kNhwcOut>
-int launch_apply(const void* lab, const void* luts, void* rgb, int batch, int H, int W,
-                 int tiles_y, int tiles_x, void* stream) {
-  const int hh = H / (2 * tiles_y);
-  const int row_blocks = (hh + kApplyRows - 1) / kApplyRows;
-  const dim3 grid((W + kApplyThreads - 1) / kApplyThreads, 2 * tiles_y * row_blocks, batch);
-  const size_t smem = (size_t)2 * tiles_x * kHist;
-  clahe_apply_u8_kernel<kNhwcOut><<<grid, kApplyThreads, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)lab, (const uint8_t*)luts, (uint8_t*)rgb, H, W, tiles_y, tiles_x,
-      row_blocks);
+template <int kVec, int kOut>
+int launch_apply_as(const void* lab, const void* luts, const void* tables, void* out, int batch, int H, int W,
+                    int tiles_y, int tiles_x, int band_rows, int rows_par, cudaStream_t stream) {
+  if (rows_par < 1 || rows_par > kApplyRowsMax) return (int)cudaErrorInvalidValue;
+  const int bands = (H / (2 * tiles_y) + band_rows - 1) / band_rows;
+  const dim3 grid((W / kVec + kApplyThreads - 1) / kApplyThreads, 2 * tiles_y * bands, batch);
+  const size_t words = (size_t)kTabWords + (size_t)(tiles_x + 1) * kHist +
+                       (size_t)kApplyThreads * rows_par * stage_words<kVec, kOut>();
+  const size_t smem = 4 * words;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(clahe_apply_kernel<kVec, kOut>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  clahe_apply_kernel<kVec, kOut><<<grid, dim3(kApplyThreads, rows_par), smem, stream>>>(
+      static_cast<const uint8_t*>(lab), static_cast<const uint8_t*>(luts), static_cast<const uint4*>(tables), out,
+      H, W, tiles_y, tiles_x, bands, band_rows);
   return (int)cudaGetLastError();
+}
+
+template <int kVec>
+int launch_apply_vec(const void* lab, const void* luts, const void* tables, void* out, int batch, int H, int W,
+                     int tiles_y, int tiles_x, int layout, int band_rows, int rows_par, cudaStream_t stream) {
+  switch (layout) {
+    case kU8Planar:
+      return launch_apply_as<kVec, kU8Planar>(lab, luts, tables, out, batch, H, W, tiles_y, tiles_x, band_rows,
+                                              rows_par, stream);
+    case kU8Nhwc:
+      return launch_apply_as<kVec, kU8Nhwc>(lab, luts, tables, out, batch, H, W, tiles_y, tiles_x, band_rows,
+                                            rows_par, stream);
+    case kF32Nhwc:
+      return launch_apply_as<kVec, kF32Nhwc>(lab, luts, tables, out, batch, H, W, tiles_y, tiles_x, band_rows,
+                                             rows_par, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 }  // namespace
 
 extern "C" {
 
-int clahe_lab_fwd_u8(const void* rgb, void* lab, const void* degamma, long long batch,
-                     long long plane, void* stream) {
-  return launch_lab_fwd<false>(rgb, lab, degamma, batch, plane, stream);
-}
-
-int clahe_lab_fwd_u8_nhwc(const void* rgb, void* lab, const void* degamma, long long batch,
-                          long long plane, void* stream) {
-  return launch_lab_fwd<true>(rgb, lab, degamma, batch, plane, stream);
+// layout: a Layout; vec: 4 or 1 pixels a thread (plane a multiple of it,
+// src aligned to the access: clahe_gather._fwd_width).
+int clahe_lab_fwd(const void* src, void* lab, const void* degamma, int batch, int plane, int layout, int vec,
+                  void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (vec) {
+    case 4:
+      return launch_lab_fwd_vec<4>(src, lab, degamma, batch, plane, layout, s);
+    case 1:
+      return launch_lab_fwd_vec<1>(src, lab, degamma, batch, plane, layout, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // scratch: int32 [batch * tiles * 257], zero: the tiles' histograms, then
@@ -420,14 +739,30 @@ int clahe_tables(const void* src, void* luts, void* scratch, long long img_strid
   }
 }
 
-int clahe_apply_u8(const void* lab, const void* luts, void* rgb, int batch, int H, int W,
-                   int tiles_y, int tiles_x, void* stream) {
-  return launch_apply<false>(lab, luts, rgb, batch, H, W, tiles_y, tiles_x, stream);
+// tables: clahe_gather's table block (kTabWords words); layout: kU8Planar,
+// kU8Nhwc or kF32Nhwc; vec: 8, 4 or 1 (the cell width a multiple of it, lab
+// aligned to it: clahe_gather._apply_width);
+// band_rows: rows a block walks, rows_par (1 to 4) of them at once, one
+// row of threads each (clahe_gather.apply_plan).
+int clahe_apply(const void* lab, const void* luts, const void* tables, void* out, int batch, int H, int W,
+                int tiles_y, int tiles_x, int layout, int vec, int band_rows, int rows_par, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (vec) {
+    case 8:
+      return launch_apply_vec<8>(lab, luts, tables, out, batch, H, W, tiles_y, tiles_x, layout, band_rows, rows_par, s);
+    case 4:
+      return launch_apply_vec<4>(lab, luts, tables, out, batch, H, W, tiles_y, tiles_x, layout, band_rows, rows_par, s);
+    case 1:
+      return launch_apply_vec<1>(lab, luts, tables, out, batch, H, W, tiles_y, tiles_x, layout, band_rows, rows_par, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
-int clahe_apply_u8_nhwc(const void* lab, const void* luts, void* rgb, int batch, int H, int W,
-                        int tiles_y, int tiles_x, void* stream) {
-  return launch_apply<true>(lab, luts, rgb, batch, H, W, tiles_y, tiles_x, stream);
+// K3's table block as this build lays it out: 0 the quantiser's first
+// bucket, 1 its last bucket index, 2 the block's length in 32-bit words.
+int clahe_apply_table_layout(int what) {
+  return what == 0 ? kQuantBase : what == 1 ? kQuantLast : kTabWords;
 }
 
 }  // extern "C"

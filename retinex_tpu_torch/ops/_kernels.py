@@ -50,11 +50,10 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # launch function: (source stem, argtypes: pointers, sizes, the stream last)
 _SIGNATURES = {
-    "clahe_lab_fwd_u8": ("clahe_lab", (_P, _P, _P, _L, _L, _P)),
-    "clahe_lab_fwd_u8_nhwc": ("clahe_lab", (_P, _P, _P, _L, _L, _P)),
+    "clahe_lab_fwd": ("clahe_lab", (_P, _P, _P, _I, _I, _I, _I, _P)),
     "clahe_tables": ("clahe_lab", (_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _P)),
-    "clahe_apply_u8": ("clahe_lab", (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
-    "clahe_apply_u8_nhwc": ("clahe_lab", (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    "clahe_apply": ("clahe_lab", (_P, _P, _P, _P) + (_I,) * 9 + (_P,)),
+    "clahe_apply_table_layout": ("clahe_lab", (_I,)),
     "clahe_luma_apply_u8": ("clahe_luma", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "clahe_luma_apply_u8_nhwc": ("clahe_luma", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "clahe_luma_apply_u8_fused": ("clahe_luma", (_P, _P, _P, _I, _I, _I, _I, _I, _P)),

@@ -1,12 +1,17 @@
-"""Lab-CLAHE on five CUDA kernels, with their plain PyTorch versions.
+"""Lab-CLAHE on CUDA kernels, with their plain PyTorch versions.
 
-Counterpart of ``retinex_tpu/ops/clahe_gather.py``: its planar pipeline
-(``clahe_rgb_u8_planar_gather5``, ``clahe_lab_rgb_gather``), which the net
-route and single-image ``--classical_mode clahe`` run, and its NHWC u8 entry
+Counterpart of ``retinex_tpu/ops/clahe_gather.py``: its float pipeline
+(``clahe_lab_rgb_gather``), which every net route and single-image
+``--classical_mode clahe`` run, its planar u8 pipeline
+(``clahe_rgb_u8_planar_gather5``) and its NHWC u8 entry
 (``clahe_rgb_u8_gather``), which directory batches in ``clahe`` mode run.
-The kernels live in ``retinex_tpu_torch/csrc/clahe_lab.cu``:
+The kernels live in ``retinex_tpu_torch/csrc/clahe_lab.cu``, three kernels
+in several instances:
 
 - ``lab_fwd_u8`` (K1): planar u8 sRGB [B,3,H,W] -> planar u8 OpenCV Lab;
+- ``lab_fwd_f32_nhwc`` (K1 on the float input): float [B,H,W,3] in [0,1]
+  -> the same planar Lab, the quantisation rint(clamp(x,0,1)*255) folded
+  into the kernel's reads;
 - ``lab_fwd_u8_nhwc`` (K8, forward half): u8 NHWC sRGB [B,H,W,3] -> the
   same planar Lab, the transpose folded into the kernel's reads;
 - ``clahe_tables`` (K2): per-tile histograms of a u8 plane (the L plane of
@@ -15,8 +20,10 @@ The kernels live in ``retinex_tpu_torch/csrc/clahe_lab.cu``:
   and LUT, as u8 [B, tiles_y, tiles_x, 256]; each tile's rows are spread
   over several blocks (``tables_plan``);
 - ``clahe_apply_u8`` (K3): 4-neighbour LUT blend on L, then Lab -> planar
-  sRGB u8;
-- ``clahe_apply_u8_nhwc`` (K8, apply half): the same, written as NHWC.
+  sRGB u8, from tables built once per process (``apply_tables``);
+- ``clahe_apply_f32_nhwc`` (K3 writing the float image): the same bytes as
+  float v / 255, NHWC;
+- ``clahe_apply_u8_nhwc`` (K8, apply half): the same, written as u8 NHWC.
 
 Each wrapper takes a CPU tensor to its plain version and a CUDA tensor to
 its kernel; there is no fallback from one to the other. ``LAUNCHES`` counts
@@ -35,6 +42,10 @@ from retinex_tpu_torch.ops import _kernels
 from retinex_tpu_torch.ops.clahe import HIST_SIZE, _luts_from_hist, cell_divisible
 from retinex_tpu_torch.ops.clahe_fast import _hist_from_cells, apply_from_cells
 from retinex_tpu_torch.ops.colorspace import (
+    _lab_f_inv,
+    lab8_da,
+    lab8_db,
+    lab8_fy,
     lab8_to_linear_rgb,
     linear_rgb_to_lab8,
     linear_to_srgb,
@@ -44,11 +55,17 @@ from retinex_tpu_torch.ops.colorspace import (
 # Kernel launches per wrapper since the last reset_launches().
 LAUNCHES = {
     "lab_fwd_u8": 0,
+    "lab_fwd_f32_nhwc": 0,
     "lab_fwd_u8_nhwc": 0,
     "clahe_tables": 0,
     "clahe_apply_u8": 0,
+    "clahe_apply_f32_nhwc": 0,
     "clahe_apply_u8_nhwc": 0,
 }
+
+# The sRGB side's layouts, numbered as csrc/clahe_lab.cu's Layout:
+# planar u8, NHWC u8, float [B,H,W,3] stored channels first, NHWC float.
+_U8_PLANAR, _U8_NHWC, _F32_PLANAR, _F32_NHWC = range(4)
 
 
 def reset_launches() -> None:
@@ -85,6 +102,26 @@ def _degamma_table(device: str) -> torch.Tensor:
 # ---------------------------------------------------------------- K1
 
 
+def _fwd_width(ptr: int, plane: int, f32: bool) -> int:
+    """Pixels a K1 thread takes: 4 where the plane and the input's address
+    allow its wide loads (16-byte vectors of floats, 4-byte words of
+    bytes), else 1."""
+    return 4 if plane % 4 == 0 and ptr % (16 if f32 else 4) == 0 else 1
+
+
+def _launch_fwd(src: torch.Tensor, layout: int, b: int, h: int, w: int, name: str) -> torch.Tensor:
+    """Planar u8 Lab [b,3,h,w] of `src` in `layout`, by K1's kernel."""
+    out = torch.empty((b, 3, h, w), dtype=torch.uint8, device=src.device)
+    if b * h * w == 0:
+        return out
+    stream = _kernels.stream(src)
+    vec = _fwd_width(src.data_ptr(), h * w, layout >= _F32_PLANAR)
+    tab = _degamma_table(str(src.device))
+    _kernels.launch("clahe_lab_fwd", src.data_ptr(), out.data_ptr(), tab.data_ptr(), b, h * w, layout, vec, stream)
+    LAUNCHES[name] += 1
+    return out
+
+
 def lab_fwd_u8_plain(rgb: torch.Tensor) -> torch.Tensor:
     """Plain version of K1: planar u8 sRGB -> planar u8 8-bit Lab."""
     tab = _degamma_table(str(rgb.device))
@@ -98,13 +135,41 @@ def lab_fwd_u8(rgb: torch.Tensor) -> torch.Tensor:
     _check_planar_u8(rgb, "lab_fwd_u8")
     if rgb.device.type == "cpu":
         return lab_fwd_u8_plain(rgb)
-    stream = _kernels.stream(rgb)
-    out = torch.empty_like(rgb)
-    tab = _degamma_table(str(rgb.device))
     b, _, h, w = rgb.shape
-    _kernels.launch("clahe_lab_fwd_u8", rgb.data_ptr(), out.data_ptr(), tab.data_ptr(), b, h * w, stream)
-    LAUNCHES["lab_fwd_u8"] += 1
-    return out
+    return _launch_fwd(rgb, _U8_PLANAR, b, h, w, "lab_fwd_u8")
+
+
+def quantise_planar_u8(x: torch.Tensor) -> torch.Tensor:
+    """Float [B,H,W,3] -> planar u8 [B,3,H,W]: rint(clamp(x, 0, 1) * 255),
+    the JAX package's glue before K1 (half to even, as K1's float instance
+    rounds)."""
+    xp = x.permute(0, 3, 1, 2)
+    return torch.clamp(torch.round(torch.clamp(xp, 0.0, 1.0) * 255.0), 0, 255).to(torch.uint8).contiguous()
+
+
+def lab_fwd_f32_nhwc_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of K1's float instance: the quantisation, then K1's."""
+    return lab_fwd_u8_plain(quantise_planar_u8(x))
+
+
+def lab_fwd_f32_nhwc(x: torch.Tensor) -> torch.Tensor:
+    """K1 on the float input: f32 [B,H,W,3] in [0,1] -> planar u8 Lab
+    [B,3,H,W], quantised as ``quantise_planar_u8`` in the kernel's reads.
+
+    x's memory may be NHWC or channels first (the nets' NHWC outputs are
+    permuted NCHW tensors); either is read in place."""
+    if x.dtype != torch.float32 or x.ndim != 4 or x.shape[3] != 3:
+        raise ValueError(f"lab_fwd_f32_nhwc: expected float32 [B, H, W, 3], got {x.dtype} {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return lab_fwd_f32_nhwc_plain(x)
+    if x.is_contiguous():
+        layout = _F32_NHWC
+    elif x.permute(0, 3, 1, 2).is_contiguous():
+        layout = _F32_PLANAR
+    else:
+        x, layout = x.contiguous(), _F32_NHWC
+    b, h, w, _ = x.shape
+    return _launch_fwd(x, layout, b, h, w, "lab_fwd_f32_nhwc")
 
 
 def lab_fwd_u8_nhwc_plain(rgb: torch.Tensor) -> torch.Tensor:
@@ -117,13 +182,8 @@ def lab_fwd_u8_nhwc(rgb: torch.Tensor) -> torch.Tensor:
     _check_nhwc_u8(rgb, "lab_fwd_u8_nhwc")
     if rgb.device.type == "cpu":
         return lab_fwd_u8_nhwc_plain(rgb)
-    stream = _kernels.stream(rgb)
     b, h, w, _ = rgb.shape
-    out = torch.empty((b, 3, h, w), dtype=torch.uint8, device=rgb.device)
-    tab = _degamma_table(str(rgb.device))
-    _kernels.launch("clahe_lab_fwd_u8_nhwc", rgb.data_ptr(), out.data_ptr(), tab.data_ptr(), b, h * w, stream)
-    LAUNCHES["lab_fwd_u8_nhwc"] += 1
-    return out
+    return _launch_fwd(rgb, _U8_NHWC, b, h, w, "lab_fwd_u8_nhwc")
 
 
 # ---------------------------------------------------------------- K2
@@ -229,43 +289,221 @@ def clahe_tables(
 
 # ---------------------------------------------------------------- K3
 
+# K3's sRGB quantiser: one bucket per 2**16 f32 bit patterns (sign, exponent
+# and the top 7 mantissa bits), from the bucket of 2**-13 (below which every
+# lin gives byte 0) to the bucket of 1.0 (above which every lin gives 255);
+# csrc/clahe_lab.cu's kQuantBase and kQuantLast.
+QUANT_BASE = (127 - 13) << 7
+QUANT_LAST = (127 << 7) - QUANT_BASE
+# K3's table block in 32-bit words (csrc/clahe_lab.cu kTab*): fy and Y by L
+# (interleaved), (a-128)/500, (b-128)/200, the quantiser's buckets.
+_TAB_QUANT = 1024
+APPLY_TABLE_WORDS = (_TAB_QUANT + QUANT_LAST + 1 + 3) // 4 * 4
+# Hopper's largest shared memory for one block, which K3 opts into where its
+# tables, neighbour words and store staging need more than 48 KB.
+_SMEM_MAX = 227 * 1024
+# K3's blocks: K3_ROWS_PAR rows of 256 threads, each walking a band of
+# rows, the bands as short as lets the grid hold at most K3_BLOCKS_PER_SM
+# blocks per SM (one wave: a block's staging is paid once per block, and a
+# second wave would leave most SMs idle behind a few).
+K3_ROWS_PAR = 4
+K3_BLOCKS_PER_SM = 1
+_APPLY_THREADS = 256
+# K3's store staging at most: the float output, 4 pixels a thread, 12 words a lane.
+_K3_STAGE_BYTES = _APPLY_THREADS * K3_ROWS_PAR * 12 * 4
+
+
+def srgb_byte_plain(lin: torch.Tensor) -> torch.Tensor:
+    """The output byte of linear light, as float: rint(clamp(sRGB(lin), 0, 1) * 255)."""
+    return torch.round(torch.clamp(linear_to_srgb(lin), 0.0, 1.0) * 255.0)
+
+
+def srgb_byte_of_bits(bits: torch.Tensor) -> torch.Tensor:
+    """``srgb_byte_plain`` of f32 bit patterns, each evaluated as the plain
+    version evaluates a plane's pixels. PyTorch's CPU pow runs on vectors of
+    32 floats (or 16) and gives a tensor's last len % 32 elements to a
+    scalar pow, which can round the other way; so the patterns are padded
+    to whole vectors."""
+    n = bits.numel()
+    padded = torch.cat([bits, bits[-1:].expand((-n) % 32)]).to(torch.int32)
+    return srgb_byte_plain(padded.view(torch.float32))[:n]
+
+
+@functools.lru_cache(maxsize=None)
+def srgb_thresholds() -> torch.Tensor:
+    """int64 [257]: T[k] is the bit pattern of the least non-negative f32
+    whose ``srgb_byte_plain`` is at least k (T[0] = 0, T[256] past every
+    f32), found by bisection over the bit patterns of [0, 1.0]
+    (``srgb_byte_of_bits``). The bisection takes the byte to be
+    non-decreasing in lin, which tests/test_torch_clahe_lab_exact.py
+    checks over every f32 where it steps."""
+    one = int(torch.tensor(1.0).view(torch.int32))
+    if float(srgb_byte_plain(torch.tensor(1.0))) != 255.0:
+        raise RuntimeError("the sRGB quantiser does not give 255 at 1.0")
+    ks = torch.arange(1, 256, dtype=torch.float32)
+    lo = torch.zeros(255, dtype=torch.int64)
+    hi = torch.full((255,), one, dtype=torch.int64)
+    while bool((lo < hi).any()):
+        mid = (lo + hi) // 2
+        ok = srgb_byte_of_bits(mid) >= ks
+        hi = torch.where(ok, mid, hi)
+        lo = torch.where(ok, lo, mid + 1)
+    return torch.cat([torch.zeros(1, dtype=torch.int64), lo, torch.tensor([2**31], dtype=torch.int64)])
+
+
+def quant_buckets(t: torch.Tensor) -> torch.Tensor:
+    """int64 [QUANT_LAST + 1]: each bucket's entry, (b0 << 17) | cmp, where
+    b0 is the byte at the bucket's first bit pattern and cmp the low 16
+    bits of the next step's pattern, or 0x10000 where the bucket has no
+    step; raises where a bucket would need two compares."""
+    start = (QUANT_BASE + torch.arange(QUANT_LAST + 1, dtype=torch.int64)) << 16
+    end = start + 0xFFFF
+    b0 = torch.searchsorted(t[1:256], start, right=True)
+    nxt = t[b0 + 1]
+    after = t[torch.clamp(b0 + 2, max=256)]
+    if bool((after <= end).any()):
+        raise RuntimeError("a quantiser bucket holds two steps of the sRGB byte")
+    if int(b0[0]) != 0 or int(nxt[0]) <= int(end[0]) or int(b0[-1]) != 255:
+        raise RuntimeError("the quantiser's first bucket must give 0 throughout and its last 255")
+    cmp = torch.where(nxt <= end, nxt & 0xFFFF, torch.full_like(nxt, 0x10000))
+    return (b0 << 17) | cmp
+
+
+@functools.lru_cache(maxsize=None)
+def apply_tables() -> dict[str, torch.Tensor]:
+    """K3's tables on the CPU, each by the plain version's own f32
+    operations: fy and Y = f^-1(fy) by L, (a - 128)/500 by a, (b - 128)/200
+    by b, and the quantiser's buckets (int64); and v / 255 by byte, which
+    the float instance computes and ``dequantise_nhwc`` reads."""
+    v = torch.arange(HIST_SIZE, dtype=torch.float32)
+    fy = lab8_fy(v)
+    return {
+        "fy": fy, "y": _lab_f_inv(fy), "da": lab8_da(v), "db": lab8_db(v), "dq": v / 255.0,
+        "quant": quant_buckets(srgb_thresholds()),
+    }
+
+
+@functools.lru_cache(maxsize=None)
+def _apply_table_block(device: str) -> torch.Tensor:
+    """int32 [APPLY_TABLE_WORDS]: ``apply_tables`` laid out as K3 stages them."""
+    layout = tuple(_kernels.query("clahe_apply_table_layout", i) for i in range(3))
+    if layout != (QUANT_BASE, QUANT_LAST, APPLY_TABLE_WORDS):
+        raise RuntimeError(f"csrc/clahe_lab.cu lays out K3's tables as {layout}, this module as "
+                           f"{(QUANT_BASE, QUANT_LAST, APPLY_TABLE_WORDS)}")
+    t = apply_tables()
+    words = torch.zeros(APPLY_TABLE_WORDS, dtype=torch.int32)
+    words[:512] = torch.stack([t["fy"], t["y"]], dim=1).reshape(-1).view(torch.int32)
+    words[512:768] = t["da"].view(torch.int32)
+    words[768:1024] = t["db"].view(torch.int32)
+    words[_TAB_QUANT : _TAB_QUANT + QUANT_LAST + 1] = t["quant"].to(torch.int32)
+    return words.to(device)
+
+
+def dequantise_nhwc(u8: torch.Tensor) -> torch.Tensor:
+    """Planar u8 [B,3,H,W] -> float [B,H,W,3], each byte / 255 as IEEE
+    division rounds it (the JAX package's glue, and PyTorch's on the CPU;
+    PyTorch on CUDA multiplies by 1/255, which rounds 126 of the 256
+    quotients the other way)."""
+    return apply_tables()["dq"].to(u8.device)[u8.long()].permute(0, 2, 3, 1)
+
 
 def clahe_apply_u8_plain(lab: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
     """Plain version of K3: LUT blend on L, a/b through, Lab -> planar u8 sRGB."""
     L2 = apply_from_cells(lab[:, 0], luts).to(torch.float32)
     rgb = lab8_to_linear_rgb(L2, lab[:, 1].float(), lab[:, 2].float())
-    return torch.stack(
-        [torch.round(torch.clamp(linear_to_srgb(ch), 0.0, 1.0) * 255.0) for ch in rgb], dim=1
-    ).to(torch.uint8)
+    return torch.stack([srgb_byte_plain(ch) for ch in rgb], dim=1).to(torch.uint8)
 
 
-def _check_luts(luts: torch.Tensor, b: int, h: int, w: int, device: torch.device, what: str) -> tuple[int, int]:
-    """Validate u8 LUTs [b, ty, tx, 256] for an h x w frame; return (ty, tx)."""
+def _check_luts(
+    luts: torch.Tensor, b: int, h: int, w: int, device: torch.device, what: str, smem_fixed: int = 0,
+    smem_per_tile: int = 2 * HIST_SIZE, smem_max: int = 48 * 1024,
+) -> tuple[int, int]:
+    """Validate u8 LUTs [b, ty, tx, 256] for an h x w frame; return (ty, tx).
+    On the card the kernel stages `smem_fixed` bytes and `smem_per_tile`
+    for each x-tile (two tile rows of LUTs, by default) in at most
+    `smem_max` bytes of shared memory."""
     if luts.dtype != torch.uint8 or luts.ndim != 4 or luts.shape[0] != b or luts.shape[3] != HIST_SIZE:
         raise ValueError(f"{what}: expected uint8 LUTs [{b}, ty, tx, 256], got {luts.dtype} {tuple(luts.shape)}")
     if not luts.is_contiguous() or luts.device != device:
         raise ValueError(f"{what}: LUTs must be contiguous and on the image's device")
     tiles_y, tiles_x = luts.shape[1], luts.shape[2]
     _check_cells(h, w, tiles_y, tiles_x)
-    if device.type != "cpu" and 2 * tiles_x * HIST_SIZE > 48 * 1024:
-        raise ValueError(f"{what}: tiles_x={tiles_x} needs more than 48 KB of shared memory")
+    if device.type != "cpu" and smem_fixed + smem_per_tile * tiles_x > smem_max:
+        raise ValueError(f"{what}: tiles_x={tiles_x} needs more than {smem_max // 1024} KB of shared memory")
     return tiles_y, tiles_x
+
+
+def _apply_width(lab: torch.Tensor, w: int, tiles_x: int, widest: int) -> int:
+    """Pixels a K3 thread takes: `widest` (8 for bytes out, 4 for floats,
+    whose 3 * 8 interleaved values a thread stores slower), else 4, where
+    the cell width is a multiple (so the group lies in one cell) and the
+    Lab planes are aligned to it; else 1."""
+    for v in (widest, 4):
+        if (w // (2 * tiles_x)) % v == 0 and lab.data_ptr() % v == 0:
+            return v
+    return 1
+
+
+def apply_plan(h: int, w: int, tiles_y: int, batch: int, vec: int, n_sm: int = 132) -> tuple[int, int]:
+    """(rows of one half-tile cell row that a K3 block walks, rows it takes
+    at once): the most bands per cell row with which the grid stays within
+    K3_BLOCKS_PER_SM blocks per SM (one band where even that is too many),
+    K3_ROWS_PAR rows at once (fewer in a shorter band)."""
+    hh = h // (2 * tiles_y)
+    col_blocks = -(-(w // vec) // _APPLY_THREADS)
+    bands = max(1, K3_BLOCKS_PER_SM * n_sm // (col_blocks * 2 * tiles_y * batch))
+    rows = -(-hh // min(bands, hh))
+    return rows, min(K3_ROWS_PAR, rows)
+
+
+def _launch_apply(lab: torch.Tensor, luts: torch.Tensor, out: torch.Tensor, layout: int, name: str) -> torch.Tensor:
+    """K3's kernel on planar u8 Lab and its LUTs, into `out` in `layout`."""
+    b, _, h, w = lab.shape
+    tiles_y, tiles_x = luts.shape[1], luts.shape[2]
+    if b * h * w == 0:
+        return out
+    stream = _kernels.stream(lab)
+    vec = _apply_width(lab, w, tiles_x, 4 if layout == _F32_NHWC else 8)
+    n_sm = torch.cuda.get_device_properties(lab.device).multi_processor_count
+    rows, rows_par = apply_plan(h, w, tiles_y, b, vec, n_sm)
+    tables = _apply_table_block(str(lab.device))
+    _kernels.launch(
+        "clahe_apply", lab.data_ptr(), luts.data_ptr(), tables.data_ptr(), out.data_ptr(), b, h, w, tiles_y, tiles_x,
+        layout, vec, rows, rows_par, stream,
+    )
+    LAUNCHES[name] += 1
+    return out
+
+
+def _check_apply(lab: torch.Tensor, luts: torch.Tensor, what: str) -> None:
+    _check_planar_u8(lab, what)
+    b, _, h, w = lab.shape
+    fixed = 4 * (APPLY_TABLE_WORDS + HIST_SIZE) + _K3_STAGE_BYTES
+    _check_luts(luts, b, h, w, lab.device, what, fixed, 4 * HIST_SIZE, _SMEM_MAX)
 
 
 def clahe_apply_u8(lab: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
     """K3: planar u8 Lab + u8 LUTs [B, tiles_y, tiles_x, 256] -> planar u8 sRGB."""
-    _check_planar_u8(lab, "clahe_apply_u8")
-    b, _, h, w = lab.shape
-    tiles_y, tiles_x = _check_luts(luts, b, h, w, lab.device, "clahe_apply_u8")
+    _check_apply(lab, luts, "clahe_apply_u8")
     if lab.device.type == "cpu":
         return clahe_apply_u8_plain(lab, luts)
-    stream = _kernels.stream(lab)
-    out = torch.empty_like(lab)
-    _kernels.launch(
-        "clahe_apply_u8", lab.data_ptr(), luts.data_ptr(), out.data_ptr(), b, h, w, tiles_y, tiles_x, stream
-    )
-    LAUNCHES["clahe_apply_u8"] += 1
-    return out
+    return _launch_apply(lab, luts, torch.empty_like(lab), _U8_PLANAR, "clahe_apply_u8")
+
+
+def clahe_apply_f32_nhwc_plain(lab: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
+    """Plain version of K3's float instance: K3's bytes / 255, as [B,H,W,3]."""
+    return dequantise_nhwc(clahe_apply_u8_plain(lab, luts))
+
+
+def clahe_apply_f32_nhwc(lab: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
+    """K3 writing the float image: planar u8 Lab + u8 LUTs -> f32 NHWC
+    [B,H,W,3], each value the output byte / 255."""
+    _check_apply(lab, luts, "clahe_apply_f32_nhwc")
+    if lab.device.type == "cpu":
+        return clahe_apply_f32_nhwc_plain(lab, luts)
+    b, _, h, w = lab.shape
+    out = torch.empty((b, h, w, 3), dtype=torch.float32, device=lab.device)
+    return _launch_apply(lab, luts, out, _F32_NHWC, "clahe_apply_f32_nhwc")
 
 
 def clahe_apply_u8_nhwc_plain(lab: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
@@ -275,18 +513,12 @@ def clahe_apply_u8_nhwc_plain(lab: torch.Tensor, luts: torch.Tensor) -> torch.Te
 
 def clahe_apply_u8_nhwc(lab: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
     """K8, apply half: planar u8 Lab + u8 LUTs -> u8 NHWC sRGB [B,H,W,3]."""
-    _check_planar_u8(lab, "clahe_apply_u8_nhwc")
-    b, _, h, w = lab.shape
-    tiles_y, tiles_x = _check_luts(luts, b, h, w, lab.device, "clahe_apply_u8_nhwc")
+    _check_apply(lab, luts, "clahe_apply_u8_nhwc")
     if lab.device.type == "cpu":
         return clahe_apply_u8_nhwc_plain(lab, luts)
-    stream = _kernels.stream(lab)
+    b, _, h, w = lab.shape
     out = torch.empty((b, h, w, 3), dtype=torch.uint8, device=lab.device)
-    _kernels.launch(
-        "clahe_apply_u8_nhwc", lab.data_ptr(), luts.data_ptr(), out.data_ptr(), b, h, w, tiles_y, tiles_x, stream
-    )
-    LAUNCHES["clahe_apply_u8_nhwc"] += 1
-    return out
+    return _launch_apply(lab, luts, out, _U8_NHWC, "clahe_apply_u8_nhwc")
 
 
 # ---------------------------------------------------------------- pipeline
@@ -339,14 +571,15 @@ def clahe_lab_rgb_gather(
     tiles_y: int = 8,
     hist_subsample: int = 1,
 ) -> torch.Tensor:
-    """Float wrapper over the planar u8 pipeline. x: float [0,1] NHWC/HWC."""
+    """Float Lab-CLAHE: x float [0,1] NHWC/HWC (taken as float32, as the JAX
+    package computes) -> float32 of the same shape, K1 -> K2 -> K3 in their
+    float instances: the quantisation to u8 and the division by 255 run
+    inside the kernels, as the JAX package's XLA glue runs around them."""
     squeeze = x.ndim == 3
     if squeeze:
         x = x[None]
-    xp = x.permute(0, 3, 1, 2)
-    xq = torch.clamp(torch.round(torch.clamp(xp, 0.0, 1.0) * 255.0), 0, 255).to(torch.uint8).contiguous()
-    outp = clahe_rgb_u8_planar_gather(
-        xq, clip_limit=clip_limit, tiles_x=tiles_x, tiles_y=tiles_y, hist_subsample=hist_subsample
-    )
-    out = (outp.to(torch.float32) / 255.0).permute(0, 2, 3, 1)
+    _check_cells(x.shape[1], x.shape[2], tiles_y, tiles_x)
+    lab = lab_fwd_f32_nhwc(x.to(torch.float32))
+    luts = clahe_tables(lab, clip_limit, tiles_y, tiles_x, hist_subsample)
+    out = clahe_apply_f32_nhwc(lab, luts)
     return out[0] if squeeze else out

@@ -85,12 +85,29 @@ def linear_rgb_to_lab8(r: torch.Tensor, g: torch.Tensor, b: torch.Tensor):
     return L * (255.0 / 100.0), 500.0 * (fx - fy) + 128.0, 200.0 * (fy - fz) + 128.0
 
 
+def lab8_fy(L8: torch.Tensor) -> torch.Tensor:
+    """fy of OpenCV's 8-bit L."""
+    return (L8 * (100.0 / 255.0) + 16.0) / 116.0
+
+
+def lab8_da(a8: torch.Tensor) -> torch.Tensor:
+    """fx - fy of OpenCV's 8-bit a."""
+    return (a8 - 128.0) / 500.0
+
+
+def lab8_db(b8: torch.Tensor) -> torch.Tensor:
+    """fy - fz of OpenCV's 8-bit b."""
+    return (b8 - 128.0) / 200.0
+
+
 def lab8_to_linear_rgb(L8: torch.Tensor, a8: torch.Tensor, b8: torch.Tensor):
-    """(L, a, b) in OpenCV's 8-bit scale -> linear-light RGB channels."""
-    L = L8 * (100.0 / 255.0)
-    fy = (L + 16.0) / 116.0
-    fx = fy + (a8 - 128.0) / 500.0
-    fz = fy - (b8 - 128.0) / 200.0
+    """(L, a, b) in OpenCV's 8-bit scale -> linear-light RGB channels.
+
+    fy, fx - fy and fy - fz each depend on one channel (``lab8_fy``,
+    ``lab8_da``, ``lab8_db``), so K3 reads them from 256-entry tables."""
+    fy = lab8_fy(L8)
+    fx = fy + lab8_da(a8)
+    fz = fy - lab8_db(b8)
     Y = _lab_f_inv(fy)
     X = _lab_f_inv(fx) * XN
     Z = _lab_f_inv(fz) * ZN

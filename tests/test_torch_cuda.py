@@ -44,7 +44,8 @@ def test_cuda_kernels_match_plain_versions(cuda_frame):
     out = cg.clahe_apply_u8(f.lab, f.luts)
     torch.cuda.synchronize()
     assert cg.LAUNCHES == {
-        "lab_fwd_u8": 1, "lab_fwd_u8_nhwc": 0, "clahe_tables": 2, "clahe_apply_u8": 1, "clahe_apply_u8_nhwc": 0,
+        "lab_fwd_u8": 1, "lab_fwd_f32_nhwc": 0, "lab_fwd_u8_nhwc": 0, "clahe_tables": 2, "clahe_apply_u8": 1,
+        "clahe_apply_f32_nhwc": 0, "clahe_apply_u8_nhwc": 0,
     }
     for got, want in ((lab, f.lab), (out, cg.clahe_apply_u8_plain(f.lab, f.luts))):
         d = (got.int() - want.int()).abs()
@@ -452,3 +453,68 @@ def test_clahe_tables_match_plain_version(cuda_f32, tiles, batch):
                     assert torch.equal(alone, got[j : j + 1])
     torch.cuda.synchronize()
     assert cg.LAUNCHES["clahe_tables"] == n
+
+
+def _cube():
+    """Planar [1, 3, 4096, 4096] u8: every (first, second, third) byte triple once."""
+    v = torch.arange(256**3, device="cuda", dtype=torch.int32)
+    return torch.stack([v >> 16, (v >> 8) & 255, v & 255]).to(torch.uint8).reshape(1, 3, 4096, 4096)
+
+
+def _within_one_level(got, want):
+    d = (got.int() - want.int()).abs()
+    assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 1e-4
+
+
+@pytest.mark.cuda
+def test_lab_fwd_over_every_srgb_triple(cuda_f32):
+    """K1 in its u8 instance and its float one (reading the cube / 255
+    stored channels first, as the nets' outputs are, and NHWC) within 1
+    level of the plain versions on under 1e-4 of the bytes over the whole
+    sRGB cube; the float instance's bytes equal the u8 instance's."""
+    cube = _cube()
+    lab = cg.lab_fwd_u8(cube)
+    _within_one_level(lab, cg.lab_fwd_u8_plain(cube))
+    x = (cube.float() / 255.0).permute(0, 2, 3, 1)
+    for xx in (x, x.contiguous()):
+        got = cg.lab_fwd_f32_nhwc(xx)
+        _within_one_level(got, cg.lab_fwd_f32_nhwc_plain(xx))
+        assert torch.equal(got, lab)
+
+
+@pytest.mark.cuda
+def test_clahe_apply_over_every_lab_triple(cuda_f32):
+    """K3 in its u8 instance and its float one over the whole (L, a, b)
+    cube with identity LUTs at 8x8 tiles (the blend keeps L): within 1
+    level of the plain versions on under 1e-4 of the bytes; the float
+    instance is the u8 instance / 255 (IEEE division), NHWC."""
+    cube = _cube()
+    luts = torch.arange(256, device="cuda", dtype=torch.uint8).expand(1, 8, 8, 256).contiguous()
+    out = cg.clahe_apply_u8(cube, luts)
+    _within_one_level(out, cg.clahe_apply_u8_plain(cube, luts))
+    out_f = cg.clahe_apply_f32_nhwc(cube, luts)
+    assert torch.equal(out_f, cg.dequantise_nhwc(out))
+    want_f = cg.clahe_apply_f32_nhwc_plain(cube, luts)
+    _within_one_level(torch.round(out_f * 255.0).to(torch.uint8), torch.round(want_f * 255.0).to(torch.uint8))
+
+
+@pytest.mark.cuda
+def test_float_route_equals_u8_route_and_glue(cuda_f32):
+    """clahe_lab_rgb_gather (the float instances of K1 and K3) bit for bit
+    equal to the u8 planar route between the plain quantisation and the
+    IEEE division by 255, on a seeded 1088x1920 frame stored channels first with
+    values past [0, 1] and exact .5 ties; one call launches K1's and K3's
+    float instances and K2 once each and nothing else counted."""
+    base = torch.rand((1, 3, 1088, 1920), device="cuda", generator=cuda_f32) * 1.2 - 0.1
+    base.view(-1)[::89] = (torch.randint(0, 255, (base.view(-1)[::89].numel(),), device="cuda", generator=cuda_f32) + 0.5) / 255.0
+    x = base.permute(0, 2, 3, 1)
+    cg.reset_launches()
+    got = cg.clahe_lab_rgb_gather(x)
+    torch.cuda.synchronize()
+    assert cg.LAUNCHES == {
+        "lab_fwd_u8": 0, "lab_fwd_f32_nhwc": 1, "lab_fwd_u8_nhwc": 0, "clahe_tables": 1, "clahe_apply_u8": 0,
+        "clahe_apply_f32_nhwc": 1, "clahe_apply_u8_nhwc": 0,
+    }
+    want = cg.dequantise_nhwc(cg.clahe_rgb_u8_planar_gather(cg.quantise_planar_u8(x)))
+    assert got.shape == want.shape and torch.equal(got, want)
+    assert torch.equal(cg.clahe_lab_rgb_gather(x.contiguous()), got)

@@ -130,19 +130,25 @@ Phases (any failure raises and exits nonzero; no phase is skipped):
 11. Device time by kernel (torch.profiler) over warm forwards of each route
    at 1088x1920, the port's own kernels among them (K6 must show in the
    packed forward), and the device's busy share of the forwards' wall time.
-12. K10 (dec1_chain) against its plain version (the cuDNN chain), TF32 off,
-   on seeded inputs scaled as tests/test_fused_blocks.py:51-57 scales them,
-   within its 1e-4: at [1,544,960] (the 1088x1920 frame's dec1), at
-   [8,544,960] and [4,320,320] (the directory's chunks) and at a ragged
-   [2,37,53]; on a batch, the first and last image equal K10 on each alone.
-   Median of 25 launches at [1,544,960] beside the plain version's and the
-   bound.
+12. K10 (dec1_chain, four conv_pipelined launches: dec1_up, the 1x1;
+   dec1_c1; dec1_c2, whose epilogue adds x1p; dec1_rc) against its plain
+   version (the cuDNN chain), TF32 off, its weights packed once
+   (pack_dec1_chain), on seeded inputs scaled as
+   tests/test_fused_blocks.py:51-57 scales them, within its 1e-4: at
+   [1,544,960] (the 1088x1920 frame's dec1), at [8,544,960] and [4,320,320]
+   (the directory's chunks) and at a ragged [2,37,53]; one call launches
+   each stage once; each stage within 1e-4 of its plain version on the
+   plain previous stage's output; on a batch, the first and last image
+   equal K10 on each alone. Median of 25 launches of K10 and of each stage
+   at [1,544,960] beside the plain versions', the bounds and each stage's
+   one F.conv2d (+ ReLU, + x1p for dec1_c2), held within 1e-4 of the
+   stage's plain version.
 13. The dec1-chain forward, ``PackedRetinex(model, NetCfg(dec1_chain=True))``,
    at 1088x1920 and at the unpadded 1080x1920, seed-0 weights: within 2e-4
    of the default packed forward and within PACKED_TOL of the standard one;
-   K10 launched once per forward (and never on any default route: every
-   other phase's launch check expects 0). Warm net ms with and without it
-   at 1088x1920, in turns.
+   K10 launched once per forward, each of its stages once (and never on any
+   default route: every other phase's launch check expects 0). Warm net ms
+   with and without it at 1088x1920, in turns, and their ratio.
 14. ``--mode predict`` through the CLI with a ``.pth`` saved from the seed-0
    untrained net (``{"epoch": 0, "model_state_dict": ...}``): one photo at
    ``--max_size 1920`` (three PNGs, K4-K6 twice, K1-K3 never); the card's
@@ -190,9 +196,15 @@ first and last image against the kernel on each alone (identical):
    bias (then the ReLU where the case has one), which the port never calls;
    ``conv_wgmma``'s plan at each timed bf16 case (N, K chunk, dynamic
    shared memory, halo stages, resident or ringed weights).
-18. K12 ``fam_dual_conv3`` at [2,544,960,128] (f32 and bf16),
-   [1,544,960,128] and a ragged [2,37,53,128]: f32 within 1e-4, bf16 as in
-   phase 17; timed at [2,544,960,128].
+18. K12 ``fam_dual_conv3`` (two launches: fam_dual_y, 128 -> 256 with
+   ReLU, then fam_dual_out, the two half convolutions with groups = 2; f32
+   on conv_pipelined, bf16 on conv_wgmma, asserted per call from
+   ``fused_blocks.KERNEL_LAUNCHES``) at [2,544,960,128] (f32 and bf16),
+   [1,544,960,128] and a ragged [2,37,53,128]: the whole and each stage
+   (the second on the plain y) within f32 1e-4, bf16 as in phase 17;
+   conv_wgmma's plan for each bf16 stage; K12 and each stage timed at
+   [2,544,960,128] beside the plain versions', the bounds and each
+   stage's one F.conv2d (+ ReLU; groups = 2 for fam_dual_out).
 19. K16 ``clahe_lab_rgb_pallas`` at [1,1088,1920,3], [8,1088,1920,3]
    (perf_lab's, x ~ U(0, 0.6)), [1,2160,3840,3] and [2,96,128,3]: Lab
    within 1 level of the plain version on under 1e-4 of the bytes, the
@@ -212,7 +224,9 @@ lab_fwd_f32_nhwc and clahe_apply_f32_nhwc); for K10, over its path's
 runs in phases 13 and 14 (the dec1-chain forwards and predict with it);
 for K12-K16, over the calls at perf_lab's shapes in phases 17-19.
 K4 has an entry as a whole (``fam_conv_fused``) and one for each of its
-three kernels (``fam_conv_y``, ``fam_conv_z``, ``fam_conv_out``). K6's
+three kernels (``fam_conv_y``, ``fam_conv_z``, ``fam_conv_out``), K10 as a
+whole (``dec1_chain``) and one for each of its four (``dec1_up``,
+``dec1_c1``, ``dec1_c2``, ``dec1_rc``). K6's
 entry is its main-path instance (the quadrant-diagonal w, bytes-bound);
 the dense instance is printed in phase 4.
 ``ms``, ``plain_ms`` and ``bound_ms`` are per image for K1-K6, K10 and K11
@@ -220,14 +234,16 @@ the dense instance is printed in phase 4.
 PEAK_ISSUE_PER_S, whichever is larger)
 (summed over the kernel's launches on one 1088x1920 or 1080x1920 image),
 per launch on a [8,1088,1920] directory chunk for K7-K9, per launch at the
-first shape for K12-K15: in f32 for K12 (the entry's ``dtype``; the bf16
-runs are printed), and in both dtypes for K13, K14 and K15, whose bf16
-entries (``conv2d_pallas_bf16``, ``conv2d_pallas_im2col_bf16``,
-``conv2d_narrow_bf16``) name the tensor-core kernel and count its
-launches; per launch at [1,1088,1920,3] for K16's two kernels.
-``library_ms`` is ``F.conv2d``'s time for K13-K15, ``torch.einsum``'s of
-K6's whole function (``tail_g1_einsum``, on the main path's w) for K6, and
-null elsewhere.
+first shape for K12-K15, in both dtypes (the entry's ``dtype``): the bf16
+entries (``fam_dual_conv3_bf16``, ``conv2d_pallas_bf16``,
+``conv2d_pallas_im2col_bf16``, ``conv2d_narrow_bf16``) name the
+tensor-core kernel and count its launches; per launch at [1,1088,1920,3]
+for K16's two kernels.
+``library_ms`` is ``F.conv2d``'s time (+ ReLU where the kernel applies
+one) for K13-K15 and each of K10's four stages (``dec1_c2`` adds x1p),
+``torch.einsum``'s of K6's whole function (``tail_g1_einsum``, on the main
+path's w) for K6, and null elsewhere: no one call computes K4, K10 or K12
+whole.
 """
 
 from __future__ import annotations
@@ -296,7 +312,12 @@ REPLACES = {
     "clahe_luma_apply_u8": "retinex_tpu/ops/clahe_luma.py:92",
     "clahe_luma_apply_u8_fused": "retinex_tpu/ops/clahe_luma.py:158",
     "dec1_chain": "retinex_tpu/ops/fused_blocks.py:186",
+    "dec1_up": "retinex_tpu/ops/fused_blocks.py:186",
+    "dec1_c1": "retinex_tpu/ops/fused_blocks.py:186",
+    "dec1_c2": "retinex_tpu/ops/fused_blocks.py:186",
+    "dec1_rc": "retinex_tpu/ops/fused_blocks.py:186",
     "fam_dual_conv3": "retinex_tpu/ops/fused_blocks.py:96",
+    "fam_dual_conv3_bf16": "retinex_tpu/ops/fused_blocks.py:96",
     "conv2d_pallas": "retinex_tpu/ops/conv_pallas.py:56",
     "conv2d_pallas_bf16": "retinex_tpu/ops/conv_pallas.py:56",
     "conv2d_narrow": "retinex_tpu/ops/conv_pallas.py:183",
@@ -323,8 +344,13 @@ SOURCES = {
     "clahe_apply_u8_nhwc": "retinex_tpu_torch/csrc/clahe_lab.cu",
     "clahe_luma_apply_u8": "retinex_tpu_torch/csrc/clahe_luma.cu",
     "clahe_luma_apply_u8_fused": "retinex_tpu_torch/csrc/clahe_luma.cu",
-    "dec1_chain": "retinex_tpu_torch/csrc/dec1_chain.cu",
-    "fam_dual_conv3": "retinex_tpu_torch/csrc/fam_fused.cu",
+    "dec1_chain": "retinex_tpu_torch/csrc/conv_pipelined.cu",
+    "dec1_up": "retinex_tpu_torch/csrc/conv_pipelined.cu",
+    "dec1_c1": "retinex_tpu_torch/csrc/conv_pipelined.cu",
+    "dec1_c2": "retinex_tpu_torch/csrc/conv_pipelined.cu",
+    "dec1_rc": "retinex_tpu_torch/csrc/conv_pipelined.cu",
+    "fam_dual_conv3": "retinex_tpu_torch/csrc/conv_pipelined.cu",
+    "fam_dual_conv3_bf16": "retinex_tpu_torch/csrc/conv_wgmma.cu",
     "conv2d_pallas": "retinex_tpu_torch/csrc/conv_pipelined.cu",
     "conv2d_pallas_bf16": "retinex_tpu_torch/csrc/conv_wgmma.cu",
     "conv2d_narrow": "retinex_tpu_torch/csrc/conv_direct.cu",
@@ -365,6 +391,9 @@ CPU_NET_TOL = 1e-5
 # (tests/test_fused_blocks.py:66) and the NetCfg variants' (:75).
 DEC1_SHAPES = ((1, 544, 960), (8, 544, 960), (4, 320, 320), (2, 37, 53))
 DEC1_TOL = 1e-4
+# K10's four conv_pipelined stages: (Cin, taps, residual), each 128 out.
+K10_STAGES = {"dec1_up": (64, 1, False), "dec1_c1": (128, 9, False), "dec1_c2": (128, 9, True),
+              "dec1_rc": (128, 9, False)}
 NETCFG_TOL = 2e-4
 # Phases 17-19. Tolerances: f32 as tests/test_conv_pallas.py:28 and
 # tests/test_fused_blocks.py:47; bf16 one output ulp (2**-8 relative).
@@ -394,6 +423,8 @@ CONV_CASES = {
 CONV_TIMED = {("conv2d_pallas", 0), ("conv2d_pallas", 2), ("conv2d_pallas_im2col", 0),
               ("conv2d_pallas_im2col", 2), ("conv2d_narrow", 0), ("conv2d_narrow", 2)}
 DUAL_SHAPES = ((2, 544, 960, 128), (1, 544, 960, 128), (2, 37, 53, 128))
+# K12's two stages, each 256 out: (Cin, groups).
+K12_STAGES = {"fam_dual_y": (128, 1), "fam_dual_out": (256, 2)}
 # K16: the 1088x1920 frame, perf_lab's batch of 8, a 4K frame, the JAX test's.
 K16_SHAPES = ((1, 1088, 1920, 3), (8, 1088, 1920, 3), (1, 2160, 3840, 3), (2, 96, 128, 3))
 # Operations per pixel, counted from csrc/clahe_fused.cu: the first kernel
@@ -1016,10 +1047,12 @@ def launch_counts(modules) -> dict[str, int]:
 
 def check_launches(launches: dict[str, int], want: dict[str, int], what: str) -> None:
     """Every counted kernel launched exactly as `want` says (0 where unnamed);
-    each K4 call launches each of its three stages once, and each K6 call
-    the quadrant-diagonal instance (the model's fusion folds)."""
+    each K4 call launches each of its three stages once, each K10 call each
+    of its four, and each K6 call the quadrant-diagonal instance (the
+    model's fusion folds)."""
     want = {
         **want, **{k: want.get("fam_conv_fused", 0) for k in K4_STAGES},
+        **{k: want.get("dec1_chain", 0) for k in K10_STAGES},
         "fam_tail_apply_g1_diag": want.get("fam_tail_apply_g1", 0),
     }
     expected = {k: want.get(k, 0) for k in launches}
@@ -1467,7 +1500,8 @@ def warm_phase(torch, modules, photo: Path, workdir: Path) -> dict[str, dict[str
     --max_size 1920 and of the flagless route, in turns; Lab-CLAHE's
     launches over the phase (the float instances of K1 and K3 twice a turn
     on the 1088x1920 routes, none on the flagless one; the u8 planar
-    instances never)."""
+    instances never); each route's host share, its end to end less its net
+    and Lab-CLAHE medians."""
     from retinex_tpu_torch import cli
     from retinex_tpu_torch.config import Config
     from retinex_tpu_torch.infer.enhance import enhance_single_image, load_image
@@ -1513,7 +1547,8 @@ def warm_phase(torch, modules, photo: Path, workdir: Path) -> dict[str, dict[str
     for route, m in med.items():
         print(
             f"  warm per image, {route}: net {m['net']:.3f} ms, Lab-CLAHE {m['clahe']:.3f} ms, "
-            f"end to end (decode to 3 PNGs written) {m['e2e']:.3f} ms"
+            f"end to end (decode to 3 PNGs written) {m['e2e']:.3f} ms, of which host (end to end minus net and "
+            f"Lab-CLAHE) {m['e2e'] - m['net'] - m['clahe']:.3f} ms"
         )
     print(f"  packed net / standard net at 1088x1920: {med[names[1]]['net'] / med[names[0]]['net']:.4f}")
     return med
@@ -1562,6 +1597,25 @@ def profile_phase(torch, photo: Path) -> None:
             print(f"    {e.self_device_time_total / n / 1e3:9.4f}  x{e.count // n:<4d} {e.key[:90]}")
 
 
+def conv_library(torch, x, k, b, relu: bool = True, residual=None, groups: int = 1):
+    """One F.conv2d call (+ ReLU, + residual) computing a stage of K10 or
+    K12 on NHWC x with HWIO k ('SAME' padding), the layouts made once
+    outside the returned call, whose result is a channels-last NCHW view."""
+    import torch.nn.functional as F
+
+    xc = x.permute(0, 3, 1, 2)  # channels-last NCHW view, no copy
+    wl = k.to(x.dtype).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    bl, pad = b.to(x.dtype), k.shape[0] // 2
+    rc = None if residual is None else residual.permute(0, 3, 1, 2)
+
+    def call():
+        out = F.conv2d(xc, wl, bl, padding=pad, groups=groups)
+        out = torch.relu(out) if relu else out
+        return out if rc is None else out + rc
+
+    return call
+
+
 def dec1_inputs(torch, shape, seed: int) -> list:
     """Seeded K10 arguments on the card, scaled as
     tests/test_fused_blocks.py:51-57 scales them."""
@@ -1578,45 +1632,88 @@ def dec1_inputs(torch, shape, seed: int) -> list:
 
 
 def dec1_kernel_phase(torch, fb, shape, seed: int, timed: bool = False) -> dict:
-    """Phase 12: hold K10 to its plain version at `shape` ([b, h, w] of d2),
-    and on a batch its first and last image to K10 on each alone; with
-    `timed`, the median ms over 25 launches, the plain version's and the
-    bound."""
+    """Phase 12: hold K10 (its weights packed once) to its plain version at
+    `shape` ([b, h, w] of d2), one call's launches by stage, each stage to
+    its plain version on the plain previous stage's output, and on a batch
+    its first and last image to K10 on each alone; with `timed`, the median
+    ms over 25 launches of K10 and of each stage, the plain versions' and
+    the bounds. Returns {kernel or stage: record}."""
     args = dec1_inputs(torch, shape, seed)
+    d2, x1p, *weights = args
+    k_up, b_up, k_c1, b_c1, k_c2, b_c2, k_rc, b_rc = weights
     b, h, w = shape
-    got, want = fb.dec1_chain(*args), fb.dec1_chain_plain(*args)
+    p = fb.pack_dec1_chain(*weights)
+    fb.reset_launches()
+    got = fb.dec1_chain(*args, packed=p)
     torch.cuda.synchronize()
-    err = float((got - want).abs().max())
+    ran = {k: v for k, v in fb.KERNEL_LAUNCHES.items() if v}
+    if ran != {k: 1 for k in K10_STAGES} or fb.LAUNCHES["dec1_chain"] != 1:
+        raise AssertionError(f"one dec1_chain call at {shape} launched {ran}, expected each of {list(K10_STAGES)} once")
+    err = float((got - fb.dec1_chain_plain(*args)).abs().max())
     if not np.isfinite(err) or err > DEC1_TOL:
         raise AssertionError(f"dec1_chain disagrees with its plain version at {shape}: max |diff| {err:.3e}")
-    line = f"  {list(shape)} dec1_chain: max |diff| {err:.3e} (tolerance {DEC1_TOL:g})"
+    line = f"  {list(shape)} dec1_chain: max |diff| {err:.3e} (tolerance {DEC1_TOL:g}); one call: {ran}"
+    y1 = fb.dec1_up_plain(d2, k_up, b_up)
+    y2 = fb.dec1_conv_plain(y1, k_c1, b_c1)
+    y3 = fb.dec1_conv_plain(y2, k_c2, b_c2, x1p)
+    calls = {
+        "dec1_up": (lambda: fb.dec1_up(d2, p), lambda: fb.dec1_up_plain(d2, k_up, b_up)),
+        "dec1_c1": (lambda: fb.dec1_c1(y1, p), lambda: fb.dec1_conv_plain(y1, k_c1, b_c1)),
+        "dec1_c2": (lambda: fb.dec1_c2(y2, x1p, p), lambda: fb.dec1_conv_plain(y2, k_c2, b_c2, x1p)),
+        "dec1_rc": (lambda: fb.dec1_rc(y3, p), lambda: fb.dec1_conv_plain(y3, k_rc, b_rc)),
+    }
+    rec = {"dec1_chain": dict(max_abs_err=err)}
+    for name, (kernel, plain) in calls.items():
+        e = float((kernel() - plain()).abs().max())
+        if not np.isfinite(e) or e > DEC1_TOL:
+            raise AssertionError(f"{name} disagrees with its plain version at {shape}: max |diff| {e:.3e}")
+        rec[name] = dict(max_abs_err=e)
+    line += "; by stage " + ", ".join(f"{n} {r['max_abs_err']:.2e}" for n, r in rec.items() if n != "dec1_chain")
     for j in sorted({0, b - 1} if b > 1 else ()):
-        alone = fb.dec1_chain(args[0][j : j + 1].contiguous(), args[1][j : j + 1].contiguous(), *args[2:])
+        alone = fb.dec1_chain(d2[j : j + 1].contiguous(), x1p[j : j + 1].contiguous(), *weights, packed=p)
         if not torch.equal(alone, got[j : j + 1]):
             raise AssertionError(f"dec1_chain at {shape}: image {j} of the batch differs from K10 on it alone")
     if b > 1:
         line += "; first and last image identical to K10 on each alone"
-    rec = dict(max_abs_err=err)
     if timed:
         n_px = b * h * w
         weight_bytes = 4 * (64 * 128 + 3 * 9 * 128 * 128 + 4 * 128)
-        rec.update(
-            ms=time_ms(torch, lambda: fb.dec1_chain(*args)),
+        rec["dec1_chain"].update(
+            ms=time_ms(torch, lambda: fb.dec1_chain(*args, packed=p)),
             plain_ms=time_ms(torch, lambda: fb.dec1_chain_plain(*args), n=5),
             bound=bound(4 * n_px * (64 + 128 + 128) + weight_bytes, 2 * n_px * (64 * 128 + 27 * 128 * 128)),
         )
+        libs = {
+            "dec1_up": conv_library(torch, d2, k_up, b_up, relu=False),
+            "dec1_c1": conv_library(torch, y1, k_c1, b_c1),
+            "dec1_c2": conv_library(torch, y2, k_c2, b_c2, residual=x1p),
+            "dec1_rc": conv_library(torch, y3, k_rc, b_rc),
+        }
+        for name, (kernel, plain) in calls.items():
+            cin, taps, residual = K10_STAGES[name]
+            n_bytes = 4 * n_px * (cin + 128 + 128 * residual) + 4 * (taps * cin * 128 + 128)
+            lib_err = float((libs[name]().permute(0, 2, 3, 1) - plain()).abs().max())
+            if not np.isfinite(lib_err) or lib_err > DEC1_TOL:
+                raise AssertionError(f"F.conv2d for {name} disagrees with its plain version: max |diff| {lib_err:.3e}")
+            rec[name].update(ms=time_ms(torch, kernel), plain_ms=time_ms(torch, plain, n=5),
+                             library_ms=time_ms(torch, libs[name]), bound=bound(n_bytes, 2 * n_px * taps * cin * 128))
+        k10 = rec["dec1_chain"]
         line += (
-            f"; {rec['ms']:.4f} ms (plain {rec['plain_ms']:.3f} ms, bound {rec['bound'][0]:.4f} ms by "
-            f"{rec['bound'][1]}), launches per image 1 with NetCfg(dec1_chain=True)"
+            f"; {k10['ms']:.4f} ms (plain, the cuDNN chain, {k10['plain_ms']:.3f} ms, bound {k10['bound'][0]:.4f} ms by "
+            f"{k10['bound'][1]}, {k10['bound'][0] / k10['ms']:.1%} of it), launches per image 1 with "
+            f"NetCfg(dec1_chain=True); by stage "
+            + ", ".join(f"{n} {rec[n]['ms']:.4f} (plain {rec[n]['plain_ms']:.3f}, F.conv2d {rec[n]['library_ms']:.4f}, "
+                        f"bound {rec[n]['bound'][0]:.4f} by {rec[n]['bound'][1]})" for n in K10_STAGES)
+            + f", sum {sum(rec[n]['ms'] for n in K10_STAGES):.4f}"
         )
     print(line)
     return rec
 
 
-def dec1_forward_phase(torch, modules, photo: Path) -> int:
+def dec1_forward_phase(torch, modules, photo: Path) -> dict[str, int]:
     """Phase 13: the dec1-chain forward against the default packed forward
     and the standard one, K10's launches, and warm net ms with and without
-    it. Returns K10's launches on its path."""
+    it. Returns the launches of K10 and of each of its stages there."""
     from retinex_tpu_torch import cli
     from retinex_tpu_torch.config import Config
     from retinex_tpu_torch.infer.enhance import load_image
@@ -1624,7 +1721,7 @@ def dec1_forward_phase(torch, modules, photo: Path) -> int:
 
     model = cli.build_model(Config(mode="enhance"), torch.device("cuda"))
     default, fused = PackedRetinex(model), PackedRetinex(model, NetCfg(dec1_chain=True))
-    k10 = 0
+    k10 = dict.fromkeys(("dec1_chain", *K10_STAGES), 0)
     xs = {}
     for max_size in (1920, None):
         img, _ = load_image(str(photo), max_size)
@@ -1638,7 +1735,7 @@ def dec1_forward_phase(torch, modules, photo: Path) -> int:
         launches = launch_counts(modules)
         fam = FAM_TWICE if max_size == 1920 else {"fam_conv_fused": 2, "fam_tail_stats": 2, "fam_tail_apply": 2}
         check_launches(launches, {**fam, "dec1_chain": 1}, f"the dec1-chain forward at {tuple(x.shape[1:3])}")
-        k10 += launches["dec1_chain"]
+        k10 = {k: v + launches[k] for k, v in k10.items()}
         for (name, tol), a, b, s in zip(PACKED_TOL.items(), got, base, std):
             if a.shape != b.shape or not torch.isfinite(a).all():
                 raise AssertionError(f"dec1-chain {name}: shape {tuple(a.shape)} vs {tuple(b.shape)}, or non-finite")
@@ -1676,11 +1773,11 @@ def png_u8(path: Path) -> np.ndarray:
     return np.asarray(Image.open(path).convert("RGB")).astype(np.int16)
 
 
-def predict_phase(torch, modules, photo: Path, small: Path, photos: Path, workdir: Path) -> tuple[int, Path]:
+def predict_phase(torch, modules, photo: Path, small: Path, photos: Path, workdir: Path) -> tuple[dict, Path]:
     """Phase 14: --mode predict through the CLI on a file and a directory,
     card against CPU, batch against single images, warm throughput, and
-    predict_single_image on the dec1-chain forward. Returns K10's launches
-    there and the directory's output."""
+    predict_single_image on the dec1-chain forward. Returns the launches
+    of K10 and of each of its stages there, and the directory's output."""
     from retinex_tpu_torch import cli
     from retinex_tpu_torch.config import Config
     from retinex_tpu_torch.infer.batch_driver import bucket_by_canvas, decode_bucket
@@ -1772,7 +1869,7 @@ def predict_phase(torch, modules, photo: Path, small: Path, photos: Path, workdi
         print(f"  predict on the dec1-chain forward vs the default, {kind}: max {int(d.max())} level(s), {float((d > 0).mean()):.2e} of bytes differ")
         if d.max() > 1:
             raise AssertionError(f"predict on the dec1-chain forward: {kind} PNG more than one level from the default's")
-    return launches["dec1_chain"], out_d
+    return {k: launches[k] for k in ("dec1_chain", *K10_STAGES)}, out_d
 
 
 def evaluate_phase(torch, modules, pred_dir: Path, ref_dir: Path, workdir: Path) -> None:
@@ -1897,8 +1994,6 @@ def conv_phase(torch, cp, kernels) -> tuple[dict, dict]:
     KERNEL_LAUNCHES), then each case against its plain version and batch
     against single images; timings at the CONV_TIMED cases. Returns
     (launches by (kernel, dtype), records by (kernel, dtype))."""
-    import ctypes
-
     import torch.nn.functional as F
 
     fns = {"conv2d_pallas": (cp.conv2d_pallas, cp.conv2d_pallas_plain),
@@ -1966,13 +2061,10 @@ def conv_phase(torch, cp, kernels) -> tuple[dict, dict]:
 
             lib_err = float((library().permute(0, 2, 3, 1).float() - got.float()).abs().max())
             if served == "conv_wgmma":
-                plan = (ctypes.c_int * 3)()
-                n_t, ck = cp.wgmma_n_tile(cout), cp.wgmma_chunk(shape[3])
-                cout_pad = -(-cout // n_t) * n_t
-                if kernels.query("conv_wgmma_plan", shape[3], cout_pad, kh, kw_, dil, n_t, ck, ctypes.addressof(plan)):
-                    raise AssertionError(f"conv_wgmma has no plan for {tag}")
-                line += (f"; conv_wgmma N {n_t}, K chunk {ck}, {plan[0]} B of dynamic shared memory, "
-                         f"{plan[1]} halo stages, weights {f'in a ring of {plan[2]}' if plan[2] else 'resident'}")
+                plan = cp.wgmma_plan(shape[3], cout, kh, kw_, dil)
+                weights = f"in a ring of {plan['ring']}" if plan["ring"] else "resident"
+                line += (f"; conv_wgmma N {plan['n_tile']}, K chunk {plan['chunk']}, {plan['smem']} B of dynamic "
+                         f"shared memory, {plan['halo_stages']} halo stages, weights {weights}")
             t = dict(ms=time_ms(torch, lambda: kernel(x)), plain_ms=time_ms(torch, lambda: plain(x), n=5),
                      library_ms=time_ms(torch, library), bound=bd)
             if "ms" not in rec:
@@ -1987,9 +2079,14 @@ def conv_phase(torch, cp, kernels) -> tuple[dict, dict]:
     return launches, recs
 
 
-def dual_phase(torch, fb) -> tuple[int, dict]:
-    """Phase 18: K12 at perf_lab's shape (counts from 0), then against its
-    plain version at DUAL_SHAPES in f32 and bf16; timings at the first."""
+def dual_phase(torch, fb, cp) -> tuple[dict, dict]:
+    """Phase 18: K12 at perf_lab's shape in f32 and bf16 (counts from 0;
+    each call's stage kernels read from KERNEL_LAUNCHES: conv_pipelined in
+    f32, conv_wgmma in bf16), then against its plain version at DUAL_SHAPES,
+    each stage against its plain version (the second on the plain y), batch
+    against single images; timings of K12 and its stages at the first shape,
+    conv_wgmma's plan for each bf16 stage. Returns (launches by dtype,
+    records by dtype)."""
 
     def inputs(shape, dt, seed):
         g = torch.Generator(device="cuda").manual_seed(seed)
@@ -2001,20 +2098,42 @@ def dual_phase(torch, fb) -> tuple[int, dict]:
         return x, [n(3, 3, 128, 256, scale=0.05), n(256), n(3, 3, 128, 128, scale=0.05), n(128),
                    n(3, 3, 128, 128, scale=0.05), n(128)]
 
+    dtypes = (torch.float32, torch.bfloat16)
+    kernel = {torch.float32: "pipelined", torch.bfloat16: "wgmma"}
     fb.reset_launches()
-    for seed, dt in enumerate((torch.float32, torch.bfloat16)):
+    launches = {}
+    for seed, dt in enumerate(dtypes):
         x, w = inputs(DUAL_SHAPES[0], dt, seed)
+        before, calls = dict(fb.KERNEL_LAUNCHES), fb.LAUNCHES["fam_dual_conv3"]
         fb.fam_dual_conv3(x, *w)
+        launches[dt] = fb.LAUNCHES["fam_dual_conv3"] - calls
+        ran = {k: v - before[k] for k, v in fb.KERNEL_LAUNCHES.items() if v != before[k]}
+        want = {f"{s}_{kernel[dt]}": 1 for s in K12_STAGES}
+        if launches[dt] != 1 or ran != want:
+            raise AssertionError(f"fam_dual_conv3 {dt}: {launches[dt]} call(s) launched {ran}, expected 1 and {want}")
     torch.cuda.synchronize()
-    launches = fb.LAUNCHES["fam_dual_conv3"]
-    print(f"  fam_dual_conv3 at perf_lab's [2,544,960,128], f32 and bf16: launches {launches}")
+    if fb.LAUNCHES["fam_dual_conv3"] != 2:
+        raise AssertionError(f"fam_dual_conv3 counted {fb.LAUNCHES['fam_dual_conv3']} calls, expected 2")
+    print(f"  fam_dual_conv3 at perf_lab's [2,544,960,128], f32 and bf16: launches {fb.LAUNCHES['fam_dual_conv3']}, "
+          f"by stage kernel { {k: v for k, v in fb.KERNEL_LAUNCHES.items() if v} }")
+    for name, (cin, groups) in K12_STAGES.items():
+        plan = cp.wgmma_plan(cin, 256, 3, 3, 1, groups)
+        print(f"  conv_wgmma plan for {name} (bf16, {cin} -> 256, groups {groups}): {plan}")
     recs: dict = {}
     for i, shape in enumerate(DUAL_SHAPES):
-        for seed, dt in enumerate((torch.float32, torch.bfloat16)):
+        for seed, dt in enumerate(dtypes):
             x, w = inputs(shape, dt, 10 * i + seed)
+            k2, b2 = fb.stack_dual_convs(*w[2:])
             got = fb.fam_dual_conv3(x, *w)
             err = _close(torch, got, fb.fam_dual_conv3_plain(x, *w), f"fam_dual_conv3 {list(shape)} {dt}")
-            line = f"  fam_dual_conv3 {list(shape)} {str(dt)[6:]}: max |diff| {err:.3e}"
+            y = fb.fam_dual_y_plain(x, w[0], w[1])
+            calls = {
+                "fam_dual_y": (lambda: fb.fam_dual_y(x, w[0], w[1]), lambda: fb.fam_dual_y_plain(x, w[0], w[1])),
+                "fam_dual_out": (lambda: fb.fam_dual_out(y, k2, b2), lambda: fb.fam_dual_out_plain(y, k2, b2)),
+            }
+            stage_err = {n: _close(torch, kern(), plain(), f"{n} {list(shape)} {dt}") for n, (kern, plain) in calls.items()}
+            line = f"  fam_dual_conv3 {list(shape)} {str(dt)[6:]}: max |diff| {err:.3e}; by stage " + ", ".join(
+                f"{n} {e:.3e}" for n, e in stage_err.items())
             line += _batch_holds(torch, lambda v: fb.fam_dual_conv3(v, *w), x, got, "fam_dual_conv3")
             rec = recs.setdefault(dt, {"max_abs_err": 0.0})
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
@@ -2028,11 +2147,26 @@ def dual_phase(torch, fb) -> tuple[int, dict]:
                     plain_ms=time_ms(torch, lambda: fb.fam_dual_conv3_plain(x, *w), n=5),
                     bound=bound(n_bytes, 2 * n_px * 9 * 128 * 512, peak),
                 )
+                # One F.conv2d (+ ReLU) for each stage; their difference
+                # from the plain versions is printed, not held.
+                libs = {"fam_dual_y": conv_library(torch, x, w[0], w[1]),
+                        "fam_dual_out": conv_library(torch, y, k2, b2, relu=False, groups=2)}
+                stages = {}
+                for n, (kern, plain) in calls.items():
+                    cin = K12_STAGES[n][0]
+                    stage_bytes = n_px * (cin + 256) * el + 9 * 128 * 256 * el + 4 * 256
+                    lib_err = float((libs[n]().permute(0, 2, 3, 1).float() - plain().float()).abs().max())
+                    stages[n] = (time_ms(torch, kern), time_ms(torch, plain, n=5), time_ms(torch, libs[n]), lib_err,
+                                 bound(stage_bytes, 2 * n_px * 9 * 128 * 256, peak))
                 line += (
-                    f"; {rec['ms']:.4f} ms (plain {rec['plain_ms']:.3f} ms, bound {rec['bound'][0]:.4f} ms by "
-                    f"{rec['bound'][1]})"
+                    f"; {rec['ms']:.4f} ms (plain, the cuDNN chain, {rec['plain_ms']:.3f} ms, bound "
+                    f"{rec['bound'][0]:.4f} ms by {rec['bound'][1]}, {rec['bound'][0] / rec['ms']:.1%} of it); by stage "
+                    + ", ".join(f"{n} {t:.4f} (plain {pl:.3f}, F.conv2d {lib:.4f} with |F.conv2d - plain| {le:.2e}, "
+                                f"bound {bd[0]:.4f} by {bd[1]})" for n, (t, pl, lib, le, bd) in stages.items())
+                    + f", sum {sum(st[0] for st in stages.values()):.4f}"
                 )
             print(line)
+            del x, got, y
     return launches, recs
 
 
@@ -2207,12 +2341,13 @@ def main_path_phases(torch, cg, cl, fb, cp, kp, kernels) -> tuple[dict, dict]:
 
         print("phase 12: K10 (dec1_chain) against its plain version")
         dec1 = [dec1_kernel_phase(torch, fb, s, seed=40 + i, timed=i == 0) for i, s in enumerate(DEC1_SHAPES)]
-        recs["dec1_chain"] = dict(dec1[0], max_abs_err=max(r["max_abs_err"] for r in dec1))
+        for name in ("dec1_chain", *K10_STAGES):
+            recs[name] = dict(dec1[0][name], max_abs_err=max(r[name]["max_abs_err"] for r in dec1))
         print("phase 13: the dec1-chain forward, PackedRetinex(model, NetCfg(dec1_chain=True))")
-        launches["dec1_chain"] = dec1_forward_phase(torch, modules, photo)
+        k10 = dec1_forward_phase(torch, modules, photo)
         print("phase 14: --mode predict through the CLI")
-        k10, pred_dir = predict_phase(torch, modules, photo, small, workdir / "photos", workdir)
-        launches["dec1_chain"] += k10
+        k10_predict, pred_dir = predict_phase(torch, modules, photo, small, workdir / "photos", workdir)
+        launches.update({name: n + k10_predict[name] for name, n in k10.items()})
         print("phase 15: --mode evaluate through the CLI")
         evaluate_phase(torch, modules, pred_dir, workdir / "dir_net", workdir)
         print("phase 16: simple_enhance_main (pre-activation + ASPP)")
@@ -2259,19 +2394,20 @@ def main() -> int:
     print("phase 17: K13, K15 and K14 (conv2d_pallas, conv2d_pallas_im2col, conv2d_narrow)")
     conv_launches, conv = conv_phase(torch, cp, _kernels)
     print("phase 18: K12 (fam_dual_conv3)")
-    dual_launches, dual = dual_phase(torch, fb)
+    dual_launches, dual = dual_phase(torch, fb, cp)
     print("phase 19: K16 (clahe_lab_rgb_pallas)")
     k16_launches, k16 = k16_phase(torch, kp)
-    launches.update(fam_dual_conv3=dual_launches, **k16_launches)
-    # The kernels line carries the f32 runs, as for K1-K11, and for K13/K15,
-    # whose bf16 runs have a kernel of their own, the bf16 runs too (the
-    # others' bf16 runs are printed).
+    launches.update(fam_dual_conv3=dual_launches[torch.float32], fam_dual_conv3_bf16=dual_launches[torch.bfloat16],
+                    **k16_launches)
+    # The kernels line carries the f32 runs, as for K1-K11, and for K12-K15,
+    # whose bf16 runs have a kernel of their own, the bf16 runs too.
     for name in CONV_CASES:
         for dt, key in ((torch.float32, name), (torch.bfloat16, f"{name}_bf16")):
             if key in SOURCES:
                 recs[key] = dict(conv[(name, dt)], dtype=str(dt)[6:])
                 launches[key] = conv_launches[(name, dt)]
     recs["fam_dual_conv3"] = dict(dual[torch.float32], dtype="float32")
+    recs["fam_dual_conv3_bf16"] = dict(dual[torch.bfloat16], dtype="bfloat16")
     recs.update(k16)
 
     for name in recs:

@@ -15,7 +15,19 @@
 // It also carries K4's two 3x3 convolutions (retinex_tpu/ops/fused_blocks.py::
 // _fam_conv_kernel; retinex_tpu_torch/ops/fused_blocks.py: fam_conv_y,
 // 128 -> 256 with ReLU, and fam_conv_z, 256 -> 128 on the stacked second
-// convs), with its weights packed once per model.
+// convs), with its weights packed once per model, and, through two options:
+//   K12 retinex_tpu/ops/fused_blocks.py::_fam_kernel in f32 (fam_dual_y,
+//       128 -> 256 with ReLU, then fam_dual_out, the two half convolutions
+//       as one launch with groups = 2);
+//   K10 retinex_tpu/ops/fused_blocks.py::_dec1_kernel (dec1_up, the 1x1;
+//       dec1_c1, dec1_c2 with the +x1p residual; dec1_rc), all four stages.
+// Groups: Cout tile t reads only input channels [g * Cin/groups, (g + 1) *
+// Cin/groups), g = t / (Cout tiles per group), from an HWIO kernel [kh, kw,
+// Cin/groups, Cout], so a block-diagonal kernel does none of the zero
+// products. Residual: out = relu(acc + bias) + residual, in that order, as
+// the JAX dec1 kernel adds x1p after its ReLU; an instance of its own
+// (kRes), since a run-time test in the epilogue cost every call 2 % through
+// the main loop's schedule.
 //
 // Bound on the card: operations. At [2,544,960,128] 3x3 -> 128 the
 // convolution is 3.08e11 FLOP, 4.60 ms at the H100's 67 TFLOP/s of f32
@@ -52,6 +64,8 @@ constexpr int kPx = 8;                       // pixels per thread
 
 struct PipeArgs {
   int H, W, cin, cout, cout_pad, kh, kw, relu, n_chunks, co_tiles;
+  int cin_g;        // input channels a Cout tile reads (Cin / groups)
+  int group_tiles;  // Cout tiles per group
 };
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
@@ -75,9 +89,11 @@ __device__ __forceinline__ void fma_px(float (&acc)[8], const float4 x, const fl
   }
 }
 
+template <bool kRes>
 __global__ void __launch_bounds__(kThreads, 2)
     conv_pipelined_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                              const float* __restrict__ bias, float* __restrict__ out, const PipeArgs a) {
+                              const float* __restrict__ bias, const float* __restrict__ residual,
+                              float* __restrict__ out, const PipeArgs a) {
   extern __shared__ float4 smem[];
   const int taps = a.kh * a.kw;
   // One stage: the halo [kHaloPx][kCK] then the weights [taps][kCK][kCot].
@@ -85,18 +101,19 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int t = threadIdx.x, cg = t % 16, pg = t / 16;
   const int row = pg / 2, col0 = (pg % 2) * kPx;
   const int r0 = blockIdx.y * kTH, c0 = blockIdx.x * kTW;
-  const int b = blockIdx.z / a.co_tiles, co0 = (blockIdx.z % a.co_tiles) * kCot;
+  const int b = blockIdx.z / a.co_tiles, ct = blockIdx.z % a.co_tiles, co0 = ct * kCot;
   const int pad_t = a.kh / 2, pad_l = a.kw / 2;
-  const float* xb = x + (size_t)b * a.H * a.W * a.cin;
+  const float* xb = x + (size_t)b * a.H * a.W * a.cin + (ct / a.group_tiles) * a.cin_g;  // the group's channels
 
   auto load = [&](int chunk, int stage) {
     const uint32_t s0 = static_cast<uint32_t>(__cvta_generic_to_shared(smem + stage * stage_f4));
-    // Halo: two 16-byte copies per pixel; zeros outside the image and past Cin.
+    // Halo: two 16-byte copies per pixel; zeros outside the image and past
+    // the group's channels.
 #pragma unroll 1
     for (int i = t; i < kHaloPx * 2; i += kThreads) {
       const int px = i / 2, half = i % 2;
       const int gy = r0 - pad_t + px / kHW, gx = c0 - pad_l + px % kHW, ci = chunk * kCK + 4 * half;
-      const bool in = gy >= 0 && gy < a.H && gx >= 0 && gx < a.W && ci < a.cin;
+      const bool in = gy >= 0 && gy < a.H && gx >= 0 && gx < a.W && ci < a.cin_g;
       const float* src = in ? xb + ((size_t)gy * a.W + gx) * a.cin + ci : xb;
       cp_async16(s0 + 16 * i, src, in ? 16 : 0);
     }
@@ -149,7 +166,9 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   const int gy = r0 + row;
   if (gy >= a.H) return;
-  float* ob = out + ((size_t)b * a.H + gy) * a.W * a.cout;
+  const size_t row0 = ((size_t)b * a.H + gy) * a.W * a.cout;
+  float* ob = out + row0;
+  const float* rb = kRes ? residual + row0 : nullptr;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int co = co0 + 64 * h + 4 * cg;
@@ -164,11 +183,16 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
         for (int j = 0; j < 4; ++j) r[j] = fmaxf(r[j], 0.f);
       }
-      float* o = ob + (size_t)gx * a.cout + co;
+      const size_t off = (size_t)gx * a.cout + co;
+      float* o = ob + off;
       if (a.cout % 4 == 0) {
+        if (kRes) {
+          const float4 rv = __ldg(reinterpret_cast<const float4*>(rb + off));
+          r[0] += rv.x, r[1] += rv.y, r[2] += rv.z, r[3] += rv.w;
+        }
         *reinterpret_cast<float4*>(o) = make_float4(r[0], r[1], r[2], r[3]);
       } else {
-        for (int j = 0; j < 4 && co + j < a.cout; ++j) o[j] = r[j];
+        for (int j = 0; j < 4 && co + j < a.cout; ++j) o[j] = kRes ? r[j] + rb[off + j] : r[j];
       }
     }
   }
@@ -182,22 +206,31 @@ size_t smem_bytes(int kh, int kw) { return 2 * sizeof(float) * (size_t)(kHaloPx 
 extern "C" {
 
 // x [batch, H, W, cin] f32, cin % 4 == 0, 16-byte aligned; w the packed
-// kernel [n_chunks, kh * kw, 8, cout_pad] f32 (n_chunks = ceil(cin / 8),
-// zeros past cin and cout; cout_pad a multiple of 128); bias f32
-// [cout_pad]; out [batch, H, W, cout] f32.
-int conv_pipelined_f32(const void* x, const void* w, const void* bias, void* out, int batch, int H, int W, int cin,
-                       int cout, int cout_pad, int kh, int kw, int relu, void* stream) {
-  if (cin % 4 != 0 || kh < 1 || kh > 3 || kw < 1 || kw > 3 || cout_pad % kCot != 0 ||
-      reinterpret_cast<uintptr_t>(x) % 16 != 0)
+// kernel [n_chunks, kh * kw, 8, cout_pad] f32 of an HWIO kernel [kh, kw,
+// cin / groups, cout] (n_chunks = ceil(cin / groups / 8), zeros past its
+// input channels and cout; cout_pad a multiple of 128); bias f32
+// [cout_pad]; residual null or [batch, H, W, cout] f32, 16-byte aligned;
+// out [batch, H, W, cout] f32. groups > 1 takes whole chunks and whole Cout
+// tiles per group: (cin / groups) % 8 == 0 and (cout / groups) % 128 == 0.
+int conv_pipelined_f32(const void* x, const void* w, const void* bias, const void* residual, void* out, int batch,
+                       int H, int W, int cin, int cout, int cout_pad, int kh, int kw, int relu, int groups,
+                       void* stream) {
+  if (cin % 4 != 0 || kh < 1 || kh > 3 || kw < 1 || kw > 3 || cout_pad % kCot != 0 || groups < 1 ||
+      cin % groups != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(residual) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  const PipeArgs a{H, W, cin, cout, cout_pad, kh, kw, relu, (cin + kCK - 1) / kCK, cout_pad / kCot};
+  const int cin_g = cin / groups;
+  if (groups > 1 && (cin_g % kCK != 0 || cout != cout_pad || (cout / groups) % kCot != 0))
+    return (int)cudaErrorInvalidValue;
+  const PipeArgs a{H, W, cin, cout, cout_pad, kh, kw, relu, (cin_g + kCK - 1) / kCK, cout_pad / kCot,
+                   cin_g, cout_pad / kCot / groups};
   const size_t smem = smem_bytes(kh, kw);
-  cudaError_t err = cudaFuncSetAttribute(conv_pipelined_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+  auto kernel = residual == nullptr ? conv_pipelined_f32_kernel<false> : conv_pipelined_f32_kernel<true>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH, batch * a.co_tiles);
-  conv_pipelined_f32_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)w, (const float*)bias, (float*)out, a);
+  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>((const float*)x, (const float*)w, (const float*)bias,
+                                                         (const float*)residual, (float*)out, a);
   return (int)cudaGetLastError();
 }
 

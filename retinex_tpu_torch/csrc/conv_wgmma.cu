@@ -18,6 +18,15 @@
 // (retinex_tpu_torch/ops/conv_pallas.py) sends a bf16 call here when
 // Cin % 8 == 0 and x's base is 16-byte aligned (TMA's stride and address
 // rules); every other bf16 call goes to conv_direct.cu.
+// It also carries K12 (retinex_tpu/ops/fused_blocks.py::_fam_kernel) in
+// bf16 as two launches (retinex_tpu_torch/ops/fused_blocks.py: fam_dual_y,
+// 128 -> 256 with ReLU, y stored in bf16 as the JAX kernel's ys scratch;
+// fam_dual_out, the two half convolutions as one launch with groups = 2).
+// Groups: Cout tile t reads only input channels [g * Cin/groups, (g + 1) *
+// Cin/groups), g = t / (Cout tiles per group), from an HWIO kernel [kh, kw,
+// Cin/groups, Cout]: the halo box's channel coordinate starts at the
+// group's first channel (the tensor map keeps the whole Cin, and a box never
+// straddles two groups: Cin/groups is a multiple of the K chunk).
 //
 // Bound on the card. K13/K15 at [2,544,960,128] 3x3 -> 128: 3.08e11 FLOP,
 // 0.311 ms of the H100's 989 TFLOP/s of dense bf16, against 0.160 ms for
@@ -258,6 +267,8 @@ __device__ __forceinline__ void load_frags(Frags<CK / 16>& f, uint32_t halo, int
 
 struct WgArgs {
   int H, W, cin, cout, cout_pad, kh, kw, dil, pad_t, pad_l, relu, n_chunks, tiles_x, tiles_y, co_tiles, n_tiles;
+  int cin_g;           // input channels a Cout tile reads (Cin / groups)
+  int group_tiles;     // Cout tiles per group
   int box_w, box_h;    // halo box: 16 + (kw-1)*dil by 16 + (kh-1)*dil pixels
   int halo_bytes;      // one box, CK * box_w * box_h * 2
   int halo_stride;     // its shared-memory stage, rounded up to 1024 B
@@ -359,10 +370,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     TileCoord tc(blockIdx.x, a);
     for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x, tc.advance(step, a)) {
       const int x0 = tc.tx * kTW - a.pad_l, y0 = tc.ty * kTH - a.pad_t, co0 = tc.ct * N, b = tc.b;
+      // The group's first input channel; one group skips the division,
+      // which K14's byte-bound producer feels.
+      const int ci0 = a.group_tiles == a.co_tiles ? 0 : (tc.ct / a.group_tiles) * a.cin_g;
       for (int c = 0; c < a.n_chunks; ++c) {
         mbar_wait(h_empty + 8 * hs, hph ^ 1);
         mbar_expect_tx(h_full + 8 * hs, a.halo_bytes);
-        tma_load_4d(halo0 + hs * a.halo_stride, &xmap, h_full + 8 * hs, c * CK, x0, y0, b);
+        tma_load_4d(halo0 + hs * a.halo_stride, &xmap, h_full + 8 * hs, ci0 + c * CK, x0, y0, b);
         if (++hs == a.halo_stages) hs = 0, hph ^= 1;
         if (a.resident) continue;
         for (int t = 0; t < taps; ++t) {
@@ -595,14 +609,19 @@ int launch(const void* x, const void* w, const void* bias, void* out, int batch,
 }
 
 // The arguments of a call, without its plan; false where the kernel does
-// not take it.
+// not take it. groups > 1 takes whole K chunks and whole Cout tiles per
+// group: (cin / groups) % ck == 0, so no halo box straddles two groups, and
+// cout = cout_pad a multiple of groups * n_tile.
 bool make_args(WgArgs& a, int H, int W, int cin, int cout, int cout_pad, int kh, int kw, int dil, int pad_t,
-               int pad_l, int relu, int n_tile, int ck, int batch) {
+               int pad_l, int relu, int n_tile, int ck, int groups, int batch) {
   if (cin % 8 != 0 || kh < 1 || kh > 5 || kw < 1 || kw > 5 || dil < 1 || dil > 2 || (ck != 32 && ck != 64) ||
-      (n_tile != 32 && n_tile != 64 && n_tile != 128) || cout_pad % n_tile != 0)
+      (n_tile != 32 && n_tile != 64 && n_tile != 128) || cout_pad % n_tile != 0 || groups < 1 || cin % groups != 0)
     return false;
-  a = WgArgs{H, W, cin, cout, cout_pad, kh, kw, dil, pad_t, pad_l, relu, (cin + ck - 1) / ck, (W + kTW - 1) / kTW,
-             (H + kTH - 1) / kTH, cout_pad / n_tile, 0, kTW + (kw - 1) * dil, kTH + (kh - 1) * dil, 0, 0, 0, 0, 0};
+  const int cin_g = cin / groups;
+  if (groups > 1 && (cin_g % ck != 0 || cout != cout_pad || cout_pad % (groups * n_tile) != 0)) return false;
+  a = WgArgs{H, W, cin, cout, cout_pad, kh, kw, dil, pad_t, pad_l, relu, (cin_g + ck - 1) / ck, (W + kTW - 1) / kTW,
+             (H + kTH - 1) / kTH, cout_pad / n_tile, 0, cin_g, cout_pad / n_tile / groups, kTW + (kw - 1) * dil,
+             kTH + (kh - 1) * dil, 0, 0, 0, 0, 0};
   a.n_tiles = batch * a.tiles_y * a.tiles_x * a.co_tiles;
   a.halo_bytes = ck * a.box_w * a.box_h * 2;
   a.halo_stride = (a.halo_bytes + 1023) / 1024 * 1024;  // the swizzle atoms stay aligned
@@ -614,17 +633,18 @@ bool make_args(WgArgs& a, int H, int W, int cin, int cout, int cout_pad, int kh,
 extern "C" {
 
 // x [batch, H, W, cin] bf16, cin % 8 == 0, 16-byte aligned; w the packed
-// kernel [kh * kw, n_chunks, cout_pad, ck] bf16 (ck 32 or 64, n_chunks =
-// ceil(cin / ck), zeros past cin and cout); bias f32 [cout_pad]; out
+// kernel [kh * kw, n_chunks, cout_pad, ck] bf16 of an HWIO kernel [kh, kw,
+// cin / groups, cout] (ck 32 or 64, n_chunks = ceil(cin / groups / ck),
+// zeros past its input channels and cout); bias f32 [cout_pad]; out
 // [batch, H, W, cout] bf16. Kernels up to 5x5, dilation 1 or 2, low
 // padding pad_t, pad_l (the box covers the rest). n_tile (32, 64 or 128)
-// divides cout_pad.
+// divides cout_pad; groups as make_args takes them.
 int conv_wgmma_bf16(const void* x, const void* w, const void* bias, void* out, int batch, int H, int W, int cin,
                     int cout, int cout_pad, int kh, int kw, int dil, int pad_t, int pad_l, int relu, int n_tile,
-                    int ck, void* stream) {
+                    int ck, int groups, void* stream) {
   WgArgs a;
   if (reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
-      !make_args(a, H, W, cin, cout, cout_pad, kh, kw, dil, pad_t, pad_l, relu, n_tile, ck, batch))
+      !make_args(a, H, W, cin, cout, cout_pad, kh, kw, dil, pad_t, pad_l, relu, n_tile, ck, groups, batch))
     return (int)cudaErrorInvalidValue;
 #define CONV_WGMMA_CASE(NT, CK_) \
   if (n_tile == NT && ck == CK_) return launch<NT, CK_>(x, w, bias, out, batch, a, stream);
@@ -641,9 +661,9 @@ int conv_wgmma_bf16(const void* x, const void* w, const void* bias, void* out, i
 // The plan of a call: plan_out = {dynamic shared memory in bytes, halo
 // stages, B ring stages (0: the weights are resident)}. Returns 0, or -1
 // where the kernel does not take the call.
-int conv_wgmma_plan(int cin, int cout_pad, int kh, int kw, int dil, int n_tile, int ck, int* plan_out) {
+int conv_wgmma_plan(int cin, int cout_pad, int kh, int kw, int dil, int n_tile, int ck, int groups, int* plan_out) {
   WgArgs a;
-  if (!make_args(a, 16, 16, cin, cout_pad, cout_pad, kh, kw, dil, 0, 0, 0, n_tile, ck, 1)) return -1;
+  if (!make_args(a, 16, 16, cin, cout_pad, cout_pad, kh, kw, dil, 0, 0, 0, n_tile, ck, groups, 1)) return -1;
   int smem = -1;
   if (ck == 32) {
     smem = n_tile == 32 ? plan<32, 32>(a) : n_tile == 64 ? plan<64, 32>(a) : plan<128, 32>(a);

@@ -12,9 +12,6 @@
 //                             (templated: W dense or quadrant-block-diagonal)
 //   fam_tail_apply_kernel     x * ca * sa per quadrant -> [B,H,W,128] (the
 //                             tail where the tower's fusion does not fold)
-//   fam_dual_conv3_kernel     relu(conv3(x, k1) + b1), then a 3x3 conv on
-//                             each 128-channel half -> [B,H,W,256] (K12, a
-//                             standalone op in f32 or bf16)
 //
 // The Python wrappers (retinex_tpu_torch/ops/fused_blocks.py) check device,
 // dtype, shape and contiguity, allocate every output, and pass PyTorch's
@@ -24,7 +21,6 @@
 // products call fmaf explicitly; the file builds with -fmad=false like the
 // other sources, which only keeps the compiler from contracting anything else.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -37,27 +33,6 @@ constexpr int kQ = 32;   // channels per quadrant
 
 __device__ __forceinline__ float4 ldg4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
-}
-
-// acc[0..3] += x . (w0, w1, w2, w3): four input channels into four outputs.
-__device__ __forceinline__ void fma4(float (&acc)[4], const float4 x, const float4 w0,
-                                     const float4 w1, const float4 w2, const float4 w3) {
-  acc[0] = fmaf(x.x, w0.x, acc[0]);
-  acc[1] = fmaf(x.x, w0.y, acc[1]);
-  acc[2] = fmaf(x.x, w0.z, acc[2]);
-  acc[3] = fmaf(x.x, w0.w, acc[3]);
-  acc[0] = fmaf(x.y, w1.x, acc[0]);
-  acc[1] = fmaf(x.y, w1.y, acc[1]);
-  acc[2] = fmaf(x.y, w1.z, acc[2]);
-  acc[3] = fmaf(x.y, w1.w, acc[3]);
-  acc[0] = fmaf(x.z, w2.x, acc[0]);
-  acc[1] = fmaf(x.z, w2.y, acc[1]);
-  acc[2] = fmaf(x.z, w2.z, acc[2]);
-  acc[3] = fmaf(x.z, w2.w, acc[3]);
-  acc[0] = fmaf(x.w, w3.x, acc[0]);
-  acc[1] = fmaf(x.w, w3.y, acc[1]);
-  acc[2] = fmaf(x.w, w3.z, acc[2]);
-  acc[3] = fmaf(x.w, w3.w, acc[3]);
 }
 
 // ---------------------------------------------------------------------------
@@ -493,195 +468,6 @@ __global__ void fam_tail_apply_kernel(const float* __restrict__ x, const float* 
   reinterpret_cast<float4*>(out)[i] = make_float4(v.x * c.x * s, v.y * c.y * s, v.z * c.z * s, v.w * c.w * s);
 }
 
-// ---------------------------------------------------------------------------
-// K12. Replaces retinex_tpu/ops/fused_blocks.py::_fam_kernel (pallas_call in
-// fam_dual_conv3), the FAM's branch 3/4 chains as they were before K4 folded
-// the fusion 1x1 in: for one output tile of kTH x kTW pixels and one half h
-// of the 256 output channels,
-//
-//   out[.., 128h : 128h+128] = conv3(y[.., 128h : 128h+128], k2{a,b}) + b2{a,b},
-//   y = relu(conv3(x, k1) + b1), zero outside the image, rounded to T.
-//
-// T is float or __nv_bfloat16 (x, the kernels and the output; the biases are
-// f32). A bf16 operand is widened exactly to f32, the products accumulate in
-// f32 (fmaf), y and the output are rounded once each with
-// __float2bfloat16_rn, as the JAX kernel keeps y in x.dtype (its ys scratch).
-//
-// Bound on the card: operations — 2 * 9 * 128 * 512 FLOP per pixel against
-// 128 elements in and 256 out; in f32 the CUDA cores' 67 TFLOP/s, in bf16
-// the tensor cores' 989 (which this kernel does not use).
-//
-// Design: one block of 256 threads per (tile, half): out[.., half] depends
-// only on y[.., half], so the block makes just those 128 channels of y, in
-// two chunks of 64 over the 10 x 18 halo-1 tile (each masked to zero outside
-// the image, else relu(b1) would leak into the border pixels), each consumed
-// at once by the matching 64 input rows of k2a (half 0) or k2b (half 1). The
-// x tile (halo 2, f32; pixel stride padded by one float4 so two pixels read
-// in one warp land in different banks) and one y chunk sit in 172,800 B of
-// shared memory. In the output stage warp w owns tile row w (16 pixels) and
-// lane l output channels 4l..4l+3 (64 accumulators in registers), the
-// weight rows read as coalesced warp reads from L1/L2; in the y stage a
-// half-warp covers a chunk's 64 channels and each thread 12 of the 180 halo
-// pixels.
-// ---------------------------------------------------------------------------
-constexpr int kTH = 8, kTW = 16;             // output tile, packed pixels
-constexpr int kXH = kTH + 4, kXW = kTW + 4;  // x tile, halo 2
-constexpr int kYH = kTH + 2, kYW = kTW + 2;  // y tile, halo 1
-constexpr int kXPix4 = kC4 + 1;              // x tile pixel stride in float4
-constexpr int kY = 256;                      // the two halves of y
-constexpr int kChunk = 64;                   // y channels per pass
-constexpr int kChunk4 = kChunk / 4;
-constexpr int kConvThreads = 256;
-constexpr int kYPix = kYH * kYW;                                // 180
-constexpr int kYGroups = kConvThreads / kChunk4;                // 16
-constexpr int kYPerThread = (kYPix + kYGroups - 1) / kYGroups;  // 12
-constexpr int kXsFloat4 = kXH * kXW * kXPix4;
-static_assert(kConvThreads / 32 == kTH, "one warp per output tile row");
-constexpr size_t kDualSmem = (size_t)(kXsFloat4 + kYPix * kChunk4) * sizeof(float4);
-
-__device__ __forceinline__ float4 load4(const float* p) { return ldg4(p); }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-
-__device__ __forceinline__ void store4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
-  uint2 u;
-  u.x = *reinterpret_cast<const uint32_t*>(&lo);
-  u.y = *reinterpret_cast<const uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = u;
-}
-
-// v rounded to the element type and back (the identity for float).
-__device__ __forceinline__ float round_to(float v, float) { return v; }
-__device__ __forceinline__ float round_to(float v, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kConvThreads, 1)
-    fam_dual_conv3_kernel(const T* __restrict__ x, const T* __restrict__ k1,
-                          const float* __restrict__ b1, const T* __restrict__ k2a,
-                          const float* __restrict__ b2a, const T* __restrict__ k2b,
-                          const float* __restrict__ b2b, T* __restrict__ out, int H, int W) {
-  extern __shared__ float4 smem[];
-  float4* xs = smem;               // [kXH * kXW][kXPix4]
-  float4* buf = smem + kXsFloat4;  // one y chunk [kYPix][kChunk4]
-  const int t = threadIdx.x;
-  const int r0 = blockIdx.y * kTH, c0 = blockIdx.x * kTW;
-  const int half = blockIdx.z & 1, b = blockIdx.z >> 1;
-  const T* xb = x + (size_t)b * H * W * kC;
-
-  for (int i = t; i < kXH * kXW * kC4; i += kConvThreads) {
-    const int c4 = i % kC4, pix = i / kC4;
-    const int gy = r0 - 2 + pix / kXW, gx = c0 - 2 + pix % kXW;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W) v = load4(xb + ((size_t)gy * W + gx) * kC + 4 * c4);
-    xs[pix * kXPix4 + c4] = v;
-  }
-
-  // Output mapping: warp pg = tile row, lane cg = 4 channels of the half.
-  const int cg = t & 31, pg = t >> 5;
-  float acc[kTW][4];
-#pragma unroll
-  for (int i = 0; i < kTW; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-
-  // y mapping: 16 pixel groups x 16 channel groups of a chunk. Pixels past
-  // the tile (the last round) read pixel 0 and are never stored.
-  const int cl = t % kChunk4, sg = t / kChunk4;
-  int xoff[kYPerThread];
-#pragma unroll
-  for (int i = 0; i < kYPerThread; ++i) {
-    const int p = sg + kYGroups * i;
-    xoff[i] = p < kYPix ? ((p / kYW) * kXW + p % kYW) * kXPix4 : 0;
-  }
-  const T* k2 = half ? k2b : k2a;
-
-  for (int chunk = 0; chunk < kC / kChunk; ++chunk) {
-    __syncthreads();  // x is staged; the previous chunk's readers are done
-    {
-      const int co = half * kC + chunk * kChunk + 4 * cl;  // channel of y
-      float ya[kYPerThread][4];
-#pragma unroll
-      for (int i = 0; i < kYPerThread; ++i) ya[i][0] = ya[i][1] = ya[i][2] = ya[i][3] = 0.f;
-      for (int u = 0; u < 3; ++u) {
-        for (int v = 0; v < 3; ++v) {
-          const T* wt = k1 + (size_t)(u * 3 + v) * kC * kY + co;
-          const int tap = (u * kXW + v) * kXPix4;
-#pragma unroll 2
-          for (int k = 0; k < kC; k += 4) {
-            const float4 w0 = load4(wt + (size_t)k * kY), w1 = load4(wt + (size_t)(k + 1) * kY);
-            const float4 w2 = load4(wt + (size_t)(k + 2) * kY), w3 = load4(wt + (size_t)(k + 3) * kY);
-#pragma unroll
-            for (int i = 0; i < kYPerThread; ++i) fma4(ya[i], xs[xoff[i] + tap + k / 4], w0, w1, w2, w3);
-          }
-        }
-      }
-      const float4 bias = ldg4(b1 + co);
-      const T e{};
-#pragma unroll
-      for (int i = 0; i < kYPerThread; ++i) {
-        const int p = sg + kYGroups * i;
-        if (p < kYPix) {
-          const int gy = r0 - 1 + p / kYW, gx = c0 - 1 + p % kYW;
-          const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
-          buf[p * kChunk4 + cl] =
-              in ? make_float4(round_to(fmaxf(ya[i][0] + bias.x, 0.f), e), round_to(fmaxf(ya[i][1] + bias.y, 0.f), e),
-                               round_to(fmaxf(ya[i][2] + bias.z, 0.f), e), round_to(fmaxf(ya[i][3] + bias.w, 0.f), e))
-                 : make_float4(0.f, 0.f, 0.f, 0.f);
-        }
-      }
-    }
-    __syncthreads();
-
-    // This chunk's 64 input rows of the half's second conv.
-    const T* kf = k2 + (size_t)chunk * kChunk * kC + 4 * cg;
-    for (int u = 0; u < 3; ++u) {
-      for (int v = 0; v < 3; ++v) {
-        const T* wt = kf + (size_t)(u * 3 + v) * kC * kC;
-        const float4* yrow = buf + ((pg + u) * kYW + v) * kChunk4;
-#pragma unroll 2
-        for (int k = 0; k < kChunk; k += 4) {
-          const float4 w0 = load4(wt + (size_t)k * kC), w1 = load4(wt + (size_t)(k + 1) * kC);
-          const float4 w2 = load4(wt + (size_t)(k + 2) * kC), w3 = load4(wt + (size_t)(k + 3) * kC);
-#pragma unroll
-          for (int i = 0; i < kTW; ++i) fma4(acc[i], yrow[i * kChunk4 + k / 4], w0, w1, w2, w3);
-        }
-      }
-    }
-  }
-
-  const int gy = r0 + pg;
-  if (gy < H) {
-    const float4 bias = ldg4((half ? b2b : b2a) + 4 * cg);
-    T* ob = out + ((size_t)b * H + gy) * W * kY + half * kC + 4 * cg;
-#pragma unroll
-    for (int i = 0; i < kTW; ++i) {
-      if (c0 + i < W) {
-        store4(ob + (size_t)(c0 + i) * kY,
-               make_float4(acc[i][0] + bias.x, acc[i][1] + bias.y, acc[i][2] + bias.z, acc[i][3] + bias.w));
-      }
-    }
-  }
-}
-
-template <typename T>
-int launch_dual(const void* x, const void* k1, const void* b1, const void* k2a, const void* b2a,
-                const void* k2b, const void* b2b, void* out, int batch, int H, int W, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(fam_dual_conv3_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDualSmem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH, 2 * batch);
-  fam_dual_conv3_kernel<T><<<grid, kConvThreads, kDualSmem, (cudaStream_t)stream>>>(
-      (const T*)x, (const T*)k1, (const float*)b1, (const T*)k2a, (const float*)b2a, (const T*)k2b,
-      (const float*)b2b, (T*)out, H, W);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -726,16 +512,6 @@ int fam_tail_apply(const void* x, const void* ca, const void* sa, void* out, lon
   fam_tail_apply_kernel<<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(
       (const float*)x, (const float*)ca, (const float*)sa, (float*)out, hw, n4);
   return (int)cudaGetLastError();
-}
-
-// x [batch, H, W, 128] and out [batch, H, W, 256] in the element type (bf16
-// when is_bf16, else f32), as are k1 [3,3,128,256] and k2a, k2b
-// [3,3,128,128]; the biases are f32.
-int fam_dual_conv3(const void* x, const void* k1, const void* b1, const void* k2a, const void* b2a,
-                   const void* k2b, const void* b2b, void* out, int batch, int H, int W, int is_bf16,
-                   void* stream) {
-  return is_bf16 ? launch_dual<__nv_bfloat16>(x, k1, b1, k2a, b2a, k2b, b2b, out, batch, H, W, stream)
-                 : launch_dual<float>(x, k1, b1, k2a, b2a, k2b, b2b, out, batch, H, W, stream);
 }
 
 }  // extern "C"

@@ -19,9 +19,9 @@ tensor the route always launches the kernels; on a CPU tensor the wrappers
 take their plain versions.
 
 ``NetCfg(dec1_chain=True)`` runs the dec1 UpBlock, the +x1p residual and
-the residual head's 3x3 conv as one kernel, K10, with the BatchNorm
-affines folded into the conv weights; off by default, as in the JAX
-package. The JAX ``NetCfg``'s other fields have no counterpart, because
+the residual head's 3x3 conv as K10 (four launches on the card, its weights
+packed once here), with the BatchNorm affines folded into the conv
+weights; off by default, as in the JAX package. The JAX ``NetCfg``'s other fields have no counterpart, because
 each chose between TPU formulations of one function that the port computes
 one way: ``fam_conv_fused`` and ``fam_tail_fold`` (the port always runs
 K4-K6), ``fam_fused_max_batch`` (the kernels take any batch),
@@ -53,6 +53,7 @@ from retinex_tpu_torch.ops.fused_blocks import (
     TailG1Packed,
     dec1_chain,
     fam_conv_fused,
+    pack_dec1_chain,
     pack_fam_conv,
     pack_tail_g1,
     fam_tail_apply,
@@ -279,6 +280,7 @@ class PackedRetinex:
         self.resout = _Conv.packed(pack_pointwise(_hwio(res_out)), _np(res_out.bias), device)
         if self.cfg.dec1_chain:
             self.dec1_fused = self._fold_dec1(ie.dec1, res_conv, device)
+            self.dec1_packed = pack_dec1_chain(*self.dec1_fused)  # K10's kernel layouts, once
 
         s1conv, s2conv = model.scale1[0], model.scale2[1]
         self.s1conv = _Conv.packed(pack_kernel_s1(_hwio(s1conv)), _np(s1conv.bias), device)
@@ -416,7 +418,7 @@ class PackedRetinex:
         else:
             d2 = _nchw(model.ie_net.middle, x2)
         if self.cfg.dec1_chain:
-            r = dec1_chain(d2.contiguous(), x1p.contiguous(), *self.dec1_fused)
+            r = dec1_chain(d2.contiguous(), x1p.contiguous(), *self.dec1_fused, self.dec1_packed)
         else:
             d1p = self._up(self.dec1, d2) + x1p
             r = torch.relu(self.rescv(d1p))

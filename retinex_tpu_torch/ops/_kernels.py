@@ -61,12 +61,10 @@ _SIGNATURES = {
     "fam_tail_stats": ("fam_fused", (_P, _P, _P, _L, _L, _P)),
     "fam_tail_apply_g1": ("fam_fused", (_P, _P, _P, _P, _P, _L, _L, _I, _I, _P)),
     "fam_tail_apply": ("fam_fused", (_P, _P, _P, _P, _L, _L, _P)),
-    "dec1_chain": ("dec1_chain", (_P,) * 11 + (_I, _I, _I, _P)),
-    "fam_dual_conv3": ("fam_fused", (_P,) * 8 + (_I, _I, _I, _I, _P)),
     "conv_direct": ("conv_direct", (_P,) * 4 + (_I,) * 15 + (_P,)),
-    "conv_wgmma_bf16": ("conv_wgmma", (_P,) * 4 + (_I,) * 14 + (_P,)),
-    "conv_pipelined_f32": ("conv_pipelined", (_P,) * 4 + (_I,) * 9 + (_P,)),
-    "conv_wgmma_plan": ("conv_wgmma", (_I,) * 7 + (_P,)),
+    "conv_wgmma_bf16": ("conv_wgmma", (_P,) * 4 + (_I,) * 15 + (_P,)),
+    "conv_pipelined_f32": ("conv_pipelined", (_P,) * 5 + (_I,) * 10 + (_P,)),
+    "conv_wgmma_plan": ("conv_wgmma", (_I,) * 8 + (_P,)),
     "conv_pipelined_smem": ("conv_pipelined", (_I, _I)),
     "clahe_pallas_hist": ("clahe_fused", (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "clahe_pallas_apply": ("clahe_fused", (_P, _P, _P, _I, _I, _I, _I, _I, _P)),

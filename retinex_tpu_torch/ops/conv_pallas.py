@@ -49,6 +49,14 @@ copied).
 
 Each wrapper takes a CPU tensor to its plain version and a CUDA tensor to
 its kernel; there is no fallback from one to the other.
+
+``launch_pipelined`` and ``launch_wgmma`` are the one launch site of each
+tensor-core-free and tensor-core convolution. Besides the public functions
+above, K12's and K10's stages (``ops/fused_blocks.py``) call them, with
+two options no public function exposes: ``groups`` (Cout tile t reads only
+its group's Cin / groups input channels, an HWIO kernel [kh, kw, Cin /
+groups, Cout]) and, on ``conv_pipelined``, a ``residual`` added after the
+bias and the ReLU.
 """
 
 from __future__ import annotations
@@ -167,25 +175,98 @@ def _padded_bias(bias, cout_pad: int, device) -> torch.Tensor:
     return bk
 
 
-def launch_pipelined(x, wk, bk, cout: int, kh: int, kw: int, relu: bool) -> torch.Tensor:
+def _group_width(name: str, cin: int, cout: int, groups: int, chunk: int, cout_tile: int) -> int:
+    """Cin / groups, where `groups` gives each group whole K chunks of
+    `chunk` input channels and whole Cout tiles of `cout_tile`; else raise."""
+    if groups < 1 or cin % groups or (groups > 1 and ((cin // groups) % chunk or cout % (groups * cout_tile))):
+        raise ValueError(f"{name}: groups {groups} must give each group whole {chunk}-channel K chunks of Cin {cin} "
+                         f"and whole {cout_tile}-channel tiles of Cout {cout}")
+    return cin // groups
+
+
+def _check_packed(name: str, x, tensors) -> None:
+    """Each (tensor, what, shape, dtype) contiguous, of that shape and dtype, on x's device."""
+    for t, what, shape, dtype in tensors:
+        if tuple(t.shape) != shape or t.dtype != dtype or t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous {dtype} {what} {shape} on {x.device}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def launch_pipelined(x, wk, bk, cout: int, kh: int, kw: int, relu: bool, groups: int = 1,
+                     residual: torch.Tensor | None = None) -> torch.Tensor:
     """conv_pipelined on a CUDA f32 x [B,H,W,Cin] (Cin % 4 == 0, 16-byte
-    aligned): wk the kernel as ``pack_pipelined`` packs it, bk an f32 bias
-    [Cout_pad], padding (k//2, k-1-k//2), optional ReLU. Returns [B,H,W,Cout]
-    f32. The one launch site of the kernel; each caller counts its launch."""
-    stream = _kernels.stream(x)
+    aligned): wk the kernel [kh, kw, Cin / groups, Cout] as ``pack_pipelined``
+    packs it, bk an f32 bias [Cout_pad], padding (k//2, k-1-k//2), optional
+    ReLU, then `residual` [B,H,W,Cout] f32 (16-byte aligned) added where given.
+    groups > 1 takes whole 8-channel chunks and whole 128-channel Cout tiles
+    per group. Returns [B,H,W,Cout] f32. The one launch site of the kernel;
+    each caller counts its launch."""
     b, h, w, cin = x.shape
     if x.dtype != torch.float32 or cin % 4 or x.data_ptr() % 16:
         raise ValueError(f"conv_pipelined: expected a 16-byte aligned float32 x, Cin % 4 == 0; got {x.dtype}, Cin {cin}")
+    cin_g = _group_width("conv_pipelined", cin, cout, groups, PIPE_CHUNK, PIPE_COT)
     cout_pad = _round_up(cout, PIPE_COT)
-    shapes = {"kernel": (_round_up(cin, PIPE_CHUNK) // PIPE_CHUNK, kh * kw, PIPE_CHUNK, cout_pad), "bias": (cout_pad,)}
-    for t, what in ((wk, "kernel"), (bk, "bias")):
-        if tuple(t.shape) != shapes[what] or t.dtype != torch.float32 or t.device != x.device or not t.is_contiguous():
-            raise ValueError(f"conv_pipelined: expected a contiguous float32 {what} {shapes[what]} on {x.device}, "
-                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    packed = [(wk, "kernel", (_round_up(cin_g, PIPE_CHUNK) // PIPE_CHUNK, kh * kw, PIPE_CHUNK, cout_pad), torch.float32),
+              (bk, "bias", (cout_pad,), torch.float32)]
+    if residual is not None:
+        packed.append((residual, "residual", (b, h, w, cout), torch.float32))
+    _check_packed("conv_pipelined", x, packed)
+    if residual is not None and residual.data_ptr() % 16:
+        raise ValueError(f"conv_pipelined: the residual must be 16-byte aligned; got a view at {residual.data_ptr():#x}")
+    stream = _kernels.stream(x)
     out = torch.empty((b, h, w, cout), dtype=torch.float32, device=x.device)
     _kernels.launch(
-        "conv_pipelined_f32", x.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(), b, h, w, cin, cout,
-        cout_pad, kh, kw, int(relu), stream,
+        "conv_pipelined_f32", x.data_ptr(), wk.data_ptr(), bk.data_ptr(),
+        None if residual is None else residual.data_ptr(), out.data_ptr(), b, h, w, cin, cout, cout_pad, kh, kw,
+        int(relu), groups, stream,
+    )
+    return out
+
+
+def wgmma_tiles(cin: int, cout: int, groups: int = 1) -> tuple[int, int]:
+    """conv_wgmma's (Cout tile, K chunk) for a call: ``pack_wgmma``'s, the
+    tile of Cout and the chunk of one group's Cin."""
+    return wgmma_n_tile(cout), wgmma_chunk(cin // groups)
+
+
+def wgmma_plan(cin: int, cout: int, kh: int, kw: int, dilation: int = 1, groups: int = 1) -> dict:
+    """The plan conv_wgmma launches for a call (``launch_wgmma``'s tiles):
+    its Cout tile, K chunk, dynamic shared memory, halo stages and B ring
+    depth (0: the weights stay resident). Builds the kernels; raises where
+    the kernel does not take the call."""
+    import ctypes
+
+    n_t, ck = wgmma_tiles(cin, cout, groups)
+    plan = (ctypes.c_int * 3)()
+    args = (cin, _round_up(cout, n_t), kh, kw, dilation, n_t, ck, groups, ctypes.addressof(plan))
+    if _kernels.query("conv_wgmma_plan", *args):
+        raise ValueError(f"conv_wgmma has no plan for Cin {cin}, Cout {cout}, {kh}x{kw}, dilation {dilation}, "
+                         f"groups {groups}")
+    return {"n_tile": n_t, "chunk": ck, "smem": plan[0], "halo_stages": plan[1], "ring": plan[2]}
+
+
+def launch_wgmma(x, wk, bk, cout: int, kh: int, kw: int, dil: int, pad_t: int, pad_l: int, relu: bool,
+                 groups: int = 1) -> torch.Tensor:
+    """conv_wgmma on a CUDA bf16 x [B,H,W,Cin] (Cin % 8 == 0, 16-byte
+    aligned): wk the kernel [kh, kw, Cin / groups, Cout] as ``pack_wgmma``
+    packs it, bk an f32 bias [Cout_pad], dilation `dil`, low padding pad_t,
+    pad_l (the high padding is what the output's size leaves), optional
+    ReLU. groups > 1 takes whole K chunks and whole Cout tiles per group.
+    Returns [B,H,W,Cout] bf16. The one launch site of the kernel; each
+    caller counts its launch."""
+    b, h, w, cin = x.shape
+    if x.dtype != torch.bfloat16 or cin % 8 or x.data_ptr() % 16:
+        raise ValueError(f"conv_wgmma: expected a 16-byte aligned bfloat16 x, Cin % 8 == 0; got {x.dtype}, Cin {cin}")
+    n_t, ck = wgmma_tiles(cin, cout, max(groups, 1))  # _group_width refuses groups < 1
+    cin_g = _group_width("conv_wgmma", cin, cout, groups, ck, n_t)
+    cout_pad = _round_up(cout, n_t)
+    shape = (kh * kw, _round_up(cin_g, ck) // ck, cout_pad, ck)
+    _check_packed("conv_wgmma", x, [(wk, "kernel", shape, torch.bfloat16), (bk, "bias", (cout_pad,), torch.float32)])
+    stream = _kernels.stream(x)
+    out = torch.empty((b, h, w, cout), dtype=torch.bfloat16, device=x.device)
+    _kernels.launch(
+        "conv_wgmma_bf16", x.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(), b, h, w, cin, cout, cout_pad,
+        kh, kw, dil, pad_t, pad_l, int(relu), n_t, ck, groups, stream,
     )
     return out
 
@@ -203,12 +284,8 @@ def _launch(name: str, x, kernel, bias, relu: bool, pad_top: int, pad_left: int,
         out = launch_pipelined(x, wk, _padded_bias(bias, wk.shape[3], x.device), cout, kh, kw, relu)
     elif which == "conv_wgmma":
         wk = pack_wgmma(kernel)
-        bk = _padded_bias(bias, wk.shape[2], x.device)
-        out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
-        _kernels.launch(
-            "conv_wgmma_bf16", x.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(), b, h, w, cin, cout,
-            wk.shape[2], kh, kw, dilation, pad_top, pad_left, int(relu), wgmma_n_tile(cout), wk.shape[3], stream,
-        )
+        out = launch_wgmma(x, wk, _padded_bias(bias, wk.shape[2], x.device), cout, kh, kw, dilation, pad_top,
+                           pad_left, relu)
     else:
         co_tile = 32 if cout <= 32 else 64 if cout <= 64 else 128
         cin_pad = _round_up(cin, CIN_CHUNK)

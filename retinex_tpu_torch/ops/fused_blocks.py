@@ -1,5 +1,5 @@
-"""The packed FAM, the dec1 chain and fam_dual_conv3 on six CUDA kernels,
-with their plain PyTorch versions.
+"""The packed FAM, the dec1 chain and fam_dual_conv3 on CUDA kernels, with
+their plain PyTorch versions.
 
 Counterpart of the six kernels of ``retinex_tpu/ops/fused_blocks.py``:
 five that the packed forward runs (``models/packed_inference.py``) and one
@@ -28,12 +28,22 @@ standalone op. The FAM kernels live in
   chains before K4 folded them; the JAX package took it off its production
   graph and calls it as a standalone op (its tests, ``scripts/perf_lab.py``),
   in f32 or bf16: the kernels are cast to x.dtype, the biases stay f32, y is
-  rounded to x.dtype before the second convs, and the output once more.
+  rounded to x.dtype before the second convs, and the output once more. On
+  the card it is two launches, each with its own wrapper and plain version:
+  ``fam_dual_y`` (y, 128 -> 256, stored at the image's size, so the next
+  convolution's zero padding is the JAX kernel's edge mask) and
+  ``fam_dual_out`` (the two half convolutions as one grouped convolution,
+  groups = 2, on the stacked kernel [k2a | k2b]), both on
+  ``csrc/conv_pipelined.cu`` in f32 and on ``csrc/conv_wgmma.cu`` in bf16,
+  the weights packed on each call;
 
-and ``dec1_chain`` (K10) in ``retinex_tpu_torch/csrc/dec1_chain.cu``: the
-packed dec1 UpBlock (1x1 up-conv, two 3x3 conv-BN-ReLU stages, BN folded),
-the +x1p residual and the residual_conv, in one pass. Only
-``NetCfg(dec1_chain=True)`` runs it.
+and ``dec1_chain`` (K10): the packed dec1 UpBlock (1x1 up-conv, two 3x3
+conv-BN-ReLU stages, BN folded), the +x1p residual and the residual_conv.
+Only ``NetCfg(dec1_chain=True)`` runs it. On the card it is four
+``csrc/conv_pipelined.cu`` launches, each with its own wrapper and plain
+version: ``dec1_up`` (the 1x1, 64 -> 128), ``dec1_c1``, ``dec1_c2`` (its
+epilogue adds x1p after the ReLU) and ``dec1_rc``, reading the weights of
+one ``pack_dec1_chain``, made once per model (``models/packed_inference.py``).
 
 Activations are f32 NHWC (K12: f32 or bf16), kernels HWIO, ``ca_vec``
 [B,128] (the 32-channel attention tiled per quadrant), ``sa`` [B,h,w,4]:
@@ -44,9 +54,11 @@ kernels take any h, w and batch.
 
 Each wrapper takes a CPU tensor to its plain version and a CUDA tensor to
 its kernel; there is no fallback from one to the other. ``LAUNCHES`` counts
-the kernel launches of each public K-wrapper (``fam_conv_fused`` once per
-call), ``KERNEL_LAUNCHES`` those of K4's three stages and of K6's two
-instances, so a run shows which kernels served K4 and K6.
+the calls of each public K-wrapper that launched its kernels
+(``fam_conv_fused``, ``dec1_chain`` and ``fam_dual_conv3`` once per call),
+``KERNEL_LAUNCHES`` the launches of K4's, K10's and K12's stages (K12's by
+the kernel that served each: ``_pipelined`` in f32, ``_wgmma`` in bf16)
+and of K6's two instances, so a run shows which kernels served them.
 """
 
 from __future__ import annotations
@@ -56,7 +68,7 @@ import dataclasses
 import torch
 
 from retinex_tpu_torch.ops import _kernels
-from retinex_tpu_torch.ops.conv_pallas import launch_pipelined, pack_pipelined
+from retinex_tpu_torch.ops.conv_pallas import launch_pipelined, launch_wgmma, pack_pipelined, pack_wgmma
 from retinex_tpu_torch.ops.s2d import conv_nhwc, hwio_to_oihw, maxpool3x3_s1_s2d
 
 C = 128  # packed FAM width: 4 quadrants of 32 channels
@@ -66,10 +78,12 @@ LAUNCHES = {
     "fam_conv_fused": 0, "fam_tail_stats": 0, "fam_tail_apply_g1": 0, "fam_tail_apply": 0, "dec1_chain": 0,
     "fam_dual_conv3": 0,
 }
-# Launches of K4's three stages and of K6's two instances since the last
-# reset_launches().
+# Launches of K4's, K10's and K12's stages and of K6's two instances since
+# the last reset_launches().
 KERNEL_LAUNCHES = {
     "fam_conv_y": 0, "fam_conv_z": 0, "fam_conv_out": 0, "fam_tail_apply_g1_diag": 0, "fam_tail_apply_g1_dense": 0,
+    "dec1_up": 0, "dec1_c1": 0, "dec1_c2": 0, "dec1_rc": 0,
+    "fam_dual_y_pipelined": 0, "fam_dual_y_wgmma": 0, "fam_dual_out_pipelined": 0, "fam_dual_out_wgmma": 0,
 }
 
 
@@ -407,6 +421,48 @@ def fam_tail_apply(x, ca_vec, sa):
 # ---------------------------------------------------------------- K10
 
 D2_C = 64  # dec1's input width (d2, unpacked)
+_K10_SHAPES = {
+    "k_up": (1, 1, D2_C, C), "b_up": (C,), "k_c1": (3, 3, C, C), "b_c1": (C,), "k_c2": (3, 3, C, C), "b_c2": (C,),
+    "k_rc": (3, 3, C, C), "b_rc": (C,),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class Dec1Packed:
+    """K10's weights, made once by ``pack_dec1_chain``: the eight tensors as
+    given (the plain versions read them; the biases, [128] f32 = Cout_pad,
+    are also the kernels' padded biases) and each kernel as
+    ``conv_pallas.pack_pipelined`` packs it."""
+
+    k_up: torch.Tensor
+    b_up: torch.Tensor
+    k_c1: torch.Tensor
+    b_c1: torch.Tensor
+    k_c2: torch.Tensor
+    b_c2: torch.Tensor
+    k_rc: torch.Tensor
+    b_rc: torch.Tensor
+    up_packed: torch.Tensor
+    c1_packed: torch.Tensor
+    c2_packed: torch.Tensor
+    rc_packed: torch.Tensor
+
+    def weights(self) -> tuple:
+        """The weights as given, in ``dec1_chain``'s order."""
+        return self.k_up, self.b_up, self.k_c1, self.b_c1, self.k_c2, self.b_c2, self.k_rc, self.b_rc
+
+
+def _check_k10_weights(weights, device, what: str) -> None:
+    for t, (name, shape) in zip(weights, _K10_SHAPES.items()):
+        _check(t, f"{what} {name}", shape, device)
+
+
+def pack_dec1_chain(k_up, b_up, k_c1, b_c1, k_c2, b_c2, k_rc, b_rc) -> Dec1Packed:
+    """K10's weights in both forms, from one set (once per model in
+    ``models/packed_inference.py``)."""
+    weights = (k_up, b_up, k_c1, b_c1, k_c2, b_c2, k_rc, b_rc)
+    _check_k10_weights(weights, k_up.device, "pack_dec1_chain")
+    return Dec1Packed(*weights, *(pack_pipelined(k) for k in (k_up, k_c1, k_c2, k_rc)))
 
 
 def dec1_chain_plain(d2, x1p, k_up, b_up, k_c1, b_c1, k_c2, b_c2, k_rc, b_rc):
@@ -419,37 +475,111 @@ def dec1_chain_plain(d2, x1p, k_up, b_up, k_c1, b_c1, k_c2, b_c2, k_rc, b_rc):
     return torch.relu(conv_nhwc(y, hwio_to_oihw(k_rc).to(dev), b_rc, (1, 1)))
 
 
-def dec1_chain(d2, x1p, k_up, b_up, k_c1, b_c1, k_c2, b_c2, k_rc, b_rc):
+def dec1_up_plain(d2, k_up, b_up):
+    """Plain version of K10's first stage: y1 = d2 @ k_up + b_up (a 1x1)."""
+    return conv_nhwc(d2, hwio_to_oihw(k_up).to(d2.device), b_up)
+
+
+def dec1_conv_plain(y, k, b, residual=None):
+    """Plain version of K10's 3x3 stages: relu(conv3(y, k) + b), then
+    + residual where given (``dec1_c2``'s x1p)."""
+    out = torch.relu(conv_nhwc(y, hwio_to_oihw(k).to(y.device), b, (1, 1)))
+    return out if residual is None else out + residual
+
+
+def dec1_up(d2, p: Dec1Packed):
+    """K10's first stage, d2 @ k_up + b_up: d2 [B,H,W,64] -> [B,H,W,128]."""
+    _check(d2, "dec1_up d2", (None, None, None, D2_C), p.k_up.device)
+    if d2.device.type == "cpu":
+        return dec1_up_plain(d2, p.k_up, p.b_up)
+    y = launch_pipelined(d2, p.up_packed, p.b_up, C, 1, 1, False)
+    KERNEL_LAUNCHES["dec1_up"] += 1
+    return y
+
+
+def _dec1_conv(name: str, y, k, kp, b, residual=None):
+    """One of K10's 3x3 stages on conv_pipelined (its epilogue adds the
+    residual after the ReLU)."""
+    _check(y, f"{name} y", (None, None, None, C), k.device)
+    if residual is not None:
+        _check(residual, f"{name} x1p", tuple(y.shape), y.device)
+    if y.device.type == "cpu":
+        return dec1_conv_plain(y, k, b, residual)
+    out = launch_pipelined(y, kp, b, C, 3, 3, True, residual=residual)
+    KERNEL_LAUNCHES[name] += 1
+    return out
+
+
+def dec1_c1(y1, p: Dec1Packed):
+    """K10's second stage, relu(conv3(y1, k_c1) + b_c1), [B,H,W,128]."""
+    return _dec1_conv("dec1_c1", y1, p.k_c1, p.c1_packed, p.b_c1)
+
+
+def dec1_c2(y2, x1p, p: Dec1Packed):
+    """K10's third stage, relu(conv3(y2, k_c2) + b_c2) + x1p, [B,H,W,128]."""
+    return _dec1_conv("dec1_c2", y2, p.k_c2, p.c2_packed, p.b_c2, residual=x1p)
+
+
+def dec1_rc(y3, p: Dec1Packed):
+    """K10's last stage (the residual_conv), relu(conv3(y3, k_rc) + b_rc)."""
+    return _dec1_conv("dec1_rc", y3, p.k_rc, p.rc_packed, p.b_rc)
+
+
+def dec1_chain(d2, x1p, k_up, b_up, k_c1, b_c1, k_c2, b_c2, k_rc, b_rc, packed: Dec1Packed | None = None):
     """K10: r = relu(conv3x3(relu(conv3x3(relu(conv3x3(d2 @ k_up + b_up) + b_c1))
     + b_c2) + x1p) + b_rc), the BN affines folded into k_c1/b_c1, k_c2/b_c2.
 
     d2 [B,H,W,64]; x1p [B,H,W,128]; k_up [1,1,64,128]; k_c1, k_c2, k_rc
-    [3,3,128,128] HWIO; biases [128]. Returns r [B,H,W,128]."""
+    [3,3,128,128] HWIO; biases [128]. Returns r [B,H,W,128]. `packed`:
+    ``pack_dec1_chain`` of these very tensors, made once (the packed model's
+    dec1); packed on the call when None. On the card: ``dec1_up``,
+    ``dec1_c1``, ``dec1_c2``, ``dec1_rc``."""
     dev = d2.device
+    weights = (k_up, b_up, k_c1, b_c1, k_c2, b_c2, k_rc, b_rc)
     _check(d2, "dec1_chain d2", (None, None, None, D2_C), dev)
     b, h, w, _ = d2.shape
     _check(x1p, "dec1_chain x1p", (b, h, w, C), dev)
-    for t, what, shape in (
-        (k_up, "k_up", (1, 1, D2_C, C)), (b_up, "b_up", (C,)),
-        (k_c1, "k_c1", (3, 3, C, C)), (b_c1, "b_c1", (C,)),
-        (k_c2, "k_c2", (3, 3, C, C)), (b_c2, "b_c2", (C,)),
-        (k_rc, "k_rc", (3, 3, C, C)), (b_rc, "b_rc", (C,)),
-    ):
-        _check(t, f"dec1_chain {what}", shape, dev)
+    _check_k10_weights(weights, dev, "dec1_chain")
+    if packed is not None and any(u is not v for u, v in zip(packed.weights(), weights)):
+        raise ValueError("dec1_chain: `packed` was not made by pack_dec1_chain from these weights")
     if dev.type == "cpu":
-        return dec1_chain_plain(d2, x1p, k_up, b_up, k_c1, b_c1, k_c2, b_c2, k_rc, b_rc)
-    stream = _kernels.stream(d2)
-    out = torch.empty_like(x1p)
-    _kernels.launch(
-        "dec1_chain", d2.data_ptr(), x1p.data_ptr(), k_up.data_ptr(), b_up.data_ptr(), k_c1.data_ptr(),
-        b_c1.data_ptr(), k_c2.data_ptr(), b_c2.data_ptr(), k_rc.data_ptr(), b_rc.data_ptr(), out.data_ptr(),
-        b, h, w, stream,
-    )
+        return dec1_chain_plain(d2, x1p, *weights)
+    _kernels.stream(d2)  # a tensor off the card raises before any packing
+    p = pack_dec1_chain(*weights) if packed is None else packed
+    # Each intermediate is released once its consumer has been queued.
+    y = dec1_c1(dec1_up(d2, p), p)
+    y = dec1_c2(y, x1p, p)
+    out = dec1_rc(y, p)
     LAUNCHES["dec1_chain"] += 1
     return out
 
 
 # ---------------------------------------------------------------- K12
+
+# K12's weights as fam_dual_conv3 takes them, and the stacked second-stage pair.
+_K12_SHAPES = {"k1": (3, 3, C, 2 * C), "b1": (2 * C,), "k2a": (3, 3, C, C), "b2a": (C,), "k2b": (3, 3, C, C),
+               "b2b": (C,), "k2": (3, 3, C, 2 * C), "b2": (2 * C,)}
+
+
+def _check_dual(t: torch.Tensor, what: str, channels: int) -> None:
+    """f32 or bf16 [B, H, W, channels], contiguous."""
+    if t.dtype not in (torch.float32, torch.bfloat16) or t.ndim != 4 or t.shape[3] != channels:
+        raise ValueError(f"{what}: expected float32 or bfloat16 [B, H, W, {channels}], got {t.dtype} {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: tensor must be contiguous")
+
+
+def _check_dual_weights(weights, names, device, what: str) -> None:
+    for t, name in zip(weights, names):
+        shape = _K12_SHAPES[name]
+        if tuple(t.shape) != shape or not t.is_floating_point() or t.device != device:
+            raise ValueError(f"{what} {name}: expected a float {shape} on {device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def stack_dual_convs(k2a, b2a, k2b, b2b) -> tuple[torch.Tensor, torch.Tensor]:
+    """([k2a | k2b], [b2a | b2b]): the two half convolutions as one grouped
+    convolution (groups = 2), the kernels stacked along the output channels."""
+    return torch.cat([k2a, k2b], dim=3), torch.cat([b2a, b2b])
 
 
 def fam_dual_conv3_plain(x, k1, b1, k2a, b2a, k2b, b2b):
@@ -464,34 +594,88 @@ def fam_dual_conv3_plain(x, k1, b1, k2a, b2a, k2b, b2b):
     return out.to(dt).contiguous()
 
 
+def fam_dual_y_plain(x, k1, b1):
+    """Plain version of K12's first stage: relu(conv3(x, k1) + b1) in f32,
+    the kernel rounded to x.dtype, y rounded to x.dtype once."""
+    dt = x.dtype
+    return torch.relu(conv_nhwc(x.float(), hwio_to_oihw(k1.to(dt)), b1.float(), (1, 1))).to(dt)
+
+
+def fam_dual_out_plain(y, k2, b2):
+    """Plain version of K12's second stage: conv3(y, k2) + b2 with groups =
+    y's channels / k2's input channels (each group's share of Cout from its
+    own input channels), in f32, rounded to y.dtype."""
+    dt = y.dtype
+    ci, groups = k2.shape[2], y.shape[3] // k2.shape[2]
+    co = k2.shape[3] // groups
+    yf = y.float()
+    out = torch.cat(
+        [
+            conv_nhwc(yf[..., g * ci : (g + 1) * ci], hwio_to_oihw(k2[..., g * co : (g + 1) * co].to(dt)),
+                      b2[g * co : (g + 1) * co].float(), (1, 1))
+            for g in range(groups)
+        ],
+        dim=-1,
+    )
+    return out.to(dt).contiguous()
+
+
+def _dual_stage(name: str, x, k, b, relu: bool, groups: int):
+    """One of K12's stages on the card, a 3x3 convolution to 256 channels
+    with the weights packed on the call: f32 on conv_pipelined, bf16 on
+    conv_wgmma, counted as ``{name}_pipelined`` or ``{name}_wgmma``."""
+    bias = b.float().contiguous()
+    if x.dtype == torch.float32:
+        out = launch_pipelined(x, pack_pipelined(k), bias, 2 * C, 3, 3, relu, groups=groups)
+        KERNEL_LAUNCHES[f"{name}_pipelined"] += 1
+    else:
+        out = launch_wgmma(x, pack_wgmma(k), bias, 2 * C, 3, 3, 1, 1, 1, relu, groups=groups)
+        KERNEL_LAUNCHES[f"{name}_wgmma"] += 1
+    return out
+
+
+def fam_dual_y(x, k1, b1):
+    """K12's first stage, relu(conv3(x, k1) + b1) rounded to x.dtype: x
+    [B,H,W,128] f32 or bf16 (16-byte aligned on the card), k1 [3,3,128,256],
+    b1 [256] -> [B,H,W,256]. On the card f32 runs on conv_pipelined, bf16 on
+    conv_wgmma; the weights are packed on the call."""
+    _check_dual(x, "fam_dual_y x", C)
+    _check_dual_weights((k1, b1), ("k1", "b1"), x.device, "fam_dual_y")
+    if x.device.type == "cpu":
+        return fam_dual_y_plain(x, k1, b1)
+    return _dual_stage("fam_dual_y", x, k1, b1, relu=True, groups=1)
+
+
+def fam_dual_out(y, k2, b2):
+    """K12's second stage, the two half convolutions as one grouped
+    convolution: conv3(y[..., :128], k2[..., :128]) | conv3(y[..., 128:],
+    k2[..., 128:]) + b2, rounded to y.dtype. y [B,H,W,256] f32 or bf16
+    (16-byte aligned on the card), k2 = [k2a | k2b] [3,3,128,256], b2 [256]
+    (``stack_dual_convs``) -> [B,H,W,256]. On the card f32 runs on
+    conv_pipelined, bf16 on conv_wgmma, groups = 2; the weights are packed
+    on the call."""
+    _check_dual(y, "fam_dual_out y", 2 * C)
+    _check_dual_weights((k2, b2), ("k2", "b2"), y.device, "fam_dual_out")
+    if y.device.type == "cpu":
+        return fam_dual_out_plain(y, k2, b2)
+    return _dual_stage("fam_dual_out", y, k2, b2, relu=False, groups=2)
+
+
 def fam_dual_conv3(x, k1, b1, k2a, b2a, k2b, b2b):
     """K12: out = conv3x3(y[..., :128], k2a) + b2a | conv3x3(y[..., 128:], k2b)
     + b2b, y = relu(conv3x3(x, k1) + b1), each 3x3 with 'SAME' zero padding.
 
     x [B,H,W,128] f32 or bf16; k1 [3,3,128,256], k2a, k2b [3,3,128,128]
     (cast to x.dtype); b1 [256], b2a, b2b [128] (f32). Returns [B,H,W,256]
-    in x.dtype."""
-    dev = x.device
-    if x.dtype not in (torch.float32, torch.bfloat16) or x.ndim != 4 or x.shape[3] != C:
-        raise ValueError(f"fam_dual_conv3 x: expected float32 or bfloat16 [B, H, W, {C}], got {x.dtype} {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError("fam_dual_conv3 x: tensor must be contiguous")
-    for t, what, shape in (
-        (k1, "k1", (3, 3, C, 2 * C)), (b1, "b1", (2 * C,)), (k2a, "k2a", (3, 3, C, C)), (b2a, "b2a", (C,)),
-        (k2b, "k2b", (3, 3, C, C)), (b2b, "b2b", (C,)),
-    ):
-        if tuple(t.shape) != shape or not t.is_floating_point() or t.device != dev:
-            raise ValueError(f"fam_dual_conv3 {what}: expected a float {shape} on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if dev.type == "cpu":
-        return fam_dual_conv3_plain(x, k1, b1, k2a, b2a, k2b, b2b)
-    stream = _kernels.stream(x)
-    b, h, w, _ = x.shape
-    ks = [k.to(x.dtype).contiguous() for k in (k1, k2a, k2b)]
-    bs = [t.float().contiguous() for t in (b1, b2a, b2b)]
-    out = torch.empty((b, h, w, 2 * C), dtype=x.dtype, device=dev)
-    _kernels.launch(
-        "fam_dual_conv3", x.data_ptr(), ks[0].data_ptr(), bs[0].data_ptr(), ks[1].data_ptr(), bs[1].data_ptr(),
-        ks[2].data_ptr(), bs[2].data_ptr(), out.data_ptr(), b, h, w, int(x.dtype == torch.bfloat16), stream,
-    )
+    in x.dtype. On the card: ``fam_dual_y``, then ``fam_dual_out``; x's
+    base must be 16-byte aligned there."""
+    weights = (k1, b1, k2a, b2a, k2b, b2b)
+    _check_dual(x, "fam_dual_conv3 x", C)
+    _check_dual_weights(weights, ("k1", "b1", "k2a", "b2a", "k2b", "b2b"), x.device, "fam_dual_conv3")
+    if x.device.type == "cpu":
+        return fam_dual_conv3_plain(x, *weights)
+    _kernels.stream(x)  # a tensor off the card raises before any packing
+    # y is released once fam_dual_out has been queued.
+    out = fam_dual_out(fam_dual_y(x, k1, b1), *stack_dual_convs(k2a, b2a, k2b, b2b))
     LAUNCHES["fam_dual_conv3"] += 1
     return out

@@ -195,3 +195,76 @@ def test_weight_packers_round_trip_to_hwio(kh, kw, cin, cout):
 def test_route_sends_each_call_to_its_documented_kernel(name, dtype, cin, offset, want):
     assert tcp.route(name, dtype, cin, 1 << 20 | offset) == want
     assert want in tcp.KERNEL_LAUNCHES
+
+
+# ---------------------------------------------------------------- launch sites: groups and residual
+
+
+def _pipelined_call(cin, cout, groups, residual_shape=None, residual_dtype=torch.float32):
+    x = torch.zeros(1, 5, 7, cin)
+    wk = tcp.pack_pipelined(torch.zeros(3, 3, cin // max(groups, 1), cout))
+    bk = torch.zeros(wk.shape[3])
+    res = None if residual_shape is None else torch.zeros(residual_shape, dtype=residual_dtype)
+    return lambda: tcp.launch_pipelined(x, wk, bk, cout, 3, 3, True, groups=groups, residual=res)
+
+
+def _wgmma_call(cin, cout, groups):
+    x = torch.zeros(1, 5, 7, cin, dtype=torch.bfloat16)
+    wk = tcp.pack_wgmma(torch.zeros(3, 3, cin // max(groups, 1), cout))
+    bk = torch.zeros(wk.shape[2])
+    return lambda: tcp.launch_wgmma(x, wk, bk, cout, 3, 3, 1, 1, 1, False, groups=groups)
+
+
+@pytest.mark.parametrize(
+    "call,match",
+    [
+        (_pipelined_call(256, 256, 3), "groups 3"),  # Cin 256 does not split in 3
+        (_pipelined_call(24, 256, 2), "groups 2"),  # 12 channels a group: no whole 8-channel chunks
+        (_pipelined_call(256, 128, 2), "groups 2"),  # 64 outputs a group: no whole 128-channel Cout tile
+        (_pipelined_call(256, 256, 0), "groups 0"),
+        (_pipelined_call(128, 128, 1, (1, 5, 6, 128)), "residual"),  # the wrong shape
+        (_pipelined_call(128, 128, 1, (1, 5, 7, 128), torch.bfloat16), "residual"),  # the wrong dtype
+        (_wgmma_call(96, 256, 2), "groups 2"),  # 48 channels a group: no whole 64-channel K chunk
+        (_wgmma_call(256, 256, 4), "groups 4"),  # 64 outputs a group: no whole 128-channel Cout tile
+        (_wgmma_call(256, 256, 3), "groups 3"),
+        # Calls the kernels take: the checks pass, and a CPU tensor reaches the
+        # stream lookup, which takes CUDA tensors only.
+        (_pipelined_call(256, 256, 2), "CUDA"),
+        (_pipelined_call(128, 128, 1, (1, 5, 7, 128)), "CUDA"),
+        (_pipelined_call(64, 128, 1), "CUDA"),
+        (_wgmma_call(256, 256, 2), "CUDA"),
+        (_wgmma_call(64, 256, 2), "CUDA"),  # 32 channels a group: the 32-channel K chunk
+    ],
+)
+def test_launch_sites_check_groups_and_residual(call, match):
+    """launch_pipelined and launch_wgmma refuse a `groups` that does not give
+    each group whole K chunks and whole Cout tiles, and a residual of the
+    wrong shape or dtype, before anything reaches a kernel."""
+    tcp.reset_launches()
+    with pytest.raises(ValueError, match=match):
+        call()
+    assert tcp.KERNEL_LAUNCHES == {"conv_direct": 0, "conv_wgmma": 0, "conv_pipelined": 0}
+
+
+@pytest.mark.parametrize("cin,cout,groups", [(256, 256, 2), (64, 256, 2), (512, 512, 4), (128, 128, 1)])
+def test_grouped_kernels_pack_per_group(cin, cout, groups):
+    """A grouped HWIO kernel [kh, kw, Cin / groups, Cout] packs as a dense
+    one of Cin / groups input channels: each Cout tile (conv_wgmma's
+    wgmma_tiles, conv_pipelined's 128) holds only its own group's weights,
+    and the K chunk is chosen by the group's width."""
+    rng = np.random.default_rng(cin + groups)
+    k = torch.from_numpy(rng.standard_normal((3, 3, cin // groups, cout)).astype(np.float32))
+    n_t, ck = tcp.wgmma_tiles(cin, cout, groups)
+    assert (n_t, ck) == (tcp.wgmma_n_tile(cout), tcp.wgmma_chunk(cin // groups))
+    assert (cout // groups) % n_t == 0 and (cin // groups) % ck == 0
+    wg = tcp.pack_wgmma(k)
+    assert tuple(wg.shape) == (9, cin // groups // ck, cout, ck)
+    pp = tcp.pack_pipelined(k)
+    assert tuple(pp.shape) == (cin // groups // 8, 9, 8, cout)
+    for g in range(groups):
+        co = slice(g * cout // groups, (g + 1) * cout // groups)
+        want = k[..., co]
+        got_wg = wg[:, :, co].transpose(2, 3).reshape(3, 3, cin // groups, cout // groups)
+        assert torch.equal(got_wg, want.to(torch.bfloat16))
+        got_pp = pp[..., co].transpose(0, 1).reshape(3, 3, cin // groups, cout // groups)
+        assert torch.equal(got_pp, want)

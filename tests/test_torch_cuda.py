@@ -169,6 +169,8 @@ def test_fam_conv_stages_match_plain_versions(cuda_f32, shape):
     torch.cuda.synchronize()
     assert fb.KERNEL_LAUNCHES == {
         "fam_conv_y": 2, "fam_conv_z": 2, "fam_conv_out": 2, "fam_tail_apply_g1_diag": 0, "fam_tail_apply_g1_dense": 0,
+        "dec1_up": 0, "dec1_c1": 0, "dec1_c2": 0, "dec1_rc": 0,
+        "fam_dual_y_pipelined": 0, "fam_dual_y_wgmma": 0, "fam_dual_out_pipelined": 0, "fam_dual_out_wgmma": 0,
     }
     assert fb.LAUNCHES["fam_conv_fused"] == 1
     for got, want in zip(stages, (y, z, fb.fam_conv_out_plain(z, x, ka, kb))):
@@ -185,8 +187,11 @@ def test_fam_conv_stages_match_plain_versions(cuda_f32, shape):
 def test_dec1_chain_matches_plain_version(cuda_f32, shape):
     """K10 against its plain version within tests/test_fused_blocks.py:66's
     1e-4, inputs scaled as there: a ragged shape (the 'SAME' padding of
-    every stage at the border, batch 2) and a wider one; each image of the
-    batch equals the kernel on it alone."""
+    every stage at the border, batch 2) and a wider one; each of its four
+    conv_pipelined stages against its plain version on the plain previous
+    stage's output, within the same 1e-4; packed once (pack_dec1_chain) or
+    on the call, the same bits; each image of the batch equals the kernels
+    on it alone."""
     g = cuda_f32
     b, h, w = shape
 
@@ -197,11 +202,21 @@ def test_dec1_chain_matches_plain_version(cuda_f32, shape):
     weights = [n(1, 1, 64, 128, scale=0.1), n(128, scale=0.1)]
     for _ in range(3):
         weights += [n(3, 3, 128, 128, scale=0.05), n(128, scale=0.1)]
+    k_up, b_up, k_c1, b_c1, k_c2, b_c2, k_rc, b_rc = weights
+    p = fb.pack_dec1_chain(*weights)
+    y1 = fb.dec1_up_plain(d2, k_up, b_up)
+    y2 = fb.dec1_conv_plain(y1, k_c1, b_c1)
+    y3 = fb.dec1_conv_plain(y2, k_c2, b_c2, x1p)
     fb.reset_launches()
-    got = fb.dec1_chain(d2, x1p, *weights)
+    stages = [fb.dec1_up(d2, p), fb.dec1_c1(y1, p), fb.dec1_c2(y2, x1p, p), fb.dec1_rc(y3, p)]
+    got = fb.dec1_chain(d2, x1p, *weights, packed=p)
     torch.cuda.synchronize()
     assert fb.LAUNCHES["dec1_chain"] == 1
+    assert {k: v for k, v in fb.KERNEL_LAUNCHES.items() if v} == {"dec1_up": 2, "dec1_c1": 2, "dec1_c2": 2, "dec1_rc": 2}
+    for out, want in zip(stages, (y1, y2, y3, fb.dec1_conv_plain(y3, k_rc, b_rc))):
+        assert out.shape == want.shape and float((out - want).abs().max()) <= 1e-4
     assert float((got - fb.dec1_chain_plain(d2, x1p, *weights)).abs().max()) <= 1e-4
+    assert torch.equal(fb.dec1_chain(d2, x1p, *weights), got)
     for j in range(b):
         assert torch.equal(fb.dec1_chain(d2[j : j + 1].contiguous(), x1p[j : j + 1].contiguous(), *weights), got[j : j + 1])
 
@@ -307,7 +322,7 @@ def test_conv_wgmma_has_a_plan_for_every_routed_call(cuda_f32):
         for cin in (8, 24, 32, 40, 64, 136, 512):
             for cout in (8, 32, 40, 64, 96, 128, 200, 384):
                 n_t = cp.wgmma_n_tile(cout)
-                args = (cin, -(-cout // n_t) * n_t, kh, kw, dil, n_t, cp.wgmma_chunk(cin), ctypes.addressof(plan))
+                args = (cin, -(-cout // n_t) * n_t, kh, kw, dil, n_t, cp.wgmma_chunk(cin), 1, ctypes.addressof(plan))
                 assert _kernels.query("conv_wgmma_plan", *args) == 0, (kh, kw, dil, cin, cout)
                 assert plan[0] <= 232448 and plan[1] >= 2 and plan[2] in (0, 2, 3, 4)
 
@@ -344,7 +359,10 @@ def test_conv_misaligned_view_goes_to_conv_direct(cuda_f32, dtype):
 @pytest.mark.parametrize("shape", [(1, 16, 48, 128), (2, 37, 53, 128)])
 def test_fam_dual_conv3_matches_plain_version(cuda_f32, shape, dtype):
     """K12 against its plain version (1e-4 in f32 as tests/test_fused_blocks.py:47,
-    one ulp in bf16), inputs scaled as there; each image equals K12 on it alone."""
+    one ulp in bf16), inputs scaled as there, and each of its two stages
+    against its plain version (the second on the plain y): f32 on
+    conv_pipelined, bf16 on conv_wgmma, one launch of each stage per call;
+    each image equals K12 on it alone; a misaligned x is refused."""
     g = cuda_f32
 
     def n(*s, scale=1.0):
@@ -352,13 +370,110 @@ def test_fam_dual_conv3_matches_plain_version(cuda_f32, shape, dtype):
 
     x = n(*shape, scale=0.3).to(dtype)
     w = [n(3, 3, 128, 256, scale=0.05), n(256), n(3, 3, 128, 128, scale=0.05), n(128), n(3, 3, 128, 128, scale=0.05), n(128)]
+    k2, b2 = fb.stack_dual_convs(*w[2:])
+    y = fb.fam_dual_y_plain(x, w[0], w[1])
     fb.reset_launches()
     got = fb.fam_dual_conv3(x, *w)
+    stages = [fb.fam_dual_y(x, w[0], w[1]), fb.fam_dual_out(y, k2, b2)]
     torch.cuda.synchronize()
     assert fb.LAUNCHES["fam_dual_conv3"] == 1
+    kernel = "pipelined" if dtype == torch.float32 else "wgmma"
+    assert {k: v for k, v in fb.KERNEL_LAUNCHES.items() if v} == {f"fam_dual_y_{kernel}": 2, f"fam_dual_out_{kernel}": 2}
     _close(got, fb.fam_dual_conv3_plain(x, *w), dtype)
+    _close(stages[0], y, dtype)
+    _close(stages[1], fb.fam_dual_out_plain(y, k2, b2), dtype)
     for j in range(shape[0]):
         assert torch.equal(fb.fam_dual_conv3(x[j : j + 1].contiguous(), *w), got[j : j + 1])
+    flat = torch.zeros(1 + x.numel(), dtype=dtype, device="cuda")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fb.fam_dual_conv3(flat[1:].view(x.shape), *w)
+
+
+def _grouped_plain(x, k, b, groups, relu, residual=None):
+    """F.conv2d(groups=...) in f32 on x and the kernel rounded to x.dtype,
+    + b, optional ReLU, + residual, one rounding to x.dtype."""
+    xc = x.float().permute(0, 3, 1, 2)
+    out = torch.nn.functional.conv2d(xc, k.to(x.dtype).float().permute(3, 2, 0, 1), b, padding=k.shape[0] // 2,
+                                     groups=groups).permute(0, 2, 3, 1)
+    out = torch.relu(out) if relu else out
+    return (out if residual is None else out + residual).to(x.dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 37, 53, 256), (1, 136, 240, 256)])
+def test_grouped_convolutions_match_grouped_conv2d(cuda_f32, shape):
+    """conv_pipelined (f32) and conv_wgmma (bf16) with groups = 2 on Cin 256
+    (K12's second stage: 128 input channels a group, Cout 256, one 128-wide
+    Cout tile a group) against F.conv2d(groups=2), with and without ReLU, at
+    a ragged shape and a wider one: f32 within 1e-4, bf16 one ulp; each
+    image of the batch equals the kernel on it alone."""
+    from retinex_tpu_torch.ops import conv_pallas as cp
+
+    g = cuda_f32
+    x32 = torch.randn(shape, generator=g, device="cuda")
+    k = torch.randn((3, 3, 128, 256), generator=g, device="cuda") * 0.05
+    b = torch.randn(256, generator=g, device="cuda")
+    for relu in (False, True):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32.to(dtype)
+            if dtype == torch.float32:
+                def run(v):
+                    return cp.launch_pipelined(v, cp.pack_pipelined(k), b, 256, 3, 3, relu, groups=2)
+            else:
+                def run(v):
+                    return cp.launch_wgmma(v, cp.pack_wgmma(k), b, 256, 3, 3, 1, 1, 1, relu, groups=2)
+            got = run(x)
+            torch.cuda.synchronize()
+            _close(got, _grouped_plain(x, k, b, 2, relu), dtype)
+            for j in range(shape[0]):
+                assert torch.equal(run(x[j : j + 1].contiguous()), got[j : j + 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 37, 53, 256), (1, 136, 240, 256)])
+def test_residual_epilogue_matches_plain_version(cuda_f32, shape):
+    """conv_pipelined's residual epilogue, relu(conv + b) + residual: at Cout
+    128 (K10's dec1_c2) and 256, dense and with groups = 2, against the plain
+    composition within 1e-4, and bit for bit the same launch without the
+    residual plus the residual (the epilogue adds it after the ReLU, once)."""
+    from retinex_tpu_torch.ops import conv_pallas as cp
+
+    g = cuda_f32
+    x = torch.randn(shape, generator=g, device="cuda")
+    for cout, groups in ((128, 1), (256, 1), (256, 2)):
+        k = torch.randn((3, 3, shape[3] // groups, cout), generator=g, device="cuda") * 0.05
+        b = torch.randn(cout, generator=g, device="cuda")
+        res = torch.randn((*shape[:3], cout), generator=g, device="cuda").abs()
+        wk = cp.pack_pipelined(k)
+        got = cp.launch_pipelined(x, wk, b, cout, 3, 3, True, groups=groups, residual=res)
+        bare = cp.launch_pipelined(x, wk, b, cout, 3, 3, True, groups=groups)
+        torch.cuda.synchronize()
+        _close(got, _grouped_plain(x, k, b, groups, True, res), torch.float32)
+        assert torch.equal(got, bare + res)
+
+
+@pytest.mark.cuda
+def test_conv_wgmma_plans_k12s_grouped_calls(cuda_f32):
+    """conv_wgmma_plan answers for each call K12's bf16 wrappers make
+    (fam_dual_y: 128 -> 256; fam_dual_out: 256 -> 256, groups 2) with the
+    tiles launch_wgmma passes: a ring of B stages beside the halo stages,
+    within the card's shared memory; it refuses what make_args refuses (a
+    group of 48 channels, 4 groups of 64 outputs), so it answers for the
+    arguments the kernel launches with."""
+    import ctypes
+
+    from retinex_tpu_torch.ops import _kernels
+    from retinex_tpu_torch.ops import conv_pallas as cp
+
+    for cin, groups in ((128, 1), (256, 2)):
+        plan = cp.wgmma_plan(cin, 256, 3, 3, 1, groups)
+        assert (plan["n_tile"], plan["chunk"]) == cp.wgmma_tiles(cin, 256, groups) == (128, 64)
+        assert plan["smem"] <= 232448 and plan["halo_stages"] >= 2 and plan["ring"] in (2, 3, 4)
+    out = (ctypes.c_int * 3)()
+    for cin, cout, groups, ck in ((96, 256, 2, 64), (256, 256, 4, 64), (256, 256, 3, 64)):
+        assert _kernels.query("conv_wgmma_plan", cin, cout, 3, 3, 1, 128, ck, groups, ctypes.addressof(out)) == -1
+        with pytest.raises(ValueError, match="groups"):
+            cp.wgmma_plan(cin, cout, 3, 3, 1, groups)
 
 
 @pytest.mark.cuda

@@ -146,3 +146,103 @@ def test_wrapper_takes_the_plain_version_on_the_cpu_and_checks_inputs():
     with pytest.raises(ValueError, match="CUDA"):
         tfb.dec1_chain(*(a.to("meta") for a in args))
     assert tfb.LAUNCHES["dec1_chain"] == 0
+
+
+# ---------------------------------------------------------------- K10's four stages
+
+
+def _unpack_pipelined(packed, kh, kw, cin, cout):
+    """conv_pipelined's [chunk, tap, 8, Cout_pad] back to HWIO [kh, kw, Cin, Cout]."""
+    return packed.transpose(0, 1).reshape(kh, kw, packed.shape[0] * 8, packed.shape[3])[:, :, :cin, :cout]
+
+
+def test_dec1_stages_compose_to_the_plain_version():
+    """K10 as its four kernels compute it (the 1x1, two 3x3 stages, the
+    third with x1p added after its ReLU, the residual_conv): each stage's
+    wrapper takes its plain version on the CPU (no launch), the stages
+    chained equal dec1_chain_plain bit for bit, and they hold to the JAX
+    dec1_chain in interpret mode within K10's 1e-4."""
+    args = _chain_inputs(np.random.default_rng(5), 1, 16, 128)
+    want = jfb.dec1_chain(*(jnp.asarray(a) for a in args), interpret=True)
+    d2, x1p, *weights = (_t(a) for a in args)
+    p = tfb.pack_dec1_chain(*weights)
+    tfb.reset_launches()
+    y1 = tfb.dec1_up(d2, p)
+    y2 = tfb.dec1_c1(y1, p)
+    y3 = tfb.dec1_c2(y2, x1p, p)
+    out = tfb.dec1_rc(y3, p)
+    assert y1.shape == y2.shape == y3.shape == out.shape == (1, 16, 128, 128)
+    torch.testing.assert_close(y3, tfb.dec1_conv_plain(y2, weights[4], weights[5]) + x1p, rtol=0, atol=0)
+    k_up, b_up, k_c1, b_c1, k_c2, b_c2, k_rc, b_rc = weights
+    staged = tfb.dec1_conv_plain(tfb.dec1_up_plain(d2, k_up, b_up), k_c1, b_c1)
+    staged = tfb.dec1_conv_plain(tfb.dec1_conv_plain(staged, k_c2, b_c2, x1p), k_rc, b_rc)
+    torch.testing.assert_close(out, staged, rtol=0, atol=0)
+    torch.testing.assert_close(out, tfb.dec1_chain_plain(d2, x1p, *weights), rtol=0, atol=0)
+    torch.testing.assert_close(tfb.dec1_chain(d2, x1p, *weights, packed=p), out, rtol=0, atol=0)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=1e-4)
+    assert not any(tfb.KERNEL_LAUNCHES.values())
+    assert tfb.LAUNCHES["dec1_chain"] == 0
+
+
+def test_pack_dec1_chain_keeps_the_weights_and_their_kernel_layouts():
+    """pack_dec1_chain keeps the eight tensors as given and packs each
+    kernel as conv_pipelined reads it (the 1x1 [8, 1, 8, 128], the 3x3s
+    [16, 9, 8, 128]); the packed layouts unpack to the HWIO kernels."""
+    weights = [_t(a) for a in _chain_inputs(np.random.default_rng(6), 1, 2, 2)[2:]]
+    p = tfb.pack_dec1_chain(*weights)
+    assert all(a is b for a, b in zip(p.weights(), weights))
+    packed = (p.up_packed, p.c1_packed, p.c2_packed, p.rc_packed)
+    assert [tuple(t.shape) for t in packed] == [(8, 1, 8, 128)] + [(16, 9, 8, 128)] * 3
+    assert all(t.is_contiguous() and t.dtype == torch.float32 for t in packed)
+    assert torch.equal(_unpack_pipelined(p.up_packed, 1, 1, 64, 128), weights[0])
+    for t, k in zip(packed[1:], weights[2::2]):
+        assert torch.equal(_unpack_pipelined(t, 3, 3, 128, 128), k)
+    with pytest.raises(ValueError, match="k_c2"):
+        tfb.pack_dec1_chain(*weights[:4], torch.zeros(3, 3, 128, 64), *weights[5:])
+
+
+@pytest.mark.parametrize("dec1", [False, True])
+def test_packed_forward_packs_k10_once_per_model(rng, monkeypatch, dec1):
+    """PackedRetinex packs K10's weights once, in __init__, from the very
+    tensors it hands K10, and never during a forward; without the cfg never."""
+    made = []
+
+    def counted(*weights):
+        made.append(tfb.pack_dec1_chain(*weights))
+        return made[-1]
+
+    monkeypatch.setattr(tpi, "pack_dec1_chain", counted)
+    port = MultiScaleUPRetinex(False, False).eval()
+    packed = tpi.PackedRetinex(port, tpi.NetCfg(dec1_chain=dec1))
+    assert len(made) == int(dec1)
+    with torch.inference_mode():
+        for _ in range(2):
+            packed(torch.from_numpy(rng.random((1, 32, 48, 3), dtype=np.float32)))
+    assert len(made) == int(dec1)
+    if dec1:
+        assert packed.dec1_packed is made[0]
+        assert all(a is b for a, b in zip(made[0].weights(), packed.dec1_fused))
+
+
+def test_dec1_chain_refuses_a_foreign_packed():
+    """A Dec1Packed made from other tensors than dec1_chain's arguments is
+    refused, even where it holds equal values; one made from them is taken."""
+    d2, x1p, *weights = (_t(a) for a in _chain_inputs(np.random.default_rng(7), 1, 4, 6))
+    other = tfb.pack_dec1_chain(*(w.clone() for w in weights))
+    with pytest.raises(ValueError, match="packed"):
+        tfb.dec1_chain(d2, x1p, *weights, packed=other)
+    mine = tfb.pack_dec1_chain(*weights)
+    torch.testing.assert_close(tfb.dec1_chain(d2, x1p, *weights, packed=mine), tfb.dec1_chain_plain(d2, x1p, *weights),
+                               rtol=0, atol=0)
+    # Off the CPU the stages go to their kernels, which take CUDA tensors only.
+    pm = tfb.pack_dec1_chain(*(w.to("meta") for w in weights))
+    tfb.reset_launches()
+    for call in (lambda: tfb.dec1_up(d2.to("meta"), pm), lambda: tfb.dec1_c1(x1p.to("meta"), pm),
+                 lambda: tfb.dec1_c2(x1p.to("meta"), x1p.to("meta"), pm), lambda: tfb.dec1_rc(x1p.to("meta"), pm),
+                 lambda: tfb.dec1_chain(d2.to("meta"), x1p.to("meta"), *pm.weights(), packed=pm)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    with pytest.raises(ValueError, match="x1p"):
+        tfb.dec1_c2(x1p, x1p[:, :2].contiguous(), mine)
+    assert not any(tfb.KERNEL_LAUNCHES.values())
+    assert tfb.LAUNCHES["dec1_chain"] == 0

@@ -340,7 +340,80 @@ def test_fam_conv_stage_wrappers_raise_on_what_the_kernels_do_not_take():
     assert tfb.LAUNCHES["fam_conv_fused"] == 0
 
 
+# ---------------------------------------------------------------- K12's stages
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fam_dual_stages_compose_to_the_plain_version(dtype):
+    """K12 as its two kernels compute it (y = relu(conv3(x, k1) + b1) rounded
+    to x.dtype, then the two half convolutions as one grouped convolution on
+    [k2a | k2b]): each stage's wrapper takes its plain version on the CPU
+    (no launch), the stages chained equal fam_dual_conv3_plain bit for bit,
+    and they hold to the JAX fam_dual_conv3 in interpret mode within K12's
+    tolerance (f32 1e-4; bf16 rtol and atol 1e-2, one output ulp)."""
+    args = _dual_inputs(np.random.default_rng(13), (1, 16, 128, 128))
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    want = jfb.fam_dual_conv3(jnp.asarray(args[0], jdt), *(jnp.asarray(a) for a in args[1:]), interpret=True)
+    x, k1, b1, k2a, b2a, k2b, b2b = (_t(a) for a in args)
+    x = x.to(dtype)
+    k2, b2 = tfb.stack_dual_convs(k2a, b2a, k2b, b2b)
+    assert k2.shape == (3, 3, 128, 256) and b2.shape == (256,)
+    assert torch.equal(k2[..., :128], k2a) and torch.equal(k2[..., 128:], k2b)
+    tfb.reset_launches()
+    y = tfb.fam_dual_y(x, k1, b1)
+    out = tfb.fam_dual_out(y, k2, b2)
+    assert y.dtype == out.dtype == dtype and y.shape == out.shape == (1, 16, 128, 256)
+    torch.testing.assert_close(y, tfb.fam_dual_y_plain(x, k1, b1), rtol=0, atol=0)
+    torch.testing.assert_close(out, tfb.fam_dual_out_plain(tfb.fam_dual_y_plain(x, k1, b1), k2, b2), rtol=0, atol=0)
+    torch.testing.assert_close(out, tfb.fam_dual_conv3_plain(x, k1, b1, k2a, b2a, k2b, b2b), rtol=0, atol=0)
+    want = np.asarray(want.astype(jnp.float32))
+    if dtype == torch.bfloat16:
+        np.testing.assert_allclose(out.float().numpy(), want, rtol=1e-2, atol=1e-2)
+    else:
+        np.testing.assert_allclose(out.numpy(), want, atol=1e-4)
+    assert tfb.KERNEL_LAUNCHES == _NO_KERNEL_LAUNCHES
+    assert tfb.LAUNCHES["fam_dual_conv3"] == 0
+
+
+def test_fam_dual_out_plain_is_a_grouped_convolution():
+    """fam_dual_out_plain of [k2a | k2b] equals F.conv2d with groups = 2 on
+    the channels-first view within f32 rounding, at a ragged shape (the
+    'SAME' zero padding at the border, batch 2)."""
+    rng = np.random.default_rng(14)
+    y = _t(np.abs(rng.standard_normal((2, 7, 11, 256))) * 0.3)
+    k2 = _t(rng.standard_normal((3, 3, 128, 256)) * 0.05)
+    b2 = _t(rng.standard_normal(256))
+    want = torch.nn.functional.conv2d(y.permute(0, 3, 1, 2), k2.permute(3, 2, 0, 1), b2, padding=1, groups=2)
+    torch.testing.assert_close(tfb.fam_dual_out_plain(y, k2, b2), want.permute(0, 2, 3, 1), rtol=0, atol=1e-5)
+
+
+def test_fam_dual_stage_wrappers_raise_on_what_the_kernels_do_not_take():
+    x = torch.zeros(1, 4, 4, 128)
+    k1, b1 = torch.zeros(3, 3, 128, 256), torch.zeros(256)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tfb.fam_dual_y(x.double(), k1, b1)
+    with pytest.raises(ValueError, match="k1"):
+        tfb.fam_dual_y(x, torch.zeros(3, 3, 128, 128), b1)
+    with pytest.raises(ValueError, match="y"):
+        tfb.fam_dual_out(x, k1, b1)  # 128 channels, not y's 256
+    with pytest.raises(ValueError, match="k2"):
+        tfb.fam_dual_out(torch.zeros(1, 4, 4, 256), torch.zeros(3, 3, 256, 256), b1)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfb.fam_dual_y(torch.zeros(1, 4, 128, 4).permute(0, 1, 3, 2), k1, b1)
+    # Off the CPU each goes to its kernel, which takes CUDA tensors only.
+    tfb.reset_launches()
+    for dt in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="CUDA"):
+            tfb.fam_dual_y(x.to("meta", dt), k1.to("meta"), b1.to("meta"))
+        with pytest.raises(ValueError, match="CUDA"):
+            tfb.fam_dual_out(torch.zeros(1, 4, 4, 256, device="meta", dtype=dt), k1.to("meta"), b1.to("meta"))
+    assert tfb.KERNEL_LAUNCHES == _NO_KERNEL_LAUNCHES
+    assert tfb.LAUNCHES["fam_dual_conv3"] == 0
+
+
 _NO_KERNEL_LAUNCHES = {
     "fam_conv_y": 0, "fam_conv_z": 0, "fam_conv_out": 0, "fam_tail_apply_g1_diag": 0, "fam_tail_apply_g1_dense": 0,
+    "dec1_up": 0, "dec1_c1": 0, "dec1_c2": 0, "dec1_rc": 0,
+    "fam_dual_y_pipelined": 0, "fam_dual_y_wgmma": 0, "fam_dual_out_pipelined": 0, "fam_dual_out_wgmma": 0,
 }
 _K4_WEIGHT_SHAPES = ((128, 128), (128, 128), (3, 3, 128, 256), (256,), (3, 3, 128, 128), (3, 3, 128, 128), (128,))

@@ -10,10 +10,13 @@ Phases (any failure raises and exits nonzero; no phase is skipped):
 1. The card's name and power limit; build the CUDA kernels from every
    ``retinex_tpu_torch/csrc/*.cu`` (one nvcc per source, all at once,
    printing the seconds and the ptxas report: registers, stack and spills,
-   and for ``conv_wgmma``, ``conv_pipelined`` and ``fam_fused`` each entry
-   function); the instructions a pixel issues in each instance of K1 and K3,
-   read from the library's SASS (``sass_instructions_per_px``), which their
-   bounds use.
+   and for ``conv_wgmma``, ``conv_pipelined``, ``conv_narrow`` and
+   ``fam_fused`` each entry function); the instructions a pixel issues in
+   each instance of K1 and K3 (``sass_instructions_per_px``) and in the
+   pixel loops of K7 and K9 (the instances phase 3 times,
+   ``sass_loop_instructions_per_px``), read from the libraries' SASS, which
+   their bounds use; K16's two kernels take the counts of the K1 and K3
+   instances that compute their functions (``K16_FUNCTION``).
 2. K1-K3: on a seeded u8 frame at 1088x1920 (the main path's shape) and at
    2160x3840 (a cell width of 240 columns), and on the directory's batches
    [8,3,1088,1920], [4,3,1088,1920] and [4,3,640,640], each kernel is held to
@@ -35,14 +38,15 @@ Phases (any failure raises and exits nonzero; no phase is skipped):
    it must run K2's scratch fill, K1, K2 and K3 once each and nothing else.
 3. K7-K9 and K2 on a luma plane: on seeded u8 batches [8,1088,1920] (a
    directory chunk), [1,2160,3840] and a ragged [3,272,496], both K8 kernels
-   (lab_fwd_u8_nhwc, clahe_apply_u8_nhwc) and K7 (clahe_luma_apply_u8, on
-   planar and on NHWC RGB) are held to their plain versions with K1/K3's
-   tolerance, K7 on NHWC equals K7 on planar, K2 on the luma plane is
-   identical to its plain version (hist_subsample 1 and 2), and K9
-   (clahe_luma_apply_u8_fused) equals K7; on a batch, the first and last
-   image equal the kernels run on that image alone. Median times over 25
-   launches (K7 on NHWC, as both clahe_luma routes run it), and K2's on the
-   luma plane.
+   (lab_fwd_u8_nhwc, clahe_apply_u8_nhwc) are held to their plain versions
+   with K1/K3's tolerance, K7 (clahe_luma_apply_u8, on planar and on NHWC
+   RGB) and K9 (clahe_luma_apply_u8_fused) bit-identical to theirs, K7 on
+   NHWC equals K7 on planar, K2 on the luma plane is identical to its plain
+   version (hist_subsample 1 and 2), and K9 equals K7; on a batch, the
+   first and last image equal the kernels run on that image alone. Median
+   times over 25 launches (K7 on NHWC, as both clahe_luma routes run it)
+   beside the bounds (K7's and K9's by bytes or by their SASS instruction
+   counts, whichever is larger), and K2's on the luma plane.
 4. K4-K6 and K11: at the packed FAM shapes of the letterboxed frame,
    [1,544,960,128] (scale 1) and [1,136,240,128] (scale 2), at those of the
    unpadded 1080-row frame, [1,540,960,128] and [1,135,240,128], at a
@@ -181,7 +185,7 @@ first and last image against the kernel on each alone (identical):
    of one function) at [2,544,960,128] 3x3 and 2x2, [2,272,480,256] 3x3 and
    a ragged [2,37,53,128] (3x2), and in bf16 at a ragged [2,37,53,20] whose
    Cin is no multiple of 8 (conv_direct's route); K14 ``conv2d_narrow`` at
-   [2,1088,1920,32] for 32->32, 32->64 and dilation 2, and at a ragged
+   [2,1088,1920,32] for 32->32, 32->64, dilation 2 and 5x5 32->32, and at a ragged
    [2,37,53,24] (5x5 to 40, and 3x3 dilation 2 to 30) and [2,37,53,64]
    (5x5 dilation 2 to 128: in bf16 conv_wgmma's widest halo box, its
    weights in a ring of three B stages); each in f32 and
@@ -189,9 +193,11 @@ first and last image against the kernel on each alone (identical):
    within 1e-4, bf16 in f32 at rtol and atol 1e-2 (one output ulp). At
    perf_lab's shapes every bf16 call (K13, K15 and K14) must launch
    ``conv_wgmma``, every f32 K13/K15 call ``conv_pipelined`` and every f32
-   K14 call ``conv_direct`` (``conv_pallas.KERNEL_LAUNCHES``). Median ms
+   K14 call ``conv_narrow`` (``conv_pallas.KERNEL_LAUNCHES``), whose
+   instance (Cout tile, registers, spilled bytes, shared memory, stages,
+   blocks per SM) is printed at each of its seven cases. Median ms
    over 25 launches of K13 and K15 at both 3x3 shapes and of K14 at its
-   first and its dilation-2 case, in f32 and bf16, beside the plain
+   first, its dilation-2 and its 5x5 case, in f32 and bf16, beside the plain
    version's, the bound and ``F.conv2d`` on the channels-last view with the
    bias (then the ReLU where the case has one), which the port never calls;
    ``conv_wgmma``'s plan at each timed bf16 case (N, K chunk, dynamic
@@ -230,8 +236,9 @@ whole (``dec1_chain``) and one for each of its four (``dec1_up``,
 entry is its main-path instance (the quadrant-diagonal w, bytes-bound);
 the dense instance is printed in phase 4.
 ``ms``, ``plain_ms`` and ``bound_ms`` are per image for K1-K6, K10 and K11
-(K1's and K3's bounds by bytes or by instructions over the issue rate,
-PEAK_ISSUE_PER_S, whichever is larger)
+(K1's, K3's, K7's and K9's bounds by bytes or by their SASS
+instructions over the issue rate, PEAK_ISSUE_PER_S, whichever is larger;
+K16's by bytes or by its functions' K1 and K3 counts, ``K16_FUNCTION``)
 (summed over the kernel's launches on one 1088x1920 or 1080x1920 image),
 per launch on a [8,1088,1920] directory chunk for K7-K9, per launch at the
 first shape for K12-K15, in both dtypes (the entry's ``dtype``): the bf16
@@ -267,9 +274,12 @@ PEAK_F32_OPS_PER_S = 67e12
 PEAK_ISSUE_PER_S = PEAK_F32_OPS_PER_S / 2
 # bf16 on the tensor cores, dense.
 PEAK_BF16_OPS_PER_S = 989e12
-# Instructions a pixel issues in each instance of K1 and K3, by the name of
-# its wrapper: read in phase 1 from the SASS of the built library
-# (sass_instructions_per_px); their bounds are these over PEAK_ISSUE_PER_S.
+# Instructions a pixel issues in each instance of K1 and K3 and in the
+# instances of K7 and K9 that phase 3 times, by the name of its wrapper:
+# read in phase 1 from the SASS of the built libraries
+# (sass_instructions_per_px, sass_loop_instructions_per_px); their bounds
+# are these over PEAK_ISSUE_PER_S, or the bytes over PEAK_BYTES_PER_S,
+# whichever is larger. K16's two kernels are entered from K16_FUNCTION.
 INSTR_PER_PX: dict[str, float] = {}
 # K1's and K3's instances: (kernel, Layout number in csrc/clahe_lab.cu) by wrapper.
 K1_K3_INSTANCES = {
@@ -282,11 +292,23 @@ K2_OPS_PER_ENTRY = 20
 # K5 per packed pixel: 128 multiplies by ca, 4 x 31 adds, 4 x 31 maxima,
 # 4 mean scalings.
 K5_OPS_PER_PX = 128 + 4 * 31 + 4 * 31 + 4
-# K7 per pixel, counted from csrc/clahe_luma.cu: 10 (blend) + 3 (round/clip)
-# + 3 (gain: two adds, one division) + 12 (three scale/clip/round); K9 adds
-# the luma (2 fma + 1 mul + round/clip).
-K7_OPS_PER_PX = 28
-K9_OPS_PER_PX = K7_OPS_PER_PX + 6
+# The instances whose pixel loop the SASS count reads: (source stem, a
+# pattern of the mangled kernel name, pixels a thread covers per global
+# store in the loop). K7 on NHWC (as both clahe_luma routes run it, and
+# phase 3 times it) and K9 in their 8-pixel instances: three 8-byte stores
+# per 8 pixels.
+LOOP_INSTANCES = {
+    "clahe_luma_apply_u8": ("clahe_luma", r"clahe_luma_apply_kernelILb0ELb1ELi8E", 8 / 3),
+    "clahe_luma_apply_u8_fused": ("clahe_luma", r"clahe_luma_apply_kernelILb1ELb0ELi8E", 8 / 3),
+}
+# K16's kernels compute K1's function on f32 NHWC input (plus one shared
+# atomic a pixel for the histogram, counted as K2's) and K3's blend and
+# Lab -> sRGB to f32 NHWC: (the K1 or K3 instance, operations added a
+# pixel). Their bounds take those counts, the operations the functions
+# need. K16's own SASS is no such count: its pixel loops hold six and three
+# powf, whose special-case paths a pixel does not run but a static count
+# reads.
+K16_FUNCTION = {"clahe_pallas_hist": ("lab_fwd_f32_nhwc", 1), "clahe_pallas_apply": ("clahe_apply_f32_nhwc", 0)}
 LUMA_SHAPES = ((8, 1088, 1920), (1, 2160, 3840), (3, 272, 496))
 # K1-K3's batches in the directory's net mode: the 1088x1920 chunks of 8 and
 # 4, and the 640x640 chunk of 4.
@@ -353,7 +375,7 @@ SOURCES = {
     "fam_dual_conv3_bf16": "retinex_tpu_torch/csrc/conv_wgmma.cu",
     "conv2d_pallas": "retinex_tpu_torch/csrc/conv_pipelined.cu",
     "conv2d_pallas_bf16": "retinex_tpu_torch/csrc/conv_wgmma.cu",
-    "conv2d_narrow": "retinex_tpu_torch/csrc/conv_direct.cu",
+    "conv2d_narrow": "retinex_tpu_torch/csrc/conv_narrow.cu",
     "conv2d_narrow_bf16": "retinex_tpu_torch/csrc/conv_wgmma.cu",
     "conv2d_pallas_im2col": "retinex_tpu_torch/csrc/conv_pipelined.cu",
     "conv2d_pallas_im2col_bf16": "retinex_tpu_torch/csrc/conv_wgmma.cu",
@@ -416,24 +438,19 @@ CONV_CASES = {
         ((2, 1088, 1920, 32), (3, 3, 32), 1, True), ((2, 1088, 1920, 32), (3, 3, 64), 1, True),
         ((2, 1088, 1920, 32), (3, 3, 32), 2, False), ((2, 37, 53, 24), (5, 5, 40), 1, True),
         ((2, 37, 53, 24), (3, 3, 30), 2, False), ((2, 37, 53, 64), (5, 5, 128), 2, True),
+        ((2, 1088, 1920, 32), (5, 5, 32), 1, True),
     ],
 }
-# (kernel, case index): both 3x3 shapes of K13/K15, K14's first and its
-# dilation-2 case; the first of each kernel goes into the kernels line.
+# (kernel, case index): both 3x3 shapes of K13/K15, K14's first, its
+# dilation-2 and its 5x5 case at perf_lab's width; the first of each kernel
+# goes into the kernels line.
 CONV_TIMED = {("conv2d_pallas", 0), ("conv2d_pallas", 2), ("conv2d_pallas_im2col", 0),
-              ("conv2d_pallas_im2col", 2), ("conv2d_narrow", 0), ("conv2d_narrow", 2)}
+              ("conv2d_pallas_im2col", 2), ("conv2d_narrow", 0), ("conv2d_narrow", 2), ("conv2d_narrow", 6)}
 DUAL_SHAPES = ((2, 544, 960, 128), (1, 544, 960, 128), (2, 37, 53, 128))
 # K12's two stages, each 256 out: (Cin, groups).
 K12_STAGES = {"fam_dual_y": (128, 1), "fam_dual_out": (256, 2)}
 # K16: the 1088x1920 frame, perf_lab's batch of 8, a 4K frame, the JAX test's.
 K16_SHAPES = ((1, 1088, 1920, 3), (8, 1088, 1920, 3), (1, 2160, 3840, 3), (2, 96, 128, 3))
-# Operations per pixel, counted from csrc/clahe_fused.cu: the first kernel
-# 12 (quantise) + 18 (3 de-gammas) + 17 (matrix) + 15 (3 f()s) + 8 (L, a,
-# b) + 9 (round/clip) + 1 (histogram); the second 10 (blend) + 3 + 9 (fy,
-# fx, fz) + 11 (f^-1, X, Z) + 18 (matrix, clamp) + 15 (3 gammas) + 15 (3
-# clip/scale/round).
-K16_HIST_OPS_PER_PX = 80
-K16_APPLY_OPS_PER_PX = 81
 
 
 def gpu_line() -> str:
@@ -486,6 +503,17 @@ def row_loop(ins) -> list:
     return best
 
 
+def cuobjdump_sass(lib: Path) -> str:
+    """cuobjdump -sass of a built library."""
+    import shutil
+
+    tool = Path("/usr/local/cuda/bin/cuobjdump")
+    tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
+    if tool is None:
+        raise RuntimeError("cuobjdump not found: it reads the kernels' instruction counts for their bounds")
+    return subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
+
+
 def sass_instructions_per_px(lib: Path) -> dict[str, float]:
     """Instructions a pixel issues in each instance of K1 and K3, from the
     built library's SASS (cuobjdump -sass), only ``issued`` opcodes (cbrtf
@@ -495,13 +523,8 @@ def sass_instructions_per_px(lib: Path) -> dict[str, float]:
     row loop's at 8 pixels a thread, over 8 (the per-row work, a blend
     weight, is in it). Keyed by wrapper, as K1_K3_INSTANCES."""
     import re
-    import shutil
 
-    tool = Path("/usr/local/cuda/bin/cuobjdump")
-    tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
-    if tool is None:
-        raise RuntimeError("cuobjdump not found: it reads K1's and K3's instruction counts for their bounds")
-    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
+    text = cuobjdump_sass(lib)
     fn = {}
     for name, ins in sass_functions(text).items():
         m = re.search(r"(lab_fwd|clahe_apply)_kernelILi(\d+)ELi(\d)E", name)
@@ -513,6 +536,40 @@ def sass_instructions_per_px(lib: Path) -> dict[str, float]:
             per_px[wrapper] = (issued(fn[(kernel, 4, layout)]) - issued(fn[(kernel, 1, layout)])) / 3
         else:
             per_px[wrapper] = issued(row_loop(fn[(kernel, 8, layout)])) / 8
+    return per_px
+
+
+def inner_loop(ins) -> list:
+    """The largest loop body (from a backward branch's target to the branch)
+    that holds no other backward branch: a kernel's pixel loop."""
+    import re
+
+    loops = []
+    for addr, op, rest in ins:
+        m = re.search(r"0x([0-9a-f]+)", rest) if op.startswith("BRA") else None
+        if m and int(m.group(1), 16) < addr:
+            loops.append((int(m.group(1), 16), addr))
+    inner = [(a, b) for a, b in loops if not any(a <= c and d <= b and (c, d) != (a, b) for c, d in loops)]
+    a, b = max(inner, key=lambda ab: sum(ab[0] <= x[0] <= ab[1] for x in ins))
+    return [x for x in ins if a <= x[0] <= b]
+
+
+def sass_loop_instructions_per_px(libs) -> dict[str, float]:
+    """Instructions a pixel issues in each of LOOP_INSTANCES, from the built
+    libraries' SASS: ``issued`` opcodes of the kernel's pixel loop
+    (``inner_loop``; both sides of a branch in it counted, the division's
+    slow path, a call out of the loop, not), over the pixels one pass of the
+    loop covers (its global stores times the pixels a store covers, so an
+    unrolled loop counts right). Keyed by wrapper."""
+    import re
+
+    per_px = {}
+    for wrapper, (stem, pattern, px_per_store) in LOOP_INSTANCES.items():
+        fns = sass_functions(cuobjdump_sass(libs[stem].path))
+        (ins,) = [v for k, v in fns.items() if re.search(pattern, k)]
+        body = inner_loop(ins)
+        stores = sum(op.startswith("STG") for _, op, _ in body)
+        per_px[wrapper] = issued(body) / (stores * px_per_store)
     return per_px
 
 
@@ -783,6 +840,15 @@ def luma_kernel_phase(torch, cg, cl, shape: tuple, seed: int) -> dict:
     luts_lab = cg.clahe_tables(lab)
     e_apply = hold("K8 clahe_apply_u8_nhwc", cg.clahe_apply_u8_nhwc(lab, luts_lab), cg.clahe_apply_u8_nhwc_plain(lab, luts_lab))
     y = cl._luma_u8(xp)
+
+    def exact(name, got, want):
+        torch.cuda.synchronize()
+        n = int((got != want).sum())
+        print(f"  [{tag}] {name}: " + ("bit-identical to its plain version" if n == 0 else f"{n} bytes differ"))
+        if n:
+            raise AssertionError(f"{name} differs from its plain version at {shape}")
+        return 0
+
     e_k7 = 0
     for s in (1, 2):
         luts = cg.clahe_tables(y, hist_subsample=s)
@@ -791,13 +857,13 @@ def luma_kernel_phase(torch, cg, cl, shape: tuple, seed: int) -> dict:
         if not torch.equal(luts, luts_p):
             raise AssertionError(f"K2 on the luma plane differs from its plain version at {shape}, s={s}")
         k7 = cl.clahe_luma_apply_u8(xp, y, luts)
-        e_k7 = max(e_k7, hold(f"K7 clahe_luma_apply_u8 (hist_subsample={s}, K2 tables identical)", k7, cl.clahe_luma_apply_u8_plain(xp, y, luts)))
+        exact(f"K7 clahe_luma_apply_u8 (hist_subsample={s}, K2 tables identical)", k7, cl.clahe_luma_apply_u8_plain(xp, y, luts))
         k7_nhwc = cl.clahe_luma_apply_u8(x, y, luts)
-        e_k7 = max(e_k7, hold(f"K7 clahe_luma_apply_u8 on NHWC (hist_subsample={s})", k7_nhwc, cl.clahe_luma_apply_u8_plain(x, y, luts)))
+        exact(f"K7 clahe_luma_apply_u8 on NHWC (hist_subsample={s})", k7_nhwc, cl.clahe_luma_apply_u8_plain(x, y, luts))
         if not torch.equal(k7_nhwc, k7.permute(0, 2, 3, 1)):
             raise AssertionError(f"K7 on NHWC differs from K7 on planar at {shape}, s={s}")
         k9 = cl.clahe_luma_apply_u8_fused(xp, luts)
-        torch.cuda.synchronize()
+        exact(f"K9 clahe_luma_apply_u8_fused (hist_subsample={s})", k9, cl.clahe_luma_apply_u8_fused_plain(xp, luts))
         if not torch.equal(k9, k7):
             raise AssertionError(f"K9 differs from K7 at {shape}, s={s}")
         print(f"  [{tag}] K9 clahe_luma_apply_u8_fused (hist_subsample={s}): identical to K7")
@@ -813,6 +879,7 @@ def luma_kernel_phase(torch, cg, cl, shape: tuple, seed: int) -> dict:
     if b > 1:
         print(f"  [{tag}] K8, K2, K7: first and last image identical to the kernels on each alone")
     table_bytes = b * 64 * 256
+    geo_bytes = 4 * (2 * w + h + 256)  # K7's and K9's geometry table (clahe_luma.luma_geometry)
     recs = {
         "lab_fwd_u8_nhwc": dict(
             max_abs_err=e_fwd,
@@ -830,13 +897,14 @@ def luma_kernel_phase(torch, cg, cl, shape: tuple, seed: int) -> dict:
             max_abs_err=e_k7,
             ms=time_ms(torch, lambda: cl.clahe_luma_apply_u8(x, y, luts)),
             plain_ms=time_ms(torch, lambda: cl.clahe_luma_apply_u8_plain(x, y, luts), n=5),
-            bound=bound(7 * n_px + table_bytes, K7_OPS_PER_PX * n_px),
+            bound=bound(7 * n_px + table_bytes + geo_bytes, INSTR_PER_PX["clahe_luma_apply_u8"] * n_px, PEAK_ISSUE_PER_S),
         ),
         "clahe_luma_apply_u8_fused": dict(
             max_abs_err=e_k7,
             ms=time_ms(torch, lambda: cl.clahe_luma_apply_u8_fused(xp, luts)),
             plain_ms=time_ms(torch, lambda: cl.clahe_luma_apply_u8_fused_plain(xp, luts), n=5),
-            bound=bound(6 * n_px + table_bytes, K9_OPS_PER_PX * n_px),
+            bound=bound(6 * n_px + table_bytes + geo_bytes, INSTR_PER_PX["clahe_luma_apply_u8_fused"] * n_px,
+                        PEAK_ISSUE_PER_S),
         ),
     }
     for name, r in recs.items():
@@ -1985,7 +2053,7 @@ def conv_route(name: str, dtype, torch) -> str:
     """The kernel that must serve `name` at perf_lab's shapes."""
     if dtype == torch.bfloat16:
         return "conv_wgmma"
-    return "conv_direct" if name == "conv2d_narrow" else "conv_pipelined"
+    return "conv_narrow" if name == "conv2d_narrow" else "conv_pipelined"
 
 
 def conv_phase(torch, cp, kernels) -> tuple[dict, dict]:
@@ -2042,6 +2110,11 @@ def conv_phase(torch, cp, kernels) -> tuple[dict, dict]:
         err = _close(torch, got, plain(x), f"{name} {list(shape)} {kh}x{kw_}->{cout} {dt}")
         tag = f"  {name} {list(shape)} {kh}x{kw_} -> {cout}" + (f" dil {dil}" if dil > 1 else "") + f" {str(dt)[6:]}"
         line = tag + f" ({served}): max |diff| {err:.3e}" + _batch_holds(torch, kernel, x, got, name)
+        if served == "conv_narrow":  # the instance: its registers, spills and shared memory
+            plan = cp.narrow_plan(cout, kh, dil)
+            line += (f"; conv_narrow Cout tile {plan['cot']}, {plan['registers']} registers, {plan['local_bytes']} "
+                     f"B local (spills), {plan['smem']} B of dynamic shared memory, {plan['stages']} stages, "
+                     f"{plan['blocks_per_sm']} blocks per SM")
         rec = recs.setdefault((name, dt), {"max_abs_err": 0.0, "kernel": conv_route(name, dt, torch)})
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         if (name, i) in CONV_TIMED:
@@ -2065,6 +2138,7 @@ def conv_phase(torch, cp, kernels) -> tuple[dict, dict]:
                 weights = f"in a ring of {plan['ring']}" if plan["ring"] else "resident"
                 line += (f"; conv_wgmma N {plan['n_tile']}, K chunk {plan['chunk']}, {plan['smem']} B of dynamic "
                          f"shared memory, {plan['halo_stages']} halo stages, weights {weights}")
+
             t = dict(ms=time_ms(torch, lambda: kernel(x)), plain_ms=time_ms(torch, lambda: plain(x), n=5),
                      library_ms=time_ms(torch, library), bound=bd)
             if "ms" not in rec:
@@ -2223,12 +2297,12 @@ def k16_phase(torch, kp) -> tuple[dict, dict]:
                 "clahe_pallas_hist": dict(
                     ms=time_ms(torch, lambda: kp.clahe_pallas_hist(x)),
                     plain_ms=time_ms(torch, lambda: kp.clahe_pallas_hist_plain(x), n=5),
-                    bound=bound(15 * n_px + 4 * tables, K16_HIST_OPS_PER_PX * n_px),
+                    bound=bound(15 * n_px + 4 * tables, INSTR_PER_PX["clahe_pallas_hist"] * n_px, PEAK_ISSUE_PER_S),
                 ),
                 "clahe_pallas_apply": dict(
                     ms=time_ms(torch, lambda: kp.clahe_pallas_apply(lab, luts)),
                     plain_ms=time_ms(torch, lambda: kp.clahe_pallas_apply_plain(lab, luts), n=5),
-                    bound=bound(15 * n_px + tables, K16_APPLY_OPS_PER_PX * n_px),
+                    bound=bound(15 * n_px + tables, INSTR_PER_PX["clahe_pallas_apply"] * n_px, PEAK_ISSUE_PER_S),
                 ),
             }
             for name, r in timed.items():
@@ -2381,13 +2455,17 @@ def main() -> int:
         print(f"  {built.path.name}: built in {built.seconds:.2f} s")
         for ln in built.report.splitlines():
             # The new kernels' whole report: each entry, its registers, stack and spills.
-            entry = "Compiling entry" in ln and stem in ("conv_wgmma", "conv_pipelined", "fam_fused")
+            entry = "Compiling entry" in ln and stem in ("conv_wgmma", "conv_pipelined", "conv_narrow", "fam_fused")
             if entry or "registers" in ln or "spill" in ln or "error" in ln.lower() or "warning" in ln.lower():
                 print(f"  ptxas ({stem}): {ln.strip()}")
 
     INSTR_PER_PX.update(sass_instructions_per_px(libs["clahe_lab"].path))
-    print("  K1 and K3: instructions issued per pixel (SASS, without loads, stores, control flow and address math): "
-          + ", ".join(f"{k} {v:.2f}" for k, v in INSTR_PER_PX.items()))
+    INSTR_PER_PX.update(sass_loop_instructions_per_px(libs))
+    print("  K1, K3, K7 and K9: instructions issued per pixel (SASS, without loads, stores, control flow and "
+          "address math): " + ", ".join(f"{k} {v:.2f}" for k, v in INSTR_PER_PX.items()))
+    for name, (instance, extra) in K16_FUNCTION.items():
+        INSTR_PER_PX[name] = INSTR_PER_PX[instance] + extra
+        print(f"  K16 {name}: {INSTR_PER_PX[name]:.2f} operations a pixel for its bound ({instance}'s + {extra})")
 
     recs, launches = main_path_phases(torch, cg, cl, fb, cp, kp, _kernels)
 

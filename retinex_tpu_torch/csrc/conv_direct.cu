@@ -16,9 +16,9 @@
 //
 // A call reaches this kernel only where the faster ones cannot take it
 // (conv_pallas.route): bf16 with Cin % 8 != 0 (conv_wgmma.cu needs TMA's
-// 16-byte strides), f32 K13/K15 with Cin % 4 != 0 (conv_pipelined.cu copies
-// 16 bytes at a time), or an x whose base is not 16-byte aligned; and K14 in
-// f32, where it beats F.conv2d.
+// 16-byte strides), f32 with Cin % 4 != 0 (conv_pipelined.cu and
+// conv_narrow.cu copy 16 bytes at a time), or an x whose base is not
+// 16-byte aligned.
 //
 // The kernel takes kh, kw, the dilation and the low padding of each axis, so
 // one body computes both padding conventions. The Python wrappers

@@ -12,13 +12,21 @@ from __future__ import annotations
 import torch
 
 from retinex_tpu_torch.ops.clahe import clahe_lab_rgb
-from retinex_tpu_torch.ops.colorspace import rgb_to_luma
+from retinex_tpu_torch.ops.colorspace import ieee_div, rgb_to_luma
+
+
+def gray_levels(x: torch.Tensor) -> torch.Tensor:
+    """The OpenCV gray image of x [..., 3] float [0,1] as float levels
+    [..., 1]: the Rec.601 luma of the u8-rounded image, rounded. The byte /
+    255 is the IEEE quotient on every device (``ieee_div``), so the card
+    gives the CPU's levels."""
+    return torch.round(rgb_to_luma(ieee_div(torch.round(x * 255.0), 255.0)) * 255.0)
 
 
 def brightness_features(x: torch.Tensor) -> dict[str, torch.Tensor]:
     """x: [H,W,3] or [B,H,W,3] float [0,1]. Features of the OpenCV gray image
-    (Rec.601 luma of the u8-rounded image, rounded to u8)."""
-    gray = torch.round(rgb_to_luma(torch.round(x * 255.0) / 255.0) * 255.0)
+    (``gray_levels``)."""
+    gray = gray_levels(x)
     return {
         "mean_brightness": gray.mean() / 255.0,
         "brightness_std": gray.std(unbiased=False) / 255.0,

@@ -27,7 +27,7 @@ from PIL import Image
 
 from retinex_tpu_torch.config import CLASSICAL_MODES
 from retinex_tpu_torch.device import resolve_device
-from retinex_tpu_torch.infer.adaptive_params import AdaptiveParameterAdjuster
+from retinex_tpu_torch.infer.adaptive_params import AdaptiveParameterAdjuster, gray_levels
 from retinex_tpu_torch.ops.clahe import cell_divisible
 from retinex_tpu_torch.ops.colorspace import rgb_to_luma
 from retinex_tpu_torch.ops.filters import central_gradient, gaussian_blur, laplacian
@@ -40,7 +40,7 @@ from retinex_tpu_torch.utils.viz import create_comparison, save_image
 def compute_saliency_map(x: torch.Tensor) -> torch.Tensor:
     """|Laplacian(gray_u8)| -> 15x15 Gaussian -> per-image min-max
     normalisation. x: [B,H,W,3] float [0,1] -> [B,H,W,1]."""
-    gray = torch.round(rgb_to_luma(torch.round(x * 255.0) / 255.0) * 255.0)
+    gray = gray_levels(x)
     sal = gaussian_blur(torch.abs(laplacian(gray)), 15, 0.0)
     mn = torch.amin(sal, dim=(1, 2, 3), keepdim=True)
     mx = torch.amax(sal, dim=(1, 2, 3), keepdim=True)

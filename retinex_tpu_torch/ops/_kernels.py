@@ -54,9 +54,9 @@ _SIGNATURES = {
     "clahe_tables": ("clahe_lab", (_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _P)),
     "clahe_apply": ("clahe_lab", (_P, _P, _P, _P) + (_I,) * 9 + (_P,)),
     "clahe_apply_table_layout": ("clahe_lab", (_I,)),
-    "clahe_luma_apply_u8": ("clahe_luma", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
-    "clahe_luma_apply_u8_nhwc": ("clahe_luma", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
-    "clahe_luma_apply_u8_fused": ("clahe_luma", (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    "clahe_luma_apply_u8": ("clahe_luma", (_P,) * 5 + (_I,) * 5 + (_P,)),
+    "clahe_luma_apply_u8_nhwc": ("clahe_luma", (_P,) * 5 + (_I,) * 5 + (_P,)),
+    "clahe_luma_apply_u8_fused": ("clahe_luma", (_P,) * 4 + (_I,) * 5 + (_P,)),
     "fam_conv_out": ("fam_fused", (_P, _P, _P, _P, _I, _I, _I, _P)),
     "fam_tail_stats": ("fam_fused", (_P, _P, _P, _L, _L, _P)),
     "fam_tail_apply_g1": ("fam_fused", (_P, _P, _P, _P, _P, _L, _L, _I, _I, _P)),
@@ -66,6 +66,8 @@ _SIGNATURES = {
     "conv_pipelined_f32": ("conv_pipelined", (_P,) * 5 + (_I,) * 10 + (_P,)),
     "conv_wgmma_plan": ("conv_wgmma", (_I,) * 8 + (_P,)),
     "conv_pipelined_smem": ("conv_pipelined", (_I, _I)),
+    "conv_narrow_f32": ("conv_narrow", (_P,) * 4 + (_I,) * 9 + (_P,)),
+    "conv_narrow_plan": ("conv_narrow", (_I,) * 3 + (_P,)),
     "clahe_pallas_hist": ("clahe_fused", (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "clahe_pallas_apply": ("clahe_fused", (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
 }

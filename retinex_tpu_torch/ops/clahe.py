@@ -24,7 +24,7 @@ import logging
 import numpy as np
 import torch
 
-from retinex_tpu_torch.ops.colorspace import lab_u8_to_rgb, rgb_to_lab_u8
+from retinex_tpu_torch.ops.colorspace import ieee_div, lab_u8_to_rgb, srgb_bytes_to_lab_u8
 
 HIST_SIZE = 256
 
@@ -186,7 +186,10 @@ def clahe_lab_rgb(
     x: float [0,1] NHWC (or HWC). Cell-divisible shapes run the kernel
     pipeline (ops/clahe_gather.py); `hist_subsample=s` builds its tile
     histograms from a within-cell s x s decimation. Other shapes run the
-    plain `clahe_u8` with exact histograms and ignore the knob.
+    plain `clahe_u8` with exact histograms and ignore the knob; their Lab
+    bytes are ``srgb_bytes_to_lab_u8``'s (K1's plain version), and the
+    output byte / 255 the IEEE quotient, so the card gives the CPU's bytes
+    (a division or a power of a CUDA tensor rounds otherwise).
     """
     squeeze = x.ndim == 3
     if squeeze:
@@ -200,9 +203,8 @@ def clahe_lab_rgb(
         )
         return out[0] if squeeze else out
     _note_plain_route(h, w, tiles)
-    xq = torch.round(torch.clamp(x, 0.0, 1.0) * 255.0) / 255.0
-    lab = torch.clamp(torch.round(rgb_to_lab_u8(xq)), 0, 255).to(torch.uint8)
+    lab = srgb_bytes_to_lab_u8(torch.round(torch.clamp(x, 0.0, 1.0) * 255.0).to(torch.uint8), -1)
     l_eq = clahe_u8(lab[..., 0], clip_limit=clip_limit, tiles_x=tiles, tiles_y=tiles)
     lab_eq = torch.stack([l_eq.float(), lab[..., 1].float(), lab[..., 2].float()], dim=-1)
-    out = torch.round(lab_u8_to_rgb(lab_eq) * 255.0) / 255.0
+    out = ieee_div(torch.round(lab_u8_to_rgb(lab_eq) * 255.0), 255.0)
     return out[0] if squeeze else out

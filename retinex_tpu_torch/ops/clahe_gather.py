@@ -43,13 +43,14 @@ from retinex_tpu_torch.ops.clahe import HIST_SIZE, _luts_from_hist, cell_divisib
 from retinex_tpu_torch.ops.clahe_fast import _hist_from_cells, apply_from_cells
 from retinex_tpu_torch.ops.colorspace import (
     _lab_f_inv,
+    degamma_table,
+    ieee_div,
     lab8_da,
     lab8_db,
     lab8_fy,
     lab8_to_linear_rgb,
-    linear_rgb_to_lab8,
     linear_to_srgb,
-    srgb_to_linear,
+    srgb_bytes_to_lab_u8,
 )
 
 # Kernel launches per wrapper since the last reset_launches().
@@ -92,13 +93,6 @@ def _check_cells(h: int, w: int, tiles_y: int, tiles_x: int) -> None:
         raise ValueError(f"shape {(h, w)} is not a multiple of (2*tiles_y, 2*tiles_x) = {(2 * tiles_y, 2 * tiles_x)}")
 
 
-@functools.lru_cache(maxsize=None)
-def _degamma_table(device: str) -> torch.Tensor:
-    """f32 [256]: srgb_to_linear(v / 255) for every u8 value v."""
-    v = torch.arange(HIST_SIZE, dtype=torch.float32) / 255.0
-    return srgb_to_linear(v).to(device)
-
-
 # ---------------------------------------------------------------- K1
 
 
@@ -116,7 +110,7 @@ def _launch_fwd(src: torch.Tensor, layout: int, b: int, h: int, w: int, name: st
         return out
     stream = _kernels.stream(src)
     vec = _fwd_width(src.data_ptr(), h * w, layout >= _F32_PLANAR)
-    tab = _degamma_table(str(src.device))
+    tab = degamma_table(str(src.device))
     _kernels.launch("clahe_lab_fwd", src.data_ptr(), out.data_ptr(), tab.data_ptr(), b, h * w, layout, vec, stream)
     LAUNCHES[name] += 1
     return out
@@ -124,10 +118,7 @@ def _launch_fwd(src: torch.Tensor, layout: int, b: int, h: int, w: int, name: st
 
 def lab_fwd_u8_plain(rgb: torch.Tensor) -> torch.Tensor:
     """Plain version of K1: planar u8 sRGB -> planar u8 8-bit Lab."""
-    tab = _degamma_table(str(rgb.device))
-    r, g, b = (tab[rgb[:, c].long()] for c in range(3))
-    lab = linear_rgb_to_lab8(r, g, b)
-    return torch.stack([torch.clamp(torch.round(ch), 0, 255) for ch in lab], dim=1).to(torch.uint8)
+    return srgb_bytes_to_lab_u8(rgb, 1)
 
 
 def lab_fwd_u8(rgb: torch.Tensor) -> torch.Tensor:
@@ -373,12 +364,11 @@ def quant_buckets(t: torch.Tensor) -> torch.Tensor:
 def apply_tables() -> dict[str, torch.Tensor]:
     """K3's tables on the CPU, each by the plain version's own f32
     operations: fy and Y = f^-1(fy) by L, (a - 128)/500 by a, (b - 128)/200
-    by b, and the quantiser's buckets (int64); and v / 255 by byte, which
-    the float instance computes and ``dequantise_nhwc`` reads."""
+    by b, and the quantiser's buckets (int64)."""
     v = torch.arange(HIST_SIZE, dtype=torch.float32)
     fy = lab8_fy(v)
     return {
-        "fy": fy, "y": _lab_f_inv(fy), "da": lab8_da(v), "db": lab8_db(v), "dq": v / 255.0,
+        "fy": fy, "y": _lab_f_inv(fy), "da": lab8_da(v), "db": lab8_db(v),
         "quant": quant_buckets(srgb_thresholds()),
     }
 
@@ -401,10 +391,9 @@ def _apply_table_block(device: str) -> torch.Tensor:
 
 def dequantise_nhwc(u8: torch.Tensor) -> torch.Tensor:
     """Planar u8 [B,3,H,W] -> float [B,H,W,3], each byte / 255 as IEEE
-    division rounds it (the JAX package's glue, and PyTorch's on the CPU;
-    PyTorch on CUDA multiplies by 1/255, which rounds 126 of the 256
-    quotients the other way)."""
-    return apply_tables()["dq"].to(u8.device)[u8.long()].permute(0, 2, 3, 1)
+    division rounds it on every device (``ieee_div``; the JAX package's
+    glue, and PyTorch's on the CPU)."""
+    return ieee_div(u8.permute(0, 2, 3, 1).float(), 255.0)
 
 
 def clahe_apply_u8_plain(lab: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:

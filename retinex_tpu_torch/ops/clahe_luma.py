@@ -17,6 +17,9 @@ The kernels live in ``retinex_tpu_torch/csrc/clahe_luma.cu``:
 - ``clahe_luma_apply_u8_fused`` (K9): the same kernel on planar RGB,
   templated on recomputing y from the RGB it already loads; no luma operand.
 
+Both read the frame's blend geometry and the gain's 256 reciprocals from
+``luma_geometry`` and give their plain versions' bytes exactly.
+
 Each wrapper takes a CPU tensor to its plain version and a CUDA tensor to
 its kernel; there is no fallback from one to the other. ``LAUNCHES`` counts
 the kernel launches of each wrapper. Cell-divisible shapes run the kernels;
@@ -34,7 +37,7 @@ import torch
 
 from retinex_tpu_torch.ops import _kernels
 from retinex_tpu_torch.ops.clahe import cell_divisible
-from retinex_tpu_torch.ops.clahe_fast import apply_from_cells, clahe_u8_fast
+from retinex_tpu_torch.ops.clahe_fast import _cell_maps, apply_from_cells, clahe_u8_fast
 from retinex_tpu_torch.ops.clahe_gather import (
     _check_cells,
     _check_luts,
@@ -42,6 +45,7 @@ from retinex_tpu_torch.ops.clahe_gather import (
     _check_planar_u8,
     clahe_tables,
 )
+from retinex_tpu_torch.ops.colorspace import ieee_div
 
 # BT.601 weights, as the f32 values of the doubles the JAX package writes.
 _LUMA_R, _LUMA_G, _LUMA_B = (float(np.float32(c)) for c in (0.299, 0.587, 0.114))
@@ -103,10 +107,32 @@ def clahe_luma_apply_u8_fused_plain(xp_u8: torch.Tensor, luts: torch.Tensor) -> 
     return clahe_luma_apply_u8_plain(xp_u8, _luma_u8(xp_u8), luts)
 
 
+# The kernels stage two tile rows of LUTs as f32, 2 * 256 * 4 bytes for
+# each x-tile, and 256 reciprocals, in at most 227 KB of shared memory.
+_LUT_SMEM_PER_TILE = 2 * 256 * 4
+_SMEM_MAX = 232448 - 256 * 4
+
+
+@functools.lru_cache(maxsize=None)
+def luma_geometry(h: int, w: int, tiles_y: int, tiles_x: int, device: str) -> torch.Tensor:
+    """The blend geometry K7 and K9 read, int32 [2 w + h + 256]: per column
+    the x-weight (f32 bits), then the two neighbour tiles' LUT offsets
+    t0x * 256 | t1x * 256 << 16, then per row the y-weight (f32 bits), then
+    the f32 reciprocals 1 / d of d = 1..256 (bits) for the gain's quotient;
+    made once per shape on the CPU, the weights by the plain version's own
+    ``_cell_maps``."""
+    t0x, t1x, xa = _cell_maps(w, tiles_x, "cpu")
+    ya = _cell_maps(h, tiles_y, "cpu")[2]
+    offs = (t0x * 256) | ((t1x * 256) << 16)
+    rcp = 1.0 / torch.arange(1, 257, dtype=torch.float32)
+    parts = [xa.float().view(torch.int32), offs.to(torch.int32), ya.float().view(torch.int32), rcp.view(torch.int32)]
+    return torch.cat(parts).to(device)
+
+
 def _check_apply(xp_u8: torch.Tensor, luts: torch.Tensor, what: str) -> tuple[int, int]:
     _check_planar_u8(xp_u8, what)
     b, _, h, w = xp_u8.shape
-    return _check_luts(luts, b, h, w, xp_u8.device, what)
+    return _check_luts(luts, b, h, w, xp_u8.device, what, smem_per_tile=_LUT_SMEM_PER_TILE, smem_max=_SMEM_MAX)
 
 
 def clahe_luma_apply_u8(x_u8: torch.Tensor, y: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
@@ -117,7 +143,8 @@ def clahe_luma_apply_u8(x_u8: torch.Tensor, y: torch.Tensor, luts: torch.Tensor)
     if nhwc:
         _check_nhwc_u8(x_u8, what)
         b, h, w, _ = x_u8.shape
-        tiles_y, tiles_x = _check_luts(luts, b, h, w, x_u8.device, what)
+        tiles_y, tiles_x = _check_luts(luts, b, h, w, x_u8.device, what, smem_per_tile=_LUT_SMEM_PER_TILE,
+                                       smem_max=_SMEM_MAX)
     else:
         tiles_y, tiles_x = _check_apply(x_u8, luts, what)
         b, _, h, w = x_u8.shape
@@ -127,9 +154,10 @@ def clahe_luma_apply_u8(x_u8: torch.Tensor, y: torch.Tensor, luts: torch.Tensor)
         return clahe_luma_apply_u8_plain(x_u8, y, luts)
     stream = _kernels.stream(x_u8)
     out = torch.empty_like(x_u8)
+    geo = luma_geometry(h, w, tiles_y, tiles_x, str(x_u8.device))
     _kernels.launch(
         "clahe_luma_apply_u8_nhwc" if nhwc else "clahe_luma_apply_u8", x_u8.data_ptr(), y.data_ptr(),
-        luts.data_ptr(), out.data_ptr(), b, h, w, tiles_y, tiles_x, stream,
+        luts.data_ptr(), geo.data_ptr(), out.data_ptr(), b, h, w, tiles_y, tiles_x, stream,
     )
     LAUNCHES["clahe_luma_apply_u8"] += 1
     return out
@@ -143,8 +171,9 @@ def clahe_luma_apply_u8_fused(xp_u8: torch.Tensor, luts: torch.Tensor) -> torch.
         return clahe_luma_apply_u8_fused_plain(xp_u8, luts)
     stream = _kernels.stream(xp_u8)
     out = torch.empty_like(xp_u8)
+    geo = luma_geometry(h, w, tiles_y, tiles_x, str(xp_u8.device))
     _kernels.launch(
-        "clahe_luma_apply_u8_fused", xp_u8.data_ptr(), luts.data_ptr(), out.data_ptr(),
+        "clahe_luma_apply_u8_fused", xp_u8.data_ptr(), luts.data_ptr(), geo.data_ptr(), out.data_ptr(),
         b, h, w, tiles_y, tiles_x, stream,
     )
     LAUNCHES["clahe_luma_apply_u8_fused"] += 1
@@ -260,5 +289,5 @@ def clahe_luma_rgb(
         out_u8 = clahe_luma_rgb_u8_xla(
             xq, clip_limit=clip_limit, tiles_x=tiles, tiles_y=tiles, hist_subsample=hist_subsample
         )
-    out = out_u8.to(torch.float32) / 255.0
+    out = ieee_div(out_u8.to(torch.float32), 255.0)
     return out[0] if squeeze else out

@@ -14,6 +14,9 @@ the planar CLAHE plain versions (ops/clahe_gather.py) share one arithmetic.
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 # Rec.601 luma weights.
@@ -32,6 +35,20 @@ XYZ2RGB = (
 )
 XN = 0.950456  # D65 white point (X), OpenCV constant
 ZN = 1.088754  # D65 white point (Z), OpenCV constant
+
+
+def ieee_div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x / c for a float32 x, rounded as IEEE float32 division rounds it,
+    on any device.
+
+    PyTorch on CUDA divides a tensor by a Python number as a product by the
+    number's reciprocal, which rounds some quotients the other way (126 of
+    the 256 bytes / 255); on the CPU it divides. In float64 the quotient
+    (or CUDA's product) is within 2^-52 of x / c, and an f32 quotient of two
+    f32 numbers lies at least 2^-49 (relative) from a point where rounding
+    to f32 changes, so its one rounding to f32 is the IEEE quotient's on
+    both devices. c is taken as the f32 number the CPU's division uses."""
+    return (x.double() / float(np.float32(c))).float()
 
 
 def rgb_to_luma(x: torch.Tensor) -> torch.Tensor:
@@ -75,11 +92,12 @@ def _lab_f_inv(ft: torch.Tensor) -> torch.Tensor:
 
 
 def linear_rgb_to_lab8(r: torch.Tensor, g: torch.Tensor, b: torch.Tensor):
-    """Linear-light RGB channels -> (L, a, b) float in OpenCV's 8-bit scale."""
+    """Linear-light RGB channels -> (L, a, b) float in OpenCV's 8-bit scale
+    (the white-point divisions IEEE's on every device, ``ieee_div``)."""
     m = RGB2XYZ
-    X = (m[0][0] * r + m[0][1] * g + m[0][2] * b) / XN
+    X = ieee_div(m[0][0] * r + m[0][1] * g + m[0][2] * b, XN)
     Y = m[1][0] * r + m[1][1] * g + m[1][2] * b
-    Z = (m[2][0] * r + m[2][1] * g + m[2][2] * b) / ZN
+    Z = ieee_div(m[2][0] * r + m[2][1] * g + m[2][2] * b, ZN)
     fx, fy, fz = _lab_f(X), _lab_f(Y), _lab_f(Z)
     L = 116.0 * fy - 16.0
     return L * (255.0 / 100.0), 500.0 * (fx - fy) + 128.0, 200.0 * (fy - fz) + 128.0
@@ -123,6 +141,25 @@ def rgb_to_lab_u8(x: torch.Tensor) -> torch.Tensor:
     """
     x = srgb_to_linear(x.float())
     return torch.stack(linear_rgb_to_lab8(x[..., 0], x[..., 1], x[..., 2]), dim=-1)
+
+
+@functools.lru_cache(maxsize=None)
+def degamma_table(device: str) -> torch.Tensor:
+    """f32 [256]: srgb_to_linear(v / 255) for every byte v, computed on the
+    CPU (on CUDA the division and the power round some values otherwise)."""
+    v = torch.arange(256, dtype=torch.float32) / 255.0
+    return srgb_to_linear(v).to(device)
+
+
+def srgb_bytes_to_lab_u8(rgb: torch.Tensor, dim: int) -> torch.Tensor:
+    """sRGB bytes (an integer tensor, channels along `dim`) -> OpenCV 8-bit
+    Lab bytes, channels along `dim`: ``degamma_table``, then
+    ``linear_rgb_to_lab8`` rounded and clipped. The same bytes on the CPU
+    and on the card; K1's plain version and the plain Lab-CLAHE route."""
+    tab = degamma_table(str(rgb.device))
+    r, g, b = (tab[c.long()] for c in rgb.unbind(dim))
+    lab = linear_rgb_to_lab8(r, g, b)
+    return torch.stack([torch.clamp(torch.round(ch), 0, 255) for ch in lab], dim=dim).to(torch.uint8)
 
 
 def lab_u8_to_rgb(lab: torch.Tensor) -> torch.Tensor:

@@ -28,9 +28,13 @@ Which kernel serves a CUDA call (``route``):
   ``conv_pipelined`` (``csrc/conv_pipelined.cu``), CUDA-core FMAs fed by a
   double-buffered ``cp.async`` pipeline (16-byte copies). TF32 stays off,
   by the parity rule;
-- every other call (other Cin, a misaligned view) and K14 in f32:
-  ``conv_direct`` (``csrc/conv_direct.cu``), which takes any Cin and
-  alignment. In f32 K14 beats ``F.conv2d`` there.
+- K14 in f32 with Cin % 4 == 0 and x's base 16-byte aligned:
+  ``conv_narrow`` (``csrc/conv_narrow.cu``), CUDA-core FMAs on a Cout tile
+  of 32, 64 or 128 (``cout_tile``), fed by a two- or three-stage
+  ``cp.async`` pipeline that a persistent grid runs across its tiles; the
+  kernel size and dilation are instances of their own;
+- every other call (other Cin, a misaligned view): ``conv_direct``
+  (``csrc/conv_direct.cu``), which takes any Cin and alignment.
 
 Each wrapper keeps its own count in ``LAUNCHES``, and each kernel its count
 in ``KERNEL_LAUNCHES``, so a run shows which kernel served which call.
@@ -44,8 +48,8 @@ counterpart: any B, H, W, Cin and Cout run.
 The weights are plain arrays in the JAX layouts (HWIO kernel, f32 bias),
 so the same numpy arrays go to both packages and ``models/convert.py``
 needs nothing for them. Each wrapper packs the kernel for its kernel's
-layout on every call (``pack_wgmma``, ``pack_pipelined``; x is never
-copied).
+layout on every call (``pack_wgmma``, ``pack_pipelined``, ``pack_narrow``;
+x is never copied).
 
 Each wrapper takes a CPU tensor to its plain version and a CUDA tensor to
 its kernel; there is no fallback from one to the other.
@@ -68,17 +72,18 @@ from retinex_tpu_torch.ops import _kernels
 
 # Kernel launches per wrapper, and per kernel, since the last reset_launches().
 LAUNCHES = {"conv2d_pallas": 0, "conv2d_pallas_im2col": 0, "conv2d_narrow": 0}
-KERNEL_LAUNCHES = {"conv_direct": 0, "conv_wgmma": 0, "conv_pipelined": 0}
+KERNEL_LAUNCHES = {"conv_direct": 0, "conv_wgmma": 0, "conv_pipelined": 0, "conv_narrow": 0}
 
-# conv_direct's tiling: input channels staged per pass, and the output
-# channels of one block (32, 64 or 128, the smallest that holds Cout).
+# conv_direct's tiling: input channels staged per pass; its output channels
+# of one block are ``cout_tile(Cout)``.
 CIN_CHUNK = 32
-# conv_wgmma: the widest Cout tile (N of the GEMM; 32 or 64 when Cout is
-# narrower). Its K chunk is ``wgmma_chunk(Cin)``.
-WGMMA_N = 128
+# conv_wgmma's N (the GEMM's Cout tile) is ``cout_tile(Cout)``; its K chunk
+# is ``wgmma_chunk(Cin)``.
 # conv_pipelined: input channels per stage, output channels per block.
 PIPE_CHUNK = 8
 PIPE_COT = 128
+# conv_narrow: input channels per stage; its Cout tile is cout_tile(Cout).
+NARROW_CHUNK = 8
 _DTYPES = (torch.float32, torch.bfloat16)
 _SAME = ("conv2d_pallas", "conv2d_pallas_im2col")
 
@@ -95,8 +100,8 @@ def route(name: str, dtype: torch.dtype, cin: int, data_ptr: int) -> str:
     if data_ptr % 16 == 0:
         if dtype == torch.bfloat16 and cin % 8 == 0:
             return "conv_wgmma"
-        if name in _SAME and dtype == torch.float32 and cin % 4 == 0:
-            return "conv_pipelined"
+        if dtype == torch.float32 and cin % 4 == 0:
+            return "conv_pipelined" if name in _SAME else "conv_narrow"
     return "conv_direct"
 
 
@@ -104,9 +109,11 @@ def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def wgmma_n_tile(cout: int) -> int:
-    """conv_wgmma's Cout tile: the smallest of 32, 64, 128 that holds Cout."""
-    return 32 if cout <= 32 else 64 if cout <= 64 else WGMMA_N
+def cout_tile(cout: int) -> int:
+    """The Cout tile of conv_direct, conv_wgmma (its N) and conv_narrow: the
+    smallest of 32, 64, 128 that holds Cout (128 for a wider Cout, in
+    several tiles)."""
+    return 32 if cout <= 32 else 64 if cout <= 64 else 128
 
 
 def wgmma_chunk(cin: int) -> int:
@@ -122,7 +129,7 @@ def pack_wgmma(kernel: torch.Tensor) -> torch.Tensor:
     kh, kw, cin, cout = kernel.shape
     ck = wgmma_chunk(cin)
     cin_pad = _round_up(cin, ck)
-    cout_pad = _round_up(cout, wgmma_n_tile(cout))
+    cout_pad = _round_up(cout, cout_tile(cout))
     wk = F.pad(kernel.to(torch.bfloat16), (0, cout_pad - cout, 0, cin_pad - cin))
     return wk.reshape(kh * kw, cin_pad // ck, ck, cout_pad).transpose(2, 3).contiguous()
 
@@ -135,6 +142,53 @@ def pack_pipelined(kernel: torch.Tensor) -> torch.Tensor:
     cout_pad = _round_up(cout, PIPE_COT)
     wk = F.pad(kernel.float(), (0, cout_pad - cout, 0, cin_pad - cin))
     return wk.reshape(kh * kw, cin_pad // PIPE_CHUNK, PIPE_CHUNK, cout_pad).transpose(0, 1).contiguous()
+
+
+def pack_narrow(kernel: torch.Tensor) -> torch.Tensor:
+    """HWIO [k, k, Cin, Cout] -> f32 [Cout tiles, Cin chunks, k * k, 8, cot]
+    (cot = ``cout_tile(Cout)``): one (Cout tile, chunk) run of weights for
+    every tap contiguous, zeros past Cin and Cout."""
+    kh, kw, cin, cout = kernel.shape
+    cot = cout_tile(cout)
+    cin_pad = _round_up(cin, NARROW_CHUNK)
+    cout_pad = _round_up(cout, cot)
+    wk = F.pad(kernel.float(), (0, cout_pad - cout, 0, cin_pad - cin))
+    wk = wk.reshape(kh * kw, cin_pad // NARROW_CHUNK, NARROW_CHUNK, cout_pad // cot, cot)
+    return wk.permute(3, 1, 0, 2, 4).contiguous()
+
+
+def narrow_plan(cout: int, k: int, dilation: int) -> dict:
+    """conv_narrow's instance for a call: its Cout tile, dynamic shared
+    memory per block, pipeline stages, blocks per SM, registers and local
+    (spilled) bytes per thread. Builds the kernels."""
+    import ctypes
+
+    cot = cout_tile(cout)
+    plan = (ctypes.c_int * 5)()
+    err = _kernels.query("conv_narrow_plan", cot, k, dilation, ctypes.addressof(plan))
+    if err:
+        raise ValueError(f"conv_narrow has no instance for Cout {cout}, {k}x{k}, dilation {dilation}: cudaError {err}")
+    return {"cot": cot, "smem": plan[0], "stages": plan[1], "blocks_per_sm": plan[2], "registers": plan[3],
+            "local_bytes": plan[4]}
+
+
+def launch_narrow(x, wk, bk, cout: int, k: int, dilation: int, relu: bool) -> torch.Tensor:
+    """conv_narrow on a CUDA f32 x [B,H,W,Cin] (Cin % 4 == 0, 16-byte
+    aligned): wk the k x k kernel as ``pack_narrow`` packs it, bk an f32 bias
+    [Cout rounded up to its tile], padding (k//2) * dilation, optional ReLU.
+    Returns [B,H,W,Cout] f32."""
+    b, h, w, cin = x.shape
+    if x.dtype != torch.float32 or cin % 4 or x.data_ptr() % 16:
+        raise ValueError(f"conv_narrow: expected a 16-byte aligned float32 x, Cin % 4 == 0; got {x.dtype}, Cin {cin}")
+    cot = cout_tile(cout)
+    cout_pad = _round_up(cout, cot)
+    shape = (cout_pad // cot, _round_up(cin, NARROW_CHUNK) // NARROW_CHUNK, k * k, NARROW_CHUNK, cot)
+    _check_packed("conv_narrow", x, [(wk, "kernel", shape, torch.float32), (bk, "bias", (cout_pad,), torch.float32)])
+    stream = _kernels.stream(x)
+    out = torch.empty((b, h, w, cout), dtype=torch.float32, device=x.device)
+    _kernels.launch("conv_narrow_f32", x.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(), b, h, w, cin, cout,
+                    k, dilation, int(relu), cot, stream)
+    return out
 
 
 def _check(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None, what: str) -> None:
@@ -226,7 +280,7 @@ def launch_pipelined(x, wk, bk, cout: int, kh: int, kw: int, relu: bool, groups:
 def wgmma_tiles(cin: int, cout: int, groups: int = 1) -> tuple[int, int]:
     """conv_wgmma's (Cout tile, K chunk) for a call: ``pack_wgmma``'s, the
     tile of Cout and the chunk of one group's Cin."""
-    return wgmma_n_tile(cout), wgmma_chunk(cin // groups)
+    return cout_tile(cout), wgmma_chunk(cin // groups)
 
 
 def wgmma_plan(cin: int, cout: int, kh: int, kw: int, dilation: int = 1, groups: int = 1) -> dict:
@@ -282,12 +336,15 @@ def _launch(name: str, x, kernel, bias, relu: bool, pad_top: int, pad_left: int,
     if which == "conv_pipelined":
         wk = pack_pipelined(kernel)
         out = launch_pipelined(x, wk, _padded_bias(bias, wk.shape[3], x.device), cout, kh, kw, relu)
+    elif which == "conv_narrow":
+        wk = pack_narrow(kernel)
+        out = launch_narrow(x, wk, _padded_bias(bias, wk.shape[0] * wk.shape[4], x.device), cout, kh, dilation, relu)
     elif which == "conv_wgmma":
         wk = pack_wgmma(kernel)
         out = launch_wgmma(x, wk, _padded_bias(bias, wk.shape[2], x.device), cout, kh, kw, dilation, pad_top,
                            pad_left, relu)
     else:
-        co_tile = 32 if cout <= 32 else 64 if cout <= 64 else 128
+        co_tile = cout_tile(cout)
         cin_pad = _round_up(cin, CIN_CHUNK)
         cout_pad = _round_up(cout, co_tile)
         wk = F.pad(kernel.to(x.dtype), (0, cout_pad - cout, 0, cin_pad - cin)).contiguous()

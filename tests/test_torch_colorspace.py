@@ -53,6 +53,18 @@ def test_lab_fwd_plain_matches_jax(rng):
     _assert_u8_close(got, want)
 
 
+@pytest.mark.parametrize("dim", [-1, 0])
+def test_srgb_bytes_to_lab_u8_matches_jax(rng, dim):
+    """The byte form (de-gamma table), channels last as the plain Lab-CLAHE
+    route passes them or first, is the JAX package's Lab of the same bytes."""
+    x = _u8_grid_image(rng)
+    want = np.clip(np.round(np.asarray(jcs.rgb_to_lab_u8(jnp.asarray(x)))), 0, 255)
+    rgb = torch.from_numpy(np.round(x * 255.0).astype(np.uint8)).movedim(-1, dim)
+    got = tcs.srgb_bytes_to_lab_u8(rgb, dim)
+    assert got.dtype == torch.uint8
+    _assert_u8_close(got.movedim(dim, -1).numpy(), want)
+
+
 def test_lab_inverse_and_round_trip(rng):
     x = rng.random((64, 96, 3), dtype=np.float32)
     lab = np.array(jcs.rgb_to_lab_u8(jnp.asarray(x)))

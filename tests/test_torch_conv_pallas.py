@@ -130,12 +130,12 @@ def test_wrappers_raise_outside_their_scope():
     tcp.reset_launches()
     with pytest.raises(ValueError, match="CUDA"):
         tcp.conv2d_narrow(x.to("meta"), torch.zeros(3, 3, 8, 8, device="meta"))
-    for dtype in _DTYPES:  # the calls that would go to conv_wgmma and conv_pipelined
+    for dtype in _DTYPES:  # the calls that would go to conv_wgmma and conv_pipelined (or conv_narrow)
         for fn in (tcp.conv2d_pallas, tcp.conv2d_pallas_im2col):
             with pytest.raises(ValueError, match="CUDA"):
                 fn(x.to("meta", dtype), torch.zeros(3, 3, 8, 8, device="meta"))
     assert tcp.LAUNCHES == {"conv2d_pallas": 0, "conv2d_pallas_im2col": 0, "conv2d_narrow": 0}
-    assert tcp.KERNEL_LAUNCHES == {"conv_direct": 0, "conv_wgmma": 0, "conv_pipelined": 0}
+    assert tcp.KERNEL_LAUNCHES == {"conv_direct": 0, "conv_wgmma": 0, "conv_pipelined": 0, "conv_narrow": 0}
 
 
 # ---------------------------------------------------------------- packing and routing
@@ -154,7 +154,7 @@ def test_weight_packers_round_trip_to_hwio(kh, kw, cin, cout):
     k = torch.from_numpy(rng.standard_normal((kh, kw, cin, cout)).astype(np.float32))
 
     wg = tcp.pack_wgmma(k)
-    n = tcp.wgmma_n_tile(cout)
+    n = tcp.cout_tile(cout)
     ck = tcp.wgmma_chunk(cin)
     assert ck == (32 if cin <= 32 else 64)
     assert wg.dtype == torch.bfloat16 and wg.is_contiguous()
@@ -175,6 +175,30 @@ def test_weight_packers_round_trip_to_hwio(kh, kw, cin, cout):
     assert not hwio[:, :, cin:].any() and not hwio[:, :, :, cout:].any()
 
 
+@pytest.mark.parametrize("cout", [30, 32, 40, 64, 128, 200])
+@pytest.mark.parametrize("cin", [24, 32, 64, 20])
+@pytest.mark.parametrize("k", [3, 5])
+def test_narrow_packer_round_trips_to_hwio(k, cin, cout):
+    """conv_narrow's [Cout tile, chunk, tap, 8, cot] f32 layout (cot 32, 64
+    or 128, the smallest that holds Cout) holds the HWIO kernel at its place
+    and zeros in the padding, each (Cout tile, chunk) run contiguous."""
+    rng = np.random.default_rng(k * 1000 + cin * 7 + cout)
+    w = torch.from_numpy(rng.standard_normal((k, k, cin, cout)).astype(np.float32))
+    cot = tcp.cout_tile(cout)
+    assert cot == (32 if cout <= 32 else 64 if cout <= 64 else 128)
+    pn = tcp.pack_narrow(w)
+    n_co, n_ch = -(-cout // cot), -(-cin // 8)
+    assert pn.dtype == torch.float32 and pn.is_contiguous()
+    assert tuple(pn.shape) == (n_co, n_ch, k * k, 8, cot)
+    hwio = pn.permute(2, 1, 3, 0, 4).reshape(k, k, n_ch * 8, n_co * cot)
+    assert torch.equal(hwio[:, :, :cin, :cout], w)
+    assert not hwio[:, :, cin:].any() and not hwio[:, :, :, cout:].any()
+    # One run: Cout tile t, chunk c, tap (u, v), channel j at [t, c, u*k + v, j].
+    t, c, u, v = n_co - 1, n_ch - 1, k - 1, k // 2
+    co = slice(cot * t, min(cout, cot * (t + 1)))
+    assert torch.equal(pn[t, c, u * k + v, : cin - 8 * c, : co.stop - co.start], w[u, v, 8 * c :, co])
+
+
 @pytest.mark.parametrize(
     "name,dtype,cin,offset,want",
     [
@@ -189,7 +213,11 @@ def test_weight_packers_round_trip_to_hwio(kh, kw, cin, cout):
         ("conv2d_narrow", torch.bfloat16, 32, 0, "conv_wgmma"),  # K14 in bf16 on the tensor cores
         ("conv2d_narrow", torch.bfloat16, 32, 8, "conv_direct"),  # a misaligned view
         ("conv2d_narrow", torch.bfloat16, 20, 0, "conv_direct"),  # Cin % 8 != 0
-        ("conv2d_narrow", torch.float32, 32, 0, "conv_direct"),  # f32 K14 beats F.conv2d on conv_direct
+        ("conv2d_narrow", torch.float32, 32, 0, "conv_narrow"),  # f32 K14 on its own narrow-tile kernel
+        ("conv2d_narrow", torch.float32, 24, 0, "conv_narrow"),
+        ("conv2d_narrow", torch.float32, 20, 0, "conv_narrow"),  # Cin % 8 != 0: the last chunk zero-filled
+        ("conv2d_narrow", torch.float32, 6, 0, "conv_direct"),  # Cin % 4 != 0: no 16-byte copies
+        ("conv2d_narrow", torch.float32, 32, 4, "conv_direct"),  # a misaligned view
     ],
 )
 def test_route_sends_each_call_to_its_documented_kernel(name, dtype, cin, offset, want):
@@ -206,6 +234,13 @@ def _pipelined_call(cin, cout, groups, residual_shape=None, residual_dtype=torch
     bk = torch.zeros(wk.shape[3])
     res = None if residual_shape is None else torch.zeros(residual_shape, dtype=residual_dtype)
     return lambda: tcp.launch_pipelined(x, wk, bk, cout, 3, 3, True, groups=groups, residual=res)
+
+
+def _narrow_call(cin, cout, k, wk_cout=None, bias_len=None, dtype=torch.float32):
+    x = torch.zeros(1, 5, 7, cin, dtype=dtype)
+    wk = tcp.pack_narrow(torch.zeros(k, k, cin, cout if wk_cout is None else wk_cout))
+    bk = torch.zeros(wk.shape[0] * wk.shape[4] if bias_len is None else bias_len)
+    return lambda: tcp.launch_narrow(x, wk, bk, cout, k, 1, True)
 
 
 def _wgmma_call(cin, cout, groups):
@@ -234,16 +269,23 @@ def _wgmma_call(cin, cout, groups):
         (_pipelined_call(64, 128, 1), "CUDA"),
         (_wgmma_call(256, 256, 2), "CUDA"),
         (_wgmma_call(64, 256, 2), "CUDA"),  # 32 channels a group: the 32-channel K chunk
+        (_narrow_call(32, 32, 3, wk_cout=64), "kernel"),  # packed for a 64-wide Cout tile
+        (_narrow_call(32, 40, 5, bias_len=40), "bias"),  # the bias not padded to the tile
+        (_narrow_call(6, 32, 3), "Cin % 4"),
+        (_narrow_call(32, 32, 3, dtype=torch.bfloat16), "float32"),
+        (_narrow_call(32, 32, 3), "CUDA"),
+        (_narrow_call(24, 200, 5), "CUDA"),  # two Cout tiles of 128
     ],
 )
 def test_launch_sites_check_groups_and_residual(call, match):
     """launch_pipelined and launch_wgmma refuse a `groups` that does not give
     each group whole K chunks and whole Cout tiles, and a residual of the
-    wrong shape or dtype, before anything reaches a kernel."""
+    wrong shape or dtype, and launch_narrow weights packed for another tile,
+    before anything reaches a kernel."""
     tcp.reset_launches()
     with pytest.raises(ValueError, match=match):
         call()
-    assert tcp.KERNEL_LAUNCHES == {"conv_direct": 0, "conv_wgmma": 0, "conv_pipelined": 0}
+    assert tcp.KERNEL_LAUNCHES == {"conv_direct": 0, "conv_wgmma": 0, "conv_pipelined": 0, "conv_narrow": 0}
 
 
 @pytest.mark.parametrize("cin,cout,groups", [(256, 256, 2), (64, 256, 2), (512, 512, 4), (128, 128, 1)])
@@ -255,7 +297,7 @@ def test_grouped_kernels_pack_per_group(cin, cout, groups):
     rng = np.random.default_rng(cin + groups)
     k = torch.from_numpy(rng.standard_normal((3, 3, cin // groups, cout)).astype(np.float32))
     n_t, ck = tcp.wgmma_tiles(cin, cout, groups)
-    assert (n_t, ck) == (tcp.wgmma_n_tile(cout), tcp.wgmma_chunk(cin // groups))
+    assert (n_t, ck) == (tcp.cout_tile(cout), tcp.wgmma_chunk(cin // groups))
     assert (cout // groups) % n_t == 0 and (cin // groups) % ck == 0
     wg = tcp.pack_wgmma(k)
     assert tuple(wg.shape) == (9, cin // groups // ck, cout, ck)

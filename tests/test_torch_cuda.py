@@ -240,7 +240,7 @@ def test_conv_kernels_match_plain_versions(cuda_f32, shape, dtype):
     that is no multiple of 4) against their plain versions, on ragged H and
     W and Cin 24, 64 and 256, inputs N(0,1) and kernels x 0.05 as
     tests/test_conv_pallas.py scales them. bf16 runs on conv_wgmma; in f32
-    K13/K15 run on conv_pipelined, K14 on conv_direct; each image of the
+    K13/K15 run on conv_pipelined, K14 on conv_narrow; each image of the
     batch equals the kernel on it alone."""
     from retinex_tpu_torch.ops import conv_pallas as cp
 
@@ -262,9 +262,9 @@ def test_conv_kernels_match_plain_versions(cuda_f32, shape, dtype):
         (cp.conv2d_narrow, cp.conv2d_narrow_plain, (k(5, 5, 30), bias[:30], False), {}),
     ]
     if dtype == torch.bfloat16:
-        kernels = {"conv_direct": 0, "conv_wgmma": 7, "conv_pipelined": 0}
+        kernels = {"conv_direct": 0, "conv_wgmma": 7, "conv_pipelined": 0, "conv_narrow": 0}
     else:
-        kernels = {"conv_direct": 2, "conv_wgmma": 0, "conv_pipelined": 5}
+        kernels = {"conv_direct": 0, "conv_wgmma": 0, "conv_pipelined": 5, "conv_narrow": 2}
     cp.reset_launches()
     got = [fn(x, *args, **kw) for fn, _, args, kw in cases]
     torch.cuda.synchronize()
@@ -298,7 +298,7 @@ def test_conv_narrow_bf16_runs_on_the_tensor_cores(cuda_f32, cin):
         cp.reset_launches()
         got = cp.conv2d_narrow(x, kern, bias, relu, dilation=dil)
         torch.cuda.synchronize()
-        assert cp.KERNEL_LAUNCHES == {"conv_direct": 0, "conv_wgmma": 1, "conv_pipelined": 0}
+        assert cp.KERNEL_LAUNCHES == {"conv_direct": 0, "conv_wgmma": 1, "conv_pipelined": 0, "conv_narrow": 0}
         _close(got, cp.conv2d_narrow_plain(x, kern, bias, relu, dilation=dil), torch.bfloat16)
         for j in range(2):
             alone = cp.conv2d_narrow(x[j : j + 1].contiguous(), kern, bias, relu, dilation=dil)
@@ -321,7 +321,7 @@ def test_conv_wgmma_has_a_plan_for_every_routed_call(cuda_f32):
     for kh, kw, dil in shapes:
         for cin in (8, 24, 32, 40, 64, 136, 512):
             for cout in (8, 32, 40, 64, 96, 128, 200, 384):
-                n_t = cp.wgmma_n_tile(cout)
+                n_t = cp.cout_tile(cout)
                 args = (cin, -(-cout // n_t) * n_t, kh, kw, dil, n_t, cp.wgmma_chunk(cin), 1, ctypes.addressof(plan))
                 assert _kernels.query("conv_wgmma_plan", *args) == 0, (kh, kw, dil, cin, cout)
                 assert plan[0] <= 232448 and plan[1] >= 2 and plan[2] in (0, 2, 3, 4)
@@ -348,7 +348,7 @@ def test_conv_misaligned_view_goes_to_conv_direct(cuda_f32, dtype):
         cp.conv2d_narrow(x, kern, bias, dilation=2),
     ]
     torch.cuda.synchronize()
-    assert cp.KERNEL_LAUNCHES == {"conv_direct": 3, "conv_wgmma": 0, "conv_pipelined": 0}
+    assert cp.KERNEL_LAUNCHES == {"conv_direct": 3, "conv_wgmma": 0, "conv_pipelined": 0, "conv_narrow": 0}
     _close(got[0], cp.conv2d_pallas_plain(x, kern, bias, True), dtype)
     _close(got[1], cp.conv2d_pallas_plain(x, kern, bias), dtype)
     _close(got[2], cp.conv2d_narrow_plain(x, kern, bias, dilation=2), dtype)
@@ -633,3 +633,116 @@ def test_float_route_equals_u8_route_and_glue(cuda_f32):
     want = cg.dequantise_nhwc(cg.clahe_rgb_u8_planar_gather(cg.quantise_planar_u8(x)))
     assert got.shape == want.shape and torch.equal(got, want)
     assert torch.equal(cg.clahe_lab_rgb_gather(x.contiguous()), got)
+
+
+@pytest.mark.cuda
+def test_ieee_div_equals_the_cpus_division_on_the_card(cuda_f32):
+    """ieee_div on the card gives the CPU's IEEE f32 quotient (PyTorch on
+    CUDA divides by a Python number as a product by its reciprocal): every
+    integer in [-70000, 70000) and 4M random floats of several magnitudes,
+    over the divisors the port's byte and Lab arithmetic uses."""
+    from retinex_tpu_torch.ops.colorspace import ieee_div
+
+    ints = torch.arange(-70000, 70000, dtype=torch.float32)
+    rand = torch.rand(1 << 22, generator=torch.Generator().manual_seed(0)) * torch.logspace(-6, 6, 1 << 22)
+    for v in (ints, rand):
+        for c in (255.0, 12.92, 1.055, 0.950456, 1.088754, 116.0, 7.787, 500.0, 200.0):
+            got = ieee_div(v.cuda(), c).cpu()
+            assert torch.equal(got, v / c), (c, int((got != v / c).sum()))
+    assert int((ints.cuda() / 255.0).cpu().ne(ints / 255.0).sum()) > 0  # the product the helper avoids
+
+
+@pytest.mark.cuda
+def test_plain_lab_route_and_gray_over_every_srgb_triple(cuda_f32):
+    """F3: the plain Lab-CLAHE route's quantisation and Lab bytes (K1's
+    plain float version, which clahe_lab_rgb runs on every frame that is
+    not cell-divisible) and the gray levels of brightness_features and of
+    the saliency map are the same on the card as on the CPU over every
+    sRGB triple, the input each byte / 255 (IEEE, so the quantisation
+    gives the byte back), stored NHWC and channels first."""
+    from retinex_tpu_torch.infer.adaptive_params import gray_levels
+
+    cube = _cube().cpu()
+    x = (cube.float() / 255.0).permute(0, 2, 3, 1)
+    want_lab = cg.lab_fwd_f32_nhwc_plain(x)
+    want_gray = gray_levels(x)
+    assert torch.equal(cg.quantise_planar_u8(x), cube)
+    for xc in (x.cuda(), x.contiguous().cuda()):
+        lab = cg.lab_fwd_f32_nhwc_plain(xc).cpu()
+        assert torch.equal(lab, want_lab), f"{int((lab != want_lab).sum())} Lab bytes differ from the CPU's"
+        gray = gray_levels(xc).cpu()
+        assert torch.equal(gray, want_gray), f"{int((gray != want_gray).sum())} gray levels differ from the CPU's"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,k,cout,dil,relu", [
+    ((2, 1088, 1920, 32), 3, 32, 1, True), ((2, 1088, 1920, 32), 3, 64, 1, True),
+    ((2, 1088, 1920, 32), 3, 32, 2, False), ((2, 37, 53, 24), 5, 40, 1, True),
+    ((2, 37, 53, 24), 3, 30, 2, False), ((2, 37, 53, 64), 5, 128, 2, True),
+    ((2, 1088, 1920, 32), 5, 32, 1, True),
+    ((1, 19, 70, 20), 5, 200, 1, False), ((3, 8, 9, 4), 3, 7, 2, True),
+])
+def test_conv_narrow_f32_runs_on_its_kernel(cuda_f32, shape, k, cout, dil, relu):
+    """K14 in f32 on conv_narrow: the seven shapes chip_smoke.py's phase 17
+    drives ([2,1088,1920,32] and the ragged ones: 3x3 and 5x5,
+    dilation 1 and 2, Cout tiles of 32, 64 and 128), a Cin with a
+    zero-filled last chunk and two Cout tiles, and frames smaller than one
+    tile, within 1e-4 of the plain version; each image of the batch equals
+    the kernel on it alone."""
+    from retinex_tpu_torch.ops import conv_pallas as cp
+
+    g = cuda_f32
+    x = torch.randn(shape, generator=g, device="cuda")
+    kern = torch.randn((k, k, shape[3], cout), generator=g, device="cuda") * 0.05
+    bias = torch.randn(cout, generator=g, device="cuda")
+    cp.reset_launches()
+    got = cp.conv2d_narrow(x, kern, bias, relu, dilation=dil)
+    torch.cuda.synchronize()
+    assert cp.KERNEL_LAUNCHES == {"conv_direct": 0, "conv_wgmma": 0, "conv_pipelined": 0, "conv_narrow": 1}
+    _close(got, cp.conv2d_narrow_plain(x, kern, bias, relu, dilation=dil), torch.float32)
+    for j in sorted({0, shape[0] - 1}):
+        assert torch.equal(cp.conv2d_narrow(x[j : j + 1].contiguous(), kern, bias, relu, dilation=dil), got[j : j + 1])
+
+
+def _luma_frames(g):
+    """u8 NHWC batches for K7 and K9: noise, flat frames (one value per
+    image: 0, 255, 91) and a photo (data/convergence/lowlight_000.png),
+    each with 8x8 tiles; and a noise frame whose width is no multiple of 8
+    (6 tiles a side), which takes the kernels' one-pixel path."""
+    from pathlib import Path
+
+    import numpy as np
+    from PIL import Image
+
+    photo = Path(__file__).resolve().parent.parent / "data" / "convergence" / "lowlight_000.png"
+    with Image.open(photo) as im:
+        img = torch.from_numpy(np.asarray(im.convert("RGB"))).cuda()[None]
+    flat = torch.tensor([0, 255, 91], dtype=torch.uint8, device="cuda").view(3, 1, 1, 1).expand(3, 272, 480, 3)
+    return [
+        (torch.randint(0, 256, (2, 272, 480, 3), dtype=torch.uint8, device="cuda", generator=g), 8),
+        (flat.contiguous(), 8),
+        (img.contiguous(), 8),
+        (torch.randint(0, 256, (2, 120, 252, 3), dtype=torch.uint8, device="cuda", generator=g), 6),
+    ]
+
+
+@pytest.mark.cuda
+def test_luma_kernels_bit_identical_to_plain_versions(cuda_f32):
+    """K7 (planar and NHWC) and K9 equal their plain versions byte for byte
+    on noise, flat frames and a photo, at hist_subsample 1 and 2, and on a
+    width that takes their one-pixel path."""
+    for x, tiles in _luma_frames(cuda_f32):
+        xp = x.permute(0, 3, 1, 2).contiguous()
+        y = cl._luma_u8(xp)
+        for s in (1, 2):
+            luts = cg.clahe_tables(y, tiles_y=tiles, tiles_x=tiles, hist_subsample=s)
+            cl.reset_launches()
+            k7 = cl.clahe_luma_apply_u8(xp, y, luts)
+            k7_nhwc = cl.clahe_luma_apply_u8(x, y, luts)
+            k9 = cl.clahe_luma_apply_u8_fused(xp, luts)
+            torch.cuda.synchronize()
+            assert cl.LAUNCHES == {"clahe_luma_apply_u8": 2, "clahe_luma_apply_u8_fused": 1}
+            want = cl.clahe_luma_apply_u8_plain(xp, y, luts)
+            assert torch.equal(k7, want), (tuple(x.shape), s, int((k7 != want).sum()))
+            assert torch.equal(k7_nhwc, cl.clahe_luma_apply_u8_plain(x, y, luts)), (tuple(x.shape), s)
+            assert torch.equal(k9, cl.clahe_luma_apply_u8_fused_plain(xp, luts)), (tuple(x.shape), s)

@@ -51,8 +51,11 @@ _L = ctypes.c_longlong
 # launch function: (source stem, argtypes: pointers, sizes, the stream last)
 _SIGNATURES = {
     "clahe_lab_fwd": ("clahe_lab", (_P, _P, _P, _I, _I, _I, _I, _P)),
-    "clahe_tables": ("clahe_lab", (_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _P)),
+    "clahe_tables": ("clahe_lab", (_P, _P, _P, _L) + (_I,) * 10 + (ctypes.c_float,) + (_I,) * 3 + (_P,)),
     "clahe_apply": ("clahe_lab", (_P, _P, _P, _P) + (_I,) * 9 + (_P,)),
+    "clahe_apply_tiles": ("clahe_lab", (_P,) * 5 + (_I,) * 8 + (_P,)),
+    "clahe_pallas_hist": ("clahe_lab", (_P,) * 4 + (_I,) * 8 + (_P,)),
+    "clahe_pallas_apply": ("clahe_lab", (_P,) * 4 + (_I,) * 8 + (_P,)),
     "clahe_apply_table_layout": ("clahe_lab", (_I,)),
     "clahe_luma_apply_u8": ("clahe_luma", (_P,) * 5 + (_I,) * 5 + (_P,)),
     "clahe_luma_apply_u8_nhwc": ("clahe_luma", (_P,) * 5 + (_I,) * 5 + (_P,)),
@@ -68,8 +71,6 @@ _SIGNATURES = {
     "conv_pipelined_smem": ("conv_pipelined", (_I, _I)),
     "conv_narrow_f32": ("conv_narrow", (_P,) * 4 + (_I,) * 9 + (_P,)),
     "conv_narrow_plan": ("conv_narrow", (_I,) * 3 + (_P,)),
-    "clahe_pallas_hist": ("clahe_fused", (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
-    "clahe_pallas_apply": ("clahe_fused", (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
 }
 
 

@@ -10,10 +10,15 @@ cv2.createCLAHE(clipLimit=2.0, tileGridSize=(8,8)).apply(L) on the L channel:
 3. LUT[i] = round(cumsum(hist)[i] * 255 / tileArea), saturating cast.
 4. Each output pixel bilinearly interpolates the 4 neighbouring tile LUTs.
 
-``clahe_u8`` is the plain gather formulation for any shape.
-``clahe_lab_rgb`` routes cell-divisible shapes (H, W multiples of 2*tiles)
-to the three-kernel pipeline in ops/clahe_gather.py and every other shape to
-``clahe_u8``, as the JAX package routes them.
+``clahe_u8`` is the plain gather formulation for any shape, in two halves:
+``padded_tile_hist`` (the reflect-101 padded tiles' histograms) and
+``blend_tiles`` (the four-neighbour blend).
+``clahe_lab_rgb`` on the card takes every shape to the three kernels in
+ops/clahe_gather.py: cell-divisible shapes (H, W multiples of 2*tiles) in
+their cell modes, every other shape in their tile modes, which compute
+``clahe_u8``'s semantics. On the CPU it routes as the JAX package routes:
+cell-divisible shapes to the kernels' plain versions, every other shape to
+``clahe_u8``.
 """
 
 from __future__ import annotations
@@ -74,12 +79,6 @@ def _tile_hist(tiles: torch.Tensor) -> torch.Tensor:
     return hist.reshape(*lead, HIST_SIZE)
 
 
-def _tile_luts(tiles_u8: torch.Tensor, clip_limit: float, tile_area: int) -> torch.Tensor:
-    """Per-tile OpenCV-CLAHE LUTs. tiles_u8: int [..., T, tile_area] ->
-    int32 [..., T, 256]."""
-    return _luts_from_hist(_tile_hist(tiles_u8), clip_limit, tile_area)
-
-
 def _interp_maps(h: int, w: int, tiles_y: int, tiles_x: int, tile_h: int, tile_w: int, device=None):
     """Bilinear interpolation maps between tile LUTs (OpenCV semantics).
 
@@ -109,38 +108,37 @@ def _reflect101_index(n: int, pad: int) -> np.ndarray:
     return np.where(idx < n, idx, 2 * (n - 1) - idx)
 
 
-def clahe_u8(
-    img_u8: torch.Tensor,
-    clip_limit: float = 2.0,
-    tiles_x: int = 8,
-    tiles_y: int = 8,
-) -> torch.Tensor:
-    """OpenCV-parity CLAHE on uint8 single-channel images of any shape.
+def tile_dims(h: int, w: int, tiles_y: int, tiles_x: int) -> tuple[int, int, int, int]:
+    """(pad_h, pad_w, tile_h, tile_w) of an h x w frame padded (reflect-101,
+    bottom and right) to whole tiles."""
+    pad_h, pad_w = (-h) % tiles_y, (-w) % tiles_x
+    return pad_h, pad_w, (h + pad_h) // tiles_y, (w + pad_w) // tiles_x
 
-    img_u8: [B, H, W] (or [H, W]) values in [0,255] -> int32, same shape.
-    """
-    squeeze = img_u8.ndim == 2
-    if squeeze:
-        img_u8 = img_u8[None]
-    img = img_u8.to(torch.int32)
+
+def padded_tile_hist(img: torch.Tensor, tiles_y: int, tiles_x: int) -> tuple[torch.Tensor, int]:
+    """Histograms of the reflect-101 padded tiles of [B, H, W] values in
+    [0, 255]: (int64 [B, tiles_y, tiles_x, 256], tile area)."""
     b, h, w = img.shape
-    dev = img.device
-
-    pad_h = (-h) % tiles_y
-    pad_w = (-w) % tiles_x
-    rows = torch.as_tensor(_reflect101_index(h, pad_h), device=dev)
-    cols = torch.as_tensor(_reflect101_index(w, pad_w), device=dev)
-    padded = img.index_select(1, rows).index_select(2, cols)
-    ph, pw = h + pad_h, w + pad_w
-    tile_h, tile_w = ph // tiles_y, pw // tiles_x
+    pad_h, pad_w, tile_h, tile_w = tile_dims(h, w, tiles_y, tiles_x)
+    rows = torch.as_tensor(_reflect101_index(h, pad_h), device=img.device)
+    cols = torch.as_tensor(_reflect101_index(w, pad_w), device=img.device)
+    padded = img.to(torch.int32).index_select(1, rows).index_select(2, cols)
     tile_area = tile_h * tile_w
-
     tiles = padded.reshape(b, tiles_y, tile_h, tiles_x, tile_w)
     tiles = tiles.permute(0, 1, 3, 2, 4).reshape(b, tiles_y * tiles_x, tile_area)
-    luts = _tile_luts(tiles, clip_limit, tile_area)  # [b, T, 256]
+    return _tile_hist(tiles).reshape(b, tiles_y, tiles_x, HIST_SIZE), tile_area
 
+
+def blend_tiles(img: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
+    """clahe_u8's blend: each pixel of [B, H, W] values in [0, 255] through
+    the LUTs [B, tiles_y, tiles_x, 256] of its four neighbour tiles, blended
+    by its tile coordinate (``_interp_maps``) -> int32 [B, H, W]."""
+    b, h, w = img.shape
+    _, tiles_y, tiles_x, _ = luts.shape
+    dev = img.device
+    _, _, tile_h, tile_w = tile_dims(h, w, tiles_y, tiles_x)
     (y0i, y1i, ya), (x0i, x1i, xa) = _interp_maps(h, w, tiles_y, tiles_x, tile_h, tile_w, dev)
-    luts_flat = luts.reshape(b, tiles_y * tiles_x * HIST_SIZE)
+    luts_flat = luts.to(torch.int32).reshape(b, tiles_y * tiles_x * HIST_SIZE)
     v = img.long()
 
     def lut_at(yi, xi):
@@ -157,20 +155,38 @@ def clahe_u8(
     xa2 = xa[None, None, :]
     top = _fma(l00, 1.0 - xa2, l01 * xa2)
     bot = _fma(l10, 1.0 - xa2, l11 * xa2)
-    out = torch.clamp(torch.round(_fma(top, 1.0 - ya2, bot * ya2)), 0, 255).to(torch.int32)
+    return torch.clamp(torch.round(_fma(top, 1.0 - ya2, bot * ya2)), 0, 255).to(torch.int32)
+
+
+def clahe_u8(
+    img_u8: torch.Tensor,
+    clip_limit: float = 2.0,
+    tiles_x: int = 8,
+    tiles_y: int = 8,
+) -> torch.Tensor:
+    """OpenCV-parity CLAHE on uint8 single-channel images of any shape.
+
+    img_u8: [B, H, W] (or [H, W]) values in [0,255] -> int32, same shape.
+    """
+    squeeze = img_u8.ndim == 2
+    if squeeze:
+        img_u8 = img_u8[None]
+    img = img_u8.to(torch.int32)
+    hist, tile_area = padded_tile_hist(img, tiles_y, tiles_x)
+    out = blend_tiles(img, _luts_from_hist(hist, clip_limit, tile_area))
     return out[0] if squeeze else out
 
 
 @functools.lru_cache(maxsize=None)
 def _note_plain_route(h: int, w: int, tiles: int) -> None:
     log.info(
-        "clahe_lab_rgb: %dx%d is not a multiple of %d; plain clahe_u8 runs "
-        "(the CLAHE kernels take cell-divisible shapes)", h, w, 2 * tiles,
+        "clahe_lab_rgb: %dx%d is not a multiple of %d; on the CPU plain clahe_u8 runs "
+        "(on the card the CLAHE kernels in their tile modes)", h, w, 2 * tiles,
     )
 
 
 def cell_divisible(h: int, w: int, tiles_y: int, tiles_x: int) -> bool:
-    """Shapes the CLAHE kernels take: H and W multiples of 2*tiles."""
+    """Shapes the CLAHE kernels' cell modes take: H and W multiples of 2*tiles."""
     return h % (2 * tiles_y) == 0 and w % (2 * tiles_x) == 0
 
 
@@ -184,12 +200,13 @@ def clahe_lab_rgb(
     only, a/b passed through, Lab->RGB, back to float [0,1].
 
     x: float [0,1] NHWC (or HWC). Cell-divisible shapes run the kernel
-    pipeline (ops/clahe_gather.py); `hist_subsample=s` builds its tile
-    histograms from a within-cell s x s decimation. Other shapes run the
-    plain `clahe_u8` with exact histograms and ignore the knob; their Lab
-    bytes are ``srgb_bytes_to_lab_u8``'s (K1's plain version), and the
-    output byte / 255 the IEEE quotient, so the card gives the CPU's bytes
-    (a division or a power of a CUDA tensor rounds otherwise).
+    pipeline (ops/clahe_gather.py, the kernels' plain versions on the CPU);
+    `hist_subsample=s` builds its tile histograms from a within-cell s x s
+    decimation. Other shapes have exact histograms of the padded tiles and
+    ignore the knob: on the card K1-K3 in their tile modes
+    (``clahe_gather.clahe_lab_rgb_tiles``), on the CPU the plain
+    ``clahe_u8`` with ``srgb_bytes_to_lab_u8``'s Lab bytes (K1's plain
+    version) and ``lab_u8_to_rgb``. The card gives the CPU's bytes.
     """
     squeeze = x.ndim == 3
     if squeeze:
@@ -201,6 +218,11 @@ def clahe_lab_rgb(
         out = clahe_lab_rgb_gather(
             x, clip_limit=clip_limit, tiles_x=tiles, tiles_y=tiles, hist_subsample=hist_subsample
         )
+        return out[0] if squeeze else out
+    if x.device.type != "cpu":
+        from retinex_tpu_torch.ops.clahe_gather import clahe_lab_rgb_tiles
+
+        out = clahe_lab_rgb_tiles(x, clip_limit=clip_limit, tiles_x=tiles, tiles_y=tiles)
         return out[0] if squeeze else out
     _note_plain_route(h, w, tiles)
     lab = srgb_bytes_to_lab_u8(torch.round(torch.clamp(x, 0.0, 1.0) * 255.0).to(torch.uint8), -1)

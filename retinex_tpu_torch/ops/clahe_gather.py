@@ -23,7 +23,12 @@ in several instances:
   sRGB u8, from tables built once per process (``apply_tables``);
 - ``clahe_apply_f32_nhwc`` (K3 writing the float image): the same bytes as
   float v / 255, NHWC;
-- ``clahe_apply_u8_nhwc`` (K8, apply half): the same, written as u8 NHWC.
+- ``clahe_apply_u8_nhwc`` (K8, apply half): the same, written as u8 NHWC;
+- ``clahe_tables_tiles`` (K2 in its tile-row mode) and
+  ``clahe_apply_tiles_f32_nhwc`` (K3 in its tile-coordinate mode): the same
+  pipeline on a frame of any shape with ``clahe.clahe_u8``'s semantics (the
+  tiles of the reflect-101 padded frame, each pixel's tile coordinate), for
+  ``clahe.clahe_lab_rgb`` on the card where the frame is not cell-divisible.
 
 Each wrapper takes a CPU tensor to its plain version and a CUDA tensor to
 its kernel; there is no fallback from one to the other. ``LAUNCHES`` counts
@@ -39,7 +44,15 @@ import numpy as np
 import torch
 
 from retinex_tpu_torch.ops import _kernels
-from retinex_tpu_torch.ops.clahe import HIST_SIZE, _luts_from_hist, cell_divisible
+from retinex_tpu_torch.ops.clahe import (
+    HIST_SIZE,
+    _interp_maps,
+    _luts_from_hist,
+    blend_tiles,
+    cell_divisible,
+    padded_tile_hist,
+    tile_dims,
+)
 from retinex_tpu_torch.ops.clahe_fast import _hist_from_cells, apply_from_cells
 from retinex_tpu_torch.ops.colorspace import (
     _lab_f_inv,
@@ -62,6 +75,8 @@ LAUNCHES = {
     "clahe_apply_u8": 0,
     "clahe_apply_f32_nhwc": 0,
     "clahe_apply_u8_nhwc": 0,
+    "clahe_tables_tiles": 0,
+    "clahe_apply_tiles_f32_nhwc": 0,
 }
 
 # The sRGB side's layouts, numbered as csrc/clahe_lab.cu's Layout:
@@ -224,8 +239,14 @@ def tables_plan(
     sampled rows (``strip_rows``) cut into strips so that the grid holds
     about K2_BLOCKS_PER_SM blocks per SM, every strip at least one row."""
     hh = h // (2 * tiles_y)
-    n_rows = 2 * (-(-hh // hist_subsample))
-    want = -(-K2_BLOCKS_PER_SM * n_sm // (batch * tiles_y * tiles_x))
+    return strip_plan(2 * (-(-hh // hist_subsample)), tiles_y * tiles_x, batch, n_sm)
+
+
+def strip_plan(n_rows: int, n_tiles: int, batch: int, n_sm: int = 132) -> tuple[int, int]:
+    """(strips per tile, rows per strip): a tile's `n_rows` rows cut into
+    strips so that the grid of n_tiles * strips blocks per image holds about
+    K2_BLOCKS_PER_SM blocks per SM, every strip at least one row."""
+    want = -(-K2_BLOCKS_PER_SM * n_sm // (batch * n_tiles))
     rows = -(-n_rows // max(1, min(want, n_rows)))
     return -(-n_rows // rows), rows
 
@@ -240,11 +261,13 @@ def strip_rows(h: int, tiles_y: int, hist_subsample: int, strip: int, rows_per_s
     return [j * s if j < per_cell else hh + (j - per_cell) * s for j in js]
 
 
-def _load_width(plane: torch.Tensor, img_stride: int, w: int, tiles_x: int) -> int:
+def _load_width(plane: torch.Tensor, img_stride: int, w: int, tiles_x: int, tile_w: int | None = None) -> int:
     """Bytes a K2 thread loads at once: 16, else 4, else 1, as the plane's
-    address, the image stride, the row stride and the tile width allow."""
+    address, the image stride, the row stride and the tile width (w //
+    tiles_x, or the padded tile's `tile_w`) allow."""
+    tile_w = w // tiles_x if tile_w is None else tile_w
     for v in (16, 4):
-        if plane.data_ptr() % v == 0 and img_stride % v == 0 and w % v == 0 and (w // tiles_x) % v == 0:
+        if plane.data_ptr() % v == 0 and img_stride % v == 0 and w % v == 0 and tile_w % v == 0:
             return v
     return 1
 
@@ -270,9 +293,11 @@ def clahe_tables(
     strips, rows = tables_plan(h, tiles_y, tiles_x, hist_subsample, b, n_sm)
     # The tiles' int32 histograms, then their arrival counters.
     scratch = torch.zeros(b * tiles_y * tiles_x * (HIST_SIZE + 1), dtype=torch.int32, device=src.device)
+    tile_h, tile_w = h // tiles_y, w // tiles_x
     _kernels.launch(
         "clahe_tables", src.data_ptr(), out.data_ptr(), scratch.data_ptr(), img_stride, b, h, w, tiles_y, tiles_x,
-        hist_subsample, clip, float(lut_scale), strips, rows, _load_width(plane, img_stride, w, tiles_x), stream,
+        tile_h, tile_w, 0, hist_subsample, clip, float(lut_scale), strips, rows,
+        _load_width(plane, img_stride, w, tiles_x), stream,
     )
     LAUNCHES["clahe_tables"] += 1
     return out
@@ -373,20 +398,27 @@ def apply_tables() -> dict[str, torch.Tensor]:
     }
 
 
-@functools.lru_cache(maxsize=None)
-def _apply_table_block(device: str) -> torch.Tensor:
-    """int32 [APPLY_TABLE_WORDS]: ``apply_tables`` laid out as K3 stages them."""
+def table_words(t: dict[str, torch.Tensor]) -> torch.Tensor:
+    """int32 [APPLY_TABLE_WORDS]: tables as K3 stages them (``apply_tables``'s
+    keys; da and db may be absent, as K16's apply reads none), after
+    checking that csrc/clahe_lab.cu lays them out so."""
     layout = tuple(_kernels.query("clahe_apply_table_layout", i) for i in range(3))
     if layout != (QUANT_BASE, QUANT_LAST, APPLY_TABLE_WORDS):
         raise RuntimeError(f"csrc/clahe_lab.cu lays out K3's tables as {layout}, this module as "
                            f"{(QUANT_BASE, QUANT_LAST, APPLY_TABLE_WORDS)}")
-    t = apply_tables()
     words = torch.zeros(APPLY_TABLE_WORDS, dtype=torch.int32)
     words[:512] = torch.stack([t["fy"], t["y"]], dim=1).reshape(-1).view(torch.int32)
-    words[512:768] = t["da"].view(torch.int32)
-    words[768:1024] = t["db"].view(torch.int32)
+    if "da" in t:
+        words[512:768] = t["da"].view(torch.int32)
+        words[768:1024] = t["db"].view(torch.int32)
     words[_TAB_QUANT : _TAB_QUANT + QUANT_LAST + 1] = t["quant"].to(torch.int32)
-    return words.to(device)
+    return words
+
+
+@functools.lru_cache(maxsize=None)
+def _apply_table_block(device: str) -> torch.Tensor:
+    """int32 [APPLY_TABLE_WORDS]: ``apply_tables`` laid out as K3 stages them."""
+    return table_words(apply_tables()).to(device)
 
 
 def dequantise_nhwc(u8: torch.Tensor) -> torch.Tensor:
@@ -405,18 +437,19 @@ def clahe_apply_u8_plain(lab: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
 
 def _check_luts(
     luts: torch.Tensor, b: int, h: int, w: int, device: torch.device, what: str, smem_fixed: int = 0,
-    smem_per_tile: int = 2 * HIST_SIZE, smem_max: int = 48 * 1024,
+    smem_per_tile: int = 2 * HIST_SIZE, smem_max: int = 48 * 1024, cells: bool = True,
 ) -> tuple[int, int]:
-    """Validate u8 LUTs [b, ty, tx, 256] for an h x w frame; return (ty, tx).
-    On the card the kernel stages `smem_fixed` bytes and `smem_per_tile`
-    for each x-tile (two tile rows of LUTs, by default) in at most
-    `smem_max` bytes of shared memory."""
+    """Validate u8 LUTs [b, ty, tx, 256] for an h x w frame (cell-divisible
+    unless `cells` is False); return (ty, tx). On the card the kernel stages
+    `smem_fixed` bytes and `smem_per_tile` for each x-tile (two tile rows of
+    LUTs, by default) in at most `smem_max` bytes of shared memory."""
     if luts.dtype != torch.uint8 or luts.ndim != 4 or luts.shape[0] != b or luts.shape[3] != HIST_SIZE:
         raise ValueError(f"{what}: expected uint8 LUTs [{b}, ty, tx, 256], got {luts.dtype} {tuple(luts.shape)}")
     if not luts.is_contiguous() or luts.device != device:
         raise ValueError(f"{what}: LUTs must be contiguous and on the image's device")
     tiles_y, tiles_x = luts.shape[1], luts.shape[2]
-    _check_cells(h, w, tiles_y, tiles_x)
+    if cells:
+        _check_cells(h, w, tiles_y, tiles_x)
     if device.type != "cpu" and smem_fixed + smem_per_tile * tiles_x > smem_max:
         raise ValueError(f"{what}: tiles_x={tiles_x} needs more than {smem_max // 1024} KB of shared memory")
     return tiles_y, tiles_x
@@ -464,11 +497,11 @@ def _launch_apply(lab: torch.Tensor, luts: torch.Tensor, out: torch.Tensor, layo
     return out
 
 
-def _check_apply(lab: torch.Tensor, luts: torch.Tensor, what: str) -> None:
+def _check_apply(lab: torch.Tensor, luts: torch.Tensor, what: str, cells: bool = True) -> None:
     _check_planar_u8(lab, what)
     b, _, h, w = lab.shape
     fixed = 4 * (APPLY_TABLE_WORDS + HIST_SIZE) + _K3_STAGE_BYTES
-    _check_luts(luts, b, h, w, lab.device, what, fixed, 4 * HIST_SIZE, _SMEM_MAX)
+    _check_luts(luts, b, h, w, lab.device, what, fixed, 4 * HIST_SIZE, _SMEM_MAX, cells)
 
 
 def clahe_apply_u8(lab: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
@@ -571,4 +604,166 @@ def clahe_lab_rgb_gather(
     lab = lab_fwd_f32_nhwc(x.to(torch.float32))
     luts = clahe_tables(lab, clip_limit, tiles_y, tiles_x, hist_subsample)
     out = clahe_apply_f32_nhwc(lab, luts)
+    return out[0] if squeeze else out
+
+
+# ---------------------------------------------------------------- K2 and K3 on any frame (G1)
+
+
+def _check_reflect(h: int, w: int, tiles_y: int, tiles_x: int) -> None:
+    """Reflect-101 padding to whole tiles reaches back at most H - 1 rows and
+    W - 1 columns (``clahe.clahe_u8`` fails on smaller frames too)."""
+    pad_h, pad_w, _, _ = tile_dims(h, w, tiles_y, tiles_x)
+    if pad_h > h - 1 or pad_w > w - 1:
+        raise ValueError(f"shape {(h, w)} is too small to pad to {tiles_y}x{tiles_x} tiles by reflect-101")
+
+
+def clahe_tables_tiles_plain(src: torch.Tensor, clip_limit: float = 2.0, tiles_y: int = 8, tiles_x: int = 8) -> torch.Tensor:
+    """Plain version of K2's tile-row mode: the histograms of the reflect-101
+    padded tiles (``clahe.padded_tile_hist``), then ``_luts_from_hist``, as
+    u8 LUTs [B, tiles_y, tiles_x, 256]."""
+    plane, _ = _plane(src, "clahe_tables_tiles_plain")
+    hist, area = padded_tile_hist(plane, tiles_y, tiles_x)
+    return _luts_from_hist(hist, clip_limit, area).to(torch.uint8)
+
+
+def clahe_tables_tiles(src: torch.Tensor, clip_limit: float = 2.0, tiles_y: int = 8, tiles_x: int = 8) -> torch.Tensor:
+    """K2 in its tile-row mode: the CLAHE LUT of every tile of the frame
+    padded by reflect-101 to whole tiles (``clahe.clahe_u8``'s tables), from
+    the L plane of planar u8 Lab [B,3,H,W] or a u8 plane [B,H,W] of any
+    shape. On the card one launch, row strips of each tile over the card
+    (``strip_plan``)."""
+    plane, img_stride = _plane(src, "clahe_tables_tiles")
+    b, h, w = plane.shape
+    _check_reflect(h, w, tiles_y, tiles_x)
+    if src.device.type == "cpu":
+        return clahe_tables_tiles_plain(src, clip_limit, tiles_y, tiles_x)
+    _, _, tile_h, tile_w = tile_dims(h, w, tiles_y, tiles_x)
+    area = tile_h * tile_w
+    clip = max(int(clip_limit * area / HIST_SIZE), 1)
+    lut_scale = np.float32(float(HIST_SIZE - 1) / float(area))
+    stream = _kernels.stream(src)
+    out = torch.empty((b, tiles_y, tiles_x, HIST_SIZE), dtype=torch.uint8, device=src.device)
+    if b == 0:
+        return out
+    n_sm = torch.cuda.get_device_properties(src.device).multi_processor_count
+    strips, rows = strip_plan(tile_h, tiles_y * tiles_x, b, n_sm)
+    scratch = torch.zeros(b * tiles_y * tiles_x * (HIST_SIZE + 1), dtype=torch.int32, device=src.device)
+    _kernels.launch(
+        "clahe_tables", src.data_ptr(), out.data_ptr(), scratch.data_ptr(), img_stride, b, h, w, tiles_y, tiles_x,
+        tile_h, tile_w, 1, 1, clip, float(lut_scale), strips, rows, _load_width(plane, img_stride, w, tiles_x, tile_w),
+        stream,
+    )
+    LAUNCHES["clahe_tables_tiles"] += 1
+    return out
+
+
+def row_bands(h: int, w: int, tiles_y: int, tiles_x: int) -> list[tuple[int, int, int, int]]:
+    """The runs of rows that share one tile pair: [(first row, end, y0i,
+    y1i)], from ``clahe._interp_maps`` on the CPU (the plain version's own
+    coordinate arithmetic)."""
+    _, _, tile_h, tile_w = tile_dims(h, w, tiles_y, tiles_x)
+    (y0i, y1i, _), _ = _interp_maps(h, w, tiles_y, tiles_x, tile_h, tile_w)
+    pairs = torch.stack([y0i, y1i], dim=1).tolist()
+    runs = []
+    for i, p in enumerate(pairs):
+        if runs and list(runs[-1][2:]) == p:
+            runs[-1][1] = i + 1
+        else:
+            runs.append([i, i + 1, *p])
+    return [tuple(r) for r in runs]
+
+
+def tiles_plan(runs: list, col_blocks: int, batch: int, n_sm: int = 132) -> int:
+    """Rows of a K3 band in its tile-coordinate mode: the fewest with which
+    the runs, each cut into bands of that many rows, make a grid of at most
+    K3_BLOCKS_PER_SM blocks per SM (one band a run where even that is too
+    many)."""
+    budget = max(len(runs), K3_BLOCKS_PER_SM * n_sm // (col_blocks * batch))
+    longest = max(r[1] - r[0] for r in runs)
+    for rows in range(1, longest + 1):
+        if sum(-(-(r1 - r0) // rows) for r0, r1, _, _ in runs) <= budget:
+            return rows
+    return longest
+
+
+@functools.lru_cache(maxsize=64)
+def tile_geometry(h: int, w: int, tiles_y: int, tiles_x: int, batch: int, vec: int, n_sm: int, device: str):
+    """K3's tile-coordinate geometry for an h x w frame, on `device`: (int32
+    block, bands, rows a block takes at once). The block holds the band
+    table [bands][4] (first row, end, y0i, y1i: ``row_bands`` cut by
+    ``tiles_plan``), then each row's ya [h] and each column's xa [w] as f32
+    bits, then each column's x pair [w]: p with (x0i, x1i) = (max(p - 1, 0),
+    min(p, tiles_x - 1)). All from ``clahe._interp_maps`` on the CPU."""
+    _, _, tile_h, tile_w = tile_dims(h, w, tiles_y, tiles_x)
+    (_, _, ya), (x0i, x1i, xa) = _interp_maps(h, w, tiles_y, tiles_x, tile_h, tile_w)
+    pair = torch.where(x1i > x0i, x1i, torch.where(x0i == 0, 0, tiles_x))
+    runs = row_bands(h, w, tiles_y, tiles_x)
+    rows = tiles_plan(runs, -(-(w // vec) // _APPLY_THREADS), batch, n_sm)
+    bands = [(i, min(i + rows, r1), t0, t1) for r0, r1, t0, t1 in runs for i in range(r0, r1, rows)]
+    block = torch.cat([
+        torch.tensor(bands, dtype=torch.int32).reshape(-1), ya.view(torch.int32), xa.view(torch.int32),
+        pair.to(torch.int32),
+    ])
+    return block.to(device), len(bands), min(K3_ROWS_PAR, rows)
+
+
+def clahe_apply_tiles_f32_nhwc_plain(lab: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
+    """Plain version of K3's tile-coordinate mode: clahe_u8's blend on L
+    (``clahe.blend_tiles``), a/b through, K3's plain Lab -> sRGB bytes, each
+    / 255, as [B,H,W,3]."""
+    L2 = blend_tiles(lab[:, 0], luts).to(torch.float32)
+    rgb = lab8_to_linear_rgb(L2, lab[:, 1].float(), lab[:, 2].float())
+    return dequantise_nhwc(torch.stack([srgb_byte_plain(ch) for ch in rgb], dim=1).to(torch.uint8))
+
+
+def _tiles_width(lab: torch.Tensor, w: int) -> int:
+    """Pixels a thread of K3's tile-coordinate mode takes: 4 where the row
+    width is a multiple and the Lab planes are aligned to it, else 1."""
+    return 4 if w % 4 == 0 and lab.data_ptr() % 4 == 0 else 1
+
+
+def clahe_apply_tiles_f32_nhwc(lab: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
+    """K3 in its tile-coordinate mode: planar u8 Lab [B,3,H,W] of any shape +
+    the padded tiles' u8 LUTs [B, tiles_y, tiles_x, 256] -> f32 NHWC
+    [B,H,W,3], each value the output byte / 255: clahe_u8's blend, then K3's
+    Lab -> sRGB."""
+    _check_apply(lab, luts, "clahe_apply_tiles_f32_nhwc", cells=False)
+    if lab.device.type == "cpu":
+        return clahe_apply_tiles_f32_nhwc_plain(lab, luts)
+    b, _, h, w = lab.shape
+    tiles_y, tiles_x = luts.shape[1], luts.shape[2]
+    out = torch.empty((b, h, w, 3), dtype=torch.float32, device=lab.device)
+    if b * h * w == 0:
+        return out
+    stream = _kernels.stream(lab)
+    vec = _tiles_width(lab, w)
+    n_sm = torch.cuda.get_device_properties(lab.device).multi_processor_count
+    geom, bands, rows_par = tile_geometry(h, w, tiles_y, tiles_x, b, vec, n_sm, str(lab.device))
+    tables = _apply_table_block(str(lab.device))
+    _kernels.launch(
+        "clahe_apply_tiles", lab.data_ptr(), luts.data_ptr(), tables.data_ptr(), geom.data_ptr(), out.data_ptr(), b, h,
+        w, tiles_y, tiles_x, bands, vec, rows_par, stream,
+    )
+    LAUNCHES["clahe_apply_tiles_f32_nhwc"] += 1
+    return out
+
+
+def clahe_lab_rgb_tiles(
+    x: torch.Tensor,
+    clip_limit: float = 2.0,
+    tiles_x: int = 8,
+    tiles_y: int = 8,
+) -> torch.Tensor:
+    """Float Lab-CLAHE on a frame of any shape with ``clahe.clahe_u8``'s
+    semantics: x float [0,1] NHWC/HWC -> float32 of the same shape, K1 in
+    its float instance -> K2 in its tile-row mode -> K3 in its
+    tile-coordinate mode (``clahe.clahe_lab_rgb`` on the card where the
+    frame is not cell-divisible)."""
+    squeeze = x.ndim == 3
+    if squeeze:
+        x = x[None]
+    lab = lab_fwd_f32_nhwc(x.to(torch.float32))
+    luts = clahe_tables_tiles(lab, clip_limit, tiles_y, tiles_x)
+    out = clahe_apply_tiles_f32_nhwc(lab, luts)
     return out[0] if squeeze else out

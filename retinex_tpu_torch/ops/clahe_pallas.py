@@ -4,16 +4,17 @@ Counterpart of ``retinex_tpu/ops/clahe_pallas.py`` (``clahe_lab_rgb_pallas``);
 the name is kept so a reader finds it, but nothing here is Pallas. The
 JAX package's routes no longer reach it (its Lab-CLAHE runs the gather
 kernels, ``ops/clahe_gather.py``); its tests and ``scripts/perf_lab.py``
-call it as a standalone op, and so may a user of the port. The kernels
-live in ``retinex_tpu_torch/csrc/clahe_fused.cu``:
+call it as a standalone op, and so may a user of the port. Its two kernels
+are instances of K1's and K3's bodies in ``retinex_tpu_torch/csrc/clahe_lab.cu``:
 
-- ``clahe_pallas_hist`` (K16, the ``_hist_kernel`` half): f32 NHWC RGB ->
-  u8-quantised RGB -> 8-bit-scale Lab, rounded to u8 and written as planar
-  u8 [B,3,H,W], and the 256-bin histogram of every tile's L, int32
-  [B, tiles_y, tiles_x, 256];
-- ``clahe_pallas_apply`` (K16, the ``_apply_kernel`` half): the 4
-  neighbour LUTs of every pixel blended with K16's weights, rounded to the
-  new L, then Lab -> f32 NHWC RGB at ``round(v * 255) / 255``.
+- ``clahe_pallas_hist`` (K16, the ``_hist_kernel`` half, ``lab_hist_kernel``):
+  f32 NHWC RGB -> u8-quantised RGB -> 8-bit-scale Lab, rounded to u8 and
+  written as planar u8 [B,3,H,W], and the 256-bin histogram of every
+  tile's L, int32 [B, tiles_y, tiles_x, 256];
+- ``clahe_pallas_apply`` (K16, the ``_apply_kernel`` half,
+  ``clahe_apply_kernel`` in its K16 mode): the 4 neighbour LUTs of every
+  pixel blended with K16's weights, rounded to the new L, then Lab -> f32
+  NHWC RGB at ``round(v * 255) / 255``.
 
 The LUT build between them (clip, redistribute, CDF) stays plain PyTorch,
 as the JAX package leaves it to XLA (``ops/clahe._luts_from_hist``). The
@@ -21,11 +22,18 @@ TPU's cell layout (a transpose in and out) has no counterpart: both
 kernels index NHWC f32 directly.
 
 K16's colour arithmetic is its own, not ``ops/colorspace.py``'s (which K1
-and K3 follow): the sRGB de-gamma as ``((x + 0.055) / 1.055) ** 2.4`` on
-every pixel (no table) and the cube root as ``max(t, 1e-12) ** (1/3)``. The
-plain version reproduces the compiled CPU program of the JAX function: a
-division by a constant runs as a multiply by its f32 reciprocal, and the
-blend weights' multiply-adds are fused (see ``_blend``).
+and K3 follow): the sRGB de-gamma as ``((x + 0.055) / 1.055) ** 2.4`` and
+the cube root as ``max(t, 1e-12) ** (1/3)``. The plain version reproduces
+the compiled CPU program of the JAX function: a division by a constant
+runs as a multiply by its f32 reciprocal, and the blend weights'
+multiply-adds are fused (see ``_blend``). The kernels read what depends on
+one byte from tables built here by the plain version's own operations
+(``degamma_table_k16``, on the kernel's card, as the plain version there
+computes it; fy and Y by L, ``apply_table_block_k16``), and quantise
+linear light with K3's quantiser, which computes the CPU plain version's
+byte for every f32 (tests/test_torch_clahe_pallas_tables.py). The first
+kernel takes the cube root as cbrtf, and powf near a rounding tie, which
+gives the plain version's bytes on the card.
 
 Each wrapper takes a CPU tensor to its plain version and a CUDA tensor to
 its kernel; there is no fallback from one to the other. ``LAUNCHES``
@@ -34,13 +42,15 @@ counts the kernel launches of each wrapper.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from retinex_tpu_torch.ops import _kernels
+from retinex_tpu_torch.ops import clahe_gather as cg
 from retinex_tpu_torch.ops.clahe import HIST_SIZE, _fma, _luts_from_hist, _tile_hist, cell_divisible
 from retinex_tpu_torch.ops.clahe_fast import _neighbor_index_tables
-from retinex_tpu_torch.ops.clahe_gather import _check_luts, _check_planar_u8
 
 # D65 constants of retinex_tpu/ops/clahe_pallas.py (OpenCV 8-bit Lab).
 _RGB2XYZ = (
@@ -80,13 +90,23 @@ def _lab_f_inv(ft: torch.Tensor) -> torch.Tensor:
     return torch.where(ft > 6.0 / 29.0, ft * ft * ft, (ft - 16.0 / 116.0) * _rc(7.787))
 
 
+def _srgb_to_linear(x: torch.Tensor) -> torch.Tensor:
+    return torch.where(x <= 0.04045, x * _rc(12.92), ((x + 0.055) * _rc(1.055)) ** 2.4)
+
+
+def _linear_to_srgb(lin: torch.Tensor) -> torch.Tensor:
+    """sRGB of linear light clamped at 0 (the clamp to [0, 1] follows)."""
+    lin = torch.clamp(lin, min=0.0)
+    return torch.where(lin <= 0.0031308, lin * 12.92, 1.055 * lin ** (1.0 / 2.4) - 0.055)
+
+
 def _rgb_to_lab_u8scale(r, g, b):
     """u8-quantised sRGB channels -> (L, a, b) in OpenCV's 8-bit scale."""
+    return _lab_u8scale_of_linear(_srgb_to_linear(r), _srgb_to_linear(g), _srgb_to_linear(b))
 
-    def srgb_to_linear(x):
-        return torch.where(x <= 0.04045, x * _rc(12.92), ((x + 0.055) * _rc(1.055)) ** 2.4)
 
-    rl, gl, bl = srgb_to_linear(r), srgb_to_linear(g), srgb_to_linear(b)
+def _lab_u8scale_of_linear(rl, gl, bl):
+    """Linear-light channels -> (L, a, b) in OpenCV's 8-bit scale."""
     m = _RGB2XYZ
     X = (m[0][0] * rl + m[0][1] * gl + m[0][2] * bl) * _rc(_XN)
     Y = m[1][0] * rl + m[1][1] * gl + m[1][2] * bl
@@ -99,9 +119,13 @@ def _rgb_to_lab_u8scale(r, g, b):
     return L8, a8, b8
 
 
+def _fy(L8: torch.Tensor) -> torch.Tensor:
+    return (L8 * (100.0 / 255.0) + 16.0) * _rc(116.0)
+
+
 def _lab_u8scale_to_rgb(L8, a8, b8):
     """(L, a, b) in OpenCV's 8-bit scale -> sRGB channels in [0, 1]."""
-    fy = (L8 * (100.0 / 255.0) + 16.0) * _rc(116.0)
+    fy = _fy(L8)
     fx = _fma(a8 - 128.0, torch.full_like(fy, _rc(500.0)), fy)
     fz = _fma(128.0 - b8, torch.full_like(fy, _rc(200.0)), fy)
     Y = _lab_f_inv(fy)
@@ -110,10 +134,32 @@ def _lab_u8scale_to_rgb(L8, a8, b8):
     m = _XYZ2RGB
     out = []
     for c in range(3):
-        lin = torch.clamp(m[c][0] * X + m[c][1] * Y + m[c][2] * Z, min=0.0)
-        srgb = torch.where(lin <= 0.0031308, lin * 12.92, 1.055 * lin ** (1.0 / 2.4) - 0.055)
-        out.append(torch.clamp(srgb, 0.0, 1.0))
+        out.append(torch.clamp(_linear_to_srgb(m[c][0] * X + m[c][1] * Y + m[c][2] * Z), 0.0, 1.0))
     return out
+
+
+# ---------------------------------------------------------------- the kernels' tables
+
+
+@functools.lru_cache(maxsize=None)
+def degamma_table_k16(device: str) -> torch.Tensor:
+    """f32 [256]: K16's de-gamma of each quantised byte v, srgb_to_linear(v
+    * (1/255)) by the plain version's operations on `device`, so that the
+    kernel there de-gammas as its plain version there does."""
+    return _srgb_to_linear(torch.arange(HIST_SIZE, dtype=torch.float32, device=device) * _rc(255.0))
+
+
+def apply_tables_k16() -> dict[str, torch.Tensor]:
+    """K16's apply tables on the CPU: fy and Y = f^-1(fy) by L, each by the
+    plain version's own operations, and K3's quantiser buckets."""
+    fy = _fy(torch.arange(HIST_SIZE, dtype=torch.float32))
+    return {"fy": fy, "y": _lab_f_inv(fy), "quant": cg.apply_tables()["quant"]}
+
+
+@functools.lru_cache(maxsize=None)
+def apply_table_block_k16(device: str) -> torch.Tensor:
+    """int32 [APPLY_TABLE_WORDS]: ``apply_tables_k16`` in K3's layout."""
+    return cg.table_words(apply_tables_k16()).to(device)
 
 
 # ---------------------------------------------------------------- checks
@@ -159,7 +205,15 @@ def clahe_pallas_hist(x: torch.Tensor, tiles_y: int = 8, tiles_x: int = 8):
     b, h, w, _ = x.shape
     lab = torch.empty((b, 3, h, w), dtype=torch.uint8, device=x.device)
     hist = torch.zeros((b, tiles_y, tiles_x, HIST_SIZE), dtype=torch.int32, device=x.device)
-    _kernels.launch("clahe_pallas_hist", x.data_ptr(), lab.data_ptr(), hist.data_ptr(), b, h, w, tiles_y, tiles_x, stream)
+    if b == 0:
+        return lab, hist
+    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    strips, rows = cg.tables_plan(h, tiles_y, tiles_x, 1, b, n_sm)
+    vec = 4 if (w // tiles_x) % 4 == 0 and x.data_ptr() % 16 == 0 else 1
+    _kernels.launch(
+        "clahe_pallas_hist", x.data_ptr(), lab.data_ptr(), hist.data_ptr(), degamma_table_k16(str(x.device)).data_ptr(),
+        b, h, w, tiles_y, tiles_x, strips, rows, vec, stream,
+    )
     LAUNCHES["clahe_pallas_hist"] += 1
     return lab, hist
 
@@ -218,14 +272,22 @@ def clahe_pallas_apply_plain(lab: torch.Tensor, luts: torch.Tensor) -> torch.Ten
 def clahe_pallas_apply(lab: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
     """K16, second kernel: planar u8 Lab [B,3,H,W] + u8 LUTs [B, tiles_y,
     tiles_x, 256] -> f32 NHWC RGB [B,H,W,3] at k/255."""
-    _check_planar_u8(lab, "clahe_pallas_apply")
-    b, _, h, w = lab.shape
-    tiles_y, tiles_x = _check_luts(luts, b, h, w, lab.device, "clahe_pallas_apply")
+    cg._check_apply(lab, luts, "clahe_pallas_apply")
     if lab.device.type == "cpu":
         return clahe_pallas_apply_plain(lab, luts)
-    stream = _kernels.stream(lab)
+    b, _, h, w = lab.shape
+    tiles_y, tiles_x = luts.shape[1], luts.shape[2]
     out = torch.empty((b, h, w, 3), dtype=torch.float32, device=lab.device)
-    _kernels.launch("clahe_pallas_apply", lab.data_ptr(), luts.data_ptr(), out.data_ptr(), b, h, w, tiles_y, tiles_x, stream)
+    if b * h * w == 0:
+        return out
+    stream = _kernels.stream(lab)
+    vec = cg._apply_width(lab, w, tiles_x, 4)
+    n_sm = torch.cuda.get_device_properties(lab.device).multi_processor_count
+    rows, rows_par = cg.apply_plan(h, w, tiles_y, b, vec, n_sm)
+    _kernels.launch(
+        "clahe_pallas_apply", lab.data_ptr(), luts.data_ptr(), apply_table_block_k16(str(lab.device)).data_ptr(),
+        out.data_ptr(), b, h, w, tiles_y, tiles_x, vec, rows, rows_par, stream,
+    )
     LAUNCHES["clahe_pallas_apply"] += 1
     return out
 

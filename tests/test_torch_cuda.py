@@ -45,7 +45,7 @@ def test_cuda_kernels_match_plain_versions(cuda_frame):
     torch.cuda.synchronize()
     assert cg.LAUNCHES == {
         "lab_fwd_u8": 1, "lab_fwd_f32_nhwc": 0, "lab_fwd_u8_nhwc": 0, "clahe_tables": 2, "clahe_apply_u8": 1,
-        "clahe_apply_f32_nhwc": 0, "clahe_apply_u8_nhwc": 0,
+        "clahe_apply_f32_nhwc": 0, "clahe_apply_u8_nhwc": 0, "clahe_tables_tiles": 0, "clahe_apply_tiles_f32_nhwc": 0,
     }
     for got, want in ((lab, f.lab), (out, cg.clahe_apply_u8_plain(f.lab, f.luts))):
         d = (got.int() - want.int()).abs()
@@ -598,6 +598,133 @@ def test_lab_fwd_over_every_srgb_triple(cuda_f32):
 
 
 @pytest.mark.cuda
+def test_lab_fwd_equals_the_cpus_plain_version_over_every_srgb_triple(cuda_f32):
+    """K1's float instance (the stage every Lab-CLAHE route on the card
+    starts with) gives the CPU's plain Lab bytes for every sRGB triple: its
+    cube roots are cbrtf's, rounded to nearest where a byte lies near a
+    rounding tie."""
+    x = (_cube().cpu().float() / 255.0).permute(0, 2, 3, 1)
+    want = cg.lab_fwd_f32_nhwc_plain(x)
+    got = cg.lab_fwd_f32_nhwc(x.cuda()).cpu()
+    assert torch.equal(got, want), f"{int((got != want).sum())} Lab bytes differ from the CPU's"
+
+
+@pytest.mark.cuda
+def test_f4_record_plain_lab_to_rgb_over_every_lab_triple(cuda_f32):
+    """F4's record: the plain lab_u8_to_rgb (the plain route's Lab -> sRGB
+    half, which no route of clahe_lab_rgb runs on the card) rounded to
+    bytes, card against CPU, over every (L, a, b) triple. The count of
+    differing bytes is printed, not bounded."""
+    from retinex_tpu_torch.ops.colorspace import lab_u8_to_rgb
+
+    v = torch.arange(256**3, dtype=torch.int32)
+    lab = torch.stack([v >> 16, (v >> 8) & 255, v & 255], dim=-1).float().reshape(4096, 4096, 3)
+    card = torch.round(lab_u8_to_rgb(lab.cuda()) * 255.0).to(torch.uint8).cpu()
+    cpu = torch.round(lab_u8_to_rgb(lab) * 255.0).to(torch.uint8)
+    n = int((card != cpu).sum())
+    print(f"F4: {n} of {cpu.numel()} bytes differ between the card's and the CPU's lab_u8_to_rgb")
+    assert card.shape == cpu.shape
+
+
+def _route_frame(name):
+    """A frame of the Lab-CLAHE route gate, float NHWC [1, h, w, 3] on the CPU."""
+    import numpy as np
+    from PIL import Image
+
+    if name == "uniform":
+        g = torch.Generator().manual_seed(12)
+        x = torch.rand((1, 1080, 1920, 3), generator=g)
+        x.view(-1)[::89] = (torch.randint(0, 255, (x.view(-1)[::89].numel(),), generator=g).float() + 0.5) / 255.0
+        return x
+    h, w = name
+    with Image.open("data/convergence/lowlight_000.png") as im:
+        a = np.asarray(im.convert("RGB").resize((w, h), Image.BILINEAR), dtype=np.float32) / 255.0
+    return torch.from_numpy(a)[None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frame", [(1080, 1920), (264, 480), (1001, 1503), "uniform"])
+def test_clahe_lab_rgb_on_the_card_equals_the_cpu(cuda_f32, frame):
+    """F4 repaired (G1): clahe_lab_rgb on the card gives the CPU's values on
+    the headline photo at 1080x1920, the small flagless frame, a frame
+    padded on both sides, and a uniform frame with exact .5 ties; on the
+    card a frame that is not cell-divisible runs K1's float instance and K2
+    and K3 in their tile modes, once each, and nothing else counted."""
+    from retinex_tpu_torch.ops.clahe import clahe_lab_rgb
+
+    x = _route_frame(frame)
+    cg.reset_launches()
+    card = clahe_lab_rgb(x.cuda()).cpu()
+    assert {k: v for k, v in cg.LAUNCHES.items() if v} == {
+        "lab_fwd_f32_nhwc": 1, "clahe_tables_tiles": 1, "clahe_apply_tiles_f32_nhwc": 1,
+    }
+    cpu = clahe_lab_rgb(x)
+    assert torch.equal(card, cpu), f"{int((card != cpu).sum())} values differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1080, 1920), (2, 57, 41), (1, 1001, 1503), (1, 270, 480)])
+def test_tile_modes_match_plain_versions(cuda_f32, shape):
+    """K2's tile-row mode identical to its plain version; K3's
+    tile-coordinate mode within 1 level of its plain version on under 1e-4
+    of the bytes; each launched once a call."""
+    b, h, w = shape
+    rgb = torch.randint(0, 256, (b, 3, h, w), dtype=torch.uint8, device="cuda", generator=cuda_f32)
+    lab = cg.lab_fwd_u8_plain(rgb)
+    cg.reset_launches()
+    luts = cg.clahe_tables_tiles(lab)
+    out = cg.clahe_apply_tiles_f32_nhwc(lab, luts)
+    torch.cuda.synchronize()
+    assert cg.LAUNCHES["clahe_tables_tiles"] == cg.LAUNCHES["clahe_apply_tiles_f32_nhwc"] == 1
+    assert torch.equal(luts, cg.clahe_tables_tiles_plain(lab))
+    want = cg.clahe_apply_tiles_f32_nhwc_plain(lab, luts)
+    _within_one_level(torch.round(out * 255.0).to(torch.uint8), torch.round(want * 255.0).to(torch.uint8))
+
+
+def _levels_apart(got, want) -> str:
+    """How far two byte tensors are apart, for a test's printed record."""
+    d = (got.int() - want.int()).abs()
+    return f"max {int(d.max())} level(s) on {int((d > 0).sum())} of {d.numel()} bytes"
+
+
+@pytest.mark.cuda
+def test_clahe_pallas_hist_over_every_srgb_triple(cuda_f32):
+    """K16's first kernel over the whole sRGB cube, the input each byte /
+    255 NHWC: Lab equal to the plain version's on the card, and within 1
+    level of the plain version's on the CPU on under 1e-4 of the bytes; the
+    histograms those of the kernel's own L."""
+    from retinex_tpu_torch.ops import clahe_pallas as kp
+
+    x = (_cube().float() / 255.0).permute(0, 2, 3, 1).contiguous()
+    lab, hist = kp.clahe_pallas_hist(x)
+    assert torch.equal(hist, kp.l_histograms(lab, 8, 8))
+    card = kp.clahe_pallas_hist_plain(x)[0]
+    cpu = kp.clahe_pallas_hist_plain(x.cpu())[0]
+    print(f"K16 Lab over the sRGB cube: against the card's plain version {_levels_apart(lab, card)}; "
+          f"against the CPU's {_levels_apart(lab.cpu(), cpu)}")
+    assert torch.equal(lab, card)
+    _within_one_level(lab.cpu(), cpu)
+
+
+@pytest.mark.cuda
+def test_clahe_pallas_apply_over_every_lab_triple(cuda_f32):
+    """K16's second kernel over the whole (L, a, b) cube with identity LUTs
+    at 8x8 tiles (the blend keeps L): within 1 level of the plain version on
+    under 1e-4 of the bytes, on the card and on the CPU."""
+    from retinex_tpu_torch.ops import clahe_pallas as kp
+
+    cube = _cube()
+    luts = torch.arange(256, device="cuda", dtype=torch.uint8).expand(1, 8, 8, 256).contiguous()
+    got = torch.round(kp.clahe_pallas_apply(cube, luts) * 255.0).to(torch.uint8)
+    card = torch.round(kp.clahe_pallas_apply_plain(cube, luts) * 255.0).to(torch.uint8)
+    cpu = torch.round(kp.clahe_pallas_apply_plain(cube.cpu(), luts.cpu()) * 255.0).to(torch.uint8)
+    print(f"K16 apply over the Lab cube: against the card's plain version {_levels_apart(got, card)}; "
+          f"against the CPU's {_levels_apart(got.cpu(), cpu)}")
+    _within_one_level(got, card)
+    _within_one_level(got.cpu(), cpu)
+
+
+@pytest.mark.cuda
 def test_clahe_apply_over_every_lab_triple(cuda_f32):
     """K3 in its u8 instance and its float one over the whole (L, a, b)
     cube with identity LUTs at 8x8 tiles (the blend keeps L): within 1
@@ -628,7 +755,7 @@ def test_float_route_equals_u8_route_and_glue(cuda_f32):
     torch.cuda.synchronize()
     assert cg.LAUNCHES == {
         "lab_fwd_u8": 0, "lab_fwd_f32_nhwc": 1, "lab_fwd_u8_nhwc": 0, "clahe_tables": 1, "clahe_apply_u8": 0,
-        "clahe_apply_f32_nhwc": 1, "clahe_apply_u8_nhwc": 0,
+        "clahe_apply_f32_nhwc": 1, "clahe_apply_u8_nhwc": 0, "clahe_tables_tiles": 0, "clahe_apply_tiles_f32_nhwc": 0,
     }
     want = cg.dequantise_nhwc(cg.clahe_rgb_u8_planar_gather(cg.quantise_planar_u8(x)))
     assert got.shape == want.shape and torch.equal(got, want)

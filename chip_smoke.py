@@ -1322,10 +1322,11 @@ def check_pngs(out_dir: Path, stem: str, shape: tuple) -> np.ndarray:
 
 
 def hold_to_cpu(
-    torch, got: np.ndarray, photo: Path, max_size: int | None, packed: bool, preact_aspp: bool = False
+    torch, got: np.ndarray, photo: Path, max_size: int | None, packed: bool, preact_aspp: bool = False,
+    checkpoint: str = "",
 ) -> None:
     """The card's enhanced PNG against the port's CPU run on the same
-    (seeded) weights and input, stage by stage:
+    weights (seeded, or `checkpoint`'s) and input, stage by stage:
 
     1. the net's three outputs on the card against the CPU's, within
        CPU_NET_TOL;
@@ -1344,7 +1345,8 @@ def hold_to_cpu(
     from retinex_tpu_torch.infer.adaptive_params import AdaptiveParameterAdjuster
     from retinex_tpu_torch.infer.enhance import enhance_single_image, load_image
 
-    config = Config(mode="enhance", packed_inference=packed, device="cpu", use_preact=preact_aspp, use_aspp=preact_aspp)
+    config = Config(mode="enhance", packed_inference=packed, device="cpu", use_preact=preact_aspp, use_aspp=preact_aspp,
+                    checkpoint=checkpoint)
     cpu_apply = cli.build_apply_fn(config, torch.device("cpu"))
     t0 = time.perf_counter()
     enh_cpu, _, _ = enhance_single_image(
@@ -2668,6 +2670,255 @@ def main_path_phases(torch, cg, cl, fb, cp, kp, kernels) -> tuple[dict, dict]:
     return recs, launches
 
 
+# The training phase (20): the CLI's train mode at the JAX defaults, one
+# step card against CPU, inference from the trained checkpoint, step times.
+TRAIN_ARGS = ["--image_size", "640", "--batch_size", "8", "--save_freq", "1", "--log_every", "1"]
+# The card's step against the CPU's (tests/test_torch_train_step.py's tolerances).
+TRAIN_HOLD_SHAPE = (2, 128, 128, 3)
+TRAIN_LR = 1e-4
+
+
+def _leaf_scale(want: dict) -> float:
+    """The floor of a leaf's scale: 1e-3 of the tree's largest magnitude."""
+    return 1e-3 * max(float(v.abs().max()) for v in want.values())
+
+
+def _hold_tree(got: dict, want: dict, rel: float, what: str) -> float:
+    """Every leaf within `rel` of its largest magnitude (floored); returns
+    the worst ratio of difference to tolerance."""
+    floor, worst = _leaf_scale(want), 0.0
+    for k, w in want.items():
+        tol = rel * max(float(w.abs().max()), floor)
+        d = float((got[k].cpu() - w).abs().max())
+        worst = max(worst, d / tol)
+        if d > tol:
+            raise AssertionError(f"{what} {k}: card vs CPU {d:.3e} > {tol:.3e}")
+    return worst
+
+
+def _hold_params(got: dict, want: dict, eff_got: dict, eff_want: dict) -> float:
+    """Parameters after a first Adam step: each side moves a parameter by
+    lr * g / (|g| + 1e-8) of its own clipped, decayed gradient g (Adam's
+    first moment / 0.1, held to the other side's above), so the two may
+    part by lr times the difference of those two updates (up to 2 lr where
+    g is near 0 and its sign parts), plus 1e-3 lr and 1e-6 |p| of
+    rounding. Returns the largest difference in units of lr."""
+    worst = 0.0
+    for k, w in want.items():
+        g, gg, gw = got[k].cpu(), eff_got[k].cpu(), eff_want[k]
+        allowed = TRAIN_LR * ((gg / (gg.abs() + 1e-8) - gw / (gw.abs() + 1e-8)).abs() + 1e-3) + 1e-6 * w.abs()
+        d = (g - w).abs()
+        worst = max(worst, float(d.max()) / TRAIN_LR)
+        if bool((d > allowed).any()):
+            i = int((d - allowed).flatten().argmax())
+            raise AssertionError(f"parameter {k}: {int((d > allowed).sum())} elements off the CPU's step (worst: "
+                                 f"{float(d.flatten()[i]):.3e} > {float(allowed.flatten()[i]):.3e})")
+    return worst
+
+
+def train_step_vs_cpu(torch) -> None:
+    """One train step of the default net (seed-0 weights, default VGG,
+    perceptual loss on) on the card against the same step on the CPU, same
+    batch, TF32 off: the losses, BatchNorm statistics, Adam's moments and
+    the parameters."""
+    from retinex_tpu_torch.config import Config
+    from retinex_tpu_torch.models.init import init_untrained
+    from retinex_tpu_torch.models.retinex_net import MultiScaleUPRetinex
+    from retinex_tpu_torch.train.train_state import create_train_state, train_step
+    from retinex_tpu_torch.train.trainer import build_criterion
+
+    x = np.random.default_rng(13).random(TRAIN_HOLD_SHAPE, dtype=np.float32) * 0.6
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        d = torch.device(dev)
+        state = create_train_state(init_untrained(MultiScaleUPRetinex(False, False), 0).to(d), lambda s: TRAIN_LR)
+        t0 = time.perf_counter()
+        losses = train_step(state, build_criterion(Config(), d), torch.from_numpy(x).to(d))
+        losses = {k: float(v) for k, v in losses.items()}
+        runs[dev] = (state, losses, time.perf_counter() - t0)
+    (cpu, l_cpu, s_cpu), (card, l_card, _) = runs["cpu"], runs["cuda"]
+    for k, v in l_cpu.items():
+        if abs(l_card[k] - v) > 1e-5 + 1e-4 * abs(v):
+            raise AssertionError(f"train step, loss {k}: card {l_card[k]} vs CPU {v}")
+    stats_cpu = {k: v for k, v in cpu.model.state_dict().items() if k.endswith(("running_mean", "running_var"))}
+    stats_card = card.model.state_dict()
+    d_stats = max(float((stats_card[k].cpu() - v).abs().max()) for k, v in stats_cpu.items())
+    if d_stats > 1e-4:
+        raise AssertionError(f"train step: BatchNorm statistics card vs CPU {d_stats:.3e} > 1e-4")
+    mu_w = _hold_tree(card.optimizer.mu, cpu.optimizer.mu, 1e-2, "Adam mu")
+    nu_w = _hold_tree(card.optimizer.nu, cpu.optimizer.nu, 2e-2, "Adam nu")
+    eff = lambda st: {k: v / 0.1 for k, v in st.optimizer.mu.items()}  # noqa: E731
+    params_cpu = dict(cpu.model.named_parameters())
+    worst = _hold_params({k: p.detach() for k, p in card.model.named_parameters()},
+                         {k: p.detach() for k, p in params_cpu.items()}, eff(card), eff(cpu))
+    print(
+        f"  one train step at {list(TRAIN_HOLD_SHAPE)}, card vs CPU ({s_cpu:.1f} s on the CPU): losses within rtol "
+        f"1e-4 / atol 1e-5 (total {l_card['total']:.6f} vs {l_cpu['total']:.6f}), BatchNorm statistics "
+        f"{d_stats:.2e} (atol 1e-4), Adam mu and nu at {mu_w:.3f} and {nu_w:.3f} of their tolerances, parameters "
+        f"within Adam's first update of each side's gradient (largest difference {worst:.3f} lr)"
+    )
+
+
+def train_timing(torch, train_dir: Path) -> None:
+    """Warm train steps at the CLI's defaults (640 px, batch 8, perceptual
+    loss on): ms a step (median over 5 after a first), images/s, peak
+    device memory, the step by stage (net forward, losses with VGG19,
+    backward, optimizer) and the top operations of one warm step by device
+    time (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from retinex_tpu_torch.config import Config
+    from retinex_tpu_torch.data.augment import augment_batch
+    from retinex_tpu_torch.data.dataset import get_train_loader
+    from retinex_tpu_torch.models.init import init_untrained
+    from retinex_tpu_torch.models.retinex_net import MultiScaleUPRetinex
+    from retinex_tpu_torch.train.train_state import create_train_state, train_step
+    from retinex_tpu_torch.train.trainer import build_criterion
+
+    cuda = torch.device("cuda")
+    with iter(get_train_loader(str(train_dir), batch_size=8, image_size=640, drop_last=True)) as it:
+        host = next(it)
+    x = augment_batch(torch.from_numpy(host).to(cuda), torch.Generator(device=cuda).manual_seed(1))
+    crit = build_criterion(Config(), cuda)
+    state = create_train_state(init_untrained(MultiScaleUPRetinex(False, False), 0).to(cuda), lambda s: TRAIN_LR)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        losses = train_step(state, crit, x)
+        float(losses["total"])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    ms = statistics.median(times[1:])
+    print(
+        f"  warm train step at [8,640,640,3] (perceptual loss on, f32, TF32 off): {ms:.3f} ms (median of 5 after a "
+        f"first of {times[0]:.1f} ms; all {', '.join(f'{t:.1f}' for t in times[1:])}), {8e3 / ms:.3f} images/s; "
+        f"peak device memory {peak / 2**30:.3f} GiB"
+    )
+
+    stages = {}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        marks = [time.perf_counter()]
+        model = state.model.train()
+        enh, refl, illu = model(x)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        total, _, new_ls = crit(x, enh, illu, refl, state.loss_state)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        names = list(state.optimizer.params)
+        grads = dict(zip(names, torch.autograd.grad(total, [state.optimizer.params[k] for k in names])))
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        state.optimizer.step(grads)
+        state.loss_state = new_ls
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        for name, a, b in zip(("net forward", "losses (VGG19 included)", "backward", "optimizer"), marks, marks[1:]):
+            stages.setdefault(name, []).append((b - a) * 1e3)
+    print("  the step by stage (host clock around each, synchronised; median of 3): "
+          + ", ".join(f"{k} {statistics.median(v):.3f} ms" for k, v in stages.items()))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(state, crit, x)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not device:
+        raise AssertionError("the profiler recorded no device time in the train step")
+    device_ms = sum(e.self_device_time_total for e in device) / 1e3
+    print(f"  one warm step under torch.profiler: {device_ms:.3f} device ms of {wall_ms:.3f} wall ms (device busy "
+          f"{device_ms / wall_ms:.3f})")
+    print("  top device operations of the step (self device ms, calls):")
+    for e in sorted(device, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"    {e.self_device_time_total / 1e3:9.3f}  x{e.count:<5d} {e.key[:100]}")
+
+
+def train_phase(torch, modules) -> None:
+    """Phase 20: training through the CLI at the JAX defaults on the 24
+    in-repo photos, a resume, the card's step against the CPU's, and
+    predict and the default enhance from the trained checkpoint held to the
+    CPU's runs from it."""
+    train_dir = REPO / "data" / "convergence"
+    if len(list(train_dir.glob("lowlight_*.png"))) != 24:
+        raise AssertionError(f"expected the 24 photos of {train_dir}")
+    with tempfile.TemporaryDirectory() as tmp:
+        workdir = Path(tmp)
+        save = workdir / "train"
+        base = ["--mode", "train", "--train_dir", str(train_dir), "--save_dir", str(save), "--device", "cuda", *TRAIN_ARGS]
+        launches, sec = run_cli(torch, modules, [*base, "--num_epochs", "2"])
+        check_launches(launches, {}, "training")  # the training path runs no TPU kernel
+        first = torch.load(save / "latest", map_location="cpu", weights_only=True)
+        launches, sec2 = run_cli(torch, modules, [*base, "--num_epochs", "3", "--resume", str(save / "latest")])
+        check_launches(launches, {}, "training, resumed")
+        last = torch.load(save / "latest", map_location="cpu", weights_only=True)
+        best = torch.load(save / "best", map_location="cpu", weights_only=True)
+        if (first["step"], first["epoch"], last["step"], last["epoch"]) != (6, 1, 9, 2):
+            raise AssertionError(f"steps/epochs {first['step']}/{first['epoch']} -> {last['step']}/{last['epoch']}, "
+                                 "expected 6/1 -> 9/2")
+        logs = list((save / "logs").glob("*/metrics.jsonl"))
+        vis = list((save / "visualizations").glob("epoch_*.png"))
+        if not ((save / "results.csv").is_file() and logs and len(vis) == 12):
+            raise AssertionError(f"training outputs missing: results.csv, {len(logs)} metrics.jsonl, {len(vis)} PNGs")
+        bad = [k for k, v in last["model_state_dict"].items() if v.is_floating_point() and not bool(v.isfinite().all())]
+        if bad:
+            raise AssertionError(f"non-finite weights after training: {bad[:3]}")
+        print(f"  --mode train, 24 photos at 640 px, batch 8, 2 epochs (3 steps each): {sec:.1f} s; --resume to "
+              f"epoch 3: {sec2:.1f} s; step {first['step']} -> {last['step']}, best loss {best['best_loss']:.6f} "
+              f"(epoch {best['epoch']}); {len(logs)} metrics.jsonl, results.csv, {len(vis)} visualisations")
+
+        train_step_vs_cpu(torch)
+        train_timing(torch, train_dir)
+        trained_inference(torch, modules, str(save / "best"), workdir)
+
+
+def trained_inference(torch, modules, ckpt: str, workdir: Path) -> None:
+    """Predict and the default enhance from the trained checkpoint `ckpt`
+    on the 1080p photo (K4-K6, and K1-K3 for enhance) and at --max_size
+    512 held to the port's CPU runs from the same checkpoint: predict
+    within 1 level on under 1e-4 of the bytes, enhance by ``hold_to_cpu``."""
+    from PIL import Image
+
+    from retinex_tpu_torch import cli
+    from retinex_tpu_torch.config import Config
+    from retinex_tpu_torch.infer.predict import predict_single_image
+
+    src = REPO / "data" / "convergence" / "lowlight_000.png"
+    photo, small = workdir / "photo1080.png", workdir / "photo512.png"
+    with Image.open(src) as im:
+        im.convert("RGB").resize((1920, 1080), Image.BILINEAR).save(photo)
+        im.convert("RGB").resize((512, 288), Image.BILINEAR).save(small)
+    for mode, want in (("predict", FAM_TWICE), ("enhance", {**LAB_CLAHE_ONCE, **FAM_TWICE})):
+        out = workdir / f"{mode}_1920"
+        launches, _ = run_cli(torch, modules, ["--mode", mode, "--checkpoint", ckpt, "--input_path", str(photo),
+                                               "--output_dir", str(out), "--max_size", "1920", "--device", "cuda"])
+        check_launches(launches, want, f"{mode} from the trained checkpoint")
+        check_pngs(out, photo.stem, (1088, 1920, 3))
+    out = workdir / "predict_512"
+    launches, _ = run_cli(torch, modules, ["--mode", "predict", "--checkpoint", ckpt, "--input_path", str(small),
+                                           "--output_dir", str(out), "--max_size", "512", "--device", "cuda"])
+    check_launches(launches, FAM_TWICE, "predict at --max_size 512 from the trained checkpoint")
+    check_pngs(out, small.stem, (288, 512, 3))
+    cpu_apply = cli.build_apply_fn(Config(mode="predict", checkpoint=ckpt, device="cpu"), torch.device("cpu"),
+                                   require_checkpoint=True)
+    predict_single_image(cpu_apply, str(small), str(workdir / "predict_512_cpu"), max_size=512, device="cpu")
+    for kind in ("enhanced", "illumination"):
+        d = np.abs(png_u8(out / f"{small.stem}_{kind}.png") - png_u8(workdir / "predict_512_cpu" / f"{small.stem}_{kind}.png"))
+        print(f"  predict from the trained checkpoint at --max_size 512, {kind}, card vs CPU: max {int(d.max())} "
+              f"level(s), {float((d > 0).mean()):.2e} of bytes differ")
+        if d.max() > 1 or (d > 0).mean() >= 1e-4:
+            raise AssertionError(f"predict's {kind} PNG from the trained checkpoint disagrees with the CPU run")
+    out = workdir / "enhance_512"
+    launches, _ = run_cli(torch, modules, ["--mode", "enhance", "--checkpoint", ckpt, "--input_path", str(small),
+                                           "--output_dir", str(out), "--max_size", "512", "--device", "cuda"])
+    check_launches(launches, {**LAB_CLAHE_ONCE, **FAM_TWICE}, "enhance at --max_size 512 from the trained checkpoint")
+    got = check_pngs(out, small.stem, (288, 512, 3))
+    hold_to_cpu(torch, got, small, 512, packed=True, checkpoint=ckpt)
+
+
 def main() -> int:
     import torch
 
@@ -2738,6 +2989,9 @@ def main() -> int:
     recs["fam_dual_conv3"] = dict(dual[torch.float32], dtype="float32")
     recs["fam_dual_conv3_bf16"] = dict(dual[torch.bfloat16], dtype="bfloat16")
     recs.update(k16)
+    print("phase 20: training (--mode train at the JAX defaults), a resume, the card's step against the CPU's, "
+          "inference from the trained checkpoint")
+    train_phase(torch, (cg, cl, fb, cp, kp))
 
     for name in recs:
         if launches[name] == 0:

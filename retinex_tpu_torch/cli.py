@@ -1,8 +1,12 @@
-"""CLI of the port: ``--mode enhance``, ``predict`` and ``evaluate``, and
-the simple-enhance entry point.
+"""CLI of the port: ``--mode train``, ``enhance``, ``predict`` and
+``evaluate``, and the simple-enhance entry point.
 
 Counterpart of ``retinex_tpu/cli.py``::
 
+    python -m retinex_tpu_torch.cli --mode train --train_dir images/ \\
+        --save_dir checkpoints
+    python -m retinex_tpu_torch.cli --mode predict --checkpoint checkpoints/best \\
+        --input_path photos/ --output_dir out --max_size 1920
     python -m retinex_tpu_torch.cli --mode enhance --input_path photo.jpg \\
         --output_dir out --max_size 1920
     python -m retinex_tpu_torch.cli --mode enhance --input_path photos/ \\
@@ -27,8 +31,13 @@ Every enhance route of the JAX package runs, and writes ``<name>_enhanced.png``,
   directory) and ``--classical_mode clahe_luma`` (K2 and K7), with
   ``--clahe_clip_limit``, ``--clahe_tiles`` and ``--clahe_hist_subsample``.
 
-``--mode predict`` runs the net alone (no CLAHE) on a file or a directory and
-writes the same three PNGs (``infer/predict.py``); it needs ``--checkpoint``.
+``--mode train`` trains the net on one device with the seven losses (the
+standard f32 step; ``train/trainer.py``): the epoch lines, ``best`` and
+``latest`` full-state checkpoints under ``--save_dir``, ``metrics.jsonl``,
+``results.csv``, sample visualisations, early stopping, ``--resume`` and a
+checkpoint on SIGTERM. ``--mode predict`` runs the net alone (no CLAHE) on a
+file or a directory and writes the same three PNGs (``infer/predict.py``);
+it needs ``--checkpoint``.
 ``--mode evaluate`` scores the images of ``--input_path`` (with PSNR, SSIM and
 MSE against same-named images of ``--test_dir`` where that directory exists)
 and writes ``<output_dir>/metrics.csv`` (``infer/evaluate.py``).
@@ -38,18 +47,21 @@ and writes ``<output_dir>/metrics.csv`` (``infer/evaluate.py``).
 A directory is run in chunks of ``--batch_size`` images of one letterboxed
 canvas (without ``--max_size`` each image is letterboxed to its longer
 side), with ``--num_workers`` threads writing the PNGs. ``--device cpu`` runs
-every route on the CPU with the kernels' plain versions. Weights come from a
-reference ``.pth`` given as ``--checkpoint``, or else (enhance only) are
-initialised untrained as the JAX CLI does (Flax's lecun-normal kernels, zero
-biases, always seed 0 like its ``PRNGKey(0)``; ``--seed`` does not reach
-them). ``--mode train``, ``--spatial_shard`` and ``--n_devices`` above 1
-raise ``NotImplementedError``.
+every route on the CPU with the kernels' plain versions. Weights come from
+``--checkpoint``: a training checkpoint of the port or a reference
+``.pth``; or else (enhance only) are initialised untrained as the JAX CLI
+does (Flax's lecun-normal kernels, zero biases, always seed 0 like its
+``PRNGKey(0)``; ``--seed`` does not reach them). ``--spatial_shard``,
+``--n_devices`` above 1, ``--use_amp``, ``--remat`` and ``--coordinator``
+raise ``NotImplementedError`` (each names its ROADMAP Queue 1 item), and so
+does a ``--checkpoint`` directory (the JAX package's Orbax format). The
+packed training layout (``--packed_train``, on by default) is Queue 1 item
+7: training runs the standard step and says so.
 """
 
 from __future__ import annotations
 
 import argparse
-import math
 import os
 from pathlib import Path
 
@@ -58,72 +70,34 @@ import torch
 from retinex_tpu_torch.config import CLASSICAL_MODES, Config, add_config_args, config_from_args
 from retinex_tpu_torch.device import resolve_device
 from retinex_tpu_torch.models.convert import load_reference_checkpoint
+from retinex_tpu_torch.models.init import TRUNC_STD, fan_in, init_untrained  # noqa: F401
 from retinex_tpu_torch.models.packed_inference import PackedRetinex
 from retinex_tpu_torch.models.retinex_net import MultiScaleUPRetinex
 
 
-# Flax's lecun_normal: a normal truncated at +-2 standard deviations, scaled
-# so the samples' std is sqrt(1/fan_in); 0.879... is the std of a standard
-# normal truncated at +-2 (jax.nn.initializers.variance_scaling).
-TRUNC_STD = 0.87962566103423978
 # The JAX CLI initialises the untrained net from PRNGKey(0).
 UNTRAINED_SEED = 0
 
 
-def fan_in(m: torch.nn.Module) -> int:
-    """Flax's fan-in of a convolution's kernel: kh * kw * input channels.
-    Conv2d keeps them as [out, in/groups, kh, kw], ConvTranspose2d as
-    [in, out/groups, kh, kw]; Flax counts the input axis of the HWIO kernel
-    for both (``in_axis=-2``)."""
-    w = m.weight
-    cin = w.shape[0] if isinstance(m, torch.nn.ConvTranspose2d) else w.shape[1]
-    return cin * w.shape[2] * w.shape[3]
-
-
-def _truncated_normal_(t: torch.Tensor, std: float, g: torch.Generator) -> None:
-    """t <- std * N(0, 1) truncated to [-2, 2], by redrawing what falls outside."""
-    z = torch.randn(t.shape, generator=g)
-    bad = z.abs() > 2
-    while bool(bad.any()):
-        z[bad] = torch.randn(int(bad.sum()), generator=g)
-        bad = z.abs() > 2
-    t.copy_(z * std)
-
-
-def init_untrained(model: torch.nn.Module, seed: int) -> torch.nn.Module:
-    """Untrained weights as the JAX package's ``model.init`` draws them:
-    every convolution kernel from Flax's lecun_normal (std sqrt(1/fan_in),
-    truncated at +-2 sigma, sigma = sqrt(1/fan_in) / TRUNC_STD), every bias
-    0, BatchNorm at identity. The draws come from a seeded generator on the
-    CPU, so every device gets the same numbers; they are not JAX's (threefry
-    and Flax's per-module keys), only their distribution is."""
-    g = torch.Generator().manual_seed(seed)
-    with torch.no_grad():
-        for m in model.modules():
-            if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
-                _truncated_normal_(m.weight, math.sqrt(1.0 / fan_in(m)) / TRUNC_STD, g)
-                if m.bias is not None:
-                    m.bias.zero_()
-    return model
-
-
 def build_model(config: Config, device: torch.device, require_checkpoint: bool = False) -> MultiScaleUPRetinex:
-    """The net in eval mode on `device`, with a reference checkpoint's weights
-    when `config.checkpoint` names a ``.pth`` file, else untrained (or, with
+    """The net in eval mode on `device`, with the weights of
+    `config.checkpoint` where that file exists (a reference ``.pth`` or one
+    of the port's training checkpoints), else untrained (or, with
     `require_checkpoint`, FileNotFoundError)."""
     if config.use_amp:
-        raise NotImplementedError("bf16 compute (use_amp) lands with training, ROADMAP Queue 1 item 12")
+        raise NotImplementedError("bf16 compute (--use_amp) lands in ROADMAP Queue 1 item 3")
     model = MultiScaleUPRetinex(use_preact=config.use_preact, use_aspp=config.use_aspp)
     ckpt = config.checkpoint
+    if ckpt and os.path.isdir(ckpt):
+        raise NotImplementedError(
+            f"{ckpt} is a directory, as the JAX package's Orbax checkpoints are; reading those needs orbax, "
+            "which imports jax. The port reads its own training checkpoints (files <save_dir>/best and "
+            "<save_dir>/latest) and reference .pth files"
+        )
     if ckpt and os.path.exists(ckpt):
-        if not ckpt.endswith(".pth"):
-            raise NotImplementedError(
-                f"{ckpt}: the port reads reference .pth checkpoints; the JAX package's "
-                "checkpoints land with training, ROADMAP Queue 1 item 12"
-            )
         state_dict, epoch = load_reference_checkpoint(ckpt)
         model.load_state_dict(state_dict)
-        print(f"Loaded reference checkpoint {ckpt} (epoch {epoch})")
+        print(f"Loaded checkpoint {ckpt} (epoch {epoch})")
     elif require_checkpoint:
         raise FileNotFoundError(f"Checkpoint not found: {ckpt}. Train a model first or pass --checkpoint.")
     else:
@@ -150,12 +124,25 @@ def build_apply_fn(config: Config, device: torch.device, require_checkpoint: boo
 
 def run(config: Config):
     device = resolve_device(config.device)
-    if config.mode == "train":
-        raise NotImplementedError("--mode train lands with training, ROADMAP Queue 1 items 10-13")
-    if config.mode not in ("enhance", "predict", "evaluate"):
+    if config.mode not in ("train", "enhance", "predict", "evaluate"):
         raise ValueError(f"Unknown mode: {config.mode}")
     if config.spatial_shard:
-        raise NotImplementedError("spatial sharding lands in ROADMAP Queue 1 item 15")
+        raise NotImplementedError("spatial sharding lands in ROADMAP Queue 1 item 9")
+    if config.mode == "train":
+        from retinex_tpu_torch.train.trainer import check_supported, train
+
+        check_supported(config)
+        os.makedirs(config.save_dir, exist_ok=True)
+        for flag, label in [
+            (config.use_freq_loss, "frequency loss"),
+            (config.adaptive_weights, "adaptive (DWA) loss weights"),
+            (config.use_preact, "pre-activation residual blocks"),
+            (config.use_aspp, "ASPP module"),
+            (config.advanced_augment, "advanced augmentation"),
+        ]:
+            if flag:
+                print(f"  + {label}")
+        return train(config)
     from retinex_tpu_torch.infer.batch_driver import maybe_mesh
 
     maybe_mesh(config.n_devices)

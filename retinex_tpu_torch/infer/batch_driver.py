@@ -12,7 +12,7 @@ Counterpart of ``retinex_tpu/infer/batch_driver.py`` on one device:
   the synchronisation point; queued after N+1 it would wait for N+1 too).
 
 Batches across several devices (the JAX package's ``shard_map`` over a data
-mesh) land with ROADMAP Queue 1 item 14; ``maybe_mesh`` raises for them.
+mesh) land with ROADMAP Queue 1 item 8; ``maybe_mesh`` raises for them.
 """
 
 from __future__ import annotations
@@ -117,9 +117,9 @@ def run_bucketed(
 
 def maybe_mesh(n_devices: int | None = None):
     """None: the port's batches run on one device. ``n_devices > 1`` (the
-    JAX package's data mesh) raises until ROADMAP Queue 1 item 14 lands."""
+    JAX package's data mesh) raises until ROADMAP Queue 1 item 8 lands."""
     if n_devices is not None and n_devices > 1:
         raise NotImplementedError(
-            f"--n_devices {n_devices}: batches across several GPUs land in ROADMAP Queue 1 item 14"
+            f"--n_devices {n_devices}: batches across several GPUs land in ROADMAP Queue 1 item 8"
         )
     return None

@@ -6,8 +6,18 @@ reads (``shortcut.0``, ``conv.3``, ``aspp_branches.1.0``, ...), so a
 reference ``.pth`` loads straight through ``load_state_dict`` and
 ``models/convert.py`` maps Flax variables onto the same names.
 
-Inference only: BatchNorm runs on its running statistics (eps 1e-5) and
+In ``.eval()`` BatchNorm runs on its running statistics (eps 1e-5) and
 dropout is off, as in the JAX package's ``train=False`` forward.
+``PackedRetinex`` reads those same buffers. In ``.train()`` they follow
+Flax's ``nn.BatchNorm(use_running_average=False, momentum=0.9)``, as the
+JAX package's ``train=True`` forward does: the batch variance is the biased
+``max(0, E[x^2] - E[x]^2)`` over N, H and W, it normalises the batch, and
+the running statistics become ``0.9 * running + 0.1 * batch``. PyTorch's
+``nn.BatchNorm2d`` would put the unbiased variance (divided by n - 1) into
+``running_var``, which at a 4x4 map of a batch of 2 (32 values) is 3 % off,
+and would compute it in another way. The one dropout (ASPP's) draws its
+mask from an explicit ``torch.Generator``, which the trainer seeds and
+checkpoints.
 """
 
 from __future__ import annotations
@@ -26,8 +36,48 @@ def max_pool_nonneg(x: torch.Tensor, window: int, stride: int, padding: int = 0)
     return F.max_pool2d(x, window, stride, padding)
 
 
-def _bn(ch: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(ch, eps=BN_EPS)
+class BatchNorm(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train mode computes and updates the batch
+    statistics as Flax's BatchNorm does (module docstring); eval mode is
+    ``nn.BatchNorm2d``'s."""
+
+    def __init__(self, ch: int):
+        super().__init__(ch, eps=BN_EPS)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        mean = x.mean(dim=(0, 2, 3))
+        mean2 = (x * x).mean(dim=(0, 2, 3))
+        # jnp.maximum: a tie at 0 passes half the gradient, as torch.maximum does.
+        var = torch.maximum(mean2 - mean * mean, torch.zeros_like(mean))
+        with torch.no_grad():
+            self.running_mean.copy_(0.9 * self.running_mean + 0.1 * mean)
+            self.running_var.copy_(0.9 * self.running_var + 0.1 * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+
+
+class Dropout(nn.Module):
+    """Dropout whose mask comes from ``self.generator`` (a ``torch.Generator``
+    on the input's device, or the default generator when None): Flax's
+    ``nn.Dropout``, keep with probability 1 - p and scale by 1 / (1 - p)."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+        self.generator: torch.Generator | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep_prob = 1.0 - self.p
+        keep = torch.rand(x.shape, generator=self.generator, device=x.device) < keep_prob
+        return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+
+def _bn(ch: int) -> BatchNorm:
+    return BatchNorm(ch)
 
 
 def conv(cin: int, cout: int, k: int, stride: int = 1, dilation: int = 1, bias: bool = True) -> nn.Conv2d:
@@ -119,7 +169,7 @@ class ASPPModule(nn.Module):
         )
         self.global_pool = nn.Sequential(nn.AdaptiveAvgPool2d(1), *conv_bn_relu(cin, features, 1))
         n = len(dilations) + 1
-        self.fusion = nn.Sequential(*conv_bn_relu(n * features, features, 1), nn.Dropout(dropout))
+        self.fusion = nn.Sequential(*conv_bn_relu(n * features, features, 1), Dropout(dropout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, w = x.shape[2], x.shape[3]

@@ -107,3 +107,9 @@ class MultiScaleUPRetinex(nn.Module):
         """x: [B,H,W,3] float -> (enhanced, reflectance, illumination), NHWC."""
         outs = self.forward_nchw(x.permute(0, 3, 1, 2))
         return tuple(o.permute(0, 2, 3, 1) for o in outs)
+
+
+def count_parameters(model: nn.Module) -> int:
+    """Total number of parameters (BatchNorm statistics are buffers, not
+    counted), as the JAX package's count over its params pytree."""
+    return sum(p.numel() for p in model.parameters())

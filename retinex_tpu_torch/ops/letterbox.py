@@ -1,9 +1,10 @@
-"""YOLO-style letterbox geometry and the host-side u8 letterbox (numpy).
+"""YOLO-style letterbox: its geometry, the host-side u8 letterbox (numpy)
+and the device letterbox (torch).
 
-A copy of ``retinex_tpu/ops/letterbox.py``'s numpy half, kept here so the
-port imports nothing of the JAX package: ``plan_letterbox`` computes the
-resize and pad geometry from static shapes, ``letterbox_np`` applies it to a
-uint8 HWC image with a float64 half-pixel bilinear resize and gray padding.
+Counterpart of ``retinex_tpu/ops/letterbox.py``: ``plan_letterbox``
+computes the resize and pad geometry from static shapes, ``letterbox_np``
+applies it to a uint8 HWC image with a float64 half-pixel bilinear resize
+and gray padding, and ``letterbox`` to float NHWC tensors on their device.
 """
 
 from __future__ import annotations
@@ -11,6 +12,11 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
+import torch.nn.functional as F
+
+from retinex_tpu_torch.ops.colorspace import ieee_div
+from retinex_tpu_torch.ops.resize import resize_bilinear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,3 +114,29 @@ def _resize_bilinear_np_u8(img: np.ndarray, out_h: int, out_w: int) -> np.ndarra
     bot = f[y1][:, x0] * (1 - wx) + f[y1][:, x1] * wx
     out = top * (1 - wy) + bot * wy
     return np.clip(np.round(out), 0, 255).astype(np.uint8)
+
+
+GRAY = 114.0 / 255.0  # the padding colour, (114, 114, 114)
+
+
+def letterbox(x: torch.Tensor, plan: LetterboxPlan, quantize_u8: bool = True) -> torch.Tensor:
+    """Apply a letterbox plan to float [0,1] NHWC (or HWC) images on their
+    device. quantize_u8=True takes the reference's uint8 round trip
+    (PARITY #12): the resize runs on the 0-255 grid and rounds, or, where
+    the size stays, the values are rounded to it; False keeps the floats.
+    The divisions by 255 are IEEE's (``ops/colorspace.ieee_div``), as in
+    the JAX package's eager function."""
+    squeeze = x.ndim == 3
+    if squeeze:
+        x = x[None]
+    if (plan.resize_h, plan.resize_w) != (x.shape[1], x.shape[2]):
+        if quantize_u8:
+            y = resize_bilinear(torch.round(x * 255.0), plan.resize_h, plan.resize_w)
+            x = ieee_div(torch.clamp(torch.round(y), 0.0, 255.0), 255.0)
+        else:
+            x = resize_bilinear(x, plan.resize_h, plan.resize_w)
+    elif quantize_u8:
+        x = ieee_div(torch.round(x * 255.0), 255.0)
+    pad = (plan.pad_left, plan.pad_right, plan.pad_top, plan.pad_bottom)
+    x = F.pad(x.permute(0, 3, 1, 2), pad, value=float(np.float32(GRAY))).permute(0, 2, 3, 1)
+    return x[0] if squeeze else x

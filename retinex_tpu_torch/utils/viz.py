@@ -1,7 +1,8 @@
 """Result images: saved outputs and side-by-side comparisons.
 
 Counterpart of ``retinex_tpu/utils/viz.py`` (``save_image``,
-``create_comparison``) on NHWC/HWC arrays or tensors in [0,1]. PNGs are
+``create_comparison``, ``visualize_results``, ``create_gif``) on NHWC/HWC
+arrays or tensors in [0,1]. PNGs are
 written with PIL at zlib level 1, the level the JAX package's native encoder
 writes: encoding the PNGs is most of the end-to-end time of one image
 (PERF.md), and level 1 is PIL's fastest. The pixels are those the JAX package
@@ -48,3 +49,22 @@ def create_comparison(img_low, img_enhanced, illu_map=None, save_path: str | Non
     if save_path:
         _write_png(strip, save_path)
     return strip
+
+
+def visualize_results(img_low, img_enhanced, illu_map, save_path: str | None = None) -> np.ndarray:
+    """Three panels side by side: input, enhanced, illumination (gray);
+    the JAX package's matplotlib figure as a PIL strip (no matplotlib on
+    the card's machine), under the same file name. Returns the strip."""
+    illu = _to_hwc(illu_map)
+    illu_gray = illu.mean(axis=-1, keepdims=True) if illu.ndim == 3 else illu[..., None]
+    panels = [_to_hwc(img_low), _to_hwc(img_enhanced), np.repeat(illu_gray, 3, axis=-1)]
+    strip = (np.concatenate(panels, axis=1) * 255).astype(np.uint8)
+    if save_path:
+        _write_png(strip, save_path)
+    return strip
+
+
+def create_gif(image_paths: list[str], output_path: str, duration: int = 500) -> None:
+    """Animated GIF from image files."""
+    images = [Image.open(p) for p in image_paths]
+    images[0].save(output_path, save_all=True, append_images=images[1:], duration=duration, loop=0)

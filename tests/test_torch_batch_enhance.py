@@ -151,7 +151,7 @@ def test_batch_net_matches_jax(image_dir, tmp_path):
 
 
 def test_several_devices_raise(image_dir, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="item 8"):
         cli.main([
             "--mode", "enhance", "--input_path", str(image_dir), "--output_dir", str(tmp_path),
             "--classical_mode", "clahe", "--n_devices", "2", "--device", "cpu",

@@ -243,6 +243,22 @@ first and last image against the kernel on each alone (identical):
    several levels at a few pixels); the
    ValueError on [1,57,41,3]; both kernels timed at [1,1088,1920,3] and
    [8,1088,1920,3].
+20. ``--mode train`` through the CLI at the JAX defaults on the 24 in-repo
+   photos, a ``--resume``, one step on the card against the CPU's, the warm
+   step's time, memory and stages, and predict and enhance from the trained
+   checkpoint held to the CPU's runs (``train_phase``).
+21. bf16 inference (``amp_phase``): the bf16 instances of K4 (whole and by
+   stage; z f32), K5, K6 (both w layouts) and K11 against their bf16 plain
+   versions at the frame's FAM shapes, a ragged one and a directory chunk
+   (one bf16 ulp, two for K4 whole, ``AMP_ULPS``), timed against bounds at
+   989 TFLOP/s; ``--use_amp`` enhance at ``--max_size 1920`` and with no
+   flags (K11) and predict from phase 20's checkpoint through the CLI,
+   with their launch counts (``BF16_LAUNCHES``; the f32 FAM counts 0), the
+   PNGs against f32 from the same checkpoint (printed); the bf16 net on
+   the card against the port's bf16 CPU run at 288x512 and 264x480
+   (``AMP_NET_TOL``; Lab-CLAHE of its output identical; end to end
+   printed); the bf16 and f32 nets' ms at batch 1 and 8, packed and
+   standard, and end to end per photo.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the nvidia-smi line,
 and ``{"ok": true, "device": {...}}``. ``launches`` sums each kernel's
@@ -274,6 +290,10 @@ entries (``fam_dual_conv3_bf16``, ``conv2d_pallas_bf16``,
 ``conv2d_pallas_im2col_bf16``, ``conv2d_narrow_bf16``) name the
 tensor-core kernel and count its launches; per launch at [1,1088,1920,3]
 for K16's two kernels.
+K4, K5, K6 and K11 also have bf16 entries (``fam_conv_fused_bf16``,
+``fam_tail_stats_bf16``, ``fam_tail_apply_g1_bf16``,
+``fam_tail_apply_bf16``; ``dtype`` bfloat16), timed in phase 21 per image
+like their f32 entries, their launches those of phase 21's CLI drives.
 ``library_ms`` is ``F.conv2d``'s time (+ ReLU where the kernel applies
 one) for K13-K15 and each of K10's four stages (``dec1_c2`` adds x1p),
 ``torch.einsum``'s of K6's whole function (``tail_g1_einsum``, on the main
@@ -386,6 +406,10 @@ REPLACES = {
     "conv2d_pallas_im2col_bf16": "retinex_tpu/ops/conv_pallas.py:275",
     "clahe_pallas_hist": "retinex_tpu/ops/clahe_pallas.py:111",
     "clahe_pallas_apply": "retinex_tpu/ops/clahe_pallas.py:137",
+    "fam_conv_fused_bf16": "retinex_tpu/ops/fused_blocks.py:395",
+    "fam_tail_stats_bf16": "retinex_tpu/ops/fused_blocks.py:321",
+    "fam_tail_apply_g1_bf16": "retinex_tpu/ops/fused_blocks.py:517",
+    "fam_tail_apply_bf16": "retinex_tpu/ops/fused_blocks.py:338",
 }
 SOURCES = {
     "lab_fwd_u8": "retinex_tpu_torch/csrc/clahe_lab.cu",
@@ -421,6 +445,10 @@ SOURCES = {
     "conv2d_pallas_im2col_bf16": "retinex_tpu_torch/csrc/conv_wgmma.cu",
     "clahe_pallas_hist": "retinex_tpu_torch/csrc/clahe_lab.cu",
     "clahe_pallas_apply": "retinex_tpu_torch/csrc/clahe_lab.cu",
+    "fam_conv_fused_bf16": "retinex_tpu_torch/csrc/fam_fused.cu",
+    "fam_tail_stats_bf16": "retinex_tpu_torch/csrc/fam_fused.cu",
+    "fam_tail_apply_g1_bf16": "retinex_tpu_torch/csrc/fam_fused.cu",
+    "fam_tail_apply_bf16": "retinex_tpu_torch/csrc/fam_fused.cu",
 }
 # The packed FAM shapes (scale 1, scale 2) of the letterboxed 1088x1920 frame
 # and of the unpadded 1080x1920 one.
@@ -1289,8 +1317,13 @@ def run_cli(torch, modules, args, entry=None) -> tuple[dict[str, int], float]:
 
 def launch_counts(modules) -> dict[str, int]:
     """Launches per wrapper, and per kernel where a module counts those too
-    (K4's three stages; conv_pallas's three kernels)."""
-    return {k: v for m in modules for counts in (m.LAUNCHES, getattr(m, "KERNEL_LAUNCHES", {})) for k, v in counts.items()}
+    (K4's three stages; conv_pallas's three kernels; the FAM kernels' bf16
+    instances)."""
+    return {
+        k: v for m in modules
+        for counts in (m.LAUNCHES, getattr(m, "KERNEL_LAUNCHES", {}), getattr(m, "BF16_LAUNCHES", {}))
+        for k, v in counts.items()
+    }
 
 
 def check_launches(launches: dict[str, int], want: dict[str, int], what: str) -> None:
@@ -1323,7 +1356,7 @@ def check_pngs(out_dir: Path, stem: str, shape: tuple) -> np.ndarray:
 
 def hold_to_cpu(
     torch, got: np.ndarray, photo: Path, max_size: int | None, packed: bool, preact_aspp: bool = False,
-    checkpoint: str = "",
+    checkpoint: str = "", use_amp: bool = False,
 ) -> None:
     """The card's enhanced PNG against the port's CPU run on the same
     weights (seeded, or `checkpoint`'s) and input, stage by stage:
@@ -1337,7 +1370,11 @@ def hold_to_cpu(
 
     The end-to-end maximum is printed, not bounded: a net difference of one
     f32 ulp at a .5 tie moves Lab-CLAHE's u8 rounding by a level, which its
-    mapping can spread to a few (ROADMAP Queue 3, F2)."""
+    mapping can spread to a few (ROADMAP Queue 3, F2).
+
+    `use_amp`: the bf16 net (phase 21), its outputs within AMP_NET_TOL of
+    the CPU's bf16 run; the end-to-end difference is printed, not bounded
+    (a one-ulp bf16 flip moves the net's output by up to a level)."""
     import dataclasses
 
     from retinex_tpu_torch import cli
@@ -1346,7 +1383,7 @@ def hold_to_cpu(
     from retinex_tpu_torch.infer.enhance import enhance_single_image, load_image
 
     config = Config(mode="enhance", packed_inference=packed, device="cpu", use_preact=preact_aspp, use_aspp=preact_aspp,
-                    checkpoint=checkpoint)
+                    checkpoint=checkpoint, use_amp=use_amp)
     cpu_apply = cli.build_apply_fn(config, torch.device("cpu"))
     t0 = time.perf_counter()
     enh_cpu, _, _ = enhance_single_image(
@@ -1357,11 +1394,12 @@ def hold_to_cpu(
         raise AssertionError("non-finite values in the CPU run")
     want = (np.clip(enh_cpu.numpy(), 0.0, 1.0) * 255).astype(np.uint8)
     d = np.abs(got.astype(np.int16) - want.astype(np.int16))
-    route = "packed" if packed else "standard"
+    route = ("bf16 " if use_amp else "") + ("packed" if packed else "standard")
     size = "with no --max_size" if max_size is None else f"at --max_size {max_size}"
     print(
         f"  {route} route {size}, card vs the CPU run ({cpu_s:.1f} s): max {int(d.max())} levels, "
-        f"mean {float(d.mean()):.5f} levels (tolerance 0.05), {float((d > 0).mean()):.2e} of bytes differ"
+        f"mean {float(d.mean()):.5f} levels (tolerance {'none, printed' if use_amp else 0.05}), "
+        f"{float((d > 0).mean()):.2e} of bytes differ"
     )
 
     img, _ = load_image(str(photo), max_size)
@@ -1369,7 +1407,8 @@ def hold_to_cpu(
     card_apply = cli.build_apply_fn(dataclasses.replace(config, device="cuda"), torch.device("cuda"))
     net_card = card_apply(x.cuda())
     net_cpu = cpu_apply(x)
-    errs = {n: float((a.cpu() - b).abs().max()) for n, a, b in zip(PACKED_TOL, net_card, net_cpu)}
+    errs = {n: float((a.cpu().float() - b.float()).abs().max()) for n, a, b in zip(PACKED_TOL, net_card, net_cpu)}
+    tols = AMP_NET_TOL if use_amp else dict.fromkeys(PACKED_TOL, CPU_NET_TOL)
     on_cpu = tuple(o.cpu() for o in net_card)
     post_card, post_cpu = (
         (np.clip(e[0].cpu().numpy(), 0.0, 1.0) * 255).astype(np.uint8)
@@ -1383,14 +1422,15 @@ def hold_to_cpu(
     print(
         f"  {route} route, the nets card vs CPU: max |diff| "
         + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
-        + f" (tolerance {CPU_NET_TOL:g}); Lab-CLAHE + quantisation of the card's net output, card vs CPU: "
-        f"max {stage} levels (tolerance 0); the CLI's PNG vs this rerun on the card: max {rerun} levels"
+        + " (tolerance " + ", ".join(f"{t:g}" for t in tols.values()) + "); Lab-CLAHE + quantisation of the card's "
+        f"net output, card vs CPU: max {stage} levels (tolerance 0); the CLI's PNG vs this rerun on the card: max "
+        f"{rerun} levels"
     )
-    if max(errs.values()) > CPU_NET_TOL:
+    if any(errs[n] > tols[n] for n in errs):
         raise AssertionError(f"the card's net ({route} route) disagrees with the CPU's")
     if stage != 0:
         raise AssertionError(f"Lab-CLAHE on the card ({route} route) differs from the CPU's on the same net output")
-    if not d.mean() < 0.05:
+    if not (use_amp or d.mean() < 0.05):
         raise AssertionError(f"the card's enhanced output ({route} route) disagrees with the CPU run")
 
 
@@ -2837,42 +2877,42 @@ def train_timing(torch, train_dir: Path) -> None:
         print(f"    {e.self_device_time_total / 1e3:9.3f}  x{e.count:<5d} {e.key[:100]}")
 
 
-def train_phase(torch, modules) -> None:
+def train_phase(torch, modules, workdir: Path) -> str:
     """Phase 20: training through the CLI at the JAX defaults on the 24
     in-repo photos, a resume, the card's step against the CPU's, and
     predict and the default enhance from the trained checkpoint held to the
-    CPU's runs from it."""
+    CPU's runs from it. Returns the trained checkpoint's path (in
+    `workdir`, beside the f32 runs' outputs)."""
     train_dir = REPO / "data" / "convergence"
     if len(list(train_dir.glob("lowlight_*.png"))) != 24:
         raise AssertionError(f"expected the 24 photos of {train_dir}")
-    with tempfile.TemporaryDirectory() as tmp:
-        workdir = Path(tmp)
-        save = workdir / "train"
-        base = ["--mode", "train", "--train_dir", str(train_dir), "--save_dir", str(save), "--device", "cuda", *TRAIN_ARGS]
-        launches, sec = run_cli(torch, modules, [*base, "--num_epochs", "2"])
-        check_launches(launches, {}, "training")  # the training path runs no TPU kernel
-        first = torch.load(save / "latest", map_location="cpu", weights_only=True)
-        launches, sec2 = run_cli(torch, modules, [*base, "--num_epochs", "3", "--resume", str(save / "latest")])
-        check_launches(launches, {}, "training, resumed")
-        last = torch.load(save / "latest", map_location="cpu", weights_only=True)
-        best = torch.load(save / "best", map_location="cpu", weights_only=True)
-        if (first["step"], first["epoch"], last["step"], last["epoch"]) != (6, 1, 9, 2):
-            raise AssertionError(f"steps/epochs {first['step']}/{first['epoch']} -> {last['step']}/{last['epoch']}, "
-                                 "expected 6/1 -> 9/2")
-        logs = list((save / "logs").glob("*/metrics.jsonl"))
-        vis = list((save / "visualizations").glob("epoch_*.png"))
-        if not ((save / "results.csv").is_file() and logs and len(vis) == 12):
-            raise AssertionError(f"training outputs missing: results.csv, {len(logs)} metrics.jsonl, {len(vis)} PNGs")
-        bad = [k for k, v in last["model_state_dict"].items() if v.is_floating_point() and not bool(v.isfinite().all())]
-        if bad:
-            raise AssertionError(f"non-finite weights after training: {bad[:3]}")
-        print(f"  --mode train, 24 photos at 640 px, batch 8, 2 epochs (3 steps each): {sec:.1f} s; --resume to "
-              f"epoch 3: {sec2:.1f} s; step {first['step']} -> {last['step']}, best loss {best['best_loss']:.6f} "
-              f"(epoch {best['epoch']}); {len(logs)} metrics.jsonl, results.csv, {len(vis)} visualisations")
+    save = workdir / "train"
+    base = ["--mode", "train", "--train_dir", str(train_dir), "--save_dir", str(save), "--device", "cuda", *TRAIN_ARGS]
+    launches, sec = run_cli(torch, modules, [*base, "--num_epochs", "2"])
+    check_launches(launches, {}, "training")  # the training path runs no TPU kernel
+    first = torch.load(save / "latest", map_location="cpu", weights_only=True)
+    launches, sec2 = run_cli(torch, modules, [*base, "--num_epochs", "3", "--resume", str(save / "latest")])
+    check_launches(launches, {}, "training, resumed")
+    last = torch.load(save / "latest", map_location="cpu", weights_only=True)
+    best = torch.load(save / "best", map_location="cpu", weights_only=True)
+    if (first["step"], first["epoch"], last["step"], last["epoch"]) != (6, 1, 9, 2):
+        raise AssertionError(f"steps/epochs {first['step']}/{first['epoch']} -> {last['step']}/{last['epoch']}, "
+                             "expected 6/1 -> 9/2")
+    logs = list((save / "logs").glob("*/metrics.jsonl"))
+    vis = list((save / "visualizations").glob("epoch_*.png"))
+    if not ((save / "results.csv").is_file() and logs and len(vis) == 12):
+        raise AssertionError(f"training outputs missing: results.csv, {len(logs)} metrics.jsonl, {len(vis)} PNGs")
+    bad = [k for k, v in last["model_state_dict"].items() if v.is_floating_point() and not bool(v.isfinite().all())]
+    if bad:
+        raise AssertionError(f"non-finite weights after training: {bad[:3]}")
+    print(f"  --mode train, 24 photos at 640 px, batch 8, 2 epochs (3 steps each): {sec:.1f} s; --resume to "
+          f"epoch 3: {sec2:.1f} s; step {first['step']} -> {last['step']}, best loss {best['best_loss']:.6f} "
+          f"(epoch {best['epoch']}); {len(logs)} metrics.jsonl, results.csv, {len(vis)} visualisations")
 
-        train_step_vs_cpu(torch)
-        train_timing(torch, train_dir)
-        trained_inference(torch, modules, str(save / "best"), workdir)
+    train_step_vs_cpu(torch)
+    train_timing(torch, train_dir)
+    trained_inference(torch, modules, str(save / "best"), workdir)
+    return str(save / "best")
 
 
 def trained_inference(torch, modules, ckpt: str, workdir: Path) -> None:
@@ -2919,6 +2959,245 @@ def trained_inference(torch, modules, ckpt: str, workdir: Path) -> None:
     hold_to_cpu(torch, got, small, 512, packed=True, checkpoint=ckpt)
 
 
+# Phase 21: bf16 inference. The FAM kernels' bf16 instances against their
+# bf16 plain versions on the card: one bf16 ulp (2**-7 relative at most),
+# or 2**-10 where the output is a small difference of larger terms
+# (tests/test_torch_amp_kernels.py); K4's z stage, f32, within K4's 2e-4.
+# K4 whole rounds twice (y, then the output): a y that rounds the other way
+# (conv_wgmma sums in another order than cuDNN) moves the output's f32 sum,
+# so two ulps (seen: two ulps at 0.8 on the [8,136,240,128] chunk, chip
+# call 8, PR 14).
+AMP_ULP = 2.0**-7
+AMP_ATOL = 2.0**-10
+AMP_ULPS = {"fam_conv_fused": 2}
+AMP_Z_TOL = 2e-4
+# The bf16 net on the card against the port's bf16 CPU run, by output: the
+# card's cuDNN and cuBLAS sum in other orders than the CPU's f32 emulation,
+# so bf16 values flip by an ulp now and then and the flips add up through
+# the net (as the port's CPU run against the JAX package's,
+# tests/test_torch_amp_net.py: 5.4e-3, 7.0e-3 and one illumination ulp).
+AMP_NET_TOL = {"enhanced": 2e-2, "reflectance": 3e-2, "illumination": 2.0**-7}
+# The bf16 kernels of the kernels line, by the f32 kernel's name.
+AMP_KERNELS = ("fam_conv_fused", "fam_tail_stats", "fam_tail_apply_g1", "fam_tail_apply")
+AMP_FAM_TWICE = {"fam_conv_fused_bf16": 2, "fam_tail_stats_bf16": 2, "fam_tail_apply_g1_bf16": 2}
+AMP_FAM_1080 = {"fam_conv_fused_bf16": 2, "fam_tail_stats_bf16": 2, "fam_tail_apply_bf16": 2}
+
+
+def amp_want(want: dict[str, int]) -> dict[str, int]:
+    """`want` with the bf16 K4's stages and K6's diagonal instance, as
+    ``check_launches`` adds them for the f32 kernels."""
+    k4 = want.get("fam_conv_fused_bf16", 0)
+    return {**want, **{f"{k}_bf16": k4 for k in K4_STAGES},
+            "fam_tail_apply_g1_diag_bf16": want.get("fam_tail_apply_g1_bf16", 0)}
+
+
+def amp_inputs(torch, fb, shape, seed: int) -> dict:
+    """``fam_inputs`` in bf16: x and sa rounded to bf16, ca_vec of bf16
+    values kept f32 (the kernels take it so), the f32 weights packed for the
+    bf16 instance, y and z from the bf16 plain stages (z f32)."""
+    d = fam_inputs(torch, fb, shape, seed)
+    bf = torch.bfloat16
+    d["x"], d["sa"] = d["x"].to(bf), d["sa"].to(bf)
+    d["ca_vec"] = d["ca_vec"].to(bf).float()
+    d["packed"] = fb.pack_fam_conv(*(d[k] for k in ("ka", "kb", "k1", "b1", "k32", "k42", "bias_total")), dtype=bf)
+    d["y"] = fb.fam_conv_y_plain(d["x"], d["k1"], d["b1"])
+    d["z"] = fb.fam_conv_z_plain(d["y"], d["k2"], d["bias_total"])
+    return d
+
+
+def amp_bounds(shape) -> dict:
+    """The bound of each bf16 FAM kernel at `shape`: its bf16 (z: f32)
+    inputs and outputs read and written once, the weights once (bf16 where
+    the kernel reads them so), its operations at the bf16 peak."""
+    b, h, w, c = shape
+    n_px = b * h * w
+    conv_ops = 2 * n_px * 9 * c * 2 * c
+    w3 = 2 * 9 * c * 2 * c  # one 3x3 kernel, bf16
+    pk = PEAK_BF16_OPS_PER_S
+    return {
+        "fam_conv_fused": bound(2 * 2 * n_px * c + 2 * 2 * c * c + 2 * w3 + 4 * 3 * c,
+                                2 * conv_ops + 2 * n_px * 2 * c * c, pk),
+        "fam_conv_y": bound(n_px * (2 * c + 2 * 2 * c) + w3 + 4 * 2 * c, conv_ops, pk),
+        "fam_conv_z": bound(n_px * (2 * 2 * c + 4 * c) + w3 + 4 * c, conv_ops, pk),
+        "fam_conv_out": bound(n_px * (4 * c + 2 * c + 2 * c) + 2 * 2 * c * c, 2 * n_px * 2 * c * c, pk),
+        "fam_tail_stats": bound(n_px * (2 * c + 2 * 8) + 4 * b * c, K5_OPS_PER_PX * n_px, pk),
+        "fam_tail_apply_g1": bound(n_px * (2 * c + 2 * 4 + 2 * c) + 4 * (b * c + c * c // 4),
+                                   n_px * (2 * c + 2 * c * c // 4), pk),
+        "fam_tail_apply_g1_dense": bound(n_px * (2 * c + 2 * 4 + 2 * c) + 4 * (b * c + c * c),
+                                         n_px * (2 * c + 2 * c * c), pk),
+        "fam_tail_apply": bound(n_px * (2 * c + 2 * 4 + 2 * c) + 4 * b * c, n_px * 2 * c, pk),
+    }
+
+
+def amp_kernel_phase(torch, fb, shape, seed: int, timed: tuple = ()) -> dict:
+    """Hold the bf16 instances of K4 (whole and by stage), K5, K6 (both w
+    layouts) and K11 to their bf16 plain versions on the card at `shape`
+    (one ulp; K4's z f32 and within AMP_Z_TOL), and on a batch each
+    kernel's first and last image to the kernel on that image alone. Return
+    records: the error (max |diff|, and in ulps beyond AMP_ATOL), and for
+    the kernels in `timed` the median ms, the plain version's ms, the bound."""
+    d = amp_inputs(torch, fb, shape, seed)
+    calls = fam_calls(fb, d)
+    b = shape[0]
+    bounds = amp_bounds(shape)
+    recs = {}
+    for name, (kernel, plain, args) in calls.items():
+        got, want = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        if got.dtype != want.dtype or got.dtype != (torch.float32 if name == "fam_conv_z" else torch.bfloat16):
+            raise AssertionError(f"bf16 {name} at {shape}: dtypes {got.dtype} and {want.dtype}")
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        if name == "fam_conv_z":
+            ok, rule = err <= AMP_Z_TOL, f"f32, tolerance {AMP_Z_TOL:g}"
+        else:
+            ulps = AMP_ULPS.get(name, 1)
+            over = float((diff - ulps * AMP_ULP * want.float().abs()).max())
+            ok, rule = np.isfinite(err) and over <= ulps * AMP_ATOL, f"{ulps} bf16 ulp(s), or {ulps} x 2**-10"
+        if not ok:
+            raise AssertionError(f"bf16 {name} disagrees with its bf16 plain version at {shape}: max |diff| {err:.3e}")
+        line = f"  {list(shape)} bf16 {name}: max |diff| {err:.3e} ({rule})"
+        for j in sorted({0, b - 1} if b > 1 else ()):
+            alone = fam_calls(fb, {k: v[j : j + 1].contiguous() if k in FAM_PER_IMAGE else v for k, v in d.items()})
+            if not torch.equal(alone[name][0](*alone[name][2]), got[j : j + 1]):
+                raise AssertionError(f"bf16 {name} at {shape}: image {j} differs from the kernel on it alone")
+        if b > 1:
+            line += "; first and last image identical to the kernel on each alone"
+        recs[name] = dict(max_abs_err=err)
+        if name in timed:
+            ms = time_ms(torch, lambda: kernel(*args))
+            plain_ms = time_ms(torch, lambda: plain(*args), n=5)
+            recs[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=bounds[name])
+            line += (
+                f"; {ms:.4f} ms per launch (plain {plain_ms:.3f} ms, bound {bounds[name][0]:.4f} ms by "
+                f"{bounds[name][1]}, {bounds[name][0] / ms:.1%} of it)"
+            )
+        print(line)
+        del got, want
+    return recs
+
+
+def amp_net_times(torch, ckpt: str, photo: Path) -> None:
+    """Warm net ms per image, bf16 beside f32, packed and standard, at
+    batch 1 and 8 on the 1088x1920 frame (the trained checkpoint's
+    weights), medians of host-clock runs ended by a synchronise; and end to
+    end per photo (decode to the three PNGs written), bf16 beside f32."""
+    from retinex_tpu_torch import cli
+    from retinex_tpu_torch.config import Config
+    from retinex_tpu_torch.infer.enhance import enhance_single_image, load_image
+
+    img = torch.from_numpy(load_image(str(photo), 1920)[0]).cuda()
+    fns = {
+        (amp, packed): cli.build_apply_fn(Config(mode="enhance", checkpoint=ckpt, use_amp=amp, packed_inference=packed),
+                                          torch.device("cuda"))
+        for amp in (False, True) for packed in (True, False)
+    }
+    for batch, reps in ((1, 5), (8, 3)):
+        x = img[None].expand(batch, -1, -1, -1).contiguous()
+        ms = {}
+        for key, fn in fns.items():
+            runs = []
+            for _ in range(reps + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(x)
+                torch.cuda.synchronize()
+                runs.append((time.perf_counter() - t0) * 1e3 / batch)
+            ms[key] = statistics.median(runs[1:])
+        print(f"  warm net ms per image at [{batch},1088,1920,3]: packed f32 {ms[(False, True)]:.3f}, bf16 "
+              f"{ms[(True, True)]:.3f} ({ms[(False, True)] / ms[(True, True)]:.2f}x); standard f32 "
+              f"{ms[(False, False)]:.3f}, bf16 {ms[(True, False)]:.3f} ({ms[(False, False)] / ms[(True, False)]:.2f}x)")
+        del x
+    e2e = {}
+    for amp in (False, True):
+        runs = []
+        for i in range(4):
+            t0 = time.perf_counter()
+            enhance_single_image(fns[(amp, True)], str(photo), str(photo.parent / f"amp_e2e_{amp}_{i}"), max_size=1920,
+                                 device="cuda")
+            runs.append((time.perf_counter() - t0) * 1e3)
+        e2e[amp] = statistics.median(runs[1:])
+    print(f"  end to end per photo (decode to three PNGs written), packed at --max_size 1920: f32 {e2e[False]:.1f} ms, "
+          f"bf16 {e2e[True]:.1f} ms")
+
+
+def amp_phase(torch, modules, ckpt: str, workdir: Path) -> tuple[dict, dict]:
+    """Phase 21: the bf16 instances of K4-K6 and K11 against their bf16
+    plain versions (timed at the frame's shapes); --use_amp enhance on the
+    photo at --max_size 1920 and with no flags (K11), and predict, through
+    the CLI with their launch counts; the bf16 net held to the port's bf16
+    CPU run stage by stage; bf16 against f32 on the same photo (printed);
+    the nets' and the kernels' times. Returns (records, launches) of the
+    four bf16 kernels, by their kernels-line names."""
+    from PIL import Image
+
+    cg, cl, fb, cp, kp = modules
+    recs: dict = {}
+    fam = [amp_kernel_phase(torch, fb, s, seed=60 + i, timed=FAM_TIMED) for i, s in enumerate(FAM_SHAPES)]
+    fam_1080 = [amp_kernel_phase(torch, fb, s, seed=62 + i, timed=("fam_tail_apply",)) for i, s in enumerate(FAM_SHAPES_1080)]
+    held = [amp_kernel_phase(torch, fb, FAM_RAGGED, seed=64), amp_kernel_phase(torch, fb, FAM_DIR_SHAPES[1], seed=65)]
+    for name in FAM_KERNELS:
+        per = [r[name] for r in (fam if name in FAM_TIMED else fam_1080)]
+        recs[name] = dict(
+            max_abs_err=max(r[name]["max_abs_err"] for r in fam + fam_1080 + held),
+            ms=sum(r["ms"] for r in per), plain_ms=sum(r["plain_ms"] for r in per),
+            bound=(sum(r["bound"][0] for r in per), per[0]["bound"][1]), dtype="bfloat16",
+        )
+    stages = ", ".join(f"{n} {recs[n]['ms']:.4f} (bound {recs[n]['bound'][0]:.4f})" for n in K4_STAGES)
+    k4 = recs["fam_conv_fused"]
+    print(f"  bf16 K4 device ms per image at 1088x1920 (scale-1 + scale-2 launches): {k4['ms']:.4f} against its bound "
+          f"{k4['bound'][0]:.4f} ({k4['bound'][0] / k4['ms']:.1%} of it), plain {k4['plain_ms']:.4f}; by stage: "
+          f"{stages}")
+    for name in ("fam_tail_stats", "fam_tail_apply_g1", "fam_tail_apply_g1_dense", "fam_tail_apply"):
+        r = recs[name]
+        where = "1080x1920" if name == "fam_tail_apply" else "1088x1920"
+        print(f"  bf16 {name} device ms per image at {where}: {r['ms']:.4f} against its bound {r['bound'][0]:.4f} by "
+              f"{r['bound'][1]} ({r['bound'][0] / r['ms']:.1%}), plain {r['plain_ms']:.4f}")
+
+    src = REPO / "data" / "convergence" / "lowlight_000.png"
+    photo, small, small_flagless = workdir / "photo1080.png", workdir / "photo512.png", workdir / "photo480.png"
+    with Image.open(src) as im:
+        im.convert("RGB").resize((480, 264), Image.BILINEAR).save(small_flagless)
+    launches = dict.fromkeys(AMP_KERNELS, 0)
+    drives = [  # (what, CLI arguments, launches wanted, the enhanced PNG's shape)
+        ("enhance --use_amp at --max_size 1920", ["--mode", "enhance", "--input_path", str(photo), "--max_size", "1920"],
+         {**LAB_CLAHE_ONCE, **AMP_FAM_TWICE}, (1088, 1920, 3)),
+        ("enhance --use_amp with no flags", ["--mode", "enhance", "--input_path", str(photo)],
+         {**LAB_CLAHE_TILES_ONCE, **AMP_FAM_1080}, (1080, 1920, 3)),
+        ("predict --use_amp from the trained checkpoint at --max_size 1920",
+         ["--mode", "predict", "--input_path", str(photo), "--max_size", "1920"], AMP_FAM_TWICE, (1088, 1920, 3)),
+    ]
+    for i, (what, args, want, shape) in enumerate(drives):
+        out = workdir / f"amp_{i}"
+        got, sec = run_cli(torch, modules, [*args, "--checkpoint", ckpt, "--use_amp", "--output_dir", str(out),
+                                            "--device", "cuda"])
+        check_launches(got, amp_want(want), what)
+        for name in AMP_KERNELS:
+            launches[name] += got[f"{name}_bf16"]
+        png = check_pngs(out, photo.stem, shape)
+        print(f"  {what}: {sec:.2f} s (cold); bf16 launches "
+              + ", ".join(f"{k} {v}" for k, v in got.items() if k.endswith("_bf16") and v))
+        if i != 1:  # against the f32 run of the same checkpoint (phase 20), printed
+            ref = png_u8(workdir / f"{args[1]}_1920" / f"{photo.stem}_enhanced.png")
+            d = np.abs(png.astype(np.int16) - ref.astype(np.int16))
+            print(f"    its enhanced PNG against f32 from the same checkpoint (what --use_amp costs): max {int(d.max())} "
+                  f"levels, mean {float(d.mean()):.4f}, {float((d > 0).mean()):.2e} of bytes differ")
+    for name in AMP_KERNELS:
+        if launches[name] == 0:
+            raise AssertionError(f"the bf16 {name} was never launched by the --use_amp drives")
+
+    # The bf16 net on the card against the port's bf16 CPU run, stage by stage.
+    for frame, max_size in ((small, 512), (small_flagless, None)):
+        out = workdir / f"amp_small_{frame.stem}"
+        _, _ = run_cli(torch, modules, ["--mode", "enhance", "--input_path", str(frame), "--checkpoint", ckpt,
+                                        "--use_amp", "--output_dir", str(out), "--device", "cuda"]
+                       + ([] if max_size is None else ["--max_size", str(max_size)]))
+        got = check_pngs(out, frame.stem, (288, 512, 3) if max_size else (264, 480, 3))
+        hold_to_cpu(torch, got, frame, max_size, packed=True, checkpoint=ckpt, use_amp=True)
+    amp_net_times(torch, ckpt, photo)
+    return {f"{k}_bf16": recs[k] for k in AMP_KERNELS}, {f"{k}_bf16": v for k, v in launches.items()}
+
+
 def main() -> int:
     import torch
 
@@ -2937,6 +3216,7 @@ def main() -> int:
     print(f"device: {line}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False  # as the CLI sets it
 
     print("phase 1: build")
     count_dir = tempfile.TemporaryDirectory()
@@ -2991,7 +3271,12 @@ def main() -> int:
     recs.update(k16)
     print("phase 20: training (--mode train at the JAX defaults), a resume, the card's step against the CPU's, "
           "inference from the trained checkpoint")
-    train_phase(torch, (cg, cl, fb, cp, kp))
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = train_phase(torch, (cg, cl, fb, cp, kp), Path(tmp))
+        print("phase 21: bf16 inference (--use_amp with enhance and predict): K4-K6 and K11 in bf16")
+        amp_recs, amp_launches = amp_phase(torch, (cg, cl, fb, cp, kp), ckpt, Path(tmp))
+    recs.update(amp_recs)
+    launches.update(amp_launches)
 
     for name in recs:
         if launches[name] == 0:

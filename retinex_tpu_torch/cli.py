@@ -52,9 +52,13 @@ every route on the CPU with the kernels' plain versions. Weights come from
 ``.pth``; or else (enhance only) are initialised untrained as the JAX CLI
 does (Flax's lecun-normal kernels, zero biases, always seed 0 like its
 ``PRNGKey(0)``; ``--seed`` does not reach them). ``--spatial_shard``,
-``--n_devices`` above 1, ``--use_amp``, ``--remat`` and ``--coordinator``
-raise ``NotImplementedError`` (each names its ROADMAP Queue 1 item), and so
-does a ``--checkpoint`` directory (the JAX package's Orbax format). The
+``--use_amp`` computes the net in bf16 for ``--mode enhance`` and
+``predict`` (``models/layers.py``, ``models/packed_inference.py``: the FAM
+kernels' bf16 instances); Lab-CLAHE and the enhancers stay f32, as the JAX
+package's do. ``--n_devices`` above 1, ``--use_amp`` with ``--mode train``,
+``--remat`` and ``--coordinator`` raise ``NotImplementedError`` (each names
+its ROADMAP Queue 1 item), and so does a ``--checkpoint`` directory (the
+JAX package's Orbax format). The
 packed training layout (``--packed_train``, on by default) is Queue 1 item
 7: training runs the standard step and says so.
 """
@@ -80,13 +84,12 @@ UNTRAINED_SEED = 0
 
 
 def build_model(config: Config, device: torch.device, require_checkpoint: bool = False) -> MultiScaleUPRetinex:
-    """The net in eval mode on `device`, with the weights of
+    """The net in eval mode on `device`, computing in
+    `config.compute_dtype` (bf16 with ``--use_amp``), with the weights of
     `config.checkpoint` where that file exists (a reference ``.pth`` or one
     of the port's training checkpoints), else untrained (or, with
     `require_checkpoint`, FileNotFoundError)."""
-    if config.use_amp:
-        raise NotImplementedError("bf16 compute (--use_amp) lands in ROADMAP Queue 1 item 3")
-    model = MultiScaleUPRetinex(use_preact=config.use_preact, use_aspp=config.use_aspp)
+    model = MultiScaleUPRetinex(use_preact=config.use_preact, use_aspp=config.use_aspp, dtype=config.compute_dtype)
     ckpt = config.checkpoint
     if ckpt and os.path.isdir(ckpt):
         raise NotImplementedError(
@@ -111,6 +114,8 @@ def build_apply_fn(config: Config, device: torch.device, require_checkpoint: boo
     packed forward (``config.packed_inference``) or the standard one."""
     model = build_model(config, device, require_checkpoint)
     forward = model
+    if config.use_amp:
+        print("Computing the net in bf16 (--use_amp)")
     if config.packed_inference:
         forward = PackedRetinex(model)
         print("Using space-to-depth packed inference")
@@ -147,9 +152,11 @@ def run(config: Config):
 
     maybe_mesh(config.n_devices)
     if device.type == "cuda":
-        # f32 compute is f32: no TF32 in cuDNN convolutions or matmuls.
+        # f32 compute is f32: no TF32 in cuDNN convolutions or matmuls; a
+        # bf16 matmul sums in f32 and rounds once, as XLA's does.
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     if config.mode == "evaluate":
         from retinex_tpu_torch.infer.evaluate import evaluate_directory

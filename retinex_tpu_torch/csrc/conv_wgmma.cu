@@ -21,7 +21,12 @@
 // It also carries K12 (retinex_tpu/ops/fused_blocks.py::_fam_kernel) in
 // bf16 as two launches (retinex_tpu_torch/ops/fused_blocks.py: fam_dual_y,
 // 128 -> 256 with ReLU, y stored in bf16 as the JAX kernel's ys scratch;
-// fam_dual_out, the two half convolutions as one launch with groups = 2).
+// fam_dual_out, the two half convolutions as one launch with groups = 2),
+// and K4 (retinex_tpu/ops/fused_blocks.py::_fam_conv_kernel) in bf16 as its
+// two 3x3 convolutions: fam_conv_y (128 -> 256 with ReLU, y rounded to bf16
+// as the JAX kernel's ys scratch) and fam_conv_z (256 -> 128 plus
+// bias_total) in the f32-output mode (out_f32): the JAX kernel sums its four
+// branches in f32, so z is stored as the f32 sum plus bias, not rounded.
 // Groups: Cout tile t reads only input channels [g * Cin/groups, (g + 1) *
 // Cin/groups), g = t / (Cout tiles per group), from an HWIO kernel [kh, kw,
 // Cin/groups, Cout]: the halo box's channel coordinate starts at the
@@ -275,6 +280,7 @@ struct WgArgs {
   int halo_stages;     // 2..4
   int resident;        // 1: every B tile loaded once; 0: a ring of b_stages
   int b_stages;        // 2..4 (ring only)
+  int out_f32;         // 1: the output is f32 (sum + bias, ReLU), not rounded to bf16
 };
 
 // A tile's coordinates: Cout tile (fastest), tile column, tile row, image.
@@ -326,7 +332,7 @@ int smem_bytes(const WgArgs& a) {
 template <int N, int CK>
 __global__ void __launch_bounds__(kThreads, 1)
     conv_wgmma_bf16_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
-                           const float* __restrict__ bias, __nv_bfloat16* __restrict__ out, const WgArgs a) {
+                           const float* __restrict__ bias, void* __restrict__ out, const WgArgs a) {
   using T = Tile<N, CK>;
   constexpr int KK = CK / 16;  // k16 steps per k-block
   extern __shared__ uint8_t smem_raw[];
@@ -484,6 +490,35 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int co_l = ct * N + 2 * (lane & 3);
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
+      const int gy = ty * kTH + 8 * g + 4 * j + warp;
+      if (a.out_f32) {
+        // f32 out: each lane stores its channel pairs straight from the
+        // accumulators (8 B a lane, four lanes cover a 32-byte sector).
+        if (gy < a.H) {
+          float* orow = reinterpret_cast<float*>(out) + ((size_t)b * a.H + gy) * a.W * (size_t)a.cout;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int gx = tx * kTW + (lane >> 2) + 8 * h;
+            if (gx >= a.W) continue;
+#pragma unroll
+            for (int n8 = 0; n8 < kChunks; ++n8) {
+              const int co = co_l + 8 * n8;
+              if (co >= a.cout) continue;
+              const float2 bv = __ldg(reinterpret_cast<const float2*>(bias + co));  // padded to cout_pad
+              float v0 = acc[j][4 * n8 + 2 * h] + bv.x, v1 = acc[j][4 * n8 + 2 * h + 1] + bv.y;
+              if (a.relu) v0 = fmaxf(v0, 0.f), v1 = fmaxf(v1, 0.f);
+              float* o = orow + (size_t)gx * a.cout + co;
+              if (a.cout % 2 == 0) {
+                *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+              } else {
+                o[0] = v0;
+                if (co + 1 < a.cout) o[1] = v1;
+              }
+            }
+          }
+        }
+        continue;
+      }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int px = (lane >> 2) + 8 * h;
@@ -497,7 +532,6 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       }
       __syncwarp();
-      const int gy = ty * kTH + 8 * g + 4 * j + warp;
       if (gy < a.H) {
         const int ch = lane % kChunks, co = ct * N + 8 * ch;
 #pragma unroll
@@ -505,7 +539,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int px = m * kPixPerStore + lane / kChunks, gx = tx * kTW + px;
           if (gx >= a.W || co >= a.cout) continue;
           const uint4 v = *reinterpret_cast<const uint4*>(stage + px * (N * 2) + ((ch ^ (px & kSwz)) << 4));
-          __nv_bfloat16* o = out + (((size_t)b * a.H + gy) * a.W + gx) * a.cout + co;
+          __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(out) + (((size_t)b * a.H + gy) * a.W + gx) * a.cout + co;
           if (a.cout % 8 == 0) {
             *reinterpret_cast<uint4*>(o) = v;
           } else {  // element by element, from registers
@@ -604,7 +638,7 @@ int launch(const void* x, const void* w, const void* bias, void* out, int batch,
   if (err != cudaSuccess) return (int)err;
   const int grid = a.n_tiles < sms ? a.n_tiles : sms;
   conv_wgmma_bf16_kernel<N, CK><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      xmap, wmap, (const float*)bias, (__nv_bfloat16*)out, a);
+      xmap, wmap, (const float*)bias, out, a);
   return (int)cudaGetLastError();
 }
 
@@ -636,16 +670,17 @@ extern "C" {
 // kernel [kh * kw, n_chunks, cout_pad, ck] bf16 of an HWIO kernel [kh, kw,
 // cin / groups, cout] (ck 32 or 64, n_chunks = ceil(cin / groups / ck),
 // zeros past its input channels and cout); bias f32 [cout_pad]; out
-// [batch, H, W, cout] bf16. Kernels up to 5x5, dilation 1 or 2, low
-// padding pad_t, pad_l (the box covers the rest). n_tile (32, 64 or 128)
-// divides cout_pad; groups as make_args takes them.
+// [batch, H, W, cout] bf16, or f32 where out_f32. Kernels up to 5x5,
+// dilation 1 or 2, low padding pad_t, pad_l (the box covers the rest).
+// n_tile (32, 64 or 128) divides cout_pad; groups as make_args takes them.
 int conv_wgmma_bf16(const void* x, const void* w, const void* bias, void* out, int batch, int H, int W, int cin,
                     int cout, int cout_pad, int kh, int kw, int dil, int pad_t, int pad_l, int relu, int n_tile,
-                    int ck, int groups, void* stream) {
+                    int ck, int groups, int out_f32, void* stream) {
   WgArgs a;
   if (reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
       !make_args(a, H, W, cin, cout, cout_pad, kh, kw, dil, pad_t, pad_l, relu, n_tile, ck, groups, batch))
     return (int)cudaErrorInvalidValue;
+  a.out_f32 = out_f32 != 0;
 #define CONV_WGMMA_CASE(NT, CK_) \
   if (n_tile == NT && ck == CK_) return launch<NT, CK_>(x, w, bias, out, batch, a, stream);
   CONV_WGMMA_CASE(32, 32)

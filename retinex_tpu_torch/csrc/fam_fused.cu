@@ -1,12 +1,13 @@
 // FAM kernels for Hopper (sm_90a), behind a plain C interface.
 //
 // Four kernels carry the packed (space-to-depth) EnhancedFAM of the scale-1
-// and scale-2 towers on f32 NHWC activations [B, H, W, 128], the 128 channels
-// being four quadrants of 32 (packed channel (a*2 + b)*32 + c):
+// and scale-2 towers on f32 or bf16 NHWC activations [B, H, W, 128], the 128
+// channels being four quadrants of 32 (packed channel (a*2 + b)*32 + c):
 //
 //   fam_conv_out_kernel       K4's last stage: relu(z + x @ ka + maxpool(x) @
 //                             kb) -> [B, H, W, 128], after K4's two 3x3
-//                             convolutions (y, z) on conv_pipelined.cu
+//                             convolutions (y, z) on conv_pipelined.cu (f32)
+//                             or conv_wgmma.cu (bf16, z in f32)
 //   fam_tail_stats_kernel     x * ca -> per-quadrant channel mean/max [B,H,W,8]
 //   fam_tail_apply_g1_kernel  (x * ca * sa per quadrant) @ W -> [B,H,W,Cout]
 //                             (templated: W dense or quadrant-block-diagonal)
@@ -17,10 +18,25 @@
 // dtype, shape and contiguity, allocate every output, and pass PyTorch's
 // current stream. Each launch function returns cudaGetLastError().
 //
+// Each kernel is templated on the activations' element type T: f32, or bf16
+// for the --use_amp net, whose instances round where the JAX kernels round
+// their bf16 instances (T = bf16 there: a bf16 x bf16 product is exact in
+// f32 and rounded to bf16 once, so it equals JAX's bf16 multiply):
+//   fam_conv_out   x, ka, kb bf16; z f32 (K4 never rounds it); the products
+//                  summed in f32; the output rounded once;
+//   tail_stats     x * ca rounded; means and maxima in f32; output rounded;
+//   tail_apply_g1  x * ca rounded, * sa rounded; the product with the f32 w
+//                  in f32; the output rounded;
+//   tail_apply     x * ca rounded, * sa rounded.
+// ca and w are f32 in both (ca is rounded to T inside, as the JAX kernels
+// cast it to x.dtype); sa is in T. The f32 instances compute what they did
+// before the templates, bit for bit.
+//
 // Arithmetic is f32 on the CUDA cores (no TF32, no tensor cores). The dot
 // products call fmaf explicitly; the file builds with -fmad=false like the
 // other sources, which only keeps the compiler from contracting anything else.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -33,6 +49,63 @@ constexpr int kQ = 32;   // channels per quadrant
 
 __device__ __forceinline__ float4 ldg4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+// Loads, stores and rounding of one element type: four consecutive
+// elements go through one 16-byte (f32) or 8-byte (bf16) access.
+template <typename T>
+struct Elem;
+
+template <>
+struct Elem<float> {
+  __device__ static __forceinline__ float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+  __device__ static __forceinline__ float4 gload4(const float* p) { return ldg4(p); }
+  __device__ static __forceinline__ void store4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+  __device__ static __forceinline__ void store2(float* p, float a, float b) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  }
+  __device__ static __forceinline__ float to_f(float v) { return v; }
+  __device__ static __forceinline__ float from_f(float v) { return v; }
+  __device__ static __forceinline__ float round(float v) { return v; }
+};
+
+template <>
+struct Elem<__nv_bfloat16> {
+  __device__ static __forceinline__ float4 unpack(uint2 r) {
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.x));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.y));
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
+  __device__ static __forceinline__ float4 load4(const __nv_bfloat16* p) {
+    return unpack(*reinterpret_cast<const uint2*>(p));
+  }
+  __device__ static __forceinline__ float4 gload4(const __nv_bfloat16* p) {
+    return unpack(__ldg(reinterpret_cast<const uint2*>(p)));
+  }
+  __device__ static __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+    uint2 r;
+    r.x = *reinterpret_cast<const uint32_t*>(&lo);
+    r.y = *reinterpret_cast<const uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(p) = r;
+  }
+  __device__ static __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+  }
+  __device__ static __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+  __device__ static __forceinline__ __nv_bfloat16 from_f(float v) { return __float2bfloat16_rn(v); }
+  __device__ static __forceinline__ float round(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
+};
+
+// Elements of T in one 16-byte chunk, and a shared-memory pixel row of 128
+// channels padded by one chunk (consecutive pixels 4 banks apart).
+template <typename T>
+__host__ __device__ constexpr int chunk_elems() {
+  return 16 / (int)sizeof(T);
+}
+template <typename T>
+__host__ __device__ constexpr int px_stride() {
+  return kC + chunk_elems<T>();
 }
 
 // ---------------------------------------------------------------------------
@@ -50,6 +123,10 @@ __device__ __forceinline__ float4 ldg4(const float* p) {
 // instead of being recomputed over every tile's halo), then this kernel:
 //
 //   out = relu(z + [x | maxpool3x3(x)] @ [ka; kb]).
+//
+// In bf16 y and z run on conv_wgmma.cu's tensor cores (z in its f32-output
+// mode, since the JAX kernel never rounds it); this kernel reads bf16 x and
+// [ka; kb], f32 z, and rounds the output once.
 //
 // Bound on the card: operations - 2 * 256 * 128 FLOP per packed pixel
 // against 1.5 KB moved (z and x in, out), 0.54 ms at 67 TFLOP/s for the
@@ -73,11 +150,15 @@ constexpr int kOutTH = 4, kOutTW = 16;                          // output tile, 
 constexpr int kOutHW = kOutTW + 2;                              // halo row
 constexpr int kOutHaloPx = (kOutTH + 2) * kOutHW;               // 108
 constexpr int kOutPix = kOutTH * kOutTW;                        // 64
-constexpr int kPxStride = kC + 4;                               // floats per pixel in shared memory
 constexpr int kWRows = 16;                                      // rows of [ka; kb] per stage
 constexpr int kOutThreads = kOutTH * 32;                        // 16 threads per 8-pixel row half
 constexpr int kOutBlocks = 2;                                   // blocks per SM the smem allows
-constexpr size_t kOutSmem = sizeof(float) * ((size_t)(kOutHaloPx + kOutPix) * kPxStride + 2 * kWRows * kC);
+// Shared memory: the x tile, the pooled tile (both px_stride<T>() a pixel)
+// and two stages of [ka; kb] rows, in T: 107,200 B in f32, 54,976 B in bf16.
+template <typename T>
+constexpr size_t out_smem() {
+  return sizeof(T) * ((size_t)(kOutHaloPx + kOutPix) * px_stride<T>() + 2 * kWRows * kC);
+}
 static_assert(kOutThreads == kOutPix / 8 * 16, "16 threads own 8 pixels' 128 channels");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -85,6 +166,9 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 }
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(dst), "l"(src), "r"(src_bytes) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
 template <int kPending>
@@ -108,39 +192,44 @@ __device__ __forceinline__ void fma_px(float (&acc)[8], const float4 x, const fl
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kOutThreads, kOutBlocks)
-    fam_conv_out_kernel(const float* __restrict__ z, const float* __restrict__ x, const float* __restrict__ w,
-                        float* __restrict__ out, int H, int W) {
+    fam_conv_out_kernel(const float* __restrict__ z, const T* __restrict__ x, const T* __restrict__ w,
+                        T* __restrict__ out, int H, int W) {
+  using E = Elem<T>;
+  constexpr int kS = px_stride<T>();          // elements per pixel row in shared memory
+  constexpr int kCh = kC / chunk_elems<T>();  // 16-byte chunks per pixel
   extern __shared__ float4 smem[];
-  float* xs = reinterpret_cast<float*>(smem);  // x tile [kOutHaloPx][kPxStride]
-  float* ps = xs + kOutHaloPx * kPxStride;     // pooled tile [kOutPix][kPxStride]
-  float* ws = ps + kOutPix * kPxStride;        // [2][kWRows][kC]
+  T* xs = reinterpret_cast<T*>(smem);  // x tile [kOutHaloPx][kS]
+  T* ps = xs + kOutHaloPx * kS;        // pooled tile [kOutPix][kS]
+  T* ws = ps + kOutPix * kS;           // [2][kWRows][kC]
   const int t = threadIdx.x, cg = t % 16, pg = t / 16;
   const int row = pg / 2, col0 = (pg % 2) * 8;
   const int r0 = blockIdx.y * kOutTH, c0 = blockIdx.x * kOutTW, b = blockIdx.z;
-  const float* xb = x + (size_t)b * H * W * kC;
+  const T* xb = x + (size_t)b * H * W * kC;
   const uint32_t xs_s = smem_u32(xs), ws_s = smem_u32(ws);
 
   auto load_w = [&](int chunk) {  // rows chunk * kWRows.. of [ka; kb], one commit group
-    const float* src = w + (size_t)chunk * kWRows * kC;
-    const uint32_t dst = ws_s + (chunk & 1) * (kWRows * kC * 4);
+    const T* src = w + (size_t)chunk * kWRows * kC;
+    const uint32_t dst = ws_s + (chunk & 1) * (kWRows * kC * (int)sizeof(T));
 #pragma unroll 1
-    for (int i = t; i < kWRows * kC4; i += kOutThreads) cp_async16(dst + 16 * i, src + 4 * i, 16);
+    for (int i = t; i < kWRows * kCh; i += kOutThreads) cp_async16(dst + 16 * i, src + chunk_elems<T>() * i, 16);
     cp_async_commit();
   };
 #pragma unroll 1
-  for (int i = t; i < kOutHaloPx * kC4; i += kOutThreads) {
-    const int px = i / kC4, c4 = i % kC4;
+  for (int i = t; i < kOutHaloPx * kCh; i += kOutThreads) {
+    const int px = i / kCh, ch = i % kCh;
     const int gy = r0 - 1 + px / kOutHW, gx = c0 - 1 + px % kOutHW;
     const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
-    cp_async16(xs_s + 4 * (px * kPxStride + 4 * c4), in ? xb + ((size_t)gy * W + gx) * kC + 4 * c4 : xb,
-               in ? 16 : 0);
+    cp_async16(xs_s + (px * kS + chunk_elems<T>() * ch) * (int)sizeof(T),
+               in ? xb + ((size_t)gy * W + gx) * kC + chunk_elems<T>() * ch : xb, in ? 16 : 0);
   }
   load_w(0);  // one group: the x tile and the first weight rows
   cp_async_wait<0>();
   __syncthreads();
 
-  // The pooled tile: per original pixel, the max of its 3x3 neighbourhood.
+  // The pooled tile: per original pixel, the max of its 3x3 neighbourhood
+  // (exact in either type).
   for (int i = t; i < kOutPix * kC; i += kOutThreads) {
     const int ch = i % kC, q = i / kC;
     const int quad = ch / kQ, cc = ch % kQ;
@@ -152,10 +241,10 @@ __global__ void __launch_bounds__(kOutThreads, kOutBlocks)
 #pragma unroll
       for (int dc = -1; dc <= 1; ++dc) {
         const int cc2 = cbase + dc;
-        m = fmaxf(m, xs[((rr >> 1) * kOutHW + (cc2 >> 1)) * kPxStride + ((rr & 1) * 2 + (cc2 & 1)) * kQ + cc]);
+        m = fmaxf(m, E::to_f(xs[((rr >> 1) * kOutHW + (cc2 >> 1)) * kS + ((rr & 1) * 2 + (cc2 & 1)) * kQ + cc]));
       }
     }
-    ps[q * kPxStride + ch] = m;
+    ps[q * kS + ch] = E::from_f(m);
   }
 
   float acc[8][8];
@@ -173,21 +262,20 @@ __global__ void __launch_bounds__(kOutThreads, kOutBlocks)
     }
     cp_async_wait<1>();
     __syncthreads();  // this chunk's rows (and, the first time, the pooled tile) are in
-    const float4* wt = reinterpret_cast<const float4*>(ws + (chunk & 1) * kWRows * kC);
+    const T* wt = ws + (chunk & 1) * kWRows * kC;
     const int k0 = (chunk * kWRows) % kC;
-    const float* arow = chunk * kWRows < kC ? xs + ((row + 1) * kOutHW + col0 + 1) * kPxStride + k0
-                                            : ps + (row * kOutTW + col0) * kPxStride + k0;
+    const T* arow = chunk * kWRows < kC ? xs + ((row + 1) * kOutHW + col0 + 1) * kS + k0
+                                        : ps + (row * kOutTW + col0) * kS + k0;
 #pragma unroll
     for (int k4 = 0; k4 < kWRows / 4; ++k4) {
       float4 wv[4][2];
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        wv[k][0] = wt[(4 * k4 + k) * kC4 + cg];
-        wv[k][1] = wt[(4 * k4 + k) * kC4 + 16 + cg];
+        wv[k][0] = E::load4(wt + (4 * k4 + k) * kC + 4 * cg);
+        wv[k][1] = E::load4(wt + (4 * k4 + k) * kC + 64 + 4 * cg);
       }
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-        fma_px(acc[i], *reinterpret_cast<const float4*>(arow + i * kPxStride + 4 * k4), wv);
+      for (int i = 0; i < 8; ++i) fma_px(acc[i], E::load4(arow + i * kS + 4 * k4), wv);
     }
     __syncthreads();  // this stage is free for the load two chunks on
   }
@@ -204,9 +292,8 @@ __global__ void __launch_bounds__(kOutThreads, kOutBlocks)
       if (gx >= W) break;
       const size_t o = (row_off + gx) * kC + co;
       const float4 zv = ldg4(z + o);
-      *reinterpret_cast<float4*>(out + o) =
-          make_float4(fmaxf(acc[i][4 * h] + zv.x, 0.f), fmaxf(acc[i][4 * h + 1] + zv.y, 0.f),
-                      fmaxf(acc[i][4 * h + 2] + zv.z, 0.f), fmaxf(acc[i][4 * h + 3] + zv.w, 0.f));
+      E::store4(out + o, make_float4(fmaxf(acc[i][4 * h] + zv.x, 0.f), fmaxf(acc[i][4 * h + 1] + zv.y, 0.f),
+                                     fmaxf(acc[i][4 * h + 2] + zv.z, 0.f), fmaxf(acc[i][4 * h + 3] + zv.w, 0.f)));
     }
   }
 }
@@ -214,23 +301,26 @@ __global__ void __launch_bounds__(kOutThreads, kOutBlocks)
 // ---------------------------------------------------------------------------
 // K5. Replaces retinex_tpu/ops/fused_blocks.py::_tail_stats_kernel
 // (pallas_call in fam_tail_stats). Bound on the card: bytes — 512 B read and
-// 32 B written per pixel for ~260 operations. Design: one warp per pixel,
-// lane l reading channels 4l..4l+3 as one float4 (a coalesced 512 B row), so
+// 32 B written per pixel for ~260 operations (half the bytes in bf16).
+// Design: one warp per pixel, lane l reading channels 4l..4l+3 as one
+// float4 or four bf16 (a coalesced 512 or 256 B row), so
 // each quadrant's 32 channels sit in 8 lanes and reduce in three xor
 // shuffles; lane 8q writes the quadrant's (mean, max) pair. The TPU's 8-row
 // replication of ca is not needed.
 // ---------------------------------------------------------------------------
-__global__ void fam_tail_stats_kernel(const float* __restrict__ x, const float* __restrict__ ca,
-                                      float* __restrict__ out, long long hw, long long n_pix) {
+template <typename T>
+__global__ void fam_tail_stats_kernel(const T* __restrict__ x, const float* __restrict__ ca, T* __restrict__ out,
+                                      long long hw, long long n_pix) {
+  using E = Elem<T>;
   const long long pix = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (pix >= n_pix) return;
-  float4 v = ldg4(x + pix * kC + 4 * lane);
+  float4 v = E::gload4(x + pix * kC + 4 * lane);
   const float4 c = ldg4(ca + (pix / hw) * kC + 4 * lane);
-  v.x *= c.x;
-  v.y *= c.y;
-  v.z *= c.z;
-  v.w *= c.w;
+  v.x = E::round(v.x * E::round(c.x));
+  v.y = E::round(v.y * E::round(c.y));
+  v.z = E::round(v.z * E::round(c.z));
+  v.w = E::round(v.w * E::round(c.w));
   float s = (v.x + v.y) + (v.z + v.w);
   float m = fmaxf(fmaxf(v.x, v.y), fmaxf(v.z, v.w));
 #pragma unroll
@@ -238,9 +328,7 @@ __global__ void fam_tail_stats_kernel(const float* __restrict__ x, const float* 
     s += __shfl_xor_sync(0xffffffffu, s, o);
     m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
   }
-  if ((lane & 7) == 0) {
-    reinterpret_cast<float2*>(out + pix * 8)[lane >> 3] = make_float2(s * (1.0f / kQ), m);
-  }
+  if ((lane & 7) == 0) E::store2(out + pix * 8 + 2 * (lane >> 3), s * (1.0f / kQ), m);
 }
 
 // ---------------------------------------------------------------------------
@@ -279,34 +367,45 @@ __global__ void fam_tail_stats_kernel(const float* __restrict__ x, const float* 
 //   the same bits there.
 // - Outputs are stored as float4, each warp instruction 64 contiguous bytes
 //   of every pixel it writes. No TF32, no tensor cores.
+// - bf16 (T = bf16): the x tile and its sa stay bf16 in shared memory (a
+//   pixel row of 136 elements), the scaling rounds x * ca and then * sa to
+//   bf16 in place (lossless: the values are bf16), the products read them
+//   as f32 against the f32 w, and the outputs are rounded to bf16 (8-byte
+//   stores). Its bytes a pixel are half the f32 instance's.
 // ---------------------------------------------------------------------------
 constexpr int kG1Pix = 128;                                      // pixels per tile
 constexpr int kG1Threads = 256;
-constexpr int kG1XStride = kC + 4;                               // floats per pixel row in shared memory
-constexpr int kG1StageFloats = kG1Pix * kG1XStride + kG1Pix * 4;  // x tile, then its sa
 // x stages in the ring: two fit beside either instance's weights. A third
-// fits beside the diagonal weights only (225,280 B) and leaves L1 3 KB.
+// fits beside the diagonal weights only (225,280 B in f32) and leaves L1 3 KB.
 constexpr int kG1Stages = 2;
 static_assert(kG1Threads == 2 * 4 * 32 && kG1Pix == 2 * 8 * 8, "8 warps: 4 quadrants x 2 pixel halves");
 
+// One stage in elements of T: the x tile [kG1Pix][px_stride<T>()], then its sa [kG1Pix][4].
+template <typename T>
+__host__ __device__ constexpr int g1_stage_elems() {
+  return kG1Pix * px_stride<T>() + kG1Pix * 4;
+}
 template <bool kDiag>
 __host__ __device__ constexpr int g1_wcols() {
   return kDiag ? kQ : kC;
 }
-template <bool kDiag>
+template <typename T, bool kDiag>
 constexpr size_t g1_smem() {
-  return sizeof(float) * ((size_t)kC * g1_wcols<kDiag>() + kG1Stages * (size_t)kG1StageFloats);
+  return sizeof(float) * (size_t)kC * g1_wcols<kDiag>() + sizeof(T) * kG1Stages * (size_t)g1_stage_elems<T>();
 }
 
-template <bool kDiag>
+template <typename T, bool kDiag>
 __global__ void __launch_bounds__(kG1Threads, 1)
-    fam_tail_apply_g1_kernel(const float* __restrict__ x, const float* __restrict__ ca,
-                             const float* __restrict__ sa, const float* __restrict__ w,
-                             float* __restrict__ out, long long hw, long long n_pix, int cout) {
+    fam_tail_apply_g1_kernel(const T* __restrict__ x, const float* __restrict__ ca, const T* __restrict__ sa,
+                             const float* __restrict__ w, T* __restrict__ out, long long hw, long long n_pix,
+                             int cout) {
+  using E = Elem<T>;
   constexpr int kWCols = g1_wcols<kDiag>();
+  constexpr int kS = px_stride<T>();
+  constexpr int kCh = kC / chunk_elems<T>();  // 16-byte chunks per pixel
   extern __shared__ float4 smem[];
-  float* ws = reinterpret_cast<float*>(smem);  // [128][kWCols]
-  float* stages = ws + kC * kWCols;            // kG1Stages x ([kG1Pix][kG1XStride] x, [kG1Pix][4] sa)
+  float* ws = reinterpret_cast<float*>(smem);            // [128][kWCols]
+  T* stages = reinterpret_cast<T*>(ws + kC * kWCols);    // kG1Stages x ([kG1Pix][kS] x, [kG1Pix][4] sa)
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
   const int q = warp & 3, c = lane & 3, pg = (lane >> 2) + 8 * (warp >> 2);
   const long long n_tiles = (n_pix + kG1Pix - 1) / kG1Pix;
@@ -316,17 +415,24 @@ __global__ void __launch_bounds__(kG1Threads, 1)
   cp_async_commit();
 
   auto load_tile = [&](long long tile, int stage) {  // one commit group; zeros past n_pix
-    float* xs = stages + stage * kG1StageFloats;
+    T* xs = stages + stage * g1_stage_elems<T>();
     const long long p0 = tile * kG1Pix;
 #pragma unroll 4
-    for (int i = t; i < kG1Pix * kC4; i += kG1Threads) {
-      const int px = i / kC4, c4 = i % kC4;
+    for (int i = t; i < kG1Pix * kCh; i += kG1Threads) {
+      const int px = i / kCh, ch = i % kCh;
       const bool in = p0 + px < n_pix;
-      cp_async16(smem_u32(xs + px * kG1XStride + 4 * c4), in ? x + (p0 + px) * kC + 4 * c4 : x, in ? 16 : 0);
+      cp_async16(smem_u32(xs + px * kS + chunk_elems<T>() * ch), in ? x + (p0 + px) * kC + chunk_elems<T>() * ch : x,
+                 in ? 16 : 0);
     }
-    if (t < kG1Pix) {
+    if (t < kG1Pix) {  // the pixel's 4 sa values: 16 B in f32, 8 B in bf16
       const bool in = p0 + t < n_pix;
-      cp_async16(smem_u32(xs + kG1Pix * kG1XStride + 4 * t), in ? sa + (p0 + t) * 4 : sa, in ? 16 : 0);
+      const uint32_t dst = smem_u32(xs + kG1Pix * kS + 4 * t);
+      const T* src = in ? sa + (p0 + t) * 4 : sa;
+      if (sizeof(T) == 4) {
+        cp_async16(dst, src, in ? 16 : 0);
+      } else {
+        cp_async8(dst, src, in ? 8 : 0);
+      }
     }
     cp_async_commit();
   };
@@ -355,8 +461,8 @@ __global__ void __launch_bounds__(kG1Threads, 1)
     cp_async_wait<kG1Stages - 1>();
     __syncthreads();  // this tile (and, the first time, the weights) landed
 
-    float* xs = stages + stage * kG1StageFloats;
-    const float* ss = xs + kG1Pix * kG1XStride;
+    T* xs = stages + stage * g1_stage_elems<T>();
+    const T* ss = xs + kG1Pix * kS;
     const long long p0 = tile * kG1Pix;
     // Each warp scales what its own products read: the quadrant-q channels
     // of its half's 64 pixels (8 * half + r + 16 i, r, i < 8), lane l pixel
@@ -379,10 +485,13 @@ __global__ void __launch_bounds__(kG1Threads, 1)
           next = (img + 1) * hw;
           cv = ldg4(ca + img * kC + cq);
         }
-        float4* xp = reinterpret_cast<float4*>(xs + px * kG1XStride + cq);
-        const float4 v = *xp;
-        const float s = ss[4 * px + q];
-        *xp = make_float4(v.x * cv.x * s, v.y * cv.y * s, v.z * cv.z * s, v.w * cv.w * s);
+        T* xp = xs + px * kS + cq;
+        const float4 v = E::load4(xp);
+        const float s = E::to_f(ss[4 * px + q]);
+        E::store4(xp, make_float4(E::round(E::round(v.x * E::round(cv.x)) * s),
+                                  E::round(E::round(v.y * E::round(cv.y)) * s),
+                                  E::round(E::round(v.z * E::round(cv.z)) * s),
+                                  E::round(E::round(v.w * E::round(cv.w)) * s)));
       }
     }
     if (kDiag) {
@@ -399,7 +508,7 @@ __global__ void __launch_bounds__(kG1Threads, 1)
         for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
       const int k0 = kDiag ? kQ * q : 0;
       const float* wc = ws + (kDiag ? 0 : kQ * q) + 4 * c;
-      const float* xrow = xs + pg * kG1XStride;
+      const T* xrow = xs + pg * kS;
 #pragma unroll 4
       for (int k = k0; k < k0 + (kDiag ? kQ : kC); k += 4) {
         float4 wv[4][2];
@@ -409,18 +518,16 @@ __global__ void __launch_bounds__(kG1Threads, 1)
           wv[kk][1] = *reinterpret_cast<const float4*>(wc + (k + kk) * kWCols + 16);
         }
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
-          fma_px(acc[i], *reinterpret_cast<const float4*>(xrow + 16 * i * kG1XStride + k), wv);
+        for (int i = 0; i < 8; ++i) fma_px(acc[i], E::load4(xrow + 16 * i * kS + k), wv);
       }
       const int co = kQ * q + 4 * c;
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const long long p = p0 + pg + 16 * i;
         if (p >= n_pix) break;
-        float* o = out + p * cout + co;
-        if (co < cout) *reinterpret_cast<float4*>(o) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-        if (co + 16 < cout)
-          *reinterpret_cast<float4*>(o + 16) = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+        T* o = out + p * cout + co;
+        if (co < cout) E::store4(o, make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+        if (co + 16 < cout) E::store4(o + 16, make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]));
       }
     }
     __syncthreads();  // this stage is free for the next load
@@ -428,20 +535,20 @@ __global__ void __launch_bounds__(kG1Threads, 1)
   cp_async_wait<0>();
 }
 
-template <bool kDiag>
-int launch_tail_apply_g1(const float* x, const float* ca, const float* sa, const float* w, float* out,
-                         long long n_pix, long long hw, int cout, void* stream) {
+template <typename T, bool kDiag>
+int launch_tail_apply_g1(const void* x, const void* ca, const void* sa, const void* w, void* out, long long n_pix,
+                         long long hw, int cout, void* stream) {
   if (n_pix == 0) return 0;
-  cudaError_t err = cudaFuncSetAttribute(fam_tail_apply_g1_kernel<kDiag>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)g1_smem<kDiag>());
+  cudaError_t err = cudaFuncSetAttribute(fam_tail_apply_g1_kernel<T, kDiag>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)g1_smem<T, kDiag>());
   if (err != cudaSuccess) return (int)err;
   int device = 0, sms = 0;
   if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) return (int)err;
   const long long n_tiles = (n_pix + kG1Pix - 1) / kG1Pix;
   const unsigned blocks = (unsigned)(n_tiles < sms ? n_tiles : sms);
-  fam_tail_apply_g1_kernel<kDiag><<<blocks, kG1Threads, g1_smem<kDiag>(), (cudaStream_t)stream>>>(
-      x, ca, sa, w, out, hw, n_pix, cout);
+  fam_tail_apply_g1_kernel<T, kDiag><<<blocks, kG1Threads, g1_smem<T, kDiag>(), (cudaStream_t)stream>>>(
+      (const T*)x, (const float*)ca, (const T*)sa, (const float*)w, (T*)out, hw, n_pix, cout);
   return (int)cudaGetLastError();
 }
 
@@ -450,68 +557,100 @@ int launch_tail_apply_g1(const float* x, const float* ca, const float* sa, const
 // (pallas_call in fam_tail_apply): K6 without the product, for shapes whose
 // fusion does not fold into the tail (a frame whose height or width is not a
 // multiple of 16, such as 1080 rows). Bound on the card: bytes — 512 B read,
-// 16 B of sa and 512 B written per pixel for 256 multiplies. Design: one
-// thread per float4 of the output, consecutive threads on consecutive
-// channels, so each warp reads and writes one coalesced 512 B pixel row; the
-// products run x * ca * sa in that order, as the plain version does.
+// 16 B of sa and 512 B written per pixel for 256 multiplies (half the bytes
+// in bf16). Design: one thread per four channels of the output, consecutive
+// threads on consecutive channels, so each warp reads and writes one
+// coalesced pixel row; the products run x * ca * sa in that order, as the
+// plain version does (in bf16 each rounded).
 // ---------------------------------------------------------------------------
-__global__ void fam_tail_apply_kernel(const float* __restrict__ x, const float* __restrict__ ca,
-                                      const float* __restrict__ sa, float* __restrict__ out,
-                                      long long hw, long long n4) {
+template <typename T>
+__global__ void fam_tail_apply_kernel(const T* __restrict__ x, const float* __restrict__ ca,
+                                      const T* __restrict__ sa, T* __restrict__ out, long long hw, long long n4) {
+  using E = Elem<T>;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n4) return;
   const long long p = i / kC4;
   const int c4 = (int)(i % kC4);
-  const float4 v = ldg4(x + 4 * i);
+  const float4 v = E::gload4(x + 4 * i);
   const float4 c = ldg4(ca + (p / hw) * kC + 4 * c4);
-  const float s = __ldg(sa + p * 4 + (4 * c4) / kQ);
-  reinterpret_cast<float4*>(out)[i] = make_float4(v.x * c.x * s, v.y * c.y * s, v.z * c.z * s, v.w * c.w * s);
+  const float s = E::to_f(sa[p * 4 + (4 * c4) / kQ]);
+  E::store4(out + 4 * i, make_float4(E::round(E::round(v.x * E::round(c.x)) * s),
+                                     E::round(E::round(v.y * E::round(c.y)) * s),
+                                     E::round(E::round(v.z * E::round(c.z)) * s),
+                                     E::round(E::round(v.w * E::round(c.w)) * s)));
+}
+
+template <typename T>
+int launch_conv_out(const void* z, const void* x, const void* w, void* out, int batch, int H, int W, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(fam_conv_out_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)out_smem<T>());
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((W + kOutTW - 1) / kOutTW, (H + kOutTH - 1) / kOutTH, batch);
+  fam_conv_out_kernel<T><<<grid, kOutThreads, out_smem<T>(), (cudaStream_t)stream>>>(
+      (const float*)z, (const T*)x, (const T*)w, (T*)out, H, W);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_tail_stats(const void* x, const void* ca, void* out, long long n_pix, long long hw, void* stream) {
+  const long long blocks = (n_pix * 32 + 255) / 256;
+  fam_tail_stats_kernel<T><<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(
+      (const T*)x, (const float*)ca, (T*)out, hw, n_pix);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_tail_apply(const void* x, const void* ca, const void* sa, void* out, long long n4, long long hw,
+                      void* stream) {
+  const long long blocks = (n4 + 255) / 256;
+  fam_tail_apply_kernel<T><<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(
+      (const T*)x, (const float*)ca, (const T*)sa, (T*)out, hw, n4);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// z and x [batch, H, W, 128] f32, w = [ka; kb] [256, 128] f32, out [batch,
-// H, W, 128] f32: out = relu(z + x @ ka + maxpool3x3_s2d(x) @ kb).
-int fam_conv_out(const void* z, const void* x, const void* w, void* out, int batch, int H, int W,
+// z [batch, H, W, 128] f32; x and out [batch, H, W, 128] f32, or bf16 where
+// is_bf16; w = [ka; kb] [256, 128] in x's type: out = relu(z + x @ ka +
+// maxpool3x3_s2d(x) @ kb).
+int fam_conv_out(const void* z, const void* x, const void* w, void* out, int batch, int H, int W, int is_bf16,
                  void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(fam_conv_out_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)kOutSmem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((W + kOutTW - 1) / kOutTW, (H + kOutTH - 1) / kOutTH, batch);
-  fam_conv_out_kernel<<<grid, kOutThreads, kOutSmem, (cudaStream_t)stream>>>(
-      (const float*)z, (const float*)x, (const float*)w, (float*)out, H, W);
-  return (int)cudaGetLastError();
+  return is_bf16 ? launch_conv_out<__nv_bfloat16>(z, x, w, out, batch, H, W, stream)
+                 : launch_conv_out<float>(z, x, w, out, batch, H, W, stream);
 }
 
-int fam_tail_stats(const void* x, const void* ca, void* out, long long batch, long long hw,
+// x [batch, hw, 128] and out [batch, hw, 8] f32, or bf16 where is_bf16; ca
+// [batch, 128] f32.
+int fam_tail_stats(const void* x, const void* ca, void* out, long long batch, long long hw, int is_bf16,
                    void* stream) {
-  const long long n_pix = batch * hw;
-  const long long blocks = (n_pix * 32 + 255) / 256;
-  fam_tail_stats_kernel<<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)ca, (float*)out, hw, n_pix);
-  return (int)cudaGetLastError();
+  return is_bf16 ? launch_tail_stats<__nv_bfloat16>(x, ca, out, batch * hw, hw, stream)
+                 : launch_tail_stats<float>(x, ca, out, batch * hw, hw, stream);
 }
 
-// x [batch, hw, 128], ca [batch, 128], sa [batch, hw, 4], out [batch, hw,
-// cout] f32; w in the kernel's layout (pack_tail_g1): the four
-// diagonal [32, 32] blocks stacked to [128, 32] when diag (cout 128), else
-// [128, 128] with zero columns past cout (a multiple of 4, at most 128).
-int fam_tail_apply_g1(const void* x, const void* ca, const void* sa, const void* w, void* out,
-                      long long batch, long long hw, int cout, int diag, void* stream) {
-  const float *xf = (const float*)x, *caf = (const float*)ca, *saf = (const float*)sa, *wf = (const float*)w;
-  return diag ? launch_tail_apply_g1<true>(xf, caf, saf, wf, (float*)out, batch * hw, hw, cout, stream)
-              : launch_tail_apply_g1<false>(xf, caf, saf, wf, (float*)out, batch * hw, hw, cout, stream);
+// x [batch, hw, 128], sa [batch, hw, 4] and out [batch, hw, cout] f32, or
+// bf16 where is_bf16; ca [batch, 128] f32; w f32 in the kernel's layout
+// (pack_tail_g1): the four diagonal [32, 32] blocks stacked to [128, 32]
+// when diag (cout 128), else [128, 128] with zero columns past cout (a
+// multiple of 4, at most 128).
+int fam_tail_apply_g1(const void* x, const void* ca, const void* sa, const void* w, void* out, long long batch,
+                      long long hw, int cout, int diag, int is_bf16, void* stream) {
+  const long long n = batch * hw;
+  if (is_bf16) {
+    return diag ? launch_tail_apply_g1<__nv_bfloat16, true>(x, ca, sa, w, out, n, hw, cout, stream)
+                : launch_tail_apply_g1<__nv_bfloat16, false>(x, ca, sa, w, out, n, hw, cout, stream);
+  }
+  return diag ? launch_tail_apply_g1<float, true>(x, ca, sa, w, out, n, hw, cout, stream)
+              : launch_tail_apply_g1<float, false>(x, ca, sa, w, out, n, hw, cout, stream);
 }
 
-int fam_tail_apply(const void* x, const void* ca, const void* sa, void* out, long long batch,
-                   long long hw, void* stream) {
-  const long long n4 = batch * hw * kC4;
-  const long long blocks = (n4 + 255) / 256;
-  fam_tail_apply_kernel<<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)ca, (const float*)sa, (float*)out, hw, n4);
-  return (int)cudaGetLastError();
+// x and out [batch, hw, 128], sa [batch, hw, 4], f32 or bf16 where is_bf16;
+// ca [batch, 128] f32.
+int fam_tail_apply(const void* x, const void* ca, const void* sa, void* out, long long batch, long long hw,
+                   int is_bf16, void* stream) {
+  return is_bf16 ? launch_tail_apply<__nv_bfloat16>(x, ca, sa, out, batch * hw * kC4, hw, stream)
+                 : launch_tail_apply<float>(x, ca, sa, out, batch * hw * kC4, hw, stream);
 }
 
 }  // extern "C"

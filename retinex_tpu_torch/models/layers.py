@@ -18,6 +18,17 @@ the running statistics become ``0.9 * running + 0.1 * batch``. PyTorch's
 and would compute it in another way. The one dropout (ASPP's) draws its
 mask from an explicit ``torch.Generator``, which the trainer seeds and
 checkpoints.
+
+Each module takes a ``dtype``, the compute dtype of Flax's ``dtype=``: the
+parameters stay f32, and in bf16 each layer rounds where Flax's inference
+forward rounds (``ops/bf16.py``). A convolution rounds its sum, then adds
+its bias in bf16; an eval BatchNorm computes ``(x - mean) * (rsqrt(var +
+eps) * scale) + bias`` in f32 on the bf16 input and rounds once
+(``flax/linen/normalization.py::_normalize``); a mean sums in f32 and
+rounds once. ``torch.autocast`` rounds elsewhere (it keeps BatchNorm and
+reductions in f32 and casts weights op by op), so it is not used. A
+sigmoid is XLA's 1 / (1 + exp(-x)), each operation rounded. f32 runs
+the PyTorch modules as they are. Training is f32 only.
 """
 
 from __future__ import annotations
@@ -25,6 +36,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from retinex_tpu_torch.ops import bf16
 
 BN_EPS = 1e-5
 
@@ -39,12 +52,19 @@ def max_pool_nonneg(x: torch.Tensor, window: int, stride: int, padding: int = 0)
 class BatchNorm(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose train mode computes and updates the batch
     statistics as Flax's BatchNorm does (module docstring); eval mode is
-    ``nn.BatchNorm2d``'s."""
+    ``nn.BatchNorm2d``'s in f32, Flax's ``_normalize`` in a reduced `dtype`."""
 
-    def __init__(self, ch: int):
+    def __init__(self, ch: int, dtype: torch.dtype = torch.float32):
         super().__init__(ch, eps=BN_EPS)
+        self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype != torch.float32:
+            if self.training:
+                raise NotImplementedError("BatchNorm: training computes in f32 only")
+            mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+            y = (x.float() - self.running_mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+            return y.to(self.compute_dtype)
         if not self.training:
             return super().forward(x)
         mean = x.mean(dim=(0, 2, 3))
@@ -76,35 +96,88 @@ class Dropout(nn.Module):
         return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
-def _bn(ch: int) -> BatchNorm:
-    return BatchNorm(ch)
+def _bn(ch: int, dtype: torch.dtype = torch.float32) -> BatchNorm:
+    return BatchNorm(ch, dtype)
 
 
-def conv(cin: int, cout: int, k: int, stride: int = 1, dilation: int = 1, bias: bool = True) -> nn.Conv2d:
+class Conv(nn.Conv2d):
+    """``nn.Conv2d`` computing in `dtype` as Flax's ``nn.Conv(dtype=...)``:
+    x and the kernel rounded to it, the sum rounded once, then the bias
+    added in it."""
+
+    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype == torch.float32:
+            return super().forward(x)
+        y = bf16.conv2d(x.to(self.compute_dtype), self.weight, self.stride, self.padding, self.dilation)
+        return bf16.add_bias(y, self.bias, nchw=True)
+
+
+class ConvTranspose(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` (stride = kernel, no padding) computing in
+    `dtype` as Flax's ``nn.ConvTranspose(dtype=...)``."""
+
+    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype == torch.float32:
+            return super().forward(x)
+        y = bf16.conv_transpose2d(x.to(self.compute_dtype), self.weight, self.stride)
+        return bf16.add_bias(y, self.bias, nchw=True)
+
+
+class Sigmoid(nn.Module):
+    """``jax.nn.sigmoid`` in the input's dtype (``ops/bf16.py``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return bf16.sigmoid(x)
+
+
+class MeanPool(nn.Module):
+    """Global average pool to [B,C,1,1]: ``nn.AdaptiveAvgPool2d(1)`` in f32,
+    ``jnp.mean`` (f32 sum, one rounding) in a reduced dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.float32:
+            return F.adaptive_avg_pool2d(x, 1)
+        return bf16.mean(x, (2, 3), keepdim=True)
+
+
+def conv(
+    cin: int, cout: int, k: int, stride: int = 1, dilation: int = 1, bias: bool = True,
+    dtype: torch.dtype = torch.float32,
+) -> Conv:
     """k x k conv with the JAX package's symmetric 'same' padding."""
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=dilation * (k // 2), dilation=dilation, bias=bias)
+    return Conv(cin, cout, k, stride=stride, padding=dilation * (k // 2), dilation=dilation, bias=bias, dtype=dtype)
 
 
-def conv_bn_relu(cin: int, cout: int, k: int = 3, dilation: int = 1, bias: bool = False) -> list[nn.Module]:
-    return [conv(cin, cout, k, dilation=dilation, bias=bias), _bn(cout), nn.ReLU()]
+def conv_bn_relu(
+    cin: int, cout: int, k: int = 3, dilation: int = 1, bias: bool = False, dtype: torch.dtype = torch.float32,
+) -> list[nn.Module]:
+    return [conv(cin, cout, k, dilation=dilation, bias=bias, dtype=dtype), _bn(cout, dtype), nn.ReLU()]
 
 
 class EnhancedFAM(nn.Module):
     """4-branch feature aggregation with channel + spatial attention."""
 
-    def __init__(self, f: int):
+    def __init__(self, f: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.branch1 = conv(f, f, 1)
-        self.branch2_conv = conv(f, f, 1)
-        self.branch3_conv1 = conv(f, f, 3)
-        self.branch3_conv2 = conv(f, f, 3)
-        self.branch4_conv1 = conv(f, f, 3)
-        self.branch4_conv2 = conv(f, f, 3, dilation=2)
-        self.fusion = conv(4 * f, f, 1)
+        self.branch1 = conv(f, f, 1, dtype=dtype)
+        self.branch2_conv = conv(f, f, 1, dtype=dtype)
+        self.branch3_conv1 = conv(f, f, 3, dtype=dtype)
+        self.branch3_conv2 = conv(f, f, 3, dtype=dtype)
+        self.branch4_conv1 = conv(f, f, 3, dtype=dtype)
+        self.branch4_conv2 = conv(f, f, 3, dilation=2, dtype=dtype)
+        self.fusion = conv(4 * f, f, 1, dtype=dtype)
         self.channel_attention = nn.Sequential(
-            nn.AdaptiveAvgPool2d(1), conv(f, f // 16, 1), nn.ReLU(), conv(f // 16, f, 1), nn.Sigmoid()
+            MeanPool(), conv(f, f // 16, 1, dtype=dtype), nn.ReLU(), conv(f // 16, f, 1, dtype=dtype), Sigmoid()
         )
-        self.spatial_attention = nn.Sequential(conv(2, 1, 7), nn.Sigmoid())
+        self.spatial_attention = nn.Sequential(conv(2, 1, 7, dtype=dtype), Sigmoid())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b1 = self.branch1(x)
@@ -113,22 +186,24 @@ class EnhancedFAM(nn.Module):
         b4 = self.branch4_conv2(F.relu(self.branch4_conv1(x)))
         out = F.relu(self.fusion(torch.cat([b1, b2, b3, b4], dim=1)))
         out = out * self.channel_attention(out)
-        sa = torch.cat([out.mean(dim=1, keepdim=True), out.amax(dim=1, keepdim=True)], dim=1)
+        sa = torch.cat([bf16.mean(out, 1, keepdim=True), out.amax(dim=1, keepdim=True)], dim=1)
         return out * self.spatial_attention(sa)
 
 
 class ResBlock(nn.Module):
     """Post-activation residual block, optional stride-2 downsample."""
 
-    def __init__(self, cin: int, features: int, stride: int = 1):
+    def __init__(self, cin: int, features: int, stride: int = 1, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = conv(cin, features, 3, stride=stride, bias=False)
-        self.bn1 = _bn(features)
-        self.conv2 = conv(features, features, 3, bias=False)
-        self.bn2 = _bn(features)
+        self.conv1 = conv(cin, features, 3, stride=stride, bias=False, dtype=dtype)
+        self.bn1 = _bn(features, dtype)
+        self.conv2 = conv(features, features, 3, bias=False, dtype=dtype)
+        self.bn2 = _bn(features, dtype)
         self.shortcut = nn.Sequential()
         if stride != 1 or cin != features:
-            self.shortcut = nn.Sequential(conv(cin, features, 1, stride=stride, bias=False), _bn(features))
+            self.shortcut = nn.Sequential(
+                conv(cin, features, 1, stride=stride, bias=False, dtype=dtype), _bn(features, dtype)
+            )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.relu(self.bn1(self.conv1(x)))
@@ -140,16 +215,18 @@ class PreActResBlock(nn.Module):
     """Pre-activation residual block; a projection shortcut is taken from the
     pre-activated tensor."""
 
-    def __init__(self, cin: int, features: int, stride: int = 1):
+    def __init__(self, cin: int, features: int, stride: int = 1, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.bn1 = _bn(cin)
-        self.conv1 = conv(cin, features, 3, stride=stride, bias=False)
-        self.bn2 = _bn(features)
-        self.conv2 = conv(features, features, 3, bias=False)
+        self.bn1 = _bn(cin, dtype)
+        self.conv1 = conv(cin, features, 3, stride=stride, bias=False, dtype=dtype)
+        self.bn2 = _bn(features, dtype)
+        self.conv2 = conv(features, features, 3, bias=False, dtype=dtype)
         self.needs_proj = stride != 1 or cin != features
         self.shortcut = nn.Sequential()
         if self.needs_proj:
-            self.shortcut = nn.Sequential(conv(cin, features, 1, stride=stride, bias=False), _bn(features))
+            self.shortcut = nn.Sequential(
+                conv(cin, features, 1, stride=stride, bias=False, dtype=dtype), _bn(features, dtype)
+            )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         pre = F.relu(self.bn1(x))
@@ -161,15 +238,18 @@ class PreActResBlock(nn.Module):
 class ASPPModule(nn.Module):
     """Atrous spatial pyramid pooling with a global-average-pool branch."""
 
-    def __init__(self, cin: int, features: int, dilations: tuple[int, ...] = (1, 6, 12, 18), dropout: float = 0.1):
+    def __init__(
+        self, cin: int, features: int, dilations: tuple[int, ...] = (1, 6, 12, 18), dropout: float = 0.1,
+        dtype: torch.dtype = torch.float32,
+    ):
         super().__init__()
-        self.conv1x1 = nn.Sequential(*conv_bn_relu(cin, features, 1))
+        self.conv1x1 = nn.Sequential(*conv_bn_relu(cin, features, 1, dtype=dtype))
         self.aspp_branches = nn.ModuleList(
-            nn.Sequential(*conv_bn_relu(cin, features, 3, dilation=d)) for d in dilations[1:]
+            nn.Sequential(*conv_bn_relu(cin, features, 3, dilation=d, dtype=dtype)) for d in dilations[1:]
         )
-        self.global_pool = nn.Sequential(nn.AdaptiveAvgPool2d(1), *conv_bn_relu(cin, features, 1))
+        self.global_pool = nn.Sequential(MeanPool(), *conv_bn_relu(cin, features, 1, dtype=dtype))
         n = len(dilations) + 1
-        self.fusion = nn.Sequential(*conv_bn_relu(n * features, features, 1), Dropout(dropout))
+        self.fusion = nn.Sequential(*conv_bn_relu(n * features, features, 1, dtype=dtype), Dropout(dropout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, w = x.shape[2], x.shape[3]
@@ -182,11 +262,12 @@ class ASPPModule(nn.Module):
 class UpBlock(nn.Module):
     """2x upsample: ConvTranspose(k2, s2) then two conv-BN-ReLU stages."""
 
-    def __init__(self, cin: int, features: int):
+    def __init__(self, cin: int, features: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.up = nn.ConvTranspose2d(cin, features, 2, stride=2)
+        self.up = ConvTranspose(cin, features, 2, stride=2, dtype=dtype)
         self.conv = nn.Sequential(
-            *conv_bn_relu(features, features, 3, bias=True), *conv_bn_relu(features, features, 3, bias=True)
+            *conv_bn_relu(features, features, 3, bias=True, dtype=dtype),
+            *conv_bn_relu(features, features, 3, bias=True, dtype=dtype),
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

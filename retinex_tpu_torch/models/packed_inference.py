@@ -18,12 +18,22 @@ without ``--max_size``), K11 applies the attention instead of K6. On a CUDA
 tensor the route always launches the kernels; on a CPU tensor the wrappers
 take their plain versions.
 
+A bf16 model (``MultiScaleUPRetinex(dtype=torch.bfloat16)``, ``--use_amp``)
+runs the packed forward in bf16 as the JAX package's does on its kernel
+route: the weights are rounded to bf16 once here, each ``_Conv`` and
+``_Affine`` computes in the activation's dtype (a convolution's sum and its
+bias each rounded, an affine's product and its sum each rounded), the means
+sum in f32 and round once, and the FAMs run the kernels' bf16 instances, K4
+from folds made in f32 and rounded once (``pack_fam_conv``). The enhanced
+image and the reflectance come back f32, the illumination bf16, as JAX's.
+
 ``NetCfg(dec1_chain=True)`` runs the dec1 UpBlock, the +x1p residual and
 the residual head's 3x3 conv as K10 (four launches on the card, its weights
 packed once here), with the BatchNorm affines folded into the conv
-weights; off by default, as in the JAX package. The JAX ``NetCfg``'s other fields have no counterpart, because
-each chose between TPU formulations of one function that the port computes
-one way: ``fam_conv_fused`` and ``fam_tail_fold`` (the port always runs
+weights; off by default, as in the JAX package. With a bf16 model it
+raises: K10 in bf16 is ROADMAP Queue 1 item 3c. The JAX ``NetCfg``'s other
+fields have no counterpart, because each chose between TPU formulations of
+one function that the port computes one way: ``fam_conv_fused`` and ``fam_tail_fold`` (the port always runs
 K4-K6), ``fam_fused_max_batch`` (the kernels take any batch),
 ``fam_xla_folded`` (the XLA FAM when that batch gate is off),
 ``packed_scale2`` (the scale-2 tower is always packed where it halves
@@ -48,6 +58,7 @@ import torch
 from torch import nn
 
 from retinex_tpu_torch.models.retinex_net import MultiScaleUPRetinex
+from retinex_tpu_torch.ops import bf16
 from retinex_tpu_torch.ops.fused_blocks import (
     FamConvPacked,
     TailG1Packed,
@@ -106,17 +117,19 @@ def _bn_affine(bn: nn.BatchNorm2d) -> tuple[torch.Tensor, torch.Tensor]:
 
 @dataclasses.dataclass(frozen=True)
 class _Affine:
-    """y * scale + bias per channel (an inference BatchNorm)."""
+    """y * scale + bias per channel (an inference BatchNorm), in the dtype
+    that scale and bias are held in (the JAX package's ``_affine``: a bf16
+    product and a bf16 sum, each rounded)."""
 
     scale: torch.Tensor
     bias: torch.Tensor
 
     @staticmethod
-    def of(bn: nn.BatchNorm2d, device, tile: bool = False) -> "_Affine":
+    def of(bn: nn.BatchNorm2d, device, tile: bool = False, dtype: torch.dtype = torch.float32) -> "_Affine":
         scale, bias = _bn_affine(bn)
         if tile:  # a BatchNorm on a packed tensor: one copy per quadrant
             scale, bias = scale.repeat(4), bias.repeat(4)
-        return _Affine(scale.to(device), bias.to(device))
+        return _Affine(scale.to(device, dtype), bias.to(device, dtype))
 
     def __call__(self, y: torch.Tensor) -> torch.Tensor:
         return y * self.scale + self.bias
@@ -124,7 +137,9 @@ class _Affine:
 
 @dataclasses.dataclass(frozen=True)
 class _Conv:
-    """A stride-1 convolution on NHWC tensors, weight held as OIHW."""
+    """A stride-1 convolution on NHWC tensors, weight held as OIHW in the
+    compute dtype (``conv_nhwc`` rounds as the JAX package's ``_conv`` in
+    a reduced one)."""
 
     weight: torch.Tensor
     bias: torch.Tensor | None
@@ -132,23 +147,24 @@ class _Conv:
     dilation: int = 1
 
     @staticmethod
-    def packed(kernel: np.ndarray, bias, device) -> "_Conv":
+    def packed(kernel: np.ndarray, bias, device, dtype: torch.dtype = torch.float32) -> "_Conv":
         """A packed HWIO kernel; `bias` (numpy or None) is the original
-        [Cout] bias, tiled per quadrant to the packed width."""
+        [Cout] bias, tiled per quadrant to the packed width. Both rounded
+        to `dtype` once."""
         w = hwio_to_oihw(kernel)
         b = None if bias is None else tile_bias(torch.as_tensor(np.asarray(bias, np.float32)), w.shape[0])
         return _Conv(
-            w.to(device).contiguous(memory_format=torch.channels_last),
-            None if b is None else b.to(device),
+            w.to(device, dtype).contiguous(memory_format=torch.channels_last),
+            None if b is None else b.to(device, dtype),
             packed_pad(w.shape[2]),
         )
 
     @staticmethod
-    def plain(conv: nn.Conv2d) -> "_Conv":
+    def plain(conv: nn.Conv2d, dtype: torch.dtype = torch.float32) -> "_Conv":
         """A stride-1 Conv2d of the model as it is (symmetric padding)."""
         assert conv.stride == (1, 1)
-        bias = None if conv.bias is None else conv.bias.detach()
-        w = conv.weight.detach().contiguous(memory_format=torch.channels_last)
+        bias = None if conv.bias is None else conv.bias.detach().to(dtype)
+        w = conv.weight.detach().to(dtype).contiguous(memory_format=torch.channels_last)
         return _Conv(w, bias, (conv.padding[0], conv.padding[0]), conv.dilation[0])
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
@@ -182,13 +198,14 @@ class _PackedFam:
     conv: FamConvPacked
 
 
-def _pack_fam(fam: nn.Module, device) -> _PackedFam:
+def _pack_fam(fam: nn.Module, device, dtype: torch.dtype = torch.float32) -> _PackedFam:
     """Fold an EnhancedFAM for packed evaluation. The fusion 1x1 splits into
     per-branch row blocks, fusion(cat4(b1..b4)) == sum_i b_i @ W_i, and each
     block commutes into its branch (a pointwise conv after a conv is a conv
     with transformed outputs). The weight x weight folds are f32 products
     on the CPU (numpy), once, so no reduced-precision matmul mode can touch
-    them."""
+    them. In bf16 the channel attention's weights are rounded to bf16 here,
+    and K4's folds are packed for its bf16 instance, rounded once."""
     bias = {name: _np(getattr(fam, name).bias) for name in (
         "branch1", "branch2_conv", "branch3_conv1", "branch3_conv2", "branch4_conv1", "branch4_conv2", "fusion",
     )}
@@ -226,10 +243,10 @@ def _pack_fam(fam: nn.Module, device) -> _PackedFam:
     }
     return _PackedFam(
         **k4,
-        ca_w1=dev(_hwio(ca_reduce)[0, 0]), ca_b1=dev(_np(ca_reduce.bias)),
-        ca_w2=dev(_hwio(ca_expand)[0, 0]), ca_b2=dev(_np(ca_expand.bias)),
-        sa=_Conv.packed(pack_kernel_s1(_hwio(sa_conv)), _np(sa_conv.bias), device),
-        conv=pack_fam_conv(**k4),
+        ca_w1=dev(_hwio(ca_reduce)[0, 0]).to(dtype), ca_b1=dev(_np(ca_reduce.bias)).to(dtype),
+        ca_w2=dev(_hwio(ca_expand)[0, 0]).to(dtype), ca_b2=dev(_np(ca_expand.bias)).to(dtype),
+        sa=_Conv.packed(pack_kernel_s1(_hwio(sa_conv)), _np(sa_conv.bias), device, dtype),
+        conv=pack_fam_conv(**k4, dtype=dtype),
     )
 
 
@@ -267,43 +284,50 @@ class PackedRetinex:
         self.model = model
         self.cfg = cfg or NetCfg()
         self.use_preact = model.use_preact
+        self.dtype = dt = model.dtype
+        if self.cfg.dec1_chain and dt != torch.float32:
+            raise NotImplementedError(
+                f"NetCfg(dec1_chain=True) in {dt}: K10 in bf16 (its four stages onto conv_wgmma) lands in ROADMAP "
+                "Queue 1 item 3c; the f32 K10 takes f32 only"
+            )
         device = next(model.parameters()).device
         ie = model.ie_net
 
-        self.input = _Conv.packed(pack_kernel_s1(_hwio(ie.input_layer)), _np(ie.input_layer.bias), device)
+        self.input = _Conv.packed(pack_kernel_s1(_hwio(ie.input_layer)), _np(ie.input_layer.bias), device, dt)
         self.enc1 = self._pack_down(ie.enc1, device)
         self.enc2 = self._pack_down(ie.enc2, device)
-        self.dec1 = self._pack_up(ie.dec1, device)
-        self.dec2 = self._pack_up(ie.dec2, device)
+        self.dec1 = self._pack_up(ie.dec1, device, dt)
+        self.dec2 = self._pack_up(ie.dec2, device, dt)
         res_conv, res_out = ie.residual_head[0], ie.residual_head[2]
-        self.rescv = _Conv.packed(pack_kernel_s1(_hwio(res_conv)), _np(res_conv.bias), device)
-        self.resout = _Conv.packed(pack_pointwise(_hwio(res_out)), _np(res_out.bias), device)
+        self.rescv = _Conv.packed(pack_kernel_s1(_hwio(res_conv)), _np(res_conv.bias), device, dt)
+        self.resout = _Conv.packed(pack_pointwise(_hwio(res_out)), _np(res_out.bias), device, dt)
         if self.cfg.dec1_chain:
             self.dec1_fused = self._fold_dec1(ie.dec1, res_conv, device)
             self.dec1_packed = pack_dec1_chain(*self.dec1_fused)  # K10's kernel layouts, once
 
         s1conv, s2conv = model.scale1[0], model.scale2[1]
-        self.s1conv = _Conv.packed(pack_kernel_s1(_hwio(s1conv)), _np(s1conv.bias), device)
-        self.fam1 = _pack_fam(model.scale1[2], device)
+        self.s1conv = _Conv.packed(pack_kernel_s1(_hwio(s1conv)), _np(s1conv.bias), device, dt)
+        self.fam1 = _pack_fam(model.scale1[2], device, dt)
         # scale2's tower is the same narrow-conv shape at half resolution
         # (pool-2 -> 32ch conv + FAM), packed the same way.
-        self.s2conv = _Conv.packed(pack_kernel_s1(_hwio(s2conv)), _np(s2conv.bias), device)
-        self.fam2 = _pack_fam(model.scale2[3], device)
+        self.s2conv = _Conv.packed(pack_kernel_s1(_hwio(s2conv)), _np(s2conv.bias), device, dt)
+        self.fam2 = _pack_fam(model.scale2[3], device, dt)
 
         # Fusion commuted with the upsamples: fusion(cat(f1, up(f2), up(f3)))
         # = W1@f1 + up(W2@f2) + up(W3@f3) (a 1x1 conv and a bilinear resize
         # are both linear), so the scale-2/3 slices run at low resolution and
         # the scale-1/2 slices fold into their FAM tails (K6).
         kf = _hwio(model.fusion)  # [1,1,96,32]
-        self.fusion = _Conv.packed(pack_pointwise(kf), _np(model.fusion.bias), device)
-        self.b_fusion = torch.as_tensor(_tile4(_np(model.fusion.bias))).to(device)
+        self.fusion = _Conv.packed(pack_pointwise(kf), _np(model.fusion.bias), device, dt)
+        self.b_fusion = torch.as_tensor(_tile4(_np(model.fusion.bias))).to(device, dt)
         # K6's weights, packed once: quadrant-block-diagonal, so the kernel's
-        # diagonal instance serves them.
+        # diagonal instance serves them. They stay f32 in bf16 too, as the
+        # JAX kernel takes them.
         self.fold_f1 = pack_tail_g1(torch.as_tensor(pack_pointwise(kf[:, :, 0:32, :])[0, 0]).to(device))
         self.fold_f2 = pack_tail_g1(torch.as_tensor(pack_pointwise(kf[:, :, 32:64, :])[0, 0]).to(device))
-        self.w_fusion_f3 = torch.as_tensor(np.ascontiguousarray(kf[0, 0, 64:96, :])).to(device)
+        self.w_fusion_f3 = torch.as_tensor(np.ascontiguousarray(kf[0, 0, 64:96, :])).to(device, dt)
         out = model.output_layer
-        self.output = _Conv.packed(pack_pointwise(_hwio(out)), _np(out.bias), device)
+        self.output = _Conv.packed(pack_pointwise(_hwio(out)), _np(out.bias), device, dt)
 
     # ---------- packing of the IENet's full-resolution and /2 blocks ----------
 
@@ -312,25 +336,27 @@ class PackedRetinex:
         shortcut pack to stride-1 convs whose output is the original
         stride-2 output, unpacked; conv2 runs as it is."""
         short_conv, short_bn = blk.shortcut[0], blk.shortcut[1]
+        dt = self.dtype
         return {
-            "conv1": _Conv.packed(pack_kernel_s2(_hwio(blk.conv1)), None, device),
-            "short": _Conv.packed(pack_kernel_s2(_hwio(short_conv)), None, device),
-            "conv2": _Conv.plain(blk.conv2),
-            "bn1": _Affine.of(blk.bn1, device, tile=self.use_preact),
-            "bn2": _Affine.of(blk.bn2, device),
-            "short_bn": _Affine.of(short_bn, device),
+            "conv1": _Conv.packed(pack_kernel_s2(_hwio(blk.conv1)), None, device, dt),
+            "short": _Conv.packed(pack_kernel_s2(_hwio(short_conv)), None, device, dt),
+            "conv2": _Conv.plain(blk.conv2, dt),
+            "bn1": _Affine.of(blk.bn1, device, tile=self.use_preact, dtype=dt),
+            "bn2": _Affine.of(blk.bn2, device, dtype=dt),
+            "short_bn": _Affine.of(short_bn, device, dtype=dt),
         }
 
     @staticmethod
-    def _pack_up(blk: nn.Module, device) -> dict:
+    def _pack_up(blk: nn.Module, device, dtype: torch.dtype = torch.float32) -> dict:
         """An UpBlock from an unpacked input to a packed output: the k2s2
         transposed conv is a packed pointwise conv; the two 3x3 conv-BN-ReLU
         stages pack as stride-1 convs."""
         c1, bn1, c2, bn2 = blk.conv[0], blk.conv[1], blk.conv[3], blk.conv[4]
         return {
-            "up": _Conv.packed(_pack_convtranspose2(blk.up.weight), _np(blk.up.bias), device),
+            "up": _Conv.packed(_pack_convtranspose2(blk.up.weight), _np(blk.up.bias), device, dtype),
             "convs": [
-                (_Conv.packed(pack_kernel_s1(_hwio(c)), _np(c.bias), device), _Affine.of(bn, device, tile=True))
+                (_Conv.packed(pack_kernel_s1(_hwio(c)), _np(c.bias), device, dtype),
+                 _Affine.of(bn, device, tile=True, dtype=dtype))
                 for c, bn in ((c1, bn1), (c2, bn2))
             ],
         }
@@ -389,13 +415,15 @@ class PackedRetinex:
         # Channel attention: the true per-channel GAP is the mean over packed
         # space AND quadrants.
         b, c4 = out.shape[0], out.shape[-1]
-        gap = out.mean(dim=(1, 2)).reshape(b, 4, c4 // 4).mean(dim=1)
-        ca = torch.sigmoid(torch.relu(gap @ fw.ca_w1 + fw.ca_b1) @ fw.ca_w2 + fw.ca_b2)
-        ca_vec = ca.repeat(1, 4).contiguous()  # [b, 128], quadrant-tiled
+        gap = bf16.mean(bf16.mean(out, (1, 2)).reshape(b, 4, c4 // 4), 1)
+        hidden = torch.relu(bf16.add_bias(bf16.matmul(gap, fw.ca_w1), fw.ca_b1))
+        ca = bf16.sigmoid(bf16.add_bias(bf16.matmul(hidden, fw.ca_w2), fw.ca_b2))
+        # [b, 128], quadrant-tiled; f32, as the JAX kernels take it (exact).
+        ca_vec = ca.repeat(1, 4).float().contiguous()
 
         # Spatial attention per original pixel: per-quadrant channel mean/max,
         # a packed 8-channel map through the packed SA conv.
-        sa = torch.sigmoid(fw.sa(fam_tail_stats(out, ca_vec))).contiguous()
+        sa = bf16.sigmoid(fw.sa(fam_tail_stats(out, ca_vec))).contiguous()
         if fold is None:
             return fam_tail_apply(out, ca_vec, sa)
         return fam_tail_apply_g1(out, ca_vec, sa, fold.w, fold)
@@ -407,7 +435,7 @@ class PackedRetinex:
         model = self.model
         if x.shape[1] % 2 or x.shape[2] % 2:  # odd dims: the standard forward
             return model(x)
-        xp = s2d(x)
+        xp = s2d(x).to(self.dtype)  # the compute dtype, as the JAX package's
 
         # IENet: the full-res head and tail packed, the /2 stages packed when
         # they halve evenly, the rest through the standard modules.
@@ -423,8 +451,8 @@ class PackedRetinex:
             d1p = self._up(self.dec1, d2) + x1p
             r = torch.relu(self.rescv(d1p))
         res_p = self.resout(r)  # [*, 4]
-        mean_p = xp.reshape(*xp.shape[:-1], 4, 3).mean(dim=-1)  # [*, 4]
-        illu = d2s(torch.sigmoid(mean_p + res_p))  # packed 1-channel -> [B,H,W,1]
+        mean_p = bf16.mean(xp.reshape(*xp.shape[:-1], 4, 3), -1)  # [*, 4]
+        illu = d2s(bf16.sigmoid(mean_p + res_p))  # packed 1-channel -> [B,H,W,1]
 
         reflectance = x / (illu + model.epsilon)
 
@@ -449,7 +477,7 @@ class PackedRetinex:
         # packed space is a per-quadrant channel max.
         use_packed_s2 = 2 * h2 == h and 2 * w2 == w and h2 % 4 == 0 and w2 % 4 == 0
         if use_packed_s2:
-            x2p = s2d(x2s)  # [B, h2/2, w2/2, 12]
+            x2p = s2d(x2s.to(self.dtype))  # [B, h2/2, w2/2, 12]
             pooled = x2p.reshape(*x2p.shape[:3], 4, 3).amax(dim=3)
             f2p = torch.relu(self.s2conv(s2d(pooled)))
             f2p = self._fam_packed(f2p, self.fam2, self.fold_f2 if fold_ok else None)
@@ -462,7 +490,7 @@ class PackedRetinex:
         assert fold_ok == (4 * f2_h == h and 4 * f2_w == w and 16 * f3.shape[1] == h and 16 * f3.shape[2] == w)
         if fold_ok:
             g2 = d2s(f2p)  # the fusion slice is folded into K6
-            g3 = f3 @ self.w_fusion_f3
+            g3 = bf16.matmul(f3, self.w_fusion_f3)
             fused = g1 + s2d_upsample_mxu(g2, 4) + s2d_upsample_mxu(g3, 16) + self.b_fusion
         else:  # shapes that do not refold exactly: the direct (resize) form
             if use_packed_s2:
@@ -470,7 +498,7 @@ class PackedRetinex:
             f2p = s2d(resize_bilinear(f2, h, w))
             f3p = s2d(resize_bilinear(f3, h, w))
             fused = self.fusion(_interleave_packed([g1, f2p, f3p], 32))
-        e_map = d2s(torch.sigmoid(self.output(fused)))
+        e_map = d2s(bf16.sigmoid(self.output(fused)))
 
         enhanced = reflectance * e_map + (1.0 - reflectance) * (e_map * e_map)
         return enhanced, reflectance, illu

@@ -60,12 +60,12 @@ _SIGNATURES = {
     "clahe_luma_apply_u8": ("clahe_luma", (_P,) * 5 + (_I,) * 5 + (_P,)),
     "clahe_luma_apply_u8_nhwc": ("clahe_luma", (_P,) * 5 + (_I,) * 5 + (_P,)),
     "clahe_luma_apply_u8_fused": ("clahe_luma", (_P,) * 4 + (_I,) * 5 + (_P,)),
-    "fam_conv_out": ("fam_fused", (_P, _P, _P, _P, _I, _I, _I, _P)),
-    "fam_tail_stats": ("fam_fused", (_P, _P, _P, _L, _L, _P)),
-    "fam_tail_apply_g1": ("fam_fused", (_P, _P, _P, _P, _P, _L, _L, _I, _I, _P)),
-    "fam_tail_apply": ("fam_fused", (_P, _P, _P, _P, _L, _L, _P)),
+    "fam_conv_out": ("fam_fused", (_P, _P, _P, _P, _I, _I, _I, _I, _P)),
+    "fam_tail_stats": ("fam_fused", (_P, _P, _P, _L, _L, _I, _P)),
+    "fam_tail_apply_g1": ("fam_fused", (_P, _P, _P, _P, _P, _L, _L, _I, _I, _I, _P)),
+    "fam_tail_apply": ("fam_fused", (_P, _P, _P, _P, _L, _L, _I, _P)),
     "conv_direct": ("conv_direct", (_P,) * 4 + (_I,) * 15 + (_P,)),
-    "conv_wgmma_bf16": ("conv_wgmma", (_P,) * 4 + (_I,) * 15 + (_P,)),
+    "conv_wgmma_bf16": ("conv_wgmma", (_P,) * 4 + (_I,) * 16 + (_P,)),
     "conv_pipelined_f32": ("conv_pipelined", (_P,) * 5 + (_I,) * 10 + (_P,)),
     "conv_wgmma_plan": ("conv_wgmma", (_I,) * 8 + (_P,)),
     "conv_pipelined_smem": ("conv_pipelined", (_I, _I)),

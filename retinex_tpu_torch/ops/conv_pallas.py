@@ -300,14 +300,17 @@ def wgmma_plan(cin: int, cout: int, kh: int, kw: int, dilation: int = 1, groups:
 
 
 def launch_wgmma(x, wk, bk, cout: int, kh: int, kw: int, dil: int, pad_t: int, pad_l: int, relu: bool,
-                 groups: int = 1) -> torch.Tensor:
+                 groups: int = 1, out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """conv_wgmma on a CUDA bf16 x [B,H,W,Cin] (Cin % 8 == 0, 16-byte
     aligned): wk the kernel [kh, kw, Cin / groups, Cout] as ``pack_wgmma``
     packs it, bk an f32 bias [Cout_pad], dilation `dil`, low padding pad_t,
     pad_l (the high padding is what the output's size leaves), optional
     ReLU. groups > 1 takes whole K chunks and whole Cout tiles per group.
-    Returns [B,H,W,Cout] bf16. The one launch site of the kernel; each
-    caller counts its launch."""
+    Returns [B,H,W,Cout] in `out_dtype`: bf16 (rounded once), or f32 (the
+    f32 sum plus bias, not rounded; K4's z stage). The one launch site of
+    the kernel; each caller counts its launch."""
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"conv_wgmma: out_dtype must be bfloat16 or float32, got {out_dtype}")
     b, h, w, cin = x.shape
     if x.dtype != torch.bfloat16 or cin % 8 or x.data_ptr() % 16:
         raise ValueError(f"conv_wgmma: expected a 16-byte aligned bfloat16 x, Cin % 8 == 0; got {x.dtype}, Cin {cin}")
@@ -317,10 +320,10 @@ def launch_wgmma(x, wk, bk, cout: int, kh: int, kw: int, dil: int, pad_t: int, p
     shape = (kh * kw, _round_up(cin_g, ck) // ck, cout_pad, ck)
     _check_packed("conv_wgmma", x, [(wk, "kernel", shape, torch.bfloat16), (bk, "bias", (cout_pad,), torch.float32)])
     stream = _kernels.stream(x)
-    out = torch.empty((b, h, w, cout), dtype=torch.bfloat16, device=x.device)
+    out = torch.empty((b, h, w, cout), dtype=out_dtype, device=x.device)
     _kernels.launch(
         "conv_wgmma_bf16", x.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(), b, h, w, cin, cout, cout_pad,
-        kh, kw, dil, pad_t, pad_l, int(relu), n_t, ck, groups, stream,
+        kh, kw, dil, pad_t, pad_l, int(relu), n_t, ck, groups, int(out_dtype == torch.float32), stream,
     )
     return out
 

@@ -45,7 +45,28 @@ version: ``dec1_up`` (the 1x1, 64 -> 128), ``dec1_c1``, ``dec1_c2`` (its
 epilogue adds x1p after the ReLU) and ``dec1_rc``, reading the weights of
 one ``pack_dec1_chain``, made once per model (``models/packed_inference.py``).
 
-Activations are f32 NHWC (K12: f32 or bf16), kernels HWIO, ``ca_vec``
+K4, K5, K6 and K11 also run in bf16, the ``--use_amp`` net's FAMs, rounded
+where the JAX kernels round their bf16 instances (x.dtype bf16):
+
+- K4: x, k1, k32, k42, ka and kb in bf16, the biases f32, every product
+  summed in f32; y = relu(conv3(x, k1) + b1) rounded to bf16; z, the second
+  convolution plus bias_total, NOT rounded (the JAX kernel sums all four
+  branches in f32); the output rounded once. On the card ``fam_conv_y``
+  and ``fam_conv_z`` run on ``csrc/conv_wgmma.cu`` (z in its f32-output
+  mode) and ``fam_conv_out`` in its bf16 instance, from the weights of one
+  ``pack_fam_conv(..., dtype=torch.bfloat16)``;
+- K5: x * ca rounded to bf16, the quadrant means and maxima in f32, the
+  output rounded to bf16;
+- K11: x * ca rounded to bf16, then * sa rounded to bf16;
+- K6: K11's two roundings, then an f32 product with the f32 w, the output
+  rounded to bf16.
+
+``ca_vec`` and K6's ``w`` stay f32 in bf16 too (the JAX kernels take them
+so; ca is rounded to bf16 inside, exactly, as the net's ca is bf16); ``sa``
+is in x's dtype. ``BF16_LAUNCHES`` counts the bf16 instances apart
+(``fam_conv_fused_bf16``, ``fam_conv_y_bf16``, ..., ``fam_tail_apply_bf16``).
+
+Activations are f32 NHWC (K4-K6, K11 and K12: f32 or bf16), kernels HWIO, ``ca_vec``
 [B,128] (the 32-channel attention tiled per quadrant), ``sa`` [B,h,w,4]:
 the JAX layouts, so the same numpy weights go to both packages. The TPU's
 tile gates (``fam_conv_supported``, ``fam_tail_supported``,
@@ -85,19 +106,40 @@ KERNEL_LAUNCHES = {
     "dec1_up": 0, "dec1_c1": 0, "dec1_c2": 0, "dec1_rc": 0,
     "fam_dual_y_pipelined": 0, "fam_dual_y_wgmma": 0, "fam_dual_out_pipelined": 0, "fam_dual_out_wgmma": 0,
 }
+# The bf16 instances of K4-K6 and K11 since the last reset_launches(): the
+# wrappers' launches and the kernels' (K4's stages, K6's two instances),
+# counted apart from the f32 ones above under the same names + "_bf16".
+BF16_LAUNCHES = {
+    "fam_conv_fused_bf16": 0, "fam_tail_stats_bf16": 0, "fam_tail_apply_g1_bf16": 0, "fam_tail_apply_bf16": 0,
+    "fam_conv_y_bf16": 0, "fam_conv_z_bf16": 0, "fam_conv_out_bf16": 0, "fam_tail_apply_g1_diag_bf16": 0,
+    "fam_tail_apply_g1_dense_bf16": 0,
+}
+_FAM_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, KERNEL_LAUNCHES):
+    for counts in (LAUNCHES, KERNEL_LAUNCHES, BF16_LAUNCHES):
         for name in counts:
             counts[name] = 0
 
 
-def _check(t: torch.Tensor, what: str, shape: tuple, device: torch.device) -> None:
-    """f32, contiguous, on `device`, of `shape` (None matches any size)."""
+def _count(table: dict, name: str, dtype: torch.dtype) -> None:
+    """One launch of `name`'s `dtype` instance: in `table` (f32), or as
+    ``name + "_bf16"`` in ``BF16_LAUNCHES``."""
+    if dtype == torch.bfloat16:
+        BF16_LAUNCHES[name + "_bf16"] += 1
+    else:
+        table[name] += 1
+
+
+def _check(t: torch.Tensor, what: str, shape: tuple, device: torch.device, dtype=torch.float32) -> None:
+    """Of `dtype` (f32 by default; a tuple: any of them), contiguous, on
+    `device`, of `shape` (None matches any size)."""
     ok = t.ndim == len(shape) and all(s is None or s == d for s, d in zip(shape, t.shape))
-    if t.dtype != torch.float32 or not ok:
-        raise ValueError(f"{what}: expected float32 {shape}, got {t.dtype} {tuple(t.shape)}")
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in dtypes or not ok:
+        names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise ValueError(f"{what}: expected {names} {shape}, got {t.dtype} {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{what}: tensor must be contiguous")
     if t.device != device:
@@ -111,9 +153,10 @@ def _check(t: torch.Tensor, what: str, shape: tuple, device: torch.device) -> No
 class FamConvPacked:
     """K4's weights, made once by ``pack_fam_conv``: as given (ka, kb [128,
     128]; k1 [3,3,128,256], b1 [256]; k32, k42 [3,3,128,128]; bias_total
-    [128]), which the plain versions read, and in the kernels' layouts: k1
-    and the stacked [k32; k42] as ``conv_pallas.pack_pipelined`` packs them,
-    and [ka; kb] [256,128]."""
+    [128], all f32), which the plain versions read, and in the kernels'
+    layouts for `dtype`: k1 and the stacked [k32; k42] as
+    ``conv_pallas.pack_pipelined`` (f32) or ``pack_wgmma`` (bf16, rounded
+    once) packs them, and [ka; kb] [256,128] in `dtype`."""
 
     ka: torch.Tensor
     kb: torch.Tensor
@@ -125,6 +168,7 @@ class FamConvPacked:
     k1_packed: torch.Tensor
     k2_packed: torch.Tensor
     kab_packed: torch.Tensor
+    dtype: torch.dtype = torch.float32
 
     def weights(self) -> tuple:
         """The weights as given, in ``fam_conv_fused``'s order."""
@@ -148,46 +192,61 @@ def stack_second_convs(k32, k42) -> torch.Tensor:
     return torch.cat([k32, k42], dim=2)
 
 
-def pack_fam_conv(ka, kb, k1, b1, k32, k42, bias_total) -> FamConvPacked:
-    """K4's weights in both forms, from one set (once per model in
-    ``models/packed_inference.py``)."""
+def pack_fam_conv(ka, kb, k1, b1, k32, k42, bias_total, dtype: torch.dtype = torch.float32) -> FamConvPacked:
+    """K4's weights in both forms, from one f32 set, for K4's `dtype`
+    instance (once per model and dtype in ``models/packed_inference.py``)."""
     weights = (ka, kb, k1, b1, k32, k42, bias_total)
     _check_k4_weights(weights, ka.device, "pack_fam_conv")
+    if dtype not in _FAM_DTYPES:
+        raise ValueError(f"pack_fam_conv: dtype must be float32 or bfloat16, got {dtype}")
+    pack = pack_pipelined if dtype == torch.float32 else pack_wgmma
     return FamConvPacked(
-        *weights, k1_packed=pack_pipelined(k1), k2_packed=pack_pipelined(stack_second_convs(k32, k42)),
-        kab_packed=torch.cat([ka, kb], dim=0).contiguous(),
+        *weights, k1_packed=pack(k1), k2_packed=pack(stack_second_convs(k32, k42)),
+        kab_packed=torch.cat([ka, kb], dim=0).to(dtype).contiguous(), dtype=dtype,
     )
+
+
+def _oihw_as(k: torch.Tensor, dtype: torch.dtype, device) -> torch.Tensor:
+    """An HWIO kernel rounded to `dtype`, as an f32 OIHW tensor on `device`."""
+    return hwio_to_oihw(k.to(dtype)).to(device)
 
 
 def fam_conv_fused_plain(x, ka, kb, k1, b1, k32, k42, bias_total):
     """Plain version of K4: the folded composition
     relu(x@ka + maxpool3x3(x)@kb + conv3(y3,k32) + conv3(y4,k42) + bias_total),
-    (y3|y4) = relu(conv3(x,k1) + b1)."""
-    mid = torch.relu(conv_nhwc(x, hwio_to_oihw(k1).to(x.device), b1, (1, 1)))
-    pooled = maxpool3x3_s1_s2d(x)
+    (y3|y4) = relu(conv3(x,k1) + b1), in f32 with the kernels rounded to
+    x.dtype and, in bf16, y rounded to it and the output once more."""
+    dt, xf, dev = x.dtype, x.float(), x.device
+    mid = torch.relu(conv_nhwc(xf, _oihw_as(k1, dt, dev), b1, (1, 1))).to(dt).float()
+    pooled = maxpool3x3_s1_s2d(xf)
     return torch.relu(
-        x @ ka
-        + pooled @ kb
-        + conv_nhwc(mid[..., :C], hwio_to_oihw(k32).to(x.device), None, (1, 1))
-        + conv_nhwc(mid[..., C:], hwio_to_oihw(k42).to(x.device), None, (1, 1))
+        xf @ ka.to(dt).float()
+        + pooled @ kb.to(dt).float()
+        + conv_nhwc(mid[..., :C], _oihw_as(k32, dt, dev), None, (1, 1))
+        + conv_nhwc(mid[..., C:], _oihw_as(k42, dt, dev), None, (1, 1))
         + bias_total
-    )
+    ).to(dt)
 
 
 def fam_conv_y_plain(x, k1, b1):
-    """Plain version of K4's first stage: relu(conv3(x, k1) + b1)."""
-    return torch.relu(conv_nhwc(x, hwio_to_oihw(k1).to(x.device), b1, (1, 1)))
+    """Plain version of K4's first stage: relu(conv3(x, k1) + b1) in f32,
+    the kernel rounded to x.dtype, y rounded to it once; K12's first stage
+    (``fam_dual_y_plain``)."""
+    return fam_dual_y_plain(x, k1, b1)
 
 
 def fam_conv_z_plain(y, k2, bias_total):
     """Plain version of K4's second stage: conv3(y, k2) + bias_total, k2 the
-    stacked [k32; k42]."""
-    return conv_nhwc(y, hwio_to_oihw(k2).to(y.device), bias_total, (1, 1))
+    stacked [k32; k42] rounded to y.dtype, in f32 and left f32 (K4 never
+    rounds z)."""
+    return conv_nhwc(y.float(), _oihw_as(k2, y.dtype, y.device), bias_total, (1, 1))
 
 
 def fam_conv_out_plain(z, x, ka, kb):
-    """Plain version of K4's last stage: relu(z + x@ka + maxpool3x3(x)@kb)."""
-    return torch.relu(z + x @ ka + maxpool3x3_s1_s2d(x) @ kb)
+    """Plain version of K4's last stage: relu(z + x@ka + maxpool3x3(x)@kb),
+    z f32, ka and kb rounded to x.dtype, in f32, rounded to x.dtype once."""
+    dt, xf = x.dtype, x.float()
+    return torch.relu(z + xf @ ka.to(dt).float() + maxpool3x3_s1_s2d(xf) @ kb.to(dt).float()).to(dt)
 
 
 def fam_conv_staged_plain(x, ka, kb, k1, b1, k32, k42, bias_total):
@@ -196,33 +255,47 @@ def fam_conv_staged_plain(x, ka, kb, k1, b1, k32, k42, bias_total):
     return fam_conv_out_plain(fam_conv_z_plain(y, stack_second_convs(k32, k42), bias_total), x, ka, kb)
 
 
+def _check_k4_stage(t: torch.Tensor, what: str, channels: int, p: FamConvPacked) -> None:
+    _check(t, what, (None, None, None, channels), p.ka.device, p.dtype)
+
+
 def fam_conv_y(x, p: FamConvPacked):
-    """K4's first stage, relu(conv3(x, k1) + b1): x [B,h,w,128] ->
-    [B,h,w,256], the weights from ``pack_fam_conv``."""
-    _check(x, "fam_conv_y x", (None, None, None, C), p.ka.device)
+    """K4's first stage, relu(conv3(x, k1) + b1): x [B,h,w,128] in
+    ``p.dtype`` -> [B,h,w,256] in it, the weights from ``pack_fam_conv``:
+    f32 on conv_pipelined, bf16 on conv_wgmma."""
+    _check_k4_stage(x, "fam_conv_y x", C, p)
     if x.device.type == "cpu":
         return fam_conv_y_plain(x, p.k1, p.b1)
-    y = launch_pipelined(x, p.k1_packed, p.b1, 2 * C, 3, 3, True)
-    KERNEL_LAUNCHES["fam_conv_y"] += 1
+    if p.dtype == torch.float32:
+        y = launch_pipelined(x, p.k1_packed, p.b1, 2 * C, 3, 3, True)
+    else:
+        y = launch_wgmma(x, p.k1_packed, p.b1, 2 * C, 3, 3, 1, 1, 1, True)
+    _count(KERNEL_LAUNCHES, "fam_conv_y", p.dtype)
     return y
 
 
 def fam_conv_z(y, p: FamConvPacked):
     """K4's second stage, conv3(y, [k32; k42]) + bias_total: y [B,h,w,256]
-    -> [B,h,w,128], the weights from ``pack_fam_conv``."""
-    _check(y, "fam_conv_z y", (None, None, None, 2 * C), p.ka.device)
+    in ``p.dtype`` -> [B,h,w,128] f32 (in bf16 too: z is not rounded), the
+    weights from ``pack_fam_conv``: f32 on conv_pipelined, bf16 on
+    conv_wgmma in its f32-output mode."""
+    _check_k4_stage(y, "fam_conv_z y", 2 * C, p)
     if y.device.type == "cpu":
         return fam_conv_z_plain(y, stack_second_convs(p.k32, p.k42), p.bias_total)
-    z = launch_pipelined(y, p.k2_packed, p.bias_total, C, 3, 3, False)
-    KERNEL_LAUNCHES["fam_conv_z"] += 1
+    if p.dtype == torch.float32:
+        z = launch_pipelined(y, p.k2_packed, p.bias_total, C, 3, 3, False)
+    else:
+        z = launch_wgmma(y, p.k2_packed, p.bias_total, C, 3, 3, 1, 1, 1, False, out_dtype=torch.float32)
+    _count(KERNEL_LAUNCHES, "fam_conv_z", p.dtype)
     return z
 
 
 def fam_conv_out(z, x, p: FamConvPacked):
-    """K4's last stage, relu(z + x@ka + maxpool3x3(x)@kb): z, x [B,h,w,128],
-    x >= 0 (the kernel's zero halo stands in for the max pool's -inf
-    padding), the weights from ``pack_fam_conv``."""
-    _check(x, "fam_conv_out x", (None, None, None, C), p.ka.device)
+    """K4's last stage, relu(z + x@ka + maxpool3x3(x)@kb): z [B,h,w,128]
+    f32, x [B,h,w,128] in ``p.dtype``, x >= 0 (the kernel's zero halo stands
+    in for the max pool's -inf padding), the weights from
+    ``pack_fam_conv``; the output in ``p.dtype``."""
+    _check_k4_stage(x, "fam_conv_out x", C, p)
     _check(z, "fam_conv_out z", tuple(x.shape), x.device)
     if x.device.type == "cpu":
         return fam_conv_out_plain(z, x, p.ka, p.kb)
@@ -233,59 +306,76 @@ def fam_conv_out(z, x, p: FamConvPacked):
     b, h, w, _ = x.shape
     out = torch.empty_like(x)
     _kernels.launch(
-        "fam_conv_out", z.data_ptr(), x.data_ptr(), p.kab_packed.data_ptr(), out.data_ptr(), b, h, w, stream,
+        "fam_conv_out", z.data_ptr(), x.data_ptr(), p.kab_packed.data_ptr(), out.data_ptr(), b, h, w,
+        int(p.dtype == torch.bfloat16), stream,
     )
-    KERNEL_LAUNCHES["fam_conv_out"] += 1
+    _count(KERNEL_LAUNCHES, "fam_conv_out", p.dtype)
     return out
 
 
 def fam_conv_fused(x, ka, kb, k1, b1, k32, k42, bias_total, packed: FamConvPacked | None = None):
     """K4: the FAM's whole conv stage, x [B,h,w,128] >= 0 (post-ReLU: the
-    kernel's zero halo stands in for the max pool's -inf padding).
+    kernel's zero halo stands in for the max pool's -inf padding), f32 or
+    bf16; the output in x.dtype.
 
     ka, kb [128,128] (branch 1/2 1x1s with their fusion slices folded in);
     k1 [3,3,128,256], b1 [256] (branch 3/4 first convs stacked); k32, k42
-    [3,3,128,128] (second convs, fusion-folded); bias_total [128].
-    `packed`: ``pack_fam_conv`` of these very tensors, made once (the packed
-    model's FAMs); packed on the call when None. On the card:
+    [3,3,128,128] (second convs, fusion-folded); bias_total [128]; all f32.
+    `packed`: ``pack_fam_conv`` of these very tensors for x.dtype, made once
+    (the packed model's FAMs); packed on the call when None. On the card:
     ``fam_conv_y``, ``fam_conv_z``, ``fam_conv_out``."""
     weights = (ka, kb, k1, b1, k32, k42, bias_total)
-    _check(x, "fam_conv_fused x", (None, None, None, C), x.device)
+    _check(x, "fam_conv_fused x", (None, None, None, C), x.device, _FAM_DTYPES)
     _check_k4_weights(weights, x.device, "fam_conv_fused")
     if packed is not None and any(a is not b for a, b in zip(packed.weights(), weights)):
         raise ValueError("fam_conv_fused: `packed` was not made by pack_fam_conv from these weights")
+    if packed is not None and packed.dtype != x.dtype:
+        raise ValueError(f"fam_conv_fused: `packed` is for {packed.dtype}, x is {x.dtype}")
     if x.device.type == "cpu":
         return fam_conv_fused_plain(x, *weights)
     _kernels.stream(x)  # a tensor off the card raises before any packing
-    p = pack_fam_conv(*weights) if packed is None else packed
+    p = pack_fam_conv(*weights, dtype=x.dtype) if packed is None else packed
     out = fam_conv_out(fam_conv_z(fam_conv_y(x, p), p), x, p)
-    LAUNCHES["fam_conv_fused"] += 1
+    _count(LAUNCHES, "fam_conv_fused", x.dtype)
     return out
 
 
 # ---------------------------------------------------------------- K5
 
 
+def _check_tail(x, ca_vec, sa, what: str) -> None:
+    """x [B,h,w,128] f32 or bf16; ca_vec [B,128] f32; sa (where given)
+    [B,h,w,4] in x.dtype; all on x's device."""
+    dev = x.device
+    _check(x, f"{what} x", (None, None, None, C), dev, _FAM_DTYPES)
+    b, h, wd, _ = x.shape
+    _check(ca_vec, f"{what} ca_vec", (b, C), dev)
+    if sa is not None:
+        _check(sa, f"{what} sa", (b, h, wd, 4), dev, x.dtype)
+
+
 def fam_tail_stats_plain(x, ca_vec):
-    """Plain version of K5."""
+    """Plain version of K5: x * ca in x.dtype (ca rounded to it), the
+    quadrant means and maxima in f32, rounded to x.dtype."""
     b, h, w, _ = x.shape
-    blocks = (x * ca_vec[:, None, None, :]).reshape(b, h, w, 4, C // 4)
-    return torch.stack([blocks.mean(dim=-1), blocks.amax(dim=-1)], dim=-1).reshape(b, h, w, 8)
+    blocks = (x * ca_vec.to(x.dtype)[:, None, None, :]).reshape(b, h, w, 4, C // 4).float()
+    return torch.stack([blocks.mean(dim=-1), blocks.amax(dim=-1)], dim=-1).reshape(b, h, w, 8).to(x.dtype)
 
 
 def fam_tail_stats(x, ca_vec):
-    """K5: [B,h,w,128] x, [B,128] ca -> [B,h,w,8] SA conv input (mean|max
-    pairs per quadrant)."""
-    dev = x.device
-    _check(x, "fam_tail_stats x", (None, None, None, C), dev)
-    _check(ca_vec, "fam_tail_stats ca_vec", (x.shape[0], C), dev)
-    if dev.type == "cpu":
+    """K5: [B,h,w,128] x (f32 or bf16), [B,128] f32 ca -> [B,h,w,8] SA conv
+    input (mean|max pairs per quadrant) in x.dtype."""
+    _check_tail(x, ca_vec, None, "fam_tail_stats")
+    if x.device.type == "cpu":
         return fam_tail_stats_plain(x, ca_vec)
     stream = _kernels.stream(x)
     b, h, w, _ = x.shape
-    out = torch.empty((b, h, w, 8), dtype=torch.float32, device=dev)
-    _kernels.launch("fam_tail_stats", x.data_ptr(), ca_vec.data_ptr(), out.data_ptr(), b, h * w, stream)
-    LAUNCHES["fam_tail_stats"] += 1
+    out = torch.empty((b, h, w, 8), dtype=x.dtype, device=x.device)
+    _kernels.launch(
+        "fam_tail_stats", x.data_ptr(), ca_vec.data_ptr(), out.data_ptr(), b, h * w, int(x.dtype == torch.bfloat16),
+        stream,
+    )
+    _count(LAUNCHES, "fam_tail_stats", x.dtype)
     return out
 
 
@@ -293,8 +383,9 @@ def fam_tail_stats(x, ca_vec):
 
 
 def fam_tail_apply_g1_plain(x, ca_vec, sa, w):
-    """Plain version of K6."""
-    return fam_tail_apply_plain(x, ca_vec, sa) @ w
+    """Plain version of K6: K11's plain version, then its product with the
+    f32 w in f32, rounded to x.dtype."""
+    return (fam_tail_apply_plain(x, ca_vec, sa).float() @ w).to(x.dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -303,7 +394,7 @@ class TailG1Packed:
     given (the plain version reads it) and ``kernel_w`` in the kernel's
     layout: where ``diag`` (``w`` quadrant-block-diagonal), the four
     diagonal [32, 32] blocks stacked to [128, 32]; else ``w`` with zero
-    columns up to 128."""
+    columns up to 128. f32 for both of K6's element types."""
 
     w: torch.Tensor
     kernel_w: torch.Tensor
@@ -358,36 +449,35 @@ def _check_tail_g1_packed(packed: TailG1Packed, w: torch.Tensor, device: torch.d
 
 
 def fam_tail_apply_g1(x, ca_vec, sa, w, packed: TailG1Packed | None = None):
-    """K6: [B,h,w,128] x, [B,128] ca, [B,h,w,4] sa, [128,Cout] w ->
-    (x * ca * sa per quadrant) @ w, [B,h,w,Cout]. Cout: a multiple of 4 up
-    to 128. `packed`: ``pack_tail_g1`` of this very `w`, made once (the
-    packed model's fusion folds); when None, `w` is laid out for the dense
-    instance on the call, without inspecting it. On the card the kernel's
-    quadrant-diagonal instance serves a `packed` marked ``diag``, the dense
-    instance any other call (``KERNEL_LAUNCHES``)."""
+    """K6: [B,h,w,128] x (f32 or bf16), [B,128] f32 ca, [B,h,w,4] sa in
+    x.dtype, [128,Cout] f32 w -> (x * ca * sa per quadrant) @ w,
+    [B,h,w,Cout] in x.dtype. Cout: a multiple of 4 up to 128. `packed`:
+    ``pack_tail_g1`` of this very `w`, made once (the packed model's fusion
+    folds); when None, `w` is laid out for the dense instance on the call,
+    without inspecting it. On the card the kernel's quadrant-diagonal
+    instance serves a `packed` marked ``diag``, the dense instance any other
+    call (``KERNEL_LAUNCHES``)."""
     dev = x.device
-    _check(x, "fam_tail_apply_g1 x", (None, None, None, C), dev)
+    _check_tail(x, ca_vec, sa, "fam_tail_apply_g1")
     b, h, wd, _ = x.shape
-    _check(ca_vec, "fam_tail_apply_g1 ca_vec", (b, C), dev)
-    _check(sa, "fam_tail_apply_g1 sa", (b, h, wd, 4), dev)
     cout = _check_tail_g1_w(w, "fam_tail_apply_g1 w", dev)
     if packed is not None:
         _check_tail_g1_packed(packed, w, dev)
     if dev.type == "cpu":
         return fam_tail_apply_g1_plain(x, ca_vec, sa, w)
     stream = _kernels.stream(x)
-    for t, what in ((x, "x"), (sa, "sa")):
-        if t.data_ptr() % 16:
-            raise ValueError(f"fam_tail_apply_g1 {what}: the kernel reads 16-byte aligned rows; got a view at {t.data_ptr():#x}")
+    for t, what in ((x, "x"), (sa, "sa")):  # cp.async copies whole rows: x's 16-byte chunks, sa's 4 values
+        if t.data_ptr() % min(16, 4 * t.element_size()):
+            raise ValueError(f"fam_tail_apply_g1 {what}: the kernel reads aligned rows; got a view at {t.data_ptr():#x}")
     p = _dense_tail_g1(w) if packed is None else packed
-    out = torch.empty((b, h, wd, cout), dtype=torch.float32, device=dev)
+    out = torch.empty((b, h, wd, cout), dtype=x.dtype, device=dev)
     if out.numel():
         _kernels.launch(
             "fam_tail_apply_g1", x.data_ptr(), ca_vec.data_ptr(), sa.data_ptr(), p.kernel_w.data_ptr(),
-            out.data_ptr(), b, h * wd, cout, int(p.diag), stream,
+            out.data_ptr(), b, h * wd, cout, int(p.diag), int(x.dtype == torch.bfloat16), stream,
         )
-        KERNEL_LAUNCHES["fam_tail_apply_g1_diag" if p.diag else "fam_tail_apply_g1_dense"] += 1
-        LAUNCHES["fam_tail_apply_g1"] += 1
+        _count(KERNEL_LAUNCHES, "fam_tail_apply_g1_diag" if p.diag else "fam_tail_apply_g1_dense", x.dtype)
+        _count(LAUNCHES, "fam_tail_apply_g1", x.dtype)
     return out
 
 
@@ -395,26 +485,27 @@ def fam_tail_apply_g1(x, ca_vec, sa, w, packed: TailG1Packed | None = None):
 
 
 def fam_tail_apply_plain(x, ca_vec, sa):
-    """Plain version of K11."""
+    """Plain version of K11: x * ca, then * sa, each in x.dtype (ca rounded
+    to it)."""
     b, h, wd, _ = x.shape
-    blocks = (x * ca_vec[:, None, None, :]).reshape(b, h, wd, 4, C // 4)
+    blocks = (x * ca_vec.to(x.dtype)[:, None, None, :]).reshape(b, h, wd, 4, C // 4)
     return (blocks * sa[..., None]).reshape(b, h, wd, C)
 
 
 def fam_tail_apply(x, ca_vec, sa):
-    """K11: [B,h,w,128] x, [B,128] ca, [B,h,w,4] sa -> x * ca * sa per
-    quadrant, [B,h,w,128]."""
-    dev = x.device
-    _check(x, "fam_tail_apply x", (None, None, None, C), dev)
-    b, h, wd, _ = x.shape
-    _check(ca_vec, "fam_tail_apply ca_vec", (b, C), dev)
-    _check(sa, "fam_tail_apply sa", (b, h, wd, 4), dev)
-    if dev.type == "cpu":
+    """K11: [B,h,w,128] x (f32 or bf16), [B,128] f32 ca, [B,h,w,4] sa in
+    x.dtype -> x * ca * sa per quadrant, [B,h,w,128] in x.dtype."""
+    _check_tail(x, ca_vec, sa, "fam_tail_apply")
+    if x.device.type == "cpu":
         return fam_tail_apply_plain(x, ca_vec, sa)
     stream = _kernels.stream(x)
+    b, h, wd, _ = x.shape
     out = torch.empty_like(x)
-    _kernels.launch("fam_tail_apply", x.data_ptr(), ca_vec.data_ptr(), sa.data_ptr(), out.data_ptr(), b, h * wd, stream)
-    LAUNCHES["fam_tail_apply"] += 1
+    _kernels.launch(
+        "fam_tail_apply", x.data_ptr(), ca_vec.data_ptr(), sa.data_ptr(), out.data_ptr(), b, h * wd,
+        int(x.dtype == torch.bfloat16), stream,
+    )
+    _count(LAUNCHES, "fam_tail_apply", x.dtype)
     return out
 
 

@@ -21,6 +21,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from retinex_tpu_torch.ops import bf16
+
 
 def s2d(x: torch.Tensor) -> torch.Tensor:
     """[B, H, W, C] -> [B, H/2, W/2, 4C] (quadrant-major channel blocks)."""
@@ -116,9 +118,15 @@ def conv_nhwc(
     """Stride-1 convolution of NHWC x with an OIHW weight; `pad` = (low,
     high) zero padding on both spatial axes. The NCHW view handed to
     ``F.conv2d`` is channels-last in memory, so no copy is made and the
-    result comes back as a contiguous NHWC tensor."""
+    result comes back as a contiguous NHWC tensor. A bf16 x computes as the
+    JAX package's ``lax.conv`` in bf16 (``ops/bf16.py``): the weight rounded
+    to bf16, the sum rounded once, then the bias added in bf16."""
     xc = x.permute(0, 3, 1, 2)
     lo, hi = pad
+    if x.dtype != torch.float32:
+        if lo != hi:
+            xc, lo = F.pad(xc, (lo, hi, lo, hi)), 0
+        return bf16.add_bias(bf16.conv2d(xc, weight, 1, lo, dilation).permute(0, 2, 3, 1), bias)
     if lo == hi:
         out = F.conv2d(xc, weight, bias, padding=lo, dilation=dilation)
     else:
@@ -199,7 +207,9 @@ def s2d_upsample_mxu(g: torch.Tensor, factor: int) -> torch.Tensor:
     """s2d(resize_bilinear(g, factor*h, factor*w)) as two separable matrix
     products with static per-quadrant interpolation matrices:
     out_q(a, d) = A_y^(a) @ g @ A_x^(d)^T.
-    g: [B, h, w, C] -> [B, factor*h/2, factor*w/2, 4C] (quadrant-major)."""
+    g: [B, h, w, C] -> [B, factor*h/2, factor*w/2, 4C] (quadrant-major).
+    In bf16 each product is summed in f32 and rounded to bf16, as the JAX
+    package's ``mode=1`` einsums are (the matrices' entries are exact)."""
     if factor % 2 or factor < 2:
         raise ValueError(f"factor must be even and >= 2, got {factor}")
     b, h, w, c = g.shape
@@ -207,6 +217,6 @@ def s2d_upsample_mxu(g: torch.Tensor, factor: int) -> torch.Tensor:
     dev = str(g.device)
     ay = _phase_matrices(hp, h, factor, dev)  # [2, hp, h]
     ax = _phase_matrices(wp, w, factor, dev)  # [2, wp, w]
-    t = torch.einsum("api,bijc->bpajc", ay, g)
-    o = torch.einsum("dqj,bpajc->bpqadc", ax, t)
+    t = bf16.einsum("api,bijc->bpajc", ay, g, g.dtype)
+    o = bf16.einsum("dqj,bpajc->bpqadc", ax, t, g.dtype)
     return o.reshape(b, hp, wp, 4 * c)

@@ -55,7 +55,10 @@ LOG_KEYS = ("total", "exposure", "smoothness", "color", "spatial", "decouple", "
 def check_supported(config: Config) -> None:
     """Raise for the training options of later slices (ROADMAP Queue 1)."""
     if config.use_amp:
-        raise NotImplementedError("bf16 compute (--use_amp) lands in ROADMAP Queue 1 item 3")
+        raise NotImplementedError(
+            "bf16 training (--use_amp with --mode train: the train-mode net and VGG19 in bf16) lands in ROADMAP "
+            "Queue 1 item 3b; --use_amp runs with --mode enhance and predict"
+        )
     if config.remat:
         raise NotImplementedError("--remat lands with packed training, ROADMAP Queue 1 item 7")
     if (config.n_devices or 1) > 1 or config.coordinator:

@@ -6,7 +6,11 @@ arrays or tensors in [0,1]. PNGs are
 written with PIL at zlib level 1, the level the JAX package's native encoder
 writes: encoding the PNGs is most of the end-to-end time of one image
 (PERF.md), and level 1 is PIL's fastest. The pixels are those the JAX package
-writes, including the u8 floor truncation ``(arr * 255).astype(uint8)``.
+writes, including the u8 floor truncation ``(arr * 255).astype(uint8)``. A
+bf16 image (the ``--use_amp`` packed net's illumination) is quantised as
+the JAX package's numpy bf16 array is: clipped, times 255 rounded to bf16,
+then truncated; the comparison panels take its exact f32 values, as
+numpy's concatenation with f32 panels does.
 """
 
 from __future__ import annotations
@@ -21,8 +25,13 @@ def _write_png(arr_u8: np.ndarray, save_path: str) -> None:
 
 
 def _to_hwc(img) -> np.ndarray:
-    """[H,W,C] or [1,H,W,C] array/tensor in [0,1] -> clipped HWC numpy."""
-    arr = img.detach().cpu().numpy() if isinstance(img, torch.Tensor) else np.asarray(img)
+    """[H,W,C] or [1,H,W,C] array/tensor in [0,1] -> clipped HWC numpy
+    (f32 for a bf16 tensor, which numpy cannot hold)."""
+    if isinstance(img, torch.Tensor):
+        t = img.detach().cpu()
+        arr = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    else:
+        arr = np.asarray(img)
     if arr.ndim == 4:
         arr = arr[0]
     return np.clip(arr, 0.0, 1.0)
@@ -30,10 +39,14 @@ def _to_hwc(img) -> np.ndarray:
 
 def save_image(img, save_path: str) -> None:
     """Save a [0,1] float image as PNG; one-channel images are replicated to RGB."""
-    arr = _to_hwc(img)
-    if arr.shape[-1] == 1:
-        arr = np.repeat(arr, 3, axis=-1)
-    _write_png((arr * 255).astype(np.uint8), save_path)
+    if isinstance(img, torch.Tensor) and img.dtype == torch.bfloat16:
+        t = img.detach().cpu()
+        u8 = (torch.clamp(t[0] if t.ndim == 4 else t, 0.0, 1.0) * 255).to(torch.uint8).numpy()  # * 255 in bf16
+    else:
+        u8 = (_to_hwc(img) * 255).astype(np.uint8)
+    if u8.shape[-1] == 1:
+        u8 = np.repeat(u8, 3, axis=-1)
+    _write_png(u8, save_path)
 
 
 def create_comparison(img_low, img_enhanced, illu_map=None, save_path: str | None = None) -> np.ndarray:

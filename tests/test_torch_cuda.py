@@ -182,6 +182,82 @@ def test_fam_conv_stages_match_plain_versions(cuda_f32, shape):
         assert torch.equal(alone, whole[j : j + 1])
 
 
+def _one_bf16_ulp(got, want, atol=2.0**-10, ulps=1):
+    """Within `ulps` bf16 ulps (2**-7 relative at most each), or `ulps` x
+    `atol` where the output is a small difference of larger terms; as
+    tests/test_torch_amp_kernels.py holds the plain versions to JAX."""
+    assert got.shape == want.shape and got.dtype == want.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), rtol=ulps * 2.0**-7, atol=ulps * atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 37, 53, 128), (1, 135, 240, 128), (1, 540, 960, 128)])
+def test_fam_bf16_kernels_match_plain_versions(cuda_f32, shape):
+    """The bf16 instances of K4 (whole and its three stages: y on
+    conv_wgmma, z on conv_wgmma's f32-output mode, fam_conv_out's bf16
+    instance), K5, K6 (both w layouts) and K11 against their bf16 plain
+    versions on the card: one output ulp where the f32 sums run in another
+    order (K4, K6; K5's means), K11 bit-identical (its products are exact
+    and rounded once each), K4's z within K4's f32 2e-4 and f32. A ragged
+    shape, batch 2, and the 1080-row frame's scale-2 and scale-1 shapes;
+    each image of the batch equals the kernels on it alone."""
+    g = cuda_f32
+    b, h, w, c = shape
+    bf = torch.bfloat16
+
+    def n(*s, scale=1.0):
+        return torch.randn(s, generator=g, device="cuda") * scale
+
+    x = n(b, h, w, c, scale=0.3).abs().to(bf)
+    wf = [n(c, c, scale=0.05) for _ in range(4)]
+    weights = [
+        (n(c, c, scale=0.05) @ wf[0]).contiguous(), (n(c, c, scale=0.05) @ wf[1]).contiguous(),
+        n(3, 3, c, 2 * c, scale=0.05), n(2 * c, scale=0.1),
+        torch.einsum("uvio,op->uvip", n(3, 3, c, c, scale=0.05), wf[2]).contiguous(),
+        torch.einsum("uvio,op->uvip", n(3, 3, c, c, scale=0.05), wf[3]).contiguous(), n(c, scale=0.1),
+    ]
+    ca_vec = torch.sigmoid(n(b, c // 4)).to(bf).float().repeat(1, 4).contiguous()
+    sa = torch.sigmoid(n(b, h, w, 4)).to(bf)
+    wg = n(c, c, scale=0.05)
+    from retinex_tpu_torch.ops.s2d import pack_pointwise
+
+    wd = torch.as_tensor(pack_pointwise((torch.randn(1, 1, 32, 32, generator=torch.Generator().manual_seed(1)) * 0.1)
+                                        .numpy())[0, 0]).cuda()
+    p = fb.pack_fam_conv(*weights, dtype=bf)
+    k2 = fb.stack_second_convs(weights[4], weights[5])
+    y_plain = fb.fam_conv_y_plain(x, weights[2], weights[3])
+    z_plain = fb.fam_conv_z_plain(y_plain, k2, weights[6])
+    fb.reset_launches()
+    y, z, out = fb.fam_conv_y(x, p), fb.fam_conv_z(y_plain, p), fb.fam_conv_out(z_plain, x, p)
+    whole = fb.fam_conv_fused(x, *weights, packed=p)
+    stats = fb.fam_tail_stats(x, ca_vec)
+    g1 = {name: fb.fam_tail_apply_g1(x, ca_vec, sa, wm, fb.pack_tail_g1(wm)) for name, wm in (("diag", wd), ("dense", wg))}
+    apply = fb.fam_tail_apply(x, ca_vec, sa)
+    torch.cuda.synchronize()
+    assert fb.BF16_LAUNCHES == {
+        "fam_conv_fused_bf16": 1, "fam_tail_stats_bf16": 1, "fam_tail_apply_g1_bf16": 2, "fam_tail_apply_bf16": 1,
+        "fam_conv_y_bf16": 2, "fam_conv_z_bf16": 2, "fam_conv_out_bf16": 2, "fam_tail_apply_g1_diag_bf16": 1,
+        "fam_tail_apply_g1_dense_bf16": 1,
+    }
+    assert all(v == 0 for v in (*fb.LAUNCHES.values(), *fb.KERNEL_LAUNCHES.values()))
+    _one_bf16_ulp(y, y_plain)
+    assert z.dtype == torch.float32 and float((z - z_plain).abs().max()) <= 2e-4
+    _one_bf16_ulp(out, fb.fam_conv_out_plain(z_plain, x, weights[0], weights[1]))
+    # Whole K4 rounds y and then the output: a y rounded the other way
+    # moves the output's sum, so two ulps (chip_smoke.AMP_ULPS).
+    _one_bf16_ulp(whole, fb.fam_conv_fused_plain(x, *weights), ulps=2)
+    _one_bf16_ulp(whole, fb.fam_conv_staged_plain(x, *weights), ulps=2)
+    _one_bf16_ulp(stats, fb.fam_tail_stats_plain(x, ca_vec), atol=0)
+    for name, wm in (("diag", wd), ("dense", wg)):
+        _one_bf16_ulp(g1[name], fb.fam_tail_apply_g1_plain(x, ca_vec, sa, wm))
+    assert torch.equal(g1["diag"], fb.fam_tail_apply_g1(x, ca_vec, sa, wd))  # the dense instance on a diagonal w
+    assert torch.equal(apply, fb.fam_tail_apply_plain(x, ca_vec, sa))
+    for j in range(b):
+        sl = lambda t: t[j : j + 1].contiguous()  # noqa: E731
+        assert torch.equal(fb.fam_conv_fused(sl(x), *weights, packed=p), whole[j : j + 1])
+        assert torch.equal(fb.fam_tail_apply_g1(sl(x), sl(ca_vec), sl(sa), wd, fb.pack_tail_g1(wd)), g1["diag"][j : j + 1])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 37, 53), (1, 136, 240)])
 def test_dec1_chain_matches_plain_version(cuda_f32, shape):
@@ -325,6 +401,22 @@ def test_conv_wgmma_has_a_plan_for_every_routed_call(cuda_f32):
                 args = (cin, -(-cout // n_t) * n_t, kh, kw, dil, n_t, cp.wgmma_chunk(cin), 1, ctypes.addressof(plan))
                 assert _kernels.query("conv_wgmma_plan", *args) == 0, (kh, kw, dil, cin, cout)
                 assert plan[0] <= 232448 and plan[1] >= 2 and plan[2] in (0, 2, 3, 4)
+    # K4's two calls in bf16 (fam_conv_y 128 -> 256, fam_conv_z 256 -> 128),
+    # planned as launch_wgmma plans them, and launched at both FAM scales of
+    # the letterboxed frame and of the 1080-row frame (544 and 540 packed
+    # rows, 136 and 135), the shapes the bf16 packed forward gives them.
+    for cin, cout in ((128, 256), (256, 128)):
+        assert cp.wgmma_plan(cin, cout, 3, 3)["smem"] <= 232448
+    p = fb.pack_fam_conv(*(torch.randn(s, device="cuda") * 0.05 for s in (
+        (128, 128), (128, 128), (3, 3, 128, 256), (256,), (3, 3, 128, 128), (3, 3, 128, 128), (128,))),
+        dtype=torch.bfloat16)
+    for h, w in ((544, 960), (136, 240), (540, 960), (135, 240)):
+        x = torch.rand((1, h, w, 128), device="cuda").to(torch.bfloat16)
+        y = fb.fam_conv_y(x, p)
+        z = fb.fam_conv_z(y, p)
+        torch.cuda.synchronize()
+        assert y.shape == (1, h, w, 256) and y.dtype == torch.bfloat16
+        assert z.shape == (1, h, w, 128) and z.dtype == torch.float32 and bool(torch.isfinite(z).all())
 
 
 @pytest.mark.cuda

@@ -246,7 +246,14 @@ first and last image against the kernel on each alone (identical):
 20. ``--mode train`` through the CLI at the JAX defaults on the 24 in-repo
    photos, a ``--resume``, one step on the card against the CPU's, the warm
    step's time, memory and stages, and predict and enhance from the trained
-   checkpoint held to the CPU's runs (``train_phase``).
+   checkpoint held to the CPU's runs (``train_phase``); then bf16 training
+   and ``--remat``: a bf16 step on the card against the port's bf16 CPU
+   step (``amp_train_step_vs_cpu``), warm bf16 steps at [8,640,640,3], an
+   f32 ``--remat`` step against the plain one (losses, BatchNorm
+   statistics) with both steps' peak memory, the remat one lower
+   (``amp_remat_timing``), and ``--mode train --use_amp --remat`` through
+   the CLI for two steps with ``--mode predict --use_amp`` from its
+   checkpoint (``amp_remat_cli``).
 21. bf16 inference (``amp_phase``): the bf16 instances of K4 (whole and by
    stage; z f32), K5, K6 (both w layouts) and K11 against their bf16 plain
    versions at the frame's FAM shapes, a ragged one and a directory chunk
@@ -258,7 +265,14 @@ first and last image against the kernel on each alone (identical):
    the card against the port's bf16 CPU run at 288x512 and 264x480
    (``AMP_NET_TOL``; Lab-CLAHE of its output identical; end to end
    printed); the bf16 and f32 nets' ms at batch 1 and 8, packed and
-   standard, and end to end per photo.
+   standard, and end to end per photo; then K10 in bf16 (four
+   ``conv_wgmma`` launches, ``dec1_c2`` through its residual epilogue) at
+   phase 12's shapes, each stage within one output ulp of its plain
+   version and the chain within one ulp at its largest output
+   (``amp_dec1_kernel_phase``, timed beside ``F.conv2d`` in bf16), and the
+   bf16 dec1-chain forward with the trained weights against the bf16
+   default forward and the port's bf16 CPU run (``AMP_NET_TOL``), K10's
+   bf16 launches counted, warm ms in turns (``amp_dec1_forward_phase``).
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the nvidia-smi line,
 and ``{"ok": true, "device": {...}}``. ``launches`` sums each kernel's
@@ -293,12 +307,15 @@ for K16's two kernels.
 K4, K5, K6 and K11 also have bf16 entries (``fam_conv_fused_bf16``,
 ``fam_tail_stats_bf16``, ``fam_tail_apply_g1_bf16``,
 ``fam_tail_apply_bf16``; ``dtype`` bfloat16), timed in phase 21 per image
-like their f32 entries, their launches those of phase 21's CLI drives.
+like their f32 entries, their launches those of phase 21's CLI drives;
+so do K10's (``dec1_chain_bf16`` and its four stages, per image at
+1088x1920 like the f32 K10), their launches those of phase 21's two bf16
+dec1-chain forwards.
 ``library_ms`` is ``F.conv2d``'s time (+ ReLU where the kernel applies
 one) for K13-K15 and each of K10's four stages (``dec1_c2`` adds x1p),
 ``torch.einsum``'s of K6's whole function (``tail_g1_einsum``, on the main
-path's w) for K6, and null elsewhere: no one call computes K4, K10 or K12
-whole.
+path's w) for K6, ``F.conv2d`` in bf16 (+ ReLU, + x1p) for K10's bf16
+stages, and null elsewhere: no one call computes K4, K10 or K12 whole.
 """
 
 from __future__ import annotations
@@ -410,6 +427,11 @@ REPLACES = {
     "fam_tail_stats_bf16": "retinex_tpu/ops/fused_blocks.py:321",
     "fam_tail_apply_g1_bf16": "retinex_tpu/ops/fused_blocks.py:517",
     "fam_tail_apply_bf16": "retinex_tpu/ops/fused_blocks.py:338",
+    "dec1_chain_bf16": "retinex_tpu/ops/fused_blocks.py:186",
+    "dec1_up_bf16": "retinex_tpu/ops/fused_blocks.py:186",
+    "dec1_c1_bf16": "retinex_tpu/ops/fused_blocks.py:186",
+    "dec1_c2_bf16": "retinex_tpu/ops/fused_blocks.py:186",
+    "dec1_rc_bf16": "retinex_tpu/ops/fused_blocks.py:186",
 }
 SOURCES = {
     "lab_fwd_u8": "retinex_tpu_torch/csrc/clahe_lab.cu",
@@ -449,6 +471,11 @@ SOURCES = {
     "fam_tail_stats_bf16": "retinex_tpu_torch/csrc/fam_fused.cu",
     "fam_tail_apply_g1_bf16": "retinex_tpu_torch/csrc/fam_fused.cu",
     "fam_tail_apply_bf16": "retinex_tpu_torch/csrc/fam_fused.cu",
+    "dec1_chain_bf16": "retinex_tpu_torch/csrc/conv_wgmma.cu",
+    "dec1_up_bf16": "retinex_tpu_torch/csrc/conv_wgmma.cu",
+    "dec1_c1_bf16": "retinex_tpu_torch/csrc/conv_wgmma.cu",
+    "dec1_c2_bf16": "retinex_tpu_torch/csrc/conv_wgmma.cu",
+    "dec1_rc_bf16": "retinex_tpu_torch/csrc/conv_wgmma.cu",
 }
 # The packed FAM shapes (scale 1, scale 2) of the letterboxed 1088x1920 frame
 # and of the unpadded 1080x1920 one.
@@ -2071,23 +2098,28 @@ def dec1_forward_phase(torch, modules, photo: Path) -> dict[str, int]:
                 raise AssertionError(f"the dec1-chain forward's {name} disagrees with the default or standard forward")
         print(f"  K10 launches in the dec1-chain forward at {tuple(x.shape[1:3])}: {launches['dec1_chain']}")
 
-    times = {"default": [], "dec1_chain": []}
-    x = xs[1920]
-    with torch.inference_mode():
-        for i in range(8):
-            for name in (("default", "dec1_chain") if i % 2 else ("dec1_chain", "default")):
-                fn = default if name == "default" else fused
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                fn(x)
-                torch.cuda.synchronize()
-                times[name].append((time.perf_counter() - t0) * 1e3)
-    med = {k: statistics.median(v[2:]) for k, v in times.items()}
+    med = in_turns(torch, {"default": default, "dec1_chain": fused}, xs[1920])
     print(
         f"  warm packed net at 1088x1920, batch 1: default (dec1 on cuDNN) {med['default']:.3f} ms, "
         f"NetCfg(dec1_chain=True) (K10) {med['dec1_chain']:.3f} ms, ratio {med['dec1_chain'] / med['default']:.4f}"
     )
     return k10
+
+
+def in_turns(torch, fns: dict, x, rounds: int = 8) -> dict[str, float]:
+    """Each forward of `fns` on `x`, in turns (the order flipped every
+    round), host clock between synchronises: the median ms of each after
+    the first two rounds."""
+    times = {k: [] for k in fns}
+    with torch.inference_mode():
+        for i in range(rounds):
+            for name in (list(fns) if i % 2 else list(fns)[::-1]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fns[name](x)
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0) * 1e3)
+    return {k: statistics.median(v[2:]) for k, v in times.items()}
 
 
 def png_u8(path: Path) -> np.ndarray:
@@ -2799,6 +2831,34 @@ def train_step_vs_cpu(torch) -> None:
     )
 
 
+def train_batch(torch, train_dir: Path):
+    """The first augmented [8,640,640,3] batch of the training set, on the card."""
+    from retinex_tpu_torch.data.augment import augment_batch
+    from retinex_tpu_torch.data.dataset import get_train_loader
+
+    cuda = torch.device("cuda")
+    with iter(get_train_loader(str(train_dir), batch_size=8, image_size=640, drop_last=True)) as it:
+        host = next(it)
+    return augment_batch(torch.from_numpy(host).to(cuda), torch.Generator(device=cuda).manual_seed(1))
+
+
+def warm_steps(torch, state, crit, x, n: int = 6) -> tuple[float, list, int]:
+    """`n` train steps on `x` from the peak-memory counter's reset: (the
+    median ms of all but the first, every step's ms, the peak bytes)."""
+    from retinex_tpu_torch.train.train_state import train_step
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        losses = train_step(state, crit, x)
+        float(losses["total"])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[1:]), times, torch.cuda.max_memory_allocated()
+
+
 def train_timing(torch, train_dir: Path) -> None:
     """Warm train steps at the CLI's defaults (640 px, batch 8, perceptual
     loss on): ms a step (median over 5 after a first), images/s, peak
@@ -2808,30 +2868,16 @@ def train_timing(torch, train_dir: Path) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from retinex_tpu_torch.config import Config
-    from retinex_tpu_torch.data.augment import augment_batch
-    from retinex_tpu_torch.data.dataset import get_train_loader
     from retinex_tpu_torch.models.init import init_untrained
     from retinex_tpu_torch.models.retinex_net import MultiScaleUPRetinex
     from retinex_tpu_torch.train.train_state import create_train_state, train_step
     from retinex_tpu_torch.train.trainer import build_criterion
 
     cuda = torch.device("cuda")
-    with iter(get_train_loader(str(train_dir), batch_size=8, image_size=640, drop_last=True)) as it:
-        host = next(it)
-    x = augment_batch(torch.from_numpy(host).to(cuda), torch.Generator(device=cuda).manual_seed(1))
+    x = train_batch(torch, train_dir)
     crit = build_criterion(Config(), cuda)
     state = create_train_state(init_untrained(MultiScaleUPRetinex(False, False), 0).to(cuda), lambda s: TRAIN_LR)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    times = []
-    for _ in range(6):
-        t0 = time.perf_counter()
-        losses = train_step(state, crit, x)
-        float(losses["total"])
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    peak = torch.cuda.max_memory_allocated()
-    ms = statistics.median(times[1:])
+    ms, times, peak = warm_steps(torch, state, crit, x)
     print(
         f"  warm train step at [8,640,640,3] (perceptual loss on, f32, TF32 off): {ms:.3f} ms (median of 5 after a "
         f"first of {times[0]:.1f} ms; all {', '.join(f'{t:.1f}' for t in times[1:])}), {8e3 / ms:.3f} images/s; "
@@ -2881,7 +2927,10 @@ def train_phase(torch, modules, workdir: Path) -> str:
     """Phase 20: training through the CLI at the JAX defaults on the 24
     in-repo photos, a resume, the card's step against the CPU's, and
     predict and the default enhance from the trained checkpoint held to the
-    CPU's runs from it. Returns the trained checkpoint's path (in
+    CPU's runs from it; then bf16 training and --remat: the card's bf16 step
+    against the CPU's, warm bf16 steps, the remat step against the plain one
+    with both peaks, and the CLI's --use_amp --remat training with predict
+    from its checkpoint. Returns the trained (f32) checkpoint's path (in
     `workdir`, beside the f32 runs' outputs)."""
     train_dir = REPO / "data" / "convergence"
     if len(list(train_dir.glob("lowlight_*.png"))) != 24:
@@ -2912,6 +2961,10 @@ def train_phase(torch, modules, workdir: Path) -> str:
     train_step_vs_cpu(torch)
     train_timing(torch, train_dir)
     trained_inference(torch, modules, str(save / "best"), workdir)
+    print("  bf16 training (--use_amp) and --remat")
+    amp_train_step_vs_cpu(torch)
+    amp_remat_timing(torch, train_dir, gpu_line())
+    amp_remat_cli(torch, modules, workdir)
     return str(save / "best")
 
 
@@ -2959,6 +3012,166 @@ def trained_inference(torch, modules, ckpt: str, workdir: Path) -> None:
     hold_to_cpu(torch, got, small, 512, packed=True, checkpoint=ckpt)
 
 
+# Phase 20's bf16 training and --remat. The card's bf16 step against the
+# port's bf16 CPU step (tests/test_torch_amp_train.py's rules: losses two
+# bf16 ulps, BatchNorm statistics 4e-3; Adam's moments within three times
+# the CPU bf16 step's distance from the CPU f32 step, plus 2e-3 of the
+# largest: bf16 rounding noise, which grows through the backward); the
+# remat step against the plain one (tests/test_remat.py's: total rtol 1e-6,
+# BatchNorm statistics 5e-6).
+AMP_TRAIN_LOSS_RTOL = 2.0**-6
+AMP_TRAIN_STATS_ATOL = 4e-3
+AMP_TRAIN_NOISE = (3.0, 2e-3)
+
+
+def _hold_noise(got: dict, want: dict, ref: dict, what: str) -> float:
+    """Each leaf of the card's bf16 `got` within AMP_TRAIN_NOISE's factor
+    times the CPU bf16 `want`'s distance from the CPU f32 `ref`, plus its
+    floor of ref's largest magnitude; returns the worst ratio to that."""
+    factor, floor = AMP_TRAIN_NOISE
+    top, worst = max(float(v.abs().max()) for v in ref.values()), 0.0
+    for k, w in want.items():
+        tol = factor * float((w - ref[k]).abs().max()) + floor * top
+        d = float((got[k].cpu() - w).abs().max())
+        worst = max(worst, d / tol)
+        if d > tol:
+            raise AssertionError(f"{what} {k}: card vs CPU {d:.3e} > {tol:.3e}")
+    return worst
+
+
+def amp_train_step_vs_cpu(torch) -> None:
+    """One bf16 train step (``--use_amp``: the net and VGG19 in bf16,
+    parameters and Adam f32) of the default net on the card against the
+    same step on the CPU, same batch and seed-0 weights, perceptual loss on;
+    the CPU's f32 step is the reference of the noise rule."""
+    from retinex_tpu_torch.config import Config
+    from retinex_tpu_torch.models.init import init_untrained
+    from retinex_tpu_torch.models.retinex_net import MultiScaleUPRetinex
+    from retinex_tpu_torch.train.train_state import create_train_state, train_step
+    from retinex_tpu_torch.train.trainer import build_criterion
+
+    x = np.random.default_rng(13).random(TRAIN_HOLD_SHAPE, dtype=np.float32) * 0.6
+    runs = {}
+    for dev, amp in (("cpu", False), ("cpu", True), ("cuda", True)):
+        d = torch.device(dev)
+        net = MultiScaleUPRetinex(False, False, dtype=torch.bfloat16 if amp else torch.float32)
+        state = create_train_state(init_untrained(net, 0).to(d), lambda s: TRAIN_LR)
+        losses = train_step(state, build_criterion(Config(use_amp=amp), d), torch.from_numpy(x).to(d))
+        runs[(dev, amp)] = (state, {k: float(v) for k, v in losses.items()})
+    (ref, _), (cpu, l_cpu), (card, l_card) = runs[("cpu", False)], runs[("cpu", True)], runs[("cuda", True)]
+    for k, v in l_cpu.items():
+        if abs(l_card[k] - v) > 1e-5 + AMP_TRAIN_LOSS_RTOL * abs(v):
+            raise AssertionError(f"bf16 train step, loss {k}: card {l_card[k]} vs CPU {v}")
+    stats_cpu = {k: v for k, v in cpu.model.state_dict().items() if k.endswith(("running_mean", "running_var"))}
+    stats_card = card.model.state_dict()
+    d_stats = max(float((stats_card[k].cpu() - v).abs().max()) for k, v in stats_cpu.items())
+    if d_stats > AMP_TRAIN_STATS_ATOL:
+        raise AssertionError(f"bf16 train step: BatchNorm statistics card vs CPU {d_stats:.3e} > {AMP_TRAIN_STATS_ATOL}")
+    mu_w = _hold_noise(card.optimizer.mu, cpu.optimizer.mu, ref.optimizer.mu, "bf16 Adam mu")
+    nu_w = _hold_noise(card.optimizer.nu, cpu.optimizer.nu, ref.optimizer.nu, "bf16 Adam nu")
+    eff = lambda st: {k: v / 0.1 for k, v in st.optimizer.mu.items()}  # noqa: E731
+    worst = _hold_params({k: p.detach() for k, p in card.model.named_parameters()},
+                         {k: p.detach() for k, p in cpu.model.named_parameters()}, eff(card), eff(cpu))
+    if any(p.dtype != torch.float32 for p in card.model.parameters()):
+        raise AssertionError("bf16 training changed the parameters' dtype")
+    print(
+        f"  one bf16 train step at {list(TRAIN_HOLD_SHAPE)}, card vs CPU: losses within rtol 2**-6 (total "
+        f"{l_card['total']:.6f} vs {l_cpu['total']:.6f}), BatchNorm statistics {d_stats:.2e} (atol "
+        f"{AMP_TRAIN_STATS_ATOL:g}), Adam mu and nu at {mu_w:.3f} and {nu_w:.3f} of the noise rule's tolerance, "
+        f"parameters within Adam's first update of each side's gradient (largest difference {worst:.3f} lr)"
+    )
+
+
+def amp_remat_timing(torch, train_dir: Path, card: str) -> None:
+    """At the CLI's defaults ([8,640,640,3], perceptual loss on): warm bf16
+    steps (ms, images/s, peak memory); one f32 step with --remat against
+    the plain step from the same weights and batch (losses, BatchNorm
+    statistics), each step's peak memory (the remat step's must be lower:
+    its blocks' activations are recomputed, not kept), and warm remat
+    steps."""
+    from retinex_tpu_torch.config import Config
+    from retinex_tpu_torch.models.init import init_untrained
+    from retinex_tpu_torch.models.retinex_net import MultiScaleUPRetinex
+    from retinex_tpu_torch.train.train_state import create_train_state, train_step
+    from retinex_tpu_torch.train.trainer import build_criterion
+
+    cuda = torch.device("cuda")
+    x = train_batch(torch, train_dir)
+    state = create_train_state(init_untrained(MultiScaleUPRetinex(False, False, dtype=torch.bfloat16), 0).to(cuda),
+                               lambda s: TRAIN_LR)
+    ms, times, peak = warm_steps(torch, state, build_criterion(Config(use_amp=True), cuda), x)
+    print(
+        f"  warm bf16 train step (--use_amp) at [8,640,640,3] (perceptual loss on; {card}): {ms:.3f} ms (median of 5 "
+        f"after a first of {times[0]:.1f} ms; all {', '.join(f'{t:.1f}' for t in times[1:])}), {8e3 / ms:.3f} "
+        f"images/s; peak device memory {peak / 2**30:.3f} GiB"
+    )
+    del state
+    crit = build_criterion(Config(), cuda)
+    one = {}
+    for remat in (False, True):
+        st = create_train_state(init_untrained(MultiScaleUPRetinex(False, False, remat=remat), 0).to(cuda),
+                                lambda s: TRAIN_LR)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        losses = {k: float(v) for k, v in train_step(st, crit, x).items()}
+        torch.cuda.synchronize()
+        stats = {k: v.clone() for k, v in st.model.state_dict().items() if k.endswith(("running_mean", "running_var"))}
+        one[remat] = (losses, stats, torch.cuda.max_memory_allocated())
+        if remat:
+            r_ms, r_times, _ = warm_steps(torch, st, crit, x)
+        del st
+    (l_plain, s_plain, p_plain), (l_remat, s_remat, p_remat) = one[False], one[True]
+    if abs(l_remat["total"] - l_plain["total"]) > 1e-6 * abs(l_plain["total"]):
+        raise AssertionError(f"the --remat step's total {l_remat['total']} differs from the plain {l_plain['total']}")
+    d_stats = max(float((s_remat[k] - v).abs().max()) for k, v in s_plain.items())
+    if d_stats > 5e-6:
+        raise AssertionError(f"the --remat step's BatchNorm statistics differ from the plain step's by {d_stats:.3e}")
+    if not p_remat < p_plain:
+        raise AssertionError(f"--remat did not lower the step's peak memory: {p_remat} against {p_plain} bytes")
+    print(
+        f"  f32 train step with --remat at [8,640,640,3]: total loss {l_remat['total']:.6f} (plain "
+        f"{l_plain['total']:.6f}, rtol 1e-6), BatchNorm statistics within {d_stats:.2e} (atol 5e-6); peak device "
+        f"memory of one step {p_remat / 2**30:.3f} GiB with --remat against {p_plain / 2**30:.3f} GiB without "
+        f"({p_remat / p_plain:.3f}); warm remat step {r_ms:.3f} ms (all {', '.join(f'{t:.1f}' for t in r_times[1:])}), "
+        f"{8e3 / r_ms:.3f} images/s"
+    )
+
+
+def amp_remat_cli(torch, modules, workdir: Path) -> None:
+    """``--mode train --use_amp --remat`` through the CLI: two steps (16 of
+    the photos, batch 8, one epoch at 640 px), no kernel launched; its
+    checkpoint f32 in the plain format; ``--mode predict --use_amp`` from
+    it on the 1080p photo (the bf16 FAM kernels, twice each)."""
+    import shutil
+
+    photos = workdir / "train16"
+    photos.mkdir()
+    for i in range(16):
+        shutil.copy(REPO / "data" / "convergence" / f"lowlight_{i:03d}.png", photos)
+    save = workdir / "train_amp_remat"
+    launches, sec = run_cli(torch, modules, ["--mode", "train", "--use_amp", "--remat", "--train_dir", str(photos),
+                                             "--save_dir", str(save), "--device", "cuda", "--num_epochs", "1",
+                                             *TRAIN_ARGS])
+    check_launches(launches, {}, "bf16 training with --remat")
+    ckpt = torch.load(save / "latest", map_location="cpu", weights_only=True)
+    sd = ckpt["model_state_dict"]
+    if ckpt["step"] != 2 or any(v.dtype != torch.float32 for v in sd.values() if v.is_floating_point()):
+        raise AssertionError(f"bf16 --remat training: step {ckpt['step']} (expected 2), or a parameter not f32")
+    if not all(bool(v.isfinite().all()) for v in sd.values() if v.is_floating_point()):
+        raise AssertionError("non-finite weights after bf16 --remat training")
+    out = workdir / "predict_amp_remat"
+    photo = workdir / "photo1080.png"
+    got, psec = run_cli(torch, modules, ["--mode", "predict", "--use_amp", "--checkpoint", str(save / "best"),
+                                         "--input_path", str(photo), "--output_dir", str(out), "--max_size", "1920",
+                                         "--device", "cuda"])
+    check_launches(got, amp_want(AMP_FAM_TWICE), "predict --use_amp from the bf16 --remat checkpoint")
+    check_pngs(out, photo.stem, (1088, 1920, 3))
+    print(f"  --mode train --use_amp --remat, 16 photos at 640 px, batch 8, one epoch (2 steps): {sec:.1f} s, no kernel "
+          f"launched, checkpoint f32 at step 2; predict --use_amp from it at --max_size 1920: {psec:.2f} s, bf16 FAM "
+          "kernels twice each")
+
+
 # Phase 21: bf16 inference. The FAM kernels' bf16 instances against their
 # bf16 plain versions on the card: one bf16 ulp (2**-7 relative at most),
 # or 2**-10 where the output is a small difference of larger terms
@@ -2984,11 +3197,191 @@ AMP_FAM_1080 = {"fam_conv_fused_bf16": 2, "fam_tail_stats_bf16": 2, "fam_tail_ap
 
 
 def amp_want(want: dict[str, int]) -> dict[str, int]:
-    """`want` with the bf16 K4's stages and K6's diagonal instance, as
-    ``check_launches`` adds them for the f32 kernels."""
-    k4 = want.get("fam_conv_fused_bf16", 0)
-    return {**want, **{f"{k}_bf16": k4 for k in K4_STAGES},
+    """`want` with the bf16 K4's and K10's stages and K6's diagonal
+    instance, as ``check_launches`` adds them for the f32 kernels."""
+    k4, k10 = want.get("fam_conv_fused_bf16", 0), want.get("dec1_chain_bf16", 0)
+    return {**want, **{f"{k}_bf16": k4 for k in K4_STAGES}, **{f"{k}_bf16": k10 for k in K10_STAGES},
             "fam_tail_apply_g1_diag_bf16": want.get("fam_tail_apply_g1_bf16", 0)}
+
+
+# K10 in bf16 (NetCfg(dec1_chain=True) with --use_amp): its four stages on
+# conv_wgmma, each held to its plain version on the plain previous stage's
+# output at BF16_TOL (one output ulp, as phases 17-19 hold conv_wgmma); the
+# chain whole within one bf16 ulp at its largest output (as
+# tests/test_torch_dec1_chain_bf16.py holds the plain version to the JAX
+# kernel). K10 rounds three intermediates (y1, y2, y3): one that rounds the
+# other way moves the next sums by its ulp times the weights, which near 0
+# is more than the output's own ulp, so K4's elementwise two-ulp rule
+# (AMP_ULPS) fails on a few values (on an H100: 60 of 4,177,920 at
+# [1,544,960], by up to 4.4e-3 on values under 0.01); the count past that
+# rule is printed. At the shapes of phase 12.
+K10_BF16 = tuple(f"{k}_bf16" for k in ("dec1_chain", *K10_STAGES))
+
+
+def ulp_at_largest(want) -> float:
+    """One bf16 ulp at the largest magnitude of `want`."""
+    return 2.0 ** (int(np.floor(np.log2(float(want.float().abs().max())))) - 7)
+
+
+def amp_dec1_kernel_phase(torch, fb, shape, seed: int, timed: bool = False) -> dict:
+    """K10's bf16 instance at `shape` ([b, h, w] of d2): d2 and x1p rounded
+    to bf16, the f32 weights of phase 12 packed once for bf16; one call's
+    launches (each stage once, BF16_LAUNCHES), the chain against its plain
+    version, each stage on the plain previous stage's output, and on a
+    batch its first and last image to K10 on each alone. With `timed`, the
+    median ms over 25 launches of the chain and of each stage, the plain
+    versions' and each stage's one F.conv2d in bf16 (+ ReLU, + x1p; its
+    difference from the plain version printed: it adds the bias and the
+    residual in bf16, after rounding), and the bounds at 989 TFLOP/s.
+    Returns {kernels-line name: record}."""
+    bf = torch.bfloat16
+    d2, x1p, *weights = dec1_inputs(torch, shape, seed)
+    d2, x1p = d2.to(bf), x1p.to(bf)
+    k_up, b_up, k_c1, b_c1, k_c2, b_c2, k_rc, b_rc = weights
+    b, h, w = shape
+    p = fb.pack_dec1_chain(*weights, dtype=bf)
+    fb.reset_launches()
+    got = fb.dec1_chain(d2, x1p, *weights, packed=p)
+    torch.cuda.synchronize()
+    ran = {k: v for counts in (fb.LAUNCHES, fb.KERNEL_LAUNCHES, fb.BF16_LAUNCHES) for k, v in counts.items() if v}
+    if ran != dict.fromkeys(K10_BF16, 1):
+        raise AssertionError(f"one bf16 dec1_chain call at {shape} launched {ran}, expected each of {K10_BF16} once")
+    want = fb.dec1_chain_plain(d2, x1p, *weights)
+    if got.dtype != bf or want.dtype != bf:
+        raise AssertionError(f"bf16 dec1_chain at {shape}: dtypes {got.dtype} and {want.dtype}")
+    diff = (got.float() - want.float()).abs()
+    err, tol = float(diff.max()), ulp_at_largest(want)
+    if not np.isfinite(err) or err > tol:
+        raise AssertionError(f"bf16 dec1_chain disagrees with its plain version at {shape}: max |diff| {err:.3e} > "
+                             f"{tol:g}")
+    past = int((diff > 2 * (AMP_ULP * want.float().abs() + AMP_ATOL)).sum())
+    line = (f"  {list(shape)} bf16 dec1_chain: max |diff| {err:.3e} (tolerance one ulp at its largest output "
+            f"{float(want.float().abs().max()):.3f}, {tol:g}; {past} of {diff.numel()} values past K4's "
+            f"elementwise two-ulp rule); one call: {ran}")
+    y1 = fb.dec1_up_plain(d2, k_up, b_up)
+    y2 = fb.dec1_conv_plain(y1, k_c1, b_c1)
+    y3 = fb.dec1_conv_plain(y2, k_c2, b_c2, x1p)
+    calls = {
+        "dec1_up": (lambda: fb.dec1_up(d2, p), lambda: fb.dec1_up_plain(d2, k_up, b_up)),
+        "dec1_c1": (lambda: fb.dec1_c1(y1, p), lambda: fb.dec1_conv_plain(y1, k_c1, b_c1)),
+        "dec1_c2": (lambda: fb.dec1_c2(y2, x1p, p), lambda: fb.dec1_conv_plain(y2, k_c2, b_c2, x1p)),
+        "dec1_rc": (lambda: fb.dec1_rc(y3, p), lambda: fb.dec1_conv_plain(y3, k_rc, b_rc)),
+    }
+    rec = {"dec1_chain_bf16": dict(max_abs_err=err, dtype="bfloat16")}
+    for name, (kernel, plain) in calls.items():
+        e = _close(torch, kernel(), plain(), f"bf16 {name} at {shape}")
+        rec[f"{name}_bf16"] = dict(max_abs_err=e, dtype="bfloat16")
+    line += "; by stage (BF16_TOL) " + ", ".join(f"{n} {rec[f'{n}_bf16']['max_abs_err']:.2e}" for n in K10_STAGES)
+    for j in sorted({0, b - 1} if b > 1 else ()):
+        alone = fb.dec1_chain(d2[j : j + 1].contiguous(), x1p[j : j + 1].contiguous(), *weights, packed=p)
+        if not torch.equal(alone, got[j : j + 1]):
+            raise AssertionError(f"bf16 dec1_chain at {shape}: image {j} of the batch differs from K10 on it alone")
+    if b > 1:
+        line += "; first and last image identical to K10 on each alone"
+    if timed:
+        n_px = b * h * w
+        pk = PEAK_BF16_OPS_PER_S
+        weight_bytes = 2 * (64 * 128 + 3 * 9 * 128 * 128) + 4 * 4 * 128
+        k10 = rec["dec1_chain_bf16"]
+        k10.update(
+            ms=time_ms(torch, lambda: fb.dec1_chain(d2, x1p, *weights, packed=p)),
+            plain_ms=time_ms(torch, lambda: fb.dec1_chain_plain(d2, x1p, *weights), n=5),
+            bound=bound(2 * n_px * (64 + 128 + 128) + weight_bytes, 2 * n_px * (64 * 128 + 27 * 128 * 128), pk),
+            library_ms=None,
+        )
+        libs = {
+            "dec1_up": conv_library(torch, d2, k_up, b_up, relu=False),
+            "dec1_c1": conv_library(torch, y1, k_c1, b_c1),
+            "dec1_c2": conv_library(torch, y2, k_c2, b_c2, residual=x1p),
+            "dec1_rc": conv_library(torch, y3, k_rc, b_rc),
+        }
+        lib_errs = []
+        for name, (kernel, plain) in calls.items():
+            cin, taps, residual = K10_STAGES[name]
+            n_bytes = 2 * n_px * (cin + 128 + 128 * residual) + 2 * taps * cin * 128 + 4 * 128
+            lib_errs.append(float((libs[name]().permute(0, 2, 3, 1).float() - plain().float()).abs().max()))
+            rec[f"{name}_bf16"].update(ms=time_ms(torch, kernel), plain_ms=time_ms(torch, plain, n=5),
+                                       library_ms=time_ms(torch, libs[name]),
+                                       bound=bound(n_bytes, 2 * n_px * taps * cin * 128, pk))
+        line += (
+            f"; {k10['ms']:.4f} ms (plain {k10['plain_ms']:.3f} ms, bound {k10['bound'][0]:.4f} ms by "
+            f"{k10['bound'][1]}, {k10['bound'][0] / k10['ms']:.1%} of it); by stage "
+            + ", ".join(f"{n} {rec[f'{n}_bf16']['ms']:.4f} (plain {rec[f'{n}_bf16']['plain_ms']:.3f}, F.conv2d bf16 "
+                        f"{rec[f'{n}_bf16']['library_ms']:.4f}, bound {rec[f'{n}_bf16']['bound'][0]:.4f} by "
+                        f"{rec[f'{n}_bf16']['bound'][1]})" for n in K10_STAGES)
+            + f", sum {sum(rec[f'{n}_bf16']['ms'] for n in K10_STAGES):.4f}; F.conv2d in bf16 against the plain "
+            "versions (bias and residual added in bf16): " + ", ".join(f"{e:.2e}" for e in lib_errs)
+        )
+    print(line)
+    return rec
+
+
+def amp_dec1_forward_phase(torch, modules, ckpt: str, photo: Path, small: Path) -> dict[str, int]:
+    """The bf16 dec1-chain forward, ``PackedRetinex(bf16 model,
+    NetCfg(dec1_chain=True))`` with the trained checkpoint's weights: at
+    1088x1920 and 1080x1920 against the bf16 default packed forward (the
+    dec1 chain as cuDNN convolutions whose residual add rounds in bf16)
+    within AMP_NET_TOL, K10's bf16 launches counted from zero around each
+    forward; on the 288x512 frame the card's forward against the port's
+    bf16 CPU run within AMP_NET_TOL; warm net ms with and without it at
+    1088x1920, in turns. Returns the launches of K10's bf16 entries over
+    the two frame-size forwards."""
+    from retinex_tpu_torch import cli
+    from retinex_tpu_torch.config import Config
+    from retinex_tpu_torch.infer.enhance import load_image
+    from retinex_tpu_torch.models.packed_inference import NetCfg, PackedRetinex
+
+    models = {dev: cli.build_model(Config(mode="enhance", checkpoint=ckpt, use_amp=True), torch.device(dev))
+              for dev in ("cuda", "cpu")}
+    default, fused = PackedRetinex(models["cuda"]), PackedRetinex(models["cuda"], NetCfg(dec1_chain=True))
+    k10 = dict.fromkeys(K10_BF16, 0)
+    xs = {}
+    for max_size in (1920, None):
+        img, _ = load_image(str(photo), max_size)
+        x = xs[max_size] = torch.from_numpy(img).to("cuda")[None]
+        with torch.inference_mode():
+            base = default(x)
+            for m in modules:
+                m.reset_launches()
+            got = fused(x)
+            torch.cuda.synchronize()
+        launches = launch_counts(modules)
+        fam = AMP_FAM_TWICE if max_size == 1920 else AMP_FAM_1080
+        check_launches(launches, amp_want({**fam, "dec1_chain_bf16": 1}),
+                       f"the bf16 dec1-chain forward at {tuple(x.shape[1:3])}")
+        k10 = {k: v + launches[k] for k, v in k10.items()}
+        for (name, tol), a, b in zip(AMP_NET_TOL.items(), got, base):
+            if a.shape != b.shape or a.dtype != b.dtype or not torch.isfinite(a).all():
+                raise AssertionError(f"bf16 dec1-chain {name}: {a.dtype} {tuple(a.shape)} vs {b.dtype} "
+                                     f"{tuple(b.shape)}, or non-finite")
+            d = (a.float() - b.float()).abs()
+            print(f"  bf16 dec1-chain forward {tuple(x.shape[1:3])}, {name} ({a.dtype}): max |diff| "
+                  f"{float(d.max()):.3e}, mean {float(d.mean()):.3e} against the bf16 default packed forward "
+                  f"(tolerance {tol:g})")
+            if float(d.max()) > tol:
+                raise AssertionError(f"the bf16 dec1-chain forward's {name} disagrees with the bf16 default forward")
+        print(f"  K10 bf16 launches in the bf16 dec1-chain forward at {tuple(x.shape[1:3])}: "
+              + ", ".join(f"{k} {launches[k]}" for k in K10_BF16))
+
+    img, _ = load_image(str(small), 512)
+    x = torch.from_numpy(img)[None]
+    with torch.inference_mode():
+        card = fused(x.cuda())
+        cpu = PackedRetinex(models["cpu"], NetCfg(dec1_chain=True))(x)
+    errs = {n: float((a.cpu().float() - b.float()).abs().max()) for n, a, b in zip(AMP_NET_TOL, card, cpu)}
+    print(f"  bf16 dec1-chain forward at {tuple(x.shape[1:3])}, card vs the port's bf16 CPU run: max |diff| "
+          + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+          + " (tolerance " + ", ".join(f"{t:g}" for t in AMP_NET_TOL.values()) + ")")
+    if any(errs[n] > AMP_NET_TOL[n] for n in errs):
+        raise AssertionError("the card's bf16 dec1-chain forward disagrees with the port's bf16 CPU run")
+
+    med = in_turns(torch, {"default": default, "dec1_chain": fused}, xs[1920])
+    print(
+        f"  warm bf16 packed net at 1088x1920, batch 1: default (dec1 on cuDNN) {med['default']:.3f} ms, "
+        f"NetCfg(dec1_chain=True) (K10 in bf16) {med['dec1_chain']:.3f} ms, ratio "
+        f"{med['dec1_chain'] / med['default']:.4f}"
+    )
+    return k10
 
 
 def amp_inputs(torch, fb, shape, seed: int) -> dict:
@@ -3127,8 +3520,11 @@ def amp_phase(torch, modules, ckpt: str, workdir: Path) -> tuple[dict, dict]:
     photo at --max_size 1920 and with no flags (K11), and predict, through
     the CLI with their launch counts; the bf16 net held to the port's bf16
     CPU run stage by stage; bf16 against f32 on the same photo (printed);
-    the nets' and the kernels' times. Returns (records, launches) of the
-    four bf16 kernels, by their kernels-line names."""
+    the nets' and the kernels' times; then K10 in bf16, whole and by stage,
+    against its plain version (``amp_dec1_kernel_phase``) and the bf16
+    dec1-chain forward (``amp_dec1_forward_phase``). Returns (records,
+    launches) of the four bf16 FAM kernels and K10's five bf16 entries, by
+    their kernels-line names."""
     from PIL import Image
 
     cg, cl, fb, cp, kp = modules
@@ -3195,7 +3591,17 @@ def amp_phase(torch, modules, ckpt: str, workdir: Path) -> tuple[dict, dict]:
         got = check_pngs(out, frame.stem, (288, 512, 3) if max_size else (264, 480, 3))
         hold_to_cpu(torch, got, frame, max_size, packed=True, checkpoint=ckpt, use_amp=True)
     amp_net_times(torch, ckpt, photo)
-    return {f"{k}_bf16": recs[k] for k in AMP_KERNELS}, {f"{k}_bf16": v for k, v in launches.items()}
+
+    print("  K10 in bf16 (NetCfg(dec1_chain=True) with --use_amp): four conv_wgmma launches")
+    for name, (cin, taps, _) in K10_STAGES.items():
+        k = 3 if taps == 9 else 1
+        print(f"  bf16 {name}: conv_wgmma plan {cp.wgmma_plan(cin, 128, k, k)}")
+    dec1 = [amp_dec1_kernel_phase(torch, fb, s, seed=70 + i, timed=i == 0) for i, s in enumerate(DEC1_SHAPES)]
+    for name in K10_BF16:
+        recs[name] = dict(dec1[0][name], max_abs_err=max(r[name]["max_abs_err"] for r in dec1))
+    dec1_launches = amp_dec1_forward_phase(torch, modules, ckpt, photo, small)
+    out = {f"{k}_bf16": recs[k] for k in AMP_KERNELS} | {k: recs[k] for k in K10_BF16}
+    return out, {f"{k}_bf16": v for k, v in launches.items()} | dec1_launches
 
 
 def main() -> int:
@@ -3273,7 +3679,8 @@ def main() -> int:
           "inference from the trained checkpoint")
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = train_phase(torch, (cg, cl, fb, cp, kp), Path(tmp))
-        print("phase 21: bf16 inference (--use_amp with enhance and predict): K4-K6 and K11 in bf16")
+        print("phase 21: bf16 inference (--use_amp with enhance and predict): K4-K6 and K11 in bf16; K10 in bf16 "
+              "(NetCfg(dec1_chain=True))")
         amp_recs, amp_launches = amp_phase(torch, (cg, cl, fb, cp, kp), ckpt, Path(tmp))
     recs.update(amp_recs)
     launches.update(amp_launches)

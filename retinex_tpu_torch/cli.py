@@ -54,13 +54,15 @@ does (Flax's lecun-normal kernels, zero biases, always seed 0 like its
 ``PRNGKey(0)``; ``--seed`` does not reach them). ``--spatial_shard``,
 ``--use_amp`` computes the net in bf16 for ``--mode enhance`` and
 ``predict`` (``models/layers.py``, ``models/packed_inference.py``: the FAM
-kernels' bf16 instances); Lab-CLAHE and the enhancers stay f32, as the JAX
-package's do. ``--n_devices`` above 1, ``--use_amp`` with ``--mode train``,
-``--remat`` and ``--coordinator`` raise ``NotImplementedError`` (each names
-its ROADMAP Queue 1 item), and so does a ``--checkpoint`` directory (the
-JAX package's Orbax format). The
-packed training layout (``--packed_train``, on by default) is Queue 1 item
-7: training runs the standard step and says so.
+kernels' bf16 instances) and the net and VGG19 in bf16 for ``--mode train``
+(the parameters and the optimizer's state stay f32; the checkpoints keep
+their format); Lab-CLAHE and the enhancers stay f32, as the JAX package's
+do. ``--remat`` recomputes the net's blocks in training's backward.
+``--n_devices`` above 1 and ``--coordinator`` raise ``NotImplementedError``
+(each names its ROADMAP Queue 1 item), and so does a ``--checkpoint``
+directory (the JAX package's Orbax format). The packed training layout
+(``--packed_train``, on by default) is Queue 1 item 7: training runs the
+standard step and says so.
 """
 
 from __future__ import annotations

@@ -22,11 +22,16 @@
 // bf16 as two launches (retinex_tpu_torch/ops/fused_blocks.py: fam_dual_y,
 // 128 -> 256 with ReLU, y stored in bf16 as the JAX kernel's ys scratch;
 // fam_dual_out, the two half convolutions as one launch with groups = 2),
-// and K4 (retinex_tpu/ops/fused_blocks.py::_fam_conv_kernel) in bf16 as its
+// K4 (retinex_tpu/ops/fused_blocks.py::_fam_conv_kernel) in bf16 as its
 // two 3x3 convolutions: fam_conv_y (128 -> 256 with ReLU, y rounded to bf16
 // as the JAX kernel's ys scratch) and fam_conv_z (256 -> 128 plus
 // bias_total) in the f32-output mode (out_f32): the JAX kernel sums its four
-// branches in f32, so z is stored as the f32 sum plus bias, not rounded.
+// branches in f32, so z is stored as the f32 sum plus bias, not rounded;
+// and K10 (retinex_tpu/ops/fused_blocks.py::_dec1_kernel) in bf16 as four
+// launches (dec1_up, the 1x1 64 -> 128; dec1_c1, dec1_c2, dec1_rc, 3x3
+// 128 -> 128 with ReLU), dec1_c2 with a residual: x1p, a bf16 tensor of the
+// output's shape, widened to f32 and added after the ReLU, before the one
+// rounding to bf16, as the JAX kernel adds it in f32 and rounds y3 once.
 // Groups: Cout tile t reads only input channels [g * Cin/groups, (g + 1) *
 // Cin/groups), g = t / (Cout tiles per group), from an HWIO kernel [kh, kw,
 // Cin/groups, Cout]: the halo box's channel coordinate starts at the
@@ -81,7 +86,11 @@
 // - A persistent grid, one block per SM, walks the tiles (Cout tile
 //   fastest, then tile column, tile row, image), so the producer loads the
 //   next tile while the consumers run the last one's epilogue.
-// - Epilogue: f32 bias, ReLU, __float2bfloat16_rn into a per-warp staging
+// - Epilogue: f32 bias, ReLU, the residual where given (the warp first
+//   loads its 16 pixels of it into the staging tile in whole 16-byte
+//   chunks, as the store pass below writes them; each lane then reads its
+//   channel pair from the slot its result goes to), __float2bfloat16_rn
+//   into a per-warp staging
 //   tile in shared memory (16-byte chunks XOR-swizzled by pixel), then whole
 //   16-byte NHWC stores, masked at the ragged H and W edges and at Cout.
 //   Storing the accumulator fragments straight to global memory (4 bytes a
@@ -332,7 +341,8 @@ int smem_bytes(const WgArgs& a) {
 template <int N, int CK>
 __global__ void __launch_bounds__(kThreads, 1)
     conv_wgmma_bf16_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
-                           const float* __restrict__ bias, void* __restrict__ out, const WgArgs a) {
+                           const float* __restrict__ bias, const __nv_bfloat16* __restrict__ residual,
+                           void* __restrict__ out, const WgArgs a) {
   using T = Tile<N, CK>;
   constexpr int KK = CK / 16;  // k16 steps per k-block
   extern __shared__ uint8_t smem_raw[];
@@ -478,7 +488,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     fence_frags<KK>(fb);
     if (!a.resident) mbar_arrive(b_empty + 8 * (bs == 0 ? a.b_stages - 1 : bs - 1));
     // Epilogue, per m64 half: the warp rounds its 16 pixels x N channels
-    // (f32 + bias, ReLU, then bf16) into its staging tile, 16-byte chunks
+    // (f32 + bias, ReLU, + residual, then bf16) into its staging tile, 16-byte chunks
     // XOR-swizzled by pixel so neither side conflicts on banks, and stores
     // them as whole chunks: consecutive lanes on consecutive chunks of one
     // pixel, consecutive pixels after. Accumulator i of an m64: n8 group
@@ -519,6 +529,20 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
         continue;
       }
+      if (residual != nullptr) {
+        // The residual of the warp's 16 pixels into the staging tile, in the
+        // store pass's chunks (zeros past the edges and Cout, never stored).
+        const int ch = lane % kChunks, co = ct * N + 8 * ch;
+#pragma unroll
+        for (int m = 0; m < kTW / kPixPerStore; ++m) {
+          const int px = m * kPixPerStore + lane / kChunks, gx = tx * kTW + px;
+          uint4 v = make_uint4(0, 0, 0, 0);
+          if (gy < a.H && gx < a.W && co < a.cout)
+            v = __ldg(reinterpret_cast<const uint4*>(residual + (((size_t)b * a.H + gy) * a.W + gx) * a.cout + co));
+          *reinterpret_cast<uint4*>(stage + px * (N * 2) + ((ch ^ (px & kSwz)) << 4)) = v;
+        }
+        __syncwarp();
+      }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int px = (lane >> 2) + 8 * h;
@@ -527,8 +551,13 @@ __global__ void __launch_bounds__(kThreads, 1)
           const float2 bv = __ldg(reinterpret_cast<const float2*>(bias + co_l + 8 * n8));  // padded to cout_pad
           float v0 = acc[j][4 * n8 + 2 * h] + bv.x, v1 = acc[j][4 * n8 + 2 * h + 1] + bv.y;
           if (a.relu) v0 = fmaxf(v0, 0.f), v1 = fmaxf(v1, 0.f);
-          *reinterpret_cast<__nv_bfloat162*>(stage + px * (N * 2) + ((n8 ^ (px & kSwz)) << 4) + 4 * (lane & 3)) =
-              __floats2bfloat162_rn(v0, v1);
+          __nv_bfloat162* slot =
+              reinterpret_cast<__nv_bfloat162*>(stage + px * (N * 2) + ((n8 ^ (px & kSwz)) << 4) + 4 * (lane & 3));
+          if (residual != nullptr) {  // this lane's own slot: no other lane reads or writes it here
+            const float2 r = __bfloat1622float2(*slot);
+            v0 += r.x, v1 += r.y;
+          }
+          *slot = __floats2bfloat162_rn(v0, v1);
         }
       }
       __syncwarp();
@@ -606,7 +635,8 @@ int plan(WgArgs& a) {
 }
 
 template <int N, int CK>
-int launch(const void* x, const void* w, const void* bias, void* out, int batch, WgArgs a, void* stream) {
+int launch(const void* x, const void* w, const void* bias, const void* residual, void* out, int batch, WgArgs a,
+           void* stream) {
   const int smem = plan<N, CK>(a);
   if (smem < 0) return (int)cudaErrorInvalidValue;
   const EncodeTiled encode = encoder();
@@ -638,7 +668,7 @@ int launch(const void* x, const void* w, const void* bias, void* out, int batch,
   if (err != cudaSuccess) return (int)err;
   const int grid = a.n_tiles < sms ? a.n_tiles : sms;
   conv_wgmma_bf16_kernel<N, CK><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      xmap, wmap, (const float*)bias, out, a);
+      xmap, wmap, (const float*)bias, (const __nv_bfloat16*)residual, out, a);
   return (int)cudaGetLastError();
 }
 
@@ -673,16 +703,20 @@ extern "C" {
 // [batch, H, W, cout] bf16, or f32 where out_f32. Kernels up to 5x5,
 // dilation 1 or 2, low padding pad_t, pad_l (the box covers the rest).
 // n_tile (32, 64 or 128) divides cout_pad; groups as make_args takes them.
-int conv_wgmma_bf16(const void* x, const void* w, const void* bias, void* out, int batch, int H, int W, int cin,
-                    int cout, int cout_pad, int kh, int kw, int dil, int pad_t, int pad_l, int relu, int n_tile,
-                    int ck, int groups, int out_f32, void* stream) {
+// residual: null, or bf16 [batch, H, W, cout] (16-byte aligned, cout a
+// multiple of 8, bf16 output only) added after the ReLU, before the rounding.
+int conv_wgmma_bf16(const void* x, const void* w, const void* bias, const void* residual, void* out, int batch, int H,
+                    int W, int cin, int cout, int cout_pad, int kh, int kw, int dil, int pad_t, int pad_l, int relu,
+                    int n_tile, int ck, int groups, int out_f32, void* stream) {
   WgArgs a;
   if (reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
       !make_args(a, H, W, cin, cout, cout_pad, kh, kw, dil, pad_t, pad_l, relu, n_tile, ck, groups, batch))
     return (int)cudaErrorInvalidValue;
+  if (residual != nullptr && (out_f32 != 0 || cout % 8 != 0 || reinterpret_cast<uintptr_t>(residual) % 16 != 0))
+    return (int)cudaErrorInvalidValue;
   a.out_f32 = out_f32 != 0;
 #define CONV_WGMMA_CASE(NT, CK_) \
-  if (n_tile == NT && ck == CK_) return launch<NT, CK_>(x, w, bias, out, batch, a, stream);
+  if (n_tile == NT && ck == CK_) return launch<NT, CK_>(x, w, bias, residual, out, batch, a, stream);
   CONV_WGMMA_CASE(32, 32)
   CONV_WGMMA_CASE(64, 32)
   CONV_WGMMA_CASE(128, 32)

@@ -7,6 +7,14 @@ tie differs from PyTorch's (``jnp.maximum`` and ``jnp.clip`` split it in
 half, ``torch.clamp`` passes it whole), the ops are written as the JAX
 package's; none of these losses meets such a tie on a differentiated path
 (``jnp.abs`` and ``torch.abs`` both give 0 at 0).
+
+Under ``--use_amp`` the net's three outputs are f32 (``models/retinex_net.py``)
+and only VGG19's features are bf16: the perceptual MSE squares their
+difference in bf16 and takes its mean as ``jnp.mean`` does (an f32 sum,
+one rounding), and the total stacks it with the f32
+losses, promoted to f32 as ``jnp.stack`` promotes it. ``jnp.fft.fft2``
+promotes bf16 to complex64; the frequency loss widens a bf16 input to f32
+explicitly (PyTorch's CPU FFT takes no bf16).
 """
 
 from __future__ import annotations
@@ -94,10 +102,11 @@ def decoupling_loss(illu_map: torch.Tensor, reflectance: torch.Tensor, lambda_va
 
 def perceptual_loss(vgg, img_enhanced: torch.Tensor, img_low: torch.Tensor) -> torch.Tensor:
     """VGG feature-space MSE between enhanced and the *input* at three
-    depths; `vgg(x) -> (f1, f2, f3)` (models/vgg.py)."""
+    depths; `vgg(x) -> (f1, f2, f3)` (models/vgg.py), in the features'
+    dtype."""
     fe = vgg(img_enhanced)
     fl = vgg(img_low)
-    return sum(torch.square(a - b).mean() for a, b in zip(fe, fl))
+    return sum(torch.square(a - b).float().mean().to(a.dtype) for a, b in zip(fe, fl))
 
 
 def frequency_masks(h: int, w: int, device=None) -> tuple[torch.Tensor, torch.Tensor]:
@@ -117,8 +126,8 @@ def frequency_loss(
     """FFT magnitude-spectrum MSE split by the radial mask (FFT over the
     spatial axes of NHWC)."""
     h, w = img_enhanced.shape[1], img_enhanced.shape[2]
-    mag_e = torch.fft.fft2(img_enhanced, dim=(1, 2)).abs()
-    mag_l = torch.fft.fft2(img_low, dim=(1, 2)).abs()
+    mag_e = torch.fft.fft2(img_enhanced.float(), dim=(1, 2)).abs()
+    mag_l = torch.fft.fft2(img_low.float(), dim=(1, 2)).abs()
     high, low = (m[None, :, :, None] for m in frequency_masks(h, w, img_enhanced.device))
     high_loss = torch.square(mag_e * high - mag_l * high).mean()
     low_loss = torch.square(mag_e * low - mag_l * low).mean()

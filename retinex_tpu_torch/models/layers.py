@@ -20,26 +20,71 @@ mask from an explicit ``torch.Generator``, which the trainer seeds and
 checkpoints.
 
 Each module takes a ``dtype``, the compute dtype of Flax's ``dtype=``: the
-parameters stay f32, and in bf16 each layer rounds where Flax's inference
-forward rounds (``ops/bf16.py``). A convolution rounds its sum, then adds
-its bias in bf16; an eval BatchNorm computes ``(x - mean) * (rsqrt(var +
-eps) * scale) + bias`` in f32 on the bf16 input and rounds once
-(``flax/linen/normalization.py::_normalize``); a mean sums in f32 and
-rounds once. ``torch.autocast`` rounds elsewhere (it keeps BatchNorm and
-reductions in f32 and casts weights op by op), so it is not used. A
-sigmoid is XLA's 1 / (1 + exp(-x)), each operation rounded. f32 runs
-the PyTorch modules as they are. Training is f32 only.
+parameters stay f32, and in bf16 each layer rounds where Flax's forward
+rounds (``ops/bf16.py``). A convolution rounds its sum, then adds its bias
+in bf16; a BatchNorm widens its bf16 input to f32 and rounds its output
+once: in eval mode ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` on
+the running statistics (``flax/linen/normalization.py::_normalize``), in
+train mode the same on the batch statistics, which Flax takes in f32 from
+the input widened once more (``_compute_stats``,
+``force_float32_reductions``; the two widenings' gradients each round to
+bf16 before they add) and folds into f32 running statistics; a mean sums
+in f32 and rounds once.
+``torch.autocast`` rounds elsewhere (it keeps BatchNorm and reductions in
+f32 and casts weights op by op), so it is not used. A sigmoid is XLA's 1 /
+(1 + exp(-x)), each operation rounded. f32 runs the PyTorch modules as they
+are. The gradients flow back through every rounding as ``jax.grad`` flows
+through ``astype``: a bf16 tensor's gradient is bf16.
+
+``remat`` (``--remat``) recomputes a block's activations in the backward
+instead of keeping them (``torch.utils.checkpoint``, non-reentrant), as
+Flax's ``nn.remat``: ``checkpointed`` wraps a module's call where the
+model is training and remat is on. The recomputation runs
+``BatchNorm.forward`` once more, so it must not update the running
+statistics a second time (Flax's remat is functional and updates them
+once): ``recomputing()`` is on while ``torch.utils.checkpoint``
+recomputes, and a training BatchNorm leaves its statistics alone then.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from retinex_tpu_torch.ops import bf16
 
 BN_EPS = 1e-5
+_RECOMPUTING = [False]
+
+
+@contextlib.contextmanager
+def _recomputation():
+    _RECOMPUTING[0] = True
+    try:
+        yield
+    finally:
+        _RECOMPUTING[0] = False
+
+
+def recomputing() -> bool:
+    """Whether ``torch.utils.checkpoint`` is recomputing a block's forward
+    (``checkpointed``) for the backward."""
+    return _RECOMPUTING[0]
+
+
+def checkpointed(module: nn.Module, remat: bool, *args):
+    """``module(*args)``; with `remat` and the module training, through
+    ``torch.utils.checkpoint`` (non-reentrant), whose recomputation runs
+    under ``recomputing()``."""
+    if not (remat and module.training):
+        return module(*args)
+    return torch.utils.checkpoint.checkpoint(
+        module, *args, use_reentrant=False, context_fn=lambda: (contextlib.nullcontext(), _recomputation())
+    )
 
 
 def max_pool_nonneg(x: torch.Tensor, window: int, stride: int, padding: int = 0) -> torch.Tensor:
@@ -52,30 +97,35 @@ def max_pool_nonneg(x: torch.Tensor, window: int, stride: int, padding: int = 0)
 class BatchNorm(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose train mode computes and updates the batch
     statistics as Flax's BatchNorm does (module docstring); eval mode is
-    ``nn.BatchNorm2d``'s in f32, Flax's ``_normalize`` in a reduced `dtype`."""
+    ``nn.BatchNorm2d``'s in f32. In a reduced `dtype` both modes are Flax's
+    on the input widened to f32, the output rounded to `dtype` once."""
 
     def __init__(self, ch: int, dtype: torch.dtype = torch.float32):
         super().__init__(ch, eps=BN_EPS)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.compute_dtype != torch.float32:
-            if self.training:
-                raise NotImplementedError("BatchNorm: training computes in f32 only")
-            mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-            y = (x.float() - self.running_mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
-            return y.to(self.compute_dtype)
-        if not self.training:
+        reduced = self.compute_dtype != torch.float32
+        if not (self.training or reduced):
             return super().forward(x)
-        mean = x.mean(dim=(0, 2, 3))
-        mean2 = (x * x).mean(dim=(0, 2, 3))
-        # jnp.maximum: a tie at 0 passes half the gradient, as torch.maximum does.
-        var = torch.maximum(mean2 - mean * mean, torch.zeros_like(mean))
-        with torch.no_grad():
-            self.running_mean.copy_(0.9 * self.running_mean + 0.1 * mean)
-            self.running_var.copy_(0.9 * self.running_var + 0.1 * var)
+        if self.training:
+            # Flax widens x twice, for the statistics (_compute_stats) and
+            # for the normalisation (_normalize): in bf16 each widening's
+            # gradient rounds to bf16 before the two are added, as there.
+            xs = x.float()
+            mean = xs.mean(dim=(0, 2, 3))
+            mean2 = (xs * xs).mean(dim=(0, 2, 3))
+            # jnp.maximum: a tie at 0 passes half the gradient, as torch.maximum does.
+            var = torch.maximum(mean2 - mean * mean, torch.zeros_like(mean))
+            if not recomputing():
+                with torch.no_grad():
+                    self.running_mean.copy_(0.9 * self.running_mean + 0.1 * mean)
+                    self.running_var.copy_(0.9 * self.running_var + 0.1 * var)
+        else:
+            mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        y = (x.float() - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return y.to(self.compute_dtype) if reduced else y
 
 
 class Dropout(nn.Module):

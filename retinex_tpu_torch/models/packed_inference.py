@@ -29,10 +29,14 @@ image and the reflectance come back f32, the illumination bf16, as JAX's.
 
 ``NetCfg(dec1_chain=True)`` runs the dec1 UpBlock, the +x1p residual and
 the residual head's 3x3 conv as K10 (four launches on the card, its weights
-packed once here), with the BatchNorm affines folded into the conv
-weights; off by default, as in the JAX package. With a bf16 model it
-raises: K10 in bf16 is ROADMAP Queue 1 item 3c. The JAX ``NetCfg``'s other
-fields have no counterpart, because each chose between TPU formulations of
+packed once here), with the BatchNorm affines folded into the conv weights
+in f32 (and, for a bf16 model, rounded to bf16 once, as the JAX kernel
+casts its f32 folds); off by default, as in the JAX package. The kernels
+take any shape, so the JAX package's tile gate (``dec1_chain_supported``)
+has no counterpart; its CPU route never takes K10 (it runs the XLA chain,
+whose bf16 instance rounds dec1's output before it adds x1p), while the
+port's CPU route runs K10's plain version, the kernel's roundings. The JAX
+``NetCfg``'s other fields have no counterpart, because each chose between TPU formulations of
 one function that the port computes one way: ``fam_conv_fused`` and ``fam_tail_fold`` (the port always runs
 K4-K6), ``fam_fused_max_batch`` (the kernels take any batch),
 ``fam_xla_folded`` (the XLA FAM when that batch gate is off),
@@ -285,11 +289,6 @@ class PackedRetinex:
         self.cfg = cfg or NetCfg()
         self.use_preact = model.use_preact
         self.dtype = dt = model.dtype
-        if self.cfg.dec1_chain and dt != torch.float32:
-            raise NotImplementedError(
-                f"NetCfg(dec1_chain=True) in {dt}: K10 in bf16 (its four stages onto conv_wgmma) lands in ROADMAP "
-                "Queue 1 item 3c; the f32 K10 takes f32 only"
-            )
         device = next(model.parameters()).device
         ie = model.ie_net
 
@@ -303,7 +302,7 @@ class PackedRetinex:
         self.resout = _Conv.packed(pack_pointwise(_hwio(res_out)), _np(res_out.bias), device, dt)
         if self.cfg.dec1_chain:
             self.dec1_fused = self._fold_dec1(ie.dec1, res_conv, device)
-            self.dec1_packed = pack_dec1_chain(*self.dec1_fused)  # K10's kernel layouts, once
+            self.dec1_packed = pack_dec1_chain(*self.dec1_fused, dt)  # K10's kernel layouts, once
 
         s1conv, s2conv = model.scale1[0], model.scale2[1]
         self.s1conv = _Conv.packed(pack_kernel_s1(_hwio(s1conv)), _np(s1conv.bias), device, dt)
@@ -361,15 +360,16 @@ class PackedRetinex:
             ],
         }
 
-    def _fold_dec1(self, blk: nn.Module, res_conv: nn.Conv2d, device) -> tuple[torch.Tensor, ...]:
-        """K10's arguments after d2 and x1p: the packed dec1 weights with
-        each BatchNorm folded in, k' = k * tile4(scale) and b' = tile4(b *
-        scale + shift) (the _Affine's tiled scale and bias), then the packed
-        residual_conv."""
-        c1, c2 = blk.conv[0], blk.conv[3]
+    @staticmethod
+    def _fold_dec1(blk: nn.Module, res_conv: nn.Conv2d, device) -> tuple[torch.Tensor, ...]:
+        """K10's arguments after d2 and x1p, all f32: the packed dec1 weights
+        with each BatchNorm folded in, k' = k * tile4(scale) and b' =
+        tile4(b * scale + shift) (the inference BatchNorm's f32 scale and
+        shift, tiled per quadrant), then the packed residual_conv."""
+        c1, bn1, c2, bn2 = blk.conv[0], blk.conv[1], blk.conv[3], blk.conv[4]
         args = [_pack_convtranspose2(blk.up.weight), _tile4(_np(blk.up.bias))]
-        for conv, (_, aff) in zip((c1, c2), self.dec1["convs"]):
-            scale, shift = aff.scale.cpu().numpy(), aff.bias.cpu().numpy()
+        for conv, bn in ((c1, bn1), (c2, bn2)):
+            scale, shift = (_tile4(t.numpy()) for t in _bn_affine(bn))
             args += [pack_kernel_s1(_hwio(conv)) * scale, _tile4(_np(conv.bias)) * scale + shift]
         args += [pack_kernel_s1(_hwio(res_conv)), _tile4(_np(res_conv.bias))]
         return tuple(torch.as_tensor(np.ascontiguousarray(a, np.float32)).to(device) for a in args)

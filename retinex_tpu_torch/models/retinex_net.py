@@ -12,6 +12,12 @@ promote the outputs back to f32 as JAX promotes them (the illumination is
 sigmoid(f32 mean + bf16 residual), the reflectance x / that, the enhanced
 image the f32 reflectance times the bf16 enhancement map), so all three
 come back f32.
+
+``remat`` (``--remat``) checkpoints in training what the JAX module wraps
+in ``nn.remat``: the IE-net's residual (or pre-activation) blocks and its
+UpBlocks, and the three scale towers; not the ASPP, whose dropout draws
+from its generator and would draw a second mask on a recomputation
+(``layers.checkpointed``). The parameters and their names do not change.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from retinex_tpu_torch.models.layers import (
     PreActResBlock,
     ResBlock,
     UpBlock,
+    checkpointed,
     conv,
 )
 from retinex_tpu_torch.ops import bf16
@@ -38,8 +45,11 @@ class ResidualIENet(nn.Module):
     with additive skips, residual head; illumination =
     sigmoid(mean_RGB(x) + residual)."""
 
-    def __init__(self, use_preact: bool = False, use_aspp: bool = False, dtype: torch.dtype = torch.float32):
+    def __init__(
+        self, use_preact: bool = False, use_aspp: bool = False, dtype: torch.dtype = torch.float32, remat: bool = False,
+    ):
         super().__init__()
+        self.remat = remat
         block = PreActResBlock if use_preact else ResBlock
         dt = dict(dtype=dtype)
         self.input_layer = conv(3, 32, 3, **dt)
@@ -53,21 +63,28 @@ class ResidualIENet(nn.Module):
         self.dec1 = UpBlock(64, 32, **dt)
         self.residual_head = nn.Sequential(conv(32, 32, 3, **dt), nn.ReLU(), conv(32, 1, 1, **dt))
 
+    def _block(self, module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+        """A residual block or UpBlock, checkpointed with ``remat``."""
+        return checkpointed(module, self.remat, x)
+
     def middle(self, x2: torch.Tensor) -> torch.Tensor:
         """enc2 -> inner -> dec2 with skip: the /2-and-below body."""
-        return self.dec2(self.inner(self.enc2(x2))) + x2
+        return self._block(self.dec2, self.inner(self._block(self.enc2, x2))) + x2
 
     def inner(self, x3: torch.Tensor) -> torch.Tensor:
         """enc3 -> bottleneck (+ASPP) -> dec3 with skip: the /4-and-below
         body (models/packed_inference.py runs enc2/dec2 packed and calls
         this for the rest)."""
-        return self.dec3(self.bottleneck(self.enc3(x3))) + x3
+        y = self._block(self.enc3, x3)
+        for m in self.bottleneck:
+            y = m(y) if isinstance(m, ASPPModule) else self._block(m, y)
+        return self._block(self.dec3, y) + x3
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x1 = F.relu(self.input_layer(x))
-        x2 = self.enc1(x1)
+        x2 = self._block(self.enc1, x1)
         d2 = self.middle(x2)
-        d1 = self.dec1(d2) + x1
+        d1 = self._block(self.dec1, d2) + x1
         residual = self.residual_head(d1)
         return bf16.sigmoid(x.mean(dim=1, keepdim=True) + residual)
 
@@ -87,13 +104,15 @@ class MultiScaleUPRetinex(nn.Module):
 
     def __init__(
         self, use_preact: bool = True, use_aspp: bool = True, epsilon: float = 1e-6, dtype: torch.dtype = torch.float32,
+        remat: bool = False,
     ):
         super().__init__()
         self.use_preact = use_preact
         self.use_aspp = use_aspp
         self.epsilon = epsilon
         self.dtype = dtype
-        self.ie_net = ResidualIENet(use_preact, use_aspp, dtype)
+        self.remat = remat
+        self.ie_net = ResidualIENet(use_preact, use_aspp, dtype, remat)
         self.scale1 = scale_tower(1, dtype)
         self.scale2 = scale_tower(2, dtype)
         self.scale3 = scale_tower(4, dtype)
@@ -108,9 +127,9 @@ class MultiScaleUPRetinex(nn.Module):
         # Bilinear half / quarter inputs with floor sizes int(h * scale).
         x2 = resize_bilinear_nchw(x, int(h * 0.5), int(w * 0.5))
         x3 = resize_bilinear_nchw(x, int(h * 0.25), int(w * 0.25))
-        f1 = self.scale1(x)
-        f2 = resize_bilinear_nchw(self.scale2(x2), h, w)
-        f3 = resize_bilinear_nchw(self.scale3(x3), h, w)
+        f1 = checkpointed(self.scale1, self.remat, x)
+        f2 = resize_bilinear_nchw(checkpointed(self.scale2, self.remat, x2), h, w)
+        f3 = resize_bilinear_nchw(checkpointed(self.scale3, self.remat, x3), h, w)
         e_map = bf16.sigmoid(self.output_layer(self.fusion(torch.cat([f1, f2, f3], dim=1))))
         enhanced = reflectance * e_map + (1.0 - reflectance) * (e_map * e_map)
         return enhanced, reflectance, illu

@@ -59,8 +59,8 @@ tensor-core-free and tensor-core convolution. Besides the public functions
 above, K12's and K10's stages (``ops/fused_blocks.py``) call them, with
 two options no public function exposes: ``groups`` (Cout tile t reads only
 its group's Cin / groups input channels, an HWIO kernel [kh, kw, Cin /
-groups, Cout]) and, on ``conv_pipelined``, a ``residual`` added after the
-bias and the ReLU.
+groups, Cout]) and a ``residual`` added after the bias and the ReLU (on
+``conv_wgmma`` in f32 before the one rounding to bf16).
 """
 
 from __future__ import annotations
@@ -300,15 +300,18 @@ def wgmma_plan(cin: int, cout: int, kh: int, kw: int, dilation: int = 1, groups:
 
 
 def launch_wgmma(x, wk, bk, cout: int, kh: int, kw: int, dil: int, pad_t: int, pad_l: int, relu: bool,
-                 groups: int = 1, out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                 groups: int = 1, out_dtype: torch.dtype = torch.bfloat16,
+                 residual: torch.Tensor | None = None) -> torch.Tensor:
     """conv_wgmma on a CUDA bf16 x [B,H,W,Cin] (Cin % 8 == 0, 16-byte
     aligned): wk the kernel [kh, kw, Cin / groups, Cout] as ``pack_wgmma``
     packs it, bk an f32 bias [Cout_pad], dilation `dil`, low padding pad_t,
     pad_l (the high padding is what the output's size leaves), optional
-    ReLU. groups > 1 takes whole K chunks and whole Cout tiles per group.
-    Returns [B,H,W,Cout] in `out_dtype`: bf16 (rounded once), or f32 (the
-    f32 sum plus bias, not rounded; K4's z stage). The one launch site of
-    the kernel; each caller counts its launch."""
+    ReLU, then `residual` [B,H,W,Cout] bf16 (16-byte aligned, Cout a
+    multiple of 8; bf16 output only) added in f32 where given. groups > 1 takes whole K
+    chunks and whole Cout tiles per group. Returns [B,H,W,Cout] in
+    `out_dtype`: bf16 (rounded once), or f32 (the f32 sum plus bias, not
+    rounded; K4's z stage). The one launch site of the kernel; each caller
+    counts its launch."""
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"conv_wgmma: out_dtype must be bfloat16 or float32, got {out_dtype}")
     b, h, w, cin = x.shape
@@ -318,11 +321,18 @@ def launch_wgmma(x, wk, bk, cout: int, kh: int, kw: int, dil: int, pad_t: int, p
     cin_g = _group_width("conv_wgmma", cin, cout, groups, ck, n_t)
     cout_pad = _round_up(cout, n_t)
     shape = (kh * kw, _round_up(cin_g, ck) // ck, cout_pad, ck)
-    _check_packed("conv_wgmma", x, [(wk, "kernel", shape, torch.bfloat16), (bk, "bias", (cout_pad,), torch.float32)])
+    packed = [(wk, "kernel", shape, torch.bfloat16), (bk, "bias", (cout_pad,), torch.float32)]
+    if residual is not None:
+        if out_dtype != torch.bfloat16 or cout % 8 or residual.data_ptr() % 16:
+            raise ValueError(f"conv_wgmma: a residual takes a bf16 output, Cout % 8 == 0 and a 16-byte aligned "
+                             f"tensor; got {out_dtype}, Cout {cout}, a view at {residual.data_ptr():#x}")
+        packed.append((residual, "residual", (b, h, w, cout), torch.bfloat16))
+    _check_packed("conv_wgmma", x, packed)
     stream = _kernels.stream(x)
     out = torch.empty((b, h, w, cout), dtype=out_dtype, device=x.device)
     _kernels.launch(
-        "conv_wgmma_bf16", x.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(), b, h, w, cin, cout, cout_pad,
+        "conv_wgmma_bf16", x.data_ptr(), wk.data_ptr(), bk.data_ptr(),
+        None if residual is None else residual.data_ptr(), out.data_ptr(), b, h, w, cin, cout, cout_pad,
         kh, kw, dil, pad_t, pad_l, int(relu), n_t, ck, groups, int(out_dtype == torch.float32), stream,
     )
     return out

@@ -39,13 +39,14 @@ standalone op. The FAM kernels live in
 
 and ``dec1_chain`` (K10): the packed dec1 UpBlock (1x1 up-conv, two 3x3
 conv-BN-ReLU stages, BN folded), the +x1p residual and the residual_conv.
-Only ``NetCfg(dec1_chain=True)`` runs it. On the card it is four
-``csrc/conv_pipelined.cu`` launches, each with its own wrapper and plain
-version: ``dec1_up`` (the 1x1, 64 -> 128), ``dec1_c1``, ``dec1_c2`` (its
-epilogue adds x1p after the ReLU) and ``dec1_rc``, reading the weights of
-one ``pack_dec1_chain``, made once per model (``models/packed_inference.py``).
+Only ``NetCfg(dec1_chain=True)`` runs it. On the card it is four launches,
+on ``csrc/conv_pipelined.cu`` in f32 and ``csrc/conv_wgmma.cu`` in bf16,
+each with its own wrapper and plain version: ``dec1_up`` (the 1x1, 64 ->
+128), ``dec1_c1``, ``dec1_c2`` (its epilogue adds x1p after the ReLU) and
+``dec1_rc``, reading the weights of one ``pack_dec1_chain``, made once per
+model and dtype (``models/packed_inference.py``).
 
-K4, K5, K6 and K11 also run in bf16, the ``--use_amp`` net's FAMs, rounded
+K4, K5, K6, K10 and K11 also run in bf16, the ``--use_amp`` net's, rounded
 where the JAX kernels round their bf16 instances (x.dtype bf16):
 
 - K4: x, k1, k32, k42, ka and kb in bf16, the biases f32, every product
@@ -59,14 +60,18 @@ where the JAX kernels round their bf16 instances (x.dtype bf16):
   output rounded to bf16;
 - K11: x * ca rounded to bf16, then * sa rounded to bf16;
 - K6: K11's two roundings, then an f32 product with the f32 w, the output
-  rounded to bf16.
+  rounded to bf16;
+- K10: d2, x1p and the four kernels (folded in f32) in bf16, the biases
+  f32, every tap summed in f32, then the bias and the ReLU in f32; y1 and
+  y2 rounded to bf16, x1p added to the third stage's f32 output before its
+  one rounding (y3), the output rounded to bf16.
 
 ``ca_vec`` and K6's ``w`` stay f32 in bf16 too (the JAX kernels take them
 so; ca is rounded to bf16 inside, exactly, as the net's ca is bf16); ``sa``
 is in x's dtype. ``BF16_LAUNCHES`` counts the bf16 instances apart
-(``fam_conv_fused_bf16``, ``fam_conv_y_bf16``, ..., ``fam_tail_apply_bf16``).
+(``fam_conv_fused_bf16``, ``fam_conv_y_bf16``, ..., ``dec1_rc_bf16``).
 
-Activations are f32 NHWC (K4-K6, K11 and K12: f32 or bf16), kernels HWIO, ``ca_vec``
+Activations are f32 or bf16 NHWC, kernels HWIO, ``ca_vec``
 [B,128] (the 32-channel attention tiled per quadrant), ``sa`` [B,h,w,4]:
 the JAX layouts, so the same numpy weights go to both packages. The TPU's
 tile gates (``fam_conv_supported``, ``fam_tail_supported``,
@@ -106,13 +111,15 @@ KERNEL_LAUNCHES = {
     "dec1_up": 0, "dec1_c1": 0, "dec1_c2": 0, "dec1_rc": 0,
     "fam_dual_y_pipelined": 0, "fam_dual_y_wgmma": 0, "fam_dual_out_pipelined": 0, "fam_dual_out_wgmma": 0,
 }
-# The bf16 instances of K4-K6 and K11 since the last reset_launches(): the
-# wrappers' launches and the kernels' (K4's stages, K6's two instances),
-# counted apart from the f32 ones above under the same names + "_bf16".
+# The bf16 instances of K4-K6, K10 and K11 since the last reset_launches():
+# the wrappers' launches and the kernels' (K4's and K10's stages, K6's two
+# instances), counted apart from the f32 ones above under the same names +
+# "_bf16".
 BF16_LAUNCHES = {
     "fam_conv_fused_bf16": 0, "fam_tail_stats_bf16": 0, "fam_tail_apply_g1_bf16": 0, "fam_tail_apply_bf16": 0,
     "fam_conv_y_bf16": 0, "fam_conv_z_bf16": 0, "fam_conv_out_bf16": 0, "fam_tail_apply_g1_diag_bf16": 0,
-    "fam_tail_apply_g1_dense_bf16": 0,
+    "fam_tail_apply_g1_dense_bf16": 0, "dec1_chain_bf16": 0, "dec1_up_bf16": 0, "dec1_c1_bf16": 0,
+    "dec1_c2_bf16": 0, "dec1_rc_bf16": 0,
 }
 _FAM_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -520,10 +527,11 @@ _K10_SHAPES = {
 
 @dataclasses.dataclass(frozen=True)
 class Dec1Packed:
-    """K10's weights, made once by ``pack_dec1_chain``: the eight tensors as
-    given (the plain versions read them; the biases, [128] f32 = Cout_pad,
-    are also the kernels' padded biases) and each kernel as
-    ``conv_pallas.pack_pipelined`` packs it."""
+    """K10's weights, made once by ``pack_dec1_chain``: the eight f32
+    tensors as given (the plain versions read them; the biases, [128] f32 =
+    Cout_pad, are also the kernels' padded biases) and each kernel in the
+    layout of `dtype`'s kernel: ``conv_pallas.pack_pipelined`` (f32) or
+    ``pack_wgmma`` (bf16, rounded once)."""
 
     k_up: torch.Tensor
     b_up: torch.Tensor
@@ -537,6 +545,7 @@ class Dec1Packed:
     c1_packed: torch.Tensor
     c2_packed: torch.Tensor
     rc_packed: torch.Tensor
+    dtype: torch.dtype = torch.float32
 
     def weights(self) -> tuple:
         """The weights as given, in ``dec1_chain``'s order."""
@@ -548,100 +557,116 @@ def _check_k10_weights(weights, device, what: str) -> None:
         _check(t, f"{what} {name}", shape, device)
 
 
-def pack_dec1_chain(k_up, b_up, k_c1, b_c1, k_c2, b_c2, k_rc, b_rc) -> Dec1Packed:
-    """K10's weights in both forms, from one set (once per model in
-    ``models/packed_inference.py``)."""
+def pack_dec1_chain(k_up, b_up, k_c1, b_c1, k_c2, b_c2, k_rc, b_rc, dtype: torch.dtype = torch.float32) -> Dec1Packed:
+    """K10's weights in both forms, from one f32 set, for K10's `dtype`
+    instance (once per model in ``models/packed_inference.py``)."""
     weights = (k_up, b_up, k_c1, b_c1, k_c2, b_c2, k_rc, b_rc)
     _check_k10_weights(weights, k_up.device, "pack_dec1_chain")
-    return Dec1Packed(*weights, *(pack_pipelined(k) for k in (k_up, k_c1, k_c2, k_rc)))
+    if dtype not in _FAM_DTYPES:
+        raise ValueError(f"pack_dec1_chain: dtype must be float32 or bfloat16, got {dtype}")
+    pack = pack_pipelined if dtype == torch.float32 else pack_wgmma
+    return Dec1Packed(*weights, *(pack(k) for k in (k_up, k_c1, k_c2, k_rc)), dtype=dtype)
 
 
 def dec1_chain_plain(d2, x1p, k_up, b_up, k_c1, b_c1, k_c2, b_c2, k_rc, b_rc):
     """Plain version of K10: 1x1 + b_up; ReLU(3x3); ReLU(3x3) + x1p;
-    ReLU(3x3), each 3x3 with 'SAME' zero padding."""
-    dev = d2.device
-    y = conv_nhwc(d2, hwio_to_oihw(k_up).to(dev), b_up)
-    y = torch.relu(conv_nhwc(y, hwio_to_oihw(k_c1).to(dev), b_c1, (1, 1)))
-    y = torch.relu(conv_nhwc(y, hwio_to_oihw(k_c2).to(dev), b_c2, (1, 1))) + x1p
-    return torch.relu(conv_nhwc(y, hwio_to_oihw(k_rc).to(dev), b_rc, (1, 1)))
+    ReLU(3x3), each 3x3 with 'SAME' zero padding; in f32 with the kernels
+    rounded to d2.dtype and each stage's output rounded to it (y1, y2, y3
+    after the f32 residual add, the output), the JAX kernel's roundings."""
+    y = dec1_up_plain(d2, k_up, b_up)
+    y = dec1_conv_plain(y, k_c1, b_c1)
+    y = dec1_conv_plain(y, k_c2, b_c2, x1p)
+    return dec1_conv_plain(y, k_rc, b_rc)
 
 
 def dec1_up_plain(d2, k_up, b_up):
-    """Plain version of K10's first stage: y1 = d2 @ k_up + b_up (a 1x1)."""
-    return conv_nhwc(d2, hwio_to_oihw(k_up).to(d2.device), b_up)
+    """Plain version of K10's first stage: y1 = d2 @ k_up + b_up (a 1x1), in
+    f32 with k_up rounded to d2.dtype, y1 rounded to it."""
+    return conv_nhwc(d2.float(), _oihw_as(k_up, d2.dtype, d2.device), b_up).to(d2.dtype)
 
 
 def dec1_conv_plain(y, k, b, residual=None):
     """Plain version of K10's 3x3 stages: relu(conv3(y, k) + b), then
-    + residual where given (``dec1_c2``'s x1p)."""
-    out = torch.relu(conv_nhwc(y, hwio_to_oihw(k).to(y.device), b, (1, 1)))
-    return out if residual is None else out + residual
+    + residual where given (``dec1_c2``'s x1p), in f32 with k rounded to
+    y.dtype, rounded to it once."""
+    out = torch.relu(conv_nhwc(y.float(), _oihw_as(k, y.dtype, y.device), b, (1, 1)))
+    return (out if residual is None else out + residual.float()).to(y.dtype)
 
 
 def dec1_up(d2, p: Dec1Packed):
-    """K10's first stage, d2 @ k_up + b_up: d2 [B,H,W,64] -> [B,H,W,128]."""
-    _check(d2, "dec1_up d2", (None, None, None, D2_C), p.k_up.device)
+    """K10's first stage, d2 @ k_up + b_up: d2 [B,H,W,64] in ``p.dtype`` ->
+    [B,H,W,128] in it: f32 on conv_pipelined, bf16 on conv_wgmma."""
+    _check(d2, "dec1_up d2", (None, None, None, D2_C), p.k_up.device, p.dtype)
     if d2.device.type == "cpu":
         return dec1_up_plain(d2, p.k_up, p.b_up)
-    y = launch_pipelined(d2, p.up_packed, p.b_up, C, 1, 1, False)
-    KERNEL_LAUNCHES["dec1_up"] += 1
+    if p.dtype == torch.float32:
+        y = launch_pipelined(d2, p.up_packed, p.b_up, C, 1, 1, False)
+    else:
+        y = launch_wgmma(d2, p.up_packed, p.b_up, C, 1, 1, 1, 0, 0, False)
+    _count(KERNEL_LAUNCHES, "dec1_up", p.dtype)
     return y
 
 
-def _dec1_conv(name: str, y, k, kp, b, residual=None):
-    """One of K10's 3x3 stages on conv_pipelined (its epilogue adds the
-    residual after the ReLU)."""
-    _check(y, f"{name} y", (None, None, None, C), k.device)
+def _dec1_conv(name: str, y, k, kp, b, p: Dec1Packed, residual=None):
+    """One of K10's 3x3 stages in ``p.dtype``: f32 on conv_pipelined, bf16
+    on conv_wgmma (each epilogue adds the residual after the ReLU)."""
+    _check(y, f"{name} y", (None, None, None, C), k.device, p.dtype)
     if residual is not None:
-        _check(residual, f"{name} x1p", tuple(y.shape), y.device)
+        _check(residual, f"{name} x1p", tuple(y.shape), y.device, p.dtype)
     if y.device.type == "cpu":
         return dec1_conv_plain(y, k, b, residual)
-    out = launch_pipelined(y, kp, b, C, 3, 3, True, residual=residual)
-    KERNEL_LAUNCHES[name] += 1
+    if p.dtype == torch.float32:
+        out = launch_pipelined(y, kp, b, C, 3, 3, True, residual=residual)
+    else:
+        out = launch_wgmma(y, kp, b, C, 3, 3, 1, 1, 1, True, residual=residual)
+    _count(KERNEL_LAUNCHES, name, p.dtype)
     return out
 
 
 def dec1_c1(y1, p: Dec1Packed):
     """K10's second stage, relu(conv3(y1, k_c1) + b_c1), [B,H,W,128]."""
-    return _dec1_conv("dec1_c1", y1, p.k_c1, p.c1_packed, p.b_c1)
+    return _dec1_conv("dec1_c1", y1, p.k_c1, p.c1_packed, p.b_c1, p)
 
 
 def dec1_c2(y2, x1p, p: Dec1Packed):
     """K10's third stage, relu(conv3(y2, k_c2) + b_c2) + x1p, [B,H,W,128]."""
-    return _dec1_conv("dec1_c2", y2, p.k_c2, p.c2_packed, p.b_c2, residual=x1p)
+    return _dec1_conv("dec1_c2", y2, p.k_c2, p.c2_packed, p.b_c2, p, residual=x1p)
 
 
 def dec1_rc(y3, p: Dec1Packed):
     """K10's last stage (the residual_conv), relu(conv3(y3, k_rc) + b_rc)."""
-    return _dec1_conv("dec1_rc", y3, p.k_rc, p.rc_packed, p.b_rc)
+    return _dec1_conv("dec1_rc", y3, p.k_rc, p.rc_packed, p.b_rc, p)
 
 
 def dec1_chain(d2, x1p, k_up, b_up, k_c1, b_c1, k_c2, b_c2, k_rc, b_rc, packed: Dec1Packed | None = None):
     """K10: r = relu(conv3x3(relu(conv3x3(relu(conv3x3(d2 @ k_up + b_up) + b_c1))
     + b_c2) + x1p) + b_rc), the BN affines folded into k_c1/b_c1, k_c2/b_c2.
 
-    d2 [B,H,W,64]; x1p [B,H,W,128]; k_up [1,1,64,128]; k_c1, k_c2, k_rc
-    [3,3,128,128] HWIO; biases [128]. Returns r [B,H,W,128]. `packed`:
-    ``pack_dec1_chain`` of these very tensors, made once (the packed model's
-    dec1); packed on the call when None. On the card: ``dec1_up``,
-    ``dec1_c1``, ``dec1_c2``, ``dec1_rc``."""
+    d2 [B,H,W,64]; x1p [B,H,W,128], both f32 or both bf16; k_up [1,1,64,128];
+    k_c1, k_c2, k_rc [3,3,128,128] HWIO; biases [128]; the weights f32.
+    Returns r [B,H,W,128] in d2.dtype. `packed`: ``pack_dec1_chain`` of
+    these very tensors for d2.dtype, made once (the packed model's dec1);
+    packed on the call when None. On the card: ``dec1_up``, ``dec1_c1``,
+    ``dec1_c2``, ``dec1_rc``."""
     dev = d2.device
     weights = (k_up, b_up, k_c1, b_c1, k_c2, b_c2, k_rc, b_rc)
-    _check(d2, "dec1_chain d2", (None, None, None, D2_C), dev)
+    _check(d2, "dec1_chain d2", (None, None, None, D2_C), dev, _FAM_DTYPES)
     b, h, w, _ = d2.shape
-    _check(x1p, "dec1_chain x1p", (b, h, w, C), dev)
+    _check(x1p, "dec1_chain x1p", (b, h, w, C), dev, d2.dtype)
     _check_k10_weights(weights, dev, "dec1_chain")
     if packed is not None and any(u is not v for u, v in zip(packed.weights(), weights)):
         raise ValueError("dec1_chain: `packed` was not made by pack_dec1_chain from these weights")
+    if packed is not None and packed.dtype != d2.dtype:
+        raise ValueError(f"dec1_chain: `packed` is for {packed.dtype}, d2 is {d2.dtype}")
     if dev.type == "cpu":
         return dec1_chain_plain(d2, x1p, *weights)
     _kernels.stream(d2)  # a tensor off the card raises before any packing
-    p = pack_dec1_chain(*weights) if packed is None else packed
+    p = pack_dec1_chain(*weights, dtype=d2.dtype) if packed is None else packed
     # Each intermediate is released once its consumer has been queued.
     y = dec1_c1(dec1_up(d2, p), p)
     y = dec1_c2(y, x1p, p)
     out = dec1_rc(y, p)
-    LAUNCHES["dec1_chain"] += 1
+    _count(LAUNCHES, "dec1_chain", d2.dtype)
     return out
 
 

@@ -1,6 +1,10 @@
 """The training loop of the port (``--mode train``) on one device.
 
-Counterpart of ``retinex_tpu/train/trainer.py`` (the standard, f32 step):
+Counterpart of ``retinex_tpu/train/trainer.py`` (the standard step, in f32
+or, with ``--use_amp``, with the net and VGG19 computing in bf16 and the
+parameters and the optimizer's state in f32, as the JAX trainer's
+``compute_dtype``; ``--remat`` checkpoints the net's blocks, as the JAX
+net's ``remat=``):
 
 - each batch goes to the device as uint8, is augmented there
   (``data/augment.py``, a generator seeded with ``seed + 1``) and takes one
@@ -54,13 +58,6 @@ LOG_KEYS = ("total", "exposure", "smoothness", "color", "spatial", "decouple", "
 
 def check_supported(config: Config) -> None:
     """Raise for the training options of later slices (ROADMAP Queue 1)."""
-    if config.use_amp:
-        raise NotImplementedError(
-            "bf16 training (--use_amp with --mode train: the train-mode net and VGG19 in bf16) lands in ROADMAP "
-            "Queue 1 item 3b; --use_amp runs with --mode enhance and predict"
-        )
-    if config.remat:
-        raise NotImplementedError("--remat lands with packed training, ROADMAP Queue 1 item 7")
     if (config.n_devices or 1) > 1 or config.coordinator:
         raise NotImplementedError("training on several devices or hosts lands in ROADMAP Queue 1 item 8")
 
@@ -70,7 +67,8 @@ def build_vgg(config: Config, device: torch.device):
     exported torchvision weights (``--vgg_weights``) or the default draw."""
     if not config.use_perceptual_loss:
         return None
-    vgg = load_npz(config.vgg_weights) if config.vgg_weights else default_vgg()
+    dtype = config.compute_dtype
+    vgg = load_npz(config.vgg_weights, dtype) if config.vgg_weights else default_vgg(dtype)
     return vgg.to(device).eval()
 
 
@@ -147,9 +145,18 @@ def _train_impl(config: Config, preempted: dict) -> dict:
     if device.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False  # as the CLI's inference
     print(f"Training on {device}")
 
-    model = init_untrained(MultiScaleUPRetinex(use_preact=config.use_preact, use_aspp=config.use_aspp), config.seed)
+    model = init_untrained(
+        MultiScaleUPRetinex(use_preact=config.use_preact, use_aspp=config.use_aspp, dtype=config.compute_dtype,
+                            remat=config.remat),
+        config.seed,
+    )
+    if config.use_amp:
+        print("Computing the net and VGG19 in bf16 (--use_amp); parameters and optimizer state in f32")
+    if config.remat:
+        print("Rematerialising the net's blocks and scale towers in the backward (--remat)")
     criterion = build_criterion(config, device)
     epoch_schedule = build_schedule(config)
 

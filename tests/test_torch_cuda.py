@@ -9,6 +9,7 @@ dependencies, without the repository's conftest::
 """
 
 import dataclasses
+import math
 
 import pytest
 import torch
@@ -237,7 +238,8 @@ def test_fam_bf16_kernels_match_plain_versions(cuda_f32, shape):
     assert fb.BF16_LAUNCHES == {
         "fam_conv_fused_bf16": 1, "fam_tail_stats_bf16": 1, "fam_tail_apply_g1_bf16": 2, "fam_tail_apply_bf16": 1,
         "fam_conv_y_bf16": 2, "fam_conv_z_bf16": 2, "fam_conv_out_bf16": 2, "fam_tail_apply_g1_diag_bf16": 1,
-        "fam_tail_apply_g1_dense_bf16": 1,
+        "fam_tail_apply_g1_dense_bf16": 1, "dec1_chain_bf16": 0, "dec1_up_bf16": 0, "dec1_c1_bf16": 0,
+        "dec1_c2_bf16": 0, "dec1_rc_bf16": 0,
     }
     assert all(v == 0 for v in (*fb.LAUNCHES.values(), *fb.KERNEL_LAUNCHES.values()))
     _one_bf16_ulp(y, y_plain)
@@ -292,6 +294,59 @@ def test_dec1_chain_matches_plain_version(cuda_f32, shape):
     for out, want in zip(stages, (y1, y2, y3, fb.dec1_conv_plain(y3, k_rc, b_rc))):
         assert out.shape == want.shape and float((out - want).abs().max()) <= 1e-4
     assert float((got - fb.dec1_chain_plain(d2, x1p, *weights)).abs().max()) <= 1e-4
+    assert torch.equal(fb.dec1_chain(d2, x1p, *weights), got)
+    for j in range(b):
+        assert torch.equal(fb.dec1_chain(d2[j : j + 1].contiguous(), x1p[j : j + 1].contiguous(), *weights), got[j : j + 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 37, 53), (1, 136, 240)])
+def test_dec1_chain_bf16_matches_plain_version(cuda_f32, shape):
+    """K10 in bf16 (its four stages on conv_wgmma, dec1_c2 with the residual
+    epilogue) against its bf16 plain version: each stage on the plain
+    previous stage's output within one output ulp (rtol and atol 1e-2, as
+    the conv_wgmma tests below), the chain whole within one ulp at its
+    largest output (chip_smoke.K10_BF16's note: three intermediate
+    roundings, each of which may go the other way and move the later sums
+    near 0 by more than their own ulp), inputs scaled as the f32 test; the
+    residual epilogue leaves the
+    stage without it alone (dec1_c2 minus x1p's add is dec1_c1's function);
+    each image of the batch equals the kernels on it alone."""
+    g = cuda_f32
+    b, h, w = shape
+    bf = torch.bfloat16
+
+    def n(*s, scale=1.0):
+        return torch.randn(s, generator=g, device="cuda") * scale
+
+    d2, x1p = n(b, h, w, 64, scale=0.3).to(bf), n(b, h, w, 128, scale=0.3).abs().to(bf)
+    weights = [n(1, 1, 64, 128, scale=0.1), n(128, scale=0.1)]
+    for _ in range(3):
+        weights += [n(3, 3, 128, 128, scale=0.05), n(128, scale=0.1)]
+    k_up, b_up, k_c1, b_c1, k_c2, b_c2, k_rc, b_rc = weights
+    p = fb.pack_dec1_chain(*weights, dtype=bf)
+    y1 = fb.dec1_up_plain(d2, k_up, b_up)
+    y2 = fb.dec1_conv_plain(y1, k_c1, b_c1)
+    y3 = fb.dec1_conv_plain(y2, k_c2, b_c2, x1p)
+    fb.reset_launches()
+    stages = [fb.dec1_up(d2, p), fb.dec1_c1(y1, p), fb.dec1_c2(y2, x1p, p), fb.dec1_rc(y3, p)]
+    got = fb.dec1_chain(d2, x1p, *weights, packed=p)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in fb.BF16_LAUNCHES.items() if v} == {
+        "dec1_chain_bf16": 1, "dec1_up_bf16": 2, "dec1_c1_bf16": 2, "dec1_c2_bf16": 2, "dec1_rc_bf16": 2,
+    }
+    assert all(v == 0 for v in (*fb.LAUNCHES.values(), *fb.KERNEL_LAUNCHES.values()))
+    for out, want in zip(stages, (y1, y2, y3, fb.dec1_conv_plain(y3, k_rc, b_rc))):
+        assert out.dtype == want.dtype == bf and out.shape == want.shape
+        torch.testing.assert_close(out.float(), want.float(), rtol=1e-2, atol=1e-2)
+    want = fb.dec1_chain_plain(d2, x1p, *weights)
+    ulp = 2.0 ** (int(math.floor(math.log2(float(want.float().abs().max())))) - 7)
+    assert got.dtype == want.dtype == bf and float((got.float() - want.float()).abs().max()) <= ulp
+    # Without x1p the third stage's launch is the residual-free instance.
+    no_res = fb.launch_wgmma(y2, p.c2_packed, b_c2, 128, 3, 3, 1, 1, 1, True)
+    assert torch.equal(no_res, fb.launch_wgmma(y2, p.c2_packed, b_c2, 128, 3, 3, 1, 1, 1, True,
+                                               residual=torch.zeros_like(x1p)))
+    torch.testing.assert_close(no_res.float(), fb.dec1_conv_plain(y2, k_c2, b_c2).float(), rtol=1e-2, atol=1e-2)
     assert torch.equal(fb.dec1_chain(d2, x1p, *weights), got)
     for j in range(b):
         assert torch.equal(fb.dec1_chain(d2[j : j + 1].contiguous(), x1p[j : j + 1].contiguous(), *weights), got[j : j + 1])

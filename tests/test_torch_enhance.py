@@ -191,7 +191,7 @@ def test_cli_routes_write_three_pngs(tmp_path, route):
     "args",
     [
         ["--spatial_shard", "--classical_mode", "clahe"],
-        ["--mode", "train", "--use_amp"],
+        ["--mode", "train", "--use_amp", "--coordinator", "localhost:1"],
         ["--n_devices", "2"],
     ],
 )

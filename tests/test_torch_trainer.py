@@ -156,7 +156,8 @@ def test_loss_falls_over_a_short_run(tiny_dataset, tmp_path):
 def test_early_stopping_and_unported_options(tiny_dataset, tmp_path):
     cfg = _config(tiny_dataset, tmp_path / "ckpt", num_epochs=5, lr=0.0, patience=1, use_perceptual_loss=False)
     assert train(cfg)["epochs_run"] < 5
-    for flags in (dict(use_amp=True), dict(remat=True), dict(n_devices=2), dict(coordinator="localhost:1")):
+    for flags in (dict(n_devices=2), dict(use_amp=True, n_devices=2), dict(coordinator="localhost:1"),
+                  dict(remat=True, coordinator="localhost:1")):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
             train(_config(tiny_dataset, tmp_path / "x", **flags))
 

@@ -151,8 +151,9 @@ Phases (any failure raises and exits nonzero; no phase is skipped):
    1080x1920, and the FAM kernels' device ms per image; the Lab-CLAHE
    launches over the phase (float instances only).
 11. Device time by kernel (torch.profiler) over warm forwards of each route
-   at 1088x1920, the port's own kernels among them (K6 must show in the
-   packed forward), and the device's busy share of the forwards' wall time.
+   at 1088x1920, batch 1, the port's own kernels among them (K6 must show
+   in the packed forward), and the device's busy share of the forwards'
+   wall time (phase 21 does the same for the bf16 packed forward).
 12. K10 (dec1_chain, four conv_pipelined launches: dec1_up, the 1x1;
    dec1_c1; dec1_c2, whose epilogue adds x1p; dec1_rc) against its plain
    version (the cuDNN chain), TF32 off, its weights packed once
@@ -255,17 +256,22 @@ first and last image against the kernel on each alone (identical):
    the CLI for two steps with ``--mode predict --use_amp`` from its
    checkpoint (``amp_remat_cli``).
 21. bf16 inference (``amp_phase``): the bf16 instances of K4 (whole and by
-   stage; z f32), K5, K6 (both w layouts) and K11 against their bf16 plain
-   versions at the frame's FAM shapes, a ragged one and a directory chunk
-   (one bf16 ulp, two for K4 whole, ``AMP_ULPS``), timed against bounds at
-   989 TFLOP/s; ``--use_amp`` enhance at ``--max_size 1920`` and with no
-   flags (K11) and predict from phase 20's checkpoint through the CLI,
-   with their launch counts (``BF16_LAUNCHES``; the f32 FAM counts 0), the
-   PNGs against f32 from the same checkpoint (printed); the bf16 net on
+   stage; z f32; ``fam_conv_out`` on the tensor cores), K5, K6 (both w
+   layouts; the quadrant-diagonal one on the tensor cores) and K11 against
+   their bf16 plain versions at the frame's FAM shapes, a ragged one and a
+   directory chunk (one bf16 ulp, two for K4 whole, ``AMP_ULPS``), each
+   image of a batch equal to the kernel on it alone, timed against bounds
+   at 989 TFLOP/s with their share of the bound; ``--use_amp`` enhance at
+   ``--max_size 1920`` and with no flags (K11) and predict from phase 20's
+   checkpoint through the CLI, with their launch counts (``BF16_LAUNCHES``;
+   the f32 FAM counts 0), the PNGs against f32 from the same checkpoint
+   (printed); the bf16 net on
    the card against the port's bf16 CPU run at 288x512 and 264x480
    (``AMP_NET_TOL``; Lab-CLAHE of its output identical; end to end
    printed); the bf16 and f32 nets' ms at batch 1 and 8, packed and
-   standard, and end to end per photo; then K10 in bf16 (four
+   standard, and end to end per photo; the bf16 packed forward's device
+   time by kernel at batch 1 (``profile_phase``, as phase 11) with the
+   share of the two tensor-core FAM kernels; then K10 in bf16 (four
    ``conv_wgmma`` launches, ``dec1_c2`` through its residual epilogue) at
    phase 12's shapes, each stage within one output ulp of its plain
    version and the chain within one ulp at its largest output
@@ -1904,10 +1910,20 @@ def warm_phase(torch, modules, photo: Path, workdir: Path) -> dict[str, dict[str
     return med
 
 
-def profile_phase(torch, photo: Path) -> None:
-    """Phase 8: device time by kernel over 3 warm forwards of each route
-    (torch.profiler), and the device's busy share of the forwards' wall
-    time."""
+# The two bf16 FAM kernels that run on the tensor cores (fam_conv_out's and
+# the quadrant-diagonal K6's), by the profiler's kernel names: phase 21
+# prints their share of the bf16 packed forward.
+TENSOR_CORE_FAM = ("fam_conv_out_mma_kernel", "fam_tail_apply_g1_mma_kernel")
+
+
+def profile_phase(torch, photo: Path, amp: bool = False, checkpoint: str | None = None) -> None:
+    """Phase 11: device time by kernel over 3 warm forwards of each route
+    (torch.profiler) at batch 1, and the device's busy share of the
+    forwards' wall time. With `amp` (phase 21) the bf16 packed forward
+    alone, from `checkpoint`, and the share of its device time that the
+    two tensor-core FAM kernels (``TENSOR_CORE_FAM``) take."""
+    import dataclasses
+
     from torch.profiler import ProfilerActivity, profile
 
     from retinex_tpu_torch import cli
@@ -1917,8 +1933,10 @@ def profile_phase(torch, photo: Path) -> None:
     img, _ = load_image(str(photo), 1920)
     x = torch.from_numpy(img).to("cuda")[None]
     n = 3
-    for packed in (False, True):
-        fn = cli.build_apply_fn(Config(mode="enhance", packed_inference=packed), torch.device("cuda"))
+    for packed in (True,) if amp else (False, True):
+        cfg = Config(mode="enhance", packed_inference=packed, use_amp=amp)
+        fn = cli.build_apply_fn(cfg if checkpoint is None else dataclasses.replace(cfg, checkpoint=checkpoint),
+                                torch.device("cuda"))
         for _ in range(2):
             fn(x)
         torch.cuda.synchronize()
@@ -1932,19 +1950,25 @@ def profile_phase(torch, photo: Path) -> None:
         if not kernels:
             raise AssertionError("the profiler recorded no device time")
         device_ms = sum(e.self_device_time_total for e in kernels) / n / 1e3
-        route = "packed" if packed else "standard"
+        route = ("bf16 " if amp else "") + ("packed" if packed else "standard")
         print(
             f"  {route} forward: {device_ms:.3f} device ms of {wall_ms:.3f} wall ms per forward "
             f"(device busy {device_ms / wall_ms:.3f}); top kernels, device ms per forward:"
         )
         for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
             print(f"    {e.self_device_time_total / n / 1e3:9.3f}  x{e.count // n:<4d} {e.key[:90]}")
-        own = [e for e in kernels if any(k in e.key for k in ("fam_", "conv_pipelined"))]
+        own = [e for e in kernels if any(k in e.key for k in ("fam_", "conv_pipelined", "conv_wgmma"))]
         if packed and not any("fam_tail_apply_g1" in e.key for e in own):
             raise AssertionError("the packed forward's profile shows no K6 launch")
         print(f"  the port's kernels in the {route} forward, device ms per forward:{'' if own else ' none'}")
         for e in sorted(own, key=lambda e: -e.self_device_time_total):
             print(f"    {e.self_device_time_total / n / 1e3:9.4f}  x{e.count // n:<4d} {e.key[:90]}")
+        if amp:
+            tc = {k: sum(e.self_device_time_total for e in own if k in e.key) / n / 1e3 for k in TENSOR_CORE_FAM}
+            if not all(tc.values()):
+                raise AssertionError(f"the bf16 packed forward's profile lacks a tensor-core FAM kernel: {tc}")
+            print("  of which the tensor-core FAM kernels: " + ", ".join(f"{k} {v:.4f} ms" for k, v in tc.items())
+                  + f", together {sum(tc.values()):.4f} ms, {sum(tc.values()) / device_ms:.1%} of the device time")
 
 
 def conv_library(torch, x, k, b, relu: bool = True, residual=None, groups: int = 1):
@@ -3539,7 +3563,8 @@ def amp_phase(torch, modules, ckpt: str, workdir: Path) -> tuple[dict, dict]:
             ms=sum(r["ms"] for r in per), plain_ms=sum(r["plain_ms"] for r in per),
             bound=(sum(r["bound"][0] for r in per), per[0]["bound"][1]), dtype="bfloat16",
         )
-    stages = ", ".join(f"{n} {recs[n]['ms']:.4f} (bound {recs[n]['bound'][0]:.4f})" for n in K4_STAGES)
+    stages = ", ".join(f"{n} {recs[n]['ms']:.4f} (bound {recs[n]['bound'][0]:.4f}, "
+                       f"{recs[n]['bound'][0] / recs[n]['ms']:.1%})" for n in K4_STAGES)
     k4 = recs["fam_conv_fused"]
     print(f"  bf16 K4 device ms per image at 1088x1920 (scale-1 + scale-2 launches): {k4['ms']:.4f} against its bound "
           f"{k4['bound'][0]:.4f} ({k4['bound'][0] / k4['ms']:.1%} of it), plain {k4['plain_ms']:.4f}; by stage: "
@@ -3591,6 +3616,7 @@ def amp_phase(torch, modules, ckpt: str, workdir: Path) -> tuple[dict, dict]:
         got = check_pngs(out, frame.stem, (288, 512, 3) if max_size else (264, 480, 3))
         hold_to_cpu(torch, got, frame, max_size, packed=True, checkpoint=ckpt, use_amp=True)
     amp_net_times(torch, ckpt, photo)
+    profile_phase(torch, photo, amp=True, checkpoint=ckpt)
 
     print("  K10 in bf16 (NetCfg(dec1_chain=True) with --use_amp): four conv_wgmma launches")
     for name, (cin, taps, _) in K10_STAGES.items():

@@ -7,10 +7,12 @@
 //   fam_conv_out_kernel       K4's last stage: relu(z + x @ ka + maxpool(x) @
 //                             kb) -> [B, H, W, 128], after K4's two 3x3
 //                             convolutions (y, z) on conv_pipelined.cu (f32)
-//                             or conv_wgmma.cu (bf16, z in f32)
+//                             or conv_wgmma.cu (bf16, z in f32); in bf16
+//                             fam_conv_out_mma_kernel, on the tensor cores
 //   fam_tail_stats_kernel     x * ca -> per-quadrant channel mean/max [B,H,W,8]
 //   fam_tail_apply_g1_kernel  (x * ca * sa per quadrant) @ W -> [B,H,W,Cout]
-//                             (templated: W dense or quadrant-block-diagonal)
+//                             (templated: W dense or quadrant-block-diagonal;
+//                             bf16 with a diagonal W: fam_tail_apply_g1_mma_kernel)
 //   fam_tail_apply_kernel     x * ca * sa per quadrant -> [B,H,W,128] (the
 //                             tail where the tower's fusion does not fold)
 //
@@ -18,23 +20,29 @@
 // dtype, shape and contiguity, allocate every output, and pass PyTorch's
 // current stream. Each launch function returns cudaGetLastError().
 //
-// Each kernel is templated on the activations' element type T: f32, or bf16
-// for the --use_amp net, whose instances round where the JAX kernels round
-// their bf16 instances (T = bf16 there: a bf16 x bf16 product is exact in
+// Each function has an instance for the activations' element type T, f32
+// or bf16 (templated on T, but for the two bf16 kernels of their own named
+// below); the bf16 instances, the --use_amp net's, round where the JAX
+// kernels round their bf16 instances (a bf16 x bf16 product is exact in
 // f32 and rounded to bf16 once, so it equals JAX's bf16 multiply):
 //   fam_conv_out   x, ka, kb bf16; z f32 (K4 never rounds it); the products
 //                  summed in f32; the output rounded once;
 //   tail_stats     x * ca rounded; means and maxima in f32; output rounded;
 //   tail_apply_g1  x * ca rounded, * sa rounded; the product with the f32 w
-//                  in f32; the output rounded;
+//                  in f32 (quadrant-diagonal w: by its three bf16 pieces,
+//                  whose products are exact); the output rounded;
 //   tail_apply     x * ca rounded, * sa rounded.
 // ca and w are f32 in both (ca is rounded to T inside, as the JAX kernels
 // cast it to x.dtype); sa is in T. The f32 instances compute what they did
 // before the templates, bit for bit.
 //
-// Arithmetic is f32 on the CUDA cores (no TF32, no tensor cores). The dot
-// products call fmaf explicitly; the file builds with -fmad=false like the
-// other sources, which only keeps the compiler from contracting anything else.
+// Arithmetic is f32 on the CUDA cores (no TF32, no tensor cores), but for
+// two bf16 instances that run their products on the tensor cores
+// (mma.sync bf16 x bf16 with f32 accumulation): fam_conv_out's
+// (fam_conv_out_mma_kernel) and the quadrant-diagonal tail_apply_g1's
+// (fam_tail_apply_g1_mma_kernel). The CUDA-core dot products call fmaf
+// explicitly; the file builds with -fmad=false like the other sources,
+// which only keeps the compiler from contracting anything else.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -125,8 +133,8 @@ __host__ __device__ constexpr int px_stride() {
 //   out = relu(z + [x | maxpool3x3(x)] @ [ka; kb]).
 //
 // In bf16 y and z run on conv_wgmma.cu's tensor cores (z in its f32-output
-// mode, since the JAX kernel never rounds it); this kernel reads bf16 x and
-// [ka; kb], f32 z, and rounds the output once.
+// mode, since the JAX kernel never rounds it), and this stage on
+// fam_conv_out_mma_kernel below. This kernel is the f32 instance.
 //
 // Bound on the card: operations - 2 * 256 * 128 FLOP per packed pixel
 // against 1.5 KB moved (z and x in, out), 0.54 ms at 67 TFLOP/s for the
@@ -153,12 +161,9 @@ constexpr int kOutPix = kOutTH * kOutTW;                        // 64
 constexpr int kWRows = 16;                                      // rows of [ka; kb] per stage
 constexpr int kOutThreads = kOutTH * 32;                        // 16 threads per 8-pixel row half
 constexpr int kOutBlocks = 2;                                   // blocks per SM the smem allows
-// Shared memory: the x tile, the pooled tile (both px_stride<T>() a pixel)
-// and two stages of [ka; kb] rows, in T: 107,200 B in f32, 54,976 B in bf16.
-template <typename T>
-constexpr size_t out_smem() {
-  return sizeof(T) * ((size_t)(kOutHaloPx + kOutPix) * px_stride<T>() + 2 * kWRows * kC);
-}
+// Shared memory: the x tile, the pooled tile (both px_stride<float>() a
+// pixel) and two stages of [ka; kb] rows: 107,200 B.
+constexpr size_t kOutSmem = sizeof(float) * ((size_t)(kOutHaloPx + kOutPix) * px_stride<float>() + 2 * kWRows * kC);
 static_assert(kOutThreads == kOutPix / 8 * 16, "16 threads own 8 pixels' 128 channels");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -192,10 +197,10 @@ __device__ __forceinline__ void fma_px(float (&acc)[8], const float4 x, const fl
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kOutThreads, kOutBlocks)
-    fam_conv_out_kernel(const float* __restrict__ z, const T* __restrict__ x, const T* __restrict__ w,
-                        T* __restrict__ out, int H, int W) {
+    fam_conv_out_kernel(const float* __restrict__ z, const float* __restrict__ x, const float* __restrict__ w,
+                        float* __restrict__ out, int H, int W) {
+  using T = float;  // the f32 instance only; bf16 runs fam_conv_out_mma_kernel
   using E = Elem<T>;
   constexpr int kS = px_stride<T>();          // elements per pixel row in shared memory
   constexpr int kCh = kC / chunk_elems<T>();  // 16-byte chunks per pixel
@@ -299,6 +304,259 @@ __global__ void __launch_bounds__(kOutThreads, kOutBlocks)
 }
 
 // ---------------------------------------------------------------------------
+// K4's last stage in bf16, on the tensor cores (fam_conv_out_mma_kernel):
+// fam_conv_out_kernel's function, out = relu(z + [x | maxpool3x3(x)] @
+// [ka; kb]) per packed pixel, x and [ka; kb] bf16, z f32, the output
+// rounded to bf16 once.
+//
+// Bound on the card: bytes. Its 2 * 256 * 128 FLOP a packed pixel take
+// 0.037 ms per 1088x1920 image at 989 TFLOP/s, against 1,024 B moved (z 512
+// in, x 256 in, out 256): 0.1697 ms at 3.35 TB/s for the image's 554,880
+// packed pixels, 4.6 FLOP a byte. On the CUDA cores the FLOP alone take
+// 0.54 ms at 67 TFLOP/s, so the products go to the tensor cores. mma.sync
+// (m16n8k16, both operands from shared memory by ldmatrix) suffices at that
+// ratio: wgmma's asynchrony buys nothing for a stage the bytes bound, and
+// its A would still come from the pooled tile the block computes.
+//
+// Design:
+// - A persistent grid, one 256-thread block per SM, walks 8 x 16 tiles of
+//   packed pixels. [ka; kb], transposed to [128 columns][256] and rounded
+//   to bf16 once per model (pack_fam_conv), is the B operand: it comes into
+//   shared memory once and stays (rows padded to 528 B, so that ldmatrix
+//   meets no bank conflict; pixel rows are padded to 272 B likewise).
+// - The x tile with a halo of one packed pixel (zeros outside the image)
+//   streams in by cp.async into one of two buffers, and the tile's z into
+//   registers by 16-byte loads, both one tile ahead: each tile's loads are
+//   in flight under the previous tile's pooling and products.
+// - The block computes the pooled tile from the halo tile into shared
+//   memory, separably: a thread owns a packed column, 8 channels of each
+//   quadrant and two packed rows; it takes the 3-wide max along each of the
+//   six original rows it needs (four 16-byte loads a row), then the 3-high
+//   max down them. Exact in bf16. The pool is per ORIGINAL pixel, across
+//   quadrants (original row 2I + a is packed row I, quadrant row a); x >= 0
+//   (post-ReLU), so the zero halo equals 'SAME' -inf padding.
+// - Warp w owns tile rows 2(w/2) and 2(w/2) + 1 (two m16 tiles) and the
+//   64 columns 64(w%2).. (eight n8 tiles). Its accumulators start at z and
+//   take 16 k16 steps, over x's centre channels, then the pooled ones: per
+//   step two A and four B ldmatrix.x4 and sixteen mma.sync, f32
+//   accumulation.
+// - The B operand's columns are the output channels permuted
+//   (fused_blocks.mma_channels): in each block of 32, column 8s + 2t + e
+//   computes channel 8t + 2s + e, so the pairs of the four n8 tiles that
+//   lane (g, t) holds for a pixel are eight consecutive channels. A lane
+//   reads their z as two 16-byte loads and writes their output as one
+//   16-byte store, with no staging.
+// - The products are exact in f32 (bf16 x bf16) and are summed onto z in
+//   the tensor cores' order, not fmaf's: an output next to a bf16 rounding
+//   boundary may round the other way, one bf16 ulp.
+// ---------------------------------------------------------------------------
+constexpr int kMTH = 8, kMTW = 16;               // output tile, packed pixels
+constexpr int kMHW = kMTW + 2;                   // halo row, 18 pixels
+constexpr int kMHaloPx = (kMTH + 2) * kMHW;      // 180
+constexpr int kMPix = kMTH * kMTW;               // 128
+constexpr int kMThreads = 256;                   // 8 warps x (32 pixels x 64 columns)
+constexpr int kMK = 2 * kC;                      // 256: x's channels, then the pooled ones
+constexpr int kMXS = kC + 8;                     // bf16 a pixel row in shared memory (272 B)
+constexpr int kMWS = kMK + 8;                    // bf16 a B row in shared memory (528 B)
+// B, two halo tiles and the pooled tile: 200,320 B.
+constexpr size_t kMSmem = sizeof(__nv_bfloat16) * ((size_t)kC * kMWS + (size_t)(2 * kMHaloPx + kMPix) * kMXS);
+static_assert(kMThreads == kMTW * (kQ / 8) * (kMTH / 2), "pooling: a thread per column, 8-channel chunk and row pair");
+static_assert(kMThreads == 32 * (kMTH / 2) * 2, "a warp per two tile rows and 64 columns");
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+// d += a @ b: one m16n8k16 product, bf16 operands, f32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) { return *reinterpret_cast<const uint32_t*>(&v); }
+__device__ __forceinline__ __nv_bfloat162 as_bf16x2(uint32_t v) { return *reinterpret_cast<const __nv_bfloat162*>(&v); }
+// Two f32 rounded to bf16, the first in the low half (the lower address).
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) { return bf16x2_bits(__floats2bfloat162_rn(lo, hi)); }
+// The elementwise max of three rows of 8 bf16 (exact).
+__device__ __forceinline__ uint4 max3_bf16x8(uint4 a, uint4 b, uint4 c) {
+  auto m = [](uint32_t u, uint32_t v, uint32_t w) {
+    return bf16x2_bits(__hmax2(__hmax2(as_bf16x2(u), as_bf16x2(v)), as_bf16x2(w)));
+  };
+  return make_uint4(m(a.x, b.x, c.x), m(a.y, b.y, c.y), m(a.z, b.z, c.z), m(a.w, b.w, c.w));
+}
+
+__global__ void __launch_bounds__(kMThreads, 1)
+    fam_conv_out_mma_kernel(const float* __restrict__ z, const __nv_bfloat16* __restrict__ x,
+                            const __nv_bfloat16* __restrict__ wt, __nv_bfloat16* __restrict__ out, int H, int W,
+                            int tiles_x, int tiles_per_image, long long n_tiles) {
+  using bf16 = __nv_bfloat16;
+  extern __shared__ float4 smem[];
+  bf16* ws = reinterpret_cast<bf16*>(smem);  // B [128 columns][kMWS]
+  bf16* xs0 = ws + kC * kMWS;                // two halo tiles [kMHaloPx][kMXS]
+  bf16* ps = xs0 + 2 * kMHaloPx * kMXS;      // the pooled tile [kMPix][kMXS]
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31, g = lane >> 2, tq = lane & 3;
+  const int rp = warp >> 1, half = warp & 1;
+
+  struct Tile {
+    int b, r0, c0;
+  };
+  auto tile_at = [&](long long tile) {
+    const int rem = (int)(tile % tiles_per_image);
+    return Tile{(int)(tile / tiles_per_image), rem / tiles_x * kMTH, rem % tiles_x * kMTW};
+  };
+  auto load_x = [&](Tile tl, int stage) {  // one commit group
+    const bf16* xb = x + (size_t)tl.b * H * W * kC;
+    bf16* xs = xs0 + stage * kMHaloPx * kMXS;
+#pragma unroll 4
+    for (int i = t; i < kMHaloPx * (kC / 8); i += kMThreads) {
+      const int px = i >> 4, ch = i & 15;
+      const int gy = tl.r0 - 1 + px / kMHW, gx = tl.c0 - 1 + px % kMHW;
+      const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+      cp_async16(smem_u32(xs + px * kMXS + 8 * ch), in ? xb + ((size_t)gy * W + gx) * kC + 8 * ch : x, in ? 16 : 0);
+    }
+    cp_async_commit();
+  };
+  // z for this lane's accumulators: m16 tile mt (tile row 2 rp + mt), row hr
+  // (tile column g + 8 hr), channels 64 half + 32 q + 8 tq.. +7 (zeros
+  // outside the image).
+  auto load_z = [&](Tile tl, float4 (&zr)[2][2][2][2]) {
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int gy = tl.r0 + 2 * rp + mt, gx = tl.c0 + g + 8 * hr;
+        const bool in = gy < H && gx < W;
+        const float* zp = z + (((size_t)tl.b * H + (in ? gy : 0)) * W + (in ? gx : 0)) * kC + 64 * half + 8 * tq;
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          zr[mt][hr][q][0] = in ? ldg4(zp + 32 * q) : make_float4(0.f, 0.f, 0.f, 0.f);
+          zr[mt][hr][q][1] = in ? ldg4(zp + 32 * q + 4) : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      }
+  };
+
+  // B once: the global [128][256] rows into rows of kMWS (in the first commit group).
+#pragma unroll 4
+  for (int i = t; i < kC * (kMK / 8); i += kMThreads) cp_async16(smem_u32(ws + (i >> 5) * kMWS + 8 * (i & 31)), wt + 8 * i, 16);
+  long long tile = blockIdx.x;  // the grid is at most n_tiles
+  float4 zr[2][2][2][2];
+  load_x(tile_at(tile), 0);
+  load_z(tile_at(tile), zr);
+
+  // Per-lane shared-memory addresses. ldmatrix.x4 of A: lanes 0-15 give rows
+  // 0-15 at channels k.., lanes 16-31 the same rows at k + 8... Of B: lanes
+  // 0-7 and 8-15 give columns n..n+7 at k.. and k + 8.., lanes 16-31 the
+  // next eight columns.
+  const int arow = lane & 15, acol = 8 * (lane >> 4);
+  const bf16* b_lane = ws + (64 * half + (lane & 7) + 8 * (lane >> 4)) * kMWS + 8 * ((lane >> 3) & 1);
+  // The pooling thread's packed column, 8-channel chunk and row pair; in a
+  // quarter warp the eight columns of one chunk, 272 B apart (no conflict).
+  const int pj = (t & 7) + 8 * ((t >> 5) & 1), pchunk = (t >> 3) & 3, prow = t >> 6;
+
+  int stage = 0;
+#pragma unroll 1
+  for (; tile < n_tiles; tile += gridDim.x, stage ^= 1) {
+    const Tile tl = tile_at(tile);
+    float acc[2][8][4];  // [m16 tile][n8 tile 4q + s][row g: e, row g + 8: 2 + e]
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const float4 lo = zr[mt][hr][q][0], hi = zr[mt][hr][q][1];
+          const float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};  // channels 8 tq + 2 s + e
+#pragma unroll
+          for (int s = 0; s < 4; ++s) {
+            acc[mt][4 * q + s][2 * hr] = v[2 * s];
+            acc[mt][4 * q + s][2 * hr + 1] = v[2 * s + 1];
+          }
+        }
+    const long long next = tile + gridDim.x;
+    if (next < n_tiles) {
+      load_x(tile_at(next), stage ^ 1);
+      load_z(tile_at(next), zr);
+    } else {
+      cp_async_commit();  // an empty group keeps wait_group 1 exact
+    }
+    cp_async_wait<1>();
+    __syncthreads();  // this tile's x (and, the first time, B) landed
+    const bf16* xs = xs0 + stage * kMHaloPx * kMXS;
+
+    {  // The pooled tile. Original row R (relative to the tile's first) is
+       // halo row (R + 2) / 2, quadrant row R & 1; halo column j + 1 holds
+       // packed column j.
+      uint4 hm[6][2];  // the 3-wide max of original rows 4 prow - 1 + i, at quadrant columns 0 and 1
+#pragma unroll
+      for (int i = 0; i < 6; ++i) {
+        const int R = 4 * prow - 1 + i;
+        const bf16* rowp = xs + ((R + 2) >> 1) * kMHW * kMXS + (R & 1) * 2 * kQ + 8 * pchunk;
+        const uint4 l0 = *reinterpret_cast<const uint4*>(rowp + pj * kMXS + kQ);  // column 2 pj - 1
+        const uint4 l1 = *reinterpret_cast<const uint4*>(rowp + (pj + 1) * kMXS);       // 2 pj
+        const uint4 l2 = *reinterpret_cast<const uint4*>(rowp + (pj + 1) * kMXS + kQ);  // 2 pj + 1
+        const uint4 l3 = *reinterpret_cast<const uint4*>(rowp + (pj + 2) * kMXS);       // 2 pj + 2
+        hm[i][0] = max3_bf16x8(l0, l1, l2);
+        hm[i][1] = max3_bf16x8(l1, l2, l3);
+        if (i >= 2) {  // original row 4 prow + i - 2: packed row 2 prow + (i - 2) / 2, quadrant row i & 1
+          bf16* o = ps + ((2 * prow + ((i - 2) >> 1)) * kMTW + pj) * kMXS + (i & 1) * 2 * kQ + 8 * pchunk;
+          *reinterpret_cast<uint4*>(o) = max3_bf16x8(hm[i - 2][0], hm[i - 1][0], hm[i][0]);
+          *reinterpret_cast<uint4*>(o + kQ) = max3_bf16x8(hm[i - 2][1], hm[i - 1][1], hm[i][1]);
+        }
+      }
+    }
+    __syncthreads();  // the pooled tile is whole
+
+    const bf16* a_x[2];
+    const bf16* a_p[2];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const int tr = 2 * rp + mt;
+      a_x[mt] = xs + ((tr + 1) * kMHW + 1 + arow) * kMXS + acol;
+      a_p[mt] = ps + (tr * kMTW + arow) * kMXS + acol;
+    }
+#pragma unroll
+    for (int ks = 0; ks < kMK / 16; ++ks) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) ldmatrix_x4(a[mt], (ks < kC / 16 ? a_x[mt] : a_p[mt]) + 16 * (ks % (kC / 16)));
+#pragma unroll
+      for (int pr = 0; pr < 4; ++pr) {
+        uint32_t b[4];
+        ldmatrix_x4(b, b_lane + 16 * pr * kMWS + 16 * ks);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma_bf16(acc[mt][2 * pr], a[mt], b[0], b[1]);
+          mma_bf16(acc[mt][2 * pr + 1], a[mt], b[2], b[3]);
+        }
+      }
+    }
+
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int gy = tl.r0 + 2 * rp + mt, gx = tl.c0 + g + 8 * hr;
+        if (gy < H && gx < W) {
+          bf16* op = out + (((size_t)tl.b * H + gy) * W + gx) * kC + 64 * half + 8 * tq;
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            uint32_t v[4];
+#pragma unroll
+            for (int s = 0; s < 4; ++s)
+              v[s] = pack_bf16x2(fmaxf(acc[mt][4 * q + s][2 * hr], 0.f), fmaxf(acc[mt][4 * q + s][2 * hr + 1], 0.f));
+            *reinterpret_cast<uint4*>(op + 32 * q) = make_uint4(v[0], v[1], v[2], v[3]);
+          }
+        }
+      }
+    __syncthreads();  // the pooled tile and this halo buffer are free
+  }
+  cp_async_wait<0>();
+}
+
+// ---------------------------------------------------------------------------
 // K5. Replaces retinex_tpu/ops/fused_blocks.py::_tail_stats_kernel
 // (pallas_call in fam_tail_stats). Bound on the card: bytes — 512 B read and
 // 32 B written per pixel for ~260 operations (half the bytes in bf16).
@@ -367,11 +625,12 @@ __global__ void fam_tail_stats_kernel(const T* __restrict__ x, const float* __re
 //   the same bits there.
 // - Outputs are stored as float4, each warp instruction 64 contiguous bytes
 //   of every pixel it writes. No TF32, no tensor cores.
-// - bf16 (T = bf16): the x tile and its sa stay bf16 in shared memory (a
-//   pixel row of 136 elements), the scaling rounds x * ca and then * sa to
-//   bf16 in place (lossless: the values are bf16), the products read them
-//   as f32 against the f32 w, and the outputs are rounded to bf16 (8-byte
-//   stores). Its bytes a pixel are half the f32 instance's.
+// - bf16 (T = bf16), the dense instance: the x tile and its sa stay bf16
+//   in shared memory (a pixel row of 136 elements), the scaling rounds x *
+//   ca and then * sa to bf16 in place (lossless: the values are bf16), the
+//   products read them as f32 against the f32 w, and the outputs are
+//   rounded to bf16 (8-byte stores). The quadrant-diagonal bf16 instance is
+//   fam_tail_apply_g1_mma_kernel, below.
 // ---------------------------------------------------------------------------
 constexpr int kG1Pix = 128;                                      // pixels per tile
 constexpr int kG1Threads = 256;
@@ -535,6 +794,192 @@ __global__ void __launch_bounds__(kG1Threads, 1)
   cp_async_wait<0>();
 }
 
+// ---------------------------------------------------------------------------
+// K6's quadrant-diagonal instance in bf16, on the tensor cores
+// (fam_tail_apply_g1_mma_kernel): out = round(round(x * ca) * sa of the
+// pixel's quadrant) @ w, x and sa bf16, ca and w f32, w's four diagonal
+// [32 x 32] blocks only, the output rounded to bf16 once.
+//
+// Bound on the card: bytes, 520 B a pixel (x 256 and sa 8 in, out 256),
+// 0.0861 ms per 1088x1920 image at 3.35 TB/s. The template's bf16 instance
+// moved half the f32 instance's bytes in the same time: its 8,448 FLOP a
+// pixel on the CUDA cores, the bf16 unpacking and the scaling pass over
+// shared memory set its pace.
+//
+// Design:
+// - No bf16 product takes the f32 w exactly, so pack_tail_g1 splits it once
+//   per model into three bf16 pieces, w0 = bf16(w), w1 = bf16(w - w0), w2 =
+//   w - w0 - w1 (exact in bf16): they sum to w, and each piece's products
+//   with a bf16 x are exact in f32, so the result departs from the plain
+//   f32 product by the order of summation only. The three [32 x 32]
+//   products a quadrant are ~14 GFLOP an image on the tensor cores.
+// - The pieces (fused_blocks.TailG1Packed.mma_w: [3][4 quadrants][32
+//   columns][32 k] bf16, the columns permuted as fam_conv_out_mma_kernel's)
+//   are the B operand. A warp's quadrant needs 48 registers of them, loaded
+//   once for the block's lifetime; shared memory holds only the x ring.
+// - The template's persistent grid and cp.async ring walk tiles of 128
+//   pixels, with four stages.
+// - Warp w owns quadrant w % 4 of pixel half w / 4: four m16 tiles. Each
+//   takes its A fragments (the raw x of its quadrant) by two ldmatrix.x4
+//   and scales them in registers: x * bf16(ca), rounded, then * sa of the
+//   pixel's quadrant, rounded (bf16x2 multiplies, each rounding once: the
+//   plain version's two roundings, with no pass over shared memory); then
+//   24 mma.sync with f32 accumulators.
+// - ca is per image: a lane keeps the bf16 ca of its eight channels for
+//   each of its two fragment rows and reloads it where the pixels cross into
+//   the next image.
+// - As in fam_conv_out_mma_kernel's epilogue, a lane holds eight
+//   consecutive output channels of a pixel and stores them as one 16-byte
+//   chunk.
+// ---------------------------------------------------------------------------
+constexpr int kG1MmaStages = 4;
+constexpr size_t kG1MmaSmem = sizeof(__nv_bfloat16) * kG1MmaStages * (size_t)g1_stage_elems<__nv_bfloat16>();
+
+// bf16(bf16(v * c) * s), lane by lane, on two bf16 pairs.
+__device__ __forceinline__ uint32_t scale_bf16x2(uint32_t v, uint32_t c, uint32_t s) {
+  return bf16x2_bits(__hmul2(__hmul2(as_bf16x2(v), as_bf16x2(c)), as_bf16x2(s)));
+}
+
+__global__ void __launch_bounds__(kG1Threads, 1)
+    fam_tail_apply_g1_mma_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ ca,
+                                 const __nv_bfloat16* __restrict__ sa, const __nv_bfloat16* __restrict__ wp,
+                                 __nv_bfloat16* __restrict__ out, long long hw, long long n_pix) {
+  using bf16 = __nv_bfloat16;
+  constexpr int kS = px_stride<bf16>();  // 136 elements a pixel row
+  constexpr int kCh = kC / 8;            // 16-byte chunks a pixel
+  extern __shared__ float4 smem[];
+  bf16* stages = reinterpret_cast<bf16*>(smem);  // kG1MmaStages x ([kG1Pix][kS] x, [kG1Pix][4] sa)
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31, g = lane >> 2, tq = lane & 3;
+  const int q = warp & 3, half = warp >> 2;
+  const long long n_tiles = (n_pix + kG1Pix - 1) / kG1Pix;
+
+  // B: piece i, k16 step kk, n8 tile j: column 8 j + g, k = 16 kk + 2 tq.. and + 8..
+  uint32_t bw[3][2][4][2];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bf16* r = wp + ((i * 4 + q) * kQ + 8 * j + g) * kQ + 16 * kk + 2 * tq;
+        bw[i][kk][j][0] = __ldg(reinterpret_cast<const unsigned int*>(r));
+        bw[i][kk][j][1] = __ldg(reinterpret_cast<const unsigned int*>(r + 8));
+      }
+
+  auto load_tile = [&](long long tile, int stage) {  // one commit group; zeros past n_pix
+    bf16* xs = stages + stage * g1_stage_elems<bf16>();
+    const long long p0 = tile * kG1Pix;
+#pragma unroll 4
+    for (int i = t; i < kG1Pix * kCh; i += kG1Threads) {
+      const int px = i / kCh, ch = i % kCh;
+      const bool in = p0 + px < n_pix;
+      cp_async16(smem_u32(xs + px * kS + 8 * ch), in ? x + (p0 + px) * kC + 8 * ch : x, in ? 16 : 0);
+    }
+    if (t < kG1Pix) {  // the pixel's 4 sa values
+      const bool in = p0 + t < n_pix;
+      cp_async8(smem_u32(xs + kG1Pix * kS + 4 * t), in ? sa + (p0 + t) * 4 : sa, in ? 8 : 0);
+    }
+    cp_async_commit();
+  };
+
+  // The ring, as the template's: tile i of this block in stage i % kG1MmaStages.
+#pragma unroll
+  for (int st = 0; st < kG1MmaStages - 1; ++st) {
+    const long long tile = blockIdx.x + (long long)st * gridDim.x;
+    if (tile < n_tiles) {
+      load_tile(tile, st);
+    } else {
+      cp_async_commit();
+    }
+  }
+  // ca of each fragment row (g, g + 8): where the image whose ca is held ends,
+  // and its bf16 values at channels 32 q + 16 kk + 8 h + 2 tq, +1 as [kk][h].
+  long long img_end[2] = {-1, -1};
+  uint32_t cab[2][2][2];
+  int stage = 0;
+#pragma unroll 1
+  for (long long tile = blockIdx.x; tile < n_tiles;
+       tile += gridDim.x, stage = stage + 1 == kG1MmaStages ? 0 : stage + 1) {
+    const long long ahead = tile + (long long)(kG1MmaStages - 1) * gridDim.x;
+    if (ahead < n_tiles) {
+      load_tile(ahead, stage == 0 ? kG1MmaStages - 1 : stage - 1);  // the stage computed last iteration
+    } else {
+      cp_async_commit();
+    }
+    cp_async_wait<kG1MmaStages - 1>();
+    __syncthreads();  // this tile landed
+
+    const bf16* xs = stages + stage * g1_stage_elems<bf16>();
+    const bf16* ss = xs + kG1Pix * kS;
+    const long long p0 = tile * kG1Pix;
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int r0 = 64 * half + 16 * m;  // the m16 tile's first pixel in the tile
+      uint32_t a[2][4];  // [kk]: rows g, g + 8 at channels 16 kk + 2 tq.., then the same at + 8
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) ldmatrix_x4(a[kk], xs + (r0 + (lane & 15)) * kS + kQ * q + 16 * kk + 8 * (lane >> 4));
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int row = r0 + g + 8 * hr;
+        const long long p = p0 + row;
+        if (p >= img_end[hr]) {  // the first row, or the next image (past n_pix: the last image's)
+          const long long img = min(p, n_pix - 1) / hw;
+          img_end[hr] = (img + 1) * hw;
+          const float* cp = ca + img * kC + kQ * q + 2 * tq;
+#pragma unroll
+          for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const float2 c = __ldg(reinterpret_cast<const float2*>(cp + 16 * kk + 8 * h));
+              cab[hr][kk][h] = pack_bf16x2(c.x, c.y);
+            }
+        }
+        const uint32_t s2 = bf16x2_bits(__bfloat162bfloat162(ss[4 * row + q]));
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          a[kk][hr] = scale_bf16x2(a[kk][hr], cab[hr][kk][0], s2);
+          a[kk][2 + hr] = scale_bf16x2(a[kk][2 + hr], cab[hr][kk][1], s2);
+        }
+      }
+      float acc[4][4] = {};
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mma_bf16(acc[j], a[kk], bw[i][kk][j][0], bw[i][kk][j][1]);
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const long long p = p0 + r0 + g + 8 * hr;
+        if (p < n_pix) {
+          *reinterpret_cast<uint4*>(out + p * kC + kQ * q + 8 * tq) =
+              make_uint4(pack_bf16x2(acc[0][2 * hr], acc[0][2 * hr + 1]), pack_bf16x2(acc[1][2 * hr], acc[1][2 * hr + 1]),
+                         pack_bf16x2(acc[2][2 * hr], acc[2][2 * hr + 1]), pack_bf16x2(acc[3][2 * hr], acc[3][2 * hr + 1]));
+        }
+      }
+    }
+    __syncthreads();  // this stage is free for the next load
+  }
+  cp_async_wait<0>();
+}
+
+int launch_tail_apply_g1_mma(const void* x, const void* ca, const void* sa, const void* w, void* out, long long n_pix,
+                             long long hw, void* stream) {
+  if (n_pix == 0) return 0;
+  cudaError_t err = cudaFuncSetAttribute(fam_tail_apply_g1_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kG1MmaSmem);
+  if (err != cudaSuccess) return (int)err;
+  int device = 0, sms = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) return (int)err;
+  const long long n_tiles = (n_pix + kG1Pix - 1) / kG1Pix;
+  const unsigned blocks = (unsigned)(n_tiles < sms ? n_tiles : sms);
+  fam_tail_apply_g1_mma_kernel<<<blocks, kG1Threads, kG1MmaSmem, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)x, (const float*)ca, (const __nv_bfloat16*)sa, (const __nv_bfloat16*)w,
+      (__nv_bfloat16*)out, hw, n_pix);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, bool kDiag>
 int launch_tail_apply_g1(const void* x, const void* ca, const void* sa, const void* w, void* out, long long n_pix,
                          long long hw, int cout, void* stream) {
@@ -580,14 +1025,31 @@ __global__ void fam_tail_apply_kernel(const T* __restrict__ x, const float* __re
                                      E::round(E::round(v.w * E::round(c.w)) * s)));
 }
 
-template <typename T>
+int launch_conv_out_mma(const void* z, const void* x, const void* w, void* out, int batch, int H, int W,
+                        void* stream) {
+  if (batch == 0 || H == 0 || W == 0) return 0;
+  cudaError_t err =
+      cudaFuncSetAttribute(fam_conv_out_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMSmem);
+  if (err != cudaSuccess) return (int)err;
+  int device = 0, sms = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) return (int)err;
+  const int tiles_x = (W + kMTW - 1) / kMTW, tiles_per_image = (H + kMTH - 1) / kMTH * tiles_x;
+  const long long n_tiles = (long long)batch * tiles_per_image;
+  const unsigned blocks = (unsigned)(n_tiles < sms ? n_tiles : sms);
+  fam_conv_out_mma_kernel<<<blocks, kMThreads, kMSmem, (cudaStream_t)stream>>>(
+      (const float*)z, (const __nv_bfloat16*)x, (const __nv_bfloat16*)w, (__nv_bfloat16*)out, H, W, tiles_x,
+      tiles_per_image, n_tiles);
+  return (int)cudaGetLastError();
+}
+
 int launch_conv_out(const void* z, const void* x, const void* w, void* out, int batch, int H, int W, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(fam_conv_out_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)out_smem<T>());
+  cudaError_t err =
+      cudaFuncSetAttribute(fam_conv_out_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kOutSmem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((W + kOutTW - 1) / kOutTW, (H + kOutTH - 1) / kOutTH, batch);
-  fam_conv_out_kernel<T><<<grid, kOutThreads, out_smem<T>(), (cudaStream_t)stream>>>(
-      (const float*)z, (const T*)x, (const T*)w, (T*)out, H, W);
+  fam_conv_out_kernel<<<grid, kOutThreads, kOutSmem, (cudaStream_t)stream>>>(
+      (const float*)z, (const float*)x, (const float*)w, (float*)out, H, W);
   return (int)cudaGetLastError();
 }
 
@@ -613,12 +1075,13 @@ int launch_tail_apply(const void* x, const void* ca, const void* sa, void* out, 
 extern "C" {
 
 // z [batch, H, W, 128] f32; x and out [batch, H, W, 128] f32, or bf16 where
-// is_bf16; w = [ka; kb] [256, 128] in x's type: out = relu(z + x @ ka +
-// maxpool3x3_s2d(x) @ kb).
+// is_bf16: out = relu(z + x @ ka + maxpool3x3_s2d(x) @ kb). w: [ka; kb]
+// [256, 128] f32, or for bf16 the tensor-core kernel's B, [ka; kb] in bf16
+// with its columns permuted and transposed, [128, 256] (pack_fam_conv).
 int fam_conv_out(const void* z, const void* x, const void* w, void* out, int batch, int H, int W, int is_bf16,
                  void* stream) {
-  return is_bf16 ? launch_conv_out<__nv_bfloat16>(z, x, w, out, batch, H, W, stream)
-                 : launch_conv_out<float>(z, x, w, out, batch, H, W, stream);
+  return is_bf16 ? launch_conv_out_mma(z, x, w, out, batch, H, W, stream)
+                 : launch_conv_out(z, x, w, out, batch, H, W, stream);
 }
 
 // x [batch, hw, 128] and out [batch, hw, 8] f32, or bf16 where is_bf16; ca
@@ -630,15 +1093,16 @@ int fam_tail_stats(const void* x, const void* ca, void* out, long long batch, lo
 }
 
 // x [batch, hw, 128], sa [batch, hw, 4] and out [batch, hw, cout] f32, or
-// bf16 where is_bf16; ca [batch, 128] f32; w f32 in the kernel's layout
-// (pack_tail_g1): the four diagonal [32, 32] blocks stacked to [128, 32]
-// when diag (cout 128), else [128, 128] with zero columns past cout (a
-// multiple of 4, at most 128).
+// bf16 where is_bf16; ca [batch, 128] f32; w in the kernel's layout
+// (pack_tail_g1): f32, the four diagonal [32, 32] blocks stacked to [128,
+// 32] when diag (cout 128), else [128, 128] with zero columns past cout (a
+// multiple of 4, at most 128); bf16 and diag: the three bf16 pieces of the
+// diagonal blocks, [3, 4, 32, 32] (TailG1Packed.mma_w).
 int fam_tail_apply_g1(const void* x, const void* ca, const void* sa, const void* w, void* out, long long batch,
                       long long hw, int cout, int diag, int is_bf16, void* stream) {
   const long long n = batch * hw;
   if (is_bf16) {
-    return diag ? launch_tail_apply_g1<__nv_bfloat16, true>(x, ca, sa, w, out, n, hw, cout, stream)
+    return diag ? launch_tail_apply_g1_mma(x, ca, sa, w, out, n, hw, stream)
                 : launch_tail_apply_g1<__nv_bfloat16, false>(x, ca, sa, w, out, n, hw, cout, stream);
   }
   return diag ? launch_tail_apply_g1<float, true>(x, ca, sa, w, out, n, hw, cout, stream)

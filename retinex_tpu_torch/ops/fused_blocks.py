@@ -54,13 +54,17 @@ where the JAX kernels round their bf16 instances (x.dtype bf16):
   convolution plus bias_total, NOT rounded (the JAX kernel sums all four
   branches in f32); the output rounded once. On the card ``fam_conv_y``
   and ``fam_conv_z`` run on ``csrc/conv_wgmma.cu`` (z in its f32-output
-  mode) and ``fam_conv_out`` in its bf16 instance, from the weights of one
+  mode) and ``fam_conv_out`` on the tensor cores
+  (``fam_conv_out_mma_kernel``), from the weights of one
   ``pack_fam_conv(..., dtype=torch.bfloat16)``;
 - K5: x * ca rounded to bf16, the quadrant means and maxima in f32, the
   output rounded to bf16;
 - K11: x * ca rounded to bf16, then * sa rounded to bf16;
 - K6: K11's two roundings, then an f32 product with the f32 w, the output
-  rounded to bf16;
+  rounded to bf16. On the card the quadrant-diagonal instance runs on the
+  tensor cores (``fam_tail_apply_g1_mma_kernel``) against w split into
+  three bf16 pieces that sum to it exactly (``split_bf16x3``, made by
+  ``pack_tail_g1``), the dense one on the CUDA cores;
 - K10: d2, x1p and the four kernels (folded in f32) in bf16, the biases
   f32, every tap summed in f32, then the bias and the ReLU in f32; y1 and
   y2 rounded to bf16, x1p added to the third stage's f32 output before its
@@ -163,7 +167,9 @@ class FamConvPacked:
     [128], all f32), which the plain versions read, and in the kernels'
     layouts for `dtype`: k1 and the stacked [k32; k42] as
     ``conv_pallas.pack_pipelined`` (f32) or ``pack_wgmma`` (bf16, rounded
-    once) packs them, and [ka; kb] [256,128] in `dtype`."""
+    once) packs them, and [ka; kb]: [256,128] f32, or in bf16 the tensor-core
+    kernel's B operand, [ka; kb] rounded to bf16 with its columns in
+    ``mma_channels`` order, transposed to [128, 256]."""
 
     ka: torch.Tensor
     kb: torch.Tensor
@@ -199,6 +205,18 @@ def stack_second_convs(k32, k42) -> torch.Tensor:
     return torch.cat([k32, k42], dim=2)
 
 
+def mma_channels(width: int) -> torch.Tensor:
+    """The output channel that each column of the tensor-core kernels' B
+    operand computes (``fam_conv_out_mma_kernel``,
+    ``fam_tail_apply_g1_mma_kernel``): in each block of 32 columns, column
+    8s + 2t + e gives channel 8t + 2s + e (s, t < 4, e < 2). An mma.sync
+    lane t holds columns 2t and 2t + 1 of each n8 tile s, so the four tiles'
+    pairs are eight consecutive channels, read and stored as one 16-byte
+    chunk. The order is its own inverse."""
+    n = torch.arange(width)
+    return 32 * (n // 32) + 8 * (n % 8 // 2) + 2 * (n % 32 // 8) + n % 2
+
+
 def pack_fam_conv(ka, kb, k1, b1, k32, k42, bias_total, dtype: torch.dtype = torch.float32) -> FamConvPacked:
     """K4's weights in both forms, from one f32 set, for K4's `dtype`
     instance (once per model and dtype in ``models/packed_inference.py``)."""
@@ -207,9 +225,12 @@ def pack_fam_conv(ka, kb, k1, b1, k32, k42, bias_total, dtype: torch.dtype = tor
     if dtype not in _FAM_DTYPES:
         raise ValueError(f"pack_fam_conv: dtype must be float32 or bfloat16, got {dtype}")
     pack = pack_pipelined if dtype == torch.float32 else pack_wgmma
+    kab = torch.cat([ka, kb], dim=0).to(dtype)
+    if dtype == torch.bfloat16:
+        kab = kab[:, mma_channels(C).to(kab.device)].t()
     return FamConvPacked(
-        *weights, k1_packed=pack(k1), k2_packed=pack(stack_second_convs(k32, k42)),
-        kab_packed=torch.cat([ka, kb], dim=0).to(dtype).contiguous(), dtype=dtype,
+        *weights, k1_packed=pack(k1), k2_packed=pack(stack_second_convs(k32, k42)), kab_packed=kab.contiguous(),
+        dtype=dtype,
     )
 
 
@@ -399,13 +420,18 @@ def fam_tail_apply_g1_plain(x, ca_vec, sa, w):
 class TailG1Packed:
     """K6's weights, made once by ``pack_tail_g1``: ``w`` [128, Cout] as
     given (the plain version reads it) and ``kernel_w`` in the kernel's
-    layout: where ``diag`` (``w`` quadrant-block-diagonal), the four
+    layout, f32: where ``diag`` (``w`` quadrant-block-diagonal), the four
     diagonal [32, 32] blocks stacked to [128, 32]; else ``w`` with zero
-    columns up to 128. f32 for both of K6's element types."""
+    columns up to 128. The dense instance reads it in both element types,
+    the quadrant-diagonal one in f32. ``mma_w`` (``diag`` only): what the
+    bf16 quadrant-diagonal instance reads, the blocks' three bf16 pieces
+    (``split_bf16x3``) as its B operand, [3 pieces, 4 quadrants, 32
+    columns in ``mma_channels`` order, 32 k]."""
 
     w: torch.Tensor
     kernel_w: torch.Tensor
     diag: bool
+    mma_w: torch.Tensor | None = None
 
 
 def _is_quadrant_diagonal(w: torch.Tensor) -> bool:
@@ -433,6 +459,20 @@ def _dense_tail_g1(w: torch.Tensor) -> TailG1Packed:
     return TailG1Packed(w, torch.nn.functional.pad(w, (0, C - w.shape[1])).contiguous(), False)
 
 
+def split_bf16x3(w: torch.Tensor) -> torch.Tensor:
+    """f32 `w` as three bf16 pieces [3, *w.shape] that sum to it exactly:
+    w0 = bf16(w), w1 = bf16(w - w0), w2 = w - w0 - w1. Each rounding to
+    nearest leaves a remainder of at most 16, then 7 significant bits, so
+    w2 is a bf16 value and the sum is exact (for |w| above 2**-110, where
+    no remainder falls below bf16's range). A bf16 x times each piece is
+    exact in f32: K6's tensor-core instance computes the f32 product by
+    these three."""
+    w0 = w.to(torch.bfloat16)
+    r = w - w0.float()
+    w1 = r.to(torch.bfloat16)
+    return torch.stack([w0, w1, (r - w1.float()).to(torch.bfloat16)])
+
+
 def pack_tail_g1(w: torch.Tensor) -> TailG1Packed:
     """K6's weights in both forms (once per model in
     ``models/packed_inference.py``): inspects ``w`` here, never on a call."""
@@ -440,19 +480,27 @@ def pack_tail_g1(w: torch.Tensor) -> TailG1Packed:
     if not _is_quadrant_diagonal(w):
         return _dense_tail_g1(w)
     q = C // 4
-    blocks = w.reshape(4, q, 4, q)[torch.arange(4), :, torch.arange(4), :]  # [4 (quadrant), 32, 32]
-    return TailG1Packed(w, blocks.reshape(C, q).contiguous(), True)
+    blocks = w.reshape(4, q, 4, q)[torch.arange(4), :, torch.arange(4), :]  # [4 (quadrant), 32 (k), 32]
+    pieces = split_bf16x3(blocks)[..., mma_channels(q).to(w.device)].transpose(-1, -2)
+    return TailG1Packed(w, blocks.reshape(C, q).contiguous(), True, pieces.contiguous())
 
 
-def _check_tail_g1_packed(packed: TailG1Packed, w: torch.Tensor, device: torch.device) -> None:
-    """`packed` was made from this very `w`, and its ``kernel_w`` has the
-    layout its instance reads: [128, 32] where ``diag`` (Cout 128), else
-    [128, 128]; f32, contiguous, on `device`."""
+def _check_tail_g1_packed(packed: TailG1Packed, w: torch.Tensor, dtype: torch.dtype, device: torch.device) -> None:
+    """`packed` was made from this very `w`, and the layout its instance
+    for `dtype` reads is there: ``kernel_w`` [128, 32] f32 where ``diag``
+    (Cout 128), else [128, 128]; in bf16 where ``diag``, ``mma_w`` [3, 4,
+    32, 32] bf16; contiguous, on `device`."""
     if packed.w is not w:
         raise ValueError("fam_tail_apply_g1: `packed` was not made by pack_tail_g1 from this w")
     if packed.diag and w.shape[1] != C:
         raise ValueError(f"fam_tail_apply_g1: a quadrant-diagonal `packed` needs Cout {C}, got {w.shape[1]}")
-    _check(packed.kernel_w, "fam_tail_apply_g1 packed.kernel_w", (C, C // 4 if packed.diag else C), device)
+    q = C // 4
+    if packed.diag and dtype == torch.bfloat16:
+        if packed.mma_w is None:
+            raise ValueError("fam_tail_apply_g1: a quadrant-diagonal `packed` for bf16 needs mma_w (pack_tail_g1)")
+        _check(packed.mma_w, "fam_tail_apply_g1 packed.mma_w", (3, 4, q, q), device, torch.bfloat16)
+    else:
+        _check(packed.kernel_w, "fam_tail_apply_g1 packed.kernel_w", (C, q if packed.diag else C), device)
 
 
 def fam_tail_apply_g1(x, ca_vec, sa, w, packed: TailG1Packed | None = None):
@@ -469,7 +517,7 @@ def fam_tail_apply_g1(x, ca_vec, sa, w, packed: TailG1Packed | None = None):
     b, h, wd, _ = x.shape
     cout = _check_tail_g1_w(w, "fam_tail_apply_g1 w", dev)
     if packed is not None:
-        _check_tail_g1_packed(packed, w, dev)
+        _check_tail_g1_packed(packed, w, x.dtype, dev)
     if dev.type == "cpu":
         return fam_tail_apply_g1_plain(x, ca_vec, sa, w)
     stream = _kernels.stream(x)
@@ -477,11 +525,13 @@ def fam_tail_apply_g1(x, ca_vec, sa, w, packed: TailG1Packed | None = None):
         if t.data_ptr() % min(16, 4 * t.element_size()):
             raise ValueError(f"fam_tail_apply_g1 {what}: the kernel reads aligned rows; got a view at {t.data_ptr():#x}")
     p = _dense_tail_g1(w) if packed is None else packed
+    bf16 = x.dtype == torch.bfloat16
+    kernel_w = p.mma_w if p.diag and bf16 else p.kernel_w
     out = torch.empty((b, h, wd, cout), dtype=x.dtype, device=dev)
     if out.numel():
         _kernels.launch(
-            "fam_tail_apply_g1", x.data_ptr(), ca_vec.data_ptr(), sa.data_ptr(), p.kernel_w.data_ptr(),
-            out.data_ptr(), b, h * wd, cout, int(p.diag), int(x.dtype == torch.bfloat16), stream,
+            "fam_tail_apply_g1", x.data_ptr(), ca_vec.data_ptr(), sa.data_ptr(), kernel_w.data_ptr(),
+            out.data_ptr(), b, h * wd, cout, int(p.diag), int(bf16), stream,
         )
         _count(KERNEL_LAUNCHES, "fam_tail_apply_g1_diag" if p.diag else "fam_tail_apply_g1_dense", x.dtype)
         _count(LAUNCHES, "fam_tail_apply_g1", x.dtype)

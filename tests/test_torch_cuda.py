@@ -196,9 +196,11 @@ def _one_bf16_ulp(got, want, atol=2.0**-10, ulps=1):
 def test_fam_bf16_kernels_match_plain_versions(cuda_f32, shape):
     """The bf16 instances of K4 (whole and its three stages: y on
     conv_wgmma, z on conv_wgmma's f32-output mode, fam_conv_out's bf16
-    instance), K5, K6 (both w layouts) and K11 against their bf16 plain
+    instance, on the tensor cores), K5, K6 (both w layouts, the quadrant-
+    diagonal one on the tensor cores) and K11 against their bf16 plain
     versions on the card: one output ulp where the f32 sums run in another
-    order (K4, K6; K5's means), K11 bit-identical (its products are exact
+    order (K4, K6 and its two instances against each other; K5's means),
+    K11 bit-identical (its products are exact
     and rounded once each), K4's z within K4's f32 2e-4 and f32. A ragged
     shape, batch 2, and the 1080-row frame's scale-2 and scale-1 shapes;
     each image of the batch equals the kernels on it alone."""
@@ -252,7 +254,9 @@ def test_fam_bf16_kernels_match_plain_versions(cuda_f32, shape):
     _one_bf16_ulp(stats, fb.fam_tail_stats_plain(x, ca_vec), atol=0)
     for name, wm in (("diag", wd), ("dense", wg)):
         _one_bf16_ulp(g1[name], fb.fam_tail_apply_g1_plain(x, ca_vec, sa, wm))
-    assert torch.equal(g1["diag"], fb.fam_tail_apply_g1(x, ca_vec, sa, wd))  # the dense instance on a diagonal w
+    # The dense instance (CUDA cores, fmaf) on the diagonal w: the tensor-core
+    # instance sums in another order, so one ulp.
+    _one_bf16_ulp(fb.fam_tail_apply_g1(x, ca_vec, sa, wd), g1["diag"])
     assert torch.equal(apply, fb.fam_tail_apply_plain(x, ca_vec, sa))
     for j in range(b):
         sl = lambda t: t[j : j + 1].contiguous()  # noqa: E731

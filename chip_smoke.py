@@ -245,16 +245,24 @@ first and last image against the kernel on each alone (identical):
    ValueError on [1,57,41,3]; both kernels timed at [1,1088,1920,3] and
    [8,1088,1920,3].
 20. ``--mode train`` through the CLI at the JAX defaults on the 24 in-repo
-   photos, a ``--resume``, one step on the card against the CPU's, the warm
-   step's time, memory and stages, and predict and enhance from the trained
-   checkpoint held to the CPU's runs (``train_phase``); then bf16 training
-   and ``--remat``: a bf16 step on the card against the port's bf16 CPU
-   step (``amp_train_step_vs_cpu``), warm bf16 steps at [8,640,640,3], an
-   f32 ``--remat`` step against the plain one (losses, BatchNorm
-   statistics) with both steps' peak memory, the remat one lower
-   (``amp_remat_timing``), and ``--mode train --use_amp --remat`` through
-   the CLI for two steps with ``--mode predict --use_amp`` from its
-   checkpoint (``amp_remat_cli``).
+   photos, which takes the packed step (``models/packed_train.py``; the
+   log says so), a ``--resume``, and ``--no-packed_train`` (the standard
+   step) resumed from the packed checkpoint; one step of each kind on the
+   card against the CPU's; one packed step against one standard step on the
+   card at [8,640,640,3] (losses rtol 1e-4 / atol 1e-5, parameters atol
+   5e-4); warm packed and standard steps in turns (ms, images/s, peak
+   memory, spread), each step by stage and its top device operations; and
+   predict and enhance from the packed run's checkpoint held to the CPU's
+   runs (``train_phase``); then bf16 training and ``--remat``: a bf16 step
+   of each kind on the card against the port's bf16 CPU step
+   (``amp_train_step_vs_cpu``), warm bf16 steps of both in turns
+   (``amp_timing``), an f32 ``--remat`` step of each kind against the
+   plain one (losses, BatchNorm statistics) with both steps' peak memory,
+   the remat one lower, and warm remat steps of both in turns
+   (``remat_phase``), and ``--mode train --use_amp --remat`` through the
+   CLI (packed) for two steps with ``--mode predict --use_amp`` from its
+   checkpoint (``amp_remat_cli``). No train step launches a kernel (K4-K6
+   have no backward; the packed FAM is plain PyTorch).
 21. bf16 inference (``amp_phase``): the bf16 instances of K4 (whole and by
    stage; z f32; ``fam_conv_out`` on the tensor cores), K5, K6 (both w
    layouts; the quadrant-diagonal one on the tensor cores) and K11 against
@@ -326,6 +334,8 @@ stages, and null elsewhere: no one call computes K4, K10 or K12 whole.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import statistics
 import subprocess
@@ -2766,12 +2776,22 @@ def main_path_phases(torch, cg, cl, fb, cp, kp, kernels) -> tuple[dict, dict]:
     return recs, launches
 
 
-# The training phase (20): the CLI's train mode at the JAX defaults, one
-# step card against CPU, inference from the trained checkpoint, step times.
+# The training phase (20): the CLI's train mode at the JAX defaults (the
+# packed step, and the standard one with --no-packed_train), each step card
+# against CPU, packed against standard, inference from the trained
+# checkpoint, step times.
 TRAIN_ARGS = ["--image_size", "640", "--batch_size", "8", "--save_freq", "1", "--log_every", "1"]
 # The card's step against the CPU's (tests/test_torch_train_step.py's tolerances).
 TRAIN_HOLD_SHAPE = (2, 128, 128, 3)
 TRAIN_LR = 1e-4
+# The packed step against the standard step on the card, one step from the
+# same weights and batch (tests/test_packed_train.py's tolerances for two
+# formulations of one step): losses rtol 1e-4 / atol 1e-5, parameters after
+# the step atol 5e-4.
+PACKED_LOSS_TOL = (1e-4, 1e-5)
+PACKED_PARAM_ATOL = 5e-4
+STEP_NAME = {False: "standard", True: "packed"}
+PACKED_LOG = "packed_train: the s2d-packed train step"
 
 
 def _leaf_scale(want: dict) -> float:
@@ -2779,17 +2799,17 @@ def _leaf_scale(want: dict) -> float:
     return 1e-3 * max(float(v.abs().max()) for v in want.values())
 
 
-def _hold_tree(got: dict, want: dict, rel: float, what: str) -> float:
+def _hold_tree(got: dict, want: dict, rel: float, what: str) -> str:
     """Every leaf within `rel` of its largest magnitude (floored); returns
-    the worst ratio of difference to tolerance."""
-    floor, worst = _leaf_scale(want), 0.0
+    the worst ratio of difference to tolerance and its leaf, printable."""
+    floor, worst = _leaf_scale(want), (0.0, "")
     for k, w in want.items():
         tol = rel * max(float(w.abs().max()), floor)
         d = float((got[k].cpu() - w).abs().max())
-        worst = max(worst, d / tol)
+        worst = max(worst, (d / tol, k))
         if d > tol:
             raise AssertionError(f"{what} {k}: card vs CPU {d:.3e} > {tol:.3e}")
-    return worst
+    return f"{worst[0]:.3f} ({worst[1]})"
 
 
 def _hold_params(got: dict, want: dict, eff_got: dict, eff_want: dict) -> float:
@@ -2812,35 +2832,59 @@ def _hold_params(got: dict, want: dict, eff_got: dict, eff_want: dict) -> float:
     return worst
 
 
-def train_step_vs_cpu(torch) -> None:
-    """One train step of the default net (seed-0 weights, default VGG,
-    perceptual loss on) on the card against the same step on the CPU, same
-    batch, TF32 off: the losses, BatchNorm statistics, Adam's moments and
-    the parameters."""
-    from retinex_tpu_torch.config import Config
+def _stats(model) -> dict:
+    return {k: v.detach().clone() for k, v in model.state_dict().items() if k.endswith(("running_mean", "running_var"))}
+
+
+@contextlib.contextmanager
+def no_kernel(modules, what: str):
+    """Every launch count at 0 just before and still 0 just after: a train
+    step runs no hand-written kernel (K4-K6 have no backward; the packed
+    step's FAM is plain PyTorch, as the JAX package's is XLA)."""
+    for m in modules:
+        m.reset_launches()
+    yield
+    check_launches(launch_counts(modules), {}, what)
+
+
+def new_state(torch, device, dtype=None, remat: bool = False):
+    """A train state of the default net (seed-0 weights) on `device`."""
     from retinex_tpu_torch.models.init import init_untrained
     from retinex_tpu_torch.models.retinex_net import MultiScaleUPRetinex
-    from retinex_tpu_torch.train.train_state import create_train_state, train_step
+    from retinex_tpu_torch.train.train_state import create_train_state
+
+    net = MultiScaleUPRetinex(False, False, dtype=dtype or torch.float32, remat=remat)
+    return create_train_state(init_untrained(net, 0).to(device), lambda s: TRAIN_LR)
+
+
+def train_step_vs_cpu(torch, modules, packed: bool) -> None:
+    """One train step of the default net (seed-0 weights, default VGG,
+    perceptual loss on), standard or packed, on the card against the same
+    step on the CPU, same batch, TF32 off: the losses, BatchNorm
+    statistics, Adam's moments and the parameters. The card launches no
+    hand-written kernel."""
+    from retinex_tpu_torch.config import Config
+    from retinex_tpu_torch.train.train_state import train_step
     from retinex_tpu_torch.train.trainer import build_criterion
 
     x = np.random.default_rng(13).random(TRAIN_HOLD_SHAPE, dtype=np.float32) * 0.6
     runs = {}
     for dev in ("cpu", "cuda"):
         d = torch.device(dev)
-        state = create_train_state(init_untrained(MultiScaleUPRetinex(False, False), 0).to(d), lambda s: TRAIN_LR)
+        state = new_state(torch, d)
         t0 = time.perf_counter()
-        losses = train_step(state, build_criterion(Config(), d), torch.from_numpy(x).to(d))
-        losses = {k: float(v) for k, v in losses.items()}
+        with no_kernel(modules, f"the {STEP_NAME[packed]} train step on {dev}"):
+            losses = train_step(state, build_criterion(Config(), d), torch.from_numpy(x).to(d), packed)
+            losses = {k: float(v) for k, v in losses.items()}
         runs[dev] = (state, losses, time.perf_counter() - t0)
     (cpu, l_cpu, s_cpu), (card, l_card, _) = runs["cpu"], runs["cuda"]
     for k, v in l_cpu.items():
         if abs(l_card[k] - v) > 1e-5 + 1e-4 * abs(v):
-            raise AssertionError(f"train step, loss {k}: card {l_card[k]} vs CPU {v}")
-    stats_cpu = {k: v for k, v in cpu.model.state_dict().items() if k.endswith(("running_mean", "running_var"))}
-    stats_card = card.model.state_dict()
+            raise AssertionError(f"{STEP_NAME[packed]} train step, loss {k}: card {l_card[k]} vs CPU {v}")
+    stats_cpu, stats_card = _stats(cpu.model), _stats(card.model)
     d_stats = max(float((stats_card[k].cpu() - v).abs().max()) for k, v in stats_cpu.items())
     if d_stats > 1e-4:
-        raise AssertionError(f"train step: BatchNorm statistics card vs CPU {d_stats:.3e} > 1e-4")
+        raise AssertionError(f"{STEP_NAME[packed]} train step: BatchNorm statistics card vs CPU {d_stats:.3e} > 1e-4")
     mu_w = _hold_tree(card.optimizer.mu, cpu.optimizer.mu, 1e-2, "Adam mu")
     nu_w = _hold_tree(card.optimizer.nu, cpu.optimizer.nu, 2e-2, "Adam nu")
     eff = lambda st: {k: v / 0.1 for k, v in st.optimizer.mu.items()}  # noqa: E731
@@ -2848,11 +2892,53 @@ def train_step_vs_cpu(torch) -> None:
     worst = _hold_params({k: p.detach() for k, p in card.model.named_parameters()},
                          {k: p.detach() for k, p in params_cpu.items()}, eff(card), eff(cpu))
     print(
-        f"  one train step at {list(TRAIN_HOLD_SHAPE)}, card vs CPU ({s_cpu:.1f} s on the CPU): losses within rtol "
-        f"1e-4 / atol 1e-5 (total {l_card['total']:.6f} vs {l_cpu['total']:.6f}), BatchNorm statistics "
-        f"{d_stats:.2e} (atol 1e-4), Adam mu and nu at {mu_w:.3f} and {nu_w:.3f} of their tolerances, parameters "
-        f"within Adam's first update of each side's gradient (largest difference {worst:.3f} lr)"
+        f"  one {STEP_NAME[packed]} train step at {list(TRAIN_HOLD_SHAPE)}, card vs CPU ({s_cpu:.1f} s on the CPU): "
+        f"losses within rtol 1e-4 / atol 1e-5 (total {l_card['total']:.6f} vs {l_cpu['total']:.6f}), BatchNorm "
+        f"statistics {d_stats:.2e} (atol 1e-4), Adam mu and nu at {mu_w} and {nu_w} of their tolerances, "
+        f"parameters within Adam's first update of each side's gradient (largest difference {worst:.3f} lr); no "
+        "kernel launched"
     )
+
+
+def packed_vs_standard(torch, modules, x) -> None:
+    """One packed and one standard f32 step on the card from the same
+    seed-0 weights and batch `x` ([8,640,640,3], perceptual loss on): the
+    losses and the parameters after the step by PACKED_LOSS_TOL and
+    PACKED_PARAM_ATOL; the BatchNorm statistics' and Adam moments' largest
+    differences printed."""
+    from retinex_tpu_torch.config import Config
+    from retinex_tpu_torch.train.train_state import train_step
+    from retinex_tpu_torch.train.trainer import build_criterion
+
+    cuda = torch.device("cuda")
+    crit = build_criterion(Config(), cuda)
+    runs = {}
+    for packed in (False, True):
+        state = new_state(torch, cuda)
+        with no_kernel(modules, f"the {STEP_NAME[packed]} train step at [8,640,640,3]"):
+            runs[packed] = (state, {k: float(v) for k, v in train_step(state, crit, x, packed).items()})
+    (std, l_std), (pk, l_pk) = runs[False], runs[True]
+    rtol, atol = PACKED_LOSS_TOL
+    for k, v in l_std.items():
+        if abs(l_pk[k] - v) > atol + rtol * abs(v):
+            raise AssertionError(f"packed vs standard step, loss {k}: {l_pk[k]} vs {v}")
+    p_std = {k: p.detach() for k, p in std.model.named_parameters()}
+    d_par = max(float((p.detach() - p_std[k]).abs().max()) for k, p in pk.model.named_parameters())
+    if d_par > PACKED_PARAM_ATOL:
+        raise AssertionError(f"packed vs standard step: parameters {d_par:.3e} apart > {PACKED_PARAM_ATOL}")
+    s_std, s_pk = _stats(std.model), _stats(pk.model)
+    d_stats = max(float((s_pk[k] - v).abs().max()) for k, v in s_std.items())
+    floor = _leaf_scale(std.optimizer.mu)
+    d_mu = max(float((pk.optimizer.mu[k] - v).abs().max()) / max(float(v.abs().max()), floor)
+               for k, v in std.optimizer.mu.items())
+    print(
+        f"  packed vs standard f32 step on the card at [8,640,640,3] (same weights and batch): losses within rtol "
+        f"1e-4 / atol 1e-5 (total {l_pk['total']:.6f} vs {l_std['total']:.6f}), parameters {d_par:.3e} apart (atol "
+        f"{PACKED_PARAM_ATOL:g}); BatchNorm statistics {d_stats:.3e} apart, Adam mu's worst leaf {d_mu:.3e} of its "
+        "largest (printed)"
+    )
+    del runs, std, pk
+    torch.cuda.empty_cache()
 
 
 def train_batch(torch, train_dir: Path):
@@ -2866,54 +2952,58 @@ def train_batch(torch, train_dir: Path):
     return augment_batch(torch.from_numpy(host).to(cuda), torch.Generator(device=cuda).manual_seed(1))
 
 
-def warm_steps(torch, state, crit, x, n: int = 6) -> tuple[float, list, int]:
-    """`n` train steps on `x` from the peak-memory counter's reset: (the
-    median ms of all but the first, every step's ms, the peak bytes)."""
+def step_turns(torch, runs: dict, crit, x, rounds: int = 6) -> dict:
+    """Train steps of each run (name -> (state, packed)) on `x`: one first
+    step each alone from the peak counter's reset (its peak device memory),
+    then `rounds` rounds in turns (the order flipped every round), host
+    clock between synchronises. name -> (median ms of the rounds, their ms,
+    the peak bytes, the first step's ms)."""
     from retinex_tpu_torch.train.train_state import train_step
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    times = []
-    for _ in range(n):
-        t0 = time.perf_counter()
-        losses = train_step(state, crit, x)
-        float(losses["total"])
+    def one(name) -> float:
+        state, packed = runs[name]
         torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times[1:]), times, torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        float(train_step(state, crit, x, packed)["total"])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    peaks, first = {}, {}
+    for name in runs:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        first[name] = one(name)
+        peaks[name] = torch.cuda.max_memory_allocated()
+    times = {k: [] for k in runs}
+    for i in range(rounds):
+        for name in (list(runs) if i % 2 else list(runs)[::-1]):
+            times[name].append(one(name))
+    return {k: (statistics.median(v), v, peaks[k], first[k]) for k, v in times.items()}
 
 
-def train_timing(torch, train_dir: Path) -> None:
-    """Warm train steps at the CLI's defaults (640 px, batch 8, perceptual
-    loss on): ms a step (median over 5 after a first), images/s, peak
-    device memory, the step by stage (net forward, losses with VGG19,
-    backward, optimizer) and the top operations of one warm step by device
-    time (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
+def print_turns(res: dict, what: str, card: str) -> None:
+    for name, (ms, all_ms, peak, first) in res.items():
+        print(
+            f"  warm {what} train step, {name}, at [8,640,640,3] (perceptual loss on; {card}): {ms:.3f} ms (median of "
+            f"{len(all_ms)} in turns, spread {min(all_ms):.1f}-{max(all_ms):.1f}: {', '.join(f'{t:.1f}' for t in all_ms)}; "
+            f"first {first:.1f}), {8e3 / ms:.3f} images/s; peak device memory {peak / 2**30:.3f} GiB"
+        )
+    (a, *_), (b, *_) = res["packed"], res["standard"]
+    print(f"  {what}: packed / standard step time {a / b:.3f}, peak memory "
+          f"{res['packed'][2] / res['standard'][2]:.3f}")
 
-    from retinex_tpu_torch.config import Config
-    from retinex_tpu_torch.models.init import init_untrained
-    from retinex_tpu_torch.models.retinex_net import MultiScaleUPRetinex
-    from retinex_tpu_torch.train.train_state import create_train_state, train_step
-    from retinex_tpu_torch.train.trainer import build_criterion
 
-    cuda = torch.device("cuda")
-    x = train_batch(torch, train_dir)
-    crit = build_criterion(Config(), cuda)
-    state = create_train_state(init_untrained(MultiScaleUPRetinex(False, False), 0).to(cuda), lambda s: TRAIN_LR)
-    ms, times, peak = warm_steps(torch, state, crit, x)
-    print(
-        f"  warm train step at [8,640,640,3] (perceptual loss on, f32, TF32 off): {ms:.3f} ms (median of 5 after a "
-        f"first of {times[0]:.1f} ms; all {', '.join(f'{t:.1f}' for t in times[1:])}), {8e3 / ms:.3f} images/s; "
-        f"peak device memory {peak / 2**30:.3f} GiB"
-    )
+def step_stages(torch, state, crit, x, packed: bool) -> None:
+    """The step by stage (net forward, losses with VGG19, backward,
+    optimizer; host clock around each, synchronised; median of 3)."""
+    from retinex_tpu_torch.models.packed_train import packed_train_apply
 
     stages = {}
     for _ in range(3):
         torch.cuda.synchronize()
         marks = [time.perf_counter()]
         model = state.model.train()
-        enh, refl, illu = model(x)
+        enh, refl, illu = packed_train_apply(model, x) if packed else model(x)
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
         total, _, new_ls = crit(x, enh, illu, refl, state.loss_state)
@@ -2929,43 +3019,87 @@ def train_timing(torch, train_dir: Path) -> None:
         marks.append(time.perf_counter())
         for name, a, b in zip(("net forward", "losses (VGG19 included)", "backward", "optimizer"), marks, marks[1:]):
             stages.setdefault(name, []).append((b - a) * 1e3)
-    print("  the step by stage (host clock around each, synchronised; median of 3): "
+    print(f"  the {STEP_NAME[packed]} f32 step by stage (host clock around each, synchronised; median of 3): "
           + ", ".join(f"{k} {statistics.median(v):.3f} ms" for k, v in stages.items()))
+
+
+def step_profile(torch, state, crit, x, packed: bool, what: str = "f32") -> None:
+    """One warm step under torch.profiler: device and wall ms, the device's
+    busy share, the device time of layout copies (cuDNN's NHWC/NCHW
+    transposes; PyTorch's copy kernels, which s2d, d2s and the permutes
+    run), the top operations by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from retinex_tpu_torch.train.train_state import train_step
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        train_step(state, crit, x)
+        train_step(state, crit, x, packed)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not device:
         raise AssertionError("the profiler recorded no device time in the train step")
     device_ms = sum(e.self_device_time_total for e in device) / 1e3
-    print(f"  one warm step under torch.profiler: {device_ms:.3f} device ms of {wall_ms:.3f} wall ms (device busy "
-          f"{device_ms / wall_ms:.3f})")
-    print("  top device operations of the step (self device ms, calls):")
+    transposes = sum(e.self_device_time_total for e in device if "ToNchw" in e.key or "ToNhwc" in e.key) / 1e3
+    copies = sum(e.self_device_time_total for e in device if "copy" in e.key) / 1e3
+    print(f"  one warm {STEP_NAME[packed]} {what} step under torch.profiler: {device_ms:.3f} device ms of {wall_ms:.3f} "
+          f"wall ms (device busy {device_ms / wall_ms:.3f}); layout copies {transposes:.3f} device ms in cuDNN's "
+          f"transposes, {copies:.3f} in PyTorch's copy kernels; top device operations (self device ms, calls):")
     for e in sorted(device, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"    {e.self_device_time_total / 1e3:9.3f}  x{e.count:<5d} {e.key[:100]}")
 
 
+def train_timing(torch, modules, x, card: str) -> None:
+    """Warm f32 train steps at the CLI's defaults ([8,640,640,3],
+    perceptual loss on), packed and standard in turns (ms, images/s, peak
+    device memory, the spread); each step by stage and under torch.profiler
+    (top device operations). No kernel launched."""
+    from retinex_tpu_torch.config import Config
+    from retinex_tpu_torch.train.trainer import build_criterion
+
+    cuda = torch.device("cuda")
+    crit = build_criterion(Config(), cuda)
+    runs = {STEP_NAME[p]: (new_state(torch, cuda), p) for p in (True, False)}
+    with no_kernel(modules, "f32 train steps"):
+        print_turns(step_turns(torch, runs, crit, x), "f32", card)
+        for name, (state, packed) in runs.items():
+            step_stages(torch, state, crit, x, packed)
+            step_profile(torch, state, crit, x, packed)
+    del runs
+    torch.cuda.empty_cache()
+
+
 def train_phase(torch, modules, workdir: Path) -> str:
     """Phase 20: training through the CLI at the JAX defaults on the 24
-    in-repo photos, a resume, the card's step against the CPU's, and
-    predict and the default enhance from the trained checkpoint held to the
-    CPU's runs from it; then bf16 training and --remat: the card's bf16 step
-    against the CPU's, warm bf16 steps, the remat step against the plain one
-    with both peaks, and the CLI's --use_amp --remat training with predict
-    from its checkpoint. Returns the trained (f32) checkpoint's path (in
-    `workdir`, beside the f32 runs' outputs)."""
+    in-repo photos (the packed step, its log saying so), a resume, and the
+    standard step (``--no-packed_train``) resumed from the packed
+    checkpoint; each step on the card against the CPU's, packed against
+    standard on the card, warm steps of both in turns, and predict and the
+    default enhance from the packed run's checkpoint held to the CPU's runs
+    from it; then bf16 training and --remat: the card's bf16 steps against
+    the CPU's, warm bf16 steps, the remat steps against the plain ones with
+    their peaks, and the CLI's --use_amp --remat training with predict from
+    its checkpoint. No train step launches a kernel. Returns the trained
+    (f32) checkpoint's path (in `workdir`, beside the f32 runs' outputs)."""
+    import shutil
+
     train_dir = REPO / "data" / "convergence"
     if len(list(train_dir.glob("lowlight_*.png"))) != 24:
         raise AssertionError(f"expected the 24 photos of {train_dir}")
+    card = gpu_line()
     save = workdir / "train"
-    base = ["--mode", "train", "--train_dir", str(train_dir), "--save_dir", str(save), "--device", "cuda", *TRAIN_ARGS]
-    launches, sec = run_cli(torch, modules, [*base, "--num_epochs", "2"])
-    check_launches(launches, {}, "training")  # the training path runs no TPU kernel
+    base = ["--mode", "train", "--train_dir", str(train_dir), "--device", "cuda", *TRAIN_ARGS]
+    launches, sec, log = run_cli_logged(torch, modules, [*base, "--save_dir", str(save), "--num_epochs", "2"])
+    check_launches(launches, {}, "training")  # the training path runs no hand-written kernel
+    if PACKED_LOG not in log:
+        raise AssertionError("--mode train at the CLI defaults did not take the packed step")
     first = torch.load(save / "latest", map_location="cpu", weights_only=True)
-    launches, sec2 = run_cli(torch, modules, [*base, "--num_epochs", "3", "--resume", str(save / "latest")])
+    launches, sec2, log = run_cli_logged(torch, modules, [*base, "--save_dir", str(save), "--num_epochs", "3",
+                                                          "--resume", str(save / "latest")])
     check_launches(launches, {}, "training, resumed")
+    if PACKED_LOG not in log:
+        raise AssertionError("the resumed run did not take the packed step")
     last = torch.load(save / "latest", map_location="cpu", weights_only=True)
     best = torch.load(save / "best", map_location="cpu", weights_only=True)
     if (first["step"], first["epoch"], last["step"], last["epoch"]) != (6, 1, 9, 2):
@@ -2978,18 +3112,57 @@ def train_phase(torch, modules, workdir: Path) -> str:
     bad = [k for k, v in last["model_state_dict"].items() if v.is_floating_point() and not bool(v.isfinite().all())]
     if bad:
         raise AssertionError(f"non-finite weights after training: {bad[:3]}")
-    print(f"  --mode train, 24 photos at 640 px, batch 8, 2 epochs (3 steps each): {sec:.1f} s; --resume to "
-          f"epoch 3: {sec2:.1f} s; step {first['step']} -> {last['step']}, best loss {best['best_loss']:.6f} "
-          f"(epoch {best['epoch']}); {len(logs)} metrics.jsonl, results.csv, {len(vis)} visualisations")
+    # The standard step through the CLI, resumed from the packed run's checkpoint.
+    save_std = workdir / "train_standard"
+    shutil.copytree(save, save_std)
+    launches, sec3, log = run_cli_logged(torch, modules, [*base, "--save_dir", str(save_std), "--num_epochs", "4",
+                                                          "--no-packed_train", "--resume", str(save_std / "latest")])
+    check_launches(launches, {}, "standard training, resumed from the packed checkpoint")
+    std_last = torch.load(save_std / "latest", map_location="cpu", weights_only=True)
+    if "packed_train" in log or (std_last["step"], std_last["epoch"]) != (12, 3):
+        raise AssertionError(f"--no-packed_train: step {std_last['step']} epoch {std_last['epoch']} (expected 12/3), "
+                             "or the log names the packed step")
+    print(f"  --mode train (the packed step, logged), 24 photos at 640 px, batch 8, 2 epochs (3 steps each): "
+          f"{sec:.1f} s; --resume to epoch 3: {sec2:.1f} s; step {first['step']} -> {last['step']}, best loss "
+          f"{best['best_loss']:.6f} (epoch {best['epoch']}); {len(logs)} metrics.jsonl, results.csv, {len(vis)} "
+          f"visualisations; --no-packed_train resumed from it to epoch 4 (the standard step): {sec3:.1f} s, step "
+          f"{std_last['step']}; no kernel launched")
 
-    train_step_vs_cpu(torch)
-    train_timing(torch, train_dir)
+    for packed in (False, True):
+        train_step_vs_cpu(torch, modules, packed)
+    x = train_batch(torch, train_dir)
+    packed_vs_standard(torch, modules, x)
+    train_timing(torch, modules, x, card)
     trained_inference(torch, modules, str(save / "best"), workdir)
     print("  bf16 training (--use_amp) and --remat")
-    amp_train_step_vs_cpu(torch)
-    amp_remat_timing(torch, train_dir, gpu_line())
+    for packed in (False, True):
+        amp_train_step_vs_cpu(torch, modules, packed)
+    amp_timing(torch, modules, x, card)
+    remat_phase(torch, modules, x, card)
     amp_remat_cli(torch, modules, workdir)
     return str(save / "best")
+
+
+class _Tee(io.TextIOBase):
+    """Standard output that also keeps what passes through it."""
+
+    def __init__(self, out):
+        self.out, self.kept = out, io.StringIO()
+
+    def write(self, s: str) -> int:
+        self.out.write(s)
+        return self.kept.write(s)
+
+    def flush(self) -> None:
+        self.out.flush()
+
+
+def run_cli_logged(torch, modules, args) -> tuple[dict[str, int], float, str]:
+    """``run_cli``, returning what the CLI printed too."""
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        launches, seconds = run_cli(torch, modules, args)
+    return launches, seconds, tee.kept.getvalue()
 
 
 def trained_inference(torch, modules, ckpt: str, workdir: Path) -> None:
@@ -3063,110 +3236,122 @@ def _hold_noise(got: dict, want: dict, ref: dict, what: str) -> float:
     return worst
 
 
-def amp_train_step_vs_cpu(torch) -> None:
+def amp_train_step_vs_cpu(torch, modules, packed: bool) -> None:
     """One bf16 train step (``--use_amp``: the net and VGG19 in bf16,
-    parameters and Adam f32) of the default net on the card against the
-    same step on the CPU, same batch and seed-0 weights, perceptual loss on;
-    the CPU's f32 step is the reference of the noise rule."""
+    parameters and Adam f32), standard or packed, of the default net on the
+    card against the same step on the CPU, same batch and seed-0 weights,
+    perceptual loss on; the CPU's f32 step of the same kind is the
+    reference of the noise rule. No kernel launched."""
     from retinex_tpu_torch.config import Config
-    from retinex_tpu_torch.models.init import init_untrained
-    from retinex_tpu_torch.models.retinex_net import MultiScaleUPRetinex
-    from retinex_tpu_torch.train.train_state import create_train_state, train_step
+    from retinex_tpu_torch.train.train_state import train_step
     from retinex_tpu_torch.train.trainer import build_criterion
 
     x = np.random.default_rng(13).random(TRAIN_HOLD_SHAPE, dtype=np.float32) * 0.6
     runs = {}
     for dev, amp in (("cpu", False), ("cpu", True), ("cuda", True)):
         d = torch.device(dev)
-        net = MultiScaleUPRetinex(False, False, dtype=torch.bfloat16 if amp else torch.float32)
-        state = create_train_state(init_untrained(net, 0).to(d), lambda s: TRAIN_LR)
-        losses = train_step(state, build_criterion(Config(use_amp=amp), d), torch.from_numpy(x).to(d))
-        runs[(dev, amp)] = (state, {k: float(v) for k, v in losses.items()})
+        state = new_state(torch, d, torch.bfloat16 if amp else torch.float32)
+        with no_kernel(modules, f"the {STEP_NAME[packed]} bf16 train step"):
+            losses = train_step(state, build_criterion(Config(use_amp=amp), d), torch.from_numpy(x).to(d), packed)
+            runs[(dev, amp)] = (state, {k: float(v) for k, v in losses.items()})
     (ref, _), (cpu, l_cpu), (card, l_card) = runs[("cpu", False)], runs[("cpu", True)], runs[("cuda", True)]
+    what = f"{STEP_NAME[packed]} bf16 train step"
     for k, v in l_cpu.items():
         if abs(l_card[k] - v) > 1e-5 + AMP_TRAIN_LOSS_RTOL * abs(v):
-            raise AssertionError(f"bf16 train step, loss {k}: card {l_card[k]} vs CPU {v}")
-    stats_cpu = {k: v for k, v in cpu.model.state_dict().items() if k.endswith(("running_mean", "running_var"))}
-    stats_card = card.model.state_dict()
+            raise AssertionError(f"{what}, loss {k}: card {l_card[k]} vs CPU {v}")
+    stats_cpu, stats_card = _stats(cpu.model), _stats(card.model)
     d_stats = max(float((stats_card[k].cpu() - v).abs().max()) for k, v in stats_cpu.items())
     if d_stats > AMP_TRAIN_STATS_ATOL:
-        raise AssertionError(f"bf16 train step: BatchNorm statistics card vs CPU {d_stats:.3e} > {AMP_TRAIN_STATS_ATOL}")
-    mu_w = _hold_noise(card.optimizer.mu, cpu.optimizer.mu, ref.optimizer.mu, "bf16 Adam mu")
-    nu_w = _hold_noise(card.optimizer.nu, cpu.optimizer.nu, ref.optimizer.nu, "bf16 Adam nu")
+        raise AssertionError(f"{what}: BatchNorm statistics card vs CPU {d_stats:.3e} > {AMP_TRAIN_STATS_ATOL}")
+    mu_w = _hold_noise(card.optimizer.mu, cpu.optimizer.mu, ref.optimizer.mu, f"{what} Adam mu")
+    nu_w = _hold_noise(card.optimizer.nu, cpu.optimizer.nu, ref.optimizer.nu, f"{what} Adam nu")
     eff = lambda st: {k: v / 0.1 for k, v in st.optimizer.mu.items()}  # noqa: E731
     worst = _hold_params({k: p.detach() for k, p in card.model.named_parameters()},
                          {k: p.detach() for k, p in cpu.model.named_parameters()}, eff(card), eff(cpu))
     if any(p.dtype != torch.float32 for p in card.model.parameters()):
         raise AssertionError("bf16 training changed the parameters' dtype")
     print(
-        f"  one bf16 train step at {list(TRAIN_HOLD_SHAPE)}, card vs CPU: losses within rtol 2**-6 (total "
+        f"  one {what} at {list(TRAIN_HOLD_SHAPE)}, card vs CPU: losses within rtol 2**-6 (total "
         f"{l_card['total']:.6f} vs {l_cpu['total']:.6f}), BatchNorm statistics {d_stats:.2e} (atol "
         f"{AMP_TRAIN_STATS_ATOL:g}), Adam mu and nu at {mu_w:.3f} and {nu_w:.3f} of the noise rule's tolerance, "
-        f"parameters within Adam's first update of each side's gradient (largest difference {worst:.3f} lr)"
+        f"parameters within Adam's first update of each side's gradient (largest difference {worst:.3f} lr); no "
+        "kernel launched"
     )
 
 
-def amp_remat_timing(torch, train_dir: Path, card: str) -> None:
-    """At the CLI's defaults ([8,640,640,3], perceptual loss on): warm bf16
-    steps (ms, images/s, peak memory); one f32 step with --remat against
-    the plain step from the same weights and batch (losses, BatchNorm
-    statistics), each step's peak memory (the remat step's must be lower:
-    its blocks' activations are recomputed, not kept), and warm remat
-    steps."""
+def amp_timing(torch, modules, x, card: str) -> None:
+    """Warm bf16 train steps (``--use_amp``) at [8,640,640,3], packed and
+    standard in turns: ms, images/s, peak device memory, the spread; each
+    under torch.profiler."""
     from retinex_tpu_torch.config import Config
-    from retinex_tpu_torch.models.init import init_untrained
-    from retinex_tpu_torch.models.retinex_net import MultiScaleUPRetinex
-    from retinex_tpu_torch.train.train_state import create_train_state, train_step
     from retinex_tpu_torch.train.trainer import build_criterion
 
     cuda = torch.device("cuda")
-    x = train_batch(torch, train_dir)
-    state = create_train_state(init_untrained(MultiScaleUPRetinex(False, False, dtype=torch.bfloat16), 0).to(cuda),
-                               lambda s: TRAIN_LR)
-    ms, times, peak = warm_steps(torch, state, build_criterion(Config(use_amp=True), cuda), x)
-    print(
-        f"  warm bf16 train step (--use_amp) at [8,640,640,3] (perceptual loss on; {card}): {ms:.3f} ms (median of 5 "
-        f"after a first of {times[0]:.1f} ms; all {', '.join(f'{t:.1f}' for t in times[1:])}), {8e3 / ms:.3f} "
-        f"images/s; peak device memory {peak / 2**30:.3f} GiB"
-    )
-    del state
+    crit = build_criterion(Config(use_amp=True), cuda)
+    runs = {STEP_NAME[p]: (new_state(torch, cuda, torch.bfloat16), p) for p in (True, False)}
+    with no_kernel(modules, "bf16 train steps"):
+        print_turns(step_turns(torch, runs, crit, x), "bf16", card)
+        for state, packed in runs.values():
+            step_profile(torch, state, crit, x, packed, "bf16")
+    del runs
+    torch.cuda.empty_cache()
+
+
+def remat_phase(torch, modules, x, card: str) -> None:
+    """At [8,640,640,3] in f32, for the standard and the packed step: one
+    step with --remat against the plain step from the same weights and
+    batch (losses, BatchNorm statistics) and each step's peak memory (the
+    remat step's must be lower: its blocks' or stages' activations are
+    recomputed, not kept); then warm remat steps, packed and standard in
+    turns."""
+    from retinex_tpu_torch.config import Config
+    from retinex_tpu_torch.train.train_state import train_step
+    from retinex_tpu_torch.train.trainer import build_criterion
+
+    cuda = torch.device("cuda")
     crit = build_criterion(Config(), cuda)
-    one = {}
-    for remat in (False, True):
-        st = create_train_state(init_untrained(MultiScaleUPRetinex(False, False, remat=remat), 0).to(cuda),
-                                lambda s: TRAIN_LR)
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        losses = {k: float(v) for k, v in train_step(st, crit, x).items()}
-        torch.cuda.synchronize()
-        stats = {k: v.clone() for k, v in st.model.state_dict().items() if k.endswith(("running_mean", "running_var"))}
-        one[remat] = (losses, stats, torch.cuda.max_memory_allocated())
-        if remat:
-            r_ms, r_times, _ = warm_steps(torch, st, crit, x)
-        del st
-    (l_plain, s_plain, p_plain), (l_remat, s_remat, p_remat) = one[False], one[True]
-    if abs(l_remat["total"] - l_plain["total"]) > 1e-6 * abs(l_plain["total"]):
-        raise AssertionError(f"the --remat step's total {l_remat['total']} differs from the plain {l_plain['total']}")
-    d_stats = max(float((s_remat[k] - v).abs().max()) for k, v in s_plain.items())
-    if d_stats > 5e-6:
-        raise AssertionError(f"the --remat step's BatchNorm statistics differ from the plain step's by {d_stats:.3e}")
-    if not p_remat < p_plain:
-        raise AssertionError(f"--remat did not lower the step's peak memory: {p_remat} against {p_plain} bytes")
-    print(
-        f"  f32 train step with --remat at [8,640,640,3]: total loss {l_remat['total']:.6f} (plain "
-        f"{l_plain['total']:.6f}, rtol 1e-6), BatchNorm statistics within {d_stats:.2e} (atol 5e-6); peak device "
-        f"memory of one step {p_remat / 2**30:.3f} GiB with --remat against {p_plain / 2**30:.3f} GiB without "
-        f"({p_remat / p_plain:.3f}); warm remat step {r_ms:.3f} ms (all {', '.join(f'{t:.1f}' for t in r_times[1:])}), "
-        f"{8e3 / r_ms:.3f} images/s"
-    )
+    for packed in (False, True):
+        one = {}
+        for remat in (False, True):
+            st = new_state(torch, cuda, remat=remat)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            with no_kernel(modules, f"the {STEP_NAME[packed]} step, remat {remat}"):
+                losses = {k: float(v) for k, v in train_step(st, crit, x, packed).items()}
+            torch.cuda.synchronize()
+            one[remat] = (losses, _stats(st.model), torch.cuda.max_memory_allocated())
+            del st
+        (l_plain, s_plain, p_plain), (l_remat, s_remat, p_remat) = one[False], one[True]
+        name = STEP_NAME[packed]
+        if abs(l_remat["total"] - l_plain["total"]) > 1e-6 * abs(l_plain["total"]):
+            raise AssertionError(f"the {name} --remat step's total {l_remat['total']} differs from the plain "
+                                 f"{l_plain['total']}")
+        d_stats = max(float((s_remat[k] - v).abs().max()) for k, v in s_plain.items())
+        if d_stats > 5e-6:
+            raise AssertionError(f"the {name} --remat step's BatchNorm statistics differ from the plain step's by "
+                                 f"{d_stats:.3e}")
+        if not p_remat < p_plain:
+            raise AssertionError(f"--remat did not lower the {name} step's peak memory: {p_remat} against {p_plain}")
+        print(
+            f"  f32 {name} train step with --remat at [8,640,640,3]: total loss {l_remat['total']:.6f} (plain "
+            f"{l_plain['total']:.6f}, rtol 1e-6), BatchNorm statistics within {d_stats:.2e} (atol 5e-6); peak device "
+            f"memory of one step {p_remat / 2**30:.3f} GiB with --remat against {p_plain / 2**30:.3f} GiB without "
+            f"({p_remat / p_plain:.3f})"
+        )
+    runs = {STEP_NAME[p]: (new_state(torch, cuda, remat=True), p) for p in (True, False)}
+    with no_kernel(modules, "remat train steps"):
+        print_turns(step_turns(torch, runs, crit, x), "f32 --remat", card)
+    del runs
+    torch.cuda.empty_cache()
 
 
 def amp_remat_cli(torch, modules, workdir: Path) -> None:
-    """``--mode train --use_amp --remat`` through the CLI: two steps (16 of
-    the photos, batch 8, one epoch at 640 px), no kernel launched; its
-    checkpoint f32 in the plain format; ``--mode predict --use_amp`` from
-    it on the 1080p photo (the bf16 FAM kernels, twice each)."""
+    """``--mode train --use_amp --remat`` through the CLI (the packed step,
+    logged): two steps (16 of the photos, batch 8, one epoch at 640 px), no
+    kernel launched; its checkpoint f32 in the plain format; ``--mode
+    predict --use_amp`` from it on the 1080p photo (the bf16 FAM kernels,
+    twice each)."""
     import shutil
 
     photos = workdir / "train16"
@@ -3174,10 +3359,12 @@ def amp_remat_cli(torch, modules, workdir: Path) -> None:
     for i in range(16):
         shutil.copy(REPO / "data" / "convergence" / f"lowlight_{i:03d}.png", photos)
     save = workdir / "train_amp_remat"
-    launches, sec = run_cli(torch, modules, ["--mode", "train", "--use_amp", "--remat", "--train_dir", str(photos),
-                                             "--save_dir", str(save), "--device", "cuda", "--num_epochs", "1",
-                                             *TRAIN_ARGS])
+    launches, sec, log = run_cli_logged(torch, modules, [
+        "--mode", "train", "--use_amp", "--remat", "--train_dir", str(photos), "--save_dir", str(save),
+        "--device", "cuda", "--num_epochs", "1", *TRAIN_ARGS])
     check_launches(launches, {}, "bf16 training with --remat")
+    if PACKED_LOG not in log:
+        raise AssertionError("--mode train --use_amp --remat did not take the packed step")
     ckpt = torch.load(save / "latest", map_location="cpu", weights_only=True)
     sd = ckpt["model_state_dict"]
     if ckpt["step"] != 2 or any(v.dtype != torch.float32 for v in sd.values() if v.is_floating_point()):
@@ -3191,9 +3378,9 @@ def amp_remat_cli(torch, modules, workdir: Path) -> None:
                                          "--device", "cuda"])
     check_launches(got, amp_want(AMP_FAM_TWICE), "predict --use_amp from the bf16 --remat checkpoint")
     check_pngs(out, photo.stem, (1088, 1920, 3))
-    print(f"  --mode train --use_amp --remat, 16 photos at 640 px, batch 8, one epoch (2 steps): {sec:.1f} s, no kernel "
-          f"launched, checkpoint f32 at step 2; predict --use_amp from it at --max_size 1920: {psec:.2f} s, bf16 FAM "
-          "kernels twice each")
+    print(f"  --mode train --use_amp --remat (the packed step, logged), 16 photos at 640 px, batch 8, one epoch (2 "
+          f"steps): {sec:.1f} s, no kernel launched, checkpoint f32 at step 2; predict --use_amp from it at "
+          f"--max_size 1920: {psec:.2f} s, bf16 FAM kernels twice each")
 
 
 # Phase 21: bf16 inference. The FAM kernels' bf16 instances against their
@@ -3701,8 +3888,8 @@ def main() -> int:
     recs["fam_dual_conv3"] = dict(dual[torch.float32], dtype="float32")
     recs["fam_dual_conv3_bf16"] = dict(dual[torch.bfloat16], dtype="bfloat16")
     recs.update(k16)
-    print("phase 20: training (--mode train at the JAX defaults), a resume, the card's step against the CPU's, "
-          "inference from the trained checkpoint")
+    print("phase 20: training (--mode train at the JAX defaults: the packed step; --no-packed_train), a resume, the "
+          "card's steps against the CPU's, packed against standard, inference from the trained checkpoint")
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = train_phase(torch, (cg, cl, fb, cp, kp), Path(tmp))
         print("phase 21: bf16 inference (--use_amp with enhance and predict): K4-K6 and K11 in bf16; K10 in bf16 "

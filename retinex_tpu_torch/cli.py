@@ -60,9 +60,11 @@ their format); Lab-CLAHE and the enhancers stay f32, as the JAX package's
 do. ``--remat`` recomputes the net's blocks in training's backward.
 ``--n_devices`` above 1 and ``--coordinator`` raise ``NotImplementedError``
 (each names its ROADMAP Queue 1 item), and so does a ``--checkpoint``
-directory (the JAX package's Orbax format). The packed training layout
-(``--packed_train``, on by default) is Queue 1 item 7: training runs the
-standard step and says so.
+directory (the JAX package's Orbax format). ``--mode train`` takes the
+packed train step (``--packed_train``, on by default;
+``models/packed_train.py``) on the card where ``--image_size`` is a
+multiple of 32, and the standard step with ``--no-packed_train``, on the
+CPU, or at other sizes, as the JAX trainer does (and says why).
 """
 
 from __future__ import annotations

@@ -38,11 +38,12 @@ through ``astype``: a bf16 tensor's gradient is bf16.
 
 ``remat`` (``--remat``) recomputes a block's activations in the backward
 instead of keeping them (``torch.utils.checkpoint``, non-reentrant), as
-Flax's ``nn.remat``: ``checkpointed`` wraps a module's call where the
-model is training and remat is on. The recomputation runs
-``BatchNorm.forward`` once more, so it must not update the running
-statistics a second time (Flax's remat is functional and updates them
-once): ``recomputing()`` is on while ``torch.utils.checkpoint``
+Flax's ``nn.remat``: ``checkpointed`` wraps a module's call (or a packed
+training stage) where the model is training and remat is on. The
+recomputation runs ``BatchNorm.forward`` (or the packed step's
+``_bn_train``) once more, so it must not update the running statistics a
+second time (Flax's remat is functional and updates them once):
+``recomputing()`` is on while ``torch.utils.checkpoint``
 recomputes, and a training BatchNorm leaves its statistics alone then.
 """
 
@@ -76,14 +77,15 @@ def recomputing() -> bool:
     return _RECOMPUTING[0]
 
 
-def checkpointed(module: nn.Module, remat: bool, *args):
-    """``module(*args)``; with `remat` and the module training, through
-    ``torch.utils.checkpoint`` (non-reentrant), whose recomputation runs
-    under ``recomputing()``."""
-    if not (remat and module.training):
-        return module(*args)
+def checkpointed(fn, remat: bool, *args):
+    """``fn(*args)``; with `remat` (and, where `fn` is a module, the module
+    training), through ``torch.utils.checkpoint`` (non-reentrant), whose
+    recomputation runs under ``recomputing()``. `fn` is a module of the net
+    or a stage of the packed train forward (``models/packed_train.py``)."""
+    if not (remat and getattr(fn, "training", True)):
+        return fn(*args)
     return torch.utils.checkpoint.checkpoint(
-        module, *args, use_reentrant=False, context_fn=lambda: (contextlib.nullcontext(), _recomputation())
+        fn, *args, use_reentrant=False, context_fn=lambda: (contextlib.nullcontext(), _recomputation())
     )
 
 

@@ -9,8 +9,11 @@ All transforms assume 'SAME' zero padding and odd kernel sizes; H and W must
 be even (the letterbox pads to multiples of 32).
 
 Activations are NHWC and kernels HWIO, as in the JAX package. The packing
-tables are numpy float32, built once when a model is packed; the
-convolutions themselves run through ``F.conv2d`` on an NCHW view.
+tables are numpy float32, built once when a model is packed for inference;
+packed training packs inside the step with the differentiable ``*_t``
+packers (einsums of the weight against constant 0/1 placement tensors), so
+its gradient flows back to the model's parameters. The convolutions
+themselves run through ``F.conv2d`` on an NCHW view.
 """
 
 from __future__ import annotations
@@ -99,6 +102,97 @@ def pack_pointwise(kernel) -> np.ndarray:
     for q in range(4):
         out[0, 0, q * cin : (q + 1) * cin, q * cout : (q + 1) * cout] = kern
     return out
+
+
+def _pack_s1_map(k: int, dilation: int) -> np.ndarray:
+    """Constant 0/1 placement tensor M[kp,kp,xq,yq,u,v] such that
+    packed[p,q, xq*Cin+i, yq*Cout+o] = sum_{u,v} M[p,q,xq,yq,u,v] k[u,v,i,o]
+    reproduces :func:`pack_kernel_s1`."""
+    r = k // 2
+    rd = r * dilation
+    p_min = int(np.floor(-rd / 2))
+    kp = int(np.floor((rd + 1) / 2)) - p_min + 1
+    m = np.zeros((kp, kp, 4, 4, k, k), np.float32)
+    for c_q in range(2):
+        for d_q in range(2):
+            for u in range(-r, r + 1):
+                for v in range(-r, r + 1):
+                    ue, ve = u * dilation, v * dilation
+                    a, p = (c_q + ue) & 1, (c_q + ue) >> 1
+                    b_, q = (d_q + ve) & 1, (d_q + ve) >> 1
+                    m[p - p_min, q - p_min, a * 2 + b_, c_q * 2 + d_q, u + r, v + r] += 1.0
+    return m
+
+
+def _pack_s2_map(k: int) -> np.ndarray:
+    """Placement tensor M[kp,kp,xq,u,v] reproducing :func:`pack_kernel_s2`."""
+    r = k // 2
+    p_min = int(np.floor(-r / 2))
+    kp = int(np.floor(r / 2)) - p_min + 1
+    m = np.zeros((kp, kp, 4, k, k), np.float32)
+    for u in range(-r, r + 1):
+        for v in range(-r, r + 1):
+            m[(u >> 1) - p_min, (v >> 1) - p_min, (u & 1) * 2 + (v & 1), u + r, v + r] += 1.0
+    return m
+
+
+def _pack_convtranspose2_map() -> np.ndarray:
+    """Placement tensor F[yq,u,v] of a Flax ConvTranspose k2s2 kernel: output
+    quadrant (c, d) reads tap (1-c, 1-d) (Flax's kernel is PyTorch's
+    ConvTranspose2d weight spatially flipped, ``models/convert.py``)."""
+    f = np.zeros((4, 2, 2), np.float32)
+    for c in range(2):
+        for d in range(2):
+            f[c * 2 + d, 1 - c, 1 - d] = 1.0
+    return f
+
+
+@functools.lru_cache(maxsize=32)
+def _placement(kind: str, k: int, dilation: int, device: str) -> torch.Tensor:
+    """A placement tensor above, f32 on `device`, made once per process."""
+    m = {"s1": lambda: _pack_s1_map(k, dilation), "s2": lambda: _pack_s2_map(k),
+         "t2": _pack_convtranspose2_map, "eye": lambda: np.eye(4, dtype=np.float32)}[kind]()
+    return torch.from_numpy(m).to(device)
+
+
+# The differentiable packers: the packed kernel as an einsum of the f32
+# weight against a 0/1 placement tensor, so the gradient of a packed
+# training step flows back to the model's own parameters. Each packed entry
+# is one weight times 1 plus zeros, so the packing is exact in f32 (on the
+# card with TF32 off, which training sets); a bf16 step packs in f32 and
+# rounds afterwards, as the JAX package's does.
+
+
+def pack_kernel_s1_t(kernel: torch.Tensor, dilation: int = 1) -> torch.Tensor:
+    """Differentiable :func:`pack_kernel_s1` of an HWIO tensor."""
+    k, _, cin, cout = kernel.shape
+    m = _placement("s1", k, int(dilation), str(kernel.device))
+    out = torch.einsum("pqxyuv,uvio->pqxiyo", m, kernel.float())
+    return out.reshape(m.shape[0], m.shape[1], 4 * cin, 4 * cout)
+
+
+def pack_kernel_s2_t(kernel: torch.Tensor) -> torch.Tensor:
+    """Differentiable :func:`pack_kernel_s2` of an HWIO tensor."""
+    k, _, cin, cout = kernel.shape
+    m = _placement("s2", k, 1, str(kernel.device))
+    out = torch.einsum("pqxuv,uvio->pqxio", m, kernel.float())
+    return out.reshape(m.shape[0], m.shape[1], 4 * cin, cout)
+
+
+def pack_pointwise_t(kernel: torch.Tensor) -> torch.Tensor:
+    """Differentiable :func:`pack_pointwise` of an HWIO [1,1,Cin,Cout] tensor."""
+    cin, cout = kernel.shape[2], kernel.shape[3]
+    eye = _placement("eye", 1, 1, str(kernel.device))
+    return torch.einsum("xy,io->xiyo", eye, kernel[0, 0].float()).reshape(1, 1, 4 * cin, 4 * cout)
+
+
+def pack_convtranspose2_t(kernel: torch.Tensor) -> torch.Tensor:
+    """Differentiable quadrant packing of a Flax-layout ConvTranspose k2s2
+    kernel, HWIO [2,2,Cin,Cout] -> pointwise [1,1,Cin,4Cout] emitting
+    output quadrant (c, d) in channel block c*2 + d."""
+    cin, cout = kernel.shape[2], kernel.shape[3]
+    f = _placement("t2", 2, 1, str(kernel.device))
+    return torch.einsum("yuv,uvio->iyo", f, kernel.float()).reshape(1, 1, cin, 4 * cout)
 
 
 def hwio_to_oihw(kernel) -> torch.Tensor:

@@ -32,6 +32,7 @@ import torch
 
 from retinex_tpu_torch.losses.total import LossState, TotalLoss
 from retinex_tpu_torch.models.layers import Dropout
+from retinex_tpu_torch.models.packed_train import packed_train_apply
 
 
 class Optimizer:
@@ -149,21 +150,27 @@ def create_train_state(
     return TrainState(model=model.train(), optimizer=opt, loss_state=LossState.create(device), dropout_gen=gen)
 
 
-def loss_and_grads(state: TrainState, criterion: TotalLoss, batch: torch.Tensor):
+def loss_and_grads(state: TrainState, criterion: TotalLoss, batch: torch.Tensor, packed: bool = False):
     """The train-mode forward (updating the BatchNorm statistics), the
-    losses and their gradients: (grads by name, loss_dict, new LossState)."""
+    losses and their gradients: (grads by name, loss_dict, new LossState).
+    `packed` evaluates the forward with the full- and half-resolution
+    stages s2d-packed (``models/packed_train.py``; H and W multiples of
+    32): the same parameters, statistics and losses up to float
+    reassociation, as the JAX package's ``make_train_step(packed=True)``."""
     model = state.model.train()
-    enhanced, reflectance, illu = model(batch)
+    enhanced, reflectance, illu = packed_train_apply(model, batch) if packed else model(batch)
     total, loss_dict, new_loss_state = criterion(batch, enhanced, illu, reflectance, state.loss_state)
     names = list(state.optimizer.params)
     grads = torch.autograd.grad(total, [state.optimizer.params[k] for k in names])
     return dict(zip(names, grads)), {k: v.detach() for k, v in loss_dict.items()}, new_loss_state
 
 
-def train_step(state: TrainState, criterion: TotalLoss, batch: torch.Tensor) -> dict[str, torch.Tensor]:
-    """One step on an NHWC float [0,1] batch, in place; returns the loss
-    dict (device scalars)."""
-    grads, loss_dict, new_loss_state = loss_and_grads(state, criterion, batch)
+def train_step(
+    state: TrainState, criterion: TotalLoss, batch: torch.Tensor, packed: bool = False
+) -> dict[str, torch.Tensor]:
+    """One step on an NHWC float [0,1] batch, in place (the packed forward
+    with `packed`); returns the loss dict (device scalars)."""
+    grads, loss_dict, new_loss_state = loss_and_grads(state, criterion, batch, packed)
     state.optimizer.step(grads)
     state.loss_state = new_loss_state
     state.step += 1

@@ -1,10 +1,12 @@
 """The training loop of the port (``--mode train``) on one device.
 
-Counterpart of ``retinex_tpu/train/trainer.py`` (the standard step, in f32
-or, with ``--use_amp``, with the net and VGG19 computing in bf16 and the
-parameters and the optimizer's state in f32, as the JAX trainer's
-``compute_dtype``; ``--remat`` checkpoints the net's blocks, as the JAX
-net's ``remat=``):
+Counterpart of ``retinex_tpu/train/trainer.py`` (in f32 or, with
+``--use_amp``, with the net and VGG19 computing in bf16 and the parameters
+and the optimizer's state in f32, as the JAX trainer's ``compute_dtype``;
+``--remat`` checkpoints the net's blocks, as the JAX net's ``remat=``). The
+step is the packed one (``--packed_train``, on by default) on the card
+where ``--image_size`` is a multiple of 32, else the standard one, by the
+JAX trainer's gate (``use_packed_train``):
 
 - each batch goes to the device as uint8, is augmented there
   (``data/augment.py``, a generator seeded with ``seed + 1``) and takes one
@@ -60,6 +62,22 @@ def check_supported(config: Config) -> None:
     """Raise for the training options of later slices (ROADMAP Queue 1)."""
     if (config.n_devices or 1) > 1 or config.coordinator:
         raise NotImplementedError("training on several devices or hosts lands in ROADMAP Queue 1 item 8")
+
+
+def use_packed_train(config: Config, device: torch.device) -> bool:
+    """The JAX trainer's gate: the packed step (``models/packed_train.py``)
+    where ``--packed_train`` is on, ``image_size`` is a multiple of 32 and
+    the device is the card; otherwise the standard step, saying why with
+    the JAX package's reasons. (Packing pays for wider convolutions on an
+    accelerator; on the CPU its einsums and layout copies are overhead.)"""
+    on_cpu = device.type == "cpu"
+    use = config.packed_train and config.image_size % 32 == 0 and not on_cpu
+    if use:
+        print("packed_train: the s2d-packed train step")
+    elif config.packed_train:
+        reason = "CPU backend" if on_cpu else "image_size not divisible by 32"
+        print(f"packed_train: {reason}, using the standard step")
+    return use
 
 
 def build_vgg(config: Config, device: torch.device):
@@ -209,8 +227,7 @@ def _train_impl(config: Config, preempted: dict) -> dict:
             loader.rng.bit_generator.state = extra["loader_rng"]
             aug_gen.set_state(extra["aug_rng"])
         print(f"Resumed from {config.resume} at epoch {start_epoch}")
-    if config.packed_train:
-        print("packed_train: the packed training layout lands in ROADMAP Queue 1 item 7; using the standard step")
+    packed = use_packed_train(config, device)
 
     log_dir = os.path.join(config.save_dir, "logs", datetime.now().strftime("%Y%m%d_%H%M%S"))
     logger = MetricLogger(log_dir)
@@ -241,7 +258,7 @@ def _train_impl(config: Config, preempted: dict) -> dict:
         for batch_idx, host_batch in enumerate(bar):
             batch = torch.from_numpy(host_batch).to(device, non_blocking=True)  # uint8 over the bus
             batch = augment_batch(batch, aug_gen, basic=True, advanced=config.advanced_augment)
-            loss_dict = train_step(state, criterion, batch)
+            loss_dict = train_step(state, criterion, batch, packed)
             num_batches += 1
             if preempted["flag"]:
                 epoch_iter.close()

@@ -287,6 +287,23 @@ first and last image against the kernel on each alone (identical):
    bf16 dec1-chain forward with the trained weights against the bf16
    default forward and the port's bf16 CPU run (``AMP_NET_TOL``), K10's
    bf16 launches counted, warm ms in turns (``amp_dec1_forward_phase``).
+22. Serving (``serving_phase``): ``infer/serving.py``'s artifacts exported
+   on the card (``torch.export``, symbolic batch): enhance and predict for
+   the full-width standard net at 1088x1920 with phase 20's trained
+   checkpoint, enhance at 1080x1920 (K2 and K3 in their tile modes), and
+   ``clahe`` and ``clahe_luma`` (hist_subsample 2) at 1088x1920; each
+   graph's ``retinex_tpu_torch::`` operators listed and checked; all five
+   loaded and served in one fresh ``python3`` process that imports only
+   ``retinex_tpu_torch.infer.serving`` and asserts that no model, CLI or
+   JAX module is loaded (``SERVER``), at batches 1 and 4 of letterboxed
+   ``data/convergence`` photos, each call's launches counted from zero
+   (``SERVING_ARTIFACTS``: ``LAB_CLAHE_ONCE``, none, ``LAB_CLAHE_TILES_ONCE``,
+   ``LAB_CLAHE_ONCE``, K2 + K7); every served byte identical to the eager
+   ``make_batch_pipeline`` (the standard net; the quantised forward for
+   predict) on the same card; then the warm served and eager ms per image
+   at batches 1 and 4 in turns (printed, not gated).
+   ``python3 chip_smoke.py --phase 22`` runs the build and this phase
+   alone, with the seed-0 weights.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the nvidia-smi line,
 and ``{"ok": true, "device": {...}}``. ``launches`` sums each kernel's
@@ -297,7 +314,9 @@ entry's run (the only one that reaches K1's and K3's u8 planar instances,
 lab_fwd_u8 and clahe_apply_u8; the main path runs their float instances,
 lab_fwd_f32_nhwc and clahe_apply_f32_nhwc); for K10, over its path's
 runs in phases 13 and 14 (the dec1-chain forwards and predict with it);
-for K12-K16, over the calls at perf_lab's shapes in phases 17-19.
+for K12-K16, over the calls at perf_lab's shapes in phases 17-19. The
+served calls of phase 22 add theirs to K1-K3's float instances and tile
+modes, K2's and K7's (``clahe_luma_apply_u8``).
 K4 has an entry as a whole (``fam_conv_fused``) and one for each of its
 three kernels (``fam_conv_y``, ``fam_conv_z``, ``fam_conv_out``), K10 as a
 whole (``dec1_chain``) and one for each of its four (``dec1_up``,
@@ -3817,6 +3836,200 @@ def amp_phase(torch, modules, ckpt: str, workdir: Path) -> tuple[dict, dict]:
     return out, {f"{k}_bf16": v for k, v in launches.items()} | dec1_launches
 
 
+# Phase 22: serving (retinex_tpu_torch/infer/serving.py). Each artifact is
+# exported on the card for a canvas (the full-width standard net, the
+# classical modes), then loaded and served in one fresh process that imports
+# only the serving module (``SERVER``), and held byte for byte to the eager
+# pipeline in this process: (the export's pipeline, canvas, the kernel
+# launches of one served call).
+SERVING_BATCHES = (1, 4)
+LUMA_ONCE = {"clahe_tables": 1, "clahe_luma_apply_u8": 1}
+SERVING_ARTIFACTS = {
+    "enhance": ("enhance", (1088, 1920), LAB_CLAHE_ONCE),
+    "predict": ("predict", (1088, 1920), {}),
+    "enhance_tiles": ("enhance", (1080, 1920), LAB_CLAHE_TILES_ONCE),
+    "clahe": (("clahe", 1), (1088, 1920), LAB_CLAHE_ONCE),
+    "clahe_luma": (("clahe_luma", 2), (1088, 1920), LUMA_ONCE),
+}
+# The serving process: argv[1] is a JSON {name: {"artifact", "inputs",
+# "out"}}; each artifact is loaded, each batch of its inputs (.npz by batch
+# size) served on the card with every launch count at 0 just before and read
+# just after, the outputs saved to "out" (.npz, "<batch>_<output>"). Prints
+# {"counts": {name: [counts per batch]}, "modules": [...]} as its last line.
+SERVER = r"""
+import json, sys
+import numpy as np, torch
+from retinex_tpu_torch.infer import serving
+
+jobs, counts = json.loads(sys.argv[1]), {}
+for name, job in jobs.items():
+    served = serving.load_enhancer(job["artifact"])
+    from retinex_tpu_torch.ops import clahe_gather, clahe_luma
+
+    outs, counts[name] = {}, []
+    for batch, x in sorted(np.load(job["inputs"]).items(), key=lambda kv: int(kv[0])):
+        xb = torch.from_numpy(x).cuda()
+        for m in (clahe_gather, clahe_luma):
+            m.reset_launches()
+        out = served(xb)
+        torch.cuda.synchronize()
+        counts[name].append({k: v for m in (clahe_gather, clahe_luma) for k, v in m.LAUNCHES.items() if v})
+        for i, o in enumerate(out if isinstance(out, tuple) else (out,)):
+            outs[f"{batch}_{i}"] = o.cpu().numpy()
+    np.savez(job["out"], **outs)
+loaded = sorted(m for m in sys.modules if m.startswith(("retinex_tpu", "jax")))
+assert not [m for m in loaded if m.startswith(("retinex_tpu_torch.models", "retinex_tpu_torch.cli", "jax"))
+            or m == "retinex_tpu" or m.startswith("retinex_tpu.")], loaded
+print(json.dumps({"counts": counts, "modules": loaded}))
+"""
+
+
+def serving_inputs(h: int, w: int) -> dict[int, np.ndarray]:
+    """u8 batches of 1 and 4 data/convergence photos on an h x w canvas: each
+    photo resized to 1920x1080, as phase 8's, then letterboxed to 1920 (to
+    1088x1920) where the canvas asks for it."""
+    from PIL import Image
+
+    from retinex_tpu_torch.ops.letterbox import letterbox_np, plan_letterbox
+
+    frames = []
+    for i in range(max(SERVING_BATCHES)):
+        with Image.open(REPO / "data" / "convergence" / f"lowlight_{i:03d}.png") as im:
+            rgb = np.asarray(im.convert("RGB").resize((1920, 1080), Image.BILINEAR))
+        if (h, w) != rgb.shape[:2]:
+            rgb = letterbox_np(rgb, plan_letterbox(1080, 1920, 1920, auto=True, scaleup=False))
+        if rgb.shape[:2] != (h, w):
+            raise AssertionError(f"letterboxed to {rgb.shape[:2]}, expected {(h, w)}")
+        frames.append(rgb)
+    return {b: np.stack(frames[:b]) for b in SERVING_BATCHES}
+
+
+def serving_graph_ops(serving, blob: bytes) -> list[str]:
+    """The port's operators that an artifact's exported graph calls."""
+    graph = serving.load_program(blob).graph
+    return sorted({str(n.target).split(".")[1] for n in graph.nodes
+                   if n.op == "call_function" and str(n.target).startswith("retinex_tpu_torch.")})
+
+
+def serving_phase(torch, ckpt: str | None, workdir: Path) -> dict[str, int]:
+    """Phase 22: the serving artifacts exported on the card (the full-width
+    standard net from `ckpt`, or from seed 0 without one), each graph's
+    operators checked, served in a fresh process that never imports the
+    model code (``SERVER``), its bytes identical to the eager pipeline's
+    here (``make_batch_pipeline`` on the standard net, the quantised forward
+    for predict) and its launches per served call as
+    ``SERVING_ARTIFACTS`` says; then the warm served and eager ms per image
+    in turns. Returns the served calls' launches by kernel."""
+    from retinex_tpu_torch import cli
+    from retinex_tpu_torch.config import Config
+    from retinex_tpu_torch.infer import serving
+    from retinex_tpu_torch.infer.enhance import _quant, make_batch_pipeline
+
+    cuda = torch.device("cuda")
+    model = cli.build_model(Config(mode="enhance", checkpoint=ckpt or ""), cuda, require_checkpoint=bool(ckpt))
+
+    def standard(batch):
+        return model(batch)
+
+    def predict(batch_u8):
+        enh, _refl, illu = model(batch_u8.to(torch.float32) / 255.0)
+        return _quant(enh), _quant(illu)
+
+    eager = {
+        "enhance": make_batch_pipeline(standard), "predict": predict,
+        ("clahe", 1): lambda b: make_batch_pipeline(None, "clahe")(b)[:1],
+        ("clahe_luma", 2): lambda b: make_batch_pipeline(None, "clahe_luma", hist_subsample=2)(b)[:1],
+    }
+    wants = {
+        "enhance": ["clahe_apply_f32_nhwc", "clahe_tables", "lab_fwd_f32_nhwc"], "predict": [],
+        "enhance_tiles": ["clahe_apply_tiles_f32_nhwc", "clahe_tables_tiles", "lab_fwd_f32_nhwc"],
+        "clahe": ["clahe_apply_f32_nhwc", "clahe_tables", "lab_fwd_f32_nhwc"],
+        "clahe_luma": ["clahe_luma_apply_u8", "clahe_tables"],
+    }
+    inputs = {canvas: serving_inputs(*canvas) for canvas in {c for _, c, _ in SERVING_ARTIFACTS.values()}}
+    jobs, blobs = {}, {}
+    for name, (pipeline, (h, w), _) in SERVING_ARTIFACTS.items():
+        path = workdir / f"serving_{name}.pt2"
+        t0 = time.perf_counter()
+        if isinstance(pipeline, tuple):
+            blob = serving.export_classical(pipeline[0], h, w, path=str(path), device=cuda, hist_subsample=pipeline[1])
+        else:
+            blob = serving.export_enhancer(model, h, w, path=str(path), device=cuda, pipeline=pipeline)
+        ops = serving_graph_ops(serving, blob)
+        print(f"  {name} artifact at {h}x{w}: {len(blob) / 1e6:.2f} MB, exported in {time.perf_counter() - t0:.1f} s, "
+              f"its graph calls {ops}")
+        if ops != wants[name]:
+            raise AssertionError(f"the {name} artifact's graph calls {ops}, expected {wants[name]}")
+        np.savez(workdir / f"serving_in_{h}.npz", **{str(b): x for b, x in inputs[(h, w)].items()})
+        jobs[name] = {"artifact": str(path), "inputs": str(workdir / f"serving_in_{h}.npz"),
+                      "out": str(workdir / f"serving_out_{name}.npz")}
+        blobs[name] = blob
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", SERVER, json.dumps(jobs)], cwd=REPO, capture_output=True, text=True,
+                          timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"the serving process failed ({proc.returncode}):\n{proc.stdout[-4000:]}\n"
+                             f"{proc.stderr[-8000:]}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"  the serving process ({time.perf_counter() - t0:.1f} s) loaded {len(report['modules'])} modules of the "
+          f"port, none of retinex_tpu_torch.models, the CLI or JAX: {report['modules']}")
+
+    launches: dict[str, int] = {}
+    with torch.inference_mode():
+        for name, (pipeline, (h, w), once) in SERVING_ARTIFACTS.items():
+            served = np.load(jobs[name]["out"])
+            for batch, counts in zip(SERVING_BATCHES, report["counts"][name]):
+                if counts != once:
+                    raise AssertionError(f"a served {name} call at batch {batch} launched {counts}, expected {once}")
+                for k, v in counts.items():
+                    launches[k] = launches.get(k, 0) + v
+                x = torch.from_numpy(inputs[(h, w)][batch]).to(cuda)
+                want = eager[pipeline](x)
+                for i, (kind, wo) in enumerate(zip(("enhanced", "illumination"), want)):
+                    got, wo = served[f"{batch}_{i}"].astype(np.int16), wo.cpu().numpy().astype(np.int16)
+                    d = np.abs(got - wo)
+                    if got.shape != wo.shape or d.max() > 0:
+                        raise AssertionError(
+                            f"served {name} {kind} at [{batch},{h},{w},3] differs from the eager pipeline: shape "
+                            f"{got.shape} against {wo.shape}, max {int(d.max())} level(s) on {int((d > 0).sum())} "
+                            f"bytes ({float((d > 0).mean()):.2e})")
+            kinds = "enhanced and illumination" if len(want) == 2 else "enhanced"
+            print(f"  served {name} at batches {SERVING_BATCHES}: {kinds} identical to the eager pipeline's; "
+                  f"launches a call {once or 'none'}")
+
+    card = gpu_line()
+    for name in ("enhance", "clahe", "clahe_luma"):
+        pipeline, (h, w), _ = SERVING_ARTIFACTS[name]
+        loaded = serving.load_enhancer(blobs[name])
+        for batch in SERVING_BATCHES:
+            x = torch.from_numpy(inputs[(h, w)][batch]).to(cuda)
+            ms = in_turns(torch, {"served": loaded, "eager": eager[pipeline]}, x)
+            print(f"  warm ms per image, {name} at [{batch},{h},{w},3]: served {ms['served'] / batch:.3f}, eager "
+                  f"{ms['eager'] / batch:.3f} ({ms['served'] / ms['eager']:.4f}x), in turns; {card}")
+    return launches
+
+
+def serving_alone(torch, kernels, line: str) -> int:
+    """``chip_smoke.py --phase 22``: the build and phase 22 alone, with the
+    seed-0 weights."""
+    import argparse
+
+    parser = argparse.ArgumentParser(description="the build and one phase alone")
+    parser.add_argument("--phase", type=int, choices=(22,), required=True)
+    parser.parse_args()
+    for stem, built in kernels.build().items():
+        print(f"  {built.path.name}: built in {built.seconds:.2f} s")
+    print("phase 22 alone: serving with the seed-0 weights")
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = serving_phase(torch, None, Path(tmp))
+    print(f"  launches of the served calls: {launches}")
+    print(line)
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0)}
+    print(json.dumps({"ok": True, "phases": [22], "device": device}))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -3836,6 +4049,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False  # as the CLI sets it
+
+    if len(sys.argv) > 1:
+        return serving_alone(torch, _kernels, line)
 
     print("phase 1: build")
     count_dir = tempfile.TemporaryDirectory()
@@ -3895,8 +4111,13 @@ def main() -> int:
         print("phase 21: bf16 inference (--use_amp with enhance and predict): K4-K6 and K11 in bf16; K10 in bf16 "
               "(NetCfg(dec1_chain=True))")
         amp_recs, amp_launches = amp_phase(torch, (cg, cl, fb, cp, kp), ckpt, Path(tmp))
+        print("phase 22: serving: torch.export artifacts exported on the card, served in a process without the model "
+              "code, identical to the eager pipeline")
+        serving_launches = serving_phase(torch, ckpt, Path(tmp))
     recs.update(amp_recs)
     launches.update(amp_launches)
+    for name, n in serving_launches.items():
+        launches[name] += n
 
     for name in recs:
         if launches[name] == 0:

@@ -87,8 +87,11 @@ class AdaptiveParameterAdjuster:
         squeeze = x.ndim == 3
         if squeeze:
             x = x[None]
-        # Computed for API parity and unused, as in the reference.
-        self.adjust_parameters(x)
+        # Computed for API parity and unused, as in the reference; skipped
+        # while torch.export traces (its float() reads the data), as the JAX
+        # package skips it under a tracer.
+        if not torch.compiler.is_exporting():
+            self.adjust_parameters(x)
         enhanced, _refl, illu = apply_fn(x)
         enhanced = clahe_lab_rgb(torch.clamp(enhanced, 0.0, 1.0))
         if squeeze:

@@ -151,6 +151,33 @@ def stream(x) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+# The namespace of the PyTorch operators that the serving routes' wrappers
+# are registered as (``operator``).
+OP_NAMESPACE = "retinex_tpu_torch"
+_OPERATORS: dict[str, object] = {}
+
+
+def operator(name: str, fake):
+    """Decorator: a kernel's wrapper as the PyTorch operator
+    ``retinex_tpu_torch::<name>`` (``torch.library.custom_op``, mutating no
+    input), the wrapper's body its implementation on every device, `fake`
+    its fake implementation: the output's shape and dtype from the inputs',
+    which is all that ``torch.export`` and other tracers run, since a launch
+    needs storage that their tensors do not have. An exported program then
+    holds a call of the operator, and the operator launches the kernel.
+    Registered once per process: a module imported again gets the first
+    registration back."""
+
+    def register(fn):
+        if name not in _OPERATORS:
+            op = torch.library.custom_op(f"{OP_NAMESPACE}::{name}", mutates_args=())(fn)
+            op.register_fake(fake)
+            _OPERATORS[name] = op
+        return _OPERATORS[name]
+
+    return register
+
+
 def query(name: str, *args) -> int:
     """Call a library function that returns a number (not a cudaError)."""
     return getattr(libraries()[_SIGNATURES[name][0]], name)(*args)

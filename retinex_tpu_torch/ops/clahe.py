@@ -71,12 +71,17 @@ def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 
 def _tile_hist(tiles: torch.Tensor) -> torch.Tensor:
-    """tiles: int [..., T, P] values in [0,255] -> int64 histograms [..., T, 256]."""
+    """tiles: int [..., T, P] values in [0,255] -> int64 histograms [..., T, 256].
+
+    Counted by a scatter-add into the known number of bins, not by
+    ``bincount``, whose output size depends on the data: ``torch.export``
+    would fix the batch of a serving artifact there (infer/serving.py)."""
     lead = tiles.shape[:-1]
     flat = tiles.reshape(-1, tiles.shape[-1]).to(torch.int64)
     offs = torch.arange(flat.shape[0], device=tiles.device)[:, None] * HIST_SIZE
-    hist = torch.bincount((flat + offs).reshape(-1), minlength=flat.shape[0] * HIST_SIZE)
-    return hist.reshape(*lead, HIST_SIZE)
+    idx = (flat + offs).reshape(-1)
+    hist = torch.zeros(flat.shape[0] * HIST_SIZE, dtype=torch.int64, device=tiles.device)
+    return hist.scatter_add(0, idx, torch.ones_like(idx)).reshape(*lead, HIST_SIZE)
 
 
 def _interp_maps(h: int, w: int, tiles_y: int, tiles_x: int, tile_h: int, tile_w: int, device=None):

@@ -158,6 +158,13 @@ def lab_fwd_f32_nhwc_plain(x: torch.Tensor) -> torch.Tensor:
     return lab_fwd_u8_plain(quantise_planar_u8(x))
 
 
+def _planar_lab_like(x: torch.Tensor) -> torch.Tensor:
+    """Fake implementation of K1's float instance: planar u8 [B,3,H,W] of
+    float [B,H,W,3]."""
+    return x.new_empty((x.shape[0], 3, x.shape[1], x.shape[2]), dtype=torch.uint8)
+
+
+@_kernels.operator("lab_fwd_f32_nhwc", _planar_lab_like)
 def lab_fwd_f32_nhwc(x: torch.Tensor) -> torch.Tensor:
     """K1 on the float input: f32 [B,H,W,3] in [0,1] -> planar u8 Lab
     [B,3,H,W], quantised as ``quantise_planar_u8`` in the kernel's reads.
@@ -272,6 +279,13 @@ def _load_width(plane: torch.Tensor, img_stride: int, w: int, tiles_x: int, tile
     return 1
 
 
+def _luts_like(src: torch.Tensor, clip_limit: float = 2.0, tiles_y: int = 8, tiles_x: int = 8,
+               hist_subsample: int = 1) -> torch.Tensor:
+    """Fake implementation of K2: u8 LUTs [B, tiles_y, tiles_x, 256]."""
+    return src.new_empty((src.shape[0], tiles_y, tiles_x, HIST_SIZE), dtype=torch.uint8)
+
+
+@_kernels.operator("clahe_tables", _luts_like)
 def clahe_tables(
     src: torch.Tensor, clip_limit: float = 2.0, tiles_y: int = 8, tiles_x: int = 8, hist_subsample: int = 1
 ) -> torch.Tensor:
@@ -517,12 +531,20 @@ def clahe_apply_f32_nhwc_plain(lab: torch.Tensor, luts: torch.Tensor) -> torch.T
     return dequantise_nhwc(clahe_apply_u8_plain(lab, luts))
 
 
+def _rgb_f32_like(lab: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
+    """Fake implementation of K3's float instances: f32 [B,H,W,3] of planar
+    Lab [B,3,H,W]."""
+    return lab.new_empty((lab.shape[0], lab.shape[2], lab.shape[3], 3), dtype=torch.float32)
+
+
+@_kernels.operator("clahe_apply_f32_nhwc", _rgb_f32_like)
 def clahe_apply_f32_nhwc(lab: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
     """K3 writing the float image: planar u8 Lab + u8 LUTs -> f32 NHWC
-    [B,H,W,3], each value the output byte / 255."""
+    [B,H,W,3], each value the output byte / 255 (contiguous on either
+    device, as the operator's fake implementation says)."""
     _check_apply(lab, luts, "clahe_apply_f32_nhwc")
     if lab.device.type == "cpu":
-        return clahe_apply_f32_nhwc_plain(lab, luts)
+        return clahe_apply_f32_nhwc_plain(lab, luts).contiguous()
     b, _, h, w = lab.shape
     out = torch.empty((b, h, w, 3), dtype=torch.float32, device=lab.device)
     return _launch_apply(lab, luts, out, _F32_NHWC, "clahe_apply_f32_nhwc")
@@ -627,6 +649,12 @@ def clahe_tables_tiles_plain(src: torch.Tensor, clip_limit: float = 2.0, tiles_y
     return _luts_from_hist(hist, clip_limit, area).to(torch.uint8)
 
 
+def _tile_luts_like(src: torch.Tensor, clip_limit: float = 2.0, tiles_y: int = 8, tiles_x: int = 8) -> torch.Tensor:
+    """Fake implementation of K2's tile-row mode: u8 LUTs [B, tiles_y, tiles_x, 256]."""
+    return _luts_like(src, clip_limit, tiles_y, tiles_x)
+
+
+@_kernels.operator("clahe_tables_tiles", _tile_luts_like)
 def clahe_tables_tiles(src: torch.Tensor, clip_limit: float = 2.0, tiles_y: int = 8, tiles_x: int = 8) -> torch.Tensor:
     """K2 in its tile-row mode: the CLAHE LUT of every tile of the frame
     padded by reflect-101 to whole tiles (``clahe.clahe_u8``'s tables), from
@@ -723,14 +751,15 @@ def _tiles_width(lab: torch.Tensor, w: int) -> int:
     return 4 if w % 4 == 0 and lab.data_ptr() % 4 == 0 else 1
 
 
+@_kernels.operator("clahe_apply_tiles_f32_nhwc", _rgb_f32_like)
 def clahe_apply_tiles_f32_nhwc(lab: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
     """K3 in its tile-coordinate mode: planar u8 Lab [B,3,H,W] of any shape +
     the padded tiles' u8 LUTs [B, tiles_y, tiles_x, 256] -> f32 NHWC
-    [B,H,W,3], each value the output byte / 255: clahe_u8's blend, then K3's
-    Lab -> sRGB."""
+    [B,H,W,3] (contiguous), each value the output byte / 255: clahe_u8's
+    blend, then K3's Lab -> sRGB."""
     _check_apply(lab, luts, "clahe_apply_tiles_f32_nhwc", cells=False)
     if lab.device.type == "cpu":
-        return clahe_apply_tiles_f32_nhwc_plain(lab, luts)
+        return clahe_apply_tiles_f32_nhwc_plain(lab, luts).contiguous()
     b, _, h, w = lab.shape
     tiles_y, tiles_x = luts.shape[1], luts.shape[2]
     out = torch.empty((b, h, w, 3), dtype=torch.float32, device=lab.device)

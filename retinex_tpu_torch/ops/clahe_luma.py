@@ -135,6 +135,12 @@ def _check_apply(xp_u8: torch.Tensor, luts: torch.Tensor, what: str) -> tuple[in
     return _check_luts(luts, b, h, w, xp_u8.device, what, smem_per_tile=_LUT_SMEM_PER_TILE, smem_max=_SMEM_MAX)
 
 
+def _rgb_u8_like(x_u8: torch.Tensor, y: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
+    """Fake implementation of K7: u8 RGB in the input's shape and layout."""
+    return torch.empty_like(x_u8)
+
+
+@_kernels.operator("clahe_luma_apply_u8", _rgb_u8_like)
 def clahe_luma_apply_u8(x_u8: torch.Tensor, y: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
     """K7: u8 RGB, planar [B,3,H,W] or NHWC [B,H,W,3], + u8 luma [B,H,W]
     + u8 LUTs [B,ty,tx,256] -> u8 RGB in the same layout."""

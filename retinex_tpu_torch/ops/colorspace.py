@@ -144,11 +144,21 @@ def rgb_to_lab_u8(x: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def degamma_table(device: str) -> torch.Tensor:
-    """f32 [256]: srgb_to_linear(v / 255) for every byte v, computed on the
-    CPU (on CUDA the division and the power round some values otherwise)."""
+def _degamma_table(device: str) -> torch.Tensor:
     v = torch.arange(256, dtype=torch.float32) / 255.0
     return srgb_to_linear(v).to(device)
+
+
+def degamma_table(device: str) -> torch.Tensor:
+    """f32 [256]: srgb_to_linear(v / 255) for every byte v, computed on the
+    CPU (on CUDA the division and the power round some values otherwise),
+    once per device. While ``torch.export`` traces (the plain Lab-CLAHE
+    route of a CPU serving artifact, infer/serving.py) the table is computed
+    in the traced program instead, so that the cache never holds a traced
+    tensor."""
+    if torch.compiler.is_exporting():
+        return _degamma_table.__wrapped__(device)
+    return _degamma_table(device)
 
 
 def srgb_bytes_to_lab_u8(rgb: torch.Tensor, dim: int) -> torch.Tensor:

@@ -1024,3 +1024,30 @@ def test_luma_kernels_bit_identical_to_plain_versions(cuda_f32):
             assert torch.equal(k7, want), (tuple(x.shape), s, int((k7 != want).sum()))
             assert torch.equal(k7_nhwc, cl.clahe_luma_apply_u8_plain(x, y, luts)), (tuple(x.shape), s)
             assert torch.equal(k9, cl.clahe_luma_apply_u8_fused_plain(xp, luts)), (tuple(x.shape), s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,h,w,once", [
+    ("clahe", 64, 96, {"lab_fwd_f32_nhwc": 1, "clahe_tables": 1, "clahe_apply_f32_nhwc": 1}),
+    ("clahe", 72, 104, {"lab_fwd_f32_nhwc": 1, "clahe_tables_tiles": 1, "clahe_apply_tiles_f32_nhwc": 1}),
+    ("clahe_luma", 64, 96, {"clahe_tables": 1, "clahe_luma_apply_u8": 1}),
+])
+def test_serving_artifact_launches_the_kernels(cuda_f32, mode, h, w, once):
+    """A classical artifact exported on the card (infer/serving.py) calls the
+    kernels' operators: each served call launches them once, on batches of 1
+    and 3 from one artifact, with the eager pipeline's bytes (the tile modes
+    at 72x104, which is not cell-divisible)."""
+    from retinex_tpu_torch.infer import serving
+    from retinex_tpu_torch.infer.enhance import make_batch_pipeline
+
+    served = serving.load_enhancer(serving.export_classical(mode, h, w, device="cuda"))
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for b in (1, 3):
+        x = torch.randint(0, 256, (b, h, w, 3), dtype=torch.uint8, device="cuda", generator=g)
+        cg.reset_launches()
+        cl.reset_launches()
+        got = served(x)
+        torch.cuda.synchronize()
+        counts = {k: v for m in (cg, cl) for k, v in m.LAUNCHES.items() if v}
+        assert counts == once, counts
+        assert torch.equal(got, make_batch_pipeline(None, mode)(x)[0])

@@ -304,6 +304,32 @@ first and last image against the kernel on each alone (identical):
    at batches 1 and 4 in turns (printed, not gated).
    ``python3 chip_smoke.py --phase 22`` runs the build and this phase
    alone, with the seed-0 weights.
+23. Data parallelism on the one card (``data_parallel_phase``; NCCL takes
+   one rank per GPU, so two ranks share the card over gloo): (a) directory
+   enhance (the default packed net with Lab-CLAHE, ``clahe``,
+   ``clahe_luma``) and predict (phase 20's checkpoint) over phase 8's 16
+   photos at ``--max_size 1920 --batch_size 8``, the full-width net, on one
+   card and on a two-shard mesh that repeats ``cuda:0``
+   (``parallel/mesh.py``, ``infer/batch_driver.shard_batch_fn``): each
+   kernel's launches counted per shard (twice the one-card run's), the
+   classical modes' PNGs byte-identical to the one-card run's, the net
+   routes' differing bytes and their largest difference printed and held
+   to ``SHARD_PNG_BOUND`` (cuDNN's choice of algorithm by batch size moves
+   a float across a .5 tie, as in phase 8's batch against single images);
+   (b) ``--n_devices`` one above the visible cards raises with its message;
+   (c) the packed train step at the CLI defaults ([8,640,640,3], the
+   perceptual loss on, cuDNN's deterministic algorithms) in a world of one
+   NCCL rank equals the plain step in this process bit for bit (losses,
+   parameters, BatchNorm statistics; the plain step run twice shows it is
+   reproducible); (d) the same step in 2 ranks on ``cuda:0`` over gloo,
+   one rank per half of the batch, held to the one-card step by
+   tests/test_parallel.py's bounds (loss rel 1e-4, parameters at most 2.1
+   lr apart, their 0.99 quantile under 1e-4); (e)
+   ``graft_entry.dryrun_multichip(2)`` on the card; (f) warm step times of
+   the plain step, (c) and (d) (medians of 5 after a warm-up, each from a
+   barrier to its loss on the host): two ranks on one card measure the
+   collectives, not a speed-up. ``python3 chip_smoke.py --phase 23`` runs
+   the build and this phase alone, with the seed-0 weights.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the nvidia-smi line,
 and ``{"ok": true, "device": {...}}``. ``launches`` sums each kernel's
@@ -316,7 +342,9 @@ lab_fwd_f32_nhwc and clahe_apply_f32_nhwc); for K10, over its path's
 runs in phases 13 and 14 (the dec1-chain forwards and predict with it);
 for K12-K16, over the calls at perf_lab's shapes in phases 17-19. The
 served calls of phase 22 add theirs to K1-K3's float instances and tile
-modes, K2's and K7's (``clahe_luma_apply_u8``).
+modes, K2's and K7's (``clahe_luma_apply_u8``); phase 23's sharded
+directory runs (each counted from zero) add theirs to K1-K6's (the net
+routes) and to K2's, K7's and K8's (the classical modes).
 K4 has an entry as a whole (``fam_conv_fused``) and one for each of its
 three kernels (``fam_conv_y``, ``fam_conv_z``, ``fam_conv_out``), K10 as a
 whole (``dec1_chain``) and one for each of its four (``dec1_up``,
@@ -354,6 +382,7 @@ stages, and null elsewhere: no one call computes K4, K10 or K12 whole.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import statistics
@@ -4010,23 +4039,185 @@ def serving_phase(torch, ckpt: str | None, workdir: Path) -> dict[str, int]:
     return launches
 
 
+# Sharded against one card, the net routes' PNGs: at most this many levels
+# apart, on at most this share of the bytes (a .5 tie that the net's float
+# crosses and Lab-CLAHE spreads; phase 8's batch against single images:
+# 5 levels on 1.63e-06 of an image's bytes, PR 19).
+SHARD_PNG_BOUND = (8, 1e-4)
+DP_ROUTES = {  # route: (classical mode, the one-card directory run's launches)
+    "net": (None, DIR_MODES["net"][1]),
+    "clahe": ("clahe", DIR_MODES["clahe"][1]),
+    "clahe_luma": ("clahe_luma", DIR_MODES["clahe_luma"][1]),
+    "predict": (None, {"fam_conv_fused": 6, "fam_tail_stats": 6, "fam_tail_apply_g1": 6}),
+}
+
+
+def dp_directory_run(torch, route: str, ckpt: str, photos: Path, out: Path, mesh) -> None:
+    from retinex_tpu_torch import cli
+    from retinex_tpu_torch.config import Config
+    from retinex_tpu_torch.infer.enhance import enhance_batch_images
+    from retinex_tpu_torch.infer.predict import predict_batch
+
+    cuda = torch.device("cuda")
+    mode, _ = DP_ROUTES[route]
+    knobs = dict(max_size=1920, batch_size=8, num_workers=8, device="cuda", mesh=mesh)
+    if route == "predict":
+        apply = cli.build_apply_fn(Config(mode="predict", checkpoint=ckpt), cuda, require_checkpoint=True, mesh=mesh)
+        predict_batch(apply, str(photos), str(out), **knobs)
+    else:
+        apply = None if mode else cli.build_apply_fn(Config(mode="enhance", checkpoint=ckpt), cuda, mesh=mesh)
+        enhance_batch_images(apply, str(photos), str(out), classical_mode=mode, **knobs)
+
+
+def dp_sharded_inference(torch, modules, ckpt: str, workdir: Path) -> dict[str, int]:
+    """Phase 23 (a) and (b): the directory routes on one card and on a
+    two-shard mesh of ``cuda:0``; returns the sharded runs' launches."""
+    from PIL import Image
+
+    from retinex_tpu_torch import cli
+    from retinex_tpu_torch.parallel.mesh import Mesh
+
+    photos = make_directory(REPO / "data" / "convergence", workdir)
+    mesh = Mesh((torch.device("cuda", 0),) * 2)
+    total: dict[str, int] = {}
+    for route, (mode, want) in DP_ROUTES.items():
+        dirs, secs = {}, {}
+        for label, m in (("one", None), ("sharded", mesh)):
+            dirs[label] = workdir / f"dp_{route}_{label}"
+            for mod in modules:
+                mod.reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                dp_directory_run(torch, route, ckpt, photos, dirs[label], m)
+            torch.cuda.synchronize()
+            secs[label] = time.perf_counter() - t0
+            launches = launch_counts(modules)
+            check_launches(launches, want if m is None else {k: 2 * v for k, v in want.items()},
+                           f"{route} on {'one card' if m is None else 'two shards'}")
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+        names = sorted(p.name for p in dirs["one"].iterdir())
+        if names != sorted(p.name for p in dirs["sharded"].iterdir()) or len(names) != 48:
+            raise AssertionError(f"{route}: the sharded run wrote other files than the one-card run")
+        n_diff, n_bytes, worst = 0, 0, 0
+        for name in names:
+            if name.endswith("_comparison.png"):
+                continue
+            a, b = (np.asarray(Image.open(dirs[k] / name)).astype(np.int16) for k in ("one", "sharded"))
+            d = np.abs(a - b)
+            n_diff, n_bytes, worst = n_diff + int((d > 0).sum()), n_bytes + d.size, max(worst, int(d.max()))
+        print(f"  (a) {route}: two shards of cuda:0 vs one card: {n_diff} of {n_bytes} bytes differ, max {worst} "
+              f"level(s); launches per shard {{{', '.join(f'{k}: {v // 2}' for k, v in launches.items() if v)}}} "
+              f"x2; {secs['one']:.3f} s on one card, {secs['sharded']:.3f} s sharded (cold)")
+        if mode and n_diff:
+            raise AssertionError(f"{route}: the sharded PNGs differ from the one-card run's")
+        if worst > SHARD_PNG_BOUND[0] or n_diff > SHARD_PNG_BOUND[1] * n_bytes:
+            raise AssertionError(f"{route}: sharded vs one card beyond {SHARD_PNG_BOUND}")
+
+    n = torch.cuda.device_count() + 1
+    try:
+        cli.main(["--mode", "enhance", "--input_path", str(photos), "--output_dir", str(workdir / "dp_raise"),
+                  "--classical_mode", "clahe", "--n_devices", str(n), "--device", "cuda"])
+    except ValueError as e:
+        if "asked for" not in str(e):
+            raise
+        print(f"  (b) --n_devices {n}: raises ValueError: {e}")
+    else:
+        raise AssertionError(f"--n_devices {n} ran on {n - 1} visible card(s)")
+    return total
+
+
+def dp_steps(torch, card: str) -> None:
+    """Phase 23 (c), (d) and (f): the packed step at the CLI defaults, plain,
+    in a world of one NCCL rank and in two gloo ranks on ``cuda:0``."""
+    from retinex_tpu_torch.config import Config
+    from retinex_tpu_torch.losses.total import LossConfig
+    from retinex_tpu_torch.train.data_parallel import StepSpec, one_step, sharded_steps
+
+    lr = Config().lr
+    spec = StepSpec(packed=True, lr=lr, loss=LossConfig(use_perceptual_loss=True), timed=6, deterministic=True)
+    batch = train_batch(torch, REPO / "data" / "convergence").cpu().numpy()
+    plain = one_step(spec, batch, "cuda")
+    again = one_step(dataclasses.replace(spec, timed=0), batch, "cuda")
+    torch.cuda.empty_cache()
+
+    def same(a: dict, b: dict) -> bool:
+        return a["loss"] == b["loss"] and all(
+            torch.equal(a[key][k], b[key][k]) for key in ("params", "stats") for k in a[key]
+        )
+
+    print(f"  (c) the plain step ([8,640,640,3], packed, perceptual loss on, deterministic cuDNN) run twice: "
+          f"{'bit-identical' if same(plain, again) else 'DIFFERENT'}; total loss {plain['loss']['total']!r}")
+    if not same(plain, again):
+        raise AssertionError("the plain step is not reproducible on this card")
+    nccl = sharded_steps(1, [spec], batch, device="cuda", backend="nccl")[0]
+    if not same(nccl, plain):
+        raise AssertionError(f"a world of one NCCL rank differs from the plain step: {nccl['loss']} vs {plain['loss']}")
+    print(f"  (c) backend nccl, a world of 1: losses, parameters and BatchNorm statistics equal the plain step's "
+          f"bit for bit")
+    gloo = sharded_steps(2, [spec], batch, device="cuda:0", backend="gloo")[0]
+    rel = abs(gloo["loss"]["total"] - plain["loss"]["total"]) / abs(plain["loss"]["total"])
+    diffs = np.concatenate([(gloo["params"][k] - v).abs().reshape(-1).numpy() for k, v in plain["params"].items()])
+    stats = max(float((gloo["stats"][k] - v).abs().max()) for k, v in plain["stats"].items())
+    q99 = float(np.quantile(diffs, 0.99))
+    print(f"  (d) backend gloo, 2 ranks on cuda:0 (4 rows each): total loss {gloo['loss']['total']!r} vs "
+          f"{plain['loss']['total']!r} (rel {rel:.3e}); parameters max {diffs.max():.3e} apart "
+          f"({diffs.max() / lr:.3f} lr), 0.99 quantile {q99:.3e}; BatchNorm statistics max {stats:.3e} apart")
+    if rel > 1e-4 or diffs.max() > 2.1 * lr or q99 >= 1e-4:
+        raise AssertionError("the 2-rank step is outside tests/test_parallel.py's bounds")
+    print(f"  (f) warm step, median of 5 ({card}): plain {plain['ms']:.3f} ms, NCCL world of 1 {nccl['ms']:.3f} ms, "
+          f"2 gloo ranks on one card {gloo['ms']:.3f} ms (the two ranks share the card: this measures the "
+          f"collectives, not a speed-up)")
+
+
+def data_parallel_phase(torch, modules, ckpt: str, workdir: Path) -> dict[str, int]:
+    """Phase 23 (the module docstring); returns (a)'s sharded launches."""
+    from retinex_tpu_torch.graft_entry import dryrun_multichip
+
+    card = gpu_line()
+    t0 = time.perf_counter()
+    launches = dp_sharded_inference(torch, modules, ckpt, workdir)
+    dp_steps(torch, card)
+    print("  (e) graft_entry.dryrun_multichip(2) on the card:")
+    dryrun_multichip(2)
+    print(f"  phase 23 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def seed0_checkpoint(torch, workdir: Path) -> str:
+    """The CLI's untrained weights (seed 0) as a ``.pth``, for predict."""
+    from retinex_tpu_torch.cli import init_untrained
+    from retinex_tpu_torch.models.retinex_net import MultiScaleUPRetinex
+
+    path = workdir / "seed0.pth"
+    torch.save({"epoch": 0, "model_state_dict": init_untrained(MultiScaleUPRetinex(False, False), 0).state_dict()}, path)
+    return str(path)
+
+
 def serving_alone(torch, kernels, line: str) -> int:
-    """``chip_smoke.py --phase 22``: the build and phase 22 alone, with the
-    seed-0 weights."""
+    """``chip_smoke.py --phase 22`` or ``--phase 23``: the build and that
+    phase alone, with the seed-0 weights."""
     import argparse
 
     parser = argparse.ArgumentParser(description="the build and one phase alone")
-    parser.add_argument("--phase", type=int, choices=(22,), required=True)
-    parser.parse_args()
+    parser.add_argument("--phase", type=int, choices=(22, 23), required=True)
+    phase = parser.parse_args().phase
     for stem, built in kernels.build().items():
         print(f"  {built.path.name}: built in {built.seconds:.2f} s")
-    print("phase 22 alone: serving with the seed-0 weights")
     with tempfile.TemporaryDirectory() as tmp:
-        launches = serving_phase(torch, None, Path(tmp))
-    print(f"  launches of the served calls: {launches}")
+        if phase == 22:
+            print("phase 22 alone: serving with the seed-0 weights")
+            launches = serving_phase(torch, None, Path(tmp))
+            print(f"  launches of the served calls: {launches}")
+        else:
+            from retinex_tpu_torch.ops import clahe_gather, clahe_luma, clahe_pallas, conv_pallas, fused_blocks
+
+            print("phase 23 alone: data parallelism with the seed-0 weights")
+            modules = (clahe_gather, clahe_luma, fused_blocks, conv_pallas, clahe_pallas)
+            launches = data_parallel_phase(torch, modules, seed0_checkpoint(torch, Path(tmp)), Path(tmp))
+            print(f"  launches of the sharded runs: {launches}")
     print(line)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0)}
-    print(json.dumps({"ok": True, "phases": [22], "device": device}))
+    print(json.dumps({"ok": True, "phases": [phase], "device": device}))
     return 0
 
 
@@ -4114,9 +4305,12 @@ def main() -> int:
         print("phase 22: serving: torch.export artifacts exported on the card, served in a process without the model "
               "code, identical to the eager pipeline")
         serving_launches = serving_phase(torch, ckpt, Path(tmp))
+        print("phase 23: data parallelism: sharded directory runs on a two-shard mesh of cuda:0, --n_devices beyond the "
+              "card, the train step in a world of one NCCL rank and in two gloo ranks, dryrun_multichip(2)")
+        dp_launches = data_parallel_phase(torch, (cg, cl, fb, cp, kp), ckpt, Path(tmp))
     recs.update(amp_recs)
     launches.update(amp_launches)
-    for name, n in serving_launches.items():
+    for name, n in list(serving_launches.items()) + list(dp_launches.items()):
         launches[name] += n
 
     for name in recs:

@@ -10,6 +10,8 @@ It runs beside the JAX package and imports nothing of it (nor JAX):
   converter.
 - ``retinex_tpu_torch.infer``  — the adaptive enhance route (net + Lab-CLAHE).
 - ``retinex_tpu_torch.cli``    — ``--mode enhance`` on one image.
+- ``retinex_tpu_torch.parallel`` — the data mesh of sharded directory runs
+  and the process groups of multi-device and multi-host training.
 
 Public functions take the JAX package's layouts (float [0,1] HWC/NHWC
 images). Entry points run on CUDA unless the caller passes ``device="cpu"``.

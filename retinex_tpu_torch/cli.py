@@ -31,8 +31,8 @@ Every enhance route of the JAX package runs, and writes ``<name>_enhanced.png``,
   directory) and ``--classical_mode clahe_luma`` (K2 and K7), with
   ``--clahe_clip_limit``, ``--clahe_tiles`` and ``--clahe_hist_subsample``.
 
-``--mode train`` trains the net on one device with the seven losses (the
-standard f32 step; ``train/trainer.py``): the epoch lines, ``best`` and
+``--mode train`` trains the net with the seven losses, on one device or as
+the ranks of a data-parallel run (``train/trainer.py``): the epoch lines, ``best`` and
 ``latest`` full-state checkpoints under ``--save_dir``, ``metrics.jsonl``,
 ``results.csv``, sample visualisations, early stopping, ``--resume`` and a
 checkpoint on SIGTERM. ``--mode predict`` runs the net alone (no CLAHE) on a
@@ -51,15 +51,22 @@ every route on the CPU with the kernels' plain versions. Weights come from
 ``--checkpoint``: a training checkpoint of the port or a reference
 ``.pth``; or else (enhance only) are initialised untrained as the JAX CLI
 does (Flax's lecun-normal kernels, zero biases, always seed 0 like its
-``PRNGKey(0)``; ``--seed`` does not reach them). ``--spatial_shard``,
+``PRNGKey(0)``; ``--seed`` does not reach them).
 ``--use_amp`` computes the net in bf16 for ``--mode enhance`` and
 ``predict`` (``models/layers.py``, ``models/packed_inference.py``: the FAM
 kernels' bf16 instances) and the net and VGG19 in bf16 for ``--mode train``
 (the parameters and the optimizer's state stay f32; the checkpoints keep
 their format); Lab-CLAHE and the enhancers stay f32, as the JAX package's
 do. ``--remat`` recomputes the net's blocks in training's backward.
-``--n_devices`` above 1 and ``--coordinator`` raise ``NotImplementedError``
-(each names its ROADMAP Queue 1 item), and so does a ``--checkpoint``
+``--n_devices`` (default: every visible card) runs directories over a data
+mesh: each chunk split along the batch, the whole pipeline on each card's
+slice with its own copy of the weights (``infer/batch_driver.py``), the
+same bytes as one card; one image runs on one card. ``--mode train`` on
+several cards starts one process per card, each a rank of the JAX
+package's global-batch step (NCCL; ``parallel/distributed.py``), and
+``--coordinator host:port --num_processes P --process_id i`` joins the
+ranks of P hosts. ``--spatial_shard`` raises ``NotImplementedError``
+(ROADMAP Queue 1 item 9), and so does a ``--checkpoint``
 directory (the JAX package's Orbax format). ``--mode train`` takes the
 packed train step (``--packed_train``, on by default;
 ``models/packed_train.py``) on the card where ``--image_size`` is a
@@ -70,6 +77,7 @@ CPU, or at other sizes, as the JAX trainer does (and says why).
 from __future__ import annotations
 
 import argparse
+import copy
 import os
 from pathlib import Path
 
@@ -81,6 +89,7 @@ from retinex_tpu_torch.models.convert import load_reference_checkpoint
 from retinex_tpu_torch.models.init import TRUNC_STD, fan_in, init_untrained  # noqa: F401
 from retinex_tpu_torch.models.packed_inference import PackedRetinex
 from retinex_tpu_torch.models.retinex_net import MultiScaleUPRetinex
+from retinex_tpu_torch.parallel.mesh import replicate
 
 
 # The JAX CLI initialises the untrained net from PRNGKey(0).
@@ -113,22 +122,29 @@ def build_model(config: Config, device: torch.device, require_checkpoint: bool =
     return model.eval().to(device)
 
 
-def build_apply_fn(config: Config, device: torch.device, require_checkpoint: bool = False):
+def build_apply_fn(config: Config, device: torch.device, require_checkpoint: bool = False, mesh=None):
     """NHWC batch -> (enhanced, reflectance, illumination) through the
-    packed forward (``config.packed_inference``) or the standard one."""
+    packed forward (``config.packed_inference``) or the standard one. With
+    `mesh` (``parallel/mesh.py``) one copy of the weights lives on each of
+    its devices and the forward runs the copy on its input's device."""
     model = build_model(config, device, require_checkpoint)
-    forward = model
+    home = next(model.parameters()).device
     if config.use_amp:
         print("Computing the net in bf16 (--use_amp)")
     if config.packed_inference:
-        forward = PackedRetinex(model)
         print("Using space-to-depth packed inference")
 
-    def apply_fn(batch: torch.Tensor):
-        with torch.inference_mode():
-            return forward(batch)
+    def make(dev: torch.device):
+        net = model if dev == home else copy.deepcopy(model).to(dev)
+        forward = PackedRetinex(net) if config.packed_inference else net
 
-    return apply_fn
+        def apply_fn(batch: torch.Tensor):
+            with torch.inference_mode():
+                return forward(batch)
+
+        return apply_fn
+
+    return make(home) if mesh is None else replicate(make, mesh)
 
 
 def run(config: Config):
@@ -138,9 +154,8 @@ def run(config: Config):
     if config.spatial_shard:
         raise NotImplementedError("spatial sharding lands in ROADMAP Queue 1 item 9")
     if config.mode == "train":
-        from retinex_tpu_torch.train.trainer import check_supported, train
+        from retinex_tpu_torch.train.trainer import train
 
-        check_supported(config)
         os.makedirs(config.save_dir, exist_ok=True)
         for flag, label in [
             (config.use_freq_loss, "frequency loss"),
@@ -154,7 +169,9 @@ def run(config: Config):
         return train(config)
     from retinex_tpu_torch.infer.batch_driver import maybe_mesh
 
-    maybe_mesh(config.n_devices)
+    # The data mesh of directory runs (--n_devices; every visible card by
+    # default, as the JAX package's): None on one device.
+    mesh = maybe_mesh(config.n_devices, device)
     if device.type == "cuda":
         # f32 compute is f32: no TF32 in cuDNN convolutions or matmuls; a
         # bf16 matmul sums in f32 and rounds once, as XLA's does.
@@ -173,13 +190,16 @@ def run(config: Config):
             output_csv=os.path.join(config.output_dir, "metrics.csv"),
             batch_size=config.batch_size,
             device=device,
+            mesh=mesh,
         )
 
     input_path = Path(config.input_path)
+    if not input_path.is_dir():
+        mesh = None  # one image runs on one device, as in the JAX package
     if config.mode == "predict":
         from retinex_tpu_torch.infer.predict import predict_batch, predict_single_image
 
-        apply_fn = build_apply_fn(config, device, require_checkpoint=True)
+        apply_fn = build_apply_fn(config, device, require_checkpoint=True, mesh=mesh)
         os.makedirs(config.output_dir, exist_ok=True)
         knobs = dict(max_size=config.max_size, save_comparison=not config.no_comparison, device=device)
         if input_path.is_file():
@@ -187,7 +207,7 @@ def run(config: Config):
         if input_path.is_dir():
             return predict_batch(
                 apply_fn, str(input_path), config.output_dir, batch_size=config.batch_size,
-                num_workers=config.num_workers, **knobs,
+                num_workers=config.num_workers, mesh=mesh, **knobs,
             )
         raise FileNotFoundError(f"Input path does not exist: {config.input_path}")
 
@@ -195,7 +215,7 @@ def run(config: Config):
         raise FileNotFoundError(f"Input path does not exist: {config.input_path}")
     from retinex_tpu_torch.infer.enhance import enhance_batch_images, enhance_single_image
 
-    apply_fn = None if config.classical_mode in CLASSICAL_MODES else build_apply_fn(config, device)
+    apply_fn = None if config.classical_mode in CLASSICAL_MODES else build_apply_fn(config, device, mesh=mesh)
     os.makedirs(config.output_dir, exist_ok=True)
     knobs = dict(
         classical_mode=config.classical_mode,
@@ -215,6 +235,7 @@ def run(config: Config):
         max_size=config.max_size,
         batch_size=config.batch_size,
         num_workers=config.num_workers,
+        mesh=mesh,
         **knobs,
     )
 

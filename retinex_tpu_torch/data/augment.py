@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from retinex_tpu_torch.ops.colorspace import rgb_to_luma
+from retinex_tpu_torch.parallel.distributed import data_shard
 
 RECIP_255 = float(np.float32(1.0) / np.float32(255.0))
 
@@ -97,10 +98,15 @@ def apply_augment(batch: torch.Tensor, basic: dict | None = None, advanced: dict
 def augment_batch(
     batch: torch.Tensor, gen: torch.Generator | None = None, basic: bool = True, advanced: bool = False
 ) -> torch.Tensor:
-    """Draw from `gen` and apply, on the batch's device."""
+    """Draw from `gen` and apply, on the batch's device. Across ranks
+    (``parallel/distributed.py``) the batch is this rank's rows of the
+    global batch: every rank draws for the global batch and keeps its rows."""
     b, dev = batch.shape[0], batch.device
-    return apply_augment(
-        batch,
-        draw_basic(b, gen, dev) if basic else None,
-        draw_advanced(batch.shape, gen, dev) if advanced else None,
-    )
+    rank, world = data_shard()
+    draws = [
+        draw_basic(b * world, gen, dev) if basic else None,
+        draw_advanced((b * world, *batch.shape[1:]), gen, dev) if advanced else None,
+    ]
+    if world > 1:
+        draws = [None if d is None else {k: v[rank * b : (rank + 1) * b] for k, v in d.items()} for d in draws]
+    return apply_augment(batch, *draws)

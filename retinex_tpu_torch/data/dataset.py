@@ -94,10 +94,11 @@ class _PrefetchIterator:
     """Threaded batch producer: a thread pool decodes and letterboxes each
     batch; `prefetch` batches stay in flight."""
 
-    def __init__(self, dataset, order, batch_size, drop_last, num_workers, prefetch=2):
+    def __init__(self, dataset, order, batch_size, drop_last, num_workers, prefetch=2, rows=(0, 1)):
         self.dataset = dataset
         self.order = order
         self.batch_size = batch_size
+        self.rows = rows
         self.drop_last = drop_last
         self.pool = ThreadPoolExecutor(max_workers=max(num_workers, 1))
         self.q: queue.Queue = queue.Queue(maxsize=prefetch)
@@ -123,6 +124,11 @@ class _PrefetchIterator:
             idxs = self.order[start : start + self.batch_size]
             if len(idxs) < self.batch_size and self.drop_last:
                 break
+            index, count = self.rows
+            if count > 1:  # this rank's rows of the batch padded to a multiple of `count`
+                idxs = idxs + idxs[-1:] * (-len(idxs) % count)
+                per = len(idxs) // count
+                idxs = idxs[index * per : (index + 1) * per]
             batch = np.stack(list(self.pool.map(self.dataset.__getitem__, idxs)), axis=0)
             if not self._put(batch):
                 break
@@ -156,7 +162,16 @@ class _PrefetchIterator:
 
 
 class TrainLoader:
-    """Epoch-shuffled batch loader yielding uint8 NHWC numpy batches."""
+    """Epoch-shuffled batch loader yielding uint8 NHWC numpy batches.
+
+    `shard` = (process index, process count) is the JAX package's
+    multi-host rule: every process shuffles with the same seed, takes its
+    disjoint stride of the order and truncates it to a common length, so
+    every process runs the same number of steps. `rows` = (local rank,
+    local ranks) then yields only that rank's rows of each of the process's
+    batches, padded to a multiple of the local ranks by repeating the last
+    image (the JAX trainer's ``pad_to_multiple`` to its local devices); only
+    those rows are decoded."""
 
     def __init__(
         self,
@@ -166,23 +181,41 @@ class TrainLoader:
         drop_last: bool = False,
         num_workers: int = 4,
         seed: int = 0,
+        shard: tuple[int, int] = (0, 1),
+        rows: tuple[int, int] = (0, 1),
     ):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.num_workers = num_workers
+        self.shard = shard
+        self.rows = rows
         self.rng = np.random.default_rng(seed)  # the shuffle; a checkpoint keeps its state
 
+    def _shard_len(self) -> int:
+        _, count = self.shard
+        return len(self.dataset) // count if count > 1 else len(self.dataset)
+
     def __len__(self) -> int:
-        n = len(self.dataset)
+        n = self._shard_len()
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
-    def __iter__(self) -> _PrefetchIterator:
+    def epoch_order(self) -> list[int]:
+        """This process's image indices for the next epoch (one shuffle from
+        the generator, as each epoch's iterator takes)."""
         order = np.arange(len(self.dataset))
         if self.shuffle:
             self.rng.shuffle(order)
-        return _PrefetchIterator(self.dataset, list(order), self.batch_size, self.drop_last, self.num_workers)
+        index, count = self.shard
+        if count > 1:
+            order = order[index::count][: self._shard_len()]
+        return [int(i) for i in order]
+
+    def __iter__(self) -> _PrefetchIterator:
+        return _PrefetchIterator(
+            self.dataset, self.epoch_order(), self.batch_size, self.drop_last, self.num_workers, rows=self.rows
+        )
 
 
 class TestLoader:
@@ -213,6 +246,8 @@ def get_train_loader(
     shuffle: bool = True,
     drop_last: bool = False,
     seed: int = 0,
+    shard: tuple[int, int] = (0, 1),
+    rows: tuple[int, int] = (0, 1),
 ) -> TrainLoader:
     return TrainLoader(
         LowLightDataset(image_dir, image_size),
@@ -221,4 +256,6 @@ def get_train_loader(
         drop_last=drop_last,
         num_workers=num_workers,
         seed=seed,
+        shard=shard,
+        rows=rows,
     )

@@ -11,12 +11,18 @@ Counterpart of ``retinex_tpu/infer/batch_driver.py`` on one device:
   then drains chunk N before it queues N+1 (the drain's copy to the host is
   the synchronisation point; queued after N+1 it would wait for N+1 too).
 
-Batches across several devices (the JAX package's ``shard_map`` over a data
-mesh) land with ROADMAP Queue 1 item 8; ``maybe_mesh`` raises for them.
+Over a data mesh (``--n_devices``, ``parallel/mesh.py``) each chunk is
+padded to a multiple of the mesh, split along the batch, and ``fn`` runs
+whole on each device's slice with that device's copy of the weights, as the
+JAX package's ``shard_map`` runs it: no collective, since nothing crosses
+an image. Every slice's launches are queued before the first copy back, so
+the cards run at once; the slices are joined and the padding dropped on the
+host.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Callable
 
@@ -26,6 +32,7 @@ from PIL import Image
 
 from retinex_tpu_torch.data.dataset import decode_image
 from retinex_tpu_torch.ops.letterbox import letterbox_np, plan_letterbox
+from retinex_tpu_torch.parallel.mesh import Mesh, create_mesh, pad_to_multiple, shard_batch
 
 
 def plan_canvas(path: str, max_size: int | None):
@@ -63,14 +70,17 @@ def run_bucketed(
     fn: Callable[[torch.Tensor], tuple],
     drain_cb: Callable[[list[str], np.ndarray, object], None] | None,
     device: torch.device,
+    mesh: Mesh | None = None,
 ) -> list[float]:
     """The pipelined dispatch loop of directory enhance.
 
     fn: a uint8 NHWC batch on `device` -> a tuple of tensors (or None),
-    for every canvas; drain_cb(paths, batch_u8,
+    for every canvas; with `mesh`, each chunk runs through
+    ``shard_batch_fn(fn, mesh)`` instead. drain_cb(paths, batch_u8,
     outputs_np) consumes the results on the host. Returns per-image
     device + transfer seconds (the decode of the next chunk, which overlaps
     the device's work, subtracted)."""
+    sharded = None if mesh is None else shard_batch_fn(fn, mesh)
     buckets = bucket_by_canvas(files, max_size)
     print(f"{len(buckets)} shape bucket(s): " + ", ".join(f"{h}x{w} x{len(v)}" for (_t, h, w), v in buckets.items()))
 
@@ -81,10 +91,10 @@ def run_bucketed(
     def drain(pending, overlapped: float = 0.0):
         nonlocal processed
         chunk, out_h, out_w, batch_u8, outputs, t1 = pending
-        out_np = tuple(None if o is None else o.cpu().numpy() for o in outputs)  # waits for the device
+        out_np = fetch(outputs, len(chunk))  # waits for the device
         t2 = time.time()
         if drain_cb is not None:
-            drain_cb(chunk, batch_u8, out_np)
+            drain_cb(chunk, batch_u8[: len(chunk)], out_np)
         chunk_s = max(t2 - t1 - overlapped, 0.0)
         timings.extend([chunk_s / len(chunk)] * len(chunk))
         processed += len(chunk)
@@ -96,13 +106,14 @@ def run_bucketed(
         for i in range(0, len(paths), batch_size):
             chunk = paths[i : i + batch_size]
             t0 = time.time()
-            batch_u8 = decode_bucket(chunk, target)
+            batch_u8, _n = pad_for_mesh(decode_bucket(chunk, target), mesh)
             t1 = time.time()
             decode_s += t1 - t0
             if pending is not None:  # the device ran chunk N while the host decoded N+1
                 drain(pending, overlapped=t1 - t0)
             t_dispatch = time.time()
-            outputs = fn(torch.from_numpy(batch_u8).to(device))  # queued on the device
+            # queued on the device(s)
+            outputs = fn(torch.from_numpy(batch_u8).to(device)) if sharded is None else sharded(batch_u8)
             pending = (chunk, out_h, out_w, batch_u8, outputs, t_dispatch)
     if pending is not None:
         drain(pending)
@@ -115,11 +126,81 @@ def run_bucketed(
     return timings
 
 
-def maybe_mesh(n_devices: int | None = None):
-    """None: the port's batches run on one device. ``n_devices > 1`` (the
-    JAX package's data mesh) raises until ROADMAP Queue 1 item 8 lands."""
-    if n_devices is not None and n_devices > 1:
-        raise NotImplementedError(
-            f"--n_devices {n_devices}: batches across several GPUs land in ROADMAP Queue 1 item 8"
-        )
-    return None
+class Sharded(list):
+    """The outputs of ``shard_batch_fn``: one per mesh slice, in order."""
+
+
+def shard_batch_fn(fn: Callable, mesh: Mesh) -> Callable:
+    """A host batch (its size a multiple of the mesh's, ``pad_for_mesh``)
+    -> ``Sharded`` outputs: the batch split along dim 0 over the mesh, each
+    slice copied to its device first, then `fn` run whole on each slice with
+    that device current (the kernels launch on the current card), so every
+    slice's work is queued before any result is copied back. `fn` must take
+    and return the batch along dim 0 (outputs: tensors, None, or tuples and
+    dicts of them); ``fetch`` joins the slices on the host."""
+
+    def run(batch) -> Sharded:
+        parts = shard_batch(batch, mesh)
+        outs = Sharded()
+        for part, dev in zip(parts, mesh.devices):
+            with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+                outs.append(fn(part))
+        return outs
+
+    return run
+
+
+def _to_host(out):
+    if out is None:
+        return None
+    if isinstance(out, tuple):
+        return tuple(_to_host(o) for o in out)
+    if isinstance(out, dict):
+        return {k: _to_host(v) for k, v in out.items()}
+    return out.cpu().numpy()
+
+
+def _join(parts):
+    first = parts[0]
+    if first is None:
+        return None
+    if isinstance(first, tuple):
+        return tuple(_join([p[i] for p in parts]) for i in range(len(first)))
+    if isinstance(first, dict):
+        return {k: _join([p[k] for p in parts]) for k in first}
+    return np.concatenate(parts, axis=0)
+
+
+def _head(out, n: int):
+    if out is None:
+        return None
+    if isinstance(out, tuple):
+        return tuple(_head(o, n) for o in out)
+    if isinstance(out, dict):
+        return {k: _head(v, n) for k, v in out.items()}
+    return out[:n]
+
+
+def fetch(outputs, n: int):
+    """Device outputs (or ``Sharded`` ones) as numpy on the host, joined
+    along dim 0 and cut to their first `n` rows (the mesh's padding
+    dropped)."""
+    if isinstance(outputs, Sharded):
+        return _head(_join([_to_host(o) for o in outputs]), n)
+    return _head(_to_host(outputs), n)
+
+
+def pad_for_mesh(batch: np.ndarray, mesh: Mesh | None) -> tuple[np.ndarray, int]:
+    """Pad the chunk's batch axis to a multiple of the mesh size."""
+    if mesh is None:
+        return batch, batch.shape[0]
+    return pad_to_multiple(batch, mesh.size)
+
+
+def maybe_mesh(n_devices: int | None = None, device: str | torch.device | None = None) -> Mesh | None:
+    """A data mesh over `n_devices` devices (``None``: every visible card,
+    or one CPU shard with `device` "cpu"), or None where that is one device,
+    so the one-device paths stay exactly as they are. Raises where more
+    cards are asked for than are visible."""
+    mesh = create_mesh(n_devices, device)
+    return None if mesh.size <= 1 else mesh

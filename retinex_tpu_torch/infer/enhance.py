@@ -255,13 +255,18 @@ def enhance_batch_images(
     enable_multi_scale: bool = False,
     enable_content_aware: bool = False,
     device: str | torch.device | None = None,
+    mesh=None,
 ):
     """Batch enhance over a directory, `batch_size` frames per device call.
 
     Files are bucketed by letterboxed canvas (infer/batch_driver.py) and fed
     to the pipeline of ``make_batch_pipeline`` a chunk at a time: decode ->
-    one batched call -> PNG encode on a thread pool of `num_workers`.
-    Returns per-image enhance timings (decode and saves excluded)."""
+    one batched call -> PNG encode on a thread pool of `num_workers`. With
+    `mesh` (``parallel/mesh.py``) each chunk is split over its devices, the
+    pipeline running whole on each slice (`apply_fn` then runs the copy of
+    the weights on its input's device, ``parallel/mesh.replicate``): the
+    same bytes. Returns per-image enhance timings (decode and saves
+    excluded)."""
     from retinex_tpu_torch.data.dataset import list_image_files
     from retinex_tpu_torch.infer.batch_driver import run_bucketed
 
@@ -305,6 +310,7 @@ def enhance_batch_images(
         ),
         drain_cb=drain_cb,
         device=dev,
+        mesh=mesh,
     )
     if saver is not None:
         for f in futures:

@@ -38,9 +38,13 @@ def evaluate_directory(
     output_csv: str | None = None,
     batch_size: int = 16,
     device: str | torch.device | None = None,
+    mesh=None,
 ) -> list[dict]:
     """One dict per image ({"image": name, metric: float, ...}), in sorted
-    file order; optionally writes them as a CSV."""
+    file order; optionally writes them as a CSV. With `mesh` each chunk is
+    split over its devices (``infer/batch_driver.shard_batch_fn``)."""
+    from retinex_tpu_torch.infer.batch_driver import fetch, pad_for_mesh, shard_batch_fn
+
     dev = resolve_device(device)
     files = list_image_files(input_dir, VALID_EXTENSIONS)
     if not files:
@@ -60,6 +64,12 @@ def evaluate_directory(
         rp = ref_for(path, (h, w))
         buckets.setdefault((h, w, rp is not None), []).append((path, rp))
 
+    def metrics_fn(batch_u8: torch.Tensor) -> dict:
+        x = batch_u8.to(torch.float32) / 255.0
+        with torch.inference_mode():
+            return calculate_metrics(x[:, 0], x[:, 1] if x.shape[1] == 2 else None)
+
+    call = metrics_fn if mesh is None else shard_batch_fn(metrics_fn, mesh)
     rows_by_path: dict[str, dict] = {}
     for (_h, _w, has_ref), pairs in buckets.items():
         for i in range(0, len(pairs), batch_size):
@@ -67,11 +77,10 @@ def evaluate_directory(
             batch = np.stack([
                 np.stack([decode_image(p)] + ([decode_image(rp)] if has_ref else []), axis=0) for p, rp in chunk
             ])  # [N, 1|2, H, W, 3] u8
-            x = torch.from_numpy(batch).to(dev).to(torch.float32) / 255.0
-            with torch.inference_mode():
-                out = calculate_metrics(x[:, 0], x[:, 1] if has_ref else None)
+            batch, n = pad_for_mesh(batch, mesh)
+            out = fetch(call(batch if mesh is not None else torch.from_numpy(batch).to(dev)), n)
             # Sorted keys: the JAX rows come out of a pytree map, which sorts them.
-            out = {k: out[k].cpu().numpy() for k in sorted(out)}
+            out = {k: out[k] for k in sorted(out)}
             for j, (path, _rp) in enumerate(chunk):
                 rows_by_path[path] = {"image": os.path.basename(path), **{k: float(v[j]) for k, v in out.items()}}
 

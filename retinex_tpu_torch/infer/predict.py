@@ -73,10 +73,12 @@ def predict_batch(
     batch_size: int = 8,
     num_workers: int = 8,
     device: str | torch.device | None = None,
+    mesh=None,
 ) -> list[float]:
     """A directory, `batch_size` frames of one letterboxed canvas per call,
-    the PNGs encoded on a pool of `num_workers` threads. Returns per-image
-    seconds (decode and writes excluded)."""
+    the PNGs encoded on a pool of `num_workers` threads; with `mesh`, each
+    chunk split over its devices (``infer/batch_driver.shard_batch_fn``).
+    Returns per-image seconds (decode and writes excluded)."""
     dev = resolve_device(device)
     files = list_image_files(input_dir, VALID_EXTENSIONS)
     if not files:
@@ -99,7 +101,9 @@ def predict_batch(
             enh, illu = enh_u8[j].astype(np.float32) / 255.0, illu_u8[j].astype(np.float32) / 255.0
             futures.append(saver.submit(_save, output_dir, path, xf[j], enh, illu, save_comparison))
 
-    timings = run_bucketed(files, max_size=max_size, batch_size=batch_size, fn=fn, drain_cb=drain_cb, device=dev)
+    timings = run_bucketed(
+        files, max_size=max_size, batch_size=batch_size, fn=fn, drain_cb=drain_cb, device=dev, mesh=mesh
+    )
     for f in futures:
         f.result()
     saver.shutdown()

@@ -15,6 +15,15 @@ one rounding), and the total stacks it with the f32
 losses, promoted to f32 as ``jnp.stack`` promotes it. ``jnp.fft.fft2``
 promotes bf16 to complex64; the frequency loss widens a bf16 input to f32
 explicitly (PyTorch's CPU FFT takes no bf16).
+
+Across ranks (``parallel/distributed.py``) each rank holds rows of the
+global batch. A mean over samples is then this rank's share of it
+(``share_mean``: its sum over the global count), so the ranks' losses add
+up to the global batch's; the batch-global statistics (the exposure
+target's mean, the colour loss's channel means) are the global batch's
+(``global_mean``), whole on every rank, and the colour loss, which every
+rank computes whole, counts in the loss the ranks' sums report once
+(``losses/total.py``). In a world of one rank each is the plain mean.
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from retinex_tpu_torch.ops.filters import forward_diff, sobel_edge_map
+from retinex_tpu_torch.parallel.distributed import global_mean, share_mean
 
 
 def _gray(x: torch.Tensor) -> torch.Tensor:
@@ -35,12 +45,12 @@ def exposure_loss(
     base + (0.8 - base) * (1 - mean(gray_low)); L1 over patches. Remainder
     rows and columns are ignored (avg_pool2d floors)."""
     gray_enh = _gray(img_enhanced)
-    target = base_target + (0.8 - base_target) * (1.0 - _gray(img_low).mean())
+    target = base_target + (0.8 - base_target) * (1.0 - global_mean(_gray(img_low)))
     b, h, w, _ = gray_enh.shape
     ph, pw = h // patch_size, w // patch_size
     cropped = gray_enh[:, : ph * patch_size, : pw * patch_size, 0]
     patches = cropped.reshape(b, ph, patch_size, pw, patch_size).mean(dim=(2, 4))
-    return (patches - target).abs().mean()
+    return share_mean((patches - target).abs())
 
 
 def smoothness_loss(
@@ -57,15 +67,15 @@ def smoothness_loss(
     edge = sobel_edge_map(img_low)  # [B,H,W,1]
     edge_factor_h = 1.0 + alpha * edge[:, :, :-1, :].mean(dim=2, keepdim=True)
     edge_factor_v = 1.0 + alpha * edge[:, :-1, :, :].mean(dim=1, keepdim=True)
-    loss_h = (weight_h * edge_factor_h * illu_gh.abs()).mean()
-    loss_v = (weight_v * edge_factor_v * illu_gv.abs()).mean()
+    loss_h = share_mean(weight_h * edge_factor_h * illu_gh.abs())
+    loss_v = share_mean(weight_v * edge_factor_v * illu_gv.abs())
     return loss_h + loss_v
 
 
 def color_loss(img_enhanced: torch.Tensor) -> torch.Tensor:
     """Gray-world colour constancy: squared pairwise differences of the
-    global per-channel means."""
-    means = img_enhanced.mean(dim=(0, 1, 2))
+    global per-channel means (the global batch's, whole on every rank)."""
+    means = global_mean(img_enhanced, dim=(0, 1, 2))
     mr, mg, mb = means[0], means[1], means[2]
     return torch.square(mr - mg) + torch.square(mr - mb) + torch.square(mg - mb)
 
@@ -74,7 +84,7 @@ def spatial_consistency_loss(img_enhanced: torch.Tensor, img_low: torch.Tensor) 
     """MSE between the forward-difference gradients of enhanced and input."""
     egh, egv = forward_diff(img_enhanced)
     lgh, lgv = forward_diff(img_low)
-    return torch.square(egh - lgh).mean() + torch.square(egv - lgv).mean()
+    return share_mean(torch.square(egh - lgh)) + share_mean(torch.square(egv - lgv))
 
 
 def decoupling_loss(illu_map: torch.Tensor, reflectance: torch.Tensor, lambda_val: float = 0.1) -> torch.Tensor:
@@ -92,11 +102,11 @@ def decoupling_loss(illu_map: torch.Tensor, reflectance: torch.Tensor, lambda_va
     refl_centered = refl_flat - refl_mean
     if c_illu == c_refl:
         cov = torch.einsum("bnc,bnd->bcd", illu_flat - illu_mean, refl_centered) / (n - 1)
-        mean_diff = torch.square(illu_mean - refl_mean).mean()
+        mean_diff = share_mean(torch.square(illu_mean - refl_mean))
     else:
         illu_rep = illu_flat.expand(b, n, c_refl)
         cov = torch.einsum("bnc,bnd->bcd", illu_rep, refl_centered) / (n - 1)
-        mean_diff = torch.square(illu_mean.mean(dim=2) - refl_mean.mean(dim=2)).mean()
+        mean_diff = share_mean(torch.square(illu_mean.mean(dim=2) - refl_mean.mean(dim=2)))
     return torch.square(cov).sum() + lambda_val * mean_diff
 
 
@@ -106,7 +116,7 @@ def perceptual_loss(vgg, img_enhanced: torch.Tensor, img_low: torch.Tensor) -> t
     dtype."""
     fe = vgg(img_enhanced)
     fl = vgg(img_low)
-    return sum(torch.square(a - b).float().mean().to(a.dtype) for a, b in zip(fe, fl))
+    return sum(share_mean(torch.square(a - b).float()).to(a.dtype) for a, b in zip(fe, fl))
 
 
 def frequency_masks(h: int, w: int, device=None) -> tuple[torch.Tensor, torch.Tensor]:
@@ -129,8 +139,8 @@ def frequency_loss(
     mag_e = torch.fft.fft2(img_enhanced.float(), dim=(1, 2)).abs()
     mag_l = torch.fft.fft2(img_low.float(), dim=(1, 2)).abs()
     high, low = (m[None, :, :, None] for m in frequency_masks(h, w, img_enhanced.device))
-    high_loss = torch.square(mag_e * high - mag_l * high).mean()
-    low_loss = torch.square(mag_e * low - mag_l * low).mean()
+    high_loss = share_mean(torch.square(mag_e * high - mag_l * high))
+    low_loss = share_mean(torch.square(mag_e * low - mag_l * low))
     return weight_high * high_loss + weight_low * low_loss
 
 

@@ -27,8 +27,11 @@ from retinex_tpu_torch.losses.losses import (
     spatial_consistency_loss,
     texture_complexity,
 )
+from retinex_tpu_torch.parallel.distributed import all_reduce_sum, data_world, global_mean
 
 LOSS_NAMES = ("exposure", "smoothness", "color", "spatial", "decouple", "perceptual", "frequency")
+# The losses each rank computes whole across ranks (the rest are shares).
+WHOLE_LOSSES = [LOSS_NAMES.index("color")]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,7 +104,9 @@ class TotalLoss:
     ) -> tuple[torch.Tensor, dict[str, torch.Tensor], LossState]:
         """Returns (total, loss_dict, new_state): loss_dict holds the total
         and the seven losses as 0-dim device tensors, to be fetched once per
-        logging interval."""
+        logging interval. Across ranks `total` is this rank's part, whose
+        gradients summed over the ranks are the global batch's; loss_dict
+        and the DWA carry hold the global batch's losses."""
         cfg = self.config
         dev = img_enhanced.device
         state = state or LossState.create(dev)
@@ -120,12 +125,21 @@ class TotalLoss:
         weights = _dwa_weights(cfg, state) if cfg.adaptive_weights else cfg.base_weights(dev)
         if cfg.use_dynamic_smooth_weight:
             with torch.no_grad():
-                avg_complexity = texture_complexity(img_low, cfg.texture_method).mean()
+                avg_complexity = global_mean(texture_complexity(img_low, cfg.texture_method))
                 # jnp.clip's order: the maximum, then the minimum.
                 w_smooth = torch.clamp(weights[1] * (1.0 - avg_complexity * 0.8), 0.1, 5.0)
             weights = torch.cat([weights[:1], w_smooth[None], weights[2:]])
 
         total = (weights * losses).sum()
-        new_state = LossState(prev=losses.detach(), prev2=state.prev, step=state.step + 1)
-        loss_dict = {"total": total, **dict(zip(LOSS_NAMES, losses))}
+        reported, reported_total = losses, total
+        if data_world() > 1:
+            # The global batch's losses: the ranks' shares summed, and the
+            # colour loss, which every rank holds whole, once.
+            with torch.no_grad():
+                whole = torch.zeros_like(losses)
+                whole[WHOLE_LOSSES] = 1.0
+                reported = all_reduce_sum(losses * (1.0 - whole)) + losses * whole
+                reported_total = (weights * reported).sum()
+        new_state = LossState(prev=reported.detach(), prev2=state.prev, step=state.step + 1)
+        loss_dict = {"total": reported_total, **dict(zip(LOSS_NAMES, reported))}
         return total, loss_dict, new_state

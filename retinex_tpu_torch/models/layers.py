@@ -17,7 +17,10 @@ the running statistics become ``0.9 * running + 0.1 * batch``. PyTorch's
 ``running_var``, which at a 4x4 map of a batch of 2 (32 values) is 3 % off,
 and would compute it in another way. The one dropout (ASPP's) draws its
 mask from an explicit ``torch.Generator``, which the trainer seeds and
-checkpoints.
+checkpoints. Across ranks (``parallel/distributed.py``) the batch
+statistics are the global batch's (``batch_moments``), as the JAX step's
+over its mesh, so every rank's running statistics move alike, and the
+dropout mask is drawn for the global batch, each rank keeping its rows.
 
 Each module takes a ``dtype``, the compute dtype of Flax's ``dtype=``: the
 parameters stay f32, and in bf16 each layer rounds where Flax's forward
@@ -57,6 +60,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from retinex_tpu_torch.ops import bf16
+from retinex_tpu_torch.parallel.distributed import all_reduce_sum, data_shard, data_world
 
 BN_EPS = 1e-5
 _RECOMPUTING = [False]
@@ -96,6 +100,22 @@ def max_pool_nonneg(x: torch.Tensor, window: int, stride: int, padding: int = 0)
     return F.max_pool2d(x, window, stride, padding)
 
 
+def batch_moments(xs: torch.Tensor, dims: tuple[int, ...]) -> tuple[torch.Tensor, torch.Tensor]:
+    """E[x] and E[x^2] of f32 `xs` over `dims`, the batch axis among them,
+    taken over the global batch: ``mean`` as it always was in a world of one
+    rank; across ranks (``parallel/distributed.py``) the two sums in one
+    all-reduce, whose gradient is summed over the ranks too, over the global
+    count."""
+    world = data_world()
+    if world == 1:
+        return xs.mean(dim=dims), (xs * xs).mean(dim=dims)
+    count = world
+    for d in dims:
+        count *= xs.shape[d]
+    sums = all_reduce_sum(torch.stack([xs.sum(dim=dims), (xs * xs).sum(dim=dims)]))
+    return sums[0] / count, sums[1] / count
+
+
 class BatchNorm(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose train mode computes and updates the batch
     statistics as Flax's BatchNorm does (module docstring); eval mode is
@@ -115,8 +135,7 @@ class BatchNorm(nn.BatchNorm2d):
             # for the normalisation (_normalize): in bf16 each widening's
             # gradient rounds to bf16 before the two are added, as there.
             xs = x.float()
-            mean = xs.mean(dim=(0, 2, 3))
-            mean2 = (xs * xs).mean(dim=(0, 2, 3))
+            mean, mean2 = batch_moments(xs, (0, 2, 3))
             # jnp.maximum: a tie at 0 passes half the gradient, as torch.maximum does.
             var = torch.maximum(mean2 - mean * mean, torch.zeros_like(mean))
             if not recomputing():
@@ -144,7 +163,11 @@ class Dropout(nn.Module):
         if not self.training or self.p == 0.0:
             return x
         keep_prob = 1.0 - self.p
-        keep = torch.rand(x.shape, generator=self.generator, device=x.device) < keep_prob
+        # Across ranks each draws the global batch's mask and keeps its rows.
+        rank, world = data_shard()
+        b = x.shape[0]
+        u = torch.rand((b * world, *x.shape[1:]), generator=self.generator, device=x.device)
+        keep = (u if world == 1 else u[rank * b : (rank + 1) * b]) < keep_prob
         return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 

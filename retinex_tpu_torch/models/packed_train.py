@@ -50,7 +50,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from retinex_tpu_torch.models.layers import BN_EPS, checkpointed, recomputing
+from retinex_tpu_torch.models.layers import BN_EPS, batch_moments, checkpointed, recomputing
 from retinex_tpu_torch.models.packed_inference import _interleave_packed, _nchw
 from retinex_tpu_torch.ops import bf16
 from retinex_tpu_torch.ops.resize import resize_bilinear, resize_scale
@@ -107,9 +107,7 @@ def _bn_train(x: torch.Tensor, bn: nn.BatchNorm2d, phases: int = 1) -> torch.Ten
     to x.dtype; `bn`'s running statistics updated unless recomputing."""
     xf = x.float()
     xr = xf.reshape(*x.shape[:-1], phases, x.shape[-1] // phases)
-    dims = tuple(range(xr.ndim - 1))
-    mean = xr.mean(dim=dims)
-    mean2 = (xr * xr).mean(dim=dims)
+    mean, mean2 = batch_moments(xr, tuple(range(xr.ndim - 1)))
     # jnp.maximum: a tie at 0 passes half the gradient, as torch.maximum does.
     var = torch.maximum(mean2 - mean * mean, torch.zeros_like(mean))
     if not recomputing():

@@ -20,6 +20,10 @@ they are. BatchNorm statistics and the DWA carry update on every
 micro-batch, and the learning rate counts applied updates.
 
 Every operation stays on the device; nothing here waits for the card.
+Across ranks (``parallel/distributed.py``) every rank takes the step on its
+rows of the global batch with the global batch's statistics and summed
+gradients, so the clipped Adam update runs on the same gradients on every
+rank and the parameters stay the same without a broadcast.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import torch
 from retinex_tpu_torch.losses.total import LossState, TotalLoss
 from retinex_tpu_torch.models.layers import Dropout
 from retinex_tpu_torch.models.packed_train import packed_train_apply
+from retinex_tpu_torch.parallel.distributed import sum_gradients
 
 
 class Optimizer:
@@ -156,12 +161,15 @@ def loss_and_grads(state: TrainState, criterion: TotalLoss, batch: torch.Tensor,
     `packed` evaluates the forward with the full- and half-resolution
     stages s2d-packed (``models/packed_train.py``; H and W multiples of
     32): the same parameters, statistics and losses up to float
-    reassociation, as the JAX package's ``make_train_step(packed=True)``."""
+    reassociation, as the JAX package's ``make_train_step(packed=True)``.
+    Across ranks `batch` is this rank's rows of the global batch, and the
+    gradients are summed over the ranks: the global batch's gradients
+    (``parallel/distributed.py``)."""
     model = state.model.train()
     enhanced, reflectance, illu = packed_train_apply(model, batch) if packed else model(batch)
     total, loss_dict, new_loss_state = criterion(batch, enhanced, illu, reflectance, state.loss_state)
     names = list(state.optimizer.params)
-    grads = torch.autograd.grad(total, [state.optimizer.params[k] for k in names])
+    grads = sum_gradients(list(torch.autograd.grad(total, [state.optimizer.params[k] for k in names])))
     return dict(zip(names, grads)), {k: v.detach() for k, v in loss_dict.items()}, new_loss_state
 
 

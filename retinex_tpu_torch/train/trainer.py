@@ -1,4 +1,5 @@
-"""The training loop of the port (``--mode train``) on one device.
+"""The training loop of the port (``--mode train``), on one device or as
+the ranks of a data-parallel run.
 
 Counterpart of ``retinex_tpu/train/trainer.py`` (in f32 or, with
 ``--use_amp``, with the net and VGG19 computing in bf16 and the parameters
@@ -30,6 +31,16 @@ generator's state as they were at the start of the next epoch to run, so
 them, and two epochs equal one epoch and a resume bit for bit. (The JAX
 package restarts both on a resume, so its resumed epochs repeat the first
 epochs' order and draws; a fresh run's batch order is the same in both.)
+
+On several devices or hosts (``--n_devices``, ``--coordinator``) ``train``
+starts one process per local device (``parallel/distributed.py``); each is
+a rank of the JAX package's global-batch step. The loader shards the data
+by process and each rank takes its rows of the process's batch; every rank
+draws the global batch's augmentation; the preemption flag is any-reduced
+every batch; the first rank alone prints, logs and writes the checkpoints,
+curves and samples, with a barrier after each save; ``--resume`` loads the
+same file on every rank, and a checksum at start-up asserts that every rank
+holds the same parameters.
 """
 
 from __future__ import annotations
@@ -49,6 +60,17 @@ from retinex_tpu_torch.losses.total import LossConfig, TotalLoss
 from retinex_tpu_torch.models.init import init_untrained
 from retinex_tpu_torch.models.retinex_net import MultiScaleUPRetinex, count_parameters
 from retinex_tpu_torch.models.vgg import default_vgg, load_npz
+from retinex_tpu_torch.parallel.distributed import (
+    any_over_ranks,
+    barrier,
+    check_replicas_equal,
+    data_shard,
+    launch,
+    local_shard,
+    process_shard,
+    rank_device,
+    world_plan,
+)
 from retinex_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from retinex_tpu_torch.train.schedules import cosine_warm_restarts, step_decay
 from retinex_tpu_torch.train.train_state import create_train_state, eval_step, train_step
@@ -56,12 +78,6 @@ from retinex_tpu_torch.utils.logging import MetricLogger, save_loss_curves, save
 from retinex_tpu_torch.utils.viz import visualize_results
 
 LOG_KEYS = ("total", "exposure", "smoothness", "color", "spatial", "decouple", "perceptual", "frequency")
-
-
-def check_supported(config: Config) -> None:
-    """Raise for the training options of later slices (ROADMAP Queue 1)."""
-    if (config.n_devices or 1) > 1 or config.coordinator:
-        raise NotImplementedError("training on several devices or hosts lands in ROADMAP Queue 1 item 8")
 
 
 def use_packed_train(config: Config, device: torch.device) -> bool:
@@ -114,9 +130,24 @@ def build_schedule(config: Config):
 
 def train(config: Config) -> dict:
     """Run training; returns {'best_loss', 'epochs_run', 'save_dir'}.
-    Signal handlers are installed before set-up (so a signal during it is
-    caught too) and restored on every exit path; outside the main thread
-    none are installed."""
+    On one device it runs here. On several (``--n_devices``, by default
+    every visible card) or several hosts (``--coordinator``) it starts one
+    process per local device (``parallel/distributed.launch``), each a rank
+    of the global-batch step, and returns the first local rank's result."""
+    index, procs, local = world_plan(config)
+    if procs * local == 1:
+        return _train_rank(config)
+    if procs > 1:
+        print(f"Multi-host: process {index}/{procs} via {config.coordinator}")
+    print(f"Data parallel: {procs * local} rank(s), {local} on this host, one per device "
+          f"({'NCCL' if resolve_device(config.device).type == 'cuda' else 'gloo'})")
+    return launch(_train_rank, (config,), config, local)
+
+
+def _train_rank(config: Config) -> dict:
+    """One rank's training. Signal handlers are installed before set-up (so
+    a signal during it is caught too) and restored on every exit path;
+    outside the main thread none are installed."""
     import signal
 
     preempted = {"flag": False, "signum": None}
@@ -158,13 +189,16 @@ def _progress(iterable, total: int, desc: str, enabled: bool):
 
 
 def _train_impl(config: Config, preempted: dict) -> dict:
-    check_supported(config)
-    device = resolve_device(config.device)
+    resolve_device(config.device)
+    device = rank_device(config)
     if device.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False  # as the CLI's inference
-    print(f"Training on {device}")
+    rank, world = data_shard()
+    (proc_idx, proc_count), local = process_shard(), local_shard()
+    lead = rank == 0  # prints, logs and writes the checkpoints, curves and samples
+    print(f"Training on {device}" + (f" (rank {rank} of {world})" if world > 1 else ""))
 
     model = init_untrained(
         MultiScaleUPRetinex(use_preact=config.use_preact, use_aspp=config.use_aspp, dtype=config.compute_dtype,
@@ -178,15 +212,21 @@ def _train_impl(config: Config, preempted: dict) -> dict:
     criterion = build_criterion(config, device)
     epoch_schedule = build_schedule(config)
 
+    # Several hosts: this process loads its share of every global batch
+    # (the JAX rule), and each local rank its rows of that share.
+    local_batch = max(config.batch_size // proc_count, 1)
+
     def make_loader(drop_last: bool):
         return get_train_loader(
             image_dir=config.train_dir,
-            batch_size=config.batch_size,
+            batch_size=local_batch,
             image_size=config.image_size,
             num_workers=config.num_workers,
             shuffle=True,
             drop_last=drop_last,
             seed=config.seed,
+            shard=(proc_idx, proc_count),
+            rows=local,
         )
 
     # drop_last whenever a full batch remains: a ragged batch would weigh its
@@ -196,7 +236,7 @@ def _train_impl(config: Config, preempted: dict) -> dict:
     if len(loader) == 0:
         loader = make_loader(drop_last=False)
     steps_per_epoch = max(len(loader), 1)
-    dropped = len(loader.dataset) - steps_per_epoch * config.batch_size
+    dropped = len(loader.dataset) - steps_per_epoch * local_batch * proc_count
     print(
         f"{len(loader.dataset)} images, {steps_per_epoch} batches/epoch"
         + (f" ({dropped} re-shuffled into later epochs)" if dropped > 0 else "")
@@ -227,17 +267,23 @@ def _train_impl(config: Config, preempted: dict) -> dict:
             loader.rng.bit_generator.state = extra["loader_rng"]
             aug_gen.set_state(extra["aug_rng"])
         print(f"Resumed from {config.resume} at epoch {start_epoch}")
+    # Every rank starts from the same parameters and statistics (the same
+    # seed, or the same file): the summed gradients keep them so.
+    check_replicas_equal(list(state.model.state_dict().values()), "initial parameters and statistics")
     packed = use_packed_train(config, device)
 
-    log_dir = os.path.join(config.save_dir, "logs", datetime.now().strftime("%Y%m%d_%H%M%S"))
-    logger = MetricLogger(log_dir)
-    print(f"Logs: {log_dir}")
+    if lead:
+        log_dir = os.path.join(config.save_dir, "logs", datetime.now().strftime("%Y%m%d_%H%M%S"))
+        logger = MetricLogger(log_dir)
+        print(f"Logs: {log_dir}")
+    else:
+        logger = _NullLogger()
     loss_history: dict[str, list[float]] = {k: [] for k in LOG_KEYS}
     patience_counter = 0
     epochs_run = 0
 
     prof = None
-    if config.profile_dir:
+    if config.profile_dir and lead:
         os.makedirs(config.profile_dir, exist_ok=True)
         acts = [torch.profiler.ProfilerActivity.CPU]
         if device.type == "cuda":
@@ -254,13 +300,16 @@ def _train_impl(config: Config, preempted: dict) -> dict:
         epoch_sum = None  # the stacked losses, one add a batch, on the device
         num_batches = 0
         epoch_iter = iter(loader)
-        bar = _progress(epoch_iter, steps_per_epoch, f"Epoch {epoch}/{config.num_epochs - 1}", config.progress_bar)
+        bar = _progress(epoch_iter, steps_per_epoch, f"Epoch {epoch}/{config.num_epochs - 1}", config.progress_bar and lead)
         for batch_idx, host_batch in enumerate(bar):
             batch = torch.from_numpy(host_batch).to(device, non_blocking=True)  # uint8 over the bus
             batch = augment_batch(batch, aug_gen, basic=True, advanced=config.advanced_augment)
             loss_dict = train_step(state, criterion, batch, packed)
             num_batches += 1
-            if preempted["flag"]:
+            # A signal may reach some ranks only: all take the break at the
+            # same step (one rank leaving would hang the others' next sum).
+            if any_over_ranks(preempted["flag"], device):
+                preempted["flag"] = True
                 epoch_iter.close()
                 print(
                     f"Signal {preempted['signum']} received: checkpointing and exiting "
@@ -278,8 +327,10 @@ def _train_impl(config: Config, preempted: dict) -> dict:
         if preempted["flag"]:
             # Saved as epoch - 1 with the epoch's starting generator states:
             # --resume runs the cut epoch again, whole.
-            save_checkpoint(state, config.save_dir, epoch - 1, best_loss, is_best=False, extra=at_start)
-            print(f"Preemption checkpoint written: {config.save_dir}/latest")
+            if lead:
+                save_checkpoint(state, config.save_dir, epoch - 1, best_loss, is_best=False, extra=at_start)
+                print(f"Preemption checkpoint written: {config.save_dir}/latest")
+            barrier()
             epochs_run = epoch
             break
 
@@ -295,7 +346,10 @@ def _train_impl(config: Config, preempted: dict) -> dict:
             + " ".join(f"{k}={v:.4f}" for k, v in avg_losses.items())
         )
         if epoch % max(config.save_freq, 1) == 0:
-            save_sample_visualizations(state.model, loader, epoch, config.save_dir, device)
+            if lead:
+                save_sample_visualizations(state.model, loader, epoch, config.save_dir, device)
+            else:
+                loader.epoch_order()  # the shuffle the samples take, so every rank's order stays in step
 
         if avg_losses["total"] < best_loss:
             best_loss = avg_losses["total"]
@@ -306,7 +360,9 @@ def _train_impl(config: Config, preempted: dict) -> dict:
             patience_counter += 1
             is_best = False
             print(f"  patience: {patience_counter}/{config.patience}")
-        save_checkpoint(state, config.save_dir, epoch, best_loss, is_best, extra=rng_states())
+        if lead:
+            save_checkpoint(state, config.save_dir, epoch, best_loss, is_best, extra=rng_states())
+        barrier()
         epochs_run = epoch + 1
         if patience_counter >= config.patience:
             print(f"Early stopping after {epoch + 1} epochs (best {best_loss:.6f})")
@@ -317,10 +373,24 @@ def _train_impl(config: Config, preempted: dict) -> dict:
         prof.export_chrome_trace(os.path.join(config.profile_dir, "trace.json"))
         print(f"Profile: {config.profile_dir}/trace.json")
     logger.close()
-    save_loss_curves(loss_history, config.save_dir)
-    save_results_to_csv(loss_history, config.save_dir)
+    if lead:
+        save_loss_curves(loss_history, config.save_dir)
+        save_results_to_csv(loss_history, config.save_dir)
     print(f"Training completed. Best loss: {best_loss:.6f}. Models in {config.save_dir}")
     return {"best_loss": best_loss, "epochs_run": epochs_run, "save_dir": config.save_dir}
+
+
+class _NullLogger:
+    """The logger of the ranks that write no logs."""
+
+    def add_scalar(self, *args, **kwargs):
+        pass
+
+    def add_scalars(self, *args, **kwargs):
+        pass
+
+    def close(self):
+        pass
 
 
 def save_sample_visualizations(model, loader, epoch: int, save_dir: str, device: torch.device) -> None:

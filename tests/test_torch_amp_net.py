@@ -182,15 +182,15 @@ def test_packed_forward_matches_jax_packed(nets, h, w):
 
 
 def test_bf16_routes_that_are_not_ported_raise(nets, tmp_path):
-    """K10 in bf16 (item 3c) and bf16 training (item 3b) are ported: the
-    bf16 dec1-chain forward builds, its K10 packed for bf16
-    (tests/test_torch_dec1_chain_bf16.py holds it to the JAX package);
-    bf16 training on several devices (item 8) still raises."""
+    """K10 in bf16 (item 3c), bf16 training (item 3b) and training on
+    several devices (item 8) are ported: the bf16 dec1-chain forward builds,
+    its K10 packed for bf16 (tests/test_torch_dec1_chain_bf16.py holds it to
+    the JAX package); bf16 with spatial sharding (item 9) still raises."""
     port = nets[(False, False)][0]
     assert PackedRetinex(port, NetCfg(dec1_chain=True)).dec1_packed.dtype == BF16
     photo = REPO / "data" / "convergence" / "lowlight_000.png"
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        cli.main(["--mode", "train", "--use_amp", "--n_devices", "2", "--train_dir", str(photo.parent),
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
+        cli.main(["--mode", "train", "--use_amp", "--spatial_shard", "--train_dir", str(photo.parent),
                   "--save_dir", str(tmp_path), "--device", "cpu"])
 
 

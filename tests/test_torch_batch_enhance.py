@@ -17,7 +17,7 @@ batch 2, so each canvas ends on a ragged chunk.
   count and with it LUT entries: up to 7 levels on these images), and the
   port, batched or not, rounds one way throughout. The net within
   tests/test_torch_enhance.py:59-61.
-- ``n_devices > 1`` raises.
+- ``--n_devices`` above the visible cards raises.
 """
 
 import os
@@ -150,9 +150,14 @@ def test_batch_net_matches_jax(image_dir, tmp_path):
         assert d.max() <= 1, f"{stem} illumination: max {d.max()}"
 
 
-def test_several_devices_raise(image_dir, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 8"):
+def test_several_devices_raise(image_dir, tmp_path, monkeypatch):
+    """More cards than are visible (one, here) raise; the JAX package's mesh
+    takes what there is. (Directories over several devices run:
+    tests/test_torch_parallel.py.)"""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="2 CUDA devices asked for, 1 visible"):
         cli.main([
             "--mode", "enhance", "--input_path", str(image_dir), "--output_dir", str(tmp_path),
-            "--classical_mode", "clahe", "--n_devices", "2", "--device", "cpu",
+            "--classical_mode", "clahe", "--n_devices", "2", "--device", "cuda",
         ])

@@ -191,11 +191,14 @@ def test_cli_routes_write_three_pngs(tmp_path, route):
     "args",
     [
         ["--spatial_shard", "--classical_mode", "clahe"],
-        ["--mode", "train", "--use_amp", "--coordinator", "localhost:1"],
-        ["--n_devices", "2"],
+        ["--mode", "train", "--use_amp", "--spatial_shard"],
+        ["--spatial_shard", "--n_devices", "2"],
     ],
 )
 def test_unported_routes_raise(tmp_path, args):
+    """Spatial sharding (ROADMAP Queue 1 item 9) raises on every mode;
+    --n_devices and --coordinator run (tests/test_torch_parallel.py,
+    tests/test_torch_multihost.py)."""
     base = ["--mode", "enhance", "--input_path", str(PHOTO), "--output_dir", str(tmp_path), "--device", "cpu"]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 9"):
         cli.main(base + args)

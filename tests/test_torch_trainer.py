@@ -156,9 +156,16 @@ def test_loss_falls_over_a_short_run(tiny_dataset, tmp_path):
 def test_early_stopping_and_unported_options(tiny_dataset, tmp_path):
     cfg = _config(tiny_dataset, tmp_path / "ckpt", num_epochs=5, lr=0.0, patience=1, use_perceptual_loss=False)
     assert train(cfg)["epochs_run"] < 5
-    for flags in (dict(n_devices=2), dict(use_amp=True, n_devices=2), dict(coordinator="localhost:1"),
-                  dict(remat=True, coordinator="localhost:1")):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+    # Several devices and hosts run (tests/test_torch_multihost.py); their
+    # options raise where they do not fit together, as the JAX package's do.
+    for flags, match in (
+        (dict(coordinator="localhost:1"), "--coordinator requires --num_processes and --process_id"),
+        (dict(remat=True, coordinator="localhost:1", num_processes=2), "--coordinator requires"),
+        (dict(coordinator="localhost:1", num_processes=2, process_id=2), "--process_id 2 is not in"),
+        (dict(use_amp=True, n_devices=3, coordinator="localhost:1", num_processes=2, process_id=0), "does not split"),
+        (dict(n_devices=0), "at least one device"),
+    ):
+        with pytest.raises(ValueError, match=match):
             train(_config(tiny_dataset, tmp_path / "x", **flags))
 
 

@@ -330,6 +330,29 @@ first and last image against the kernel on each alone (identical):
    barrier to its loss on the host): two ranks on one card measure the
    collectives, not a speed-up. ``python3 chip_smoke.py --phase 23`` runs
    the build and this phase alone, with the seed-0 weights.
+24. Spatial sharding and the host path (``spatial_phase``), on meshes of
+   2, 4 and 8 shards that repeat ``cuda:0``: (a) ``make_spatial_clahe``
+   in both modes at 2176x3840 (the JAX test's letterboxed 4K frame) and
+   1088x1920, byte-identical to the one-card route, each call's launches
+   counted (K1, K2, K3 float or K2, K7 once a slab; the applies at row0 >
+   0 in ``SLAB_LAUNCHES``, n - 1 a call), wall ms beside one card's; at
+   4K every slab's K3 (float, u8 NHWC = K8's apply, u8 planar) and K7 at
+   its row0 held to its plain version with that row0 and to the whole
+   frame's rows, the last slab's K3 float and K7 timed against their
+   bounds beside the whole frame's launch (``slab_applies``); (b)
+   ``make_spatial_forward`` at full width, the CLI's net and
+   pre-activation + ASPP, in f32 (within ``SPATIAL_F32_TOL`` of the
+   one-card standard forward) at both shapes and bf16 (within
+   ``AMP_NET_TOL``) at 1088x1920, each largest difference, wall ms against one card's and peak
+   memory printed; (c) ``--mode enhance --spatial_shard`` on the 1080p
+   photo with the net (the one-device message) and with ``--classical_mode
+   clahe``, the bytes of the runs without the flag; (d) the host stages
+   before (serial PIL decode, PIL's level-1 writes one after another) and
+   after (``data/native_loader.py``: 8 decode threads, ``encode_png``, one
+   photo's three PNGs on three threads) on the 1080p photo and the 24
+   ``data/convergence`` photos, with the files' sizes against PIL's.
+   Meshes of one card are not scaling figures. ``python3 chip_smoke.py
+   --phase 24`` runs the build and this phase alone.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the nvidia-smi line,
 and ``{"ok": true, "device": {...}}``. ``launches`` sums each kernel's
@@ -344,7 +367,9 @@ for K12-K16, over the calls at perf_lab's shapes in phases 17-19. The
 served calls of phase 22 add theirs to K1-K3's float instances and tile
 modes, K2's and K7's (``clahe_luma_apply_u8``); phase 23's sharded
 directory runs (each counted from zero) add theirs to K1-K6's (the net
-routes) and to K2's, K7's and K8's (the classical modes).
+routes) and to K2's, K7's and K8's (the classical modes); phase 24's
+spatial CLAHE calls and ``--spatial_shard`` CLI runs add theirs to K1-K3's
+and K7's (and the CLI net run's to K4-K6's).
 K4 has an entry as a whole (``fam_conv_fused``) and one for each of its
 three kernels (``fam_conv_y``, ``fam_conv_z``, ``fam_conv_out``), K10 as a
 whole (``dec1_chain``) and one for each of its four (``dec1_up``,
@@ -898,7 +923,7 @@ def k3_plan_sweep(torch, cg, kernels, h: int = 1088, w: int = 1920) -> None:
             if key in times:
                 continue
             args = (lab.data_ptr(), luts.data_ptr(), tables.data_ptr(), out.data_ptr(), 1, h, w, 8, 8, layout, vec,
-                    rows, key[1], stream)
+                    rows, key[1], 0, 16, stream)  # row0 0, cell_rows 16: the whole frame
             times[key] = time_ms(torch, lambda: kernels.launch("clahe_apply", *args))
             if not torch.equal(out, want):
                 raise AssertionError(f"{name} with the plan {key} differs from its default plan")
@@ -1725,7 +1750,7 @@ def directory_phase(torch, modules, photos: Path, workdir: Path) -> dict[str, in
     for (target, out_h, out_w), paths in bucket_by_canvas(files, 1920).items():
         for i in range(0, len(paths), 8):
             chunk = paths[i : i + 8]
-            x = torch.from_numpy(decode_bucket(chunk, target)).to("cuda")
+            x = torch.from_numpy(decode_bucket(chunk, target, out_h, out_w)).to("cuda")
             out = clahe_luma_rgb_u8_planar(x.permute(0, 3, 1, 2).contiguous(), fuse_luma=True)
             out = out.permute(0, 2, 3, 1).cpu().numpy()
             for j, f in enumerate(chunk):
@@ -1744,7 +1769,7 @@ def directory_phase(torch, modules, photos: Path, workdir: Path) -> dict[str, in
     for (target, out_h, out_w), paths in bucket_by_canvas(files, 1920).items():
         for i in range(0, len(paths), 8):
             chunk = paths[i : i + 8]
-            x = torch.from_numpy(decode_bucket(chunk, target)).to("cuda")
+            x = torch.from_numpy(decode_bucket(chunk, target, out_h, out_w)).to("cuda")
             out = clahe_rgb_u8_planar_gather(x.permute(0, 3, 1, 2).contiguous()).permute(0, 2, 3, 1).cpu().numpy()
             for j, f in enumerate(chunk):
                 want = np.asarray(Image.open(workdir / "dir_clahe" / f"{Path(f).stem}_enhanced.png").convert("RGB"))
@@ -1758,7 +1783,7 @@ def directory_phase(torch, modules, photos: Path, workdir: Path) -> dict[str, in
     # The packed and the standard net at batch 8 on the first chunk, warm,
     # in turns: whether packing pays at batch 8.
     (target, out_h, out_w), paths = next(iter(bucket_by_canvas(files, 1920).items()))
-    x8 = torch.from_numpy(decode_bucket(paths[:8], target)).to("cuda").float() / 255.0
+    x8 = torch.from_numpy(decode_bucket(paths[:8], target, out_h, out_w)).to("cuda").float() / 255.0
     nets = {"packed": apply, "standard": cli.build_apply_fn(Config(mode="enhance", packed_inference=False), torch.device("cuda"))}
     times = {name: [] for name in nets}
     for i in range(8):
@@ -1810,7 +1835,7 @@ def net_batch_holds(torch, apply, files: list[str], png_dir: Path) -> None:
     for (target, out_h, out_w), paths in bucket_by_canvas(files, 1920).items():
         for i in range(0, len(paths), 8):
             chunk = paths[i : i + 8]
-            x_u8 = torch.from_numpy(decode_bucket(chunk, target)).to("cuda")
+            x_u8 = torch.from_numpy(decode_bucket(chunk, target, out_h, out_w)).to("cuda")
             x = x_u8.float() / 255.0
             seen.clear()
             batch_u8, _ = make_batch_pipeline(packed_seen)(x_u8)
@@ -2264,7 +2289,7 @@ def predict_phase(torch, modules, photo: Path, small: Path, photos: Path, workdi
     card_apply = cli.build_apply_fn(Config(mode="predict", checkpoint=str(ckpt)), cuda, require_checkpoint=True)
     worst, frac = 0, 0.0
     for (target, _h, _w), paths in bucket_by_canvas(files, 1920).items():
-        x = torch.from_numpy(decode_bucket(paths, target)).to("cuda").float() / 255.0
+        x = torch.from_numpy(decode_bucket(paths, target, _h, _w)).to("cuda").float() / 255.0
         for j, f in enumerate(paths):
             enh, _, illu = card_apply(x[j : j + 1])
             for kind, t in (("enhanced", enh), ("illumination", illu.expand(-1, -1, -1, 3))):
@@ -4183,6 +4208,333 @@ def data_parallel_phase(torch, modules, ckpt: str, workdir: Path) -> dict[str, i
     return launches
 
 
+# Phase 24: spatial sharding (parallel/spatial.py) on meshes that repeat
+# cuda:0, and the host path (data/native_loader.py). The spatial CLAHE at
+# the JAX test's letterboxed 4K frame and at 1088x1920; the spatial forward
+# at full width, the CLI's net and pre-activation + ASPP, at both shapes.
+SPATIAL_MESHES = (2, 4, 8)
+SPATIAL_SHAPES = ((2176, 3840), (1088, 1920))
+SPATIAL_NETS = {"cli": (False, False), "preact_aspp": (True, True)}
+# The spatial forward against one card in f32: the means' summation order
+# (tests/test_spatial_sharding.py's bound for the JAX package's GSPMD forward).
+SPATIAL_F32_TOL = 2e-6
+# One Lab-CLAHE or luma-CLAHE call on n slabs: each kernel once a slab.
+SPATIAL_CLAHE_ONCE = {
+    "clahe": {"lab_fwd_f32_nhwc": 1, "clahe_tables": 1, "clahe_apply_f32_nhwc": 1},
+    "clahe_luma": {"clahe_tables": 1, "clahe_luma_apply_u8": 1},
+}
+
+
+def wall_ms(torch, fn, n: int = 3) -> float:
+    """Median wall ms of fn() to its results on the card, over n calls after one."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def slab_applies(torch, cg, cl, x, n: int, card: str) -> dict:
+    """Phase 24 (a): each slab's apply (K3 in its three cell-mode instances,
+    K8's apply half among them, and K7 on NHWC) at its row0 against its
+    plain version with that row0 and against the whole frame's launch; the
+    last slab's K3 float instance and K7 timed against their bounds, beside
+    the whole frame's launch."""
+    b, h, w, _ = x.shape
+    rows, ncy = h // n, 16 // n
+    lab = cg.lab_fwd_f32_nhwc(x)
+    luts = cg.clahe_tables(lab)
+    xq = torch.clamp(torch.round(torch.clamp(x, 0.0, 1.0) * 255.0), 0, 255).to(torch.uint8).contiguous()
+    y = cl._luma_u8(xq, dim=3)
+    luts_y = cg.clahe_tables(y)
+    whole = {"f32": cg.clahe_apply_f32_nhwc(lab, luts), "nhwc": cg.clahe_apply_u8_nhwc(lab, luts),
+             "u8": cg.clahe_apply_u8(lab, luts), "k7": cl.clahe_luma_apply_u8(xq, y, luts_y)}
+    worst = {"clahe_apply_f32_nhwc": 0, "clahe_luma_apply_u8": 0}
+    for i in range(n):
+        r, row0 = slice(i * rows, (i + 1) * rows), i * ncy
+        ls, xs, ys = lab[:, :, r].contiguous(), xq[:, r].contiguous(), y[:, r].contiguous()
+        got = {"f32": cg.clahe_apply_f32_nhwc(ls, luts, row0, ncy), "nhwc": cg.clahe_apply_u8_nhwc(ls, luts, row0, ncy),
+               "u8": cg.clahe_apply_u8(ls, luts, row0, ncy), "k7": cl.clahe_luma_apply_u8(xs, ys, luts_y, row0, ncy)}
+        plain = {"f32": cg.clahe_apply_f32_nhwc_plain(ls, luts, row0, ncy),
+                 "nhwc": cg.clahe_apply_u8_nhwc_plain(ls, luts, row0, ncy),
+                 "u8": cg.clahe_apply_u8_plain(ls, luts, row0, ncy),
+                 "k7": cl.clahe_luma_apply_u8_plain(xs, ys, luts_y, row0, ncy)}
+        for k in got:
+            a = torch.round(got[k] * 255.0).to(torch.uint8) if k == "f32" else got[k]
+            p = torch.round(plain[k] * 255.0).to(torch.uint8) if k == "f32" else plain[k]
+            err, frac = u8_diff(torch, a, p)
+            if err > (0 if k == "k7" else 1) or frac >= 1e-4:
+                raise AssertionError(f"{k} on slab {i} of {n} (row0 {row0}) disagrees with its plain version")
+            whole_rows = whole[k][:, :, r] if k == "u8" else whole[k][:, r]
+            if not torch.equal(got[k], whole_rows):
+                raise AssertionError(f"{k} on slab {i} of {n} (row0 {row0}) differs from the whole frame's rows")
+            name = "clahe_luma_apply_u8" if k == "k7" else "clahe_apply_f32_nhwc"
+            worst[name] = max(worst[name], err)
+    px, lut_bytes = b * rows * w, b * 64 * 256
+    last = ((n - 1) * rows, (n - 1) * ncy)
+    ls = lab[:, :, last[0]:].contiguous()
+    xs, ys = xq[:, last[0]:].contiguous(), y[:, last[0]:].contiguous()
+    k3_ms = time_ms(torch, lambda: cg.clahe_apply_f32_nhwc(ls, luts, last[1], ncy))
+    k7_ms = time_ms(torch, lambda: cl.clahe_luma_apply_u8(xs, ys, luts_y, last[1], ncy))
+    k3_bound = bound(15 * px + lut_bytes + 4 * cg.APPLY_TABLE_WORDS, INSTR_PER_PX["clahe_apply_f32_nhwc"] * px,
+                     PEAK_ISSUE_PER_S)
+    k7_bound = bound(7 * px + lut_bytes + 4 * (2 * w + rows + 256), INSTR_PER_PX["clahe_luma_apply_u8"] * px,
+                     PEAK_ISSUE_PER_S)
+    k3_whole = time_ms(torch, lambda: cg.clahe_apply_f32_nhwc(lab, luts))
+    k7_whole = time_ms(torch, lambda: cl.clahe_luma_apply_u8(xq, y, luts_y))
+    print(f"  (a) {h}x{w} on {n} slabs: every slab's K3 (f32 NHWC, u8 NHWC = K8's apply, u8 planar) and K7 at its row0 "
+          f"equal their plain versions (K3 within {worst['clahe_apply_f32_nhwc']} level(s), K7 exact) and the whole "
+          f"frame's rows; the last slab ({rows} rows, row0 {last[1]}) on {card}: K3 clahe_apply_f32_nhwc "
+          f"{k3_ms:.4f} ms (bound {k3_bound[0]:.4f} by {k3_bound[1]}, {k3_bound[0] / k3_ms:.1%}), K7 "
+          f"clahe_luma_apply_u8 {k7_ms:.4f} ms (bound {k7_bound[0]:.4f} by {k7_bound[1]}, {k7_bound[0] / k7_ms:.1%}); "
+          f"the whole frame's launch: K3 {k3_whole:.4f} ms, K7 {k7_whole:.4f} ms")
+    return worst
+
+
+def spatial_clahe_phase(torch, cg, cl, card: str) -> dict[str, int]:
+    """Phase 24 (a): ``make_spatial_clahe`` in both modes on meshes of 2, 4
+    and 8 shards of ``cuda:0`` at SPATIAL_SHAPES, each byte-identical to the
+    one-card route, every slab's kernels counted (K3 and K7 on slabs with
+    row0 > 0 in ``SLAB_LAUNCHES``); returns the sharded calls' launches."""
+    from retinex_tpu_torch.ops.clahe import clahe_lab_rgb
+    from retinex_tpu_torch.ops.clahe_luma import clahe_luma_rgb
+    from retinex_tpu_torch.parallel.mesh import Mesh
+    from retinex_tpu_torch.parallel.spatial import gather_rows, make_spatial_clahe, shard_rows
+
+    cuda0 = torch.device("cuda", 0)
+    total: dict[str, int] = {}
+    for h, w in SPATIAL_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(h)
+        x = torch.rand((1, h, w, 3), device="cuda", generator=g) * 0.45  # dark: CLAHE moves its pixels
+        for mode, route in (("clahe", clahe_lab_rgb), ("clahe_luma", clahe_luma_rgb)):
+            one = route(x)
+            one_ms = wall_ms(torch, lambda: route(x))
+            line = []
+            for n in SPATIAL_MESHES:
+                mesh = Mesh((cuda0,) * n)
+                fn = make_spatial_clahe(mesh, mode)
+                slabs = shard_rows(x, mesh)
+                for m in (cg, cl):
+                    m.reset_launches()
+                got = fn(slabs)
+                torch.cuda.synchronize()
+                launches = launch_counts((cg, cl))
+                slab = {**cg.SLAB_LAUNCHES, **cl.SLAB_LAUNCHES}
+                check_launches(launches, {k: n * v for k, v in SPATIAL_CLAHE_ONCE[mode].items()},
+                               f"spatial {mode} on {n} slabs")
+                apply = "clahe_apply_f32_nhwc" if mode == "clahe" else "clahe_luma_apply_u8"
+                if slab[apply] != n - 1 or sum(slab.values()) != n - 1:
+                    raise AssertionError(f"spatial {mode} on {n} slabs: row0 > 0 launches {slab}, expected {apply} {n - 1}")
+                total = {k: total.get(k, 0) + v for k, v in launches.items()}
+                if not torch.equal(gather_rows(got, cuda0), one):
+                    raise AssertionError(f"spatial {mode} at {h}x{w} on {n} slabs differs from the one-card route")
+                ms = wall_ms(torch, lambda: fn(slabs))
+                line.append(f"{n} slabs {ms:.3f} ms (launches {', '.join(f'{k} {v}' for k, v in launches.items() if v)}; "
+                            f"row0 > 0: {apply} {slab[apply]})")
+            print(f"  (a) spatial {mode} at {h}x{w}: byte-identical to one card ({one_ms:.3f} ms wall) on "
+                  + "; ".join(line) + " (slabs of one card: not a scaling figure)")
+        if (h, w) == SPATIAL_SHAPES[0]:
+            for n in SPATIAL_MESHES:
+                slab_applies(torch, cg, cl, x, n, card)
+    return total
+
+
+def spatial_forward_phase(torch) -> None:
+    """Phase 24 (b): ``make_spatial_forward`` at full width on meshes of 2,
+    4 and 8 shards of ``cuda:0`` against the one-card standard forward: f32
+    within SPATIAL_F32_TOL at both shapes, bf16 (--use_amp) within
+    AMP_NET_TOL at 1088x1920; each
+    largest difference, the wall time beside one card's and the peak
+    memory printed."""
+    from retinex_tpu_torch.models.init import init_untrained
+    from retinex_tpu_torch.models.retinex_net import MultiScaleUPRetinex
+    from retinex_tpu_torch.parallel.mesh import Mesh
+    from retinex_tpu_torch.parallel.spatial import gather_rows, make_spatial_forward, shard_rows
+
+    cuda0 = torch.device("cuda", 0)
+    gib = 2.0**30
+    for dtype in (torch.float32, torch.bfloat16):
+        for cfg, flags in SPATIAL_NETS.items():
+            model = init_untrained(MultiScaleUPRetinex(*flags, dtype=dtype), 0).eval().to(cuda0)
+            # bf16 at 1088x1920 only: the phase's time (4K's bf16 runs add ~20 s).
+            for h, w in SPATIAL_SHAPES[::-1] if dtype == torch.float32 else SPATIAL_SHAPES[1:]:
+                g = torch.Generator(device="cuda").manual_seed(w)
+                x = torch.rand((1, h, w, 3), device="cuda", generator=g) * 0.85 + 0.05
+
+                def one_card():
+                    with torch.inference_mode():
+                        return model(x)
+
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                one = one_card()
+                torch.cuda.synchronize()
+                peak_one = torch.cuda.max_memory_allocated() / gib
+                one_ms = wall_ms(torch, one_card)
+                parts = []
+                for n in SPATIAL_MESHES:
+                    mesh = Mesh((cuda0,) * n)
+                    fwd = make_spatial_forward(model, mesh)
+                    slabs = shard_rows(x, mesh)
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats()
+                    out = fwd(slabs)
+                    torch.cuda.synchronize()
+                    peak = torch.cuda.max_memory_allocated() / gib
+                    diffs = {}
+                    for name, a, b in zip(("enhanced", "reflectance", "illumination"), out, one):
+                        a = gather_rows(a, cuda0)
+                        if not bool(torch.isfinite(a).all()):
+                            raise AssertionError(f"spatial forward ({cfg}, {dtype}) at {h}x{w} on {n}: {name} not finite")
+                        diffs[name] = float((a.float() - b.float()).abs().max())
+                        tol = SPATIAL_F32_TOL if dtype == torch.float32 else AMP_NET_TOL[name]
+                        if diffs[name] > tol:
+                            raise AssertionError(f"spatial forward ({cfg}, {dtype}) at {h}x{w} on {n} slabs: {name} "
+                                                 f"{diffs[name]:.3e} from one card, beyond {tol}")
+                    del out
+                    ms = wall_ms(torch, lambda: fwd(slabs))
+                    parts.append(f"{n} slabs: max diff " + "/".join(f"{v:.3e}" for v in diffs.values())
+                                 + f", {ms:.3f} ms ({ms / one_ms:.3f}x), peak {peak:.2f} GiB")
+                print(f"  (b) spatial forward, {cfg} net, {str(dtype)[6:]}, {h}x{w} (enhanced/reflectance/illumination "
+                      f"vs one card, {one_ms:.3f} ms, peak {peak_one:.2f} GiB): " + "; ".join(parts)
+                      + " (slabs of one card: not a scaling figure)")
+            del model
+            torch.cuda.empty_cache()
+
+
+def spatial_cli_phase(torch, modules, workdir: Path) -> dict[str, int]:
+    """Phase 24 (c): ``--mode enhance --spatial_shard`` on the 1080p photo
+    with the net and with ``--classical_mode clahe`` on this one card: the
+    one-device message where the net runs, and the bytes of the run without
+    the flag. Returns the flagged runs' launches."""
+    from PIL import Image
+
+    photo = workdir / "spatial_photo1080.png"
+    with Image.open(REPO / "data" / "convergence" / "lowlight_000.png") as im:
+        im.convert("RGB").resize((1920, 1080), Image.BILINEAR).save(photo)
+    total: dict[str, int] = {}
+    for label, extra in (("net", []), ("clahe", ["--classical_mode", "clahe"])):
+        outs = {}
+        for flagged in (False, True):
+            out = workdir / f"spatial_cli_{label}_{flagged}"
+            args = ["--mode", "enhance", "--input_path", str(photo), "--output_dir", str(out), "--max_size", "1920",
+                    *extra, *(["--spatial_shard"] if flagged else [])]
+            launches, _sec, printed = run_cli_logged(torch, modules, args)
+            outs[flagged] = out
+        if label == "net" and "Spatial sharding requested but only one device is visible; ignoring" not in printed:
+            raise AssertionError("--spatial_shard on one card did not say that it is ignored")
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+        for k in ("enhanced", "illumination", "comparison"):
+            a, b = (np.asarray(Image.open(outs[f] / f"{photo.stem}_{k}.png")) for f in (False, True))
+            if not np.array_equal(a, b):
+                raise AssertionError(f"--spatial_shard on one card changed {label}'s {k} PNG")
+        print(f"  (c) --spatial_shard, {label}, on this one card: " + ("the one-device message, " if label == "net" else "")
+              + f"the bytes of the run without the flag; launches {', '.join(f'{k} {v}' for k, v in launches.items() if v)}")
+    return total
+
+
+def host_path_phase(workdir: Path) -> None:
+    """Phase 24 (d): the host stages before (PIL on one thread, PIL's level-1
+    writes) and after (data/native_loader.py: PIL decode on a thread pool,
+    the level-1 SUB zlib writer, one photo's three PNGs on three threads),
+    on the 1088x1920 letterboxed photo and on the 24 data/convergence
+    photos; file sizes beside PIL's. Every file decodes to the same pixels."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    from retinex_tpu_torch.data.dataset import decode_image, list_image_files
+    from retinex_tpu_torch.data.native_loader import decode_letterbox_batch_canvas, encode_png
+    from retinex_tpu_torch.infer.batch_driver import bucket_by_canvas
+    from retinex_tpu_torch.ops.letterbox import letterbox_np, plan_letterbox
+    from retinex_tpu_torch.utils.viz import create_comparison
+
+    def best_ms(fn, n: int = 5) -> float:
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    def serial(paths, target):
+        out = []
+        for p in paths:
+            rgb = decode_image(p)
+            out.append(letterbox_np(rgb, plan_letterbox(rgb.shape[0], rgb.shape[1], target, auto=True, scaleup=False)))
+        return np.stack(out)
+
+    def pil_write(a, path):
+        Image.fromarray(a).save(path, compress_level=1)
+
+    photo = workdir / "spatial_photo1080.png"
+    files = list_image_files(str(REPO / "data" / "convergence"))
+    for label, paths, max_size in (("the 1080p photo", [str(photo)], 1920), ("24 data/convergence photos", files, None)):
+        for (target, oh, ow), chunk in bucket_by_canvas(paths, max_size).items():
+            before = serial(chunk, target)
+            after = decode_letterbox_batch_canvas(chunk, target, oh, ow, num_threads=8)
+            if not np.array_equal(before, after):
+                raise AssertionError(f"the threaded decode of {label} differs from the serial one")
+            b_ms = best_ms(lambda: serial(chunk, target), 3)
+            a_ms = best_ms(lambda: decode_letterbox_batch_canvas(chunk, target, oh, ow, num_threads=8), 3)
+            print(f"  (d) decode + letterbox, {label} ({len(chunk)} to {oh}x{ow}): serial PIL {b_ms:.2f} ms, 8 threads "
+                  f"{a_ms:.2f} ms ({b_ms / a_ms:.2f}x); identical bytes")
+    img = serial([str(photo)], 1920)[0]
+    enh = np.asarray(Image.open(workdir / "spatial_cli_net_False" / "spatial_photo1080_enhanced.png"))
+    illu = np.asarray(Image.open(workdir / "spatial_cli_net_False" / "spatial_photo1080_illumination.png"))
+    comp = create_comparison(img.astype(np.float32) / 255.0, enh.astype(np.float32) / 255.0)
+    arrays = {"enhanced": enh, "illumination": illu, "comparison": comp}
+    sizes = []
+    for name, a in arrays.items():
+        pb, pa = workdir / f"pil_{name}.png", workdir / f"zlib_{name}.png"
+        b_ms, a_ms = best_ms(lambda: pil_write(a, pb)), best_ms(lambda: encode_png(a, str(pa)))
+        for path in (pb, pa):
+            if not np.array_equal(np.asarray(Image.open(path)), a):
+                raise AssertionError(f"{path.name} does not decode to the array written")
+        sizes.append(f"{name} {pa.stat().st_size} B (PIL {pb.stat().st_size} B)")
+        print(f"  (d) encode {name} {a.shape[1]}x{a.shape[0]}: PIL level 1 {b_ms:.2f} ms, encode_png {a_ms:.2f} ms "
+              f"({b_ms / a_ms:.2f}x)")
+    pool = ThreadPoolExecutor(max_workers=3)
+    three_before = best_ms(lambda: [pil_write(a, workdir / f"pil_{k}.png") for k, a in arrays.items()])
+    three_after = best_ms(lambda: [f.result() for f in [pool.submit(encode_png, a, str(workdir / f"zlib_{k}.png"))
+                                                         for k, a in arrays.items()]])
+    pool.shutdown()
+    print(f"  (d) one photo's three PNGs: PIL one after another {three_before:.2f} ms, encode_png on 3 threads "
+          f"{three_after:.2f} ms ({three_before / three_after:.2f}x); sizes: " + ", ".join(sizes))
+    batch = serial(files, 640)
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        dir_before = best_ms(lambda: list(pool.map(lambda i: pil_write(batch[i], workdir / f"d_pil_{i}.png"),
+                                                   range(len(files)))), 3)
+        dir_after = best_ms(lambda: list(pool.map(lambda i: encode_png(batch[i], str(workdir / f"d_zlib_{i}.png")),
+                                                  range(len(files)))), 3)
+    print(f"  (d) 24 photos' PNGs (640x640) on 8 threads: PIL {dir_before:.2f} ms, encode_png {dir_after:.2f} ms "
+          f"({dir_before / dir_after:.2f}x)")
+
+
+def spatial_phase(torch, modules, workdir: Path) -> dict[str, int]:
+    """Phase 24 (the module docstring); returns the launches of (a)'s
+    sharded calls and (c)'s CLI runs."""
+    cg, cl = modules[0], modules[1]
+    card = gpu_line()
+    t0 = time.perf_counter()
+    if not {"clahe_apply_f32_nhwc", "clahe_luma_apply_u8"} <= INSTR_PER_PX.keys():  # phase 24 alone
+        from retinex_tpu_torch.ops import _kernels
+
+        libs = _kernels.build()
+        INSTR_PER_PX.update(sass_instructions_per_px(libs["clahe_lab"].path))
+        INSTR_PER_PX.update(sass_loop_instructions_per_px(libs))
+    launches = spatial_clahe_phase(torch, cg, cl, card)
+    spatial_forward_phase(torch)
+    cli = spatial_cli_phase(torch, modules, workdir)
+    host_path_phase(workdir)
+    print(f"  phase 24 took {time.perf_counter() - t0:.1f} s")
+    return {k: launches.get(k, 0) + cli.get(k, 0) for k in set(launches) | set(cli)}
+
+
 def seed0_checkpoint(torch, workdir: Path) -> str:
     """The CLI's untrained weights (seed 0) as a ``.pth``, for predict."""
     from retinex_tpu_torch.cli import init_untrained
@@ -4199,7 +4551,7 @@ def serving_alone(torch, kernels, line: str) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description="the build and one phase alone")
-    parser.add_argument("--phase", type=int, choices=(22, 23), required=True)
+    parser.add_argument("--phase", type=int, choices=(22, 23, 24), required=True)
     phase = parser.parse_args().phase
     for stem, built in kernels.build().items():
         print(f"  {built.path.name}: built in {built.seconds:.2f} s")
@@ -4208,13 +4560,20 @@ def serving_alone(torch, kernels, line: str) -> int:
             print("phase 22 alone: serving with the seed-0 weights")
             launches = serving_phase(torch, None, Path(tmp))
             print(f"  launches of the served calls: {launches}")
-        else:
+        elif phase == 23:
             from retinex_tpu_torch.ops import clahe_gather, clahe_luma, clahe_pallas, conv_pallas, fused_blocks
 
             print("phase 23 alone: data parallelism with the seed-0 weights")
             modules = (clahe_gather, clahe_luma, fused_blocks, conv_pallas, clahe_pallas)
             launches = data_parallel_phase(torch, modules, seed0_checkpoint(torch, Path(tmp)), Path(tmp))
             print(f"  launches of the sharded runs: {launches}")
+        else:
+            from retinex_tpu_torch.ops import clahe_gather, clahe_luma, clahe_pallas, conv_pallas, fused_blocks
+
+            print("phase 24 alone: spatial sharding and the host path")
+            modules = (clahe_gather, clahe_luma, fused_blocks, conv_pallas, clahe_pallas)
+            launches = spatial_phase(torch, modules, Path(tmp))
+            print(f"  launches of the sharded calls and the CLI runs: {launches}")
     print(line)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0)}
     print(json.dumps({"ok": True, "phases": [phase], "device": device}))
@@ -4308,9 +4667,12 @@ def main() -> int:
         print("phase 23: data parallelism: sharded directory runs on a two-shard mesh of cuda:0, --n_devices beyond the "
               "card, the train step in a world of one NCCL rank and in two gloo ranks, dryrun_multichip(2)")
         dp_launches = data_parallel_phase(torch, (cg, cl, fb, cp, kp), ckpt, Path(tmp))
+        print("phase 24: spatial sharding: the spatial CLAHE and forward on meshes of 2, 4 and 8 shards of cuda:0 "
+              "against one card, --spatial_shard through the CLI; the host path's stages before and after")
+        sp_launches = spatial_phase(torch, (cg, cl, fb, cp, kp), Path(tmp))
     recs.update(amp_recs)
     launches.update(amp_launches)
-    for name, n in list(serving_launches.items()) + list(dp_launches.items()):
+    for name, n in list(serving_launches.items()) + list(dp_launches.items()) + list(sp_launches.items()):
         launches[name] += n
 
     for name in recs:

@@ -65,9 +65,14 @@ same bytes as one card; one image runs on one card. ``--mode train`` on
 several cards starts one process per card, each a rank of the JAX
 package's global-batch step (NCCL; ``parallel/distributed.py``), and
 ``--coordinator host:port --num_processes P --process_id i`` joins the
-ranks of P hosts. ``--spatial_shard`` raises ``NotImplementedError``
-(ROADMAP Queue 1 item 9), and so does a ``--checkpoint``
-directory (the JAX package's Orbax format). ``--mode train`` takes the
+ranks of P hosts. ``--spatial_shard`` splits one frame's height over the
+mesh's devices (``parallel/spatial.py``): the net's standard forward where
+H % (8 n) == 0 (else it says so and runs on one device), and on one file
+``--classical_mode clahe|clahe_luma`` where the mesh divides the tiles and
+H, W are multiples of 2 * tiles (else likewise); on one device the flag
+is ignored, with a message, and a directory with the net turns batch
+sharding off. A ``--checkpoint`` directory (the JAX package's Orbax format)
+raises ``NotImplementedError``. ``--mode train`` takes the
 packed train step (``--packed_train``, on by default;
 ``models/packed_train.py``) on the card where ``--image_size`` is a
 multiple of 32, and the standard step with ``--no-packed_train``, on the
@@ -89,7 +94,7 @@ from retinex_tpu_torch.models.convert import load_reference_checkpoint
 from retinex_tpu_torch.models.init import TRUNC_STD, fan_in, init_untrained  # noqa: F401
 from retinex_tpu_torch.models.packed_inference import PackedRetinex
 from retinex_tpu_torch.models.retinex_net import MultiScaleUPRetinex
-from retinex_tpu_torch.parallel.mesh import replicate
+from retinex_tpu_torch.parallel.mesh import create_mesh, replicate
 
 
 # The JAX CLI initialises the untrained net from PRNGKey(0).
@@ -126,11 +131,36 @@ def build_apply_fn(config: Config, device: torch.device, require_checkpoint: boo
     """NHWC batch -> (enhanced, reflectance, illumination) through the
     packed forward (``config.packed_inference``) or the standard one. With
     `mesh` (``parallel/mesh.py``) one copy of the weights lives on each of
-    its devices and the forward runs the copy on its input's device."""
+    its devices and the forward runs the copy on its input's device.
+
+    With ``config.spatial_shard`` on a mesh of n > 1 devices
+    (``--n_devices``) the forward is the standard one with each frame's
+    height split over them (``parallel/spatial.make_spatial_forward``), the
+    outputs gathered on the input's device, where H % (8 n) == 0; other
+    heights run the standard forward on one device, which is said. On one
+    device the flag is ignored (said too)."""
     model = build_model(config, device, require_checkpoint)
     home = next(model.parameters()).device
     if config.use_amp:
         print("Computing the net in bf16 (--use_amp)")
+    if config.spatial_shard:
+        sp_mesh = create_mesh(config.n_devices, device)
+        n = sp_mesh.size
+        if n > 1:
+            from retinex_tpu_torch.parallel.spatial import gather_rows, make_spatial_forward, shard_rows
+
+            print(f"Spatial sharding: H split over {n} devices (row halos copied between slabs)")
+            spatial = make_spatial_forward(model, sp_mesh)
+
+            def spatial_fn(batch: torch.Tensor):
+                if batch.shape[1] % (8 * n) == 0:
+                    return tuple(gather_rows(o, batch.device) for o in spatial(shard_rows(batch, sp_mesh)))
+                print(f"  H={batch.shape[1]} not divisible by {8 * n}; single-device fallback")
+                with torch.inference_mode():
+                    return model(batch)
+
+            return spatial_fn
+        print("Spatial sharding requested but only one device is visible; ignoring")
     if config.packed_inference:
         print("Using space-to-depth packed inference")
 
@@ -151,8 +181,6 @@ def run(config: Config):
     device = resolve_device(config.device)
     if config.mode not in ("train", "enhance", "predict", "evaluate"):
         raise ValueError(f"Unknown mode: {config.mode}")
-    if config.spatial_shard:
-        raise NotImplementedError("spatial sharding lands in ROADMAP Queue 1 item 9")
     if config.mode == "train":
         from retinex_tpu_torch.train.trainer import train
 
@@ -196,6 +224,10 @@ def run(config: Config):
     input_path = Path(config.input_path)
     if not input_path.is_dir():
         mesh = None  # one image runs on one device, as in the JAX package
+    elif config.spatial_shard and (config.mode == "predict" or config.classical_mode not in CLASSICAL_MODES):
+        # The net's forward splits each chunk's height over the devices itself.
+        mesh = None
+        print("Directory input: spatial sharding handles each chunk; batch-sharding off")
     if config.mode == "predict":
         from retinex_tpu_torch.infer.predict import predict_batch, predict_single_image
 
@@ -227,7 +259,16 @@ def run(config: Config):
         device=device,
     )
     if input_path.is_file():
-        return enhance_single_image(apply_fn, str(input_path), config.output_dir, max_size=config.max_size, **knobs)
+        # --spatial_shard with a CLAHE mode splits the frame's height over the
+        # mesh (parallel/spatial.make_spatial_clahe); None on one device.
+        sp_mesh = None
+        if config.spatial_shard and config.classical_mode in ("clahe", "clahe_luma"):
+            from retinex_tpu_torch.infer.batch_driver import maybe_mesh
+
+            sp_mesh = maybe_mesh(config.n_devices, device)
+        return enhance_single_image(
+            apply_fn, str(input_path), config.output_dir, max_size=config.max_size, mesh=sp_mesh, **knobs
+        )
     return enhance_batch_images(
         apply_fn,
         str(input_path),

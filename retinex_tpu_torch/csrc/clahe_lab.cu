@@ -811,14 +811,18 @@ template <int kVec, int kOut, int kMode>
 __global__ void __launch_bounds__(kApplyThreads * kApplyRowsMax)
     clahe_apply_kernel(const uint8_t* __restrict__ lab, const uint8_t* __restrict__ luts,
                        const uint4* __restrict__ tables, const int* __restrict__ geom, void* __restrict__ out, int H,
-                       int W, int tiles_y, int tiles_x, int bands, int band_rows) {
+                       int W, int tiles_y, int tiles_x, int bands, int band_rows, int row0, int cell_rows) {
   // The tables, then the neighbour words [tiles_x + 1][256]: for the x-tile
   // pair p (tiles p - 1 and p, clipped) and value v, the LUT entries of the
   // tiles (t0y, p - 1), (t0y, p), (t1y, p - 1), (t1y, p) as bytes 0..3;
   // then each warp's store staging (stage_words a lane).
   extern __shared__ uint4 smem[];
   // Rows [iy0, iy1): of cell row cy (kCells, kK16), or of the frame (kTiles:
-  // the geometry's band table [bands][4]: first row, end, t0y, t1y).
+  // the geometry's band table [bands][4]: first row, end, t0y, t1y). The
+  // cell modes take a slab of `cell_rows` whole cell rows whose first is
+  // the frame's cell row `row0` (2 * tiles_y and 0 for a whole frame): cy
+  // counts the slab's cell rows, cy + row0 the frame's, which pick the
+  // neighbour tile rows and the blend weight's parity.
   int iy0, iy1, t0y, t1y, cy = 0, hh = 0, hw = 0;
   if constexpr (kMode == kTiles) {
     const int4 band = reinterpret_cast<const int4*>(geom)[blockIdx.y];
@@ -827,12 +831,12 @@ __global__ void __launch_bounds__(kApplyThreads * kApplyRowsMax)
     t0y = band.z;
     t1y = band.w;
   } else {
-    hh = H / (2 * tiles_y);
+    hh = H / cell_rows;
     hw = W / (2 * tiles_x);
     cy = blockIdx.y / bands;
     iy0 = (blockIdx.y - cy * bands) * band_rows;
     iy1 = min(iy0 + band_rows, hh);
-    neighbor_tiles(cy, tiles_y, &t0y, &t1y);
+    neighbor_tiles(cy + row0, tiles_y, &t0y, &t1y);
   }
   const int b = blockIdx.z;
 
@@ -900,7 +904,7 @@ __global__ void __launch_bounds__(kApplyThreads * kApplyRowsMax)
       ya = __int_as_float(geom[4 * bands + iy]);
       row = (size_t)iy * W;
     } else {
-      ya = kMode == kK16 ? blend_weight_k16(cy, iy, hh) : blend_weight(cy, iy, hh);
+      ya = kMode == kK16 ? blend_weight_k16(cy + row0, iy, hh) : blend_weight(cy + row0, iy, hh);
       row = (size_t)(cy * hh + iy) * W;
     }
     const float yb = 1.0f - ya;
@@ -977,14 +981,17 @@ int launch_lab_fwd_vec(const void* src, void* lab, const void* degamma, int batc
 }
 
 // One launch of K3 in `kMode`: grid (column blocks, row bands, batch). bands:
-// row bands per cell row (kCells, kK16: band_rows rows each) or in all
-// (kTiles: the geometry's band table).
+// row bands per cell row (kCells, kK16: band_rows rows each, over the
+// slab's cell_rows cell rows, the first the frame's row0) or in all (kTiles:
+// the geometry's band table).
 template <int kVec, int kOut, int kMode>
 int launch_apply_as(const void* lab, const void* luts, const void* tables, const void* geom, void* out, int batch,
                     int H, int W, int tiles_y, int tiles_x, int bands, int band_rows, int rows_par,
-                    cudaStream_t stream) {
+                    cudaStream_t stream, int row0 = 0, int cell_rows = 0) {
   if (rows_par < 1 || rows_par > kApplyRowsMax) return (int)cudaErrorInvalidValue;
-  const int grid_y = kMode == kTiles ? bands : 2 * tiles_y * bands;
+  if (kMode != kTiles && (cell_rows < 1 || row0 < 0 || row0 + cell_rows > 2 * tiles_y || H % cell_rows))
+    return (int)cudaErrorInvalidValue;
+  const int grid_y = kMode == kTiles ? bands : cell_rows * bands;
   const dim3 grid((W / kVec + kApplyThreads - 1) / kApplyThreads, grid_y, batch);
   const size_t words = (size_t)kTabWords + (size_t)(tiles_x + 1) * kHist +
                        (size_t)kApplyThreads * rows_par * stage_words<kVec, kOut>();
@@ -996,24 +1003,26 @@ int launch_apply_as(const void* lab, const void* luts, const void* tables, const
   }
   clahe_apply_kernel<kVec, kOut, kMode><<<grid, dim3(kApplyThreads, rows_par), smem, stream>>>(
       static_cast<const uint8_t*>(lab), static_cast<const uint8_t*>(luts), static_cast<const uint4*>(tables),
-      static_cast<const int*>(geom), out, H, W, tiles_y, tiles_x, bands, band_rows);
+      static_cast<const int*>(geom), out, H, W, tiles_y, tiles_x, bands, band_rows, row0, cell_rows);
   return (int)cudaGetLastError();
 }
 
 template <int kVec>
 int launch_apply_vec(const void* lab, const void* luts, const void* tables, void* out, int batch, int H, int W,
-                     int tiles_y, int tiles_x, int layout, int band_rows, int rows_par, cudaStream_t stream) {
-  const int bands = (H / (2 * tiles_y) + band_rows - 1) / band_rows;
+                     int tiles_y, int tiles_x, int layout, int band_rows, int rows_par, int row0, int cell_rows,
+                     cudaStream_t stream) {
+  if (cell_rows < 1 || H % cell_rows) return (int)cudaErrorInvalidValue;
+  const int bands = (H / cell_rows + band_rows - 1) / band_rows;
   switch (layout) {
     case kU8Planar:
       return launch_apply_as<kVec, kU8Planar, kCells>(lab, luts, tables, nullptr, out, batch, H, W, tiles_y, tiles_x,
-                                                      bands, band_rows, rows_par, stream);
+                                                      bands, band_rows, rows_par, stream, row0, cell_rows);
     case kU8Nhwc:
       return launch_apply_as<kVec, kU8Nhwc, kCells>(lab, luts, tables, nullptr, out, batch, H, W, tiles_y, tiles_x,
-                                                    bands, band_rows, rows_par, stream);
+                                                    bands, band_rows, rows_par, stream, row0, cell_rows);
     case kF32Nhwc:
       return launch_apply_as<kVec, kF32Nhwc, kCells>(lab, luts, tables, nullptr, out, batch, H, W, tiles_y, tiles_x,
-                                                     bands, band_rows, rows_par, stream);
+                                                     bands, band_rows, rows_par, stream, row0, cell_rows);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1069,17 +1078,23 @@ int clahe_tables(const void* src, void* luts, void* scratch, long long img_strid
 // kU8Nhwc or kF32Nhwc; vec: 8, 4 or 1 (the cell width a multiple of it, lab
 // aligned to it: clahe_gather._apply_width);
 // band_rows: rows a block walks, rows_par (1 to 4) of them at once, one
-// row of threads each (clahe_gather.apply_plan).
+// row of threads each (clahe_gather.apply_plan); the H rows are a slab of
+// cell_rows whole cell rows of a frame, the first its cell row row0 (a
+// whole frame: row0 0, cell_rows 2 * tiles_y), and luts the frame's.
 int clahe_apply(const void* lab, const void* luts, const void* tables, void* out, int batch, int H, int W,
-                int tiles_y, int tiles_x, int layout, int vec, int band_rows, int rows_par, void* stream) {
+                int tiles_y, int tiles_x, int layout, int vec, int band_rows, int rows_par, int row0, int cell_rows,
+                void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   switch (vec) {
     case 8:
-      return launch_apply_vec<8>(lab, luts, tables, out, batch, H, W, tiles_y, tiles_x, layout, band_rows, rows_par, s);
+      return launch_apply_vec<8>(lab, luts, tables, out, batch, H, W, tiles_y, tiles_x, layout, band_rows, rows_par,
+                                 row0, cell_rows, s);
     case 4:
-      return launch_apply_vec<4>(lab, luts, tables, out, batch, H, W, tiles_y, tiles_x, layout, band_rows, rows_par, s);
+      return launch_apply_vec<4>(lab, luts, tables, out, batch, H, W, tiles_y, tiles_x, layout, band_rows, rows_par,
+                                 row0, cell_rows, s);
     case 1:
-      return launch_apply_vec<1>(lab, luts, tables, out, batch, H, W, tiles_y, tiles_x, layout, band_rows, rows_par, s);
+      return launch_apply_vec<1>(lab, luts, tables, out, batch, H, W, tiles_y, tiles_x, layout, band_rows, rows_par,
+                                 row0, cell_rows, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1131,10 +1146,10 @@ int clahe_pallas_apply(const void* lab, const void* luts, const void* tables, vo
   switch (vec) {
     case 4:
       return launch_apply_as<4, kF32Nhwc, kK16>(lab, luts, tables, nullptr, out, batch, H, W, tiles_y, tiles_x, bands,
-                                                band_rows, rows_par, s);
+                                                band_rows, rows_par, s, 0, 2 * tiles_y);
     case 1:
       return launch_apply_as<1, kF32Nhwc, kK16>(lab, luts, tables, nullptr, out, batch, H, W, tiles_y, tiles_x, bands,
-                                                band_rows, rows_par, s);
+                                                band_rows, rows_par, s, 0, 2 * tiles_y);
     default:
       return (int)cudaErrorInvalidValue;
   }

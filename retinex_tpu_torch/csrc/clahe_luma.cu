@@ -128,17 +128,22 @@ template <bool kFused, bool kNhwc, int kVec>
 __global__ void __launch_bounds__(kThreads)
     clahe_luma_apply_kernel(const uint8_t* __restrict__ rgb, const uint8_t* __restrict__ luma,
                             const uint8_t* __restrict__ luts, const int* __restrict__ geo,
-                            uint8_t* __restrict__ out, int H, int W, int tiles_y, int tiles_x) {
+                            uint8_t* __restrict__ out, int H, int W, int tiles_y, int tiles_x, int row0,
+                            int cell_rows) {
   constexpr int kPerWord = kVec == 8 ? 4 : 1;
   constexpr int kRunWords = kVec / kPerWord;  // words of one plane's run
   // The two tile rows' LUTs interleaved, [tiles_x][256][2] (one 8-byte read
   // gives a pixel's two entries of one x-tile), then [256] reciprocals.
   extern __shared__ float slut[];
-  const int hh = H / (2 * tiles_y);
+  // The H rows are a slab of cell_rows whole cell rows of a frame, the
+  // first its cell row row0 (a whole frame: 0 and 2 * tiles_y): cy counts
+  // the slab's cell rows, cy + row0 the frame's, which picks the two
+  // neighbour tile rows; the geometry's y-weights are the slab's rows'.
+  const int hh = H / cell_rows;
   const int cy = blockIdx.y, b = blockIdx.z;
   const int r0 = blockIdx.x * kSegRows, r1 = min(r0 + kSegRows, hh);
   int t0y, t1y;
-  neighbor_tiles(cy, tiles_y, &t0y, &t1y);
+  neighbor_tiles(cy + row0, tiles_y, &t0y, &t1y);
 
   const int n = tiles_x * kHist;
   float* srcp = slut + 2 * n;  // 1 / (v + 1) by byte v
@@ -244,10 +249,11 @@ __global__ void __launch_bounds__(kThreads)
 
 template <bool kFused, bool kNhwc>
 int launch_luma_apply(const void* rgb, const void* luma, const void* luts, const void* geo, void* out, int batch,
-                      int H, int W, int tiles_y, int tiles_x, void* stream) {
-  const int hh = H / (2 * tiles_y);
+                      int H, int W, int tiles_y, int tiles_x, int row0, int cell_rows, void* stream) {
+  if (cell_rows < 1 || row0 < 0 || row0 + cell_rows > 2 * tiles_y || H % cell_rows) return (int)cudaErrorInvalidValue;
+  const int hh = H / cell_rows;
   if ((long long)3 * H * W >= (1LL << 31)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((hh + kSegRows - 1) / kSegRows, 2 * tiles_y, batch);
+  const dim3 grid((hh + kSegRows - 1) / kSegRows, cell_rows, batch);
   const int smem = (2 * tiles_x + 1) * kHist * (int)sizeof(float);
   const bool wide = W % 8 == 0 && ((uintptr_t)rgb | (uintptr_t)out | (kFused ? 0 : (uintptr_t)luma)) % 8 == 0;
   auto kernel = wide ? clahe_luma_apply_kernel<kFused, kNhwc, 8> : clahe_luma_apply_kernel<kFused, kNhwc, 1>;
@@ -255,7 +261,7 @@ int launch_luma_apply(const void* rgb, const void* luma, const void* luts, const
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>((const uint8_t*)rgb, (const uint8_t*)luma,
                                                           (const uint8_t*)luts, (const int*)geo, (uint8_t*)out, H,
-                                                          W, tiles_y, tiles_x);
+                                                          W, tiles_y, tiles_x, row0, cell_rows);
   return (int)cudaGetLastError();
 }
 
@@ -265,20 +271,26 @@ extern "C" {
 
 // geo: the int32 [2 W + H + 256] blend geometry of luma_geometry (x-weights
 // as f32 bits, LUT offsets t0x * 256 | t1x * 256 << 16, y-weights as f32
-// bits, then 1 / d for d = 1..256 as f32 bits).
+// bits, then 1 / d for d = 1..256 as f32 bits). The H rows are a slab of
+// cell_rows whole cell rows of a frame, the first its cell row row0 (a
+// whole frame: 0 and 2 * tiles_y); luts are the frame's, geo the slab's.
 int clahe_luma_apply_u8(const void* rgb, const void* luma, const void* luts, const void* geo, void* out, int batch,
-                        int H, int W, int tiles_y, int tiles_x, void* stream) {
-  return launch_luma_apply<false, false>(rgb, luma, luts, geo, out, batch, H, W, tiles_y, tiles_x, stream);
+                        int H, int W, int tiles_y, int tiles_x, int row0, int cell_rows, void* stream) {
+  return launch_luma_apply<false, false>(rgb, luma, luts, geo, out, batch, H, W, tiles_y, tiles_x, row0, cell_rows,
+                                         stream);
 }
 
 int clahe_luma_apply_u8_nhwc(const void* rgb, const void* luma, const void* luts, const void* geo, void* out,
-                             int batch, int H, int W, int tiles_y, int tiles_x, void* stream) {
-  return launch_luma_apply<false, true>(rgb, luma, luts, geo, out, batch, H, W, tiles_y, tiles_x, stream);
+                             int batch, int H, int W, int tiles_y, int tiles_x, int row0, int cell_rows,
+                             void* stream) {
+  return launch_luma_apply<false, true>(rgb, luma, luts, geo, out, batch, H, W, tiles_y, tiles_x, row0, cell_rows,
+                                        stream);
 }
 
 int clahe_luma_apply_u8_fused(const void* rgb, const void* luts, const void* geo, void* out, int batch, int H,
                               int W, int tiles_y, int tiles_x, void* stream) {
-  return launch_luma_apply<true, false>(rgb, nullptr, luts, geo, out, batch, H, W, tiles_y, tiles_x, stream);
+  return launch_luma_apply<true, false>(rgb, nullptr, luts, geo, out, batch, H, W, tiles_y, tiles_x, 0, 2 * tiles_y,
+                                        stream);
 }
 
 }  // extern "C"

@@ -10,9 +10,11 @@ training half:
 - ``TrainLoader`` shuffles the indices each epoch with numpy's
   ``default_rng(seed)``, as the JAX package does, so the two give the same
   batch order; a fresh loader (a resume) restarts that generator, as there;
-- ``_PrefetchIterator`` decodes each batch on a thread pool (PIL releases
-  the GIL while it decodes) and keeps ``prefetch`` batches in flight; a
-  consumer that leaves an epoch early must ``close()`` it.
+- ``_PrefetchIterator`` decodes and letterboxes each batch of a
+  ``LowLightDataset`` through ``native_loader.decode_letterbox_batch`` (a
+  pool of PIL threads), as the JAX package's goes through its native
+  loader; it keeps ``prefetch`` batches in flight; a consumer that leaves an
+  epoch early must ``close()`` it.
 
 Augmentation runs on the device (``data/augment.py``).
 """
@@ -22,11 +24,11 @@ from __future__ import annotations
 import os
 import queue
 import threading
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 from PIL import Image
 
+from retinex_tpu_torch.data import native_loader
 from retinex_tpu_torch.ops.letterbox import letterbox_np, plan_letterbox
 
 VALID_EXTENSIONS = {".jpg", ".jpeg", ".png", ".bmp"}  # predict, evaluate, training
@@ -91,16 +93,17 @@ class LowLightTestDataset:
 
 
 class _PrefetchIterator:
-    """Threaded batch producer: a thread pool decodes and letterboxes each
-    batch; `prefetch` batches stay in flight."""
+    """Threaded batch producer: the host path decodes and letterboxes each
+    batch of a LowLightDataset on `num_workers` threads; `prefetch` batches
+    stay in flight."""
 
-    def __init__(self, dataset, order, batch_size, drop_last, num_workers, prefetch=2, rows=(0, 1)):
+    def __init__(self, dataset: LowLightDataset, order, batch_size, drop_last, num_workers, prefetch=2, rows=(0, 1)):
         self.dataset = dataset
         self.order = order
         self.batch_size = batch_size
         self.rows = rows
         self.drop_last = drop_last
-        self.pool = ThreadPoolExecutor(max_workers=max(num_workers, 1))
+        self.num_workers = max(num_workers, 1)
         self.q: queue.Queue = queue.Queue(maxsize=prefetch)
         self._stop = threading.Event()
         self.thread = threading.Thread(target=self._produce, daemon=True)
@@ -129,11 +132,13 @@ class _PrefetchIterator:
                 idxs = idxs + idxs[-1:] * (-len(idxs) % count)
                 per = len(idxs) // count
                 idxs = idxs[index * per : (index + 1) * per]
-            batch = np.stack(list(self.pool.map(self.dataset.__getitem__, idxs)), axis=0)
+            paths = [self.dataset.image_files[i] for i in idxs]
+            batch = native_loader.decode_letterbox_batch(
+                paths, self.dataset.image_size, auto_pad=False, scaleup=True, num_threads=self.num_workers
+            )
             if not self._put(batch):
                 break
         self._put(None)
-        self.pool.shutdown(wait=False)
 
     def close(self):
         """Stop the producer and drain the queue; safe after exhaustion."""

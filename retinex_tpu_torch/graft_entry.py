@@ -11,10 +11,13 @@ Counterpart of ``__graft_entry__.py``:
   seven losses, the frequency loss included, and the clipped Adam update)
   and the packed step, each against the one-device step on the same global
   batch; a batch-sharded classical CLAHE and sharded inference, each byte
-  for byte against one device. On the card the ranks take cards 0 to n-1
-  over NCCL where n cards are visible, else they all run on card 0 over
-  gloo (NCCL takes one rank per GPU); with ``device="cpu"`` they run on the CPU over gloo. The
-  spatially sharded parts of the JAX hook wait for ROADMAP Queue 1 item 9.
+  for byte against one device; the spatially sharded forward (H split over
+  the mesh, ``parallel/spatial.py``) within 2e-6 of the one-device forward,
+  and the spatially sharded classical CLAHE byte for byte against one
+  device (where the mesh divides the 8-tile grid, as the JAX hook). On the
+  card the ranks take cards 0 to n-1 over NCCL where n cards are visible,
+  else they all run on card 0 over gloo (NCCL takes one rank per GPU), the
+  meshes likewise; with ``device="cpu"`` they run on the CPU over gloo.
 """
 
 from __future__ import annotations
@@ -108,5 +111,23 @@ def dryrun_multichip(n_devices: int, device: str | torch.device | None = None) -
     np.testing.assert_array_equal(enh_sharded, enh_single)
     print(f"dryrun_multichip({n}): sharded inference ok (byte-identical)")
 
-    for part in ("spatial-sharded forward", "spatial-sharded classical CLAHE"):
-        print(f"dryrun_multichip({n}): {part} skipped (waits for ROADMAP Queue 1 item 9)")
+    from retinex_tpu_torch.parallel.spatial import gather_rows, make_spatial_clahe, make_spatial_forward, shard_rows
+
+    h = 8 * n * 2  # two 8-row-aligned slabs per device
+    frame = torch.from_numpy(np.random.default_rng(2).random((1, h, 32, 3)).astype(np.float32))
+    out = make_spatial_forward(copies[one_dev], mesh)(shard_rows(frame, mesh))
+    with torch.inference_mode():
+        ref = copies[one_dev](frame.to(one_dev))
+    for name, a, b in zip(["enhanced", "reflectance", "illu"], out, ref):
+        a = gather_rows(a, "cpu").numpy()
+        assert np.isfinite(a).all(), f"spatial {name}: non-finite"
+        np.testing.assert_allclose(a, b.cpu().numpy(), atol=2e-6, err_msg=f"spatial {name}")
+    print(f"dryrun_multichip({n}): spatial-sharded forward ok")
+
+    if 8 % n == 0:
+        frame = torch.from_numpy(np.random.default_rng(4).random((1, 128, 64, 3)).astype(np.float32))
+        out_sp = gather_rows(make_spatial_clahe(mesh)(shard_rows(frame, mesh)), "cpu")
+        np.testing.assert_array_equal(out_sp.numpy(), clahe_lab_rgb(frame.to(one_dev)).cpu().numpy())
+        print(f"dryrun_multichip({n}): spatial-sharded classical CLAHE ok (byte-identical)")
+    else:
+        print(f"dryrun_multichip({n}): spatial CLAHE skipped (mesh {n} does not divide the 8-tile grid)")

@@ -4,8 +4,10 @@ Counterpart of ``retinex_tpu/infer/batch_driver.py`` on one device:
 
 - files are bucketed by letterboxed canvas (header-only planning, no pixel
   decode), so every chunk of a bucket has one shape;
-- a chunk decodes to a uint8 NHWC batch (PIL, as the JAX package's fallback
-  decodes) and goes to the device as uint8; the results come back as uint8;
+- a chunk decodes to a uint8 NHWC batch on a pool of ``num_workers``
+  threads (``data/native_loader.decode_letterbox_batch_canvas``, where the
+  JAX package calls its native loader) and goes to the device as uint8; the
+  results come back as uint8;
 - the loop is software-pipelined: the device's work on chunk N is queued
   (CUDA launches return at once), the host decodes chunk N+1 meanwhile,
   then drains chunk N before it queues N+1 (the drain's copy to the host is
@@ -30,8 +32,8 @@ import numpy as np
 import torch
 from PIL import Image
 
-from retinex_tpu_torch.data.dataset import decode_image
-from retinex_tpu_torch.ops.letterbox import letterbox_np, plan_letterbox
+from retinex_tpu_torch.data.native_loader import decode_letterbox_batch_canvas
+from retinex_tpu_torch.ops.letterbox import plan_letterbox
 from retinex_tpu_torch.parallel.mesh import Mesh, create_mesh, pad_to_multiple, shard_batch
 
 
@@ -53,13 +55,12 @@ def bucket_by_canvas(files: list[str], max_size: int | None) -> dict[tuple[int, 
     return buckets
 
 
-def decode_bucket(paths: list[str], target: int) -> np.ndarray:
-    """Decode + letterbox a same-canvas chunk to a uint8 NHWC batch (PIL)."""
-    imgs = []
-    for p in paths:
-        rgb = decode_image(p)
-        imgs.append(letterbox_np(rgb, plan_letterbox(rgb.shape[0], rgb.shape[1], target, auto=True, scaleup=False)))
-    return np.stack(imgs, axis=0)
+def decode_bucket(paths: list[str], target: int, out_h: int, out_w: int, num_workers: int = 8) -> np.ndarray:
+    """Decode + letterbox a same-canvas chunk to a uint8 NHWC batch
+    [N, out_h, out_w, 3] on `num_workers` threads."""
+    return decode_letterbox_batch_canvas(
+        paths, target, out_h, out_w, auto_pad=True, scaleup=False, num_threads=num_workers
+    )
 
 
 def run_bucketed(
@@ -71,8 +72,10 @@ def run_bucketed(
     drain_cb: Callable[[list[str], np.ndarray, object], None] | None,
     device: torch.device,
     mesh: Mesh | None = None,
+    num_workers: int = 8,
 ) -> list[float]:
-    """The pipelined dispatch loop of directory enhance.
+    """The pipelined dispatch loop of directory enhance, each chunk decoded
+    on `num_workers` threads.
 
     fn: a uint8 NHWC batch on `device` -> a tuple of tensors (or None),
     for every canvas; with `mesh`, each chunk runs through
@@ -106,7 +109,7 @@ def run_bucketed(
         for i in range(0, len(paths), batch_size):
             chunk = paths[i : i + batch_size]
             t0 = time.time()
-            batch_u8, _n = pad_for_mesh(decode_bucket(chunk, target), mesh)
+            batch_u8, _n = pad_for_mesh(decode_bucket(chunk, target, out_h, out_w, num_workers), mesh)
             t1 = time.time()
             decode_s += t1 - t0
             if pending is not None:  # the device ran chunk N while the host decoded N+1

@@ -124,8 +124,33 @@ def _classical_enhance(
     clip_limit: float = 2.0,
     tiles: int = 8,
     hist_subsample: int = 1,
+    mesh=None,
 ) -> torch.Tensor:
-    """The no-net classical pipelines on a float [0,1] NHWC batch (or HWC)."""
+    """The no-net classical pipelines on a float [0,1] NHWC batch (or HWC).
+
+    mesh: where given (the CLI's --spatial_shard with a CLAHE mode), each
+    frame's height is split over its devices
+    (``parallel/spatial.make_spatial_clahe``: K2's tables gathered, the rest
+    slab by slab) where the mesh divides `tiles` and H, W are multiples of 2
+    * tiles; other shapes say so and take the one-device route, as the JAX
+    package does. The same bytes either way."""
+    if mesh is not None and classical_mode in ("clahe", "clahe_luma"):
+        from retinex_tpu_torch.parallel.spatial import gather_rows, make_spatial_clahe, shard_rows
+
+        squeeze = x.ndim == 3
+        xb = x[None] if squeeze else x
+        h, w = xb.shape[1], xb.shape[2]
+        n = mesh.size
+        if tiles % n == 0 and h % (2 * tiles) == 0 and w % (2 * tiles) == 0:
+            fn = make_spatial_clahe(
+                mesh, mode=classical_mode, clip_limit=clip_limit, tiles=tiles, hist_subsample=hist_subsample
+            )
+            out = gather_rows(fn(shard_rows(xb, mesh)), xb.device)
+            return out[0] if squeeze else out
+        print(
+            f"spatial CLAHE needs H,W % {2 * tiles} == 0 and mesh | tiles; "
+            f"got {(h, w)} on {n} devices — falling back to single-device"
+        )
     if classical_mode == "ssr":
         return ssr_enhance(x)
     if classical_mode == "clahe":
@@ -162,11 +187,13 @@ def enhance_single_image(
     tiles: int = 8,
     hist_subsample: int = 1,
     device: str | torch.device | None = None,
+    mesh=None,
 ):
     """Route one image through exactly one pipeline and save the enhanced,
     illumination and comparison PNGs. ``clip_limit``, ``tiles`` and
     ``hist_subsample`` apply to the ``clahe`` and ``clahe_luma`` modes; the
-    adaptive route keeps its fixed 2.0 / 8x8.
+    adaptive route keeps its fixed 2.0 / 8x8. With `mesh` the CLAHE modes
+    split the frame's height over its devices (``_classical_enhance``).
 
     Returns (enhanced [H,W,3], illumination [H,W,1], seconds), the tensors on
     `device` and the seconds from the image on the device to the result
@@ -177,7 +204,7 @@ def enhance_single_image(
 
     start = time.perf_counter()
     if classical_mode in CLASSICAL_MODES:
-        enhanced = _classical_enhance(x, classical_mode, clip_limit, tiles, hist_subsample)
+        enhanced = _classical_enhance(x, classical_mode, clip_limit, tiles, hist_subsample, mesh)
         illu = rgb_to_luma(x)  # luminance stands in for the net's illumination map
     else:
         enhanced, illu = _net_enhance(apply_fn, x, enable_multi_scale, enable_content_aware, adjuster)
@@ -187,9 +214,15 @@ def enhance_single_image(
     if save_outputs:
         os.makedirs(output_dir, exist_ok=True)
         name = os.path.splitext(os.path.basename(image_path))[0]
-        save_image(enhanced, os.path.join(output_dir, f"{name}_enhanced.png"))
-        save_image(illu, os.path.join(output_dir, f"{name}_illumination.png"))
-        create_comparison(img, enhanced, save_path=os.path.join(output_dir, f"{name}_comparison.png"))
+        # The three PNGs at once (zlib releases the GIL while it compresses).
+        with ThreadPoolExecutor(max_workers=3) as pool:
+            writes = [
+                pool.submit(save_image, enhanced, os.path.join(output_dir, f"{name}_enhanced.png")),
+                pool.submit(save_image, illu, os.path.join(output_dir, f"{name}_illumination.png")),
+                pool.submit(create_comparison, img, enhanced, save_path=os.path.join(output_dir, f"{name}_comparison.png")),
+            ]
+            for w in writes:
+                w.result()
     return enhanced, illu, elapsed
 
 
@@ -311,6 +344,7 @@ def enhance_batch_images(
         drain_cb=drain_cb,
         device=dev,
         mesh=mesh,
+        num_workers=num_workers,
     )
     if saver is not None:
         for f in futures:

@@ -17,6 +17,7 @@ from __future__ import annotations
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 
 import numpy as np
 import torch
@@ -28,12 +29,20 @@ from retinex_tpu_torch.infer.enhance import _quant, _synchronize, load_image
 from retinex_tpu_torch.utils.viz import create_comparison, save_image
 
 
-def _save(output_dir: str, path: str, img, enhanced, illu, save_comparison: bool) -> None:
+def _save(output_dir: str, path: str, img, enhanced, illu, save_comparison: bool, pool=None) -> None:
+    """One image's PNGs, on `pool` at once where given (a single photo's),
+    else one after another (a directory's, whose images run on a pool)."""
     name = os.path.splitext(os.path.basename(path))[0]
-    save_image(enhanced, os.path.join(output_dir, f"{name}_enhanced.png"))
-    save_image(illu, os.path.join(output_dir, f"{name}_illumination.png"))
+    base = os.path.join(output_dir, name)
+    writes = [partial(save_image, enhanced, f"{base}_enhanced.png"), partial(save_image, illu, f"{base}_illumination.png")]
     if save_comparison:
-        create_comparison(img, enhanced, illu, save_path=os.path.join(output_dir, f"{name}_comparison.png"))
+        writes.append(partial(create_comparison, img, enhanced, illu, save_path=f"{base}_comparison.png"))
+    if pool is None:
+        for w in writes:
+            w()
+        return
+    for f in [pool.submit(w) for w in writes]:
+        f.result()
 
 
 def predict_single_image(
@@ -60,7 +69,8 @@ def predict_single_image(
     print(f"Inference time: {elapsed:.4f}s")
 
     os.makedirs(output_dir, exist_ok=True)
-    _save(output_dir, image_path, img, enhanced[0], illu[0], save_comparison)
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        _save(output_dir, image_path, img, enhanced[0], illu[0], save_comparison, pool)
     return enhanced[0], illu[0], elapsed
 
 
@@ -102,7 +112,8 @@ def predict_batch(
             futures.append(saver.submit(_save, output_dir, path, xf[j], enh, illu, save_comparison))
 
     timings = run_bucketed(
-        files, max_size=max_size, batch_size=batch_size, fn=fn, drain_cb=drain_cb, device=dev, mesh=mesh
+        files, max_size=max_size, batch_size=batch_size, fn=fn, drain_cb=drain_cb, device=dev, mesh=mesh,
+        num_workers=num_workers,
     )
     for f in futures:
         f.result()

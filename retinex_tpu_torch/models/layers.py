@@ -185,9 +185,14 @@ class Conv(nn.Conv2d):
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.padded(x, self.padding)
+
+    def padded(self, x: torch.Tensor, padding: tuple[int, int]) -> torch.Tensor:
+        """The convolution with zero `padding` (rows, columns) in place of
+        the module's own (the spatial forward's slabs carry their halo rows)."""
         if self.compute_dtype == torch.float32:
-            return super().forward(x)
-        y = bf16.conv2d(x.to(self.compute_dtype), self.weight, self.stride, self.padding, self.dilation)
+            return F.conv2d(x, self.weight, self.bias, self.stride, padding, self.dilation)
+        y = bf16.conv2d(x.to(self.compute_dtype), self.weight, self.stride, padding, self.dilation)
         return bf16.add_bias(y, self.bias, nchw=True)
 
 

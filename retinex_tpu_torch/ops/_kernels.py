@@ -52,13 +52,13 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "clahe_lab_fwd": ("clahe_lab", (_P, _P, _P, _I, _I, _I, _I, _P)),
     "clahe_tables": ("clahe_lab", (_P, _P, _P, _L) + (_I,) * 10 + (ctypes.c_float,) + (_I,) * 3 + (_P,)),
-    "clahe_apply": ("clahe_lab", (_P, _P, _P, _P) + (_I,) * 9 + (_P,)),
+    "clahe_apply": ("clahe_lab", (_P, _P, _P, _P) + (_I,) * 11 + (_P,)),
     "clahe_apply_tiles": ("clahe_lab", (_P,) * 5 + (_I,) * 8 + (_P,)),
     "clahe_pallas_hist": ("clahe_lab", (_P,) * 4 + (_I,) * 8 + (_P,)),
     "clahe_pallas_apply": ("clahe_lab", (_P,) * 4 + (_I,) * 8 + (_P,)),
     "clahe_apply_table_layout": ("clahe_lab", (_I,)),
-    "clahe_luma_apply_u8": ("clahe_luma", (_P,) * 5 + (_I,) * 5 + (_P,)),
-    "clahe_luma_apply_u8_nhwc": ("clahe_luma", (_P,) * 5 + (_I,) * 5 + (_P,)),
+    "clahe_luma_apply_u8": ("clahe_luma", (_P,) * 5 + (_I,) * 7 + (_P,)),
+    "clahe_luma_apply_u8_nhwc": ("clahe_luma", (_P,) * 5 + (_I,) * 7 + (_P,)),
     "clahe_luma_apply_u8_fused": ("clahe_luma", (_P,) * 4 + (_I,) * 5 + (_P,)),
     "fam_conv_out": ("fam_fused", (_P, _P, _P, _P, _I, _I, _I, _I, _P)),
     "fam_tail_stats": ("fam_fused", (_P, _P, _P, _L, _L, _I, _P)),

@@ -10,6 +10,11 @@ and W of 2*tiles_x; other shapes fall back to ``clahe_u8``.
 ``hist_subsample=s`` builds each tile histogram from a within-cell s x s
 decimation (rows ``::s`` and columns ``::s`` of every cell); the clip
 threshold and CDF scale follow the sampled area ``4*ceil(hh/s)*ceil(hw/s)``.
+
+The apply also takes a slab of whole cell rows of a frame (``row0``, the
+frame's cell row where the slab starts, and ``cell_rows``, the slab's count)
+with the frame's LUTs, as the JAX package's ``_apply_from_cells(...,
+row0=...)`` does for its H-sharded CLAHE (``parallel/spatial.py``).
 """
 
 from __future__ import annotations
@@ -61,26 +66,46 @@ def _hist_from_cells(
     return hist, 4 * hh2 * hw2
 
 
-def _cell_maps(n: int, tiles: int, device):
+def slab_cells(h: int, tiles_y: int, row0: int = 0, cell_rows: int | None = None) -> tuple[int, int]:
+    """(row0, cell_rows) of an h-row slab of whole cell rows, the first the
+    frame's cell row `row0` (``cell_rows`` None: the whole frame, 2 *
+    tiles_y); raises where the slab does not lie in the frame's cell rows."""
+    cell_rows = 2 * tiles_y if cell_rows is None else cell_rows
+    if cell_rows < 1 or row0 < 0 or row0 + cell_rows > 2 * tiles_y or h % cell_rows:
+        raise ValueError(
+            f"a slab of {h} rows as cell rows [{row0}, {row0 + cell_rows}) of a {2 * tiles_y}-cell-row frame: "
+            "the cell rows must lie in the frame and divide the rows"
+        )
+    return row0, cell_rows
+
+
+def _cell_maps(n: int, tiles: int, device, row0: int = 0, cells: int | None = None):
     """Per-row (or per-column) neighbour tiles and blend weight for a
-    cell-divisible extent n: (t0 [n], t1 [n], weight [n] f32)."""
-    cell = n // (2 * tiles)
-    c = np.arange(n) // cell
+    cell-divisible extent n: (t0 [n], t1 [n], weight [n] f32). A slab of
+    `cells` whole cells (default 2 * tiles) whose first is the frame's cell
+    `row0` takes the frame's tiles and parities."""
+    cell = n // (2 * tiles if cells is None else cells)
+    c = np.arange(n) // cell + row0
     t0, t1 = _neighbor_index_tables(tiles)
     wt = _blend_weights(cell)[c % 2, np.arange(n) % cell]
     as_t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
     return as_t(t0[c]), as_t(t1[c]), as_t(wt)
 
 
-def apply_from_cells(l_u8: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
+def apply_from_cells(
+    l_u8: torch.Tensor, luts: torch.Tensor, row0: int = 0, cell_rows: int | None = None
+) -> torch.Tensor:
     """LUT lookup of the 4 neighbour tiles + bilinear blend.
 
-    l_u8: [b, H, W] values in [0,255]; luts: [b, tiles_y, tiles_x, 256].
-    Returns the new L plane, int32 [b, H, W]."""
+    l_u8: [b, H, W] values in [0,255]; luts: [b, tiles_y, tiles_x, 256], the
+    frame's. The H rows are the frame's cell rows [row0, row0 + cell_rows)
+    (default: the whole frame, ``slab_cells``). Returns the new L plane,
+    int32 [b, H, W]."""
     b, h, w = l_u8.shape
     _, tiles_y, tiles_x, _ = luts.shape
     dev = l_u8.device
-    t0y, t1y, ya = _cell_maps(h, tiles_y, dev)
+    row0, cell_rows = slab_cells(h, tiles_y, row0, cell_rows)
+    t0y, t1y, ya = _cell_maps(h, tiles_y, dev, row0, cell_rows)
     t0x, t1x, xa = _cell_maps(w, tiles_x, dev)
     luts_flat = luts.reshape(b, -1).to(torch.int64)
     v = l_u8.to(torch.int64)

@@ -30,6 +30,12 @@ in several instances:
   tiles of the reflect-101 padded frame, each pixel's tile coordinate), for
   ``clahe.clahe_lab_rgb`` on the card where the frame is not cell-divisible.
 
+K3's cell-mode instances (and their plain versions) also take a slab of
+whole cell rows of a frame with the frame's LUTs: ``row0``, the frame's
+cell row where the slab starts, and ``cell_rows``, the slab's count (by
+default the whole frame), as the spatially sharded CLAHE runs them
+(``parallel/spatial.py``).
+
 Each wrapper takes a CPU tensor to its plain version and a CUDA tensor to
 its kernel; there is no fallback from one to the other. ``LAUNCHES`` counts
 the kernel launches of each wrapper. The JAX package's 6D cell layout and
@@ -53,7 +59,7 @@ from retinex_tpu_torch.ops.clahe import (
     padded_tile_hist,
     tile_dims,
 )
-from retinex_tpu_torch.ops.clahe_fast import _hist_from_cells, apply_from_cells
+from retinex_tpu_torch.ops.clahe_fast import _hist_from_cells, apply_from_cells, slab_cells
 from retinex_tpu_torch.ops.colorspace import (
     _lab_f_inv,
     degamma_table,
@@ -78,6 +84,9 @@ LAUNCHES = {
     "clahe_tables_tiles": 0,
     "clahe_apply_tiles_f32_nhwc": 0,
 }
+# Of those, K3's launches on a slab that starts below the frame's first
+# cell row (row0 > 0), as the spatially sharded CLAHE launches it.
+SLAB_LAUNCHES = {"clahe_apply_u8": 0, "clahe_apply_f32_nhwc": 0, "clahe_apply_u8_nhwc": 0}
 
 # The sRGB side's layouts, numbered as csrc/clahe_lab.cu's Layout:
 # planar u8, NHWC u8, float [B,H,W,3] stored channels first, NHWC float.
@@ -85,8 +94,9 @@ _U8_PLANAR, _U8_NHWC, _F32_PLANAR, _F32_NHWC = range(4)
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, SLAB_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _check_planar_u8(x: torch.Tensor, what: str) -> None:
@@ -442,28 +452,37 @@ def dequantise_nhwc(u8: torch.Tensor) -> torch.Tensor:
     return ieee_div(u8.permute(0, 2, 3, 1).float(), 255.0)
 
 
-def clahe_apply_u8_plain(lab: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
+def clahe_apply_u8_plain(
+    lab: torch.Tensor, luts: torch.Tensor, row0: int = 0, cell_rows: int | None = None
+) -> torch.Tensor:
     """Plain version of K3: LUT blend on L, a/b through, Lab -> planar u8 sRGB."""
-    L2 = apply_from_cells(lab[:, 0], luts).to(torch.float32)
+    L2 = apply_from_cells(lab[:, 0], luts, row0, cell_rows).to(torch.float32)
     rgb = lab8_to_linear_rgb(L2, lab[:, 1].float(), lab[:, 2].float())
     return torch.stack([srgb_byte_plain(ch) for ch in rgb], dim=1).to(torch.uint8)
 
 
 def _check_luts(
     luts: torch.Tensor, b: int, h: int, w: int, device: torch.device, what: str, smem_fixed: int = 0,
-    smem_per_tile: int = 2 * HIST_SIZE, smem_max: int = 48 * 1024, cells: bool = True,
+    smem_per_tile: int = 2 * HIST_SIZE, smem_max: int = 48 * 1024, cells: bool = True, row0: int = 0,
+    cell_rows: int | None = None,
 ) -> tuple[int, int]:
     """Validate u8 LUTs [b, ty, tx, 256] for an h x w frame (cell-divisible
-    unless `cells` is False); return (ty, tx). On the card the kernel stages
-    `smem_fixed` bytes and `smem_per_tile` for each x-tile (two tile rows of
-    LUTs, by default) in at most `smem_max` bytes of shared memory."""
+    unless `cells` is False; with `cell_rows`, a slab of that many whole
+    cell rows of the frame, from its cell row `row0`); return (ty, tx). On
+    the card the kernel stages `smem_fixed` bytes and `smem_per_tile` for
+    each x-tile (two tile rows of LUTs, by default) in at most `smem_max`
+    bytes of shared memory."""
     if luts.dtype != torch.uint8 or luts.ndim != 4 or luts.shape[0] != b or luts.shape[3] != HIST_SIZE:
         raise ValueError(f"{what}: expected uint8 LUTs [{b}, ty, tx, 256], got {luts.dtype} {tuple(luts.shape)}")
     if not luts.is_contiguous() or luts.device != device:
         raise ValueError(f"{what}: LUTs must be contiguous and on the image's device")
     tiles_y, tiles_x = luts.shape[1], luts.shape[2]
-    if cells:
+    if cells and cell_rows is None and row0 == 0:
         _check_cells(h, w, tiles_y, tiles_x)
+    elif cells:
+        slab_cells(h, tiles_y, row0, cell_rows)
+        if w % (2 * tiles_x):
+            raise ValueError(f"width {w} is not a multiple of 2*tiles_x = {2 * tiles_x}")
     if device.type != "cpu" and smem_fixed + smem_per_tile * tiles_x > smem_max:
         raise ValueError(f"{what}: tiles_x={tiles_x} needs more than {smem_max // 1024} KB of shared memory")
     return tiles_y, tiles_x
@@ -480,89 +499,110 @@ def _apply_width(lab: torch.Tensor, w: int, tiles_x: int, widest: int) -> int:
     return 1
 
 
-def apply_plan(h: int, w: int, tiles_y: int, batch: int, vec: int, n_sm: int = 132) -> tuple[int, int]:
+def apply_plan(
+    h: int, w: int, tiles_y: int, batch: int, vec: int, n_sm: int = 132, cell_rows: int | None = None
+) -> tuple[int, int]:
     """(rows of one half-tile cell row that a K3 block walks, rows it takes
     at once): the most bands per cell row with which the grid stays within
     K3_BLOCKS_PER_SM blocks per SM (one band where even that is too many),
-    K3_ROWS_PAR rows at once (fewer in a shorter band)."""
-    hh = h // (2 * tiles_y)
+    K3_ROWS_PAR rows at once (fewer in a shorter band). The h rows hold
+    `cell_rows` cell rows (a slab; default the frame's 2 * tiles_y)."""
+    cell_rows = 2 * tiles_y if cell_rows is None else cell_rows
+    hh = h // cell_rows
     col_blocks = -(-(w // vec) // _APPLY_THREADS)
-    bands = max(1, K3_BLOCKS_PER_SM * n_sm // (col_blocks * 2 * tiles_y * batch))
+    bands = max(1, K3_BLOCKS_PER_SM * n_sm // (col_blocks * cell_rows * batch))
     rows = -(-hh // min(bands, hh))
     return rows, min(K3_ROWS_PAR, rows)
 
 
-def _launch_apply(lab: torch.Tensor, luts: torch.Tensor, out: torch.Tensor, layout: int, name: str) -> torch.Tensor:
-    """K3's kernel on planar u8 Lab and its LUTs, into `out` in `layout`."""
+def _launch_apply(
+    lab: torch.Tensor, luts: torch.Tensor, out: torch.Tensor, layout: int, name: str, row0: int = 0,
+    cell_rows: int | None = None,
+) -> torch.Tensor:
+    """K3's kernel on planar u8 Lab (a slab of cell rows [row0, row0 +
+    cell_rows), by default the whole frame) and the frame's LUTs, into `out`
+    in `layout`."""
     b, _, h, w = lab.shape
     tiles_y, tiles_x = luts.shape[1], luts.shape[2]
+    row0, cell_rows = slab_cells(h, tiles_y, row0, cell_rows)
     if b * h * w == 0:
         return out
     stream = _kernels.stream(lab)
     vec = _apply_width(lab, w, tiles_x, 4 if layout == _F32_NHWC else 8)
     n_sm = torch.cuda.get_device_properties(lab.device).multi_processor_count
-    rows, rows_par = apply_plan(h, w, tiles_y, b, vec, n_sm)
+    rows, rows_par = apply_plan(h, w, tiles_y, b, vec, n_sm, cell_rows)
     tables = _apply_table_block(str(lab.device))
     _kernels.launch(
         "clahe_apply", lab.data_ptr(), luts.data_ptr(), tables.data_ptr(), out.data_ptr(), b, h, w, tiles_y, tiles_x,
-        layout, vec, rows, rows_par, stream,
+        layout, vec, rows, rows_par, row0, cell_rows, stream,
     )
     LAUNCHES[name] += 1
+    SLAB_LAUNCHES[name] += row0 > 0
     return out
 
 
-def _check_apply(lab: torch.Tensor, luts: torch.Tensor, what: str, cells: bool = True) -> None:
+def _check_apply(
+    lab: torch.Tensor, luts: torch.Tensor, what: str, cells: bool = True, row0: int = 0, cell_rows: int | None = None
+) -> None:
     _check_planar_u8(lab, what)
     b, _, h, w = lab.shape
     fixed = 4 * (APPLY_TABLE_WORDS + HIST_SIZE) + _K3_STAGE_BYTES
-    _check_luts(luts, b, h, w, lab.device, what, fixed, 4 * HIST_SIZE, _SMEM_MAX, cells)
+    _check_luts(luts, b, h, w, lab.device, what, fixed, 4 * HIST_SIZE, _SMEM_MAX, cells, row0, cell_rows)
 
 
-def clahe_apply_u8(lab: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
+def clahe_apply_u8(lab: torch.Tensor, luts: torch.Tensor, row0: int = 0, cell_rows: int | None = None) -> torch.Tensor:
     """K3: planar u8 Lab + u8 LUTs [B, tiles_y, tiles_x, 256] -> planar u8 sRGB."""
-    _check_apply(lab, luts, "clahe_apply_u8")
+    _check_apply(lab, luts, "clahe_apply_u8", row0=row0, cell_rows=cell_rows)
     if lab.device.type == "cpu":
-        return clahe_apply_u8_plain(lab, luts)
-    return _launch_apply(lab, luts, torch.empty_like(lab), _U8_PLANAR, "clahe_apply_u8")
+        return clahe_apply_u8_plain(lab, luts, row0, cell_rows)
+    return _launch_apply(lab, luts, torch.empty_like(lab), _U8_PLANAR, "clahe_apply_u8", row0, cell_rows)
 
 
-def clahe_apply_f32_nhwc_plain(lab: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
+def clahe_apply_f32_nhwc_plain(
+    lab: torch.Tensor, luts: torch.Tensor, row0: int = 0, cell_rows: int | None = None
+) -> torch.Tensor:
     """Plain version of K3's float instance: K3's bytes / 255, as [B,H,W,3]."""
-    return dequantise_nhwc(clahe_apply_u8_plain(lab, luts))
+    return dequantise_nhwc(clahe_apply_u8_plain(lab, luts, row0, cell_rows))
 
 
-def _rgb_f32_like(lab: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
+def _rgb_f32_like(lab: torch.Tensor, luts: torch.Tensor, row0: int = 0, cell_rows: int | None = None) -> torch.Tensor:
     """Fake implementation of K3's float instances: f32 [B,H,W,3] of planar
     Lab [B,3,H,W]."""
     return lab.new_empty((lab.shape[0], lab.shape[2], lab.shape[3], 3), dtype=torch.float32)
 
 
 @_kernels.operator("clahe_apply_f32_nhwc", _rgb_f32_like)
-def clahe_apply_f32_nhwc(lab: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
+def clahe_apply_f32_nhwc(
+    lab: torch.Tensor, luts: torch.Tensor, row0: int = 0, cell_rows: int | None = None
+) -> torch.Tensor:
     """K3 writing the float image: planar u8 Lab + u8 LUTs -> f32 NHWC
     [B,H,W,3], each value the output byte / 255 (contiguous on either
     device, as the operator's fake implementation says)."""
-    _check_apply(lab, luts, "clahe_apply_f32_nhwc")
+    _check_apply(lab, luts, "clahe_apply_f32_nhwc", row0=row0, cell_rows=cell_rows)
     if lab.device.type == "cpu":
-        return clahe_apply_f32_nhwc_plain(lab, luts).contiguous()
+        return clahe_apply_f32_nhwc_plain(lab, luts, row0, cell_rows).contiguous()
     b, _, h, w = lab.shape
     out = torch.empty((b, h, w, 3), dtype=torch.float32, device=lab.device)
-    return _launch_apply(lab, luts, out, _F32_NHWC, "clahe_apply_f32_nhwc")
+    return _launch_apply(lab, luts, out, _F32_NHWC, "clahe_apply_f32_nhwc", row0, cell_rows)
 
 
-def clahe_apply_u8_nhwc_plain(lab: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
+def clahe_apply_u8_nhwc_plain(
+    lab: torch.Tensor, luts: torch.Tensor, row0: int = 0, cell_rows: int | None = None
+) -> torch.Tensor:
     """Plain version of K8's apply half: K3's, permuted to NHWC."""
-    return clahe_apply_u8_plain(lab, luts).permute(0, 2, 3, 1).contiguous()
+    return clahe_apply_u8_plain(lab, luts, row0, cell_rows).permute(0, 2, 3, 1).contiguous()
 
 
-def clahe_apply_u8_nhwc(lab: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
+def clahe_apply_u8_nhwc(
+    lab: torch.Tensor, luts: torch.Tensor, row0: int = 0, cell_rows: int | None = None
+) -> torch.Tensor:
     """K8, apply half: planar u8 Lab + u8 LUTs -> u8 NHWC sRGB [B,H,W,3]."""
-    _check_apply(lab, luts, "clahe_apply_u8_nhwc")
+    _check_apply(lab, luts, "clahe_apply_u8_nhwc", row0=row0, cell_rows=cell_rows)
     if lab.device.type == "cpu":
-        return clahe_apply_u8_nhwc_plain(lab, luts)
+        return clahe_apply_u8_nhwc_plain(lab, luts, row0, cell_rows)
     b, _, h, w = lab.shape
     out = torch.empty((b, h, w, 3), dtype=torch.uint8, device=lab.device)
-    return _launch_apply(lab, luts, out, _U8_NHWC, "clahe_apply_u8_nhwc")
+    return _launch_apply(lab, luts, out, _U8_NHWC, "clahe_apply_u8_nhwc", row0, cell_rows)
 
 
 # ---------------------------------------------------------------- pipeline

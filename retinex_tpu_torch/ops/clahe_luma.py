@@ -18,7 +18,10 @@ The kernels live in ``retinex_tpu_torch/csrc/clahe_luma.cu``:
   templated on recomputing y from the RGB it already loads; no luma operand.
 
 Both read the frame's blend geometry and the gain's 256 reciprocals from
-``luma_geometry`` and give their plain versions' bytes exactly.
+``luma_geometry`` and give their plain versions' bytes exactly. K7 (and
+its plain version) also takes a slab of whole cell rows of a frame with the
+frame's LUTs (``row0``, ``cell_rows``: ``clahe_fast.slab_cells``), as the
+spatially sharded CLAHE runs it (``parallel/spatial.py``).
 
 Each wrapper takes a CPU tensor to its plain version and a CUDA tensor to
 its kernel; there is no fallback from one to the other. ``LAUNCHES`` counts
@@ -37,7 +40,7 @@ import torch
 
 from retinex_tpu_torch.ops import _kernels
 from retinex_tpu_torch.ops.clahe import cell_divisible
-from retinex_tpu_torch.ops.clahe_fast import _cell_maps, apply_from_cells, clahe_u8_fast
+from retinex_tpu_torch.ops.clahe_fast import _cell_maps, apply_from_cells, clahe_u8_fast, slab_cells
 from retinex_tpu_torch.ops.clahe_gather import (
     _check_cells,
     _check_luts,
@@ -52,13 +55,17 @@ _LUMA_R, _LUMA_G, _LUMA_B = (float(np.float32(c)) for c in (0.299, 0.587, 0.114)
 
 # Kernel launches per wrapper since the last reset_launches().
 LAUNCHES = {"clahe_luma_apply_u8": 0, "clahe_luma_apply_u8_fused": 0}
+# Of those, K7's launches on a slab that starts below the frame's first cell
+# row (row0 > 0), as the spatially sharded CLAHE launches it.
+SLAB_LAUNCHES = {"clahe_luma_apply_u8": 0}
 
 log = logging.getLogger(__name__)
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, SLAB_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _luma_f32(r: torch.Tensor, g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -94,12 +101,16 @@ def _is_nhwc(x_u8: torch.Tensor) -> bool:
     return x_u8.ndim == 4 and x_u8.shape[1] != 3
 
 
-def clahe_luma_apply_u8_plain(x_u8: torch.Tensor, y: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
+def clahe_luma_apply_u8_plain(
+    x_u8: torch.Tensor, y: torch.Tensor, luts: torch.Tensor, row0: int = 0, cell_rows: int | None = None
+) -> torch.Tensor:
     """Plain version of K7: LUT blend on y, then the RGB gain, in the
-    input's layout."""
+    input's layout; the rows are the frame's cell rows [row0, row0 +
+    cell_rows) (by default the whole frame)."""
     if _is_nhwc(x_u8):
-        return clahe_luma_apply_u8_plain(x_u8.permute(0, 3, 1, 2), y, luts).permute(0, 2, 3, 1).contiguous()
-    return _gain_u8(x_u8, y, apply_from_cells(y, luts))
+        planar = clahe_luma_apply_u8_plain(x_u8.permute(0, 3, 1, 2), y, luts, row0, cell_rows)
+        return planar.permute(0, 2, 3, 1).contiguous()
+    return _gain_u8(x_u8, y, apply_from_cells(y, luts, row0, cell_rows))
 
 
 def clahe_luma_apply_u8_fused_plain(xp_u8: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
@@ -114,15 +125,18 @@ _SMEM_MAX = 232448 - 256 * 4
 
 
 @functools.lru_cache(maxsize=None)
-def luma_geometry(h: int, w: int, tiles_y: int, tiles_x: int, device: str) -> torch.Tensor:
+def luma_geometry(
+    h: int, w: int, tiles_y: int, tiles_x: int, device: str, row0: int = 0, cell_rows: int | None = None
+) -> torch.Tensor:
     """The blend geometry K7 and K9 read, int32 [2 w + h + 256]: per column
     the x-weight (f32 bits), then the two neighbour tiles' LUT offsets
-    t0x * 256 | t1x * 256 << 16, then per row the y-weight (f32 bits), then
-    the f32 reciprocals 1 / d of d = 1..256 (bits) for the gain's quotient;
-    made once per shape on the CPU, the weights by the plain version's own
+    t0x * 256 | t1x * 256 << 16, then per row the y-weight (f32 bits; of
+    the frame's cell rows [row0, row0 + cell_rows) for a slab), then the f32
+    reciprocals 1 / d of d = 1..256 (bits) for the gain's quotient; made
+    once per shape on the CPU, the weights by the plain version's own
     ``_cell_maps``."""
     t0x, t1x, xa = _cell_maps(w, tiles_x, "cpu")
-    ya = _cell_maps(h, tiles_y, "cpu")[2]
+    ya = _cell_maps(h, tiles_y, "cpu", row0, cell_rows)[2]
     offs = (t0x * 256) | ((t1x * 256) << 16)
     rcp = 1.0 / torch.arange(1, 257, dtype=torch.float32)
     parts = [xa.float().view(torch.int32), offs.to(torch.int32), ya.float().view(torch.int32), rcp.view(torch.int32)]
@@ -135,37 +149,45 @@ def _check_apply(xp_u8: torch.Tensor, luts: torch.Tensor, what: str) -> tuple[in
     return _check_luts(luts, b, h, w, xp_u8.device, what, smem_per_tile=_LUT_SMEM_PER_TILE, smem_max=_SMEM_MAX)
 
 
-def _rgb_u8_like(x_u8: torch.Tensor, y: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
+def _rgb_u8_like(
+    x_u8: torch.Tensor, y: torch.Tensor, luts: torch.Tensor, row0: int = 0, cell_rows: int | None = None
+) -> torch.Tensor:
     """Fake implementation of K7: u8 RGB in the input's shape and layout."""
     return torch.empty_like(x_u8)
 
 
 @_kernels.operator("clahe_luma_apply_u8", _rgb_u8_like)
-def clahe_luma_apply_u8(x_u8: torch.Tensor, y: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
+def clahe_luma_apply_u8(
+    x_u8: torch.Tensor, y: torch.Tensor, luts: torch.Tensor, row0: int = 0, cell_rows: int | None = None
+) -> torch.Tensor:
     """K7: u8 RGB, planar [B,3,H,W] or NHWC [B,H,W,3], + u8 luma [B,H,W]
-    + u8 LUTs [B,ty,tx,256] -> u8 RGB in the same layout."""
+    + u8 LUTs [B,ty,tx,256] -> u8 RGB in the same layout. The rows may be a
+    slab of the frame's cell rows [row0, row0 + cell_rows), the LUTs the
+    frame's."""
     what = "clahe_luma_apply_u8"
     nhwc = _is_nhwc(x_u8)
     if nhwc:
         _check_nhwc_u8(x_u8, what)
         b, h, w, _ = x_u8.shape
-        tiles_y, tiles_x = _check_luts(luts, b, h, w, x_u8.device, what, smem_per_tile=_LUT_SMEM_PER_TILE,
-                                       smem_max=_SMEM_MAX)
     else:
-        tiles_y, tiles_x = _check_apply(x_u8, luts, what)
+        _check_planar_u8(x_u8, what)
         b, _, h, w = x_u8.shape
+    tiles_y, tiles_x = _check_luts(luts, b, h, w, x_u8.device, what, smem_per_tile=_LUT_SMEM_PER_TILE,
+                                   smem_max=_SMEM_MAX, row0=row0, cell_rows=cell_rows)
+    row0, cell_rows = slab_cells(h, tiles_y, row0, cell_rows)
     if y.dtype != torch.uint8 or tuple(y.shape) != (b, h, w) or not y.is_contiguous() or y.device != x_u8.device:
         raise ValueError(f"{what}: expected contiguous uint8 luma {(b, h, w)}, got {y.dtype} {tuple(y.shape)}")
     if x_u8.device.type == "cpu":
-        return clahe_luma_apply_u8_plain(x_u8, y, luts)
+        return clahe_luma_apply_u8_plain(x_u8, y, luts, row0, cell_rows)
     stream = _kernels.stream(x_u8)
     out = torch.empty_like(x_u8)
-    geo = luma_geometry(h, w, tiles_y, tiles_x, str(x_u8.device))
+    geo = luma_geometry(h, w, tiles_y, tiles_x, str(x_u8.device), row0, cell_rows)
     _kernels.launch(
         "clahe_luma_apply_u8_nhwc" if nhwc else "clahe_luma_apply_u8", x_u8.data_ptr(), y.data_ptr(),
-        luts.data_ptr(), geo.data_ptr(), out.data_ptr(), b, h, w, tiles_y, tiles_x, stream,
+        luts.data_ptr(), geo.data_ptr(), out.data_ptr(), b, h, w, tiles_y, tiles_x, row0, cell_rows, stream,
     )
     LAUNCHES["clahe_luma_apply_u8"] += 1
+    SLAB_LAUNCHES["clahe_luma_apply_u8"] += row0 > 0
     return out
 
 

@@ -3,10 +3,10 @@
 Counterpart of ``retinex_tpu/utils/viz.py`` (``save_image``,
 ``create_comparison``, ``visualize_results``, ``create_gif``) on NHWC/HWC
 arrays or tensors in [0,1]. PNGs are
-written with PIL at zlib level 1, the level the JAX package's native encoder
-writes: encoding the PNGs is most of the end-to-end time of one image
-(PERF.md), and level 1 is PIL's fastest. The pixels are those the JAX package
-writes, including the u8 floor truncation ``(arr * 255).astype(uint8)``. A
+written by ``data/native_loader.encode_png`` (zlib level 1, the SUB filter
+on every row: the JAX package's native encoder's settings): encoding the
+PNGs is most of the end-to-end time of one image (PERF.md). The pixels are
+those the JAX package writes, including the u8 floor truncation ``(arr * 255).astype(uint8)``. A
 bf16 image (the ``--use_amp`` packed net's illumination) is quantised as
 the JAX package's numpy bf16 array is: clipped, times 255 rounded to bf16,
 then truncated; the comparison panels take its exact f32 values, as
@@ -19,9 +19,11 @@ import numpy as np
 import torch
 from PIL import Image
 
+from retinex_tpu_torch.data.native_loader import encode_png
+
 
 def _write_png(arr_u8: np.ndarray, save_path: str) -> None:
-    Image.fromarray(arr_u8).save(save_path, compress_level=1)
+    encode_png(arr_u8, save_path)
 
 
 def _to_hwc(img) -> np.ndarray:

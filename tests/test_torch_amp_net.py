@@ -185,13 +185,14 @@ def test_bf16_routes_that_are_not_ported_raise(nets, tmp_path):
     """K10 in bf16 (item 3c), bf16 training (item 3b) and training on
     several devices (item 8) are ported: the bf16 dec1-chain forward builds,
     its K10 packed for bf16 (tests/test_torch_dec1_chain_bf16.py holds it to
-    the JAX package); bf16 with spatial sharding (item 9) still raises."""
+    the JAX package); so is spatial sharding (item 9), which now raises in no
+    mode: the bf16 net's frame split over two CPU shards writes its PNGs."""
     port = nets[(False, False)][0]
     assert PackedRetinex(port, NetCfg(dec1_chain=True)).dec1_packed.dtype == BF16
     photo = REPO / "data" / "convergence" / "lowlight_000.png"
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-        cli.main(["--mode", "train", "--use_amp", "--spatial_shard", "--train_dir", str(photo.parent),
-                  "--save_dir", str(tmp_path), "--device", "cpu"])
+    cli.main(["--mode", "enhance", "--use_amp", "--spatial_shard", "--n_devices", "2", "--input_path", str(photo),
+              "--output_dir", str(tmp_path), "--max_size", "256", "--device", "cpu"])
+    assert (tmp_path / f"{photo.stem}_enhanced.png").exists()
 
 
 def test_bf16_illumination_is_quantised_as_the_jax_package_does(tmp_path):

@@ -195,10 +195,20 @@ def test_cli_routes_write_three_pngs(tmp_path, route):
         ["--spatial_shard", "--n_devices", "2"],
     ],
 )
-def test_unported_routes_raise(tmp_path, args):
-    """Spatial sharding (ROADMAP Queue 1 item 9) raises on every mode;
-    --n_devices and --coordinator run (tests/test_torch_parallel.py,
-    tests/test_torch_multihost.py)."""
+def test_unported_routes_raise(tmp_path, args, capsys):
+    """Spatial sharding (ROADMAP Queue 1 item 9) is ported and raises on no
+    mode: with a CLAHE mode on one CPU device it is ignored, in training it
+    is ignored as the JAX trainer ignores it, and with --n_devices 2 the
+    net's frame is split over two CPU shards (tests/test_torch_spatial_cli.py
+    holds the runs to those without the flag)."""
     base = ["--mode", "enhance", "--input_path", str(PHOTO), "--output_dir", str(tmp_path), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="item 9"):
-        cli.main(base + args)
+    if "train" in args:
+        args = args + ["--train_dir", str(PHOTO.parent), "--save_dir", str(tmp_path / "train"), "--image_size", "32",
+                       "--batch_size", "8", "--num_epochs", "1", "--no-use_perceptual_loss"]
+    cli.main(base + args)
+    out = capsys.readouterr().out
+    if "train" in args:
+        assert (tmp_path / "train" / "latest").exists()
+    else:
+        assert (tmp_path / f"{PHOTO.stem}_enhanced.png").exists()
+        assert ("H split over 2 devices" in out) == ("--n_devices" in args)

@@ -353,6 +353,23 @@ first and last image against the kernel on each alone (identical):
    ``data/convergence`` photos, with the files' sizes against PIL's.
    Meshes of one card are not scaling figures. ``python3 chip_smoke.py
    --phase 24`` runs the build and this phase alone.
+25. A checkpoint written by the JAX package (``orbax_phase``): the
+   committed Orbax directory ``tests/fixtures/orbax_jax/latest``
+   (``ORBAX_FIXTURE``: create_train_state at the CLI defaults saved by the
+   JAX package's save_checkpoint, every params kernel sign x 1/sqrt(fan_in))
+   read by ``train/orbax.py`` (its zstd decoder, ``csrc/zstd_decode.cpp``,
+   built with c++ first, the seconds printed), the read's ms printed (the
+   first, then the median of 5, and ``load_params_for_inference``'s), and
+   every leaf held bit for bit to ``orbax_fixture_tree``, a numpy
+   regeneration without JAX; then ``--mode enhance --checkpoint <it>
+   --max_size 1920`` on the default packed route (K1-K3 once, K4-K6 twice,
+   held to the port's CPU run from the same directory by ``hold_to_cpu``)
+   and ``--mode predict`` (K4-K6 twice); ``--mode train --resume <it>``
+   for one epoch of two steps (8 photos at 128 px, batch 4: epoch, step and
+   Adam's count checked, the weights within 10 lr of the checkpoint's, no
+   kernel launched); ``export_serving --checkpoint <it>`` at 288x512 and
+   one served call identical to the eager pipeline (K1-K3 once).
+   ``python3 chip_smoke.py --phase 25`` runs the build and this phase alone.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the nvidia-smi line,
 and ``{"ok": true, "device": {...}}``. ``launches`` sums each kernel's
@@ -369,7 +386,8 @@ modes, K2's and K7's (``clahe_luma_apply_u8``); phase 23's sharded
 directory runs (each counted from zero) add theirs to K1-K6's (the net
 routes) and to K2's, K7's and K8's (the classical modes); phase 24's
 spatial CLAHE calls and ``--spatial_shard`` CLI runs add theirs to K1-K3's
-and K7's (and the CLI net run's to K4-K6's).
+and K7's (and the CLI net run's to K4-K6's); phase 25's enhance and predict
+runs and its served call add theirs to K1-K6's.
 K4 has an entry as a whole (``fam_conv_fused``) and one for each of its
 three kernels (``fam_conv_y``, ``fam_conv_z``, ``fam_conv_out``), K10 as a
 whole (``dec1_chain``) and one for each of its four (``dec1_up``,
@@ -4535,6 +4553,207 @@ def spatial_phase(torch, modules, workdir: Path) -> dict[str, int]:
     return {k: launches.get(k, 0) + cli.get(k, 0) for k in set(launches) | set(cli)}
 
 
+# Phase 25: a checkpoint written by the JAX package. The fixture is that
+# package's own save_checkpoint (an Orbax directory) of create_train_state
+# at the CLI defaults (the net without pre-activation or ASPP, PRNGKey(0)),
+# every params kernel set to sign x 1/sqrt(fan_in) so that it compresses to
+# under 2 MB; tests/test_torch_orbax.py writes it with the JAX package
+# (``write_orbax_fixture``) and holds it to the regeneration below.
+ORBAX_FIXTURE = REPO / "tests" / "fixtures" / "orbax_jax" / "latest"
+ORBAX_FIXTURE_SEED = 22
+ORBAX_FIXTURE_EPOCH = 4
+ORBAX_FIXTURE_BEST_LOSS = 0.75
+# create_train_state's dropout key at PRNGKey(0): split(PRNGKey(0))[1]'s data.
+ORBAX_DROPOUT_KEY = (928981903, 3453687069)
+# The resumed run: 8 photos at batch 4, one epoch of two steps.
+ORBAX_TRAIN_ARGS = ["--image_size", "128", "--batch_size", "4", "--save_freq", "1", "--log_every", "1"]
+
+
+def _tree_map(tree: dict, fn, path: tuple = ()) -> dict:
+    return {k: _tree_map(v, fn, (*path, k)) if isinstance(v, dict) else fn((*path, k), v) for k, v in tree.items()}
+
+
+def _tree_leaves(tree: dict, path: tuple = ()) -> dict:
+    """{key path: leaf} of nested dicts."""
+    out = {}
+    for k, v in tree.items():
+        out.update(_tree_leaves(v, (*path, k)) if isinstance(v, dict) else {(*path, k): v})
+    return out
+
+
+def orbax_fixture_tree() -> dict:
+    """The fixture's whole tree regenerated with numpy, no JAX, as
+    ``read_orbax`` returns it: the params' kernels sign x 1/sqrt(fan_in)
+    (fan_in the product of all but the last of the HWIO dimensions, the
+    value rounded to f32 once), the signs drawn by
+    default_rng(ORBAX_FIXTURE_SEED) as integers in {0, 1} over the kernels
+    in sorted path order; every other leaf as the JAX init leaves it: conv
+    biases, BatchNorm shifts and means 0, BatchNorm scales and variances 1;
+    ``make_optimizer``'s state at step 0 (clip and decay empty, Adam's zero
+    moments and count, the schedule's count); the DWA carry zeros; the
+    dropout key; step, epoch and best loss. The leaves' names and shapes
+    come from the port's net (``convert.state_dict_to_variables``)."""
+    import math
+
+    from retinex_tpu_torch.models.convert import state_dict_to_variables
+    from retinex_tpu_torch.models.retinex_net import MultiScaleUPRetinex
+
+    like = state_dict_to_variables(MultiScaleUPRetinex(False, False).state_dict(), use_aspp=False)
+    rng = np.random.default_rng(ORBAX_FIXTURE_SEED)
+    shapes = {p: v.shape for p, v in _tree_leaves(like["params"]).items()}
+    signed = {}
+    for p in sorted(k for k in shapes if k[-1] == "kernel"):
+        s = np.float32(1.0 / math.sqrt(math.prod(shapes[p][:-1])))
+        signed[p] = np.where(rng.integers(0, 2, shapes[p]) == 1, s, -s).astype(np.float32)
+    params = _tree_map(like["params"], lambda p, v: signed[p] if p[-1] == "kernel" else (
+        np.ones if p[-1] == "scale" else np.zeros)(v.shape, np.float32))
+    stats = _tree_map(like["batch_stats"], lambda p, v: (np.ones if p[-1] == "var" else np.zeros)(v.shape, np.float32))
+
+    def zeros():
+        return _tree_map(params, lambda p, v: np.zeros(v.shape, np.float32))
+
+    count = np.zeros((), np.int32)
+    return {
+        "params": params, "batch_stats": stats,
+        "opt_state": [None, None, {"count": count, "mu": zeros(), "nu": zeros()}, {"count": count.copy()}],
+        "loss_prev": np.zeros(7, np.float32), "loss_prev2": np.zeros(7, np.float32),
+        "loss_step": np.zeros((), np.int32), "dropout_rng": np.array(ORBAX_DROPOUT_KEY, np.uint32), "step": 0,
+        "epoch": np.asarray(ORBAX_FIXTURE_EPOCH, np.int64), "best_loss": np.asarray(ORBAX_FIXTURE_BEST_LOSS, np.float64),
+    }
+
+
+def same_tree(got, want, path: str = "") -> int:
+    """Raise where `got` and `want` differ in structure, dtype, shape or any
+    bit; return the number of leaves."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or got.keys() != want.keys():
+            raise AssertionError(f"{path or 'the tree'}: keys {sorted(got) if isinstance(got, dict) else got} "
+                                 f"against {sorted(want)}")
+        return sum(same_tree(got[k], want[k], f"{path}/{k}") for k in want)
+    if isinstance(want, list):
+        if not isinstance(got, list) or len(got) != len(want):
+            raise AssertionError(f"{path}: {got!r} against a list of {len(want)}")
+        return sum(same_tree(g, w, f"{path}[{i}]") for i, (g, w) in enumerate(zip(got, want)))
+    if want is None or isinstance(want, (int, float)):
+        if type(got) is not type(want) or got != want:
+            raise AssertionError(f"{path}: {got!r} against {want!r}")
+        return 1
+    if got.dtype != want.dtype or got.shape != want.shape or got.tobytes() != want.tobytes():
+        raise AssertionError(f"{path}: {got.dtype}{got.shape} differs from {want.dtype}{want.shape}")
+    return 1
+
+
+def orbax_phase(torch, modules, workdir: Path) -> dict[str, int]:
+    """Phase 25 (the module docstring); returns the launches of its enhance
+    and predict runs and its served call."""
+    import shutil
+    import statistics as st
+
+    from PIL import Image
+
+    from retinex_tpu_torch import cli
+    from retinex_tpu_torch.config import Config
+    from retinex_tpu_torch.infer import serving
+    from retinex_tpu_torch.infer.enhance import make_batch_pipeline
+    from retinex_tpu_torch.ops import _kernels
+    from retinex_tpu_torch.scripts import export_serving
+    from retinex_tpu_torch.train.checkpoint import load_params_for_inference
+    from retinex_tpu_torch.train.orbax import read_orbax
+
+    card = gpu_line()
+    fixture = str(ORBAX_FIXTURE)
+    size = sum(p.stat().st_size for p in ORBAX_FIXTURE.rglob("*") if p.is_file())
+    t0 = time.perf_counter()
+    _kernels.host_library("zstd_decode")
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tree = read_orbax(fixture)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    reads, params_reads = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        read_orbax(fixture)
+        reads.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        load_params_for_inference(fixture)
+        params_reads.append((time.perf_counter() - t0) * 1e3)
+    n = same_tree(tree, orbax_fixture_tree())
+    print(f"  the fixture ({size / 1e6:.3f} MB on disk): zstd decoder built with c++ in {build_s:.2f} s; read_orbax "
+          f"{first_ms:.1f} ms the first time, median {st.median(reads):.1f} ms of 5 (files in the page cache); "
+          f"load_params_for_inference median {st.median(params_reads):.1f} ms; all {n} leaves bit for bit equal "
+          f"to the numpy regeneration; {card}")
+
+    src = REPO / "data" / "convergence" / "lowlight_000.png"
+    photo = workdir / "orbax_photo1080.png"
+    with Image.open(src) as im:
+        im.convert("RGB").resize((1920, 1080), Image.BILINEAR).save(photo)
+    launches: dict[str, int] = {}
+    for mode, want in (("enhance", {**LAB_CLAHE_ONCE, **FAM_TWICE}), ("predict", FAM_TWICE)):
+        out = workdir / f"orbax_{mode}"
+        got_launches, sec = run_cli(torch, modules, ["--mode", mode, "--checkpoint", fixture, "--input_path",
+                                                     str(photo), "--output_dir", str(out), "--max_size", "1920",
+                                                     "--device", "cuda"])
+        check_launches(got_launches, want, f"--mode {mode} from the JAX checkpoint")
+        got = check_pngs(out, photo.stem, (1088, 1920, 3))
+        print(f"  --mode {mode} --checkpoint <the JAX checkpoint> --max_size 1920: {sec:.2f} s, launches "
+              f"{ {k: v for k, v in got_launches.items() if v} }")
+        for k, v in got_launches.items():
+            launches[k] = launches.get(k, 0) + v
+        if mode == "enhance":
+            hold_to_cpu(torch, got, photo, 1920, packed=True, checkpoint=fixture)
+
+    train_dir = workdir / "orbax_train"
+    train_dir.mkdir()
+    for i in range(8):
+        shutil.copy(REPO / "data" / "convergence" / f"lowlight_{i:03d}.png", train_dir)
+    save = workdir / "orbax_resumed"
+    got_launches, sec, log = run_cli_logged(torch, modules, [
+        "--mode", "train", "--train_dir", str(train_dir), "--save_dir", str(save), "--device", "cuda",
+        *ORBAX_TRAIN_ARGS, "--num_epochs", str(ORBAX_FIXTURE_EPOCH + 2), "--resume", fixture])
+    check_launches(got_launches, {}, "training resumed from the JAX checkpoint")
+    last = torch.load(save / "latest", map_location="cpu", weights_only=True)
+    start = cli.build_model(Config(checkpoint=fixture), torch.device("cpu")).state_dict()
+    moved = max(float((last["model_state_dict"][k] - v).abs().max()) for k, v in start.items()
+                if k.endswith(".weight"))
+    if f"Resumed from {fixture} at epoch {ORBAX_FIXTURE_EPOCH + 1}" not in log or (last["step"], last["epoch"]) != (
+            2, ORBAX_FIXTURE_EPOCH + 1) or last["optimizer"]["count"] != 2:
+        raise AssertionError(f"the resumed run: step {last['step']}, epoch {last['epoch']}, Adam count "
+                             f"{last['optimizer']['count']}; expected 2, {ORBAX_FIXTURE_EPOCH + 1}, 2")
+    if not 0 < moved <= 10 * 1e-4:  # two Adam steps at lr 1e-4 from the fixture's weights
+        raise AssertionError(f"the resumed run's weights moved {moved:.3e} from the JAX checkpoint's")
+    print(f"  --mode train --resume <the JAX checkpoint>: {sec:.1f} s, epoch {ORBAX_FIXTURE_EPOCH + 1}, step "
+          f"{last['step']} (2 steps of 4 photos at 128 px), the weights {moved:.3e} at most from the checkpoint's; "
+          "no kernel launched")
+
+    h, w = 288, 512
+    art = workdir / "orbax_enhancer.pt2"
+    t0 = time.perf_counter()
+    export_serving.main(["--checkpoint", fixture, "--height", str(h), "--width", str(w), "--out", str(art),
+                         "--device", "cuda"])
+    export_s = time.perf_counter() - t0
+    with Image.open(src) as im:
+        x = torch.from_numpy(np.asarray(im.convert("RGB").resize((w, h), Image.BILINEAR))[None].copy()).cuda()
+    served = serving.load_enhancer(str(art))
+    for m in modules:
+        m.reset_launches()
+    with torch.inference_mode():
+        got = served(x)
+        torch.cuda.synchronize()
+        call_launches = launch_counts(modules)
+        model = cli.build_model(Config(mode="enhance", checkpoint=fixture), torch.device("cuda"))
+        want = make_batch_pipeline(model)(x)
+    check_launches(call_launches, LAB_CLAHE_ONCE, "the served call of the JAX checkpoint's artifact")
+    for kind, g, wo in zip(("enhanced", "illumination"), got, want):
+        if g.shape != wo.shape or not torch.equal(g, wo):
+            raise AssertionError(f"the served {kind} differs from the eager pipeline's on the JAX checkpoint")
+    for k, v in call_launches.items():
+        launches[k] = launches.get(k, 0) + v
+    print(f"  export_serving --checkpoint <the JAX checkpoint> at {h}x{w}: {export_s:.1f} s; one served call "
+          "identical to the eager pipeline (enhanced and illumination), launches "
+          f"{ {k: v for k, v in call_launches.items() if v} }")
+    return launches
+
+
 def seed0_checkpoint(torch, workdir: Path) -> str:
     """The CLI's untrained weights (seed 0) as a ``.pth``, for predict."""
     from retinex_tpu_torch.cli import init_untrained
@@ -4546,12 +4765,12 @@ def seed0_checkpoint(torch, workdir: Path) -> str:
 
 
 def serving_alone(torch, kernels, line: str) -> int:
-    """``chip_smoke.py --phase 22`` or ``--phase 23``: the build and that
-    phase alone, with the seed-0 weights."""
+    """``chip_smoke.py --phase 22``, ``23``, ``24`` or ``25``: the build and
+    that phase alone (22 and 23 with the seed-0 weights)."""
     import argparse
 
     parser = argparse.ArgumentParser(description="the build and one phase alone")
-    parser.add_argument("--phase", type=int, choices=(22, 23, 24), required=True)
+    parser.add_argument("--phase", type=int, choices=(22, 23, 24, 25), required=True)
     phase = parser.parse_args().phase
     for stem, built in kernels.build().items():
         print(f"  {built.path.name}: built in {built.seconds:.2f} s")
@@ -4567,6 +4786,13 @@ def serving_alone(torch, kernels, line: str) -> int:
             modules = (clahe_gather, clahe_luma, fused_blocks, conv_pallas, clahe_pallas)
             launches = data_parallel_phase(torch, modules, seed0_checkpoint(torch, Path(tmp)), Path(tmp))
             print(f"  launches of the sharded runs: {launches}")
+        elif phase == 25:
+            from retinex_tpu_torch.ops import clahe_gather, clahe_luma, clahe_pallas, conv_pallas, fused_blocks
+
+            print("phase 25 alone: the JAX package's checkpoint")
+            modules = (clahe_gather, clahe_luma, fused_blocks, conv_pallas, clahe_pallas)
+            launches = orbax_phase(torch, modules, Path(tmp))
+            print(f"  launches of the enhance and predict runs and the served call: {launches}")
         else:
             from retinex_tpu_torch.ops import clahe_gather, clahe_luma, clahe_pallas, conv_pallas, fused_blocks
 
@@ -4670,9 +4896,12 @@ def main() -> int:
         print("phase 24: spatial sharding: the spatial CLAHE and forward on meshes of 2, 4 and 8 shards of cuda:0 "
               "against one card, --spatial_shard through the CLI; the host path's stages before and after")
         sp_launches = spatial_phase(torch, (cg, cl, fb, cp, kp), Path(tmp))
+        print("phase 25: the JAX package's checkpoint (tests/fixtures/orbax_jax/latest, Orbax) read without JAX, "
+              "then --checkpoint with enhance, predict and export_serving and --resume with train")
+        ox_launches = orbax_phase(torch, (cg, cl, fb, cp, kp), Path(tmp))
     recs.update(amp_recs)
     launches.update(amp_launches)
-    for name, n in list(serving_launches.items()) + list(dp_launches.items()) + list(sp_launches.items()):
+    for name, n in [*serving_launches.items(), *dp_launches.items(), *sp_launches.items(), *ox_launches.items()]:
         launches[name] += n
 
     for name in recs:

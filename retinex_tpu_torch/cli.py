@@ -48,10 +48,11 @@ A directory is run in chunks of ``--batch_size`` images of one letterboxed
 canvas (without ``--max_size`` each image is letterboxed to its longer
 side), with ``--num_workers`` threads writing the PNGs. ``--device cpu`` runs
 every route on the CPU with the kernels' plain versions. Weights come from
-``--checkpoint``: a training checkpoint of the port or a reference
-``.pth``; or else (enhance only) are initialised untrained as the JAX CLI
-does (Flax's lecun-normal kernels, zero biases, always seed 0 like its
-``PRNGKey(0)``; ``--seed`` does not reach them).
+``--checkpoint``: a training checkpoint of the port or of the JAX package
+(an Orbax directory) or a reference ``.pth``; or else (enhance only) are
+initialised untrained as the JAX CLI does (Flax's lecun-normal kernels,
+zero biases, always seed 0 like its ``PRNGKey(0)``; ``--seed`` does not
+reach them).
 ``--use_amp`` computes the net in bf16 for ``--mode enhance`` and
 ``predict`` (``models/layers.py``, ``models/packed_inference.py``: the FAM
 kernels' bf16 instances) and the net and VGG19 in bf16 for ``--mode train``
@@ -71,8 +72,9 @@ H % (8 n) == 0 (else it says so and runs on one device), and on one file
 ``--classical_mode clahe|clahe_luma`` where the mesh divides the tiles and
 H, W are multiples of 2 * tiles (else likewise); on one device the flag
 is ignored, with a message, and a directory with the net turns batch
-sharding off. A ``--checkpoint`` directory (the JAX package's Orbax format)
-raises ``NotImplementedError``. ``--mode train`` takes the
+sharding off. ``--checkpoint`` and ``--resume`` also take a directory
+written by the JAX package (Orbax, ``<save_dir>/best``; read without orbax
+by ``train/orbax.py``). ``--mode train`` takes the
 packed train step (``--packed_train``, on by default;
 ``models/packed_train.py``) on the card where ``--image_size`` is a
 multiple of 32, and the standard step with ``--no-packed_train``, on the
@@ -95,6 +97,7 @@ from retinex_tpu_torch.models.init import TRUNC_STD, fan_in, init_untrained  # n
 from retinex_tpu_torch.models.packed_inference import PackedRetinex
 from retinex_tpu_torch.models.retinex_net import MultiScaleUPRetinex
 from retinex_tpu_torch.parallel.mesh import create_mesh, replicate
+from retinex_tpu_torch.train.checkpoint import load_params_for_inference, state_dict_for
 
 
 # The JAX CLI initialises the untrained net from PRNGKey(0).
@@ -104,18 +107,16 @@ UNTRAINED_SEED = 0
 def build_model(config: Config, device: torch.device, require_checkpoint: bool = False) -> MultiScaleUPRetinex:
     """The net in eval mode on `device`, computing in
     `config.compute_dtype` (bf16 with ``--use_amp``), with the weights of
-    `config.checkpoint` where that file exists (a reference ``.pth`` or one
-    of the port's training checkpoints), else untrained (or, with
+    `config.checkpoint` where it exists (a directory: the JAX package's Orbax
+    checkpoint, ``train/orbax.py``; a file: a reference ``.pth`` or one of
+    the port's training checkpoints), else untrained (or, with
     `require_checkpoint`, FileNotFoundError)."""
     model = MultiScaleUPRetinex(use_preact=config.use_preact, use_aspp=config.use_aspp, dtype=config.compute_dtype)
     ckpt = config.checkpoint
     if ckpt and os.path.isdir(ckpt):
-        raise NotImplementedError(
-            f"{ckpt} is a directory, as the JAX package's Orbax checkpoints are; reading those needs orbax, "
-            "which imports jax. The port reads its own training checkpoints (files <save_dir>/best and "
-            "<save_dir>/latest) and reference .pth files"
-        )
-    if ckpt and os.path.exists(ckpt):
+        model.load_state_dict(state_dict_for(model, load_params_for_inference(ckpt)))
+        print(f"Loaded checkpoint {ckpt} (Orbax)")
+    elif ckpt and os.path.exists(ckpt):
         state_dict, epoch = load_reference_checkpoint(ckpt)
         model.load_state_dict(state_dict)
         print(f"Loaded checkpoint {ckpt} (epoch {epoch})")

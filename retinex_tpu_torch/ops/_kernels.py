@@ -8,6 +8,11 @@ the sources that need building are compiled in parallel, one ``nvcc`` each.
 Each library's name carries the hash of its source and the flags, so an
 edited source is rebuilt and an unchanged one is reused.
 
+``host_library`` builds a host C++ source of the same directory (the zstd
+decoder that reads the JAX package's checkpoints) with the host's ``c++``
+the same way: on first use, hash in the name, atomic rename; a missing
+compiler or a failed build raises.
+
 Nothing here runs at import: the CPU tests import every module of the port
 on machines without ``nvcc`` or a card.
 """
@@ -21,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -44,6 +50,9 @@ NVCC_FLAGS = (
     "-Xcompiler",
     "-fPIC",
 )
+
+# Host C++ (csrc/*.cpp): plain C interfaces loaded with ctypes.
+HOST_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -94,9 +103,36 @@ def _nvcc() -> str:
     return found
 
 
-def library_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+def library_path(source: Path, flags: tuple[str, ...] = NVCC_FLAGS) -> Path:
+    digest = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{source.stem}_{digest}.so"
+
+
+def _tmp_path(lib: Path) -> Path:
+    """A name no other process or thread writes: the build goes there, then
+    os.replace moves it into place atomically."""
+    return lib.with_name(f"{lib.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
+
+
+@functools.lru_cache(maxsize=None)
+def host_library(stem: str) -> ctypes.CDLL:
+    """``csrc/<stem>.cpp`` built with the host's C++ compiler (``$CXX``, else
+    ``c++``) into ``_build/`` on first use, and loaded."""
+    src = CSRC / f"{stem}.cpp"
+    lib = library_path(src, HOST_FLAGS)
+    if not lib.exists():
+        cxx = os.environ.get("CXX") or shutil.which("c++")
+        if cxx is None:
+            raise RuntimeError(f"no C++ compiler (c++ or $CXX) to build {src.name}")
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = _tmp_path(lib)
+        cmd = [cxx, *HOST_FLAGS, "-o", str(tmp), str(src)]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"{cxx} failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}")
+        os.replace(tmp, lib)
+    return ctypes.CDLL(str(lib))
 
 
 def build() -> dict[str, Built]:
@@ -112,7 +148,7 @@ def build() -> dict[str, Built]:
             out[src.stem] = Built(lib, 0.0, log_path.read_text() if log_path.exists() else "")
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+        tmp = _tmp_path(lib)
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         running.append((src, lib, tmp, cmd, proc, time.perf_counter()))

@@ -7,9 +7,9 @@
 Counterpart of ``scripts/export_serving.py``. The artifact is the u8-in/u8-out
 enhance step for one letterbox canvas with a symbolic batch dimension
 (``infer/serving.py``), exported on the device it serves on: the card unless
-``--device cpu``. ``--checkpoint`` takes a reference ``.pth`` or one of the
-port's training checkpoints (``<save_dir>/best``); an Orbax directory raises,
-as the CLI's does.
+``--device cpu``. ``--checkpoint`` takes a reference ``.pth``, one of the
+port's training checkpoints (``<save_dir>/best``) or one of the JAX
+package's (an Orbax directory), as the CLI's does.
 """
 
 from __future__ import annotations
@@ -19,7 +19,10 @@ import argparse
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--checkpoint", required=True, help="reference .pth or the port's training checkpoint")
+    ap.add_argument(
+        "--checkpoint", required=True,
+        help="reference .pth, the port's training checkpoint or the JAX package's (an Orbax directory)",
+    )
     ap.add_argument("--height", type=int, required=True)
     ap.add_argument("--width", type=int, required=True)
     ap.add_argument("--out", required=True)

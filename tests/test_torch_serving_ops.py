@@ -29,14 +29,16 @@ import torch
 
 from retinex_tpu.models import MultiScaleUPRetinex as JaxNet
 from retinex_tpu_torch import graft_entry
-from retinex_tpu_torch.cli import init_untrained
+from retinex_tpu_torch.cli import build_model, init_untrained
+from retinex_tpu_torch.config import Config
 from retinex_tpu_torch.infer import serving
-from retinex_tpu_torch.infer.enhance import _quant
+from retinex_tpu_torch.infer.enhance import _quant, make_batch_pipeline
 from retinex_tpu_torch.models.convert import state_dict_to_variables
 from retinex_tpu_torch.models.retinex_net import MultiScaleUPRetinex
 from retinex_tpu_torch.ops import clahe_gather as cg
 from retinex_tpu_torch.ops import clahe_luma as cl
 from retinex_tpu_torch.scripts import export_serving
+from retinex_tpu_torch.train.orbax import OrbaxFormatError
 
 REPO = Path(__file__).resolve().parent.parent
 H, W = 64, 96
@@ -160,9 +162,22 @@ def test_export_script_takes_a_pth_checkpoint(port_net, tmp_path, capsys):
 
 
 def test_export_script_rejects_orbax_and_missing_checkpoints(tmp_path):
+    """The script takes the JAX package's Orbax checkpoint (the committed
+    fixture of tests/test_torch_orbax.py), its artifact serving the
+    fixture's net; a directory that is not an Orbax checkpoint raises
+    OrbaxFormatError, a missing file FileNotFoundError."""
     args = ["--height", str(H), "--width", str(W), "--out", str(tmp_path / "a.pt2"), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="Orbax"):
-        export_serving.main(["--checkpoint", str(tmp_path), *args])
+    fixture = REPO / "tests" / "fixtures" / "orbax_jax" / "latest"
+    blob = export_serving.main(["--checkpoint", str(fixture), *args])
+    net = build_model(Config(checkpoint=str(fixture)), torch.device("cpu"))
+    x = torch.from_numpy(np.random.default_rng(5).integers(0, 256, (1, H, W, 3), dtype=np.uint8))
+    with torch.inference_mode():
+        want = make_batch_pipeline(net)(x)
+    assert all(torch.equal(g, w) for g, w in zip(serving.load_enhancer(blob)(x), want))
+    empty = tmp_path / "not_orbax"
+    empty.mkdir()
+    with pytest.raises(OrbaxFormatError, match="not an Orbax checkpoint"):
+        export_serving.main(["--checkpoint", str(empty), *args])
     with pytest.raises(FileNotFoundError):
         export_serving.main(["--checkpoint", str(tmp_path / "missing.pth"), *args])
 

@@ -23,7 +23,8 @@ from retinex_tpu_torch.config import Config
 from retinex_tpu_torch.models.convert import load_reference_checkpoint
 from retinex_tpu_torch.models.init import init_untrained
 from retinex_tpu_torch.models.retinex_net import MultiScaleUPRetinex
-from retinex_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from retinex_tpu_torch.train.checkpoint import load_checkpoint, load_params_for_inference, save_checkpoint, state_dict_for
+from retinex_tpu_torch.train.orbax import OrbaxFormatError
 from retinex_tpu_torch.train.train_state import create_train_state, train_step
 from retinex_tpu_torch.train.trainer import build_criterion, train
 from retinex_tpu_torch.utils.viz import create_gif
@@ -245,6 +246,13 @@ def test_predict_and_enhance_load_the_trained_checkpoint(tiny_dataset, tmp_path)
     assert all(torch.equal(v, trained[k]) for k, v in model.state_dict().items())
     assert not torch.equal(model.state_dict()["fusion.weight"],
                            init_untrained(copy.deepcopy(model), 0).state_dict()["fusion.weight"])
+    # A directory: the JAX package's Orbax checkpoint (the committed fixture of
+    # tests/test_torch_orbax.py) loads; one that is not such a checkpoint raises.
+    fixture = REPO / "tests" / "fixtures" / "orbax_jax" / "latest"
+    jax_trained = cli.build_model(Config(checkpoint=str(fixture), device="cpu"), torch.device("cpu"))
+    assert all(torch.equal(v, want) for v, want in zip(
+        jax_trained.state_dict().values(), state_dict_for(jax_trained, load_params_for_inference(str(fixture))).values()))
+    assert not torch.equal(jax_trained.state_dict()["fusion.weight"], model.state_dict()["fusion.weight"])
     (tmp_path / "orbax").mkdir()
-    with pytest.raises(NotImplementedError, match="orbax"):
+    with pytest.raises(OrbaxFormatError, match="not an Orbax checkpoint"):
         cli.build_model(Config(checkpoint=str(tmp_path / "orbax")), torch.device("cpu"))

@@ -370,6 +370,21 @@ first and last image against the kernel on each alone (identical):
    kernel launched); ``export_serving --checkpoint <it>`` at 288x512 and
    one served call identical to the eager pipeline (K1-K3 once).
    ``python3 chip_smoke.py --phase 25`` runs the build and this phase alone.
+26. The trainer writes the JAX package's Orbax checkpoints
+   (``orbax_write_phase``): ``--mode train`` on 8 photos at 128 px, batch
+   4, for 2 epochs into a fresh ``save_dir``, each ``save_checkpoint``
+   timed (host clock) and the state it wrote captured, the directory's
+   bytes printed; ``read_orbax(<save_dir>/latest)`` held leaf by leaf, bit
+   for bit, to the state the trainer held at that save; ``--resume`` from
+   it for one epoch of 2 steps, the restored state bit for bit what was
+   written (the dropout generator and the loader from the side file), the
+   losses finite (training on the card is not deterministic, so the
+   continuation is not held to an uninterrupted run); ``--mode enhance
+   --max_size 1920`` on the default packed route (K1-K3 once, K4-K6 twice,
+   held to the port's CPU run by ``hold_to_cpu``) and ``--mode predict``
+   (K4-K6 twice) from ``<save_dir>/best``. No orbax or jax is on the
+   card's machine. ``python3 chip_smoke.py --phase 26`` runs the build and
+   this phase alone.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the nvidia-smi line,
 and ``{"ok": true, "device": {...}}``. ``launches`` sums each kernel's
@@ -387,7 +402,8 @@ directory runs (each counted from zero) add theirs to K1-K6's (the net
 routes) and to K2's, K7's and K8's (the classical modes); phase 24's
 spatial CLAHE calls and ``--spatial_shard`` CLI runs add theirs to K1-K3's
 and K7's (and the CLI net run's to K4-K6's); phase 25's enhance and predict
-runs and its served call add theirs to K1-K6's.
+runs and its served call add theirs to K1-K6's, and phase 26's enhance and
+predict runs theirs.
 K4 has an entry as a whole (``fam_conv_fused``) and one for each of its
 three kernels (``fam_conv_y``, ``fam_conv_z``, ``fam_conv_out``), K10 as a
 whole (``dec1_chain``) and one for each of its four (``dec1_up``,
@@ -425,6 +441,7 @@ stages, and null elsewhere: no one call computes K4, K10 or K12 whole.
 from __future__ import annotations
 
 import contextlib
+import csv
 import dataclasses
 import io
 import json
@@ -3175,6 +3192,8 @@ def train_phase(torch, modules, workdir: Path) -> str:
     (f32) checkpoint's path (in `workdir`, beside the f32 runs' outputs)."""
     import shutil
 
+    from retinex_tpu_torch.train.orbax import read_orbax
+
     train_dir = REPO / "data" / "convergence"
     if len(list(train_dir.glob("lowlight_*.png"))) != 24:
         raise AssertionError(f"expected the 24 photos of {train_dir}")
@@ -3185,22 +3204,21 @@ def train_phase(torch, modules, workdir: Path) -> str:
     check_launches(launches, {}, "training")  # the training path runs no hand-written kernel
     if PACKED_LOG not in log:
         raise AssertionError("--mode train at the CLI defaults did not take the packed step")
-    first = torch.load(save / "latest", map_location="cpu", weights_only=True)
+    first = read_orbax(str(save / "latest"))
     launches, sec2, log = run_cli_logged(torch, modules, [*base, "--save_dir", str(save), "--num_epochs", "3",
                                                           "--resume", str(save / "latest")])
     check_launches(launches, {}, "training, resumed")
     if PACKED_LOG not in log:
         raise AssertionError("the resumed run did not take the packed step")
-    last = torch.load(save / "latest", map_location="cpu", weights_only=True)
-    best = torch.load(save / "best", map_location="cpu", weights_only=True)
-    if (first["step"], first["epoch"], last["step"], last["epoch"]) != (6, 1, 9, 2):
+    last, best = read_orbax(str(save / "latest")), read_orbax(str(save / "best"))
+    if tuple(int(t[k]) for t in (first, last) for k in ("step", "epoch")) != (6, 1, 9, 2):
         raise AssertionError(f"steps/epochs {first['step']}/{first['epoch']} -> {last['step']}/{last['epoch']}, "
                              "expected 6/1 -> 9/2")
     logs = list((save / "logs").glob("*/metrics.jsonl"))
     vis = list((save / "visualizations").glob("epoch_*.png"))
     if not ((save / "results.csv").is_file() and logs and len(vis) == 12):
         raise AssertionError(f"training outputs missing: results.csv, {len(logs)} metrics.jsonl, {len(vis)} PNGs")
-    bad = [k for k, v in last["model_state_dict"].items() if v.is_floating_point() and not bool(v.isfinite().all())]
+    bad = [p for p, v in _tree_leaves(last["params"]).items() if not np.isfinite(v).all()]
     if bad:
         raise AssertionError(f"non-finite weights after training: {bad[:3]}")
     # The standard step through the CLI, resumed from the packed run's checkpoint.
@@ -3209,13 +3227,13 @@ def train_phase(torch, modules, workdir: Path) -> str:
     launches, sec3, log = run_cli_logged(torch, modules, [*base, "--save_dir", str(save_std), "--num_epochs", "4",
                                                           "--no-packed_train", "--resume", str(save_std / "latest")])
     check_launches(launches, {}, "standard training, resumed from the packed checkpoint")
-    std_last = torch.load(save_std / "latest", map_location="cpu", weights_only=True)
-    if "packed_train" in log or (std_last["step"], std_last["epoch"]) != (12, 3):
+    std_last = read_orbax(str(save_std / "latest"))
+    if "packed_train" in log or (int(std_last["step"]), int(std_last["epoch"])) != (12, 3):
         raise AssertionError(f"--no-packed_train: step {std_last['step']} epoch {std_last['epoch']} (expected 12/3), "
                              "or the log names the packed step")
     print(f"  --mode train (the packed step, logged), 24 photos at 640 px, batch 8, 2 epochs (3 steps each): "
           f"{sec:.1f} s; --resume to epoch 3: {sec2:.1f} s; step {first['step']} -> {last['step']}, best loss "
-          f"{best['best_loss']:.6f} (epoch {best['epoch']}); {len(logs)} metrics.jsonl, results.csv, {len(vis)} "
+          f"{float(best['best_loss']):.6f} (epoch {best['epoch']}); {len(logs)} metrics.jsonl, results.csv, {len(vis)} "
           f"visualisations; --no-packed_train resumed from it to epoch 4 (the standard step): {sec3:.1f} s, step "
           f"{std_last['step']}; no kernel launched")
 
@@ -3445,6 +3463,8 @@ def amp_remat_cli(torch, modules, workdir: Path) -> None:
     twice each)."""
     import shutil
 
+    from retinex_tpu_torch.train.orbax import read_orbax
+
     photos = workdir / "train16"
     photos.mkdir()
     for i in range(16):
@@ -3456,11 +3476,12 @@ def amp_remat_cli(torch, modules, workdir: Path) -> None:
     check_launches(launches, {}, "bf16 training with --remat")
     if PACKED_LOG not in log:
         raise AssertionError("--mode train --use_amp --remat did not take the packed step")
-    ckpt = torch.load(save / "latest", map_location="cpu", weights_only=True)
-    sd = ckpt["model_state_dict"]
-    if ckpt["step"] != 2 or any(v.dtype != torch.float32 for v in sd.values() if v.is_floating_point()):
+    ckpt = read_orbax(str(save / "latest"))
+    floats = [v for key in ("params", "batch_stats") for v in _tree_leaves(ckpt[key]).values()]
+    floats += [v for key in ("mu", "nu") for v in _tree_leaves(ckpt["opt_state"][2][key]).values()]
+    if int(ckpt["step"]) != 2 or any(v.dtype != np.float32 for v in floats):
         raise AssertionError(f"bf16 --remat training: step {ckpt['step']} (expected 2), or a parameter not f32")
-    if not all(bool(v.isfinite().all()) for v in sd.values() if v.is_floating_point()):
+    if not all(np.isfinite(v).all() for v in floats):
         raise AssertionError("non-finite weights after bf16 --remat training")
     out = workdir / "predict_amp_remat"
     photo = workdir / "photo1080.png"
@@ -4655,6 +4676,7 @@ def orbax_phase(torch, modules, workdir: Path) -> dict[str, int]:
     from retinex_tpu_torch.config import Config
     from retinex_tpu_torch.infer import serving
     from retinex_tpu_torch.infer.enhance import make_batch_pipeline
+    from retinex_tpu_torch.models.convert import variables_to_state_dict
     from retinex_tpu_torch.ops import _kernels
     from retinex_tpu_torch.scripts import export_serving
     from retinex_tpu_torch.train.checkpoint import load_params_for_inference
@@ -4678,7 +4700,7 @@ def orbax_phase(torch, modules, workdir: Path) -> dict[str, int]:
         load_params_for_inference(fixture)
         params_reads.append((time.perf_counter() - t0) * 1e3)
     n = same_tree(tree, orbax_fixture_tree())
-    print(f"  the fixture ({size / 1e6:.3f} MB on disk): zstd decoder built with c++ in {build_s:.2f} s; read_orbax "
+    print(f"  the fixture ({size / 1e6:.3f} MB on disk): zstd decoder built with c++ (on its first use) in {build_s:.2f} s; read_orbax "
           f"{first_ms:.1f} ms the first time, median {st.median(reads):.1f} ms of 5 (files in the page cache); "
           f"load_params_for_inference median {st.median(params_reads):.1f} ms; all {n} leaves bit for bit equal "
           f"to the numpy regeneration; {card}")
@@ -4711,14 +4733,15 @@ def orbax_phase(torch, modules, workdir: Path) -> dict[str, int]:
         "--mode", "train", "--train_dir", str(train_dir), "--save_dir", str(save), "--device", "cuda",
         *ORBAX_TRAIN_ARGS, "--num_epochs", str(ORBAX_FIXTURE_EPOCH + 2), "--resume", fixture])
     check_launches(got_launches, {}, "training resumed from the JAX checkpoint")
-    last = torch.load(save / "latest", map_location="cpu", weights_only=True)
+    last = read_orbax(str(save / "latest"))
+    trained = variables_to_state_dict(last, False, False)
     start = cli.build_model(Config(checkpoint=fixture), torch.device("cpu")).state_dict()
-    moved = max(float((last["model_state_dict"][k] - v).abs().max()) for k, v in start.items()
-                if k.endswith(".weight"))
-    if f"Resumed from {fixture} at epoch {ORBAX_FIXTURE_EPOCH + 1}" not in log or (last["step"], last["epoch"]) != (
-            2, ORBAX_FIXTURE_EPOCH + 1) or last["optimizer"]["count"] != 2:
-        raise AssertionError(f"the resumed run: step {last['step']}, epoch {last['epoch']}, Adam count "
-                             f"{last['optimizer']['count']}; expected 2, {ORBAX_FIXTURE_EPOCH + 1}, 2")
+    moved = max(float((trained[k] - v).abs().max()) for k, v in start.items() if k.endswith(".weight"))
+    count = int(last["opt_state"][2]["count"])
+    if f"Resumed from {fixture} at epoch {ORBAX_FIXTURE_EPOCH + 1}" not in log or (
+            int(last["step"]), int(last["epoch"]), count) != (2, ORBAX_FIXTURE_EPOCH + 1, 2):
+        raise AssertionError(f"the resumed run: step {last['step']}, epoch {last['epoch']}, Adam count {count}; "
+                             f"expected 2, {ORBAX_FIXTURE_EPOCH + 1}, 2")
     if not 0 < moved <= 10 * 1e-4:  # two Adam steps at lr 1e-4 from the fixture's weights
         raise AssertionError(f"the resumed run's weights moved {moved:.3e} from the JAX checkpoint's")
     print(f"  --mode train --resume <the JAX checkpoint>: {sec:.1f} s, epoch {ORBAX_FIXTURE_EPOCH + 1}, step "
@@ -4754,6 +4777,113 @@ def orbax_phase(torch, modules, workdir: Path) -> dict[str, int]:
     return launches
 
 
+# Phase 26: a checkpoint written on the card, in the JAX package's layout.
+# The resumed run: the same 8 photos at 128 px and batch 4 as phase 25's.
+ORBAX_WRITE_EPOCHS = 2
+
+
+def orbax_write_phase(torch, modules, workdir: Path) -> dict[str, int]:
+    """Phase 26 (the module docstring); returns the launches of its enhance
+    and predict runs."""
+    import copy
+    import shutil
+
+    from PIL import Image
+
+    from retinex_tpu_torch.ops import _kernels
+    from retinex_tpu_torch.train import checkpoint as ckpt_mod
+    from retinex_tpu_torch.train import trainer
+    from retinex_tpu_torch.train.orbax import read_orbax
+
+    card = gpu_line()
+    t0 = time.perf_counter()
+    _kernels.host_library("zstd_decode")  # its CRC-32C frames the store; built once, not in the saves' times
+    build_s = time.perf_counter() - t0
+    train_dir = workdir / "orbax_write_train"
+    train_dir.mkdir()
+    for i in range(8):
+        shutil.copy(REPO / "data" / "convergence" / f"lowlight_{i:03d}.png", train_dir)
+    save = workdir / "orbax_written"
+    base = ["--mode", "train", "--train_dir", str(train_dir), "--save_dir", str(save), "--device", "cuda",
+            *ORBAX_TRAIN_ARGS]
+    real_save, real_load = trainer.save_checkpoint, trainer.load_checkpoint
+    saves, loads = [], []
+
+    def timed_save(state, save_dir, epoch, best_loss, is_best, extra=None):
+        held = copy.deepcopy(ckpt_mod.state_to_tree(state, epoch, best_loss))  # a copy, the state goes on
+        t0 = time.perf_counter()
+        n = real_save(state, save_dir, epoch, best_loss, is_best, extra)
+        saves.append(dict(ms=(time.perf_counter() - t0) * 1e3, bytes=n, tree=held, is_best=is_best))
+        return n
+
+    def captured_load(state, path):
+        out = real_load(state, path)
+        loads.append(dict(tree=copy.deepcopy(ckpt_mod.state_to_tree(out[0], out[1] - 1, out[2])),
+                          gen=out[0].dropout_gen.get_state().clone(), extra=out[3]))
+        return out
+
+    trainer.save_checkpoint, trainer.load_checkpoint = timed_save, captured_load
+    try:
+        got, sec, _ = run_cli_logged(torch, modules, [*base, "--num_epochs", str(ORBAX_WRITE_EPOCHS)])
+        check_launches(got, {}, "training into Orbax directories")
+        latest = str(save / "latest")
+        on_disk = sum(p.stat().st_size for p in (save / "latest").rglob("*") if p.is_file())
+        t0 = time.perf_counter()
+        tree = read_orbax(latest)
+        read_ms = (time.perf_counter() - t0) * 1e3
+        n = same_tree(tree, saves[-1]["tree"])
+        if len(saves) != ORBAX_WRITE_EPOCHS or on_disk != saves[-1]["bytes"] or int(tree["step"]) != 4:
+            raise AssertionError(f"{len(saves)} saves, {on_disk} bytes on disk against {saves[-1]['bytes']} written, "
+                                 f"step {tree['step']}; expected {ORBAX_WRITE_EPOCHS} saves and step 4")
+        side = torch.load(save / "latest" / ckpt_mod.SIDE_FILE, map_location="cpu", weights_only=True)
+        ms = [r["ms"] for r in saves]
+        print(f"  --mode train, 8 photos at 128 px, batch 4, {ORBAX_WRITE_EPOCHS} epochs into Orbax directories: "
+              f"{sec:.1f} s, no kernel launched; save_checkpoint (latest and, when best, best) {', '.join(f'{m:.1f}' for m in ms)} "
+              f"ms (host clock, files in the page cache), {on_disk} bytes in <save_dir>/latest; read_orbax of it "
+              f"{read_ms:.1f} ms, all {n} leaves bit for bit the state the trainer held at the save; the zstd "
+              f"library (its CRC-32C) ready in {build_s:.2f} s before; {card}")
+
+        got, sec2, log = run_cli_logged(torch, modules, [*base, "--num_epochs", str(ORBAX_WRITE_EPOCHS + 1),
+                                                         "--resume", latest])
+        check_launches(got, {}, "training resumed from the card's Orbax directory")
+        (loaded,) = loads
+        n = same_tree(loaded["tree"], tree)
+        if not (torch.equal(loaded["gen"], side["dropout_rng"]) and loaded["extra"].keys() == side["extra"].keys()):
+            raise AssertionError("the resumed run's dropout generator or extra differs from the side file's")
+        if f"Resumed from {latest} at epoch {ORBAX_WRITE_EPOCHS}" not in log:
+            raise AssertionError("the resumed run did not say where it resumed")
+        after = read_orbax(latest)
+        with open(save / "results.csv") as f:
+            rows = list(csv.DictReader(f))
+        losses = [float(v) for r in rows for k, v in r.items() if k != "epoch"]
+        if int(after["step"]) != 6 or not losses or not np.isfinite(losses).all():
+            raise AssertionError(f"the resumed run: step {after['step']} (expected 6), losses {losses}")
+        print(f"  --resume <save_dir>/latest for one epoch of 2 steps: {sec2:.1f} s; the restored state all {n} leaves "
+              f"bit for bit what was written, the dropout generator's and the loader's state from {ckpt_mod.SIDE_FILE}; "
+              f"step 6, losses finite; no kernel launched")
+    finally:
+        trainer.save_checkpoint, trainer.load_checkpoint = real_save, real_load
+
+    best = str(save / "best")
+    photo = workdir / "orbax_write_photo1080.png"
+    with Image.open(REPO / "data" / "convergence" / "lowlight_000.png") as im:
+        im.convert("RGB").resize((1920, 1080), Image.BILINEAR).save(photo)
+    launches: dict[str, int] = {}
+    for mode, want in (("enhance", {**LAB_CLAHE_ONCE, **FAM_TWICE}), ("predict", FAM_TWICE)):
+        out = workdir / f"orbax_write_{mode}"
+        got_launches, sec = run_cli(torch, modules, ["--mode", mode, "--checkpoint", best, "--input_path", str(photo),
+                                                     "--output_dir", str(out), "--max_size", "1920", "--device", "cuda"])
+        check_launches(got_launches, want, f"--mode {mode} from the card's Orbax checkpoint")
+        got = check_pngs(out, photo.stem, (1088, 1920, 3))
+        print(f"  --mode {mode} --checkpoint <save_dir>/best --max_size 1920: {sec:.2f} s, launches "
+              f"{ {k: v for k, v in got_launches.items() if v} }")
+        for k, v in got_launches.items():
+            launches[k] = launches.get(k, 0) + v
+        if mode == "enhance":
+            hold_to_cpu(torch, got, photo, 1920, packed=True, checkpoint=best)
+    return launches
+
+
 def seed0_checkpoint(torch, workdir: Path) -> str:
     """The CLI's untrained weights (seed 0) as a ``.pth``, for predict."""
     from retinex_tpu_torch.cli import init_untrained
@@ -4765,12 +4895,12 @@ def seed0_checkpoint(torch, workdir: Path) -> str:
 
 
 def serving_alone(torch, kernels, line: str) -> int:
-    """``chip_smoke.py --phase 22``, ``23``, ``24`` or ``25``: the build and
-    that phase alone (22 and 23 with the seed-0 weights)."""
+    """``chip_smoke.py --phase 22``, ``23``, ``24``, ``25`` or ``26``: the
+    build and that phase alone (22 and 23 with the seed-0 weights)."""
     import argparse
 
     parser = argparse.ArgumentParser(description="the build and one phase alone")
-    parser.add_argument("--phase", type=int, choices=(22, 23, 24, 25), required=True)
+    parser.add_argument("--phase", type=int, choices=(22, 23, 24, 25, 26), required=True)
     phase = parser.parse_args().phase
     for stem, built in kernels.build().items():
         print(f"  {built.path.name}: built in {built.seconds:.2f} s")
@@ -4793,6 +4923,13 @@ def serving_alone(torch, kernels, line: str) -> int:
             modules = (clahe_gather, clahe_luma, fused_blocks, conv_pallas, clahe_pallas)
             launches = orbax_phase(torch, modules, Path(tmp))
             print(f"  launches of the enhance and predict runs and the served call: {launches}")
+        elif phase == 26:
+            from retinex_tpu_torch.ops import clahe_gather, clahe_luma, clahe_pallas, conv_pallas, fused_blocks
+
+            print("phase 26 alone: the trainer writes the JAX package's Orbax checkpoints")
+            modules = (clahe_gather, clahe_luma, fused_blocks, conv_pallas, clahe_pallas)
+            launches = orbax_write_phase(torch, modules, Path(tmp))
+            print(f"  launches of the enhance and predict runs: {launches}")
         else:
             from retinex_tpu_torch.ops import clahe_gather, clahe_luma, clahe_pallas, conv_pallas, fused_blocks
 
@@ -4899,9 +5036,13 @@ def main() -> int:
         print("phase 25: the JAX package's checkpoint (tests/fixtures/orbax_jax/latest, Orbax) read without JAX, "
               "then --checkpoint with enhance, predict and export_serving and --resume with train")
         ox_launches = orbax_phase(torch, (cg, cl, fb, cp, kp), Path(tmp))
+        print("phase 26: the trainer writes the JAX package's Orbax checkpoints: --mode train into directories, "
+              "read back, --resume, then enhance and predict from <save_dir>/best")
+        ow_launches = orbax_write_phase(torch, (cg, cl, fb, cp, kp), Path(tmp))
     recs.update(amp_recs)
     launches.update(amp_launches)
-    for name, n in [*serving_launches.items(), *dp_launches.items(), *sp_launches.items(), *ox_launches.items()]:
+    for name, n in [*serving_launches.items(), *dp_launches.items(), *sp_launches.items(), *ox_launches.items(),
+                    *ow_launches.items()]:
         launches[name] += n
 
     for name in recs:

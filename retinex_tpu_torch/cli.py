@@ -33,7 +33,8 @@ Every enhance route of the JAX package runs, and writes ``<name>_enhanced.png``,
 
 ``--mode train`` trains the net with the seven losses, on one device or as
 the ranks of a data-parallel run (``train/trainer.py``): the epoch lines, ``best`` and
-``latest`` full-state checkpoints under ``--save_dir``, ``metrics.jsonl``,
+``latest`` under ``--save_dir`` (the JAX package's Orbax directories, full
+state; ``train/checkpoint.py``), ``metrics.jsonl``,
 ``results.csv``, sample visualisations, early stopping, ``--resume`` and a
 checkpoint on SIGTERM. ``--mode predict`` runs the net alone (no CLAHE) on a
 file or a directory and writes the same three PNGs (``infer/predict.py``);
@@ -107,9 +108,10 @@ UNTRAINED_SEED = 0
 def build_model(config: Config, device: torch.device, require_checkpoint: bool = False) -> MultiScaleUPRetinex:
     """The net in eval mode on `device`, computing in
     `config.compute_dtype` (bf16 with ``--use_amp``), with the weights of
-    `config.checkpoint` where it exists (a directory: the JAX package's Orbax
-    checkpoint, ``train/orbax.py``; a file: a reference ``.pth`` or one of
-    the port's training checkpoints), else untrained (or, with
+    `config.checkpoint` where it exists (a directory: an Orbax checkpoint,
+    the JAX package's or the port's training checkpoint, ``train/orbax.py``;
+    a file: a reference ``.pth`` or one of the torch files the port's
+    training wrote before it wrote directories), else untrained (or, with
     `require_checkpoint`, FileNotFoundError)."""
     model = MultiScaleUPRetinex(use_preact=config.use_preact, use_aspp=config.use_aspp, dtype=config.compute_dtype)
     ckpt = config.checkpoint

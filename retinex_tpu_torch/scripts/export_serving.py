@@ -7,9 +7,9 @@
 Counterpart of ``scripts/export_serving.py``. The artifact is the u8-in/u8-out
 enhance step for one letterbox canvas with a symbolic batch dimension
 (``infer/serving.py``), exported on the device it serves on: the card unless
-``--device cpu``. ``--checkpoint`` takes a reference ``.pth``, one of the
-port's training checkpoints (``<save_dir>/best``) or one of the JAX
-package's (an Orbax directory), as the CLI's does.
+``--device cpu``. ``--checkpoint`` takes a reference ``.pth`` or an Orbax
+directory, one of the port's training checkpoints (``<save_dir>/best``) or
+one of the JAX package's, as the CLI's does.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument(
         "--checkpoint", required=True,
-        help="reference .pth, the port's training checkpoint or the JAX package's (an Orbax directory)",
+        help="reference .pth, or an Orbax directory: the port's training checkpoint or the JAX package's",
     )
     ap.add_argument("--height", type=int, required=True)
     ap.add_argument("--width", type=int, required=True)

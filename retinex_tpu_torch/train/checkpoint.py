@@ -1,32 +1,38 @@
-"""Full-state checkpoints of the port's training, as torch files, and the
-JAX package's Orbax checkpoints read into the port.
+"""The port's training checkpoints: the JAX package's Orbax directories,
+written and read with numpy and ``train/orbax.py`` (no orbax or jax).
 
-Counterpart of ``retinex_tpu/train/checkpoint.py``. The port writes torch
-files; it reads those and the JAX package's Orbax directories
-(``train/orbax.py``, no orbax or jax): ``load_params_for_inference`` as the
-JAX function of that name, and ``load_checkpoint`` restores either kind
-into a train state. ``<save_dir>/latest`` and
-``<save_dir>/best`` are single files written atomically (to a temporary
-file beside them, then renamed). Each holds the whole train state, so a
-resume is exact:
+Counterpart of ``retinex_tpu/train/checkpoint.py``. ``save_checkpoint``
+writes ``<save_dir>/latest``, and ``<save_dir>/best`` when the loss
+improved, as that package's function of the name does: each an Orbax
+directory of the tree of its ``_state_to_pytree`` (``state_to_tree``):
 
-- ``model_state_dict``: the parameters and BatchNorm statistics, and
-  ``epoch``: the two keys of a reference ``.pth``, so ``--mode predict`` and
-  ``--mode enhance`` load these files with ``--checkpoint`` as they load one;
-- ``optimizer``: Adam's moments and count, and the ``grad_accum``
-  accumulator with its micro-step;
-- ``loss_state``: the DWA carry;
-- ``dropout_rng``: the dropout generator's state;
-- ``step`` (train-step calls) and ``best_loss``;
-- ``extra``: what the caller adds (the trainer: its loader's shuffle state
-  and its augmentation generator's state).
+- ``params`` and ``batch_stats``: the model's (``convert.state_dict_to_variables``);
+- ``opt_state``: ``make_optimizer``'s chain (clip and decay empty, Adam's
+  ``count``, ``mu`` and ``nu``, the schedule's ``count``), with
+  ``grad_accum > 1`` inside optax ``MultiSteps``' state (``mini_step``,
+  ``gradient_step``, ``inner_opt_state``, ``acc_grads``, ``skip_state``);
+- ``loss_prev``, ``loss_prev2``, ``loss_step``: the DWA carry;
+- ``dropout_rng``: the dropout generator's seed as JAX key data, two
+  uint32 words, low word first;
+- ``step`` (int32, as a JAX step leaves it), ``epoch`` (int64) and
+  ``best_loss`` (float64).
 
-From an Orbax directory (the JAX package's ``_state_to_pytree``: params,
-batch_stats, opt_state, loss_prev, loss_prev2, loss_step, dropout_rng,
-step, epoch, best_loss) ``load_checkpoint`` restores the parameters and
-BatchNorm statistics, Adam's ``mu``, ``nu`` and ``count`` (the third state
-of ``make_optimizer``'s chain: clip, decay, Adam, learning rate), with
-``grad_accum > 1`` optax ``MultiSteps``' accumulator and mini-step, the DWA
+So the JAX package's ``load_checkpoint``, ``load_params_for_inference``,
+``--resume``, ``--checkpoint`` and ``scripts/export_serving.py`` take what
+the port trained. The JAX tree has no place for the port's own resume
+state, so each directory also holds ``SIDE_FILE``, a small torch file: the
+dropout generator's whole state and ``extra`` (the trainer's loader
+shuffle state and augmentation generator), with the device type they
+belong to. Each directory is written beside its place and swapped in
+(``_swap_in``): a crash at any point leaves the previous checkpoint or the
+new one readable.
+
+``load_checkpoint`` restores such a directory exactly, side file included
+(where the device type matches, else as a JAX-written one), the JAX
+package's own directories, and the torch files the port wrote before it
+wrote directories. From a JAX-written directory it restores the
+parameters and BatchNorm statistics, Adam's ``mu``, ``nu`` and ``count``,
+with ``grad_accum > 1`` MultiSteps' accumulator and mini-step, the DWA
 carry and the step. Where the two packages cannot be the same:
 
 - a ``grad_accum`` that does not match the tree raises (MultiSteps' state
@@ -42,58 +48,131 @@ carry and the step. Where the two packages cannot be the same:
 
 from __future__ import annotations
 
+import ctypes
 import os
+import shutil
 
 import numpy as np
 import torch
 
 from retinex_tpu_torch.losses.total import LossState
-from retinex_tpu_torch.models.convert import adam_state_to_port, param_table, variables_to_state_dict
-from retinex_tpu_torch.train.orbax import read_orbax
+from retinex_tpu_torch.models.convert import (
+    adam_state_to_optax,
+    adam_state_to_port,
+    param_table,
+    state_dict_to_variables,
+    variables_to_state_dict,
+)
+from retinex_tpu_torch.train.orbax import read_orbax, write_orbax
+
+# The port's resume state that the JAX tree has no place for.
+SIDE_FILE = "torch_resume.pt"
+# Leaves the JAX package holds as numpy arrays (the rest are jax.Arrays).
+NUMPY_KEYS = (("epoch",), ("best_loss",))
 
 
-def _to_cpu(tree):
-    if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu()
-    if isinstance(tree, dict):
-        return {k: _to_cpu(v) for k, v in tree.items()}
-    return tree
+def state_to_tree(state, epoch: int, best_loss: float) -> dict:
+    """The JAX package's ``_state_to_pytree`` of the port's train state, as
+    numpy (module docstring); on the CPU its arrays may share the state's
+    memory, so a later step changes them."""
+    model, opt = state.model, state.optimizer
+    variables = state_dict_to_variables(model.state_dict(), model.use_aspp)
+    mu, nu, count = adam_state_to_optax({"mu": opt.mu, "nu": opt.nu, "count": opt.count}, model.use_aspp)
+    chain = [None, None, {"count": np.asarray(count, np.int32), "mu": mu, "nu": nu},
+             {"count": np.asarray(count, np.int32)}]
+    opt_state = chain
+    if opt.grad_accum > 1:
+        opt_state = {
+            "mini_step": np.asarray(opt.mini_step, np.int32), "gradient_step": np.asarray(count, np.int32),
+            "inner_opt_state": chain, "acc_grads": state_dict_to_variables(opt.acc, model.use_aspp)["params"],
+            "skip_state": (),
+        }
+    seed = state.dropout_gen.initial_seed()
+    ls = state.loss_state
+    return {
+        "params": variables["params"],
+        "batch_stats": variables["batch_stats"],
+        "opt_state": opt_state,
+        "loss_prev": ls.prev.detach().cpu().numpy(),
+        "loss_prev2": ls.prev2.detach().cpu().numpy(),
+        "loss_step": ls.step.detach().cpu().numpy().astype(np.int32),
+        "dropout_rng": np.array([seed & 0xFFFFFFFF, seed >> 32], np.uint32),
+        "step": np.asarray(state.step, np.int32),
+        "epoch": np.asarray(epoch, np.int64),
+        "best_loss": np.asarray(best_loss, np.float64),
+    }
 
 
-def state_to_dict(state, epoch: int, best_loss: float, extra: dict | None = None) -> dict:
-    return _to_cpu({
-        "epoch": int(epoch),
-        "model_state_dict": state.model.state_dict(),
-        "optimizer": state.optimizer.state_dict(),
-        "loss_state": {"prev": state.loss_state.prev, "prev2": state.loss_state.prev2, "step": state.loss_state.step},
-        "dropout_rng": state.dropout_gen.get_state(),
-        "step": int(state.step),
-        "best_loss": float(best_loss),
-        "extra": extra or {},
-    })
+def _remove(path: str) -> None:
+    if os.path.isdir(path) and not os.path.islink(path):
+        shutil.rmtree(path)
+    elif os.path.lexists(path):
+        os.unlink(path)
 
 
-def _atomic_save(obj: dict, path: str) -> None:
+def _exchange(a: str, b: str) -> bool:
+    """Swap two paths in one step (Linux ``renameat2(RENAME_EXCHANGE)``);
+    False where the system or the file system has no such call."""
+    fn = getattr(ctypes.CDLL(None, use_errno=True), "renameat2", None)
+    if fn is None:
+        return False
+    at_fdcwd, rename_exchange = -100, 2
+    return fn(at_fdcwd, os.fsencode(a), at_fdcwd, os.fsencode(b), rename_exchange) == 0
+
+
+def _swap_in(new: str, path: str) -> None:
+    """Put the finished directory `new` at `path`, whatever was there (an
+    older directory or torch file) removed after. With the exchange,
+    `path` always holds a whole checkpoint; without it, a crash between the
+    two renames leaves the previous one at ``<path>.old`` and the new one at
+    `new`."""
+    if not os.path.lexists(path):
+        os.rename(new, path)
+    elif _exchange(new, path):
+        _remove(new)
+    else:
+        old = f"{path}.old"
+        _remove(old)
+        os.rename(path, old)
+        os.rename(new, path)
+        _remove(old)
+
+
+def _write_dir(path: str, tree: dict, side: dict) -> int:
+    """`tree` as an Orbax directory at `path` with `side` in ``SIDE_FILE``,
+    written at ``<path>.tmp`` and swapped in; returns the bytes written."""
     tmp = f"{path}.tmp"
-    torch.save(obj, tmp)
-    os.replace(tmp, path)
+    _remove(tmp)
+    try:
+        n = write_orbax(tmp, tree, numpy_keys=NUMPY_KEYS)
+        torch.save(side, os.path.join(tmp, SIDE_FILE))
+    except BaseException:
+        _remove(tmp)
+        raise
+    _swap_in(tmp, path)
+    return n + os.path.getsize(os.path.join(path, SIDE_FILE))
 
 
 def save_checkpoint(
     state, save_dir: str, epoch: int, best_loss: float, is_best: bool, extra: dict | None = None
-) -> None:
-    """Write ``latest`` always, and ``best`` when `is_best`."""
+) -> int:
+    """Write ``latest`` always, and ``best`` when `is_best` (module
+    docstring); returns the bytes of one directory."""
     os.makedirs(save_dir, exist_ok=True)
-    obj = state_to_dict(state, epoch, best_loss, extra)
-    _atomic_save(obj, os.path.join(save_dir, "latest"))
+    tree = state_to_tree(state, epoch, best_loss)
+    gen = state.dropout_gen
+    side = {"device": gen.device.type, "dropout_rng": gen.get_state(), "extra": extra or {}}
+    n = _write_dir(os.path.join(save_dir, "latest"), tree, side)
     if is_best:
-        _atomic_save(obj, os.path.join(save_dir, "best"))
+        _write_dir(os.path.join(save_dir, "best"), tree, side)
+    return n
 
 
 def load_checkpoint(state, path: str):
-    """Restore a checkpoint into `state` (in place, onto its device): one of
-    the port's files or the JAX package's Orbax directory. Returns (state,
-    start_epoch, best_loss, extra); start_epoch is the saved epoch + 1."""
+    """Restore a checkpoint into `state` (in place, onto its device): an
+    Orbax directory (the port's or the JAX package's) or one of the torch
+    files the port wrote before. Returns (state, start_epoch, best_loss,
+    extra); start_epoch is the saved epoch + 1."""
     if os.path.isdir(path):
         return _load_orbax(state, path)
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
@@ -185,4 +264,11 @@ def _load_orbax(state, path: str):
     key = np.ascontiguousarray(tree["dropout_rng"], dtype=np.uint32).tobytes()
     state.dropout_gen.manual_seed(int.from_bytes(key, "little") % (1 << 64))
     state.step = int(tree["step"])
-    return state, int(tree["epoch"]) + 1, float(tree["best_loss"]), {}
+    extra = {}
+    side_path = os.path.join(path, SIDE_FILE)
+    if os.path.exists(side_path):
+        side = torch.load(side_path, map_location="cpu", weights_only=True)
+        if side["device"] == state.dropout_gen.device.type:
+            state.dropout_gen.set_state(side["dropout_rng"])
+            extra = side["extra"]
+    return state, int(tree["epoch"]) + 1, float(tree["best_loss"]), extra

@@ -1,5 +1,6 @@
-"""Read the JAX package's Orbax checkpoints, with numpy and the port's own
-zstd decoder: no orbax, tensorstore, jax or zstandard.
+"""Read and write the JAX package's Orbax checkpoints, with numpy and the
+port's own zstd decoder and CRC-32C: no orbax, tensorstore, jax or
+zstandard.
 
 ``retinex_tpu/train/checkpoint.py`` writes ``<save_dir>/{best,latest}`` with
 ``orbax.checkpoint.StandardCheckpointer``. Such a directory holds:
@@ -31,8 +32,18 @@ non-OCDBT layout, a numbered manifest, a compressor other than zstd) raises
 processes is read the same way (the root's nodes point into every
 process's files); the tests can only write single-process ones.
 
-The zstd decoder is ``csrc/zstd_decode.cpp``, built with the host's C++
-compiler on first use (``ops/_kernels.host_library``).
+``write_orbax(path, tree)`` writes what orbax 0.11's
+``StandardCheckpointer`` writes in one process, in the simplest form the
+format allows, since the port has no zstd encoder: each array one zarr v2
+chunk that is a zstd frame of stored blocks (``zstd_stored``), the store
+one uncompressed B-tree leaf node (the arrays' chunks over 1024 bytes in
+one data file under ``d/``, the rest inline) and an uncompressed
+single-file manifest; no ``_sharding`` file (orbax then restores with the
+template's shardings, or as numpy arrays without a template). Orbax,
+tensorstore and ``read_orbax`` read it.
+
+The zstd decoder and the CRC-32C are ``csrc/zstd_decode.cpp``, built with
+the host's C++ compiler on first use (``ops/_kernels.host_library``).
 """
 
 from __future__ import annotations
@@ -43,6 +54,8 @@ import json
 import math
 import os
 import struct
+import time
+import uuid
 
 import numpy as np
 
@@ -398,3 +411,187 @@ def read_orbax(path: str, select: tuple[str, ...] | None = None) -> dict:
         else:
             raise OrbaxFormatError(f"{path}: value type {vtype!r} at {[x['key'] for x in keys]}")
     return _seqs_to_lists(tree)
+
+
+# ---- writing ------------------------------------------------------------------------
+
+# orbax 0.11's store settings (tensorstore_utils.add_ocdbt_write_options) and
+# its item handler's name in _CHECKPOINT_METADATA.
+MAX_INLINE_VALUE_BYTES = 1024
+MAX_DECODED_NODE_BYTES = 100_000_000
+_VERSION_TREE_ARITY_LOG2 = 4
+HANDLER = "orbax.checkpoint._src.handlers.standard_checkpoint_handler.StandardCheckpointHandler"
+_ZSTD_MAGIC = b"\x28\xb5\x2f\xfd"
+_ZSTD_BLOCK = 128 * 1024  # the largest block a frame may hold
+
+
+def _varint(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        out.append((n & 0x7F) | (0x80 if n > 0x7F else 0))
+        n >>= 7
+        if not n:
+            return bytes(out)
+
+
+def _varints(ns) -> bytes:
+    return b"".join(_varint(n) for n in ns)
+
+
+def zstd_stored(data) -> bytes:
+    """`data` as one zstd frame of raw (stored) blocks: a valid RFC 8878
+    frame that any decoder reads, about as long as `data`. Single segment,
+    the content size in the header, no checksum."""
+    data = memoryview(data).cast("B")
+    n = len(data)
+    for flag, width, size in ((0, 1, n), (1, 2, n - 256), (2, 4, n), (3, 8, n)):
+        if 0 <= size < 1 << (8 * width):
+            break
+    out = [_ZSTD_MAGIC, bytes([flag << 6 | 0x20]), size.to_bytes(width, "little")]
+    starts = range(0, n, _ZSTD_BLOCK) if n else [0]
+    for start in starts:
+        block = data[start:start + _ZSTD_BLOCK]
+        last = start + _ZSTD_BLOCK >= n
+        out += [(len(block) << 3 | int(last)).to_bytes(3, "little"), block]
+    return b"".join(out)
+
+
+def _frame_of(body: bytes, magic: int) -> bytes:
+    """What ``_framed`` reads: magic, total length, version 0, compression
+    0 (none), the body, the CRC-32C of all before it."""
+    head = struct.pack(">I", magic)
+    rest = _varint(0) + _varint(0) + body
+    raw = head + struct.pack("<Q", len(head) + 8 + len(rest) + 4) + rest
+    return raw + struct.pack("<I", crc32c(raw))
+
+
+def _table_of(paths: list[str]) -> bytes:
+    """A data file table (``_file_table``), each path's base path empty."""
+    names = [p.encode() for p in paths]
+    prefix = [len(os.path.commonprefix([a, b])) for a, b in zip(names, names[1:])]
+    suffix = [len(k) - p for k, p in zip(names, [0, *prefix])]
+    return (_varint(len(names)) + _varints(prefix) + _varints(suffix) + _varints([0] * len(names))
+            + b"".join(k[p:] for k, p in zip(names, [0, *prefix])))
+
+
+def _leaf_node(values: dict[bytes, bytes | tuple[int, int]], data_file: str) -> bytes:
+    """One B-tree leaf node (height 0) of every key: inline bytes, or
+    (offset, length) in `data_file`."""
+    keys = sorted(values)
+    prefix = [len(os.path.commonprefix([a, b])) for a, b in zip(keys, keys[1:])]
+    suffix = [len(k) - p for k, p in zip(keys, [0, *prefix])]
+    indirect = [k for k in keys if isinstance(values[k], tuple)]
+    body = [
+        b"\x00", _table_of([data_file] if indirect else []), _varint(len(keys)), _varints(prefix), _varints(suffix),
+        b"".join(k[p:] for k, p in zip(keys, [0, *prefix])),
+        _varints(values[k][1] if isinstance(values[k], tuple) else len(values[k]) for k in keys),
+        _varints(int(isinstance(values[k], tuple)) for k in keys),
+        _varints([0] * len(indirect)), _varints(values[k][0] for k in indirect),
+        b"".join(values[k] for k in keys if not isinstance(values[k], tuple)),
+    ]
+    return b"".join(body)
+
+
+def _manifest(data_file: str, node_offset: int, node_length: int, num_keys: int, indirect_bytes: int) -> bytes:
+    """A single-file manifest of one version (generation 1) whose root is the
+    leaf node at `node_offset` in `data_file`; config as orbax writes it but
+    with uncompressed nodes."""
+    body = [
+        uuid.uuid4().bytes, _varint(0), _varint(MAX_INLINE_VALUE_BYTES), _varint(MAX_DECODED_NODE_BYTES),
+        bytes([_VERSION_TREE_ARITY_LOG2]), _varint(0), _table_of([data_file]),
+        # one version: generation, root height, file, offset, length, keys,
+        # tree bytes, indirect value bytes, commit time; no version nodes
+        _varint(1), _varint(1), b"\x00", _varint(0), _varint(node_offset), _varint(node_length),
+        _varint(num_keys), _varint(node_length), _varint(indirect_bytes), struct.pack("<Q", time.time_ns()), _varint(0),
+    ]
+    return _frame_of(b"".join(body), MANIFEST_MAGIC)
+
+
+_EMPTY_TYPES = {type(None) if t is None else t: name for name, t in _EMPTY.items()}
+
+
+def _entries(tree, keys: tuple = ()):
+    """(key metadata, leaf) of every leaf in the tree's order; a non-empty
+    dict's keys are dict keys, a non-empty list's or tuple's indices."""
+    if isinstance(tree, dict) and tree:
+        for k, v in tree.items():
+            yield from _entries(v, (*keys, {"key": str(k), "key_type": 2}))
+    elif isinstance(tree, (list, tuple)) and tree:
+        for i, v in enumerate(tree):
+            yield from _entries(v, (*keys, {"key": str(i), "key_type": 1}))
+    else:
+        yield list(keys), tree
+
+
+def _zarray(arr: np.ndarray) -> bytes:
+    meta = {"chunks": [max(s, 1) for s in arr.shape], "compressor": {"id": "zstd", "level": 1},
+            "dimension_separator": ".", "dtype": arr.dtype.str, "fill_value": None, "filters": None,
+            "order": "C", "shape": list(arr.shape), "zarr_format": 2}
+    return json.dumps(meta, separators=(",", ":"), sort_keys=True).encode()
+
+
+def write_orbax(path: str, tree, numpy_keys=()) -> int:
+    """Write `tree` at `path` (a new directory) as orbax 0.11's
+    ``StandardCheckpointer`` writes it in one process: ``_METADATA``,
+    ``_CHECKPOINT_METADATA``, ``manifest.ocdbt`` and one data file under
+    ``d/`` holding every array's chunk that is not inline and the store's
+    one B-tree leaf node. Leaves: numpy arrays (value type ``jax.Array``,
+    or ``np.ndarray`` at the key paths of `numpy_keys`, tuples of keys),
+    Python ints and floats (``scalar``), None and empty containers. Each
+    array is one zarr v2 chunk, a zstd frame of stored blocks; nodes and
+    the manifest are uncompressed. Returns the bytes written."""
+    os.makedirs(path)
+    numpy_keys = {tuple(k) for k in numpy_keys}
+    tree_meta, values, chunks = {}, {}, []
+    for keys, leaf in _entries(tree):
+        names = tuple(km["key"] for km in keys)
+        if type(leaf) in _EMPTY_TYPES:
+            value = {"value_type": _EMPTY_TYPES[type(leaf)], "skip_deserialize": True}
+        elif isinstance(leaf, (int, float, np.ndarray)) and not isinstance(leaf, bool):
+            arr = np.asarray(leaf)
+            if arr.dtype.kind not in "biufc":
+                raise TypeError(f"{'.'.join(names)}: cannot write dtype {arr.dtype}")
+            if isinstance(leaf, np.ndarray):
+                value = ({"value_type": "np.ndarray", "skip_deserialize": False} if names in numpy_keys else
+                         {"value_type": "jax.Array", "skip_deserialize": False, "write_shape": list(arr.shape)})
+            else:
+                value = {"value_type": "scalar", "skip_deserialize": False}
+            name = ".".join(names)
+            values[f"{name}/.zarray".encode()] = _zarray(arr)
+            if arr.size:
+                chunk = zstd_stored(np.ascontiguousarray(arr).view(np.uint8).reshape(-1))
+                key = f"{name}/{'.'.join('0' * arr.ndim) if arr.ndim else '0'}".encode()
+                values[key] = chunk
+        else:
+            raise TypeError(f"{'.'.join(names)}: cannot write a leaf of type {type(leaf).__name__}")
+        tree_meta[repr(names)] = {"key_metadata": keys, "value_metadata": value}
+    # Chunks over the inline limit go to the data file, the node after them.
+    data_file = f"d/{uuid.uuid4().hex}"
+    offset = 0
+    for key, value in values.items():
+        if len(value) > MAX_INLINE_VALUE_BYTES:
+            chunks.append(value)
+            values[key] = (offset, len(value))
+            offset += len(value)
+    node = _frame_of(_leaf_node(values, data_file), NODE_MAGIC)
+    if len(node) > MAX_DECODED_NODE_BYTES:
+        raise ValueError(f"{path}: a B-tree node of {len(node)} bytes; orbax's limit is {MAX_DECODED_NODE_BYTES}")
+    started = time.time_ns()
+    os.makedirs(os.path.join(path, "d"))
+    files = {
+        data_file: [*chunks, node],
+        "manifest.ocdbt": [_manifest(data_file, offset, len(node), len(values), offset)],
+        "_METADATA": [json.dumps({"tree_metadata": tree_meta, "use_ocdbt": True, "use_zarr3": False,
+                                  "store_array_data_equal_to_fill_value": True, "custom_metadata": None}).encode()],
+    }
+    written = 0
+    for name, parts in files.items():
+        with open(os.path.join(path, name), "wb") as f:
+            f.writelines(parts)
+        written += sum(len(p) for p in parts)
+    meta = json.dumps({"item_handlers": HANDLER, "metrics": {}, "performance_metrics": {},
+                       "init_timestamp_nsecs": started, "commit_timestamp_nsecs": time.time_ns(),
+                       "custom_metadata": {}}).encode()
+    with open(os.path.join(path, "_CHECKPOINT_METADATA"), "wb") as f:
+        f.write(meta)
+    return written + len(meta)

@@ -25,7 +25,7 @@ JAX trainer's gate (``use_packed_train``):
   written as epoch - 1 (so the cut epoch re-runs on ``--resume``) and the
   run returns; a second signal raises KeyboardInterrupt.
 
-A checkpoint also holds the loader's shuffle state and the augmentation
+A checkpoint's side file (``train/checkpoint.SIDE_FILE``) also holds the loader's shuffle state and the augmentation
 generator's state as they were at the start of the next epoch to run, so
 ``--resume`` continues the batch order and the draws where the run left
 them, and two epochs equal one epoch and a resume bit for bit. (The JAX

@@ -365,9 +365,14 @@ def test_cli_trains_in_bf16_with_remat_and_predicts_from_it(tmp_path):
     cli.main(["--mode", "train", "--use_amp", "--remat", "--train_dir", str(src), "--save_dir", str(save),
               "--num_epochs", "2", "--batch_size", "2", "--image_size", "32", "--save_freq", "1",
               "--no-use_perceptual_loss", "--device", "cpu", "--num_workers", "2"])
-    ckpt = torch.load(save / "latest", map_location="cpu", weights_only=True)
+    from retinex_tpu_torch.models.convert import variables_to_state_dict
+    from retinex_tpu_torch.train.orbax import read_orbax
+
+    ckpt = read_orbax(str(save / "latest"))
     assert ckpt["step"] == 4 and ckpt["epoch"] == 1
-    sd = ckpt["model_state_dict"]
+    assert all(v.dtype == np.float32 for tree in (ckpt["params"], ckpt["opt_state"][2]["mu"])
+               for v in jtu.tree_leaves(tree))
+    sd = variables_to_state_dict(ckpt, False, False)
     assert all(v.dtype == torch.float32 for k, v in sd.items() if v.is_floating_point())
     assert all(torch.isfinite(v).all() for v in sd.values() if v.is_floating_point())
     plain = MultiScaleUPRetinex(False, False)

@@ -208,7 +208,7 @@ def test_unported_routes_raise(tmp_path, args, capsys):
     cli.main(base + args)
     out = capsys.readouterr().out
     if "train" in args:
-        assert (tmp_path / "train" / "latest").exists()
+        assert (tmp_path / "train" / "latest" / "_METADATA").is_file()
     else:
         assert (tmp_path / f"{PHOTO.stem}_enhanced.png").exists()
         assert ("H split over 2 devices" in out) == ("--n_devices" in args)

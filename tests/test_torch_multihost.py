@@ -157,7 +157,8 @@ def test_cli_train_on_two_ranks_then_predict(tmp_path):
     one = _cli(*base, "--save_dir", str(tmp_path / "one"), cwd=tmp_path)
     assert "Data parallel: 2 rank(s), 2 on this host" in two and "(rank 0 of 2)" in two
     assert two.count("Epoch 0:") == 1  # the other rank prints nothing
-    assert sorted(p.name for p in (tmp_path / "two").iterdir() if p.is_file()) == ["best", "latest", "results.csv"]
+    assert sorted(p.name for p in (tmp_path / "two").iterdir() if p.is_file()) == ["results.csv"]
+    assert sorted(p.name for p in (tmp_path / "two").iterdir() if (p / "_METADATA").is_file()) == ["best", "latest"]
 
     def total(run):
         with open(tmp_path / run / "results.csv", newline="") as f:

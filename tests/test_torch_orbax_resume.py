@@ -63,6 +63,7 @@ from retinex_tpu_torch.models.convert import adam_state_to_optax, state_dict_to_
 from retinex_tpu_torch.models.init import init_untrained
 from retinex_tpu_torch.models.retinex_net import MultiScaleUPRetinex
 from retinex_tpu_torch.train.checkpoint import load_checkpoint
+from retinex_tpu_torch.train.orbax import read_orbax
 from retinex_tpu_torch.train.train_state import create_train_state, loss_and_grads, train_step
 from retinex_tpu_torch.train.trainer import build_criterion
 from test_torch_orbax import FIXTURE, same_as_orbax
@@ -242,8 +243,8 @@ def test_cli_resumes_the_jax_checkpoint_on_one_rank_and_two(tmp_path):
         assert f"Resumed from {FIXTURE} at epoch {start}" in out and out.count(f"Epoch {start}:") == 1
     assert "Data parallel: 2 rank(s)" in two
     for run in ("one", "two"):
-        last = torch.load(tmp_path / run / "latest", map_location="cpu", weights_only=True)
-        assert (last["step"], last["epoch"], last["optimizer"]["count"]) == (2, start, 2)
+        last = read_orbax(str(tmp_path / run / "latest"))
+        assert (last["step"], last["epoch"], last["opt_state"][2]["count"]) == (2, start, 2)
 
     def total(run):
         with open(tmp_path / run / "results.csv", newline="") as f:

@@ -303,6 +303,7 @@ def test_a_packed_checkpoint_resumes_in_the_standard_trainer_and_back(tiny_datas
                            resume=str(tmp_path / "run" / "latest")))
     out = capsys.readouterr().out
     assert "packed_train: CPU backend, using the standard step" in out and "Resumed from" in out
+    assert (tmp_path / "run" / "latest" / "_METADATA").is_file()
     assert result["epochs_run"] == 2
     back = create_train_state(port_model(False, False, seed=15), lambda s: LR)
     back, start, _, _ = load_checkpoint(back, str(tmp_path / "run" / "latest"))

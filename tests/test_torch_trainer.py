@@ -1,7 +1,8 @@
-"""The port's training loop on the CPU (no JAX): files written, exact
-checkpoints and resume, a falling loss, SIGTERM, and inference from the
-trained checkpoint. Counterpart of tests/test_train_loop.py,
-test_checkpoint.py and test_preemption.py."""
+"""The port's training loop on the CPU: files written, exact checkpoints
+(Orbax directories) and resume, a falling loss, SIGTERM, and inference from
+the trained checkpoint. Counterpart of tests/test_train_loop.py,
+test_checkpoint.py and test_preemption.py. The JAX package is imported by
+one test only, to read a checkpoint's parameters."""
 
 import copy
 import csv
@@ -20,11 +21,17 @@ from PIL import Image
 
 from retinex_tpu_torch import cli
 from retinex_tpu_torch.config import Config
-from retinex_tpu_torch.models.convert import load_reference_checkpoint
+from retinex_tpu_torch.models.convert import variables_to_state_dict
 from retinex_tpu_torch.models.init import init_untrained
 from retinex_tpu_torch.models.retinex_net import MultiScaleUPRetinex
-from retinex_tpu_torch.train.checkpoint import load_checkpoint, load_params_for_inference, save_checkpoint, state_dict_for
-from retinex_tpu_torch.train.orbax import OrbaxFormatError
+from retinex_tpu_torch.train.checkpoint import (
+    SIDE_FILE,
+    load_checkpoint,
+    load_params_for_inference,
+    save_checkpoint,
+    state_dict_for,
+)
+from retinex_tpu_torch.train.orbax import OrbaxFormatError, read_orbax
 from retinex_tpu_torch.train.train_state import create_train_state, train_step
 from retinex_tpu_torch.train.trainer import build_criterion, train
 from retinex_tpu_torch.utils.viz import create_gif
@@ -60,20 +67,29 @@ def _config(tiny_dataset, save_dir, **overrides) -> Config:
     return Config(**base)
 
 
-def _same_state(a: dict, b: dict, what: str = ""):
-    assert a.keys() == b.keys(), what
-    for k in a:
-        x, y = a[k], b[k]
-        if isinstance(x, dict):
-            _same_state(x, y, f"{what}.{k}")
-        elif isinstance(x, torch.Tensor):
-            assert torch.equal(x, y), f"{what}.{k}"
-        else:
-            assert x == y, f"{what}.{k}: {x} != {y}"
+def _same_state(a, b, what: str = ""):
+    """Bit for bit: nested dicts and lists of tensors, numpy arrays and
+    plain values."""
+    if isinstance(a, dict):
+        assert isinstance(b, dict) and a.keys() == b.keys(), what
+        for k in a:
+            _same_state(a[k], b[k], f"{what}.{k}")
+    elif isinstance(a, (list, tuple)):
+        assert type(a) is type(b) and len(a) == len(b), what
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same_state(x, y, f"{what}[{i}]")
+    elif isinstance(a, torch.Tensor):
+        assert torch.equal(a, b), what
+    elif isinstance(a, np.ndarray):
+        assert a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes(), what
+    else:
+        assert a == b, f"{what}: {a} != {b}"
 
 
 def _ckpt(path):
-    return torch.load(path, map_location="cpu", weights_only=True)
+    """A checkpoint directory: its Orbax tree and its side file."""
+    side = torch.load(os.path.join(path, SIDE_FILE), map_location="cpu", weights_only=True)
+    return {"tree": read_orbax(str(path)), "side": side}
 
 
 def test_train_two_epochs_writes_checkpoints_and_logs(tiny_dataset, tmp_path, capsys):
@@ -83,8 +99,9 @@ def test_train_two_epochs_writes_checkpoints_and_logs(tiny_dataset, tmp_path, ca
     assert result["epochs_run"] == 2 and np.isfinite(result["best_loss"])
     assert "5 images, 2 batches/epoch (1 re-shuffled into later epochs)" in out
     assert "Epoch 0: time" in out and "Epoch 1: time" in out and "using the standard step" in out
-    for name in ("best", "latest", "results.csv"):
-        assert os.path.isfile(os.path.join(cfg.save_dir, name)), name
+    for name in ("best", "latest"):
+        assert os.path.isfile(os.path.join(cfg.save_dir, name, "_METADATA")), name
+    assert os.path.isfile(os.path.join(cfg.save_dir, "results.csv"))
     (log_dir,) = os.listdir(os.path.join(cfg.save_dir, "logs"))
     with open(os.path.join(cfg.save_dir, "logs", log_dir, "metrics.jsonl")) as f:
         tags = {json.loads(line)["tag"] for line in f}
@@ -96,8 +113,8 @@ def test_train_two_epochs_writes_checkpoints_and_logs(tiny_dataset, tmp_path, ca
     assert vis[0] == "epoch_0_batch_0_sample_0.png" and len(vis) == 8
     with Image.open(os.path.join(cfg.save_dir, "visualizations", vis[0])) as im:
         assert im.size == (96, 32)
-    ck = _ckpt(os.path.join(cfg.save_dir, "latest"))
-    assert ck["epoch"] == 1 and ck["step"] == 4 and ck["optimizer"]["count"] == 4
+    ck = _ckpt(os.path.join(cfg.save_dir, "latest"))["tree"]
+    assert ck["epoch"] == 1 and ck["step"] == 4 and ck["opt_state"][2]["count"] == 4
     gif = os.path.join(cfg.save_dir, "samples.gif")
     create_gif([os.path.join(cfg.save_dir, "visualizations", v) for v in vis[:3]], gif)
     with Image.open(gif) as im:
@@ -105,8 +122,10 @@ def test_train_two_epochs_writes_checkpoints_and_logs(tiny_dataset, tmp_path, ca
 
 
 def test_checkpoint_round_trip_is_exact(tmp_path):
-    """Every part of the state survives save and load; the file also reads
-    as a reference .pth (model_state_dict and epoch)."""
+    """Every part of the state survives save and load; the parameters read
+    the same through both packages' load_params_for_inference."""
+    from retinex_tpu.train.checkpoint import load_params_for_inference as jax_load_params
+
     cfg = Config(use_aspp=True, use_preact=True, use_perceptual_loss=False, adaptive_weights=True, grad_accum=2)
     crit = build_criterion(cfg, torch.device("cpu"))
 
@@ -127,9 +146,10 @@ def test_checkpoint_round_trip_is_exact(tmp_path):
     for k in ("prev", "prev2", "step"):
         assert torch.equal(getattr(back.loss_state, k), getattr(state.loss_state, k)), k
     assert torch.equal(back.dropout_gen.get_state(), state.dropout_gen.get_state())
-    sd, epoch = load_reference_checkpoint(str(tmp_path / "latest"))
-    assert epoch == 7
-    _same_state(sd, state.model.state_dict(), "as .pth")
+    params = load_params_for_inference(str(tmp_path / "latest"))
+    _same_state(state_dict_for(back.model, params), state.model.state_dict(), "the parameters")
+    want = jax_load_params(str(tmp_path / "latest"))
+    _same_state(params, {"params": want["params"], "batch_stats": want["batch_stats"]}, "the JAX package's parameters")
     # Both go on identically, dropout draws included.
     a, b = train_step(state, crit, x), train_step(back, crit, x)
     assert all(torch.equal(a[k], b[k]) for k in a)
@@ -143,6 +163,7 @@ def test_two_epochs_equal_one_epoch_and_a_resume(tiny_dataset, tmp_path):
                            resume=str(tmp_path / "b" / "latest")))
     assert result["epochs_run"] == 2
     a, b = _ckpt(tmp_path / "a" / "latest"), _ckpt(tmp_path / "b" / "latest")
+    assert a["side"]["extra"]["loader_rng"] and a["tree"]["step"] == 4
     _same_state(a, b, "latest")
 
 
@@ -218,7 +239,7 @@ def test_sigterm_writes_latest_and_exits_zero(tiny_dataset, tmp_path):
         rest.append(q.get() or "")
     text = "".join(seen + rest)
     assert "Preemption checkpoint written" in text, text
-    ck = _ckpt(save_dir / "latest")
+    ck = _ckpt(save_dir / "latest")["tree"]
     assert ck["step"] >= 2 * (ck["epoch"] + 1) + 1  # the cut epoch ran at least one step
     # --resume from it starts where it was cut.
     proc = _cli(tiny_dataset, save_dir, "--resume", str(save_dir / "latest"))
@@ -242,7 +263,7 @@ def test_predict_and_enhance_load_the_trained_checkpoint(tiny_dataset, tmp_path)
                   "--output_dir", str(out), "--max_size", "64", "--device", "cpu"])
         assert sorted(os.listdir(out)) == ["img_0_comparison.png", "img_0_enhanced.png", "img_0_illumination.png"]
     model = cli.build_model(Config(checkpoint=str(save_dir / "best"), device="cpu"), torch.device("cpu"))
-    trained = _ckpt(save_dir / "best")["model_state_dict"]
+    trained = variables_to_state_dict(_ckpt(save_dir / "best")["tree"], False, False)
     assert all(torch.equal(v, trained[k]) for k, v in model.state_dict().items())
     assert not torch.equal(model.state_dict()["fusion.weight"],
                            init_untrained(copy.deepcopy(model), 0).state_dict()["fusion.weight"])

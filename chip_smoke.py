@@ -10,8 +10,8 @@ Phases (any failure raises and exits nonzero; no phase is skipped):
 1. The card's name and power limit; build the CUDA kernels from every
    ``retinex_tpu_torch/csrc/*.cu`` (one nvcc per source, all at once,
    printing the seconds and the ptxas report: registers, stack and spills,
-   and for ``conv_wgmma``, ``conv_pipelined``, ``conv_narrow`` and
-   ``fam_fused`` each entry function); the instructions a pixel issues in
+   and for ``conv_wgmma``, ``conv_pipelined``, ``conv_narrow``,
+   ``fam_fused`` and ``fam_tail_wgmma`` each entry function); the instructions a pixel issues in
    each instance of K1 and K3 (``sass_instructions_per_px``) and in the
    pixel loops of K7 and K9 (the instances phase 3 times,
    ``sass_loop_instructions_per_px``), read from the libraries' SASS, which
@@ -265,11 +265,18 @@ first and last image against the kernel on each alone (identical):
    have no backward; the packed FAM is plain PyTorch).
 21. bf16 inference (``amp_phase``): the bf16 instances of K4 (whole and by
    stage; z f32; ``fam_conv_out`` on the tensor cores), K5, K6 (both w
-   layouts; the quadrant-diagonal one on the tensor cores) and K11 against
-   their bf16 plain versions at the frame's FAM shapes, a ragged one and a
-   directory chunk (one bf16 ulp, two for K4 whole, ``AMP_ULPS``), each
-   image of a batch equal to the kernel on it alone, timed against bounds
-   at 989 TFLOP/s with their share of the bound; ``--use_amp`` enhance at
+   layouts, both on the tensor cores: the quadrant-diagonal one on
+   mma.sync, the dense one on wgmma, ``csrc/fam_tail_wgmma.cu``) and K11
+   against their bf16 plain versions at the frame's FAM shapes, a ragged
+   one and a directory chunk (one bf16 ulp, two for K4 whole,
+   ``AMP_ULPS``), each image of a batch equal to the kernel on it alone,
+   timed against bounds at 989 TFLOP/s with their share of the bound; K6's
+   bf16 library time, torch.einsum of its function in bf16 on both w
+   (``k6_library_phase``); K6's dense instance at Cout 4 and 36 and,
+   unpacked on the quadrant-diagonal w, against the quadrant-diagonal
+   instance, each within one bf16 ulp, an unpacked call timed beside a
+   packed one, and driven as a caller drives the op, its launches counted
+   from zero (``amp_dense_phase``); ``--use_amp`` enhance at
    ``--max_size 1920`` and with no flags (K11) and predict from phase 20's
    checkpoint through the CLI, with their launch counts (``BF16_LAUNCHES``;
    the f32 FAM counts 0), the PNGs against f32 from the same checkpoint
@@ -428,13 +435,17 @@ K4, K5, K6 and K11 also have bf16 entries (``fam_conv_fused_bf16``,
 ``fam_tail_stats_bf16``, ``fam_tail_apply_g1_bf16``,
 ``fam_tail_apply_bf16``; ``dtype`` bfloat16), timed in phase 21 per image
 like their f32 entries, their launches those of phase 21's CLI drives;
+K6's dense bf16 instance has one too (``fam_tail_apply_g1_dense_bf16``, the
+wgmma kernel, on the dense w), timed the same way, its launches those of
+phase 21's op drive (no route launches it);
 so do K10's (``dec1_chain_bf16`` and its four stages, per image at
 1088x1920 like the f32 K10), their launches those of phase 21's two bf16
 dec1-chain forwards.
 ``library_ms`` is ``F.conv2d``'s time (+ ReLU where the kernel applies
 one) for K13-K15 and each of K10's four stages (``dec1_c2`` adds x1p),
 ``torch.einsum``'s of K6's whole function (``tail_g1_einsum``, on the main
-path's w) for K6, ``F.conv2d`` in bf16 (+ ReLU, + x1p) for K10's bf16
+path's w) for K6, in bf16 for its bf16 entries (on the dense w for the
+dense one), ``F.conv2d`` in bf16 (+ ReLU, + x1p) for K10's bf16
 stages, and null elsewhere: no one call computes K4, K10 or K12 whole.
 """
 
@@ -551,6 +562,7 @@ REPLACES = {
     "fam_tail_stats_bf16": "retinex_tpu/ops/fused_blocks.py:321",
     "fam_tail_apply_g1_bf16": "retinex_tpu/ops/fused_blocks.py:517",
     "fam_tail_apply_bf16": "retinex_tpu/ops/fused_blocks.py:338",
+    "fam_tail_apply_g1_dense_bf16": "retinex_tpu/ops/fused_blocks.py:517",
     "dec1_chain_bf16": "retinex_tpu/ops/fused_blocks.py:186",
     "dec1_up_bf16": "retinex_tpu/ops/fused_blocks.py:186",
     "dec1_c1_bf16": "retinex_tpu/ops/fused_blocks.py:186",
@@ -595,6 +607,7 @@ SOURCES = {
     "fam_tail_stats_bf16": "retinex_tpu_torch/csrc/fam_fused.cu",
     "fam_tail_apply_g1_bf16": "retinex_tpu_torch/csrc/fam_fused.cu",
     "fam_tail_apply_bf16": "retinex_tpu_torch/csrc/fam_fused.cu",
+    "fam_tail_apply_g1_dense_bf16": "retinex_tpu_torch/csrc/fam_tail_wgmma.cu",
     "dec1_chain_bf16": "retinex_tpu_torch/csrc/conv_wgmma.cu",
     "dec1_up_bf16": "retinex_tpu_torch/csrc/conv_wgmma.cu",
     "dec1_c1_bf16": "retinex_tpu_torch/csrc/conv_wgmma.cu",
@@ -1431,24 +1444,44 @@ def tail_g1_einsum(torch, x, ca_vec, sa, w):
     ).view(b, h, wd, -1)
 
 
-def k6_library_phase(torch, fb) -> dict:
+# The bf16 einsum of K6's function against the plain version: w rounded to
+# bf16 moves each product by up to 2**-9 of itself, so a few bf16 ulps.
+K6_BF16_LIBRARY_ULPS = 4
+
+
+def k6_library_phase(torch, fb, bf16: bool = False) -> dict:
     """K6's library time per 1088x1920 image (the letterboxed shapes'
     launches summed): ``tail_g1_einsum`` on the quadrant-diagonal w and on
-    the dense w of ``fam_inputs``, each first held to the plain version
-    within K6's tolerance; and, as a yardstick, torch.matmul of the
-    pre-scaled x by the dense w (cuBLAS on the product alone). TF32 off."""
-    ms = {"diag": 0.0, "dense": 0.0, "matmul": 0.0}
+    the dense w, each first held to the plain version: in f32 on
+    ``fam_inputs`` within K6's tolerance, with, as a yardstick,
+    torch.matmul of the pre-scaled x by the dense w (cuBLAS on the product
+    alone); with `bf16` on ``amp_inputs``, every operand of the einsum in
+    bf16 (ca and w rounded to it once, outside the timed call), within
+    K6_BF16_LIBRARY_ULPS bf16 ulps. TF32 off."""
+    ms = {"diag": 0.0, "dense": 0.0} | ({} if bf16 else {"matmul": 0.0})
     for i, shape in enumerate(FAM_SHAPES):
-        d = fam_inputs(torch, fb, shape, seed=2 + i)
+        d = (amp_inputs if bf16 else fam_inputs)(torch, fb, shape, seed=2 + i)
         args = [d["x"], d["ca_vec"], d["sa"]]
+        lib_args = [d["x"], d["ca_vec"].to(torch.bfloat16), d["sa"]] if bf16 else args
         for key, w in (("diag", d["wd"]), ("dense", d["wg"])):
-            err = float((tail_g1_einsum(torch, *args, w) - fb.fam_tail_apply_g1_plain(*args, w)).abs().max())
-            if not np.isfinite(err) or err > FAM_TOL["fam_tail_apply_g1"]:
-                raise AssertionError(f"K6's einsum ({key} w) disagrees with the plain version at {shape}: {err:.3e}")
-            ms[key] += time_ms(torch, lambda w=w: tail_g1_einsum(torch, *args, w))
-        xs = fb.fam_tail_apply_plain(*args).reshape(-1, d["x"].shape[-1])
-        ms["matmul"] += time_ms(torch, lambda: torch.matmul(xs, d["wg"]))
-        del d, xs
+            lw = w.to(torch.bfloat16) if bf16 else w
+            want = fb.fam_tail_apply_g1_plain(*args, w).float()
+            diff = (tail_g1_einsum(torch, *lib_args, lw).float() - want).abs()
+            err = float(diff.max())
+            if bf16:
+                u = K6_BF16_LIBRARY_ULPS
+                ok = np.isfinite(err) and float((diff - u * AMP_ULP * want.abs()).max()) <= u * AMP_ATOL
+            else:
+                ok = np.isfinite(err) and err <= FAM_TOL["fam_tail_apply_g1"]
+            if not ok:
+                raise AssertionError(f"K6's einsum ({key} w, bf16 {bf16}) disagrees with the plain version at {shape}: "
+                                     f"{err:.3e}")
+            ms[key] += time_ms(torch, lambda lw=lw: tail_g1_einsum(torch, *lib_args, lw))
+        if not bf16:
+            xs = fb.fam_tail_apply_plain(*args).reshape(-1, d["x"].shape[-1])
+            ms["matmul"] += time_ms(torch, lambda: torch.matmul(xs, d["wg"]))
+            del xs
+        del d
     return ms
 
 
@@ -3793,6 +3826,72 @@ def amp_kernel_phase(torch, fb, shape, seed: int, timed: tuple = ()) -> dict:
     return recs
 
 
+# K6's dense bf16 instance (fam_tail_apply_g1_wgmma_kernel) beyond
+# amp_kernel_phase's dense w at Cout 128: the wgmma's other widths (Cout 4,
+# N 32; Cout 36, N 64 with 8-byte stores) at these shapes.
+AMP_DENSE_COUTS = (4, 36)
+AMP_DENSE_SHAPES = (FAM_RAGGED, FAM_SHAPES[1])
+
+
+def amp_dense_phase(torch, fb) -> int:
+    """Hold K6's dense bf16 instance (csrc/fam_tail_wgmma.cu) within one
+    bf16 ulp of its bf16 plain version at Cout 4 and 36
+    (``AMP_DENSE_SHAPES``), a packed and an unpacked call identical; and,
+    unpacked on the quadrant-diagonal w of ``amp_inputs`` (so this kernel),
+    within one ulp of the plain version and of the quadrant-diagonal
+    instance at FAM_SHAPES and FAM_RAGGED; time the unpacked call (w split
+    into the kernel's B on each call) beside the packed one at
+    FAM_SHAPES[0]. Then drive the op as a caller does, every count at 0 just
+    before: one packed call on a dense w at each of FAM_SHAPES, each
+    launching this kernel and nothing else, held to the plain version.
+    Returns that drive's launches of the kernel."""
+
+    def held(got, want, what: str) -> float:
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        if got.dtype != torch.bfloat16 or not np.isfinite(err) or float((diff - AMP_ULP * want.float().abs()).max()) > AMP_ATOL:
+            raise AssertionError(f"bf16 K6 dense (wgmma) {what}: max |diff| {err:.3e}, beyond one bf16 ulp")
+        return err
+
+    for i, shape in enumerate((*FAM_SHAPES, FAM_RAGGED)):
+        d = amp_inputs(torch, fb, shape, seed=80 + i)
+        args = [d["x"], d["ca_vec"], d["sa"]]
+        line = f"  {list(shape)} bf16 K6 dense (wgmma):"
+        if shape in AMP_DENSE_SHAPES:
+            for cout in AMP_DENSE_COUTS:
+                w = d["wg"][:, :cout].contiguous()
+                got = fb.fam_tail_apply_g1(*args, w, packed=fb.pack_tail_g1(w))
+                err = held(got, fb.fam_tail_apply_g1_plain(*args, w), f"at Cout {cout}, {shape}")
+                if not torch.equal(got, fb.fam_tail_apply_g1(*args, w)):
+                    raise AssertionError(f"bf16 K6 dense at Cout {cout}, {shape}: packed and unpacked calls differ")
+                line += f" Cout {cout} max |diff| {err:.3e} (packed = unpacked);"
+        diag = fb.fam_tail_apply_g1(*args, d["wd"], packed=d["wd_packed"])
+        as_dense = fb.fam_tail_apply_g1(*args, d["wd"])
+        err = held(as_dense, fb.fam_tail_apply_g1_plain(*args, d["wd"]), f"on the diagonal w at {shape}")
+        err_diag = held(as_dense, diag, f"against the quadrant-diagonal instance at {shape}")
+        line += (f" on the quadrant-diagonal w, unpacked, max |diff| {err:.3e} from the plain version, {err_diag:.3e} "
+                 f"from the quadrant-diagonal instance (one bf16 ulp)")
+        if i == 0:
+            packed_ms = time_ms(torch, lambda: fb.fam_tail_apply_g1(*args, d["wg"], packed=d["wg_packed"]))
+            unpacked_ms = time_ms(torch, lambda: fb.fam_tail_apply_g1(*args, d["wg"]))
+            line += (f"; device ms a call at Cout 128: packed {packed_ms:.4f}, unpacked {unpacked_ms:.4f} (w split "
+                     f"into the kernel's B on each call)")
+        print(line)
+        del d, args, diag, as_dense
+
+    ds = [amp_inputs(torch, fb, s, seed=84 + i) for i, s in enumerate(FAM_SHAPES)]
+    fb.reset_launches()
+    outs = [fb.fam_tail_apply_g1(d["x"], d["ca_vec"], d["sa"], d["wg"], packed=d["wg_packed"]) for d in ds]
+    torch.cuda.synchronize()
+    ran = {k: v for counts in (fb.LAUNCHES, fb.KERNEL_LAUNCHES, fb.BF16_LAUNCHES) for k, v in counts.items() if v}
+    if ran != {"fam_tail_apply_g1_bf16": len(ds), "fam_tail_apply_g1_dense_bf16": len(ds)}:
+        raise AssertionError(f"the bf16 dense K6 drive launched {ran}, expected fam_tail_apply_g1_dense_bf16 once a call")
+    for d, out in zip(ds, outs):
+        held(out, fb.fam_tail_apply_g1_plain(d["x"], d["ca_vec"], d["sa"], d["wg"]), "in the op drive")
+    print(f"  bf16 K6 dense op drive (a packed call at each of {[list(s) for s in FAM_SHAPES]}, counts from zero): {ran}")
+    return ran["fam_tail_apply_g1_dense_bf16"]
+
+
 def amp_net_times(torch, ckpt: str, photo: Path) -> None:
     """Warm net ms per image, bf16 beside f32, packed and standard, at
     batch 1 and 8 on the 1088x1920 frame (the trained checkpoint's
@@ -3862,6 +3961,9 @@ def amp_phase(torch, modules, ckpt: str, workdir: Path) -> tuple[dict, dict]:
             ms=sum(r["ms"] for r in per), plain_ms=sum(r["plain_ms"] for r in per),
             bound=(sum(r["bound"][0] for r in per), per[0]["bound"][1]), dtype="bfloat16",
         )
+    lib = k6_library_phase(torch, fb, bf16=True)
+    recs["fam_tail_apply_g1"]["library_ms"], recs["fam_tail_apply_g1_dense"]["library_ms"] = lib["diag"], lib["dense"]
+    dense_launches = amp_dense_phase(torch, fb)
     stages = ", ".join(f"{n} {recs[n]['ms']:.4f} (bound {recs[n]['bound'][0]:.4f}, "
                        f"{recs[n]['bound'][0] / recs[n]['ms']:.1%})" for n in K4_STAGES)
     k4 = recs["fam_conv_fused"]
@@ -3871,8 +3973,9 @@ def amp_phase(torch, modules, ckpt: str, workdir: Path) -> tuple[dict, dict]:
     for name in ("fam_tail_stats", "fam_tail_apply_g1", "fam_tail_apply_g1_dense", "fam_tail_apply"):
         r = recs[name]
         where = "1080x1920" if name == "fam_tail_apply" else "1088x1920"
+        lib_ms = f", torch.einsum in bf16 {r['library_ms']:.4f}" if "library_ms" in r else ""
         print(f"  bf16 {name} device ms per image at {where}: {r['ms']:.4f} against its bound {r['bound'][0]:.4f} by "
-              f"{r['bound'][1]} ({r['bound'][0] / r['ms']:.1%}), plain {r['plain_ms']:.4f}")
+              f"{r['bound'][1]} ({r['bound'][0] / r['ms']:.1%}), plain {r['plain_ms']:.4f}{lib_ms}")
 
     src = REPO / "data" / "convergence" / "lowlight_000.png"
     photo, small, small_flagless = workdir / "photo1080.png", workdir / "photo512.png", workdir / "photo480.png"
@@ -3925,8 +4028,9 @@ def amp_phase(torch, modules, ckpt: str, workdir: Path) -> tuple[dict, dict]:
     for name in K10_BF16:
         recs[name] = dict(dec1[0][name], max_abs_err=max(r[name]["max_abs_err"] for r in dec1))
     dec1_launches = amp_dec1_forward_phase(torch, modules, ckpt, photo, small)
-    out = {f"{k}_bf16": recs[k] for k in AMP_KERNELS} | {k: recs[k] for k in K10_BF16}
-    return out, {f"{k}_bf16": v for k, v in launches.items()} | dec1_launches
+    out = {f"{k}_bf16": recs[k] for k in (*AMP_KERNELS, "fam_tail_apply_g1_dense")} | {k: recs[k] for k in K10_BF16}
+    return out, {f"{k}_bf16": v for k, v in launches.items()} | dec1_launches | {
+        "fam_tail_apply_g1_dense_bf16": dense_launches}
 
 
 # Phase 22: serving (retinex_tpu_torch/infer/serving.py). Each artifact is
@@ -4978,7 +5082,9 @@ def main() -> int:
         print(f"  {built.path.name}: built in {built.seconds:.2f} s")
         for ln in built.report.splitlines():
             # The new kernels' whole report: each entry, its registers, stack and spills.
-            entry = "Compiling entry" in ln and stem in ("conv_wgmma", "conv_pipelined", "conv_narrow", "fam_fused")
+            entry = "Compiling entry" in ln and stem in (
+                "conv_wgmma", "conv_pipelined", "conv_narrow", "fam_fused", "fam_tail_wgmma",
+            )
             if entry or "registers" in ln or "spill" in ln or "error" in ln.lower() or "warning" in ln.lower():
                 print(f"  ptxas ({stem}): {ln.strip()}")
 

@@ -11,8 +11,10 @@
 //                             fam_conv_out_mma_kernel, on the tensor cores
 //   fam_tail_stats_kernel     x * ca -> per-quadrant channel mean/max [B,H,W,8]
 //   fam_tail_apply_g1_kernel  (x * ca * sa per quadrant) @ W -> [B,H,W,Cout]
-//                             (templated: W dense or quadrant-block-diagonal;
-//                             bf16 with a diagonal W: fam_tail_apply_g1_mma_kernel)
+//                             (templated: W dense or quadrant-block-diagonal,
+//                             f32; bf16 with a diagonal W:
+//                             fam_tail_apply_g1_mma_kernel; bf16 with a dense
+//                             W: csrc/fam_tail_wgmma.cu)
 //   fam_tail_apply_kernel     x * ca * sa per quadrant -> [B,H,W,128] (the
 //                             tail where the tower's fusion does not fold)
 //
@@ -21,16 +23,18 @@
 // current stream. Each launch function returns cudaGetLastError().
 //
 // Each function has an instance for the activations' element type T, f32
-// or bf16 (templated on T, but for the two bf16 kernels of their own named
-// below); the bf16 instances, the --use_amp net's, round where the JAX
+// or bf16 (K5 and K11 templated on T; fam_conv_out and tail_apply_g1 have
+// f32 kernels and bf16 kernels of their own, named below, K6's dense bf16
+// one in csrc/fam_tail_wgmma.cu); the bf16 instances, the --use_amp net's,
+// round where the JAX
 // kernels round their bf16 instances (a bf16 x bf16 product is exact in
 // f32 and rounded to bf16 once, so it equals JAX's bf16 multiply):
 //   fam_conv_out   x, ka, kb bf16; z f32 (K4 never rounds it); the products
 //                  summed in f32; the output rounded once;
 //   tail_stats     x * ca rounded; means and maxima in f32; output rounded;
 //   tail_apply_g1  x * ca rounded, * sa rounded; the product with the f32 w
-//                  in f32 (quadrant-diagonal w: by its three bf16 pieces,
-//                  whose products are exact); the output rounded;
+//                  in f32 (by its three bf16 pieces, whose products are
+//                  exact); the output rounded;
 //   tail_apply     x * ca rounded, * sa rounded.
 // ca and w are f32 in both (ca is rounded to T inside, as the JAX kernels
 // cast it to x.dtype); sa is in T. The f32 instances compute what they did
@@ -604,7 +608,7 @@ __global__ void fam_tail_stats_kernel(const T* __restrict__ x, const float* __re
 // FLOP a pixel (8.1 FLOP per byte, under the card's f32 ratio of 20), so
 // the main path is bytes-bound: 577 MB per image, 0.1723 ms at 3.35 TB/s.
 //
-// Design: one kernel body, templated on w's layout. kDiag: the four
+// Design: one f32 kernel body, templated on w's layout. kDiag: the four
 // diagonal blocks, [128 x 32] (row k holds quadrant k/32's block row, 16 KB);
 // dense: [128 x 128], zero columns past Cout (64 KB). pack_tail_g1
 // in retinex_tpu_torch/ops/fused_blocks.py makes either once per model.
@@ -625,12 +629,9 @@ __global__ void fam_tail_stats_kernel(const T* __restrict__ x, const float* __re
 //   the same bits there.
 // - Outputs are stored as float4, each warp instruction 64 contiguous bytes
 //   of every pixel it writes. No TF32, no tensor cores.
-// - bf16 (T = bf16), the dense instance: the x tile and its sa stay bf16
-//   in shared memory (a pixel row of 136 elements), the scaling rounds x *
-//   ca and then * sa to bf16 in place (lossless: the values are bf16), the
-//   products read them as f32 against the f32 w, and the outputs are
-//   rounded to bf16 (8-byte stores). The quadrant-diagonal bf16 instance is
-//   fam_tail_apply_g1_mma_kernel, below.
+// - In bf16 the quadrant-diagonal instance is fam_tail_apply_g1_mma_kernel,
+//   below, and the dense one fam_tail_apply_g1_wgmma_kernel
+//   (csrc/fam_tail_wgmma.cu), both on the tensor cores.
 // ---------------------------------------------------------------------------
 constexpr int kG1Pix = 128;                                      // pixels per tile
 constexpr int kG1Threads = 256;
@@ -648,16 +649,17 @@ template <bool kDiag>
 __host__ __device__ constexpr int g1_wcols() {
   return kDiag ? kQ : kC;
 }
-template <typename T, bool kDiag>
+template <bool kDiag>
 constexpr size_t g1_smem() {
-  return sizeof(float) * (size_t)kC * g1_wcols<kDiag>() + sizeof(T) * kG1Stages * (size_t)g1_stage_elems<T>();
+  return sizeof(float) * ((size_t)kC * g1_wcols<kDiag>() + kG1Stages * (size_t)g1_stage_elems<float>());
 }
 
-template <typename T, bool kDiag>
+template <bool kDiag>
 __global__ void __launch_bounds__(kG1Threads, 1)
-    fam_tail_apply_g1_kernel(const T* __restrict__ x, const float* __restrict__ ca, const T* __restrict__ sa,
-                             const float* __restrict__ w, T* __restrict__ out, long long hw, long long n_pix,
+    fam_tail_apply_g1_kernel(const float* __restrict__ x, const float* __restrict__ ca, const float* __restrict__ sa,
+                             const float* __restrict__ w, float* __restrict__ out, long long hw, long long n_pix,
                              int cout) {
+  using T = float;  // the f32 instances only; bf16 runs the tensor-core kernels
   using E = Elem<T>;
   constexpr int kWCols = g1_wcols<kDiag>();
   constexpr int kS = px_stride<T>();
@@ -683,15 +685,9 @@ __global__ void __launch_bounds__(kG1Threads, 1)
       cp_async16(smem_u32(xs + px * kS + chunk_elems<T>() * ch), in ? x + (p0 + px) * kC + chunk_elems<T>() * ch : x,
                  in ? 16 : 0);
     }
-    if (t < kG1Pix) {  // the pixel's 4 sa values: 16 B in f32, 8 B in bf16
+    if (t < kG1Pix) {  // the pixel's 4 sa values, 16 B
       const bool in = p0 + t < n_pix;
-      const uint32_t dst = smem_u32(xs + kG1Pix * kS + 4 * t);
-      const T* src = in ? sa + (p0 + t) * 4 : sa;
-      if (sizeof(T) == 4) {
-        cp_async16(dst, src, in ? 16 : 0);
-      } else {
-        cp_async8(dst, src, in ? 8 : 0);
-      }
+      cp_async16(smem_u32(xs + kG1Pix * kS + 4 * t), in ? sa + (p0 + t) * 4 : sa, in ? 16 : 0);
     }
     cp_async_commit();
   };
@@ -801,10 +797,10 @@ __global__ void __launch_bounds__(kG1Threads, 1)
 // [32 x 32] blocks only, the output rounded to bf16 once.
 //
 // Bound on the card: bytes, 520 B a pixel (x 256 and sa 8 in, out 256),
-// 0.0861 ms per 1088x1920 image at 3.35 TB/s. The template's bf16 instance
-// moved half the f32 instance's bytes in the same time: its 8,448 FLOP a
-// pixel on the CUDA cores, the bf16 unpacking and the scaling pass over
-// shared memory set its pace.
+// 0.0861 ms per 1088x1920 image at 3.35 TB/s. The template's bf16 instance,
+// which this kernel replaced, moved half the f32 instance's bytes in the
+// same time: its 8,448 FLOP a pixel on the CUDA cores, the bf16 unpacking
+// and the scaling pass over shared memory set its pace.
 //
 // Design:
 // - No bf16 product takes the f32 w exactly, so pack_tail_g1 splits it once
@@ -980,20 +976,20 @@ int launch_tail_apply_g1_mma(const void* x, const void* ca, const void* sa, cons
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool kDiag>
+template <bool kDiag>
 int launch_tail_apply_g1(const void* x, const void* ca, const void* sa, const void* w, void* out, long long n_pix,
                          long long hw, int cout, void* stream) {
   if (n_pix == 0) return 0;
-  cudaError_t err = cudaFuncSetAttribute(fam_tail_apply_g1_kernel<T, kDiag>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)g1_smem<T, kDiag>());
+  cudaError_t err = cudaFuncSetAttribute(fam_tail_apply_g1_kernel<kDiag>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)g1_smem<kDiag>());
   if (err != cudaSuccess) return (int)err;
   int device = 0, sms = 0;
   if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) return (int)err;
   const long long n_tiles = (n_pix + kG1Pix - 1) / kG1Pix;
   const unsigned blocks = (unsigned)(n_tiles < sms ? n_tiles : sms);
-  fam_tail_apply_g1_kernel<T, kDiag><<<blocks, kG1Threads, g1_smem<T, kDiag>(), (cudaStream_t)stream>>>(
-      (const T*)x, (const float*)ca, (const T*)sa, (const float*)w, (T*)out, hw, n_pix, cout);
+  fam_tail_apply_g1_kernel<kDiag><<<blocks, kG1Threads, g1_smem<kDiag>(), (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)ca, (const float*)sa, (const float*)w, (float*)out, hw, n_pix, cout);
   return (int)cudaGetLastError();
 }
 
@@ -1093,20 +1089,21 @@ int fam_tail_stats(const void* x, const void* ca, void* out, long long batch, lo
 }
 
 // x [batch, hw, 128], sa [batch, hw, 4] and out [batch, hw, cout] f32, or
-// bf16 where is_bf16; ca [batch, 128] f32; w in the kernel's layout
-// (pack_tail_g1): f32, the four diagonal [32, 32] blocks stacked to [128,
-// 32] when diag (cout 128), else [128, 128] with zero columns past cout (a
-// multiple of 4, at most 128); bf16 and diag: the three bf16 pieces of the
-// diagonal blocks, [3, 4, 32, 32] (TailG1Packed.mma_w).
+// bf16 where is_bf16 (diag only: a bf16 dense call is
+// fam_tail_apply_g1_wgmma's, csrc/fam_tail_wgmma.cu); ca [batch, 128] f32; w
+// in the kernel's layout (pack_tail_g1): f32, the four diagonal [32, 32]
+// blocks stacked to [128, 32] when diag (cout 128), else [128, 128] with
+// zero columns past cout (a multiple of 4, at most 128); bf16 and diag: the
+// three bf16 pieces of the diagonal blocks, [3, 4, 32, 32]
+// (TailG1Packed.mma_w).
 int fam_tail_apply_g1(const void* x, const void* ca, const void* sa, const void* w, void* out, long long batch,
                       long long hw, int cout, int diag, int is_bf16, void* stream) {
   const long long n = batch * hw;
   if (is_bf16) {
-    return diag ? launch_tail_apply_g1_mma(x, ca, sa, w, out, n, hw, stream)
-                : launch_tail_apply_g1<__nv_bfloat16, false>(x, ca, sa, w, out, n, hw, cout, stream);
+    return diag ? launch_tail_apply_g1_mma(x, ca, sa, w, out, n, hw, stream) : (int)cudaErrorInvalidValue;
   }
-  return diag ? launch_tail_apply_g1<float, true>(x, ca, sa, w, out, n, hw, cout, stream)
-              : launch_tail_apply_g1<float, false>(x, ca, sa, w, out, n, hw, cout, stream);
+  return diag ? launch_tail_apply_g1<true>(x, ca, sa, w, out, n, hw, cout, stream)
+              : launch_tail_apply_g1<false>(x, ca, sa, w, out, n, hw, cout, stream);
 }
 
 // x and out [batch, hw, 128], sa [batch, hw, 4], f32 or bf16 where is_bf16;

@@ -11,7 +11,12 @@ port builds no library and reads nothing under ``native/``:
   PIL releases the GIL while it decodes, and the letterbox's numpy resize
   for most of its work, so the threads run at once. The bytes are those of
   the serial path (``dataset.decode_image`` then ``letterbox_np``). A file
-  that does not decode raises; nothing is filled in its place.
+  that does not decode fills its row with gray 114, and the call warns
+  once, ``native loader: k/n images failed to decode (gray-filled)``, as
+  the JAX native loader does; a JPEG whose data ends early decodes as
+  libjpeg's stdio source decodes it there (an EOI marker after the last
+  byte), the JAX native loader's bytes. An image that does not letterbox
+  to the batch's canvas raises.
 - ``encode_png`` writes an RGB PNG (or a gray one, of a 2-D array, as PIL
   writes those) with Python's ``zlib`` and numpy: the
   signature, IHDR, one IDAT of the rows SUB-filtered, deflated at zlib
@@ -27,11 +32,14 @@ there is nothing that could be missing.
 
 from __future__ import annotations
 
+import io
 import struct
+import warnings
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+from PIL import Image
 
 from retinex_tpu_torch.ops.letterbox import letterbox_np, plan_letterbox
 
@@ -50,23 +58,61 @@ def native_available() -> bool:
     return True
 
 
-def _decode_into(out: np.ndarray, paths: list[str], plan_for, num_threads: int) -> np.ndarray:
-    """Decode and letterbox each path into out[i] on `num_threads` threads;
-    plan_for(h, w) gives an image's letterbox plan."""
+# The value of a row whose file does not decode, the JAX native loader's.
+GRAY_FILL = 114
+
+_JPEG_SOI, _JPEG_EOI = b"\xff\xd8", b"\xff\xd9"
+# What opening or decoding a file that is missing, no image or damaged
+# raises (PIL's UnidentifiedImageError and "image file is truncated" are
+# OSErrors): the row is gray-filled, as the native loader fills it.
+_DECODE_ERRORS = (OSError, EOFError, SyntaxError, ValueError, Image.DecompressionBombError)
+
+
+def _decode_or_none(path: str) -> np.ndarray | None:
+    """RGB uint8 HWC, or None where the file does not decode. A JPEG cut
+    short that PIL refuses is decoded once more with an EOI marker after
+    its last byte, which is what libjpeg's stdio source feeds the decoder at
+    a premature end of file."""
     from retinex_tpu_torch.data.dataset import decode_image
 
-    def one(i: int) -> None:
-        rgb = decode_image(paths[i])
+    try:
+        return decode_image(path)
+    except _DECODE_ERRORS:
+        pass
+    try:
+        with open(path, "rb") as f:
+            data = f.read()
+        if not data.startswith(_JPEG_SOI) or data.endswith(_JPEG_EOI):
+            return None
+        with Image.open(io.BytesIO(data + _JPEG_EOI)) as img:
+            return np.asarray(img.convert("RGB"))
+    except _DECODE_ERRORS:
+        return None
+
+
+def _decode_into(out: np.ndarray, paths: list[str], plan_for, num_threads: int) -> np.ndarray:
+    """Decode and letterbox each path into out[i] on `num_threads` threads;
+    plan_for(h, w) gives an image's letterbox plan. A path that does not
+    decode leaves its row GRAY_FILL and the call warns once."""
+
+    def one(i: int) -> bool:
+        rgb = _decode_or_none(paths[i])
+        if rgb is None:
+            out[i] = GRAY_FILL
+            return False
         plan = plan_for(rgb.shape[0], rgb.shape[1])
         if (plan.out_h, plan.out_w) != out.shape[1:3]:
             raise ValueError(
                 f"{paths[i]} letterboxes to {(plan.out_h, plan.out_w)}, not the batch's canvas {out.shape[1:3]}"
             )
         out[i] = letterbox_np(rgb, plan)
+        return True
 
     with ThreadPoolExecutor(max_workers=max(1, num_threads)) as pool:
-        for f in [pool.submit(one, i) for i in range(len(paths))]:
-            f.result()
+        ok = sum(f.result() for f in [pool.submit(one, i) for i in range(len(paths))])
+    n = len(paths)
+    if ok < n:
+        warnings.warn(f"native loader: {n - ok}/{n} images failed to decode (gray-filled)")
     return out
 
 

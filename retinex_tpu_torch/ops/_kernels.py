@@ -73,6 +73,7 @@ _SIGNATURES = {
     "fam_tail_stats": ("fam_fused", (_P, _P, _P, _L, _L, _I, _P)),
     "fam_tail_apply_g1": ("fam_fused", (_P, _P, _P, _P, _P, _L, _L, _I, _I, _I, _P)),
     "fam_tail_apply": ("fam_fused", (_P, _P, _P, _P, _L, _L, _I, _P)),
+    "fam_tail_apply_g1_wgmma": ("fam_tail_wgmma", (_P, _P, _P, _P, _P, _L, _L, _I, _I, _P)),
     "conv_direct": ("conv_direct", (_P,) * 4 + (_I,) * 15 + (_P,)),
     "conv_wgmma_bf16": ("conv_wgmma", (_P,) * 5 + (_I,) * 16 + (_P,)),
     "conv_pipelined_f32": ("conv_pipelined", (_P,) * 5 + (_I,) * 10 + (_P,)),

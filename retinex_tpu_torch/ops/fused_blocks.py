@@ -61,10 +61,13 @@ where the JAX kernels round their bf16 instances (x.dtype bf16):
   output rounded to bf16;
 - K11: x * ca rounded to bf16, then * sa rounded to bf16;
 - K6: K11's two roundings, then an f32 product with the f32 w, the output
-  rounded to bf16. On the card the quadrant-diagonal instance runs on the
-  tensor cores (``fam_tail_apply_g1_mma_kernel``) against w split into
-  three bf16 pieces that sum to it exactly (``split_bf16x3``, made by
-  ``pack_tail_g1``), the dense one on the CUDA cores;
+  rounded to bf16. On the card both instances run on the tensor cores
+  against w split into three bf16 pieces that sum to it exactly
+  (``split_bf16x3``, made by ``pack_tail_g1``): the quadrant-diagonal one
+  on mma.sync (``fam_tail_apply_g1_mma_kernel``), the dense one on wgmma
+  (``fam_tail_apply_g1_wgmma_kernel`` in ``csrc/fam_tail_wgmma.cu``, its B
+  made by ``tail_g1_wgmma_b``: once per model in ``pack_tail_g1``, or on
+  the call for a w passed without ``packed``);
 - K10: d2, x1p and the four kernels (folded in f32) in bf16, the biases
   f32, every tap summed in f32, then the bias and the ReLU in f32; y1 and
   y2 rounded to bf16, x1p added to the third stage's f32 output before its
@@ -419,14 +422,13 @@ def fam_tail_apply_g1_plain(x, ca_vec, sa, w):
 @dataclasses.dataclass(frozen=True)
 class TailG1Packed:
     """K6's weights, made once by ``pack_tail_g1``: ``w`` [128, Cout] as
-    given (the plain version reads it) and ``kernel_w`` in the kernel's
-    layout, f32: where ``diag`` (``w`` quadrant-block-diagonal), the four
+    given (the plain version reads it) and ``kernel_w``, what the f32
+    instances read: where ``diag`` (``w`` quadrant-block-diagonal), the four
     diagonal [32, 32] blocks stacked to [128, 32]; else ``w`` with zero
-    columns up to 128. The dense instance reads it in both element types,
-    the quadrant-diagonal one in f32. ``mma_w`` (``diag`` only): what the
-    bf16 quadrant-diagonal instance reads, the blocks' three bf16 pieces
-    (``split_bf16x3``) as its B operand, [3 pieces, 4 quadrants, 32
-    columns in ``mma_channels`` order, 32 k]."""
+    columns up to 128. ``mma_w``: what the bf16 instances read, on the
+    tensor cores, w's three bf16 pieces (``split_bf16x3``) as their B
+    operand: where ``diag``, the blocks' pieces, [3 pieces, 4 quadrants, 32
+    columns in ``mma_channels`` order, 32 k]; else ``tail_g1_wgmma_b(w)``."""
 
     w: torch.Tensor
     kernel_w: torch.Tensor
@@ -473,12 +475,43 @@ def split_bf16x3(w: torch.Tensor) -> torch.Tensor:
     return torch.stack([w0, w1, (r - w1.float()).to(torch.bfloat16)])
 
 
+def wgmma_n_tile(cout: int) -> int:
+    """The N of the dense bf16 instance's wgmma for Cout: 32, 64 or 128
+    (Cout rounded up; the columns past Cout are zero)."""
+    return 32 if cout <= 32 else 64 if cout <= 64 else C
+
+
+def _swizzle_128b(rows: torch.Tensor) -> torch.Tensor:
+    """[..., R, 64] 2-byte rows (128 bytes each) in the 128-byte swizzle of
+    TMA and wgmma: row r's 16-byte chunk c at chunk c ^ (r % 8). Its own
+    inverse."""
+    r = rows.shape[-2]
+    idx = torch.arange(8, device=rows.device)[None, :] ^ (torch.arange(r, device=rows.device)[:, None] % 8)
+    chunks = rows.reshape(*rows.shape[:-1], 8, 8)
+    idx = idx[..., None].expand(r, 8, 8).expand(*chunks.shape)
+    return torch.gather(chunks, -2, idx).reshape(rows.shape)
+
+
+def tail_g1_wgmma_b(w: torch.Tensor) -> torch.Tensor:
+    """The dense bf16 instance's B operand, as its shared memory holds it:
+    w [128, Cout] f32 split into three bf16 pieces (``split_bf16x3``), zero
+    columns up to N = ``wgmma_n_tile(Cout)``, the columns in
+    ``mma_channels(N)`` order, each column's 128 k in two chunks of 64
+    (K-major), every [N, 64] tile in the 128-byte swizzle
+    (``_swizzle_128b``): [3 pieces, 2 k chunks, N, 64] bf16, contiguous."""
+    n = wgmma_n_tile(w.shape[1])
+    pieces = torch.nn.functional.pad(split_bf16x3(w), (0, n - w.shape[1]))  # [3, 128 k, N]
+    cols = pieces[..., mma_channels(n).to(w.device)].transpose(1, 2)  # [3, N, 128 k]
+    tiles = cols.reshape(3, n, 2, 64).transpose(1, 2)  # [3, 2, N, 64]
+    return _swizzle_128b(tiles).contiguous()
+
+
 def pack_tail_g1(w: torch.Tensor) -> TailG1Packed:
     """K6's weights in both forms (once per model in
     ``models/packed_inference.py``): inspects ``w`` here, never on a call."""
     _check_tail_g1_w(w, "pack_tail_g1 w", w.device)
     if not _is_quadrant_diagonal(w):
-        return _dense_tail_g1(w)
+        return dataclasses.replace(_dense_tail_g1(w), mma_w=tail_g1_wgmma_b(w))
     q = C // 4
     blocks = w.reshape(4, q, 4, q)[torch.arange(4), :, torch.arange(4), :]  # [4 (quadrant), 32 (k), 32]
     pieces = split_bf16x3(blocks)[..., mma_channels(q).to(w.device)].transpose(-1, -2)
@@ -487,18 +520,20 @@ def pack_tail_g1(w: torch.Tensor) -> TailG1Packed:
 
 def _check_tail_g1_packed(packed: TailG1Packed, w: torch.Tensor, dtype: torch.dtype, device: torch.device) -> None:
     """`packed` was made from this very `w`, and the layout its instance
-    for `dtype` reads is there: ``kernel_w`` [128, 32] f32 where ``diag``
-    (Cout 128), else [128, 128]; in bf16 where ``diag``, ``mma_w`` [3, 4,
-    32, 32] bf16; contiguous, on `device`."""
+    for `dtype` reads is there: in f32 ``kernel_w``, [128, 32] f32 where
+    ``diag`` (Cout 128), else [128, 128]; in bf16 ``mma_w``, [3, 4, 32, 32]
+    bf16 where ``diag``, else [3, 2, N, 64] bf16 (``tail_g1_wgmma_b``);
+    contiguous, on `device`."""
     if packed.w is not w:
         raise ValueError("fam_tail_apply_g1: `packed` was not made by pack_tail_g1 from this w")
     if packed.diag and w.shape[1] != C:
         raise ValueError(f"fam_tail_apply_g1: a quadrant-diagonal `packed` needs Cout {C}, got {w.shape[1]}")
     q = C // 4
-    if packed.diag and dtype == torch.bfloat16:
+    if dtype == torch.bfloat16:
         if packed.mma_w is None:
-            raise ValueError("fam_tail_apply_g1: a quadrant-diagonal `packed` for bf16 needs mma_w (pack_tail_g1)")
-        _check(packed.mma_w, "fam_tail_apply_g1 packed.mma_w", (3, 4, q, q), device, torch.bfloat16)
+            raise ValueError("fam_tail_apply_g1: a `packed` for bf16 needs mma_w (pack_tail_g1)")
+        shape = (3, 4, q, q) if packed.diag else (3, 2, wgmma_n_tile(w.shape[1]), 64)
+        _check(packed.mma_w, "fam_tail_apply_g1 packed.mma_w", shape, device, torch.bfloat16)
     else:
         _check(packed.kernel_w, "fam_tail_apply_g1 packed.kernel_w", (C, q if packed.diag else C), device)
 
@@ -509,9 +544,11 @@ def fam_tail_apply_g1(x, ca_vec, sa, w, packed: TailG1Packed | None = None):
     [B,h,w,Cout] in x.dtype. Cout: a multiple of 4 up to 128. `packed`:
     ``pack_tail_g1`` of this very `w`, made once (the packed model's fusion
     folds); when None, `w` is laid out for the dense instance on the call,
-    without inspecting it. On the card the kernel's quadrant-diagonal
-    instance serves a `packed` marked ``diag``, the dense instance any other
-    call (``KERNEL_LAUNCHES``)."""
+    without inspecting it (in bf16, split into the dense instance's B on
+    the call, ``tail_g1_wgmma_b``). On the card the kernel's
+    quadrant-diagonal instance serves a `packed` marked ``diag``, the dense
+    instance any other call (``KERNEL_LAUNCHES``; in bf16 the dense
+    instance is ``fam_tail_apply_g1_wgmma_kernel``)."""
     dev = x.device
     _check_tail(x, ca_vec, sa, "fam_tail_apply_g1")
     b, h, wd, _ = x.shape
@@ -521,18 +558,29 @@ def fam_tail_apply_g1(x, ca_vec, sa, w, packed: TailG1Packed | None = None):
     if dev.type == "cpu":
         return fam_tail_apply_g1_plain(x, ca_vec, sa, w)
     stream = _kernels.stream(x)
-    for t, what in ((x, "x"), (sa, "sa")):  # cp.async copies whole rows: x's 16-byte chunks, sa's 4 values
-        if t.data_ptr() % min(16, 4 * t.element_size()):
-            raise ValueError(f"fam_tail_apply_g1 {what}: the kernel reads aligned rows; got a view at {t.data_ptr():#x}")
-    p = _dense_tail_g1(w) if packed is None else packed
     bf16 = x.dtype == torch.bfloat16
-    kernel_w = p.mma_w if p.diag and bf16 else p.kernel_w
+    # The kernels read whole rows: x's 16-byte chunks, a pixel's 4 sa values
+    # and ca's 4 (f32) or 2 (bf16) values at once.
+    for t, what, align in ((x, "x", 16), (sa, "sa", 4 * sa.element_size()), (ca_vec, "ca_vec", 8 if bf16 else 16)):
+        if t.data_ptr() % align:
+            raise ValueError(f"fam_tail_apply_g1 {what}: the kernel reads aligned rows; got a view at {t.data_ptr():#x}")
+    if packed is None:  # laid out on the call for the dense instance
+        p = TailG1Packed(w, w, False, tail_g1_wgmma_b(w)) if bf16 else _dense_tail_g1(w)
+    else:
+        p = packed
     out = torch.empty((b, h, wd, cout), dtype=x.dtype, device=dev)
     if out.numel():
-        _kernels.launch(
-            "fam_tail_apply_g1", x.data_ptr(), ca_vec.data_ptr(), sa.data_ptr(), kernel_w.data_ptr(),
-            out.data_ptr(), b, h * wd, cout, int(p.diag), int(bf16), stream,
-        )
+        if bf16 and not p.diag:
+            _kernels.launch(
+                "fam_tail_apply_g1_wgmma", x.data_ptr(), ca_vec.data_ptr(), sa.data_ptr(), p.mma_w.data_ptr(),
+                out.data_ptr(), b, h * wd, cout, p.mma_w.shape[2], stream,
+            )
+        else:
+            _kernels.launch(
+                "fam_tail_apply_g1", x.data_ptr(), ca_vec.data_ptr(), sa.data_ptr(),
+                (p.mma_w if bf16 else p.kernel_w).data_ptr(), out.data_ptr(), b, h * wd, cout, int(p.diag), int(bf16),
+                stream,
+            )
         _count(KERNEL_LAUNCHES, "fam_tail_apply_g1_diag" if p.diag else "fam_tail_apply_g1_dense", x.dtype)
         _count(LAUNCHES, "fam_tail_apply_g1", x.dtype)
     return out

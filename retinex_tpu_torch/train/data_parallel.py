@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from retinex_tpu_torch.config import Config
+from retinex_tpu_torch.device import resolve_device
 from retinex_tpu_torch.losses.total import LossConfig, TotalLoss
 from retinex_tpu_torch.models.init import init_untrained
 from retinex_tpu_torch.models.retinex_net import MultiScaleUPRetinex
@@ -110,18 +111,20 @@ def sharded_steps(
     world: int,
     specs: list[StepSpec],
     batch: np.ndarray,
-    device: str = "cpu",
+    device: str | None = None,
     backend: str | None = None,
     state_dicts: list | None = None,
 ) -> list[dict]:
     """``one_step`` for each of `specs`, each from a fresh state (the
     weights of the matching entry of `state_dicts`, or untrained), in
     `world` new processes, one rank each (gloo on the CPU, NCCL on the card
-    unless `backend` says otherwise; `device` "cuda:0" puts every rank on
-    that card), each on its rows of `batch` (its size a multiple of
-    `world`); returns the first rank's results."""
+    unless `backend` says otherwise), each on its rows of `batch` (its size
+    a multiple of `world`); returns the first rank's results. `device`:
+    None or "cuda" puts each rank on the card of its local rank, "cuda:0"
+    every rank on that card, "cpu" the CPU (``device.resolve_device``:
+    without a card only "cpu" runs)."""
     if batch.shape[0] % world:
         raise ValueError(f"batch of {batch.shape[0]} does not split over {world} ranks")
-    config = Config(device=device)
+    config = Config(device=str(resolve_device(device)))
     state_dicts = list(state_dicts or [None] * len(specs))
     return launch(_rank_steps, (config, list(specs), batch, state_dicts), config, world, backend)

@@ -124,8 +124,8 @@ def test_split_bf16x3_sums_exactly_to_w(model_folds, case):
 def test_k6_mma_w_unpacks_to_the_blocks_pieces(model_folds):
     """``mma_w`` of a quadrant-diagonal pack: for each quadrant and piece,
     transposed and its columns put back in channel order, the piece of that
-    diagonal block; the three sum to the block exactly. A dense pack has
-    none."""
+    diagonal block; the three sum to the block exactly. A dense pack's is
+    the dense instance's B image instead (tests/test_torch_k6_dense_wgmma.py)."""
     perm = tfb.mma_channels(Q)
     for w in (model_folds["fold_f1"].w, _diag_w(3)):
         p = tfb.pack_tail_g1(w)
@@ -135,7 +135,8 @@ def test_k6_mma_w_unpacks_to_the_blocks_pieces(model_folds):
             unpacked = p.mma_w[:, q].transpose(-1, -2)[..., perm]  # [3, k, n]
             assert torch.equal(unpacked, tfb.split_bf16x3(block))
             assert torch.equal(unpacked.double().sum(0), block.double())
-    assert tfb.pack_tail_g1(_t(np.random.default_rng(4).standard_normal((C, C)))).mma_w is None
+    dense = _t(np.random.default_rng(4).standard_normal((C, C)))
+    assert torch.equal(tfb.pack_tail_g1(dense).mma_w, tfb.tail_g1_wgmma_b(dense))
 
 
 def test_fam_conv_out_b_layout_unpacks_to_ka_kb():

@@ -694,6 +694,49 @@ def test_fam_tail_apply_g1_instances_match_plain_version(cuda_f32, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cout", [4, 36, 128])
+@pytest.mark.parametrize("shape", [(2, 37, 53), (3, 5, 7), (1, 136, 240)])
+def test_k6_dense_bf16_wgmma_matches_plain_version(cuda_f32, shape, cout):
+    """K6's dense bf16 instance (fam_tail_apply_g1_wgmma_kernel, wgmma at N
+    32, 64 and 128) within one bf16 ulp of its plain version: at a ragged
+    pixel count on a batch of 2 (a 64-pixel tile across two images), at
+    fewer pixels than one tile on a batch of 3, and at the scale-2 FAM shape
+    of a 1088x1920 frame; packed and unpacked calls give the same bits; at
+    Cout 128 on a quadrant-diagonal w, unpacked (this kernel), within one
+    ulp of the quadrant-diagonal instance; each image of a batch equals the
+    kernel on it alone."""
+    g = cuda_f32
+    b, h, w = shape
+    bf = torch.bfloat16
+    x = (torch.randn(b, h, w, 128, generator=g, device="cuda") * 0.4).abs().to(bf)
+    ca = torch.sigmoid(torch.randn(b, 32, generator=g, device="cuda")).to(bf).float().repeat(1, 4).contiguous()
+    sa = torch.sigmoid(torch.randn(b, h, w, 4, generator=g, device="cuda")).to(bf)
+    dense = (torch.randn(128, cout, generator=g, device="cuda") * 0.05).contiguous()
+    pk = fb.pack_tail_g1(dense)
+    assert not pk.diag and pk.mma_w.shape == (3, 2, fb.wgmma_n_tile(cout), 64)
+    fb.reset_launches()
+    got = fb.fam_tail_apply_g1(x, ca, sa, dense, packed=pk)
+    unpacked = fb.fam_tail_apply_g1(x, ca, sa, dense)
+    torch.cuda.synchronize()
+    assert fb.BF16_LAUNCHES["fam_tail_apply_g1_dense_bf16"] == 2 and fb.BF16_LAUNCHES["fam_tail_apply_g1_bf16"] == 2
+    assert all(v == 0 for k, v in fb.BF16_LAUNCHES.items() if k not in ("fam_tail_apply_g1_dense_bf16",
+                                                                          "fam_tail_apply_g1_bf16"))
+    assert all(v == 0 for v in (*fb.LAUNCHES.values(), *fb.KERNEL_LAUNCHES.values()))
+    _one_bf16_ulp(got, fb.fam_tail_apply_g1_plain(x, ca, sa, dense))
+    assert torch.equal(got, unpacked)
+    if cout == 128:
+        block = torch.randn(32, 32, generator=g, device="cuda") * 0.1
+        wd = torch.block_diag(block, block, block, block).contiguous()
+        diag = fb.fam_tail_apply_g1(x, ca, sa, wd, packed=fb.pack_tail_g1(wd))
+        as_dense = fb.fam_tail_apply_g1(x, ca, sa, wd)
+        _one_bf16_ulp(as_dense, fb.fam_tail_apply_g1_plain(x, ca, sa, wd))
+        _one_bf16_ulp(as_dense, diag)
+    for j in range(b):
+        one = [t[j : j + 1].contiguous() for t in (x, ca, sa)]
+        assert torch.equal(fb.fam_tail_apply_g1(*one, dense, packed=pk), got[j : j + 1])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("batch", [1, 8])
 @pytest.mark.parametrize("tiles", [4, 8, 16])
 def test_clahe_tables_match_plain_version(cuda_f32, tiles, batch):

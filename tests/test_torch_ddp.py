@@ -97,7 +97,7 @@ def runs():
     batch = global_batch()
     names = list(SPECS)
     sds = [weights(SPECS[n]) for n in names]
-    ranks = sharded_steps(2, [SPECS[n] for n in names], batch, state_dicts=sds)
+    ranks = sharded_steps(2, [SPECS[n] for n in names], batch, device="cpu", state_dicts=sds)
     return {n: (r, one_step(SPECS[n], batch, "cpu", sd)) for n, r, sd in zip(names, ranks, sds)}
 
 
@@ -200,3 +200,21 @@ def test_sharded_step_holds_to_jax(runs, tmp_path):
     ])
     assert jtu.tree_structure(mine) == jtu.tree_structure(new.params)
     _hold_params(diffs, "against the JAX package's sharded step")
+
+
+@pytest.mark.parametrize("device,want", [(None, "cuda"), ("cuda:0", "cuda:0"), ("cpu", "cpu")])
+def test_sharded_steps_runs_on_the_card_by_default(monkeypatch, device, want):
+    """`device` None resolves to the card, as every entry point of the port;
+    without one it raises before any rank starts."""
+    from retinex_tpu_torch.train import data_parallel
+
+    seen = []
+    monkeypatch.setattr(data_parallel, "launch", lambda fn, args, config, world, backend: seen.append(config.device))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    data_parallel.sharded_steps(2, [SPECS["standard"]], np.zeros((2, 8, 8, 3), np.float32), device=device)
+    assert seen == [want]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if want == "cpu":
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        data_parallel.sharded_steps(2, [SPECS["standard"]], np.zeros((2, 8, 8, 3), np.float32), device=device)

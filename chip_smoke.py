@@ -357,7 +357,19 @@ first and last image against the kernel on each alone (identical):
    before (serial PIL decode, PIL's level-1 writes one after another) and
    after (``data/native_loader.py``: 8 decode threads, ``encode_png``, one
    photo's three PNGs on three threads) on the 1080p photo and the 24
-   ``data/convergence`` photos, with the files' sizes against PIL's.
+   ``data/convergence`` photos, with the files' sizes against PIL's; every
+   file of ``tests/fixtures/host_formats`` (PNG colour types and depths,
+   JPEG kinds, BMP, TIFF, WebP, GIF) decoded by ``decode_letterbox_batch``
+   at both sizes of its ``expected.json`` to the SHA-256 there, the JAX
+   native loader's bytes and gray fills (``host_format_digests``); the
+   stage where the letterbox resizes, before (PIL + ``letterbox_np``'s f64
+   resize on 8 threads) and after (the native loader's f32 resize), on
+   the 24 photos at ``--image_size`` 256 and the 1080p photo at
+   ``--max_size`` 1024, medians of 5 warm runs, at most a level apart
+   (``host_resize_stage``); ``--mode enhance`` on phase 8's 16-photo
+   directory at ``--max_size 1024 --batch_size 8`` on the packed route
+   (K4-K6 6 launches each, K1-K3 3 each), whose launches the kernels line
+   counts (``host_directory_run``).
    Meshes of one card are not scaling figures. ``python3 chip_smoke.py
    --phase 24`` runs the build and this phase alone.
 25. A checkpoint written by the JAX package (``orbax_phase``): the
@@ -408,7 +420,8 @@ modes, K2's and K7's (``clahe_luma_apply_u8``); phase 23's sharded
 directory runs (each counted from zero) add theirs to K1-K6's (the net
 routes) and to K2's, K7's and K8's (the classical modes); phase 24's
 spatial CLAHE calls and ``--spatial_shard`` CLI runs add theirs to K1-K3's
-and K7's (and the CLI net run's to K4-K6's); phase 25's enhance and predict
+and K7's (and the CLI net run's to K4-K6's), and its (d) directory run at
+``--max_size 1024`` (the host path resizing) its K1-K6 launches; phase 25's enhance and predict
 runs and its served call add theirs to K1-K6's, and phase 26's enhance and
 predict runs theirs.
 K4 has an entry as a whole (``fam_conv_fused``) and one for each of its
@@ -4580,12 +4593,139 @@ def spatial_cli_phase(torch, modules, workdir: Path) -> dict[str, int]:
     return total
 
 
-def host_path_phase(workdir: Path) -> None:
+HOST_FORMATS = REPO / "tests" / "fixtures" / "host_formats"
+
+
+def host_format_digests(card: str) -> None:
+    """Phase 24 (d): ``decode_letterbox_batch`` on every file of
+    tests/fixtures/host_formats at each size of its expected.json, which holds
+    the SHA-256 of the JAX native loader's batch (written on a CPU with the
+    JAX package, tests/test_torch_native_loader.py); the files it does not
+    decode are gray-filled here too, with its warning. This machine's PIL and
+    its libjpeg and zlib give those bytes, or the phase fails."""
+    import hashlib
+    import warnings
+
+    import PIL
+
+    from retinex_tpu_torch.data.native_loader import decode_letterbox_batch
+
+    expected = json.loads((HOST_FORMATS / "expected.json").read_text())
+    failed = []
+    for case, want in sorted(expected["cases"].items()):
+        for label, size in expected["sizes"].items():
+            with warnings.catch_warnings(record=True) as record:
+                warnings.simplefilter("always")
+                batch = decode_letterbox_batch([str(HOST_FORMATS / want["file"])], size, num_threads=1)
+            warned = [str(w.message) for w in record if "images failed to decode" in str(w.message)]
+            if hashlib.sha256(batch.tobytes()).hexdigest() != want[label] or bool(warned) == want["decodes"]:
+                raise AssertionError(f"{case} at {size} ({label}): not the JAX native loader's bytes or warning")
+        if not want["decodes"]:
+            failed.append(case)
+    n = len(expected["cases"]) * len(expected["sizes"])
+    print(f"  (d) formats: {n} batches ({len(expected['cases'])} files x sizes {sorted(expected['sizes'].values())}) "
+          f"byte for byte the JAX native loader's (expected.json's SHA-256), PIL {PIL.__version__}; gray-filled "
+          f"with its warning: {', '.join(failed)} [{card}]")
+
+
+def host_resize_stage(files: list[str], photo: Path, card: str) -> None:
+    """Phase 24 (d): the host stage where the letterbox resizes, before (PIL
+    decode, then ops/letterbox.letterbox_np's f64 resize, on 8 threads) and
+    after (decode_letterbox_batch, the C++ loader's f32 resize): the 24
+    photos at --image_size 256 (the training loader's call, scaleup) and
+    the 1080p photo at --max_size 1024 (the directory driver's canvas);
+    medians of 5 warm runs; then the resize alone on the decoded 1080p frame.
+    The two differ by at most a level (ROADMAP Queue 3)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from retinex_tpu_torch.data.dataset import decode_image
+    from retinex_tpu_torch.data.native_loader import (
+        decode_letterbox_batch,
+        decode_letterbox_batch_canvas,
+        resize_bilinear_u8,
+    )
+    from retinex_tpu_torch.ops.letterbox import _resize_bilinear_np_u8, letterbox_np, plan_letterbox
+
+    def median_ms(fn, n: int = 5) -> float:
+        fn()  # warm
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    pool = ThreadPoolExecutor(max_workers=8)
+
+    def f64_path(paths, target, auto):
+        def one(p):
+            rgb = decode_image(p)
+            return letterbox_np(rgb, plan_letterbox(rgb.shape[0], rgb.shape[1], target, auto=auto, scaleup=not auto))
+        return np.stack(list(pool.map(one, paths)))
+
+    plan = plan_letterbox(1080, 1920, 1024, auto=True, scaleup=False)
+    for label, paths, target, auto, after in (
+        ("24 photos at --image_size 256", files, 256, False,
+         lambda: decode_letterbox_batch(files, 256, auto_pad=False, scaleup=True, num_threads=8)),
+        ("the 1080p photo at --max_size 1024", [str(photo)], 1024, True,
+         lambda: decode_letterbox_batch_canvas([str(photo)], 1024, plan.out_h, plan.out_w, num_threads=8)),
+    ):
+        old, new = f64_path(paths, target, auto), after()
+        d = np.abs(old.astype(np.int16) - new.astype(np.int16))
+        if old.shape != new.shape or d.max() > 1:
+            raise AssertionError(f"{label}: the f32 resize is {d.max()} levels from the f64 one")
+        b_ms, a_ms = median_ms(lambda: f64_path(paths, target, auto)), median_ms(after)
+        print(f"  (d) decode + letterbox, {label} (to {new.shape[1]}x{new.shape[2]}), 8 threads, median of 5 warm: "
+              f"before (PIL + letterbox_np, f64) {b_ms:.2f} ms, after (the native loader's f32 resize) {a_ms:.2f} ms; "
+              f"{int((d > 0).sum())} of {d.size} bytes a level apart [{card}]")
+    pool.shutdown()
+    rgb = decode_image(str(photo))
+    b_ms = median_ms(lambda: _resize_bilinear_np_u8(rgb, plan.resize_h, plan.resize_w))
+    a_ms = median_ms(lambda: resize_bilinear_u8(rgb, plan.resize_h, plan.resize_w))
+    print(f"  (d) the resize alone, 1080x1920 to {plan.resize_h}x{plan.resize_w}, one thread, median of 5 warm: "
+          f"f64 {b_ms:.2f} ms, f32 {a_ms:.2f} ms [{card}]")
+
+
+def host_directory_run(torch, modules, workdir: Path, card: str) -> dict[str, int]:
+    """Phase 24 (d): ``--mode enhance`` on phase 8's 16-photo directory at
+    ``--max_size 1024 --batch_size 8``, the default packed route, where every
+    1080p photo is resized by the host path: 576x1024 chunks of 8 and 4 and
+    a 640x640 chunk of 4, so K4-K6 6 launches each and K1-K3 3 each (float
+    instances). Returns its launches, which the kernels line counts."""
+    from PIL import Image
+
+    photos = workdir / "photos"
+    if not photos.is_dir():  # phase 24 alone
+        make_directory(REPO / "data" / "convergence", workdir)
+    out = workdir / "host_dir_1024"
+    launches, cold_s = run_cli(torch, modules, [
+        "--mode", "enhance", "--input_path", str(photos), "--output_dir", str(out), "--max_size", "1024",
+        "--batch_size", "8", "--device", "cuda",
+    ])
+    check_launches(launches, DIR_MODES["net"][1], "the directory run at --max_size 1024")
+    files = sorted(photos.iterdir())
+    if len(list(out.iterdir())) != 3 * len(files):
+        raise AssertionError(f"--max_size 1024: {len(list(out.iterdir()))} PNGs, expected {3 * len(files)}")
+    for f in files:
+        got = np.asarray(Image.open(out / f"{f.stem}_enhanced.png").convert("RGB"))
+        if got.shape != ((576, 1024, 3) if int(f.stem[-3:]) < 12 else (640, 640, 3)):
+            raise AssertionError(f"{f.name}: enhanced PNG of shape {got.shape}")
+    print(f"  (d) --mode enhance on the 16-photo directory at --max_size 1024 --batch_size 8 (packed route): "
+          f"48 PNGs, cold CLI run {cold_s:.3f} s; launches {', '.join(f'{k} {v}' for k, v in launches.items() if v)} "
+          f"(in the kernels line) [{card}]")
+    return launches
+
+
+def host_path_phase(torch, modules, workdir: Path, card: str) -> dict[str, int]:
     """Phase 24 (d): the host stages before (PIL on one thread, PIL's level-1
-    writes) and after (data/native_loader.py: PIL decode on a thread pool,
+    writes) and after (data/native_loader.py: decode on a thread pool,
     the level-1 SUB zlib writer, one photo's three PNGs on three threads),
     on the 1088x1920 letterboxed photo and on the 24 data/convergence
-    photos; file sizes beside PIL's. Every file decodes to the same pixels."""
+    photos; file sizes beside PIL's. Every file decodes to the same pixels.
+    Then the format fixtures held to the JAX native loader's digests, the
+    resizing stage before and after, and the directory run at --max_size
+    1024, whose launches it returns."""
+    host_format_digests(card)
     from concurrent.futures import ThreadPoolExecutor
 
     from PIL import Image
@@ -4615,7 +4755,7 @@ def host_path_phase(workdir: Path) -> None:
         Image.fromarray(a).save(path, compress_level=1)
 
     photo = workdir / "spatial_photo1080.png"
-    files = list_image_files(str(REPO / "data" / "convergence"))
+    files = list_image_files(str(REPO / "data" / "convergence"), recursive=False)
     for label, paths, max_size in (("the 1080p photo", [str(photo)], 1920), ("24 data/convergence photos", files, None)):
         for (target, oh, ow), chunk in bucket_by_canvas(paths, max_size).items():
             before = serial(chunk, target)
@@ -4656,11 +4796,13 @@ def host_path_phase(workdir: Path) -> None:
                                                   range(len(files)))), 3)
     print(f"  (d) 24 photos' PNGs (640x640) on 8 threads: PIL {dir_before:.2f} ms, encode_png {dir_after:.2f} ms "
           f"({dir_before / dir_after:.2f}x)")
+    host_resize_stage(files, photo, card)
+    return host_directory_run(torch, modules, workdir, card)
 
 
 def spatial_phase(torch, modules, workdir: Path) -> dict[str, int]:
     """Phase 24 (the module docstring); returns the launches of (a)'s
-    sharded calls and (c)'s CLI runs."""
+    sharded calls and of (c)'s and (d)'s CLI runs."""
     cg, cl = modules[0], modules[1]
     card = gpu_line()
     t0 = time.perf_counter()
@@ -4673,9 +4815,9 @@ def spatial_phase(torch, modules, workdir: Path) -> dict[str, int]:
     launches = spatial_clahe_phase(torch, cg, cl, card)
     spatial_forward_phase(torch)
     cli = spatial_cli_phase(torch, modules, workdir)
-    host_path_phase(workdir)
+    host = host_path_phase(torch, modules, workdir, card)
     print(f"  phase 24 took {time.perf_counter() - t0:.1f} s")
-    return {k: launches.get(k, 0) + cli.get(k, 0) for k in set(launches) | set(cli)}
+    return {k: launches.get(k, 0) + cli.get(k, 0) + host.get(k, 0) for k in set(launches) | set(cli) | set(host)}
 
 
 # Phase 25: a checkpoint written by the JAX package. The fixture is that
@@ -5040,7 +5182,7 @@ def serving_alone(torch, kernels, line: str) -> int:
             print("phase 24 alone: spatial sharding and the host path")
             modules = (clahe_gather, clahe_luma, fused_blocks, conv_pallas, clahe_pallas)
             launches = spatial_phase(torch, modules, Path(tmp))
-            print(f"  launches of the sharded calls and the CLI runs: {launches}")
+            print(f"  launches of the sharded calls and the CLI runs ((c) and (d)): {launches}")
     print(line)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0)}
     print(json.dumps({"ok": True, "phases": [phase], "device": device}))

@@ -12,9 +12,10 @@ training half:
   batch order; a fresh loader (a resume) restarts that generator, as there;
 - ``_PrefetchIterator`` decodes and letterboxes each batch of a
   ``LowLightDataset`` through ``native_loader.decode_letterbox_batch`` (a
-  pool of PIL threads), as the JAX package's goes through its native
-  loader; it keeps ``prefetch`` batches in flight; a consumer that leaves an
-  epoch early must ``close()`` it.
+  pool of threads), as the JAX package's goes through its native loader,
+  whose bytes it gives (``__getitem__`` is the PIL route, as there); it
+  keeps ``prefetch`` batches in flight; a consumer that leaves an epoch
+  early must ``close()`` it.
 
 Augmentation runs on the device (``data/augment.py``).
 """
@@ -35,9 +36,10 @@ VALID_EXTENSIONS = {".jpg", ".jpeg", ".png", ".bmp"}  # predict, evaluate, train
 VALID_EXTENSIONS_ENHANCE = VALID_EXTENSIONS | {".tif", ".tiff"}
 
 
-def list_image_files(image_dir: str, extensions=VALID_EXTENSIONS_ENHANCE, recursive: bool = False) -> list[str]:
+def list_image_files(image_dir: str, recursive: bool = True, extensions=VALID_EXTENSIONS) -> list[str]:
     """Sorted scan of `image_dir` (and its subdirectories with `recursive`)
-    for files whose lower-cased extension is in `extensions`."""
+    for files whose lower-cased extension is in `extensions`; the JAX
+    package's signature and defaults."""
     if recursive:
         found = [os.path.join(root, n) for root, _dirs, names in os.walk(image_dir) for n in names]
     else:
@@ -57,7 +59,7 @@ class LowLightDataset:
     def __init__(self, image_dir: str, image_size: int = 640):
         self.image_dir = image_dir
         self.image_size = image_size
-        self.image_files = list_image_files(image_dir, VALID_EXTENSIONS, recursive=True)
+        self.image_files = list_image_files(image_dir, recursive=True, extensions=VALID_EXTENSIONS)
         if not self.image_files:
             raise ValueError(f"No images found in {image_dir}")
 
@@ -77,7 +79,7 @@ class LowLightTestDataset:
     def __init__(self, image_dir: str, max_size: int | None = None):
         self.image_dir = image_dir
         self.max_size = max_size
-        self.image_files = list_image_files(image_dir, VALID_EXTENSIONS, recursive=True)
+        self.image_files = list_image_files(image_dir, recursive=True, extensions=VALID_EXTENSIONS)
         if not self.image_files:
             raise ValueError(f"No images found in {image_dir}")
 

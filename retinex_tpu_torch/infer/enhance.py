@@ -300,11 +300,11 @@ def enhance_batch_images(
     the weights on its input's device, ``parallel/mesh.replicate``): the
     same bytes. Returns per-image enhance timings (decode and saves
     excluded)."""
-    from retinex_tpu_torch.data.dataset import list_image_files
+    from retinex_tpu_torch.data.dataset import VALID_EXTENSIONS_ENHANCE, list_image_files
     from retinex_tpu_torch.infer.batch_driver import run_bucketed
 
     dev = resolve_device(device)
-    files = list_image_files(input_dir)
+    files = list_image_files(input_dir, recursive=False, extensions=VALID_EXTENSIONS_ENHANCE)
     if not files:
         print(f"No images found in {input_dir}")
         return []

@@ -46,7 +46,7 @@ def evaluate_directory(
     from retinex_tpu_torch.infer.batch_driver import fetch, pad_for_mesh, shard_batch_fn
 
     dev = resolve_device(device)
-    files = list_image_files(input_dir, VALID_EXTENSIONS)
+    files = list_image_files(input_dir, recursive=False, extensions=VALID_EXTENSIONS)
     if not files:
         raise ValueError(f"No images found in {input_dir}")
 

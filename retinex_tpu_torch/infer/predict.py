@@ -90,7 +90,7 @@ def predict_batch(
     chunk split over its devices (``infer/batch_driver.shard_batch_fn``).
     Returns per-image seconds (decode and writes excluded)."""
     dev = resolve_device(device)
-    files = list_image_files(input_dir, VALID_EXTENSIONS)
+    files = list_image_files(input_dir, recursive=False, extensions=VALID_EXTENSIONS)
     if not files:
         print(f"No images found in {input_dir}")
         return []

@@ -51,20 +51,37 @@ def train_dir(tmp_path_factory):
     return str(d)
 
 
-@pytest.mark.parametrize("drop_last", [True, False])
-def test_train_loader_batches_equal_jax_over_two_epochs(train_dir, monkeypatch, drop_last):
-    """Same seed: the same batches (order and bytes) epoch after epoch. The
-    JAX package's PIL route is taken (its native decoder is another
-    library, held to PIL within a level by its own tests)."""
+@pytest.fixture(scope="module")
+def jax_native_library():
+    """The JAX native loader's library, which its training loader takes.
+    Each test process builds it on first use (``make -C native``); where
+    another process's build is still writing it, its load fails once, so
+    wait for the finished file."""
+    import time
+
     import retinex_tpu.data.native_loader as native
 
-    monkeypatch.setattr(native, "native_available", lambda: False)
+    for _ in range(120):
+        if native.native_available():
+            return
+        native._load_failed = False
+        time.sleep(1)
+    pytest.fail("the JAX native loader's library does not load")
+
+
+@pytest.mark.parametrize("drop_last", [True, False])
+def test_train_loader_batches_equal_jax_over_two_epochs(train_dir, jax_native_library, drop_last):
+    """Same seed: the same batches (order and bytes) epoch after epoch. The
+    JAX package's loader takes its native decoder, as its trainer does, and
+    the port's host path gives that decoder's bytes."""
     kw = dict(batch_size=3, image_size=96, num_workers=2, shuffle=True, drop_last=drop_last, seed=5)
     jl, tl = jds.get_train_loader(train_dir, **kw), tds.get_train_loader(train_dir, **kw)
     assert len(tl) == len(jl) == (2 if drop_last else 3)
     assert tl.dataset.image_files == jl.dataset.image_files
     for _epoch in range(2):
-        got, want = list(iter(tl)), list(iter(jl))
+        jit = iter(jl)
+        assert jit.use_native
+        got, want = list(iter(tl)), list(jit)
         assert len(got) == len(want)
         for g, w in zip(got, want):
             assert g.dtype == np.uint8 and g.shape == w.shape

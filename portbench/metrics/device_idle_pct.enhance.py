@@ -1,0 +1,7 @@
+"""Share of the traced window with no kernel, copy or fill on the card (directory cells), in %."""
+
+from portbench.common import readers
+
+
+def read(rc):
+    return readers.idle_pct(rc)
